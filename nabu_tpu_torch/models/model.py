@@ -1,0 +1,105 @@
+"""Model container: encoder + one-or-more decoder heads from model.cfg.
+
+Port of the JAX package's ``models/model.py`` (inference). Parameters
+are the JAX tree as nested dicts of tensors (``params.from_jax_params``).
+``compute_dtype`` (``[model] compute_dtype = bfloat16``) casts every f32
+parameter and the features at the model boundary, so the forward runs in
+bf16 while the stored parameters stay f32; logits come back in f32 for
+decoding.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from nabu_tpu_torch.config import Conf, ConfigFile
+from nabu_tpu_torch.models.decoders import Decoder, build_decoder
+from nabu_tpu_torch.models.encoders import Encoder, build_encoder
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.float32:
+        return tree.to(dtype)
+    return tree
+
+
+class Model:
+    """Encoder + named decoder heads."""
+
+    def __init__(
+        self,
+        encoder: Encoder,
+        decoders: Dict[str, Decoder],
+        head_confs: Dict[str, Conf],
+        compute_dtype: str = "float32",
+    ):
+        self.encoder = encoder
+        self.decoders = decoders
+        self.head_confs = head_confs
+        if compute_dtype not in _DTYPES:
+            raise ValueError(
+                f"compute_dtype {compute_dtype!r} not supported "
+                f"(one of {sorted(_DTYPES)})"
+            )
+        self.compute_dtype = _DTYPES[compute_dtype]
+
+    def _cast_in(self, tree):
+        if self.compute_dtype == torch.float32:
+            return tree
+        return _cast_tree(tree, self.compute_dtype)
+
+    def encode(self, params, features, lengths):
+        return self.encoder.apply(
+            self._cast_in(params["encoder"]), self._cast_in(features), lengths
+        )
+
+    @torch.no_grad()
+    def apply(
+        self,
+        params: dict,
+        features: torch.Tensor,
+        feature_lengths: torch.Tensor,
+        heads: Optional[Tuple[str, ...]] = None,
+    ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """Returns {head name: (logits f32, logit_lengths)}; ``heads``
+        restricts which decoder heads run."""
+        encoded, enc_lengths = self.encode(params, features, feature_lengths)
+        outputs = {}
+        for name, dec in self.decoders.items():
+            if heads is not None and name not in heads:
+                continue
+            logits, logit_lengths = dec.apply(
+                self._cast_in(params["decoders"][name]), encoded, enc_lengths
+            )
+            outputs[name] = (logits.to(torch.float32), logit_lengths)
+        return outputs
+
+
+def build_model(model_cfg: ConfigFile, input_dim: int, num_labels: int) -> Model:
+    """Build a Model from a model.cfg file: ``[encoder]`` configures the
+    encoder; ``[model] decoders = name...`` lists head sections (default:
+    the single ``[decoder]`` section)."""
+    encoder = build_encoder(model_cfg.section("encoder"), input_dim)
+    model_section = model_cfg.get_section("model")
+    if model_section is not None and "decoders" in model_section:
+        head_names = model_section.getlist("decoders")
+    else:
+        head_names = ["decoder"]
+    compute_dtype = (
+        model_section.get("compute_dtype", "float32")
+        if model_section is not None
+        else "float32"
+    )
+    decoders: Dict[str, Decoder] = {}
+    head_confs: Dict[str, Conf] = {}
+    for name in head_names:
+        conf = model_cfg.section(name)
+        decoders[name] = build_decoder(conf, encoder.output_dim, num_labels)
+        head_confs[name] = conf
+    return Model(encoder, decoders, head_confs, compute_dtype)

@@ -1,0 +1,191 @@
+"""The port's STFT+Mel and device frontend against the JAX package's.
+
+Same seeded numpy audio through both: the plain STFT+Mel against the
+Pallas kernel (interpret mode, f32 DFT operands) and the port's
+DeviceFrontend against the JAX DeviceFrontend across the option surface,
+on ragged lengths. Tolerance: abs 1e-4 on log features (f32 on both
+sides; the audio has a noise floor, so no mel band is near-silent), with
+a relative 1e-5 on top for MFCCs, whose magnitudes reach ~1e2.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nabu_tpu.config import Conf as JConf
+from nabu_tpu.features import jax_frontend as jf
+from nabu_tpu.ops.pallas.stft_mel import stft_mel_pallas
+from nabu_tpu_torch.config import Conf
+from nabu_tpu_torch.features import torch_frontend as tf
+from nabu_tpu_torch.ops import kernels
+from nabu_tpu_torch.ops import stft_mel as stft_ops
+
+torch.set_num_threads(1)  # Tier-1 runs several xdist workers
+
+RATE = 16000.0
+
+
+def _signals(seed=0, lens=(5200, 16000, 9333, 400)):
+    """Tones over a white-noise floor, plus a 33 Hz hum: pre-emphasis
+    takes ~30 dB off the lowest mel band (one 31 Hz bin), and the hum
+    keeps that band far from silent."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in lens:
+        t = np.arange(n) / RATE
+        f = rng.uniform(200.0, 3000.0, 3)
+        sig = 500.0 * sum(np.sin(2 * np.pi * fi * t) for fi in f)
+        sig = sig + 2000.0 * np.sin(2 * np.pi * 33.0 * t)
+        out.append((sig + 1000.0 * rng.standard_normal(n)).astype(np.float32))
+    return out
+
+
+def _frames(seed=1, n_frames=75):
+    sig = np.concatenate(_signals(seed, (16000,)))
+    pre = np.concatenate([sig[:1], sig[1:] - 0.97 * sig[:-1]])
+    idx = np.arange(400)[None, :] + 160 * np.arange(n_frames)[:, None]
+    return pre[idx].astype(np.float32)
+
+
+class TestStftMel:
+    def test_constants_match_jax(self):
+        fpj = jf.make_frontend_params(RATE, nfft=512, nfilt=40)
+        fpt = tf.make_frontend_params(RATE, nfft=512, nfilt=40)
+        assert fpt.dft_cos.shape == (400, 256)  # Nyquist row trimmed
+        for name in ("window", "dft_cos", "dft_sin", "mel"):
+            np.testing.assert_array_equal(
+                getattr(fpt, name).numpy(), np.asarray(getattr(fpj, name)), name
+            )
+
+    def test_plain_matches_pallas_kernel(self):
+        fpj = jf.make_frontend_params(RATE, nfft=512, nfilt=40)
+        frames = _frames()
+        want = stft_mel_pallas(
+            jnp.asarray(frames), fpj.window, fpj.dft_cos, fpj.dft_sin,
+            fpj.mel, fpj.nfft, interpret=True, dft_dtype=jnp.float32,
+        )
+        fpt = tf.make_frontend_params(RATE, nfft=512, nfilt=40)
+        before = kernels.launch_counts()["stft_mel"]
+        got = stft_ops.stft_mel(torch.from_numpy(frames), *fpt.folded())
+        # CPU tensors take the plain version, which is no kernel launch
+        assert kernels.launch_counts()["stft_mel"] == before
+        assert got.shape == (75, 40) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+
+
+    def test_log_mel_spectrogram_matches_jax(self):
+        """One utterance through the port's log_mel_spectrogram and the
+        JAX one (its jnp path: its Pallas path takes the kernel's bf16
+        default, which the f32 port does not mirror)."""
+        sig = _signals(2, (8000,))[0]
+        fpj = jf.make_frontend_params(RATE, nfft=512, nfilt=40)
+        fpt = tf.make_frontend_params(RATE, nfft=512, nfilt=40)
+        got = tf.log_mel_spectrogram(fpt, torch.from_numpy(sig), 48)
+        want = jf.log_mel_spectrogram(fpj, jnp.asarray(sig), 48)
+        assert got.shape == (48, 40)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+
+
+RECIPE = {"feature": "fbank", "nfilt": "40", "nfft": "512", "dynamic": "delta"}
+CASES = [
+    RECIPE,
+    {"feature": "fbank", "nfilt": "12", "include_energy": "true",
+     "dynamic": "delta", "nfft": "256"},
+    {"feature": "fbank", "nfilt": "10", "dynamic": "ddelta", "mvn": "true",
+     "nfft": "512"},
+    {"feature": "mfcc", "nfilt": "20", "numcep": "13", "nfft": "512"},
+    {"feature": "mfcc", "nfilt": "20", "numcep": "13", "dynamic": "delta",
+     "mvn": "true", "include_energy": "true", "nfft": "512"},
+]
+
+
+def _pad(sigs, bucket=1600):
+    S = max(len(s) for s in sigs)
+    S = ((S + bucket - 1) // bucket) * bucket
+    batch = np.zeros((len(sigs), S), np.float32)
+    lens = np.zeros((len(sigs),), np.int32)
+    for i, s in enumerate(sigs):
+        batch[i, : len(s)] = s
+        lens[i] = len(s)
+    return batch, lens
+
+
+def _pair(case):
+    vals = dict(case, winlen="0.025", winstep="0.01", use_native="false")
+    jfe = jf.DeviceFrontend.make(JConf(vals, "features"))
+    tfe = tf.DeviceFrontend.make(Conf(vals, "features"), "cpu")
+    assert jfe is not None and tfe is not None
+    assert tfe.dim == jfe.dim
+    return jfe, tfe
+
+
+def _assert_feats(got, want, feature):
+    rtol = 1e-5 if feature == "mfcc" else 0.0
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=rtol)
+
+
+class TestDeviceFrontend:
+    @pytest.mark.parametrize("case", CASES)
+    def test_matches_jax_frontend(self, case):
+        jfe, tfe = _pair(case)
+        batch, lens = _pad(_signals())
+        want, wl = jfe(batch, lens, RATE)
+        got, gl = tfe(batch, lens, RATE)
+        np.testing.assert_array_equal(gl, np.asarray(wl))
+        assert got.shape == want.shape
+        _assert_feats(got.numpy(), np.asarray(want), case["feature"])
+
+    def test_recipe_matches_jax_pallas_path(self):
+        """JAX's Pallas STFT+Mel (interpret mode) on the recipe's features."""
+        jfe, tfe = _pair(RECIPE)
+        batch, lens = _pad(_signals(3, (4000, 2411)))
+        want, _ = jfe(batch, lens, RATE, use_pallas=True)
+        got, _ = tfe(batch, lens, RATE)
+        _assert_feats(got.numpy(), np.asarray(want), "fbank")
+
+    def test_set_normalization(self):
+        jfe, tfe = _pair(RECIPE)
+        rng = np.random.default_rng(5)
+        mean = rng.standard_normal(80).astype(np.float32)
+        std = rng.uniform(0.5, 2.0, 80).astype(np.float32)
+        std[3] = 0.0  # clamped to 1e-10 on both sides: never divides by 0
+        mean[3] = 0.0
+        jfe.set_normalization(mean, std)
+        tfe.set_normalization(mean, std)
+        batch, lens = _pad(_signals(4, (3000, 7000)))
+        want, _ = jfe(batch, lens, RATE)
+        got, _ = tfe(batch, lens, RATE)
+        w = np.asarray(want)
+        keep = np.ones(80, bool)
+        keep[3] = False  # x / 1e-10 is ~1e11: compared relatively below
+        np.testing.assert_allclose(got.numpy()[..., keep], w[..., keep], atol=1e-4, rtol=1e-5)
+        np.testing.assert_allclose(got.numpy()[..., 3], w[..., 3], rtol=1e-4)
+
+    def test_batch_features_bucketing_matches_jax(self):
+        jfe, tfe = _pair(RECIPE)
+        sigs = _signals(6, (12000, 90000, 5000))
+        want, wl = jfe.batch_features(sigs, RATE, 4, 512)
+        got, gl = tfe.batch_features(sigs, RATE, 4, 512)
+        assert got.shape == want.shape  # same sample bucket -> same frames
+        np.testing.assert_array_equal(gl, np.asarray(wl))
+        assert gl[3] == 1  # fill row
+        _assert_feats(got.numpy(), np.asarray(want), "fbank")
+
+    def test_host_computer_path_matches_numpy_computers(self):
+        """The copied host computers equal the JAX package's numpy path."""
+        from nabu_tpu.features.computers import make_feature_computer as jmake
+        from nabu_tpu_torch.features.computers import make_feature_computer
+
+        for case in CASES:
+            vals = dict(case, use_native="false")
+            sig = _signals(7, (6000,))[0]
+            want = jmake(JConf(vals, "f"))(sig, RATE)
+            got = make_feature_computer(Conf(vals, "f"))(sig, RATE)
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+    def test_device_frontend_declines_raw_frames(self):
+        assert tf.DeviceFrontend.make(Conf({"feature": "frames"}, "f")) is None
+        assert tf.DeviceFrontend.make(Conf({"processor": "text"}, "f")) is None
+        with pytest.raises(NotImplementedError):
+            tf.DeviceFrontend(Conf({"frontend_dft_dtype": "bf16"}, "f"))
