@@ -1,17 +1,28 @@
 """Command line of the port.
 
+    python -m nabu_tpu_torch.cli data  --recipe R --expdir E [--num_workers N] [--device cpu]
+    python -m nabu_tpu_torch.cli train --recipe R --expdir E [--device cpu]
     python -m nabu_tpu_torch.cli serve --export_dir D [--batch_size N] [--device cpu]
 
-``serve`` reads ``utt_id wav_path`` lines on stdin and writes ``utt_id
-hypothesis`` lines on stdout, on the GPU unless ``--device cpu`` is
-given. The other subcommands of the JAX package's ``run`` are not ported
-yet.
+``data`` prepares every dataset section of the recipe's database.conf
+into ``E/data`` (host work). ``train`` trains the recipe into ``E``
+(checkpoints in ``E/checkpoints/{best,latest}``, metrics in
+``E/logs/metrics.jsonl``). ``serve`` reads ``utt_id wav_path`` lines on
+stdin and writes ``utt_id hypothesis`` lines on stdout. Each runs on the
+GPU unless ``--device cpu`` is given, and raises without a GPU
+otherwise. The other subcommands of the JAX package's ``run``, and its
+multi-process and mesh flags, are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+_NOT_PORTED_TRAIN_FLAGS = (
+    "distributed", "coordinator", "num_processes", "process_id",
+    "num_model_parallel", "num_expert_parallel", "num_pipeline", "num_seq_parallel",
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -20,6 +31,20 @@ def build_parser() -> argparse.ArgumentParser:
         description="nabu_tpu_torch: the PyTorch/CUDA port of nabu_tpu",
     )
     sub = p.add_subparsers(dest="command", required=True)
+    for name, help_ in (("data", "prepare datasets"), ("train", "train a model")):
+        sp = sub.add_parser(name, help=help_)
+        sp.add_argument("--recipe", required=True, help="recipe config dir")
+        sp.add_argument("--expdir", required=True, help="experiment dir")
+        sp.add_argument("--device", default=None, help="cuda (default) or cpu")
+        if name == "data":
+            sp.add_argument("--num_workers", type=int, default=0)
+        else:
+            # the JAX package's multi-process and mesh flags
+            sp.add_argument("--distributed", action="store_true",
+                            help="not ported yet")
+            sp.add_argument("--coordinator", default=None, help="not ported yet")
+            for flag in _NOT_PORTED_TRAIN_FLAGS[2:]:
+                sp.add_argument(f"--{flag}", type=int, default=None, help="not ported yet")
     sp = sub.add_parser(
         "serve", help="line-protocol decoding worker over an export artifact"
     )
@@ -35,7 +60,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.command == "serve":
+    if args.command == "data":
+        from nabu_tpu_torch.device import resolve_device
+        from nabu_tpu_torch.scripts import data
+
+        resolve_device(args.device)
+        data.main(args.recipe, args.expdir, num_workers=args.num_workers)
+    elif args.command == "train":
+        used = [f for f in _NOT_PORTED_TRAIN_FLAGS
+                if getattr(args, f) is not None and getattr(args, f) is not False]
+        if used:
+            raise NotImplementedError(
+                f"train flags not ported yet: {', '.join('--' + f for f in used)}")
+        from nabu_tpu_torch.scripts import train
+
+        train.main(args.recipe, args.expdir, device=args.device)
+    elif args.command == "serve":
         from nabu_tpu_torch.serving import serve
 
         serve(

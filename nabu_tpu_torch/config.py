@@ -1,6 +1,6 @@
 """INI recipe configuration system (a copy of the JAX package's
-config.py: ``Conf`` sections and ``ConfigFile``; recipe directories and
-sweeps come with the training slice).
+config.py: ``Conf`` sections, ``ConfigFile`` and ``Recipe``; sweeps are
+not ported yet).
 
 Capability parity with the reference's config layer (SURVEY.md §1 L10):
 a recipe directory holds INI files read with ConfigParser —
@@ -16,7 +16,18 @@ from __future__ import annotations
 import ast
 import configparser
 import copy
+import os
 from typing import Any, Dict, Iterator, List, Optional
+
+RECIPE_FILES = {
+    "database": "database.conf",
+    "model": "model.cfg",
+    "trainer": "trainer.cfg",
+    "validation_evaluator": "validation_evaluator.cfg",
+    "test_evaluator": "test_evaluator.cfg",
+    "recognizer": "recognizer.cfg",
+}
+
 
 class Conf:
     """One config section with typed accessors (ConfigParser-style)."""
@@ -141,3 +152,52 @@ class ConfigFile:
             parser[name] = conf.as_dict()
         with open(path, "w") as f:
             parser.write(f)
+
+
+class Recipe:
+    """A recipe directory: the set of config files driving an experiment."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._files: Dict[str, ConfigFile] = {}
+
+    def file(self, kind: str) -> ConfigFile:
+        if kind not in self._files:
+            fname = RECIPE_FILES.get(kind, kind)
+            fpath = os.path.join(self.path, fname)
+            if not os.path.exists(fpath):
+                raise FileNotFoundError(
+                    f"recipe {self.path} has no {fname} "
+                    f"(needed for {kind!r})"
+                )
+            self._files[kind] = ConfigFile.read(fpath)
+        return self._files[kind]
+
+    def has(self, kind: str) -> bool:
+        fname = RECIPE_FILES.get(kind, kind)
+        return os.path.exists(os.path.join(self.path, fname))
+
+    # convenience accessors matching the reference file layout
+    @property
+    def database(self) -> ConfigFile:
+        return self.file("database")
+
+    @property
+    def model(self) -> ConfigFile:
+        return self.file("model")
+
+    @property
+    def trainer(self) -> ConfigFile:
+        return self.file("trainer")
+
+    @property
+    def validation_evaluator(self) -> ConfigFile:
+        return self.file("validation_evaluator")
+
+    @property
+    def test_evaluator(self) -> ConfigFile:
+        return self.file("test_evaluator")
+
+    @property
+    def recognizer(self) -> ConfigFile:
+        return self.file("recognizer")

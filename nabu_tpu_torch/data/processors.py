@@ -62,20 +62,43 @@ def normalize_character(text: str) -> str:
     return "".join(c for c in text if c.isalpha() or c in " '")
 
 
+def resample_speed(signal: np.ndarray, factor: float) -> np.ndarray:
+    """Sox-style ``speed`` perturbation: play the signal ``factor``
+    times faster by linear-interpolation resampling (duration scales by
+    1/factor, pitch by factor — the standard Kaldi/ESPnet 3-way
+    augmentation)."""
+    n = max(int(round(len(signal) / factor)), 1)
+    idx = np.arange(n, dtype=np.float64) * factor
+    return np.interp(
+        idx, np.arange(len(signal), dtype=np.float64), signal
+    ).astype(signal.dtype if signal.dtype.kind == "f" else np.float64)
+
+
 # --------------------------------------------------------------------------
 # processors
 # --------------------------------------------------------------------------
 
 class Processor:
-    """Base processor: one datafile value -> array."""
+    """Base processor: one datafile line -> array + metadata tracking.
+
+    ``process`` takes an optional ``speed`` factor (3-way speed
+    perturbation, ``speed_perturb = 0.9 1.0 1.1`` in the section —
+    data.py replicates entries per factor). Only audio reacts to it;
+    target processors return identical labels for every copy.
+    """
 
     def __init__(self, conf: Conf):
         self.conf = conf
         self.max_length = 0
         self.dim: Optional[int] = None
 
-    def process(self, line_value: str):
+    def process(self, line_value: str, speed: float = 1.0):
         raise NotImplementedError
+
+    def metadata(self) -> Dict:
+        # dim / max_length / histogram stats come from the ShardWriter,
+        # which sees every array even under multiprocess data prep
+        return {}
 
 
 @PROCESSORS.register("audio")
@@ -87,12 +110,19 @@ class AudioProcessor(Processor):
         super().__init__(conf)
         self.computer = make_feature_computer(conf)
 
-    def process(self, line_value: str) -> np.ndarray:
+    def process(self, line_value: str, speed: float = 1.0) -> np.ndarray:
         signal, rate = audio_io.load_audio(line_value)
+        if speed != 1.0:
+            signal = resample_speed(signal, speed)
         feat = self.computer(signal, rate)
         self.max_length = max(self.max_length, feat.shape[0])
         self.dim = feat.shape[1]
         return feat
+
+    def metadata(self) -> Dict:
+        meta = super().metadata()
+        meta["type"] = "audio"
+        return meta
 
 
 @PROCESSORS.register("text")
@@ -152,7 +182,8 @@ class TextProcessor(Processor):
             return toks
         return text.split()
 
-    def process(self, line_value: str) -> np.ndarray:
+    def process(self, line_value: str, speed: float = 1.0) -> np.ndarray:
+        # speed is ignored: every perturbed copy keeps the same labels
         text = self.normalizer(line_value)
         ids = []
         for tok in self.tokenize(text):
@@ -169,9 +200,20 @@ class TextProcessor(Processor):
     def ids_to_text(self, ids) -> str:
         return ids_to_text(ids, self.alphabet, self.tokenizer)
 
+    def metadata(self) -> Dict:
+        meta = super().metadata()
+        meta.update(
+            type="text",
+            alphabet=self.alphabet,
+            num_labels=self.num_labels,
+            tokenizer=self.tokenizer,
+        )
+        return meta
+
 
 def ids_to_text(ids, alphabet, tokenizer: str = "word") -> str:
-    """Canonical label-id detokenization."""
+    """Canonical label-id detokenization (the ONE copy every consumer
+    delegates to: TextProcessor.ids_to_text, scripts.common)."""
     toks = [alphabet[i] for i in ids if 0 <= i < len(alphabet)]
     if tokenizer == "bpe":
         from nabu_tpu_torch.data.bpe import BPEModel
@@ -185,3 +227,16 @@ def ids_to_text(ids, alphabet, tokenizer: str = "word") -> str:
 def make_processor(conf: Conf) -> Processor:
     """Factory by conf['processor'] (reference: processor_factory.py)."""
     return PROCESSORS.build(conf.get("processor", "audio"), conf)
+
+
+def read_datafile(path: str) -> List:
+    """Parse a Kaldi-style datafile: ``utt_id value...`` per line."""
+    entries = []
+    with open(path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line.strip():
+                continue
+            utt, _, value = line.partition(" ")
+            entries.append((utt, value))
+    return entries

@@ -1,7 +1,9 @@
-"""Core neural building blocks: Linear, LSTM cell, masked LSTM scan, BLSTM.
+"""Core neural building blocks: initializers, Linear, dropout, LSTM cell,
+masked LSTM scan, BLSTM.
 
-Port of the JAX package's ``models/core.py`` (forward only; training
-comes with a later slice). Parameters are plain dicts of tensors with
+Port of the JAX package's ``models/core.py``. Initializers draw from an
+explicit ``torch.Generator`` (the JAX package's ``jax.random`` keys give
+other numbers from the same seed). Parameters are plain dicts of tensors with
 the JAX layout: ``linear {w [in, out], b [out]}``, LSTM direction
 ``{wx [D, 4H], wh [H, 4H], b [4H]}`` with gate order i, f, g, o and
 ``forget_bias`` added inside the f sigmoid — not ``nn.LSTM``'s
@@ -14,11 +16,60 @@ reversed scan over a padded batch equals a per-sequence reversal.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 
 Params = Dict[str, torch.Tensor]
+
+
+# -- initializers ----------------------------------------------------------
+
+def glorot(generator: torch.Generator, shape) -> torch.Tensor:
+    """Uniform(-l, l), l = sqrt(6 / (fan_in + fan_out)), f32 on the
+    generator's device."""
+    limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (2.0 * u - 1.0) * limit
+
+
+def linear_init(generator: torch.Generator, in_dim: int, out_dim: int) -> Params:
+    return {
+        "w": glorot(generator, (in_dim, out_dim)),
+        "b": torch.zeros((out_dim,), device=generator.device),
+    }
+
+
+def lstm_init(generator: torch.Generator, in_dim: int, hidden: int) -> Params:
+    """One LSTM direction. Gate order along the 4H axis: i, f, g, o. (The
+    layer-norm variant has no init here: it is not on a ported path.)"""
+    return {
+        "wx": glorot(generator, (in_dim, 4 * hidden)),
+        "wh": glorot(generator, (hidden, 4 * hidden)),
+        "b": torch.zeros((4 * hidden,), device=generator.device),
+    }
+
+
+def blstm_init(generator: torch.Generator, in_dim: int, hidden: int) -> Params:
+    return {
+        "fw": lstm_init(generator, in_dim, hidden),
+        "bw": lstm_init(generator, in_dim, hidden),
+    }
+
+
+# -- dropout ---------------------------------------------------------------
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout in x's dtype: ``where(keep_mask, x / keep, 0)``
+    (the JAX package's ``core.dropout``). The mask is drawn from
+    ``generator`` on x's device."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:

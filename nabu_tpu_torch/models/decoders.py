@@ -16,7 +16,8 @@ from nabu_tpu_torch.registry import DECODERS
 
 
 class Decoder:
-    """Base decoder built from a config section."""
+    """Base decoder built from a config section. ``default_loss`` is the
+    loss the head trains with when its section has no ``loss`` key."""
 
     default_loss = "cross_entropy"
 
@@ -40,7 +41,16 @@ class LinearCTC(Decoder):
         self.hidden = conf.getint("num_units", 0)
         self.blank_id = self.num_labels
 
-    def apply(self, params, encoded, enc_lengths):
+    def init(self, generator) -> dict:
+        if self.hidden:
+            return {
+                "hidden": core.linear_init(generator, self.encoder_dim, self.hidden),
+                "out": core.linear_init(generator, self.hidden, self.output_dim),
+            }
+        return {"out": core.linear_init(generator, self.encoder_dim, self.output_dim)}
+
+    def apply(self, params, encoded, enc_lengths, targets=None, target_lengths=None,
+              train=False, generator=None):
         x = encoded
         if self.hidden:
             x = torch.relu(core.linear_apply(params["hidden"], x))

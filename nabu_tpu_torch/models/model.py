@@ -1,11 +1,13 @@
 """Model container: encoder + one-or-more decoder heads from model.cfg.
 
-Port of the JAX package's ``models/model.py`` (inference). Parameters
-are the JAX tree as nested dicts of tensors (``params.from_jax_params``).
+Port of the JAX package's ``models/model.py``. Parameters are the JAX
+tree as nested dicts of tensors (``params.from_jax_params``).
 ``compute_dtype`` (``[model] compute_dtype = bfloat16``) casts every f32
 parameter and the features at the model boundary, so the forward runs in
-bf16 while the stored parameters stay f32; logits come back in f32 for
-decoding.
+bf16 while the stored parameters (and their gradients, through the
+casts) stay f32; logits come back in f32 for the losses and decoding.
+``apply`` is the inference forward (no autograd graph); ``apply_train``
+is the same forward with gradients, ``train`` switching dropout on.
 """
 
 from __future__ import annotations
@@ -54,10 +56,52 @@ class Model:
             return tree
         return _cast_tree(tree, self.compute_dtype)
 
-    def encode(self, params, features, lengths):
+    # loss spec per head: (loss name, weight)
+    def head_loss(self, name: str) -> Tuple[str, float]:
+        conf = self.head_confs[name]
+        default = getattr(self.decoders[name], "default_loss", "cross_entropy")
+        return conf.get("loss", default), conf.getfloat("loss_weight", 1.0)
+
+    def init(self, generator: torch.Generator) -> dict:
+        """f32 parameters drawn from ``generator`` (encoder first, then the
+        heads in order)."""
+        return {
+            "encoder": self.encoder.init(generator),
+            "decoders": {name: dec.init(generator) for name, dec in self.decoders.items()},
+        }
+
+    def encode(self, params, features, lengths, train=False, generator=None):
         return self.encoder.apply(
-            self._cast_in(params["encoder"]), self._cast_in(features), lengths
+            self._cast_in(params["encoder"]), self._cast_in(features), lengths,
+            train=train, generator=generator,
         )
+
+    def apply_train(
+        self,
+        params: dict,
+        features: torch.Tensor,
+        feature_lengths: torch.Tensor,
+        targets: Optional[torch.Tensor] = None,
+        target_lengths: Optional[torch.Tensor] = None,
+        train: bool = True,
+        generator: Optional[torch.Generator] = None,
+        heads: Optional[Tuple[str, ...]] = None,
+    ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """Returns {head name: (logits f32, logit_lengths)}, with gradients
+        to the parameters; ``heads`` restricts which decoder heads run."""
+        encoded, enc_lengths = self.encode(
+            params, features, feature_lengths, train=train, generator=generator)
+        outputs = {}
+        for name, dec in self.decoders.items():
+            if heads is not None and name not in heads:
+                continue
+            logits, logit_lengths = dec.apply(
+                self._cast_in(params["decoders"][name]), encoded, enc_lengths,
+                targets=targets, target_lengths=target_lengths, train=train,
+                generator=generator,
+            )
+            outputs[name] = (logits.to(torch.float32), logit_lengths)
+        return outputs
 
     @torch.no_grad()
     def apply(
@@ -67,18 +111,9 @@ class Model:
         feature_lengths: torch.Tensor,
         heads: Optional[Tuple[str, ...]] = None,
     ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
-        """Returns {head name: (logits f32, logit_lengths)}; ``heads``
-        restricts which decoder heads run."""
-        encoded, enc_lengths = self.encode(params, features, feature_lengths)
-        outputs = {}
-        for name, dec in self.decoders.items():
-            if heads is not None and name not in heads:
-                continue
-            logits, logit_lengths = dec.apply(
-                self._cast_in(params["decoders"][name]), encoded, enc_lengths
-            )
-            outputs[name] = (logits.to(torch.float32), logit_lengths)
-        return outputs
+        """The inference forward: {head name: (logits f32, logit_lengths)}."""
+        return self.apply_train(params, features, feature_lengths, train=False,
+                                heads=heads)
 
 
 def build_model(model_cfg: ConfigFile, input_dim: int, num_labels: int) -> Model:

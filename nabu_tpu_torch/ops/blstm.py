@@ -1,9 +1,9 @@
-"""Bidirectional LSTM layer forward: CUDA kernel wrappers and their plain
-PyTorch versions.
+"""Bidirectional LSTM layer, forward and backward: CUDA kernel wrappers and
+their plain PyTorch versions.
 
-Port of the forward of the JAX package's ``ops/pallas/blstm.py``
-(``blstm_tm_apply`` -> ``_tm_fwd`` -> ``_fwd_train_kernel2``), as two
-kernels in ``csrc/blstm.cu``:
+Port of the JAX package's ``ops/pallas/blstm.py`` (``blstm_tm_apply`` ->
+``blstm_tm_fused``: ``_tm_fwd`` -> ``_fwd_train_kernel2`` and ``_tm_bwd``
+-> ``_bwd_train_kernel2``), as the kernels of ``csrc/blstm.cu``:
 
 - ``blstm_proj``: ``xw_d = cast(cast(x @ wx_d) + b_d)`` for both
   directions, f32 accumulation, the bias added after the cast to the
@@ -12,11 +12,23 @@ kernels in ``csrc/blstm.cu``:
   for both directions with the masked cell of ``_cell`` (f32 gates and
   c, h in the compute type; the backward direction walks time
   descending) and writes masked h in natural time order into one
-  ``[T, B, 2H]`` output (fw ++ bw).
+  ``[T, B, 2H]`` output (fw ++ bw). ``blstm_recur_train`` is the same
+  walk writing the backward's residuals too: the f32 carry c and the
+  f32 pre-activation gates, which stand in for the TPU backward's
+  recompute ``hprev @ wh``;
+- ``blstm_bwd_recur``: the backward's serial chain (``direction()`` of
+  ``_bwd_train_kernel2``) for both directions: dgates in the compute
+  type, dh and dc carried in f32;
+- ``blstm_bwd_dx``, ``blstm_bwd_dwx`` (with db) and ``blstm_bwd_dwh``:
+  the backward's block-batched products (``finish``), f32 accumulation.
+
+``BLSTMLayer`` is the ``torch.autograd.Function`` over them; its
+gradients come back as the TPU kernel's do (``_tm_bwd``): dwx and dwh in
+the weights' dtype, db and dx in the compute type. Inference (no
+gradient wanted) keeps the residual-free ``blstm_recur``.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-version only for CPU tensors. The TPU kernel's xw and c residuals serve
-its backward kernel; inference does not need them.
+version only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -31,23 +43,33 @@ from nabu_tpu_torch.ops.kernels import build
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _fns: dict = {}
 
-# hidden units owned by one block of the recurrence kernel
+# hidden units owned by one block of the recurrence kernels
 UNITS_PER_BLOCK = 8
 
+# GEMM layouts of csrc/blstm.cu: projection, A @ B^T, A^T @ B
+_PROJ, _NT, _TN = 0, 1, 2
 
-def _launcher(name: str):
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "gemm": [_P] * 4 + [_I] * 6 + [_P] * 5,
+    "recur": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
+    "bwd_recur": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
+}
+
+
+def _launcher(kind: str, tag: str):
+    name = f"blstm_{kind}_{tag}"
     if name not in _fns:
         fn = getattr(build.load("blstm"), f"nabu_{name}")
-        if name.startswith("blstm_proj"):
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        else:
-            fn.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                + [ctypes.c_float, ctypes.c_void_p]
-            )
+        fn.argtypes = _ARGTYPES[kind]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
 
 
 def _check_cuda(what: str, ref: torch.Tensor, **tensors) -> str:
@@ -61,6 +83,27 @@ def _check_cuda(what: str, ref: torch.Tensor, **tensors) -> str:
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     return _DTYPES[ref.dtype]
+
+
+def _check_shape(what: str, t: torch.Tensor, shape, dtype=None) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, want {tuple(shape)}")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{what}: dtype {t.dtype}, want {dtype}")
+
+
+def _gemm(name, tag, a, b, lda, ldb, M, N, K, kind, bias=None, out=None, outf=None,
+          colsum=None) -> None:
+    """One launch of the two-direction GEMM of csrc/blstm.cu; ``a`` and
+    ``b`` are (fw, bw) pointer pairs."""
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(out.device if out is not None else outf.device):
+        err = _launcher("gemm", tag)(
+            a[0], a[1], b[0], b[1], lda, ldb, M, N, K, kind,
+            ptr(bias), ptr(out), ptr(outf), ptr(colsum), _stream(),
+        )
+    build.check(err, name)
+    kernels.LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -87,79 +130,267 @@ def blstm_proj(x, wx, b) -> torch.Tensor:
     if wx.dtype != x.dtype or b.dtype != x.dtype:
         raise TypeError("blstm_proj: x, wx and b must share one dtype")
     out = torch.empty((2, M, N), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _launcher(f"blstm_proj_{tag}")(
-            x.data_ptr(), wx.data_ptr(), b.data_ptr(), out.data_ptr(),
-            M, D, N, torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "blstm_proj")
-    kernels.LAUNCHES["blstm_proj"] += 1
+    _gemm("blstm_proj", tag, (x.data_ptr(), x.data_ptr()),
+          (wx[0].data_ptr(), wx[1].data_ptr()), D, N, M, N, D, _PROJ, bias=b, out=out)
     return out
 
 
 # ---------------------------------------------------------------------------
-# recurrence
+# recurrence (forward)
 # ---------------------------------------------------------------------------
 
-def blstm_recur_plain(xw, lengths, wh, forget_bias: float = 1.0) -> torch.Tensor:
-    """xw [2, T, B, 4H] (fw, bw), lengths [B], wh [2, H, 4H] -> masked
-    h [T, B, 2H] in xw's dtype: the masked lstm_scan pair with the
-    cell of the TPU kernel (f32 gates and c, h in the compute type)."""
+def _cell(gates, c, forget_bias, H):
+    """The masked LSTM cell's activations from f32 pre-activation gates."""
+    gi = torch.sigmoid(gates[:, :H])
+    gf = torch.sigmoid(gates[:, H: 2 * H] + forget_bias)
+    gg = torch.tanh(gates[:, 2 * H: 3 * H])
+    go = torch.sigmoid(gates[:, 3 * H:])
+    c_new = gf * c + gi * gg
+    return go, c_new
+
+
+def blstm_recur_train_plain(xw, lengths, wh, forget_bias: float = 1.0):
+    """xw [2, T, B, 4H] (fw, bw), lengths [B], wh [2, H, 4H] -> (masked
+    h [T, B, 2H] in xw's dtype, f32 carries c [2, T, B, H], f32
+    pre-activation gates [2, T, B, 4H] without the forget bias): the
+    masked lstm_scan pair with the cell of the TPU kernel (f32 gates and
+    c, h in the compute type)."""
     _, T, B, H4 = xw.shape
     H = H4 // 4
     dt = xw.dtype
+    dev = xw.device
     mask = (
-        torch.arange(T, device=xw.device)[:, None]
-        < lengths.to(xw.device)[None, :]
+        torch.arange(T, device=dev)[:, None] < lengths.to(dev)[None, :]
     )[..., None]  # [T, B, 1]
-    y = torch.zeros((T, B, 2 * H), dtype=dt, device=xw.device)
+    y = torch.zeros((T, B, 2 * H), dtype=dt, device=dev)
+    cs = torch.zeros((2, T, B, H), dtype=torch.float32, device=dev)
+    gs = torch.zeros((2, T, B, H4), dtype=torch.float32, device=dev)
     for d in range(2):
         whf = wh[d].to(torch.float32)
-        h = torch.zeros((B, H), dtype=dt, device=xw.device)
-        c = torch.zeros((B, H), dtype=torch.float32, device=xw.device)
+        h = torch.zeros((B, H), dtype=dt, device=dev)
+        c = torch.zeros((B, H), dtype=torch.float32, device=dev)
         steps = range(T) if d == 0 else range(T - 1, -1, -1)
         for t in steps:
             gates = xw[d, t].to(torch.float32) + h.to(torch.float32) @ whf
-            gi = torch.sigmoid(gates[:, :H])
-            gf = torch.sigmoid(gates[:, H: 2 * H] + forget_bias)
-            gg = torch.tanh(gates[:, 2 * H: 3 * H])
-            go = torch.sigmoid(gates[:, 3 * H:])
-            c_new = gf * c + gi * gg
+            go, c_new = _cell(gates, c, forget_bias, H)
             h_new = (go * torch.tanh(c_new)).to(dt)
             m = mask[t]
             h = torch.where(m, h_new, h)
             c = torch.where(m, c_new, c)
             y[t, :, d * H: (d + 1) * H] = h * m.to(dt)
-    return y
+            cs[d, t] = c
+            gs[d, t] = gates
+    return y, cs, gs
+
+
+def blstm_recur_plain(xw, lengths, wh, forget_bias: float = 1.0) -> torch.Tensor:
+    """The inference forward: masked h [T, B, 2H] of
+    ``blstm_recur_train_plain``."""
+    return blstm_recur_train_plain(xw, lengths, wh, forget_bias)[0]
+
+
+def _launch_recur(name, xw, lengths, wh, forget_bias, store: bool):
+    tag = _check_cuda(name, xw, xw=xw, wh=wh, lengths=lengths)
+    if xw.dim() != 4 or xw.shape[0] != 2:
+        raise ValueError(f"{name}: xw {tuple(xw.shape)} is not [2, T, B, 4H]")
+    _, T, B, H4 = xw.shape
+    H = H4 // 4
+    if H4 != 4 * H or tuple(wh.shape) != (2, H, H4):
+        raise ValueError(f"{name}: wh {tuple(wh.shape)} is not [2, {H}, {H4}]")
+    if wh.dtype != xw.dtype:
+        raise TypeError(f"{name}: xw and wh must share one dtype")
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,):
+        raise TypeError(f"{name}: lengths must be int32 [B]")
+    dev = xw.device
+    y = torch.empty((T, B, 2 * H), dtype=xw.dtype, device=dev)
+    hbuf = torch.empty((2, 2, B, H), dtype=xw.dtype, device=dev)
+    counters = torch.zeros((2,), dtype=torch.int32, device=dev)
+    c = g = None
+    if store:
+        c = torch.empty((2, T, B, H), dtype=torch.float32, device=dev)
+        g = torch.empty((2, T, B, H4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _launcher("recur", tag)(
+            xw.data_ptr(), lengths.data_ptr(), wh.data_ptr(), y.data_ptr(),
+            hbuf.data_ptr(), counters.data_ptr(),
+            c.data_ptr() if store else None, g.data_ptr() if store else None,
+            T, B, H, UNITS_PER_BLOCK, float(forget_bias), _stream(),
+        )
+    build.check(err, name)
+    kernels.LAUNCHES[name] += 1
+    return y, c, g
 
 
 def blstm_recur(xw, lengths, wh, forget_bias: float = 1.0) -> torch.Tensor:
     if xw.device.type == "cpu":
         return blstm_recur_plain(xw, lengths, wh, forget_bias)
-    tag = _check_cuda("blstm_recur", xw, xw=xw, wh=wh, lengths=lengths)
-    if xw.dim() != 4 or xw.shape[0] != 2:
-        raise ValueError(f"blstm_recur: xw {tuple(xw.shape)} is not [2, T, B, 4H]")
-    _, T, B, H4 = xw.shape
+    return _launch_recur("blstm_recur", xw, lengths, wh, forget_bias, store=False)[0]
+
+
+def blstm_recur_train(xw, lengths, wh, forget_bias: float = 1.0):
+    if xw.device.type == "cpu":
+        return blstm_recur_train_plain(xw, lengths, wh, forget_bias)
+    return _launch_recur("blstm_recur_train", xw, lengths, wh, forget_bias, store=True)
+
+
+# ---------------------------------------------------------------------------
+# backward chain
+# ---------------------------------------------------------------------------
+
+def blstm_bwd_recur_plain(gates, c, gy, lengths, wh, forget_bias: float = 1.0):
+    """The backward's serial chain, written out (``_bwd_train_kernel2``
+    ``direction()``). gates [2, T, B, 4H] and c [2, T, B, H] f32 from
+    the forward, gy [T, B, 2H] the output cotangent, wh [2, H, 4H] ->
+    dgates [2, T, B, 4H] in gy's dtype. The fw direction walks time
+    descending, the bw one ascending; dh and dc are carried in f32 and
+    the dgates cast to the compute type before the chain product."""
+    _, T, B, H4 = gates.shape
     H = H4 // 4
-    if H4 != 4 * H or tuple(wh.shape) != (2, H, H4):
-        raise ValueError(f"blstm_recur: wh {tuple(wh.shape)} is not [2, {H}, {H4}]")
-    if wh.dtype != xw.dtype:
-        raise TypeError("blstm_recur: xw and wh must share one dtype")
-    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,):
-        raise TypeError("blstm_recur: lengths must be int32 [B]")
-    y = torch.empty((T, B, 2 * H), dtype=xw.dtype, device=xw.device)
-    hbuf = torch.empty((2, 2, B, H), dtype=xw.dtype, device=xw.device)
-    counters = torch.zeros((2,), dtype=torch.int32, device=xw.device)
-    with torch.cuda.device(xw.device):
-        err = _launcher(f"blstm_recur_{tag}")(
-            xw.data_ptr(), lengths.data_ptr(), wh.data_ptr(), y.data_ptr(),
-            hbuf.data_ptr(), counters.data_ptr(), T, B, H,
-            UNITS_PER_BLOCK, float(forget_bias),
-            torch.cuda.current_stream().cuda_stream,
+    cdt = gy.dtype
+    dev = gates.device
+    mask = (
+        torch.arange(T, device=dev)[:, None] < lengths.to(dev)[None, :]
+    ).to(torch.float32)[..., None]  # [T, B, 1]
+    dg = torch.zeros((2, T, B, H4), dtype=cdt, device=dev)
+    zeros = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    for d in range(2):
+        whc = wh[d]
+        dh = zeros
+        dc = zeros
+        steps = range(T - 1, -1, -1) if d == 0 else range(T)
+        for t in steps:
+            t_prev = t - 1 if d == 0 else t + 1  # the forward's previous step
+            c_prev = c[d, t_prev] if 0 <= t_prev < T else zeros
+            m = mask[t]
+            keep = m > 0.5
+            z = gates[d, t]
+            gi = torch.sigmoid(z[:, :H])
+            gf = torch.sigmoid(z[:, H: 2 * H] + forget_bias)
+            gg = torch.tanh(z[:, 2 * H: 3 * H])
+            go = torch.sigmoid(z[:, 3 * H:])
+            tanh_c = torch.tanh(c[d, t])
+            dh_total = gy[t, :, d * H: (d + 1) * H].to(torch.float32) * m + dh
+            dh_new = torch.where(keep, dh_total, 0.0)
+            dc_new = torch.where(keep, dc, 0.0) + dh_new * go * (1.0 - tanh_c * tanh_c)
+            dgi = dc_new * gg * gi * (1.0 - gi)
+            dgf = dc_new * c_prev * gf * (1.0 - gf)
+            dgg = dc_new * gi * (1.0 - gg * gg)
+            dgo = dh_new * tanh_c * go * (1.0 - go)
+            dgates_c = torch.cat([dgi, dgf, dgg, dgo], dim=-1).to(cdt)
+            dg[d, t] = dgates_c
+            dh_prev = torch.matmul(dgates_c.to(torch.float32), whc.to(torch.float32).t())
+            dh = dh_prev + torch.where(keep, 0.0, dh_total)
+            dc = dc_new * gf + torch.where(keep, 0.0, dc)
+    return dg
+
+
+def blstm_bwd_recur(gates, c, gy, lengths, wh, forget_bias: float = 1.0):
+    if gates.device.type == "cpu":
+        return blstm_bwd_recur_plain(gates, c, gy, lengths, wh, forget_bias)
+    name = "blstm_bwd_recur"
+    tag = _check_cuda(name, gy, gy=gy, gates=gates, c=c, wh=wh, lengths=lengths)
+    T, B, H2 = gy.shape
+    H = H2 // 2
+    _check_shape(f"{name}: gates", gates, (2, T, B, 4 * H), torch.float32)
+    _check_shape(f"{name}: c", c, (2, T, B, H), torch.float32)
+    _check_shape(f"{name}: wh", wh, (2, H, 4 * H), gy.dtype)
+    _check_shape(f"{name}: lengths", lengths, (B,), torch.int32)
+    dev = gy.device
+    dg = torch.empty((2, T, B, 4 * H), dtype=gy.dtype, device=dev)
+    counters = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _launcher("bwd_recur", tag)(
+            gates.data_ptr(), c.data_ptr(), gy.data_ptr(), lengths.data_ptr(),
+            wh.data_ptr(), dg.data_ptr(), counters.data_ptr(),
+            T, B, H, UNITS_PER_BLOCK, float(forget_bias), _stream(),
         )
-    build.check(err, "blstm_recur")
-    kernels.LAUNCHES["blstm_recur"] += 1
-    return y
+    build.check(err, name)
+    kernels.LAUNCHES[name] += 1
+    return dg
+
+
+# ---------------------------------------------------------------------------
+# backward products
+# ---------------------------------------------------------------------------
+
+def blstm_bwd_dx_plain(dg, wx) -> torch.Tensor:
+    """dg [2, T, B, 4H], wx [2, D, 4H] -> dx_d = cast(dg_d @ wx_d^T),
+    [2, T, B, D] in dg's dtype (f32 accumulation)."""
+    _, T, B, H4 = dg.shape
+    acc = torch.matmul(dg.reshape(2, T * B, H4).to(torch.float32),
+                       wx.to(torch.float32).transpose(1, 2))
+    return acc.to(dg.dtype).reshape(2, T, B, -1)
+
+
+def blstm_bwd_dx(dg, wx) -> torch.Tensor:
+    if dg.device.type == "cpu":
+        return blstm_bwd_dx_plain(dg, wx)
+    name = "blstm_bwd_dx"
+    tag = _check_cuda(name, dg, dg=dg, wx=wx)
+    _, T, B, H4 = dg.shape
+    D = wx.shape[1]
+    _check_shape(f"{name}: wx", wx, (2, D, H4), dg.dtype)
+    out = torch.empty((2, T, B, D), dtype=dg.dtype, device=dg.device)
+    _gemm(name, tag, (dg[0].data_ptr(), dg[1].data_ptr()),
+          (wx[0].data_ptr(), wx[1].data_ptr()), H4, H4, T * B, D, H4, _NT, out=out)
+    return out
+
+
+def blstm_bwd_dwx_plain(x, dg):
+    """x [T, B, D], dg [2, T, B, 4H] -> (dwx_d = x^T @ dg_d [2, D, 4H],
+    db_d = sum of dg_d over rows [2, 4H]), both f32."""
+    _, T, B, H4 = dg.shape
+    dgf = dg.reshape(2, T * B, H4).to(torch.float32)
+    dwx = torch.matmul(x.reshape(T * B, -1).to(torch.float32).t(), dgf)
+    return dwx, dgf.sum(dim=1)
+
+
+def blstm_bwd_dwx(x, dg):
+    if dg.device.type == "cpu":
+        return blstm_bwd_dwx_plain(x, dg)
+    name = "blstm_bwd_dwx"
+    tag = _check_cuda(name, dg, dg=dg, x=x)
+    _, T, B, H4 = dg.shape
+    D = x.shape[2]
+    _check_shape(f"{name}: x", x, (T, B, D), dg.dtype)
+    dwx = torch.empty((2, D, H4), dtype=torch.float32, device=dg.device)
+    db = torch.empty((2, H4), dtype=torch.float32, device=dg.device)
+    _gemm(name, tag, (x.data_ptr(), x.data_ptr()), (dg[0].data_ptr(), dg[1].data_ptr()),
+          D, H4, D, H4, T * B, _TN, outf=dwx, colsum=db)
+    return dwx, db
+
+
+def blstm_bwd_dwh_plain(y, dg) -> torch.Tensor:
+    """y [T, B, 2H] (the layer output), dg [2, T, B, 4H] -> dwh_d =
+    hprev_d^T @ dg_d [2, H, 4H] f32, hprev the stored masked h one step
+    back along each direction's recurrence (zero at its first step)."""
+    _, T, B, H4 = dg.shape
+    H = H4 // 4
+    hprev = torch.zeros((2, T, B, H), dtype=torch.float32, device=dg.device)
+    hprev[0, 1:] = y[:-1, :, :H].to(torch.float32)
+    hprev[1, :-1] = y[1:, :, H:].to(torch.float32)
+    return torch.matmul(hprev.reshape(2, T * B, H).transpose(1, 2),
+                        dg.reshape(2, T * B, H4).to(torch.float32))
+
+
+def blstm_bwd_dwh(y, dg) -> torch.Tensor:
+    if dg.device.type == "cpu":
+        return blstm_bwd_dwh_plain(y, dg)
+    name = "blstm_bwd_dwh"
+    tag = _check_cuda(name, dg, dg=dg, y=y)
+    _, T, B, H4 = dg.shape
+    H = H4 // 4
+    _check_shape(f"{name}: y", y, (T, B, 2 * H), dg.dtype)
+    dwh = torch.empty((2, H, H4), dtype=torch.float32, device=dg.device)
+    if T == 1:
+        return dwh.zero_()
+    es = y.element_size()
+    # fw: hprev at t is y[t - 1, :, :H], paired with dg_fw[t] for t >= 1;
+    # bw: hprev at t is y[t + 1, :, H:], paired with dg_bw[t] for t <= T-2
+    a = (y.data_ptr(), y.data_ptr() + (B * 2 * H + H) * es)
+    b = (dg[0].data_ptr() + B * H4 * dg.element_size(), dg[1].data_ptr())
+    _gemm(name, tag, a, b, 2 * H, H4, H, H4, (T - 1) * B, _TN, outf=dwh)
+    return dwh
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +406,59 @@ def stack_directions(p):
     )
 
 
+class BLSTMLayer(torch.autograd.Function):
+    """The trainable layer (``blstm_tm_fused``): x [T, B, D] -> masked
+    h [T, B, 2H] in x's dtype, with the forward's residuals (x, the
+    output, c and the gates) kept for the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, x_tm, lengths, wx_fw, b_fw, wh_fw, wx_bw, b_bw, wh_bw,
+                forget_bias):
+        T, B, D = x_tm.shape
+        wx = torch.stack([wx_fw, wx_bw]).contiguous()
+        b = torch.stack([b_fw, b_bw]).contiguous()
+        wh = torch.stack([wh_fw, wh_bw]).contiguous()
+        x = x_tm.contiguous()
+        lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
+        xw = blstm_proj(x.view(T * B, D), wx, b)
+        y, c, gates = blstm_recur_train(
+            xw.view(2, T, B, wx.shape[2]), lengths, wh, forget_bias)
+        ctx.save_for_backward(x, lengths, wx, wh, y, c, gates)
+        ctx.forget_bias = forget_bias
+        ctx.b_dtype = b.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, lengths, wx, wh, y, c, gates = ctx.saved_tensors
+        gy = gy.to(y.dtype).contiguous()
+        dg = blstm_bwd_recur(gates, c, gy, lengths, wh, ctx.forget_bias)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dxd = blstm_bwd_dx(dg, wx)
+            dx = dxd[0] + dxd[1]
+        dwx, db = blstm_bwd_dwx(x, dg)
+        dwh = blstm_bwd_dwh(y, dg)
+        dwx, dwh, db = dwx.to(wx.dtype), dwh.to(wh.dtype), db.to(ctx.b_dtype)
+        return dx, None, dwx[0], db[0], dwh[0], dwx[1], db[1], dwh[1], None
+
+
+def _wants_grad(p, x) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad
+        or any(p[d][k].requires_grad for d in ("fw", "bw") for k in ("wx", "b", "wh"))
+    )
+
+
 def blstm_tm_apply(p, x_tm, lengths, forget_bias: float = 1.0) -> torch.Tensor:
-    """Time-major BLSTM layer: x [T, B, D] -> [T, B, 2H] in x's dtype."""
+    """Time-major BLSTM layer: x [T, B, D] -> [T, B, 2H] in x's dtype.
+    Through ``BLSTMLayer`` when a gradient is wanted, else the
+    residual-free inference kernels."""
+    if _wants_grad(p, x_tm):
+        return BLSTMLayer.apply(
+            x_tm, lengths, p["fw"]["wx"], p["fw"]["b"], p["fw"]["wh"],
+            p["bw"]["wx"], p["bw"]["b"], p["bw"]["wh"], forget_bias,
+        )
     T, B, D = x_tm.shape
     wx, b, wh = stack_directions(p)
     H4 = wx.shape[2]

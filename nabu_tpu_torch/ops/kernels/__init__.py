@@ -10,7 +10,18 @@ from __future__ import annotations
 
 from typing import Dict
 
-KERNELS = ("stft_mel", "blstm_proj", "blstm_recur")
+KERNELS = (
+    "stft_mel",
+    "blstm_proj",
+    "blstm_recur",
+    "blstm_recur_train",
+    "blstm_bwd_recur",
+    "blstm_bwd_dx",
+    "blstm_bwd_dwx",
+    "blstm_bwd_dwh",
+    "ctc_alpha",
+    "ctc_beta",
+)
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -55,3 +55,6 @@ TARGET_NORMALIZERS = Registry("target normalizer")
 ENCODERS = Registry("encoder")
 DECODERS = Registry("decoder")  # model-side decoders (ctc head)
 RECOGNIZERS = Registry("recognizer")  # inference-side decoders
+LOSSES = Registry("loss")
+TRAINERS = Registry("trainer")
+EVALUATORS = Registry("evaluator")

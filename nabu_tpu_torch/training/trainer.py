@@ -1,0 +1,328 @@
+"""Trainer: the train step, the optimizer and its LR schedule,
+validation-driven early stopping with restore-best + LR backoff,
+checkpointing.
+
+Port of the JAX package's ``training/trainer.py`` for one GPU (or the
+CPU when asked for by name). The step is eager PyTorch: the model's
+forward and loss through the CUDA kernels (``make_loss_computer``), the
+gradients by autograd (whose backward runs the backward kernels), then
+the optimizer. ``build_optimizer`` mirrors the optax chain of the JAX
+package: global-norm clipping (scaled by ``max_norm / norm`` only when
+the norm is at least ``max_norm``), Adam (b1 0.9, b2 0.999, eps 1e-8),
+then the schedule ``lr * decay^(k / decay_steps) * min(1, (k + 1) /
+warmup)`` with k the number of updates already applied, then the
+runtime backoff multiplier ``lr_scale``. The reported ``grad_norm`` is
+the norm before clipping.
+
+Ported trainer options: ``num_steps``/``num_epochs``,
+``valid_frequency``, ``log_frequency``, ``ckpt_frequency``,
+``num_tries``, ``lr_backoff_factor``, ``early_stopping``,
+``frame_shift``, ``check_numerics`` (the NaN guard), ``resume``,
+``pretrained_dir``/``pretrained_subtree`` (warm start from a port
+checkpoint) and ``async_checkpoint``; optimizers ``adam`` and
+``adamw``. The options no recipe sets (``numbatches_to_aggregate``,
+``ema_decay``, ``sortagrad``, ``backoff_warmup_steps``, ``mwer``, the
+profiler window, ``sgd``) raise "not ported yet".
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from nabu_tpu_torch.config import Conf
+from nabu_tpu_torch.data.pipeline import (
+    BucketedLoader, batch_to_arrays, batch_to_device, prefetch,
+)
+from nabu_tpu_torch.device import resolve_device
+from nabu_tpu_torch.ops.losses import make_loss_computer
+from nabu_tpu_torch.params import flatten, unflatten
+from nabu_tpu_torch.registry import TRAINERS
+from nabu_tpu_torch.training.checkpoints import CheckpointManager, warm_start
+from nabu_tpu_torch.training.metrics import MetricWriter
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(t.to(torch.float32) ** 2) for t in tensors))
+
+
+class Optimizer:
+    """The optax chain of the JAX package's ``build_optimizer`` (adam or
+    adamw) over a tree of f32 parameter tensors, updated in place."""
+
+    def __init__(self, conf: Conf):
+        self.clip = conf.getfloat("clip_grad_norm", 5.0)
+        self.base_lr = conf.getfloat("learning_rate", 1e-3)
+        self.decay = conf.getfloat("learning_rate_decay", 1.0)
+        self.decay_steps = conf.getint("decay_steps", 1000)
+        self.warmup = conf.getint("warmup_steps", 0)
+        self.name = conf.get("optimizer", "adam").lower()
+        if self.name == "sgd":
+            raise NotImplementedError("optimizer 'sgd' not ported yet")
+        if self.name not in ("adam", "adamw"):
+            raise ValueError(f"unknown optimizer {self.name!r}")
+        self.weight_decay = conf.getfloat("weight_decay", 1e-2)
+        self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
+
+    def schedule(self, step: int) -> float:
+        lr = self.base_lr * (self.decay ** (step / self.decay_steps))
+        if self.warmup > 0:
+            lr = lr * min(1.0, (step + 1) / self.warmup)
+        return lr
+
+    def init(self, params: dict) -> dict:
+        """{"count": updates applied, "mu", "nu": Adam's moments, trees
+        shaped like the parameters}."""
+        def zeros():
+            return unflatten({k: torch.zeros_like(v.detach())
+                              for k, v in flatten(params).items()})
+
+        return {"count": 0, "mu": zeros(), "nu": zeros()}
+
+    @torch.no_grad()
+    def step(self, params: dict, grads: Dict[str, torch.Tensor], state: dict,
+             lr_scale: float) -> torch.Tensor:
+        """Apply one update in place; returns the pre-clip global norm."""
+        flat = flatten(params)
+        mus, nus = flatten(state["mu"]), flatten(state["nu"])
+        g = [grads[k] for k in flat]
+        gnorm = global_norm(g)
+        if self.clip > 0:
+            # optax: (g / norm) * max_norm where the norm is not below it
+            g = [torch.where(gnorm < self.clip, t, (t / gnorm) * self.clip) for t in g]
+        count = int(state["count"])
+        bc1 = 1.0 - self.b1 ** (count + 1)
+        bc2 = 1.0 - self.b2 ** (count + 1)
+        step_size = -self.schedule(count) * lr_scale
+        for (k, p), t in zip(flat.items(), g):
+            mu, nu = mus[k], nus[k]
+            mu.mul_(self.b1).add_(t, alpha=1.0 - self.b1)
+            nu.mul_(self.b2).addcmul_(t, t, value=1.0 - self.b2)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            if self.name == "adamw":
+                u = u + self.weight_decay * p
+            p.add_(u * step_size)
+        state["count"] = count + 1
+        return gnorm
+
+
+def build_optimizer(conf: Conf) -> Optimizer:
+    return Optimizer(conf)
+
+
+@TRAINERS.register("standard")
+class Trainer:
+    """Drives training of a Model over a BucketedLoader on one device."""
+
+    def __init__(self, conf: Conf, model, loader: BucketedLoader, expdir: str,
+                 valid_fn: Optional[Callable] = None, loss_fn: Optional[Callable] = None,
+                 device=None):
+        self.conf = conf
+        self.model = model
+        self.loader = loader
+        self.expdir = expdir
+        self.valid_fn = valid_fn
+        self.device = resolve_device(device)
+        # options of the JAX trainer that no recipe sets: not ported yet
+        not_ported = [key for key, on in (
+            ("mwer", conf.getbool("mwer", False)),
+            ("profile_stop", conf.getint("profile_stop", 0) != 0),
+            ("ema_decay", conf.getfloat("ema_decay", 0.0) != 0.0),
+            ("sortagrad", conf.getbool("sortagrad", False)),
+            ("backoff_warmup_steps", conf.getint("backoff_warmup_steps", 0) != 0),
+            ("numbatches_to_aggregate", conf.getint("numbatches_to_aggregate", 1) != 1),
+        ) if on]
+        if not_ported:
+            raise NotImplementedError(f"trainer options not ported yet: {not_ported}")
+        if loader.num_batches() == 0:
+            raise ValueError(
+                "loader yields zero batches (dataset smaller than "
+                "batch_size in every bucket?) — training would spin forever")
+        self.num_steps = conf.getint("num_steps", 0)
+        if not self.num_steps:
+            epochs = conf.getint("num_epochs", 10)
+            self.num_steps = max(epochs * loader.num_batches(), 1)
+        self.valid_frequency = conf.getint("valid_frequency", 0)
+        self.log_frequency = conf.getint("log_frequency", 10)
+        self.ckpt_frequency = conf.getint("ckpt_frequency", 0)
+        self.num_tries = conf.getint("num_tries", 3)
+        self.lr_backoff = conf.getfloat("lr_backoff_factor", 0.5)
+        self.early_stopping = conf.getbool("early_stopping", True)
+        self.frame_shift = conf.getfloat("frame_shift", 0.01)
+        self.check_numerics = conf.getbool("check_numerics", True)
+        self.optimizer = build_optimizer(conf)
+        self.loss_fn = loss_fn if loss_fn is not None else make_loss_computer(model)
+        self.ckpt = CheckpointManager(f"{expdir}/checkpoints",
+                                      use_async=conf.getbool("async_checkpoint", False))
+        self.writer = MetricWriter(f"{expdir}/logs")
+        self.feature_dtype = model.compute_dtype
+
+    # -- one step ----------------------------------------------------------
+    def _loss(self, params, batch, generator):
+        """Forward and loss (dropout on)."""
+        return self.loss_fn(params, batch, generator, True)
+
+    def _backward(self, loss, params) -> Dict[str, torch.Tensor]:
+        """Gradients of the loss with respect to every parameter, f32."""
+        flat = flatten(params)
+        grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+        return {k: torch.zeros_like(v) if g is None else g
+                for (k, v), g in zip(flat.items(), grads)}
+
+    def _apply_grads(self, params, grads, opt_state, lr_scale) -> torch.Tensor:
+        return self.optimizer.step(params, grads, opt_state, lr_scale)
+
+    def _generator(self, step: int) -> torch.Generator:
+        """Dropout noise of one step, a function of (seed, step)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((1234 + self._seed) * 1_000_003 + step)
+        return gen
+
+    # -- state helpers ------------------------------------------------------
+    def init_state(self, rng_seed: int = 0) -> Dict:
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(rng_seed)
+        params = self.model.init(gen)
+        pretrained = self.conf.get("pretrained_dir")
+        if pretrained:
+            params = warm_start(params, pretrained, self.conf.get("pretrained_subtree"))
+        return {
+            "params": params,
+            "opt_state": self.optimizer.init(params),
+            "step": 0, "lr_scale": 1.0, "best_metric": math.inf, "tries": 0,
+        }
+
+    def _to_device(self, tree, grad: bool = False):
+        """A (restored or initial) tree on the training device; the
+        optimizer's update count stays a Python int."""
+        if isinstance(tree, dict):
+            return {k: int(v) if k == "count" else self._to_device(v, grad)
+                    for k, v in tree.items()}
+        t = tree.detach().to(self.device).clone()
+        return t.requires_grad_(True) if grad else t
+
+    # -- main loop -----------------------------------------------------------
+    def train(self, rng_seed: int = 0) -> Dict:
+        self._seed = rng_seed
+        state = self.init_state(rng_seed)
+        if self.conf.getbool("resume", False) and self.ckpt.exists("latest"):
+            state.update(self.ckpt.restore("latest"))
+        params = self._to_device(state["params"], grad=True)
+        opt_state = self._to_device(state["opt_state"])
+        step = int(state["step"])
+        lr_scale = float(state["lr_scale"])
+        best_metric = float(state["best_metric"])
+        tries = int(state["tries"])
+
+        # resume fast-forward: the position after `step` steps of a
+        # continuous batch stream
+        num_batches = max(self.loader.num_batches(), 1)
+        epoch, skip = divmod(step, num_batches)
+        stop = False
+        t_last = time.time()
+        frames_since_log = 0
+        n_params = sum(int(v.numel()) for v in flatten(params).values())
+        print(f"[trainer] start: device={self.device} params={n_params:,} "
+              f"step={step}/{self.num_steps} batches/epoch={num_batches}", flush=True)
+        t_first = time.time()
+
+        def host_stream(epoch_idx: int, skip_n: int):
+            for batch in self.loader.epoch(epoch_idx, skip=skip_n):
+                yield batch_to_arrays(batch), batch.num_audio_frames
+
+        while not stop and step < self.num_steps:
+            for arrays, num_audio_frames in prefetch(host_stream(epoch, skip)):
+                if step >= self.num_steps:
+                    break
+                batch = batch_to_device(arrays, self.device, self.feature_dtype)
+                frames_since_log += num_audio_frames
+                loss, metrics = self._loss(params, batch, self._generator(step))
+                grads = self._backward(loss, params)
+                metrics["grad_norm"] = self._apply_grads(params, grads, opt_state, lr_scale)
+                step += 1
+                if step == int(state["step"]) + 1:
+                    float(metrics["loss"])
+                    print(f"[trainer] first step done in {time.time() - t_first:.1f}s "
+                          "(includes the kernels' first build and load)", flush=True)
+
+                if step % self.log_frequency == 0 or step == self.num_steps:
+                    scalars = {k: float(v) for k, v in metrics.items()}
+                    if self.check_numerics and not np.isfinite(scalars["loss"]):
+                        self._save_latest(params, opt_state, step, lr_scale, best_metric,
+                                          tries)
+                        self.ckpt.wait_until_finished()
+                        raise FloatingPointError(
+                            f"non-finite loss {scalars['loss']} at step {step}; "
+                            f"state saved to {self.expdir}")
+                    now = time.time()
+                    scalars["lr_scale"] = lr_scale
+                    scalars["audio_s_per_s"] = (
+                        frames_since_log * self.frame_shift / max(now - t_last, 1e-9))
+                    self.writer.write(step, scalars, prefix="train/")
+                    t_last = now
+                    frames_since_log = 0
+
+                if self.ckpt_frequency and step % self.ckpt_frequency == 0:
+                    self._save_latest(params, opt_state, step, lr_scale, best_metric, tries)
+
+                if (self.valid_frequency and self.valid_fn is not None
+                        and step % self.valid_frequency == 0):
+                    metric = float(self.valid_fn(_detached(params)))
+                    self.writer.write(step, {"metric": metric}, prefix="valid/")
+                    if metric < best_metric:
+                        best_metric = metric
+                        tries = 0
+                        self.ckpt.save_best({"params": params, "opt_state": opt_state,
+                                             "step": step, "metric": metric})
+                    elif self.early_stopping:
+                        # restore the best model and back off the learning rate
+                        tries += 1
+                        if self.ckpt.exists("best"):
+                            best = self.ckpt.restore("best")
+                            self._load_into(params, best["params"])
+                            opt_state.clear()
+                            opt_state.update(self._to_device(best["opt_state"]))
+                        lr_scale *= self.lr_backoff
+                        self.writer.write(step, {"tries": tries, "lr_scale": lr_scale},
+                                          prefix="early_stop/")
+                        if tries >= self.num_tries:
+                            stop = True
+                            break
+            epoch += 1
+            skip = 0  # resume fast-forward applies to the first epoch only
+
+        self._save_latest(params, opt_state, step, lr_scale, best_metric, tries)
+        if not self.ckpt.exists("best"):
+            # validation never ran: the final model doubles as best
+            self.ckpt.save_best({"params": params, "opt_state": opt_state, "step": step,
+                                 "metric": math.inf})
+        self.ckpt.wait_until_finished()
+        self.writer.close()
+        return {"params": params, "step": step, "best_metric": best_metric,
+                "stopped_early": stop}
+
+    @staticmethod
+    @torch.no_grad()
+    def _load_into(params, tree):
+        src = flatten(tree)
+        for k, p in flatten(params).items():
+            p.copy_(src[k].to(p.device))
+
+    def _save_latest(self, params, opt_state, step, lr_scale, best, tries):
+        self.ckpt.save_latest({"params": params, "opt_state": opt_state, "step": step,
+                               "lr_scale": lr_scale, "best_metric": best, "tries": tries})
+
+
+def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return tree.detach()
+
+
+def build_trainer(conf: Conf, *args, **kwargs) -> Trainer:
+    """Factory by conf['trainer']."""
+    return TRAINERS.build(conf.get("trainer", "standard"), conf, *args, **kwargs)
