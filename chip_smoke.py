@@ -24,7 +24,14 @@ Phases, each printing JSON lines:
               versions (features and logits, each with a planted fault)
               and the beam search on the card against the same search on
               the CPU;
-5. train    — a synthesized character corpus (512 utterances of 2-10 s,
+5. serve_rnnt — a full-width rnnt_char_wsj artifact (Listener of 320
+              units, time / 4, prediction LSTM, 320-wide joint, bf16,
+              seeded random weights) serves 64 utterances with the
+              recipe's transducer_beam (width 8); the serving kernels must
+              run and no loss kernel; one batch's n-best on the card must
+              equal the same search on the CPU over the same encoder
+              output (both in float64; the bf16 agreement is reported);
+6. train    — a synthesized character corpus (512 utterances of 2-10 s,
               the recipe's 28 symbols at ~12 a second) goes through
               ``cli data`` and ``cli train`` with the dblstm_ctc_wsj
               recipe, unchanged but for its datafiles and 40 steps: the
@@ -34,9 +41,18 @@ Phases, each printing JSON lines:
               to the device and logging included) and of the phases
               alone, peak device memory; launch counts must equal steps x the
               per-step launches; ``latest/`` must reload into the same
-              logits; then one full-width batch's loss and every
+              outputs; then one full-width batch's loss and every
               parameter gradient, dropout off, through the kernels
-              against the plain versions (with a planted fault).
+              against the plain versions (with a planted fault);
+7. train_rnnt — the same corpus through ``cli data`` and ``cli train``
+              with the rnnt_char_wsj recipe (40 steps, the same checks;
+              the step split shows the prediction net's share of the
+              forward).
+
+The kernels phase also holds the four RNN-T kernels (joint forward,
+alpha, beta, joint backward) to their plain versions at B = 32, T' = 250,
+U = 120, J = 320, V = 29 and checks that the loss's forward plus backward
+adds under 100 MB of device memory.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -62,12 +78,17 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 RECIPE = os.path.join(REPO, "config", "recipes", "dblstm_ctc_wsj")
+RNNT_RECIPE = os.path.join(REPO, "config", "recipes", "rnnt_char_wsj")
 
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and
 # f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+# special-function units (tanh, exp, log): 16 results a clock per SM
+# (CUDA C++ Programming Guide, arithmetic throughput, compute capability
+# 9.0) x 132 SMs x 1.98 GHz boost clock
+PEAK_SFU = 16 * 132 * 1.98e9
 
 # serving shapes of the 4x320 recipe at batch 32
 B, T, H, NFILT = 32, 1024, 320, 40
@@ -126,6 +147,11 @@ TOL = {
     ("blstm_bwd_dw", "f32"): (1e-3, 1e-4),
     "ctc_ll": (1e-3, 1e-5),
     "ctc_posts": (1e-4, 0.0),
+    "rnnt_lp": (1e-4, 1e-5),
+    "rnnt_ll": (1e-3, 1e-5),
+    "rnnt_occ": (1e-4, 0.0),
+    "rnnt_grad": (1e-3, 1e-3),
+    "rnnt_scores": 1e-6,
     "features": (1e-4, 0.0),
     "logits_bf16": (0.03, 0.0),
     "train_loss": (1e-2, 1e-3),
@@ -145,18 +171,31 @@ TPU_KERNELS = {
     "blstm_bwd_dwh": _BLSTM_BWD,
     "ctc_alpha": "nabu_tpu/ops/pallas/ctc_batched.py:67",
     "ctc_beta": "nabu_tpu/ops/pallas/ctc_batched.py:115",
+    "rnnt_joint_fwd": "nabu_tpu/ops/pallas/transducer.py:124",
+    "rnnt_alpha": "nabu_tpu/ops/pallas/transducer.py:124",
+    "rnnt_beta": "nabu_tpu/ops/pallas/transducer.py:193",
+    "rnnt_joint_bwd": "nabu_tpu/ops/pallas/transducer.py:193",
 }
 SOURCES = {name: "nabu_tpu_torch/ops/kernels/csrc/blstm.cu" for name in TPU_KERNELS}
 SOURCES["stft_mel"] = "nabu_tpu_torch/ops/kernels/csrc/stft_mel.cu"
 SOURCES["ctc_alpha"] = SOURCES["ctc_beta"] = "nabu_tpu_torch/ops/kernels/csrc/ctc.cu"
+for _name in ("rnnt_joint_fwd", "rnnt_alpha", "rnnt_beta", "rnnt_joint_bwd"):
+    SOURCES[_name] = "nabu_tpu_torch/ops/kernels/csrc/transducer.cu"
 
-# the kernels each path launches, and per training step of the 4-layer
-# recipe (layer 0's input, the features, needs no gradient: no dx there)
+# the kernels each path launches, and per training step of each training
+# phase: the 4-layer DBLSTM-CTC recipe (layer 0's input, the features,
+# needs no gradient: no dx there), and the RNN-T recipe's Listener of 3
+# BLSTM layers plus one of each RNN-T kernel
 SERVE_KERNELS = ("stft_mel", "blstm_proj", "blstm_recur")
-TRAIN_STEP_LAUNCHES = {
-    "blstm_proj": 4, "blstm_recur_train": 4, "blstm_bwd_recur": 4, "blstm_bwd_dx": 3,
-    "blstm_bwd_dwx": 4, "blstm_bwd_dwh": 4, "ctc_alpha": 1, "ctc_beta": 1,
+STEP_LAUNCHES = {
+    "train": {"blstm_proj": 4, "blstm_recur_train": 4, "blstm_bwd_recur": 4,
+              "blstm_bwd_dx": 3, "blstm_bwd_dwx": 4, "blstm_bwd_dwh": 4, "ctc_alpha": 1,
+              "ctc_beta": 1},
+    "train_rnnt": {"blstm_proj": 3, "blstm_recur_train": 3, "blstm_bwd_recur": 3,
+                   "blstm_bwd_dx": 2, "blstm_bwd_dwx": 3, "blstm_bwd_dwh": 3,
+                   "rnnt_joint_fwd": 1, "rnnt_alpha": 1, "rnnt_beta": 1, "rnnt_joint_bwd": 1},
 }
+TRAIN_RECIPES = {"train": RECIPE, "train_rnnt": RNNT_RECIPE}
 TRAIN_STEPS = 40
 TRAIN_UTTS = 512
 
@@ -224,9 +263,11 @@ def fault_reading(faulty, ref, tol, what: str) -> float:
     return max_err
 
 
-def bound(bytes_, ops, peak_ops):
+def bound(bytes_, ops, peak_ops, *more):
+    """-> (least ms, what sets it): the bytes over the memory rate against
+    each (operations, peak rate) pair, the units running side by side."""
     t_bytes = bytes_ / PEAK_BYTES * 1e3
-    t_ops = ops / peak_ops * 1e3
+    t_ops = max(o / p for o, p in ((ops, peak_ops), *more)) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -246,6 +287,10 @@ _WRAPPERS = {
     "blstm_bwd_dwh": ("blstm", "blstm_bwd_dwh"),
     "ctc_alpha": ("ctc_batched", "ctc_alpha"),
     "ctc_beta": ("ctc_batched", "ctc_beta"),
+    "rnnt_joint_fwd": ("transducer_fused", "rnnt_joint_fwd"),
+    "rnnt_alpha": ("transducer_fused", "rnnt_alpha"),
+    "rnnt_beta": ("transducer_fused", "rnnt_beta"),
+    "rnnt_joint_bwd": ("transducer_fused", "rnnt_joint_bwd"),
 }
 
 
@@ -421,6 +466,61 @@ def skip_dropped(cb):
     return no_skip
 
 
+def rnnt_emit_dropped(tf):
+    """Planted alpha fault: the emit term left out of the prefix (the plain
+    walk with every emit log-prob 0)."""
+    def alpha(lp_blank, lp_emit, logit_lengths, target_lengths):
+        return tf.rnnt_alpha_plain(lp_blank, lp_emit * 0.0, logit_lengths, target_lengths)
+    return alpha
+
+
+def rnnt_beta_read_early(torch, tf):
+    """Planted beta fault (otherwise ``rnnt_beta_plain``'s arithmetic): the
+    blank occupancy reads beta[t] instead of beta[t+1], as a walk that
+    published the new row before its readers took the old one."""
+    NEG = tf.NEG
+
+    def beta_fn(lp_blank, lp_emit, alphas, ll, g, logit_lengths, target_lengths):
+        T, B, U1 = lp_blank.shape
+        dev = lp_blank.device
+        tlen = logit_lengths[:, None]
+        ulen = target_lengths.long()[:, None]
+        lanes = torch.arange(U1, device=dev)[None, :]
+        init = torch.where(lanes == ulen, 0.0, NEG)
+        g = torch.where(ll > NEG / 2, g, 0.0)[:, None]
+        beta = torch.full((B, U1), NEG, device=dev)
+        gb, ge = torch.zeros_like(lp_blank), torch.zeros_like(lp_blank)
+        for t in range(T - 1, -1, -1):
+            nxt = torch.where(tlen - 1 <= t, init, beta)
+            S = tf._prefix_sum(tf._shift_right(
+                torch.where(lanes < ulen, lp_emit[t], 0.0), 1, 0.0))
+            new = torch.clamp(-S + tf._suffix_lse(lp_blank[t] + nxt + S), min=NEG)
+            ok = tlen > t
+            a = alphas[t] - ll[:, None]
+            gb[t] = torch.where(ok, torch.exp(torch.clamp(a + lp_blank[t] + new, max=0.0)),
+                                0.0) * g
+            ge[t] = torch.where(ok, torch.exp(torch.clamp(
+                a + lp_emit[t] + tf._shift_left(new, 1, NEG), max=0.0)), 0.0) * g
+            beta = torch.where(ok, new, beta)
+        return gb, ge
+    return beta_fn
+
+
+def rnnt_last_frame_out_of_dpred(torch, tf):
+    """Planted joint-backward fault: each lane's last frame left out of the
+    prediction projection's gradient (the sum over t stopping one frame
+    short); the other gradients as the plain version's."""
+    def bwd(enc, pred, w, b, targets, target_lengths, logit_lengths, gb, ge, blank_id):
+        out = tf.rnnt_joint_bwd_plain(enc, pred, w, b, targets, target_lengths,
+                                      logit_lengths, gb, ge, blank_id)
+        last = (torch.arange(gb.shape[0], device=gb.device)[:, None]
+                == (logit_lengths - 1)[None, :])[..., None]
+        cut = tf.rnnt_joint_bwd_plain(enc, pred, w, b, targets, target_lengths,
+                                      logit_lengths, gb * ~last, ge * ~last, blank_id)
+        return out[0], cut[1], out[2], out[3]
+    return bwd
+
+
 # ---------------------------------------------------------------------------
 # synthesized audio and weights (numpy, seeded)
 # ---------------------------------------------------------------------------
@@ -462,25 +562,41 @@ def recipe_params(rng, input_dim: int, num_layers: int, units: int, num_labels: 
     return flat
 
 
-def write_artifact(out_dir: str, seed: int) -> dict:
-    """A full-width dblstm_ctc_wsj export artifact: model.cfg from the
+def model_params(model_cfg, input_dim: int, num_labels: int, seed: int) -> dict:
+    """Seeded weights of any model the port builds, in the flattened tree
+    layout: the port's init (glorot, embeddings N(0, 0.02)) from a
+    torch.Generator, with nonzero biases drawn by numpy."""
+    import torch
+
+    from nabu_tpu_torch.models.model import build_model
+    from nabu_tpu_torch.params import to_flat_numpy
+
+    model = build_model(model_cfg, input_dim, num_labels)
+    flat = to_flat_numpy(model.init(torch.Generator().manual_seed(seed)))
+    rng = np.random.default_rng(seed)
+    return {k: rng.uniform(-0.1, 0.1, v.shape).astype(np.float32) if k.endswith("/b") else v
+            for k, v in flat.items()}
+
+
+def write_artifact(out_dir: str, seed: int, recipe: str = RECIPE) -> dict:
+    """A full-width export artifact of a recipe: model.cfg from the
     recipe, frontend.cfg from its [testfeatures]/[testtargets],
     recognizer.cfg from its recognizer.cfg, seeded weights."""
     from nabu_tpu_torch.config import Conf, ConfigFile
 
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(RECIPE, "model.cfg")) as f:
+    with open(os.path.join(recipe, "model.cfg")) as f:
         model_cfg = f.read()
     with open(os.path.join(out_dir, "model.cfg"), "w") as f:
         f.write(model_cfg)
-    db = ConfigFile.read(os.path.join(RECIPE, "database.conf"))
+    db = ConfigFile.read(os.path.join(recipe, "database.conf"))
     drop = ("datafile", "dir", "speed_perturb")
     sections = {}
     for src, dst in (("testfeatures", "features"), ("testtargets", "targets")):
         vals = {k: v for k, v in db.section(src).items() if k not in drop}
         sections[dst] = Conf(vals, dst)
     ConfigFile(sections).write(os.path.join(out_dir, "frontend.cfg"))
-    rconf = ConfigFile.read(os.path.join(RECIPE, "recognizer.cfg")).section("recognizer")
+    rconf = ConfigFile.read(os.path.join(recipe, "recognizer.cfg")).section("recognizer")
     rvals = dict(rconf.items(), features="features", targets="targets")
     ConfigFile({"recognizer": Conf(rvals, "recognizer")}).write(
         os.path.join(out_dir, "recognizer.cfg"))
@@ -491,10 +607,13 @@ def write_artifact(out_dir: str, seed: int) -> dict:
     from nabu_tpu_torch.features.computers import make_feature_computer
 
     input_dim = make_feature_computer(sections["features"]).dim
-    flat = recipe_params(
-        np.random.default_rng(seed), input_dim, enc.getint("num_layers"),
-        enc.getint("num_units"), len(alphabet),
-    )
+    if enc.get("encoder") == "dblstm":
+        flat = recipe_params(
+            np.random.default_rng(seed), input_dim, enc.getint("num_layers"),
+            enc.getint("num_units"), len(alphabet),
+        )
+    else:
+        flat = model_params(mcfg, input_dim, len(alphabet), seed)
     np.savez(os.path.join(out_dir, "params.npz"), **flat)
     manifest = {"framework": "nabu_tpu", "input_dim": input_dim,
                 "num_labels": len(alphabet)}
@@ -594,7 +713,9 @@ def phase_kernels(torch, quick: bool) -> dict:
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         es = 2 if tag == "bf16" else 4
         peak = PEAK_BF16 if tag == "bf16" else PEAK_F32
-        for D in (2 * NFILT, 2 * H):
+        # D = 2 NFILT: the first layer; 4H: a Listener's pyramid layers
+        # (stacked frame pairs); 2H last, the layer the walks below take
+        for D in (2 * NFILT, 4 * H, 2 * H):
             x = torch.as_tensor(
                 rng.standard_normal((T * B, D)).astype(np.float32), device=dev).to(dtype)
             wx = torch.as_tensor(glorot(rng, (2, D, 4 * H)), device=dev).to(dtype)
@@ -675,6 +796,7 @@ def phase_kernels(torch, quick: bool) -> dict:
         rows.update(training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm,
                                          packed, timed, reps))
     rows.update(ctc_rows(torch, timed, reps))
+    rows.update(rnnt_rows(torch, timed, reps))
     torch.cuda.synchronize()
     return rows
 
@@ -683,7 +805,8 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
                          reps) -> dict:
     """The training path's BLSTM kernels at T = 1024, B = 32, H = 320: the
     residual-writing forward, the backward chain, and the products at
-    D = 80 and 640, each against its plain version with a planted fault."""
+    D = 80, 1280 (a Listener's pyramid layers) and 640, each against its
+    plain version with a planted fault."""
     from nabu_tpu_torch.ops import blstm as bo
 
     dev = xw.device
@@ -782,7 +905,7 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
     hprev[1, :-1] = y[1:, :, H:]
     dg2 = dgr.view(2, M, H4)
     tol_dw = TOL[("blstm_bwd_dw", tag)]
-    for D in (2 * NFILT, 2 * H):
+    for D in (2 * NFILT, 4 * H, 2 * H):
         x = u(T, B, D)
         wx = torch.as_tensor(glorot(rng, (2, D, H4)), device=dev).to(dtype)
         # dx: the last product of the reduction over 4H dropped
@@ -938,6 +1061,232 @@ def ctc_rows(torch, timed, reps) -> dict:
         "bound_ms": b_ms, "bound_by": b_by,
     }
     emit({"phase": "kernels", "kernel": "ctc_beta", **rows["ctc_beta"]})
+    return rows
+
+
+def rnnt_case(torch, rng, B_, T_, U_, J_, V_):
+    """Full-width RNN-T loss inputs on the card: bf16 projections, ragged
+    logit and target lengths (one lane of each at the full length, lanes
+    with U_b = 0, a lane with logit length 0), glorot output weights."""
+    dev = torch.device("cuda")
+    tl = rng.integers(T_ // 4, T_ + 1, B_)
+    ul = rng.integers(U_ // 4, U_ + 1, B_)
+    tl[0], ul[0] = T_, U_
+    ul[1] = ul[5] = 0
+    tl[3] = 0
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)  # noqa: E731
+    return dict(
+        enc=f(0.5 * rng.standard_normal((B_, T_, J_))).to(torch.bfloat16),
+        pred=f(0.5 * rng.standard_normal((B_, U_ + 1, J_))).to(torch.bfloat16),
+        w=f(glorot(rng, (J_, V_))).to(torch.bfloat16),
+        b=f(rng.uniform(-0.1, 0.1, V_)),
+        targets=torch.as_tensor(rng.integers(0, V_ - 1, (B_, U_)), dtype=torch.int32,
+                                device=dev),
+        tlen=torch.as_tensor(ul, dtype=torch.int32, device=dev),
+        llen=torch.as_tensor(tl, dtype=torch.int32, device=dev),
+    )
+
+
+def rnnt_rows(torch, timed, reps) -> dict:
+    """The RNN-T kernels at B = 32, T' = 250, U = 120, J = 320, V = 29
+    (the rnnt_char_wsj recipe's widths and its longest batches), each
+    against its plain version with a planted fault; times against the
+    bound and the library yardsticks; the extra peak memory of the loss's
+    forward plus backward."""
+    from nabu_tpu_torch.ops import transducer_fused as tf
+
+    Bq, Tq, Uq, Jq, Vq = 32, 250, 120, 320, 29
+    rng = np.random.default_rng(6)
+    c = rnnt_case(torch, rng, Bq, Tq, Uq, Jq, Vq)
+    blank = Vq - 1
+    joint = (c["enc"], c["pred"], c["w"], c["b"], c["targets"], c["tlen"], c["llen"])
+    lens = (c["llen"], c["tlen"])
+    tl, ul = c["llen"].long().cpu(), c["tlen"].long().cpu()
+    nodes = int((tl * (ul + 1)).sum())  # lattice nodes the data needs
+    U1 = Uq + 1
+    inside = ((torch.arange(Tq)[:, None, None] < tl[None, :, None])
+              & (torch.arange(U1)[None, None, :] <= ul[None, :, None])).cuda()
+    rows = {}
+
+    # --- joint forward ----------------------------------------------------
+    lpb, lpe = tf.rnnt_joint_fwd(*joint, blank)
+    ref_b, ref_e = tf.rnnt_joint_fwd_plain(*joint, blank)
+    err = max(compare(torch, lpb, ref_b, TOL["rnnt_lp"], "rnnt_joint_fwd lp_blank"),
+              compare(torch, lpe, ref_e, TOL["rnnt_lp"], "rnnt_joint_fwd lp_emit"))
+    w_cut = c["w"].clone()
+    w_cut[-1] = 0
+    fault_b, _ = tf.rnnt_joint_fwd_plain(c["enc"], c["pred"], w_cut, *joint[3:], blank)
+    fault = fault_reading(fault_b, ref_b, TOL["rnnt_lp"], "rnnt_joint_fwd lp_blank")
+    del fault_b, lpb, lpe
+    tensor_ops = 2 * nodes * Jq * Vq
+    sfu = nodes * (Jq + Vq + 1)  # tanh, exp, log
+    in_bytes = 2 * (Bq * Tq * Jq + Bq * U1 * Jq + Jq * Vq) + 4 * (Vq + Bq * Uq + 2 * Bq)
+    lp_bytes = 4 * Tq * Bq * U1
+    b_ms, by = bound(in_bytes + 2 * lp_bytes, tensor_ops, PEAK_BF16, (sfu, PEAK_SFU))
+
+    # library yardstick (partial): the materialized joint, tanh + matmul +
+    # log-softmax over every node of [B, T', U+1]
+    encf, predf, wf, bf_ = c["enc"], c["pred"], c["w"], c["b"]
+
+    def lib_joint():
+        h = torch.tanh(encf[:, :, None, :] + predf[:, None, :, :])
+        return torch.log_softmax(torch.matmul(h, wf).float() + bf_, dim=-1)
+
+    rows["rnnt_joint_fwd"] = {
+        "shape": [Bq, Tq, U1, Jq, Vq], "dtype": "bf16", "nodes": nodes, "max_abs_err": err,
+        "tol": TOL["rnnt_lp"], "fault_max_abs_err": fault,
+        "ms": timed(lambda: tf.rnnt_joint_fwd(*joint, blank), reps),
+        "plain_ms": timed(lambda: tf.rnnt_joint_fwd_plain(*joint, blank), min(reps, 2)),
+        "library_ms": timed(lib_joint, min(reps, 5)),
+        "library": "partial: the materialized joint, torch.tanh + torch.matmul + "
+                   "log_softmax over [B, T', U+1, V]",
+        "bound_ms": b_ms, "bound_by": by,
+    }
+    emit({"phase": "kernels", "kernel": "rnnt_joint_fwd", **rows["rnnt_joint_fwd"]})
+
+    # --- alpha --------------------------------------------------------------
+    alphas, ll = tf.rnnt_alpha(ref_b, ref_e, *lens)
+    ref_a, ref_ll = tf.rnnt_alpha_plain(ref_b, ref_e, *lens)
+    check(float(ll[3]) == tf.NEG, f"rnnt_alpha: empty lane ll {float(ll[3])}")
+    lanes_ok = (torch.arange(U1, device="cuda")[None, None, :]
+                <= c["tlen"][None, :, None]).expand(Tq, Bq, U1)
+    err = compare(torch, ll, ref_ll, TOL["rnnt_ll"], "rnnt_alpha ll")
+    a_err = compare(torch, alphas[lanes_ok], ref_a[lanes_ok], TOL["rnnt_ll"],
+                    "rnnt_alpha alphas")
+    _, fault_ll = rnnt_emit_dropped(tf)(ref_b, ref_e, *lens)
+    fault = fault_reading(fault_ll, ref_ll, TOL["rnnt_ll"], "rnnt_alpha ll")
+    rows_bytes = 4 * Tq * Bq * U1
+    # per node: a sum, a logaddexp (exp + log1p) and a few f32 operations
+    b_ms, by = bound(3 * rows_bytes + 4 * 3 * Bq, nodes * 8, PEAK_F32, (nodes * 2, PEAK_SFU))
+
+    # --- beta -------------------------------------------------------------------
+    g = torch.ones(Bq, device="cuda")
+    gb, ge = tf.rnnt_beta(ref_b, ref_e, ref_a, ref_ll, g, *lens)
+    ref_gb, ref_ge = tf.rnnt_beta_plain(ref_b, ref_e, ref_a, ref_ll, g, *lens)
+    b_err = max(compare(torch, gb, ref_gb, TOL["rnnt_occ"], "rnnt_beta gb"),
+                compare(torch, ge, ref_ge, TOL["rnnt_occ"], "rnnt_beta ge"))
+    fault_gb, _ = rnnt_beta_read_early(torch, tf)(ref_b, ref_e, ref_a, ref_ll, g, *lens)
+    b_fault = fault_reading(fault_gb, ref_gb, TOL["rnnt_occ"], "rnnt_beta gb")
+    del fault_gb, gb, ge
+    # per node: the alpha walk's work plus two occupancies (an exp each)
+    bb_ms, bb_by = bound(5 * rows_bytes + 4 * 4 * Bq, nodes * 14, PEAK_F32,
+                         (nodes * 4, PEAK_SFU))
+
+    # library yardstick: torchaudio's RNN-T loss on the materialized f32
+    # lattice (forward, and forward + backward minus forward), where it
+    # imports; logit lengths of 0 raised to 1 for it
+    lib_a = lib_b = None
+    library = "torchaudio not importable on this machine"
+    try:
+        from torchaudio.functional import rnnt_loss
+    except Exception as e:  # noqa: BLE001 (a yardstick only: any import failure)
+        library = f"torchaudio.functional.rnnt_loss not importable ({type(e).__name__})"
+    else:
+        with torch.no_grad():
+            lat = (torch.matmul(torch.tanh(encf[:, :, None, :] + predf[:, None, :, :]), wf)
+                   .float() + bf_)
+        lat_g = lat.detach().requires_grad_(True)
+        ta_args = (c["targets"], torch.clamp(c["llen"], min=1), c["tlen"])
+
+        def ta_fwd():
+            with torch.no_grad():
+                return rnnt_loss(lat, *ta_args, blank=blank, reduction="sum")
+
+        def ta_fwd_bwd():
+            rnnt_loss(lat_g, *ta_args, blank=blank, reduction="sum").backward()
+
+        lib_a = timed(ta_fwd, reps)
+        lib_fb = timed(ta_fwd_bwd, reps)
+        lib_b = None if lib_a is None else lib_fb - lib_a
+        library = "torchaudio.functional.rnnt_loss on the materialized f32 lattice"
+        del lat, lat_g
+    rows["rnnt_alpha"] = {
+        "shape": [Tq, Bq, U1], "dtype": "f32", "max_abs_err": err, "alphas_max_abs_err": a_err,
+        "tol": TOL["rnnt_ll"], "fault_max_abs_err": fault,
+        "ms": timed(lambda: tf.rnnt_alpha(ref_b, ref_e, *lens), reps),
+        "plain_ms": timed(lambda: tf.rnnt_alpha_plain(ref_b, ref_e, *lens), min(reps, 2)),
+        "library_ms": lib_a, "library": library + " (forward)",
+        "bound_ms": b_ms, "bound_by": by,
+    }
+    emit({"phase": "kernels", "kernel": "rnnt_alpha", **rows["rnnt_alpha"]})
+    rows["rnnt_beta"] = {
+        "shape": [Tq, Bq, U1], "dtype": "f32", "max_abs_err": b_err, "tol": TOL["rnnt_occ"],
+        "fault_max_abs_err": b_fault,
+        "ms": timed(lambda: tf.rnnt_beta(ref_b, ref_e, ref_a, ref_ll, g, *lens), reps),
+        "plain_ms": timed(lambda: tf.rnnt_beta_plain(ref_b, ref_e, ref_a, ref_ll, g, *lens),
+                          min(reps, 2)),
+        "library_ms": lib_b, "library": library + " (backward: forward + backward minus "
+                                                  "forward)",
+        "bound_ms": bb_ms, "bound_by": bb_by,
+    }
+    emit({"phase": "kernels", "kernel": "rnnt_beta", **rows["rnnt_beta"]})
+
+    # --- joint backward -------------------------------------------------------
+    bwd_args = (*joint, ref_gb, ref_ge, blank)
+    got = tf.rnnt_joint_bwd(*bwd_args)
+    ref = tf.rnnt_joint_bwd_plain(*bwd_args)
+    errs = {n: compare(torch, a, r, TOL["rnnt_grad"], f"rnnt_joint_bwd {n}")
+            for n, a, r in zip(("denc", "dpred", "dw", "db"), got, ref)}
+    again = tf.rnnt_joint_bwd(*bwd_args)
+    check(all(torch.equal(a, r) for a, r in zip(got, again)),
+          "rnnt_joint_bwd: two runs differ (the reduction order must be fixed)")
+    fault = fault_reading(rnnt_last_frame_out_of_dpred(torch, tf)(*bwd_args)[1], ref[1],
+                          TOL["rnnt_grad"], "rnnt_joint_bwd dpred")
+    del got, again
+    grad_bytes = 4 * (Bq * Tq * Jq + Bq * U1 * Jq + Jq * Vq + Vq)
+    # three products of the joint's size, its tanh and softmax again, and
+    # per node and joint unit the derivative, dx and its two sums
+    jb_ms, jb_by = bound(in_bytes + 2 * lp_bytes + grad_bytes, 3 * tensor_ops, PEAK_BF16,
+                         (sfu, PEAK_SFU), (nodes * Jq * 4, PEAK_F32))
+    # library yardstick (partial): the materialized joint's backward
+    # through autograd, for a given dlogits (forward + backward minus
+    # forward)
+    e_g = encf.detach().requires_grad_(True)
+    p_g = predf.detach().requires_grad_(True)
+    w_g = wf.detach().requires_grad_(True)
+    dl = torch.randn((Bq, Tq, U1, Vq), device="cuda", dtype=torch.bfloat16)
+
+    def lib_bwd():
+        h = torch.tanh(e_g[:, :, None, :] + p_g[:, None, :, :])
+        torch.matmul(h, w_g).backward(dl)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return torch.matmul(torch.tanh(e_g[:, :, None, :] + p_g[:, None, :, :]), w_g)
+
+    lib_fb = timed(lib_bwd, min(reps, 5))
+    lib_f = timed(lib_fwd, min(reps, 5))
+    rows["rnnt_joint_bwd"] = {
+        "shape": [Bq, Tq, U1, Jq, Vq], "dtype": "bf16", "nodes": nodes,
+        "max_abs_err": max(errs.values()), "errs": errs, "tol": TOL["rnnt_grad"],
+        "ref_max_abs": {n: float(r.abs().max()) for n, r in zip(("denc", "dpred", "dw", "db"),
+                                                                   ref)},
+        "fault_max_abs_err": fault,
+        "ms": timed(lambda: tf.rnnt_joint_bwd(*bwd_args), reps),
+        "plain_ms": timed(lambda: tf.rnnt_joint_bwd_plain(*bwd_args), min(reps, 2)),
+        "library_ms": None if lib_f is None else lib_fb - lib_f,
+        "library": "partial: the materialized joint's backward through autograd "
+                   "(tanh + matmul, forward + backward minus forward)",
+        "bound_ms": jb_ms, "bound_by": jb_by,
+    }
+    emit({"phase": "kernels", "kernel": "rnnt_joint_bwd", **rows["rnnt_joint_bwd"]})
+    del ref, e_g, p_g, w_g, dl
+
+    # --- the loss's forward + backward: its extra peak device memory --------
+    leaves = [t.detach().requires_grad_(True) for t in (c["enc"], c["pred"], c["w"], c["b"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    nll = tf.transducer_loss_fused(*leaves, c["llen"], c["targets"], c["tlen"])
+    nll.sum().backward()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    check(extra < 100e6, f"rnnt loss: {extra} bytes of extra peak memory (limit 100 MB)")
+    check(bool(torch.isfinite(nll).all()), "rnnt loss: non-finite nll")
+    emit({"phase": "kernels", "kernel": "rnnt_loss", "extra_peak_bytes": extra,
+          "limit_bytes": 100e6, "materialized_h_bytes": 2 * Bq * Tq * U1 * Jq,
+          "fwd_bwd_ms": timed(lambda: tf.transducer_loss_fused(
+              *leaves, c["llen"], c["targets"], c["tlen"]).sum().backward(), reps)})
     return rows
 
 
@@ -1099,6 +1448,113 @@ def phase_serve(torch, smi: str) -> dict:
     return {"launches": launches, "batches": batches}
 
 
+def phase_serve_rnnt(torch, smi: str) -> dict:
+    """A full-width rnnt_char_wsj artifact (seeded random weights) serves
+    64 synthesized utterances of 1-15 s through ``serving.serve`` at batch
+    32 with the recipe's transducer_beam recognizer (width 8). The serving
+    kernels must run and no loss kernel; one batch's n-best on the card
+    must equal the same search on the CPU over the same encoder output,
+    both in float64."""
+    from nabu_tpu_torch.data import audio_io
+    from nabu_tpu_torch.ops import kernels
+    from nabu_tpu_torch.serving import load_exported, serve
+
+    rng = np.random.default_rng(7)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rnnt_") as tmp:
+        art = os.path.join(tmp, "export")
+        manifest = write_artifact(art, seed=8, recipe=RNNT_RECIPE)
+        lines, audio_seconds = [], 0.0
+        for i, seconds in enumerate(np.sort(rng.uniform(1.0, 15.0, 64))):
+            sig = synth_utterance(rng, float(seconds))
+            path = os.path.join(tmp, f"utt{i:03d}.wav")
+            audio_io.write_wav(path, sig, 16000)
+            audio_seconds += len(sig) / 16000.0
+            lines.append(f"utt{i:03d} {path}")
+        model = load_exported(art, batch_size=B)
+        rec = model.recognizer
+        check(model.device.type == "cuda", "serve_rnnt: model not on the card")
+        check(type(rec).__name__ == "TransducerBeamRecognizer" and rec.beam_width == 8,
+              f"serve_rnnt: recognizer {type(rec).__name__}")
+        requests = os.path.join(tmp, "requests.scp")
+        with open(requests, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        out = io.StringIO()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with open(requests) as in_stream:
+            served = serve(art, in_stream=in_stream, out_stream=out, batch_size=B, model=model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        texts = out.getvalue().splitlines()
+        check(served == 64 and len(texts) == 64,
+              f"serve_rnnt: {served} served, {len(texts)} lines")
+        alphabet = set(model.text_proc.alphabet) | {" "}
+        for line, want in zip(texts, lines):
+            utt = want.split()[0]
+            check(line.split(" ", 1)[0] == utt, f"serve_rnnt: line {line!r} is not for {utt}")
+            check(set(line[len(utt):].replace("<space>", " ")) <= alphabet,
+                  f"serve_rnnt: unexpected symbols in {line!r}")
+        for name in SERVE_KERNELS:
+            check(launches[name] > 0, f"serve_rnnt: kernel {name} never launched")
+        for name in kernels.KERNELS:
+            if name not in SERVE_KERNELS:
+                check(launches[name] == 0,
+                      f"serve_rnnt: {launches[name]} launches of {name} while serving")
+        nonempty = sum(1 for t in texts if t.split(" ", 1)[1:] and t.split(" ", 1)[1].strip())
+        emit({"phase": "serve_rnnt", "utterances": served, "audio_seconds": audio_seconds,
+              "wall_seconds": wall, "rtf": wall / audio_seconds,
+              "utterances_per_second": served / wall, "launches": launches,
+              "nonempty_hypotheses": nonempty, "batch_size": B, "beam_width": rec.beam_width,
+              "card": smi, "manifest": manifest})
+
+        # one batch (the 32 shortest): the search on the card against the
+        # same search on the CPU over the same encoder output, in float64
+        # (weights and encoder output upcast): in bf16 or f32 each device
+        # rounds its matmuls and sums in its own order, and the beam's
+        # top-8 cut over 240 candidates then reorders near-tied
+        # hypotheses (the bf16 agreement is read and reported too)
+        sigs = [audio_io.load_audio(line.split()[1])[0] for line in lines[:B]]
+        feats, flens = model.device_fe.batch_features(sigs, 16000.0, B, model.T_BUCKET)
+        encoded, enc_lengths, head = rec._encode(model.params, feats, flens)
+
+        def to(tree, device, dtype):
+            return {k: {n: v.to(device, dtype) for n, v in p.items()} for k, p in tree.items()}
+
+        def agreement(a, c):
+            same = sum(
+                int(np.array_equal(a.lengths[b], c.lengths[b]) and all(
+                    np.array_equal(a.ids[b, n, : c.lengths[b, n]], c.ids[b, n, : c.lengths[b, n]])
+                    for n in range(c.ids.shape[1])))
+                for b in range(B))
+            return same, float(np.abs(a.scores - c.scores).max())
+
+        bf16 = agreement(rec.nbest_of(*rec.search(head, encoded, enc_lengths)),
+                         rec.nbest_of(*rec.search(to(head, "cpu", torch.bfloat16),
+                                                  encoded.cpu(), enc_lengths.cpu())))
+        dt = torch.float64
+        t0 = time.perf_counter()
+        card = rec.nbest_of(*rec.search(to(head, encoded.device, dt), encoded.to(dt),
+                                        enc_lengths))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = rec.nbest_of(*rec.search(to(head, "cpu", dt), encoded.to("cpu", dt),
+                                        enc_lengths.cpu()))
+        t2 = time.perf_counter()
+        same, score_err = agreement(card, host)
+        emit({"phase": "serve_rnnt_check", "nbest_identical": same, "batch": B,
+              "nbest": int(host.ids.shape[1]), "score_max_abs_err": score_err,
+              "score_tol": TOL["rnnt_scores"], "dtype": "float64",
+              "bf16_nbest_identical": bf16[0], "bf16_score_max_abs_err": bf16[1],
+              "frames": int(encoded.shape[1]), "card_search_s": t1 - t0,
+              "cpu_search_s": t2 - t1})
+        check(same == B, f"serve_rnnt: card and CPU n-best differ on {B - same}/{B}")
+        check(score_err <= TOL["rnnt_scores"],
+              f"serve_rnnt: n-best scores differ by {score_err}")
+    return {"launches": launches}
+
+
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
@@ -1134,14 +1590,14 @@ def synth_corpus(root: str, rng, num_utts: int, alphabet, rate: int = 16000):
     return scp_path, text_path, total
 
 
-def write_train_recipe(out_dir: str, train, dev) -> str:
-    """The dblstm_ctc_wsj recipe with its datafiles pointed at the
-    synthesized corpus and TRAIN_STEPS steps; nothing else changed."""
+def write_train_recipe(recipe: str, out_dir: str, train, dev) -> str:
+    """A recipe with its datafiles pointed at the synthesized corpus and
+    TRAIN_STEPS steps; nothing else changed."""
     from nabu_tpu_torch.config import ConfigFile
 
     os.makedirs(out_dir, exist_ok=True)
-    for fname in os.listdir(RECIPE):
-        with open(os.path.join(RECIPE, fname)) as f:
+    for fname in os.listdir(recipe):
+        with open(os.path.join(recipe, fname)) as f:
             text = f.read()
         with open(os.path.join(out_dir, fname), "w") as f:
             f.write(text)
@@ -1159,7 +1615,8 @@ def write_train_recipe(out_dir: str, train, dev) -> str:
 @contextlib.contextmanager
 def step_timers(torch, record: dict):
     """Synchronized host timers around the trainer's step phases:
-    forward (Model.apply_train), forward + loss (Trainer._loss), backward
+    forward (Model.apply_train; inside it a transducer head's prediction
+    net, TransducerDecoder._pred_sequence), forward + loss (Trainer._loss), backward
     (Trainer._backward) and optimizer (Trainer._apply_grads), and the
     synchronized clock at each step's end (``step_end``: the window
     between two such readings holds everything the loop does, loader,
@@ -1167,6 +1624,7 @@ def step_timers(torch, record: dict):
     and audio frames, the trainer, the model, the live parameters and the
     longest batch."""
     from nabu_tpu_torch.models.model import Model
+    from nabu_tpu_torch.models.transducer import TransducerDecoder
     from nabu_tpu_torch.training.trainer import Trainer
 
     def timed(name, fn):
@@ -1181,7 +1639,8 @@ def step_timers(torch, record: dict):
 
     saved = {(Model, "apply_train"): Model.apply_train, (Trainer, "_loss"): Trainer._loss,
              (Trainer, "_backward"): Trainer._backward,
-             (Trainer, "_apply_grads"): Trainer._apply_grads}
+             (Trainer, "_apply_grads"): Trainer._apply_grads,
+             (TransducerDecoder, "_pred_sequence"): TransducerDecoder._pred_sequence}
     fwd = timed("forward", saved[(Model, "apply_train")])
     loss = timed("forward_loss", saved[(Trainer, "_loss")])
 
@@ -1210,6 +1669,8 @@ def step_timers(torch, record: dict):
         return out
 
     Model.apply_train = apply_train
+    TransducerDecoder._pred_sequence = timed("pred_net", saved[(TransducerDecoder,
+                                                               "_pred_sequence")])
     Trainer._loss = _loss
     Trainer._backward = timed("backward", saved[(Trainer, "_backward")])
     Trainer._apply_grads = _apply_grads
@@ -1220,15 +1681,18 @@ def step_timers(torch, record: dict):
             setattr(cls, name, fn)
 
 
-def gradient_check(torch, trainer, params, batch):
+def gradient_check(torch, trainer, params, batch, phase: str):
     """One full-width batch, dropout off: loss and every parameter
     gradient through the kernels against the same step through the plain
-    versions, and through two planted faults: the bw direction's dx left
-    out of the sum (which the tolerance must reject) and the backward
-    chain's barrier not waiting (every dgates exchange one step stale,
-    reported). Per parameter the reading is ||kernel - plain|| /
-    ||plain||."""
+    versions, and through planted faults, of which the tolerance must
+    reject the phase's own: for the CTC recipe the bw direction's dx left
+    out of the sum over directions (and, reported, the backward chain's
+    barrier not waiting: every dgates exchange one step stale); for the
+    RNN-T recipe each lane's last frame left out of the prediction
+    projection's gradient. Per parameter the reading is
+    ||kernel - plain|| / ||plain||."""
     from nabu_tpu_torch.ops import blstm as bo
+    from nabu_tpu_torch.ops import transducer_fused as tf
     from nabu_tpu_torch.params import flatten, unflatten
 
     flat = {k: v.detach() for k, v in flatten(params).items()}
@@ -1248,59 +1712,88 @@ def gradient_check(torch, trainer, params, batch):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
 
-    def fw_dx_only(dg, wx):
-        dx = bo.blstm_bwd_dx_plain(dg, wx)
-        dx[1] = 0
-        return dx
-
-    with plain_versions(blstm_bwd_dx=fw_dx_only):
-        _, grads_f = loss_and_grads()
-    hidden = flat["encoder/layer_0/fw/wh"].shape[0]
-    with plain_versions(blstm_bwd_recur=faulty_chain(torch, stale_units=hidden)):
-        _, grads_s = loss_and_grads()
-
     def rel(grads):
         return {k: float(torch.linalg.vector_norm((grads[k] - grads_p[k]).float())
                          / torch.linalg.vector_norm(grads_p[k].float()).clamp(min=1e-30))
                 for k in grads_p}
 
-    rel_k, rel_f, rel_s = rel(grads_k), rel(grads_f), rel(grads_s)
+    readings = {}
+    if phase == "train":
+        def fw_dx_only(dg, wx):
+            dx = bo.blstm_bwd_dx_plain(dg, wx)
+            dx[1] = 0
+            return dx
+
+        with plain_versions(blstm_bwd_dx=fw_dx_only):
+            _, grads_f = loss_and_grads()
+        hidden = flat["encoder/layer_0/fw/wh"].shape[0]
+        with plain_versions(blstm_bwd_recur=faulty_chain(torch, stale_units=hidden)):
+            _, grads_s = loss_and_grads()
+        readings["stale_exchange_grads_max_rel_err"] = max(rel(grads_s).values())
+    else:
+        with plain_versions(rnnt_joint_bwd=rnnt_last_frame_out_of_dpred(torch, tf)):
+            _, grads_f = loss_and_grads()
+
+    rel_k, rel_f = rel(grads_k), rel(grads_f)
     for k, g in grads_k.items():
-        check(bool(torch.isfinite(g).all()), f"train gradient {k}: non-finite")
-    loss_err = compare(torch, loss_k, loss_p, TOL["train_loss"], "train batch loss")
+        check(bool(torch.isfinite(g).all()), f"{phase} gradient {k}: non-finite")
+    loss_err = compare(torch, loss_k, loss_p, TOL["train_loss"], f"{phase} batch loss")
     worst = max(rel_k.values())
     fault = max(rel_f.values())
     if worst > TOL["train_grads"]:
-        FAILURES.append(f"train gradients: max relative error {worst} beyond "
+        FAILURES.append(f"{phase} gradients: max relative error {worst} beyond "
                         f"{TOL['train_grads']}")
     if not fault > TOL["train_grads"]:
-        FAILURES.append(f"train gradients: a planted fault ({fault}) passes "
+        FAILURES.append(f"{phase} gradients: a planted fault ({fault}) passes "
                         f"{TOL['train_grads']}")
     return {
         "batch_shape": list(batch["features"].shape), "loss_kernels": float(loss_k),
         "loss_plain": float(loss_p), "loss_max_abs_err": loss_err,
         "loss_tol": TOL["train_loss"], "grads_max_rel_err": worst,
         "grads_rel_err": rel_k, "grads_tol": TOL["train_grads"],
-        "fault_grads_max_rel_err": fault,
-        "stale_exchange_grads_max_rel_err": max(rel_s.values()),
+        "fault_grads_max_rel_err": fault, **readings,
         "kernel_step_s": t1 - t0, "plain_step_s": t2 - t1,
     }
 
 
-def phase_train(torch, smi: str) -> dict:
-    from nabu_tpu_torch import cli
+def synth_training_corpus(root: str) -> dict:
+    """The training phases' corpus: TRAIN_UTTS utterances to train on, 32
+    for dev and test, in the recipes' alphabet."""
     from nabu_tpu_torch.config import ConfigFile
-    from nabu_tpu_torch.ops import kernels
-    from nabu_tpu_torch.params import load_npz
 
     rng = np.random.default_rng(5)
     alphabet = ConfigFile.read(os.path.join(RECIPE, "database.conf")).section(
         "traintargets").getlist("alphabet")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        t0 = time.perf_counter()
-        train = synth_corpus(os.path.join(tmp, "train"), rng, TRAIN_UTTS, alphabet)
-        dev = synth_corpus(os.path.join(tmp, "dev"), rng, 32, alphabet)
-        recipe = write_train_recipe(os.path.join(tmp, "recipe"), train[:2], dev[:2])
+    t0 = time.perf_counter()
+    train = synth_corpus(os.path.join(root, "train"), rng, TRAIN_UTTS, alphabet)
+    dev = synth_corpus(os.path.join(root, "dev"), rng, 32, alphabet)
+    return {"train": train, "dev": dev, "seconds": time.perf_counter() - t0}
+
+
+def head_outputs(torch, model, params, batch):
+    """Every head's outputs on a batch, dropout off, as a flat list."""
+    with torch.no_grad():
+        out = model.apply_train(params, batch["features"], batch["feature_lengths"],
+                                batch["targets"], batch["target_lengths"], train=False)
+    flat = []
+    for logits, lengths in out.values():
+        flat += list(logits.values()) if isinstance(logits, dict) else [logits]
+        flat.append(lengths)
+    return flat
+
+
+def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
+    """``cli data`` + ``cli train`` of a recipe (TRAIN_RECIPES[phase]) on
+    the synthesized corpus, then its checks."""
+    from nabu_tpu_torch import cli
+    from nabu_tpu_torch.ops import kernels
+    from nabu_tpu_torch.params import load_npz
+
+    train, dev = corpus["train"], corpus["dev"]
+    per_step = STEP_LAUNCHES[phase]
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as tmp:
+        recipe = write_train_recipe(TRAIN_RECIPES[phase], os.path.join(tmp, "recipe"),
+                                    train[:2], dev[:2])
         expdir = os.path.join(tmp, "exp")
         t1 = time.perf_counter()
         with contextlib.redirect_stdout(sys.stderr):
@@ -1328,41 +1821,45 @@ def phase_train(torch, smi: str) -> dict:
             "backward": record["backward"], "optimizer": record["optimizer"],
         }
         step_s = [sum(v[i] for v in phases.values()) for i in range(steps)]
+        pred_net = record.get("pred_net", [0.0] * steps)
         for i in range(steps):
-            emit({"phase": "train_step", "step": i + 1, "loss": losses[i],
-                  "ms": {k: 1e3 * v[i] for k, v in phases.items()}})
+            emit({"phase": f"{phase}_step", "step": i + 1, "loss": losses[i],
+                  "ms": {k: 1e3 * v[i] for k, v in phases.items()},
+                  "pred_net_ms": 1e3 * pred_net[i]})
         median_ms = {k: 1e3 * float(np.median(v[1:])) for k, v in phases.items()}
         audio_s = sum(record["frames"][1:]) * 0.01
         # steps 2..N end to end: from step 1's synchronized end to step N's
         ends = record["step_end"]
         window = ends[-1] - ends[0]
-        check(steps == TRAIN_STEPS, f"train: {steps} steps, want {TRAIN_STEPS}")
-        check(all(math.isfinite(v) for v in losses), "train: a non-finite loss")
+        check(steps == TRAIN_STEPS, f"{phase}: {steps} steps, want {TRAIN_STEPS}")
+        check(all(math.isfinite(v) for v in losses), f"{phase}: a non-finite loss")
         first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-        check(last < first, f"train: loss not falling ({first} -> {last})")
+        check(last < first, f"{phase}: loss not falling ({first} -> {last})")
         for name in kernels.KERNELS:
-            want = steps * TRAIN_STEP_LAUNCHES.get(name, 0)
+            want = steps * per_step.get(name, 0)
             check(launches[name] == want,
-                  f"train: {launches[name]} launches of {name}, want {want}")
+                  f"{phase}: {launches[name]} launches of {name}, want {want}")
         check(os.path.exists(os.path.join(expdir, "logs", "train_complete.json")),
-              "train: no train_complete.json")
+              f"{phase}: no train_complete.json")
 
-        # latest/ reloads into parameters that give the same logits
+        # latest/ reloads into parameters that give the same outputs
         model, params, batch = record["model"], record["params"], record["batch"]
         loaded = load_npz(os.path.join(expdir, "checkpoints", "latest", "params.npz"),
                           device=batch["features"].device)
-        feats, lens = batch["features"], batch["feature_lengths"]
-        live = model.apply(params, feats, lens)["decoder"][0]
-        again = model.apply(loaded, feats, lens)["decoder"][0]
-        check(torch.equal(live, again), "train: latest/ gives other logits")
+        live = head_outputs(torch, model, params, batch)
+        again = head_outputs(torch, model, loaded, batch)
+        check(all(torch.equal(a, c) for a, c in zip(live, again)),
+              f"{phase}: latest/ gives other outputs")
 
-        grad = gradient_check(torch, record["trainer"], params, batch)
+        grad = gradient_check(torch, record["trainer"], params, batch, phase)
         result = {
-            "phase": "train", "steps": steps, "utterances": TRAIN_UTTS,
-            "corpus_audio_seconds": train[2], "synth_seconds": t1 - t0,
+            "phase": phase, "recipe": os.path.relpath(TRAIN_RECIPES[phase], REPO),
+            "steps": steps, "utterances": TRAIN_UTTS,
+            "corpus_audio_seconds": train[2], "synth_seconds": corpus["seconds"],
             "data_seconds": t2 - t1, "train_wall_seconds": wall,
             "loss_first5_mean": first, "loss_last5_mean": last,
             "median_step_ms": median_ms,
+            "median_pred_net_ms": 1e3 * float(np.median(pred_net[1:])),
             "median_step_total_ms": 1e3 * float(np.median(step_s[1:])),
             "first_step_ms": 1e3 * step_s[0],
             "median_step_wall_ms": 1e3 * float(np.median(np.diff(ends))),
@@ -1370,10 +1867,10 @@ def phase_train(torch, smi: str) -> dict:
             "train_audio_seconds_per_second": audio_s / window,
             "phases_audio_seconds_per_second": audio_s / sum(step_s[1:]),
             "peak_device_memory_bytes": peak, "launches": launches,
-            "per_step_launches": TRAIN_STEP_LAUNCHES, "card": smi,
+            "per_step_launches": per_step, "card": smi,
         }
         emit(result)
-        emit({"phase": "train_check", **grad})
+        emit({"phase": f"{phase}_check", **grad})
     return result
 
 
@@ -1405,9 +1902,16 @@ def main(argv=None) -> int:
         return 0
     served = phase_serve(torch, smi)
     t3 = time.perf_counter()
-    trained = phase_train(torch, smi)
+    served_rnnt = phase_serve_rnnt(torch, smi)
+    t4 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as corpus_dir:
+        corpus = synth_training_corpus(corpus_dir)
+        trained = phase_train(torch, smi, "train", corpus)
+        t5 = time.perf_counter()
+        trained_rnnt = phase_train(torch, smi, "train_rnnt", corpus)
     emit({"phase": "seconds", "build_device": t1 - t0, "kernels": t2 - t1,
-          "serve": t3 - t2, "train": time.perf_counter() - t3})
+          "serve": t3 - t2, "serve_rnnt": t4 - t3, "train": t5 - t4,
+          "train_rnnt": time.perf_counter() - t5, "total": time.perf_counter() - t0})
     raise_failures()
 
     kernels_line = []
@@ -1420,12 +1924,17 @@ def main(argv=None) -> int:
                       ("blstm_bwd_dwx", ("blstm_bwd_dwx", "bf16", 2 * H)),
                       ("blstm_bwd_dwh", ("blstm_bwd_dwh", "bf16")),
                       ("ctc_alpha", "ctc_alpha"),
-                      ("ctc_beta", "ctc_beta")):
+                      ("ctc_beta", "ctc_beta"),
+                      ("rnnt_joint_fwd", "rnnt_joint_fwd"),
+                      ("rnnt_alpha", "rnnt_alpha"),
+                      ("rnnt_beta", "rnnt_beta"),
+                      ("rnnt_joint_bwd", "rnnt_joint_bwd")):
         r = rows[key]
         kernels_line.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name],
-            "launches": served["launches"][name] + trained["launches"][name],
+            "launches": sum(run["launches"][name]
+                            for run in (served, served_rnnt, trained, trained_rnnt)),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

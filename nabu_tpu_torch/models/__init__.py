@@ -4,4 +4,5 @@ tensors."""
 
 from nabu_tpu_torch.models import encoders as _encoders  # noqa: F401 (registers)
 from nabu_tpu_torch.models import decoders as _decoders  # noqa: F401 (registers)
+from nabu_tpu_torch.models import transducer as _transducer  # noqa: F401 (registers)
 from nabu_tpu_torch.models.model import Model, build_model  # noqa: F401

@@ -1,5 +1,5 @@
-"""Core neural building blocks: initializers, Linear, dropout, LSTM cell,
-masked LSTM scan, BLSTM.
+"""Core neural building blocks: initializers, Linear, embedding, dropout,
+LSTM cell, masked LSTM scan, BLSTM, pyramid stack.
 
 Port of the JAX package's ``models/core.py``. Initializers draw from an
 explicit ``torch.Generator`` (the JAX package's ``jax.random`` keys give
@@ -41,6 +41,11 @@ def linear_init(generator: torch.Generator, in_dim: int, out_dim: int) -> Params
     }
 
 
+def embedding_init(generator: torch.Generator, vocab: int, dim: int) -> Params:
+    return {"table": torch.randn((vocab, dim), generator=generator,
+                                 device=generator.device) * 0.02}
+
+
 def lstm_init(generator: torch.Generator, in_dim: int, hidden: int) -> Params:
     """One LSTM direction. Gate order along the 4H axis: i, f, g, o. (The
     layer-norm variant has no init here: it is not on a ported path.)"""
@@ -74,6 +79,10 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
 
 def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"] + p["b"]
+
+
+def embedding_apply(p: Params, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids.to(device=p["table"].device, dtype=torch.int64)]
 
 
 def lstm_cell(
@@ -190,3 +199,23 @@ def blstm_apply_tm(
         return blstm_tm_apply(p, x_tm, lengths)
     y = blstm_apply(p, x_tm.transpose(0, 1), lengths, "scan")
     return y.transpose(0, 1)
+
+
+# -- pyramid stack ---------------------------------------------------------
+
+def pyramid_stack(x: torch.Tensor, lengths: torch.Tensor):
+    """Concatenate adjacent frame pairs: [B, T, D] -> [B, ceil(T/2), 2D]
+    (a zero frame appended for odd T); new lengths ceil(len / 2)."""
+    B, T, D = x.shape
+    if T % 2:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 1))
+        T += 1
+    return x.reshape(B, T // 2, 2 * D), (lengths + 1) // 2
+
+
+def pyramid_stack_tm(x_tm: torch.Tensor, lengths: torch.Tensor):
+    """Time-major pyramid stack: [T, B, D] -> [ceil(T/2), B, 2D],
+    concatenating frames (2t, 2t+1) exactly like ``pyramid_stack``."""
+    if x_tm.shape[0] % 2:
+        x_tm = torch.nn.functional.pad(x_tm, (0, 0, 0, 0, 0, 1))
+    return torch.cat([x_tm[0::2], x_tm[1::2]], dim=-1), (lengths + 1) // 2

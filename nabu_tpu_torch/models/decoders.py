@@ -2,8 +2,10 @@
 
 Port of ``LinearCTC`` of the JAX package's ``models/decoders.py``: a
 per-frame projection of the encoder output to ``num_labels + 1``
-logits with blank = ``num_labels`` (last index). The attention,
-transformer and transducer heads are not ported yet.
+logits with blank = ``num_labels`` (last index). The transducer head is
+in ``models.transducer`` (registered as ``rnnt`` / ``transducer`` when the
+package is imported); the attention and transformer heads are not ported
+yet.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Encoders: DBLSTM.
+"""Encoders: DBLSTM and the pyramidal Listener.
 
-Port of the ``DBLSTM`` of the JAX package's ``models/encoders.py``.
+Port of the ``DBLSTM`` and ``Listener`` of the JAX package's
+``models/encoders.py``.
 Each encoder maps ``(features [B, T, F], lengths) -> (encoded [B, T', D],
 lengths')`` and is selected by the ``[encoder]`` config section. The
 other encoders of the JAX package are not ported yet.
@@ -89,6 +90,57 @@ class DBLSTM(Encoder):
             else:
                 x = core.lstm_scan(params[f"layer_{i}"], x, lengths)
             x = drop(x)
+        return x, lengths
+
+
+@ENCODERS.register("listener")
+class Listener(Encoder):
+    """Pyramidal BLSTM stack, the LAS "Listen" encoder: a bottom BLSTM,
+    then ``num_layers`` BLSTM layers each after a pyramid stack that halves
+    the time resolution (time / 2^num_layers), parameters ``bottom`` and
+    ``pyramid_{i}``. On a CUDA device the stack runs the CUDA BLSTM
+    kernels, time-major end to end, whatever ``use_pallas`` says; the
+    scan mirrors the JAX package's ``use_pallas = false`` path for CPU
+    tensors only. ``remat`` only trades memory for recomputation in JAX
+    and is not read. With ``train`` and ``dropout`` > 0, dropout follows
+    every layer, the last one included."""
+
+    def __init__(self, conf: Conf, input_dim: int):
+        super().__init__(conf, input_dim)
+        self.num_layers = conf.getint("num_layers", 3)
+        self.num_units = conf.getint("num_units", 256)
+        self.dropout = conf.getfloat("dropout", 0.0)
+        self.impl = "kernel" if conf.getbool("use_pallas", False) else "scan"
+        self.layer_norm = conf.getbool("layer_norm", False)
+        self.output_dim = 2 * self.num_units
+
+    def init(self, generator) -> dict:
+        if self.layer_norm:
+            raise NotImplementedError("layer-norm LSTM init is not ported yet")
+        params = {"bottom": core.blstm_init(generator, self.input_dim, self.num_units)}
+        for i in range(self.num_layers):
+            # pyramid-stacked pairs of the 2U outputs
+            params[f"pyramid_{i}"] = core.blstm_init(generator, 4 * self.num_units,
+                                                     self.num_units)
+        return params
+
+    def apply(self, params, features, lengths, train=False, generator=None):
+        def drop(x):
+            return core.dropout(x, self.dropout, train, generator)
+
+        impl = "kernel" if features.is_cuda else self.impl
+        if impl == "kernel":
+            # time-major end to end: one transpose in, one out
+            x = drop(core.blstm_apply_tm(params["bottom"], features.transpose(0, 1), lengths,
+                                         impl))
+            for i in range(self.num_layers):
+                x, lengths = core.pyramid_stack_tm(x, lengths)
+                x = drop(core.blstm_apply_tm(params[f"pyramid_{i}"], x, lengths, impl))
+            return x.transpose(0, 1), lengths
+        x = drop(core.blstm_apply(params["bottom"], features, lengths))
+        for i in range(self.num_layers):
+            x, lengths = core.pyramid_stack(x, lengths)
+            x = drop(core.blstm_apply(params[f"pyramid_{i}"], x, lengths))
         return x, lengths
 
 

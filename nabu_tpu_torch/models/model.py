@@ -87,8 +87,9 @@ class Model:
         generator: Optional[torch.Generator] = None,
         heads: Optional[Tuple[str, ...]] = None,
     ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
-        """Returns {head name: (logits f32, logit_lengths)}, with gradients
-        to the parameters; ``heads`` restricts which decoder heads run."""
+        """Returns {head name: (logits, logit_lengths)}, with gradients to
+        the parameters (logits f32, but for a transducer head's projection
+        dict or lattice); ``heads`` restricts which decoder heads run."""
         encoded, enc_lengths = self.encode(
             params, features, feature_lengths, train=train, generator=generator)
         outputs = {}
@@ -100,7 +101,14 @@ class Model:
                 targets=targets, target_lengths=target_lengths, train=train,
                 generator=generator,
             )
-            outputs[name] = (logits.to(torch.float32), logit_lengths)
+            # losses and decoding run in f32, except a dict (the transducer
+            # head's projection handle for the fused kernels) and a 4-D
+            # transducer lattice, which stays in the compute dtype (its
+            # loss upcasts inside the log-softmax; a cast here would add an
+            # f32 copy of the largest tensor of the step)
+            if not isinstance(logits, dict) and logits.dim() < 4:
+                logits = logits.to(torch.float32)
+            outputs[name] = (logits, logit_lengths)
         return outputs
 
     @torch.no_grad()

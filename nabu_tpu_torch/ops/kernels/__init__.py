@@ -21,6 +21,10 @@ KERNELS = (
     "blstm_bwd_dwh",
     "ctc_alpha",
     "ctc_beta",
+    "rnnt_joint_fwd",
+    "rnnt_alpha",
+    "rnnt_beta",
+    "rnnt_joint_bwd",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

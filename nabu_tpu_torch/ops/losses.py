@@ -1,9 +1,9 @@
-"""Loss computers: CTC, and the weighted multi-head combination.
+"""Loss computers: CTC, RNN-T, and the weighted multi-head combination.
 
 Port of the JAX package's ``ops/losses.py``. Every loss masks padding by
 sequence length and fill examples by ``example_mask``; the CTC loss
-reduces to a mean over real, feasible examples. The cross-entropy and
-transducer losses are registered but not ported yet.
+reduces to a mean over real, feasible examples, the transducer loss over
+real examples. The cross-entropy loss is registered but not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import torch
 
 from nabu_tpu_torch.ops import ctc as ctc_ops
 from nabu_tpu_torch.ops.ctc_batched import ctc_loss_batched
+from nabu_tpu_torch.ops.transducer import transducer_loss
+from nabu_tpu_torch.ops.transducer_fused import transducer_loss_fused
 from nabu_tpu_torch.registry import LOSSES
 
 
@@ -51,13 +53,45 @@ def ctc_loss_fn(
     }
 
 
+@LOSSES.register("transducer")
+@LOSSES.register("rnnt")
+def transducer_loss_fn(
+    logits,  # [B, T, U+1, V+1] lattice, or the head's projection dict
+    logit_lengths: torch.Tensor,  # [B] valid encoder frames
+    targets: torch.Tensor,  # [B, U]
+    target_lengths: torch.Tensor,
+    example_mask: torch.Tensor,
+    label_smoothing: float = 0.0,
+    blank_id: int | None = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean per-example RNN-T negative log likelihood. A dict (the
+    transducer head's projection handle, always on CUDA) goes through the
+    fused joint+loss kernels (``ops.transducer_fused``; their plain
+    versions for CPU tensors); a materialized lattice (the CPU path with
+    ``use_pallas = false``) through ``ops.transducer.transducer_loss``."""
+    del label_smoothing  # not applicable to the transducer
+    if isinstance(logits, dict):
+        nll = transducer_loss_fused(
+            logits["enc_proj"], logits["pred_proj"], logits["w_out"], logits["b_out"],
+            logit_lengths, targets, target_lengths, blank_id,
+        )
+    else:
+        nll = transducer_loss(logits, logit_lengths, targets, target_lengths, blank_id)
+    denom = torch.clamp(example_mask.sum(), min=1.0)
+    loss = torch.sum(nll * example_mask) / denom
+    frames = torch.clamp(torch.sum(logit_lengths * example_mask), min=1.0)
+    return loss, {
+        "transducer_nll_per_frame": torch.sum(nll * example_mask).detach() / frames
+    }
+
+
 def _not_ported(name):
     def loss(*args, **kwargs):
         raise NotImplementedError(f"loss {name!r} not ported yet")
     return loss
 
 
-for _name in ("cross_entropy", "ce", "transducer", "rnnt"):
+for _name in ("cross_entropy", "ce"):
     LOSSES.register(_name)(_not_ported(_name))
 
 

@@ -170,7 +170,7 @@ class TestModel:
 
     def test_unported_components_raise(self, tmp_path):
         path = tmp_path / "model.cfg"
-        path.write_text("[encoder]\nencoder = listener\n[decoder]\ndecoder = linear_ctc\n")
+        path.write_text("[encoder]\nencoder = transformer\n[decoder]\ndecoder = linear_ctc\n")
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_model(ConfigFile.read(str(path)), 6, 3)
         path.write_text("[encoder]\nencoder = dblstm\n[decoder]\ndecoder = speller\n")

@@ -9,12 +9,15 @@ PyTorch is installed:
 (``--noconftest``: the suite's conftest configures JAX). Small shapes,
 including ones off the kernels' fast paths: H and D not multiples of 8,
 S = 2L + 1 larger than a block's threads, logit length 1, label length
-0, an infeasible CTC example. Each kernel is held to its plain version
-for values, and the layer and the CTC loss on the card to the same
-through the plain versions on the CPU for gradients. Tolerances as in
+0, an infeasible CTC example; for the RNN-T kernels U + 1 over one
+32-row tile, T over one 16-frame block, target lengths 0 and a logit
+length 0. Each kernel is held to its plain version for values, and the
+layer and the CTC and RNN-T losses on the card to the same through the
+plain versions on the CPU for gradients. Tolerances as in
 ``chip_smoke.py``: log-mel and BLSTM f32 1e-4; BLSTM bf16 one rounding
 step of the carried h or dgates, propagated (stated per test); CTC f32
-1e-5.
+1e-5; RNN-T log-probs 1e-4, log-likelihood 1e-3, occupancies 1e-4,
+joint gradients 1e-3 + 1e-3 |x|.
 """
 
 import io
@@ -30,6 +33,7 @@ from nabu_tpu_torch.features import torch_frontend as tf
 from nabu_tpu_torch.ops import blstm as blstm_ops
 from nabu_tpu_torch.ops import kernels
 from nabu_tpu_torch.ops import stft_mel as stft_ops
+from nabu_tpu_torch.ops import transducer_fused as rnnt_ops
 
 
 @pytest.fixture
@@ -419,3 +423,180 @@ def test_serving_on_card_matches_cpu(cuda_device, tmp_path):
     assert all(counts[name] > 0 for name in ("stft_mel", "blstm_proj", "blstm_recur")), counts
     got = [line.split(" ", 1)[1] if " " in line else "" for line in out.getvalue().splitlines()]
     assert got == want
+
+
+def _rnnt_inputs(rng, device, B, T, U, J, V):
+    """bf16 projections, ragged lengths: the first lane full, a target
+    length 0, a logit length 0 (its lattice is empty)."""
+    tl = rng.integers(1, T + 1, B)
+    ul = rng.integers(0, U + 1, B)
+    tl[0], ul[0], ul[1], tl[2] = T, U, 0, 0
+
+    def f(a, dtype=torch.float32):
+        return torch.as_tensor(a.astype(np.float32)).to(device, dtype)
+
+    return (f(0.5 * rng.standard_normal((B, T, J)), torch.bfloat16),
+            f(0.5 * rng.standard_normal((B, U + 1, J)), torch.bfloat16),
+            f(0.3 * rng.standard_normal((J, V)), torch.bfloat16),
+            f(0.1 * rng.standard_normal(V)),
+            torch.as_tensor(rng.integers(0, V - 1, (B, U)), dtype=torch.int32, device=device),
+            torch.as_tensor(ul, dtype=torch.int32, device=device),
+            torch.as_tensor(tl, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("B,T,U,J,V", [(4, 9, 5, 16, 6), (5, 37, 40, 48, 29)])
+def test_rnnt_kernels_match_plain(cuda_device, B, T, U, J, V):
+    """Each RNN-T kernel against its plain version on the same inputs, and
+    each planted fault of chip_smoke.py rejected by the tolerance: the
+    last of the J products dropped (joint forward), the emit term dropped
+    from the prefix (alpha), the blank occupancy read with beta[t] (beta),
+    each lane's last frame left out of d_pred_proj (joint backward). The
+    joint backward repeats bit for bit (fixed-order sums)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(B * T)
+    joint = _rnnt_inputs(rng, cuda_device, B, T, U, J, V)
+    lens = (joint[6], joint[5])
+    blank = V - 1
+    before = kernels.launch_counts()
+    lpb, lpe = rnnt_ops.rnnt_joint_fwd(*joint, blank)
+    rb, re = rnnt_ops.rnnt_joint_fwd_plain(*joint, blank)
+    alphas, ll = rnnt_ops.rnnt_alpha(rb, re, *lens)
+    ra, rll = rnnt_ops.rnnt_alpha_plain(rb, re, *lens)
+    g = torch.linspace(0.5, 1.5, B, device=cuda_device)
+    gb, ge = rnnt_ops.rnnt_beta(rb, re, ra, rll, g, *lens)
+    rgb, rge = rnnt_ops.rnnt_beta_plain(rb, re, ra, rll, g, *lens)
+    bwd = (*joint, rgb, rge, blank)
+    grads = rnnt_ops.rnnt_joint_bwd(*bwd)
+    again = rnnt_ops.rnnt_joint_bwd(*bwd)
+    ref = rnnt_ops.rnnt_joint_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert [after[n] - before[n] for n in
+            ("rnnt_joint_fwd", "rnnt_alpha", "rnnt_beta", "rnnt_joint_bwd")] == [1, 1, 1, 2]
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    assert float(ll[2]) == rnnt_ops.NEG  # the empty lattice
+    lane_ok = torch.arange(U + 1, device=cuda_device)[None, None, :] <= joint[5][None, :, None]
+    lane_ok = lane_ok.expand(T, B, U + 1)
+    checks = {"lp_blank": (lpb, rb), "lp_emit": (lpe, re), "ll": (ll, rll),
+              "alphas": (alphas[lane_ok], ra[lane_ok]), "gb": (gb, rgb), "ge": (ge, rge),
+              **{n: (a, r) for n, a, r in zip(("denc", "dpred", "dw", "db"), grads, ref)}}
+    w_cut = joint[2].clone()
+    w_cut[-1] = 0
+    faults = {
+        "lp_blank": (rnnt_ops.rnnt_joint_fwd_plain(joint[0], joint[1], w_cut, *joint[3:],
+                                                   blank)[0], rb),
+        "ll": (chip_smoke.rnnt_emit_dropped(rnnt_ops)(rb, re, *lens)[1], rll),
+        "gb": (chip_smoke.rnnt_beta_read_early(torch, rnnt_ops)(rb, re, ra, rll, g, *lens)[0],
+               rgb),
+        "dpred": (chip_smoke.rnnt_last_frame_out_of_dpred(torch, rnnt_ops)(*bwd)[1], ref[1]),
+    }
+
+    def tol(name, r):
+        if name in ("lp_blank", "lp_emit"):
+            return 1e-4 + 1e-5 * np.abs(r)
+        if name in ("ll", "alphas"):
+            return 1e-3 + 1e-5 * np.abs(r)
+        if name in ("gb", "ge"):
+            return 1e-4
+        return 1e-3 + 1e-3 * np.abs(r)
+
+    over, sound = _readings(checks, tol)
+    over_f, fault = _readings(faults, tol)
+    passed = sorted(set(faults) - set(over_f))
+    assert not over and not passed, {"beyond tolerance": over, "faults passing": passed,
+                                     "sound": sound, "fault": fault}
+
+
+def test_rnnt_loss_gradient_on_card_matches_cpu(cuda_device):
+    """transducer_loss_fused through the kernels on the card against the
+    same through the plain versions on the CPU: nll and the four
+    gradients, in the inputs' dtypes."""
+    rng = np.random.default_rng(11)
+    args = _rnnt_inputs(rng, torch.device("cpu"), 4, 21, 35, 32, 29)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        x = [a.to(dev).requires_grad_(True) for a in args[:4]]
+        nll = rnnt_ops.transducer_loss_fused(*x, args[6].to(dev), args[4].to(dev),
+                                             args[5].to(dev))
+        (nll * torch.arange(1, 5, device=dev)).sum().backward()
+        out.append([nll.detach().cpu()] + [a.grad.cpu() for a in x])
+        assert [a.grad.dtype for a in x] == [a.dtype for a in args[:4]]
+    assert float(out[0][0][2]) == -rnnt_ops.NEG and float(out[0][1][2].abs().max()) == 0.0
+    for name, a, c in zip(("nll", "denc", "dpred", "dw", "db"), *out):
+        a, c = a.float().numpy(), c.float().numpy()
+        np.testing.assert_allclose(a, c, rtol=1e-3, atol=1e-3 * max(1.0, np.abs(c).max()),
+                                   err_msg=name)
+
+
+def test_rnnt_never_takes_a_plain_version_on_card(cuda_device, monkeypatch):
+    """The no-fallback rule: with every plain version of the RNN-T kernels
+    made to raise, the loss and its gradient on CUDA tensors still run
+    (through the kernels); shapes beyond the kernels' design raise."""
+    for name in ("rnnt_joint_fwd", "rnnt_alpha", "rnnt_beta", "rnnt_joint_bwd"):
+        def refuse(*a, _name=name, **k):
+            raise AssertionError(f"{_name}: plain version taken on the card")
+        monkeypatch.setattr(rnnt_ops, f"{name}_plain", refuse)
+    rng = np.random.default_rng(12)
+    enc, pred, w, b, tg, ul, tl = _rnnt_inputs(rng, cuda_device, 3, 8, 4, 16, 5)
+    x = [a.requires_grad_(True) for a in (enc, pred, w, b)]
+    before = kernels.launch_counts()
+    rnnt_ops.transducer_loss_fused(*x, tl, tg, ul).sum().backward()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert all(counts[n] == before[n] + 1 for n in
+               ("rnnt_joint_fwd", "rnnt_alpha", "rnnt_beta", "rnnt_joint_bwd"))
+    with pytest.raises(ValueError, match="beyond the kernel's design"):
+        rnnt_ops.rnnt_joint_fwd(enc, pred, torch.zeros((16, 33), dtype=torch.bfloat16,
+                                                       device=cuda_device),
+                                torch.zeros(33, device=cuda_device), tg, ul, tl, 32)
+    with pytest.raises(TypeError):  # the joint kernels take bf16 operands only
+        rnnt_ops.rnnt_joint_fwd(enc.float(), pred, w, b, tg, ul, tl, 4)
+
+
+def test_rnnt_model_trains_through_the_kernels_on_card(cuda_device, tmp_path):
+    """A tiny Listener + transducer model on the card, use_pallas off in
+    both sections: the Listener still runs the BLSTM kernels and the head
+    hands the fused kernels its projections (no lattice on the card); the
+    loss and every gradient are finite and match the CPU's scan encoder
+    and fused plain path (the head switched to it: the same bf16 joint)."""
+    from nabu_tpu_torch.config import ConfigFile
+    from nabu_tpu_torch.models.model import build_model
+    from nabu_tpu_torch.ops.losses import make_loss_computer
+    from nabu_tpu_torch.params import flatten, unflatten
+
+    path = tmp_path / "model.cfg"
+    path.write_text("[model]\ncompute_dtype = float32\n[encoder]\nencoder = listener\n"
+                    "num_layers = 2\nnum_units = 12\n[decoder]\ndecoder = rnnt\n"
+                    "num_units = 10\nembed_dim = 6\njoint_units = 16\n")
+    model = build_model(ConfigFile.read(str(path)), 6, 4)
+    init = flatten(model.init(torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(9)
+    batch = {
+        "features": torch.as_tensor(rng.standard_normal((3, 29, 6)).astype(np.float32)),
+        "feature_lengths": torch.as_tensor([29, 17, 6], dtype=torch.int32),
+        "targets": torch.as_tensor(rng.integers(0, 4, (3, 5)), dtype=torch.int32),
+        "target_lengths": torch.as_tensor([5, 2, 0], dtype=torch.int32),
+        "example_mask": torch.ones(3),
+    }
+    loss_fn = make_loss_computer(model)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model.decoders["decoder"].use_pallas = dev.type == "cpu"
+        flat = {k: v.to(dev).requires_grad_(True) for k, v in init.items()}
+        kernels.reset_launch_counts()
+        loss, _ = loss_fn(unflatten(flat), {k: v.to(dev) for k, v in batch.items()}, None,
+                          False)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        counts = kernels.launch_counts()
+        out[dev.type] = (float(loss), [g.cpu() for g in grads], counts)
+    loss_c, grads_c, counts = out["cuda"]
+    assert all(counts[n] > 0 for n in ("blstm_proj", "blstm_recur_train", "blstm_bwd_recur",
+                                       "rnnt_joint_fwd", "rnnt_alpha", "rnnt_beta",
+                                       "rnnt_joint_bwd")), counts
+    assert sum(out["cpu"][2].values()) == 0
+    np.testing.assert_allclose(loss_c, out["cpu"][0], rtol=1e-3)
+    for name, a, c in zip(init, grads_c, out["cpu"][1]):
+        assert bool(torch.isfinite(a).all()), name
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-2,
+                                   atol=1e-2 * max(1e-6, float(c.abs().max())), err_msg=name)
