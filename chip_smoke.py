@@ -47,12 +47,32 @@ Phases, each printing JSON lines:
 7. train_rnnt — the same corpus through ``cli data`` and ``cli train``
               with the rnnt_char_wsj recipe (40 steps, the same checks;
               the step split shows the prediction net's share of the
-              forward).
+              forward, which runs through the LSTM kernels);
+8. serve_stream — a full-width rnnt_streaming_wsj artifact (4x320
+              forward-only LSTM encoder, the 1x320 transducer head, bf16,
+              seeded random weights) serves 64 utterances through
+              ``serving.serve`` with the recipe's transducer_streaming
+              recognizer at batch 32 (chunks of 32 frames): only the
+              frontend and LSTM forward kernels may run; the same batches
+              through transducer_greedy must give identical ids (scores
+              within 1e-4); per-chunk ``feed`` latency at batch 1;
+              ``serve(streaming=True)`` PARTIAL / FINAL lines, the FINAL
+              texts against the batch-32 offline texts (bf16 reported, f32
+              required);
+9. train_rnnt_stream — ``cli train`` of the rnnt_streaming_wsj recipe
+              on the same corpus (40 steps, the same checks; 5 LSTM walks,
+              chains and dwh a step). Its database.conf has train_rnnt's
+              sections, so it takes a copy of the data train_rnnt's ``cli
+              data`` prepared (checked section by section).
 
 The kernels phase also holds the four RNN-T kernels (joint forward,
 alpha, beta, joint backward) to their plain versions at B = 32, T' = 250,
-U = 120, J = 320, V = 29 and checks that the loss's forward plus backward
-adds under 100 MB of device memory.
+U = 120, J = 320, V = 29, checks that the loss's forward plus backward
+adds under 100 MB of device memory there and under 400 MB at the
+streaming recipe's T' = 1000 (no subsampling), and holds the LSTM
+kernels (projection, walk with a carry, training walk, chain, dwh) to
+their plain versions at the encoder's T = 1024 and the prediction net's
+T = 121, B = 32, H = 320.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -79,6 +99,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 RECIPE = os.path.join(REPO, "config", "recipes", "dblstm_ctc_wsj")
 RNNT_RECIPE = os.path.join(REPO, "config", "recipes", "rnnt_char_wsj")
+STREAM_RECIPE = os.path.join(REPO, "config", "recipes", "rnnt_streaming_wsj")
 
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and
 # f32 non-tensor FLOP/s
@@ -129,6 +150,19 @@ W, K = 400, 256
 #   dx left out of the sum over directions. The chain's stale exchange is
 #   read too but not required to fail here: its trace in the gradients is
 #   below the bf16 noise (PERF.md); the chain check above is its guard
+# - lstm_proj: as blstm_proj
+# - lstm_fwd, lstm_fwd_train: the walk is f32 on both sides (the same
+#   bf16 or f32 inputs), so only the f32 sums' order differs; the masked
+#   h is written in the input type, where such a difference may move a
+#   bf16 output by one rounding step (0.0039 at |h| < 1); the final carry
+#   and the f32 stores (gates, c, h) stay tight; faults: 8 units read h
+#   one step late, the carry not held past a length (final carry)
+# - lstm_bwd_recur: f32 dgates from the same residuals (sums in another
+#   order); fault: the dgates of 8 units read one step stale
+# - lstm_bwd_dwh: f32 sums over T x B tokens in another order; fault: the
+#   last token's term dropped
+# - stream_scores: streamed and offline greedy scores, the same bits
+#   expected (identical arithmetic per frame)
 TOL = {
     "stft_mel": (1e-4, 0.0),
     ("blstm_proj", "bf16"): (1e-2, 1e-2),
@@ -156,7 +190,21 @@ TOL = {
     "logits_bf16": (0.03, 0.0),
     "train_loss": (1e-2, 1e-3),
     "train_grads": 0.02,
+    ("lstm_proj", "bf16"): (1e-2, 1e-2),
+    ("lstm_proj", "f32"): (1e-4, 1e-5),
+    ("lstm_fwd", "bf16"): (1e-2, 0.0),
+    ("lstm_fwd", "f32"): (1e-4, 0.0),
+    "lstm_carry": (1e-4, 0.0),
+    "lstm_stores": (1e-4, 1e-5),
+    "lstm_bwd_recur": (1e-4, 1e-4),
+    "lstm_bwd_dwh": (1e-3, 1e-4),
+    "stream_scores": 1e-4,
 }
+# the RNN-T loss's extra peak device memory: 100 MB at T' = 250 (the
+# Listener's time / 4); every buffer of the loss is per frame, so the limit
+# scales with T': 400 MB at the streaming recipe's T' = 1000 (a
+# materialized joint's h alone would be 2.5 GB there)
+RNNT_LOSS_LIMIT = {250: 100e6, 1000: 400e6}
 
 _BLSTM_FWD = "nabu_tpu/ops/pallas/blstm.py:867"
 _BLSTM_BWD = "nabu_tpu/ops/pallas/blstm.py:952"
@@ -175,27 +223,42 @@ TPU_KERNELS = {
     "rnnt_alpha": "nabu_tpu/ops/pallas/transducer.py:124",
     "rnnt_beta": "nabu_tpu/ops/pallas/transducer.py:193",
     "rnnt_joint_bwd": "nabu_tpu/ops/pallas/transducer.py:193",
+    # lstm_scan_pallas's x @ wx + b, outside the Pallas kernel (XLA)
+    "lstm_proj": "nabu_tpu/ops/pallas/lstm.py:292",
+    "lstm_fwd": "nabu_tpu/ops/pallas/lstm.py:173",
+    "lstm_fwd_train": "nabu_tpu/ops/pallas/lstm.py:173",
+    "lstm_bwd_recur": "nabu_tpu/ops/pallas/lstm.py:213",
+    "lstm_bwd_dwh": "nabu_tpu/ops/pallas/lstm.py:213",
 }
 SOURCES = {name: "nabu_tpu_torch/ops/kernels/csrc/blstm.cu" for name in TPU_KERNELS}
 SOURCES["stft_mel"] = "nabu_tpu_torch/ops/kernels/csrc/stft_mel.cu"
 SOURCES["ctc_alpha"] = SOURCES["ctc_beta"] = "nabu_tpu_torch/ops/kernels/csrc/ctc.cu"
 for _name in ("rnnt_joint_fwd", "rnnt_alpha", "rnnt_beta", "rnnt_joint_bwd"):
     SOURCES[_name] = "nabu_tpu_torch/ops/kernels/csrc/transducer.cu"
+for _name in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd_recur"):
+    SOURCES[_name] = "nabu_tpu_torch/ops/kernels/csrc/lstm.cu"
 
 # the kernels each path launches, and per training step of each training
 # phase: the 4-layer DBLSTM-CTC recipe (layer 0's input, the features,
-# needs no gradient: no dx there), and the RNN-T recipe's Listener of 3
-# BLSTM layers plus one of each RNN-T kernel
+# needs no gradient: no dx there), the RNN-T recipe's Listener of 3 BLSTM
+# layers plus the prediction net's LSTM walk, chain and dwh and one of each
+# RNN-T kernel, and the streaming recipe's 4 forward-only layers plus the
+# prediction net (5 walks, chains and dwh; the training projections are
+# autograd matmuls, as XLA's in JAX)
 SERVE_KERNELS = ("stft_mel", "blstm_proj", "blstm_recur")
+STREAM_SERVE_KERNELS = ("stft_mel", "lstm_proj", "lstm_fwd")
+_RNNT_STEP = {"rnnt_joint_fwd": 1, "rnnt_alpha": 1, "rnnt_beta": 1, "rnnt_joint_bwd": 1}
 STEP_LAUNCHES = {
     "train": {"blstm_proj": 4, "blstm_recur_train": 4, "blstm_bwd_recur": 4,
               "blstm_bwd_dx": 3, "blstm_bwd_dwx": 4, "blstm_bwd_dwh": 4, "ctc_alpha": 1,
               "ctc_beta": 1},
     "train_rnnt": {"blstm_proj": 3, "blstm_recur_train": 3, "blstm_bwd_recur": 3,
                    "blstm_bwd_dx": 2, "blstm_bwd_dwx": 3, "blstm_bwd_dwh": 3,
-                   "rnnt_joint_fwd": 1, "rnnt_alpha": 1, "rnnt_beta": 1, "rnnt_joint_bwd": 1},
+                   "lstm_fwd_train": 1, "lstm_bwd_recur": 1, "lstm_bwd_dwh": 1, **_RNNT_STEP},
+    "train_rnnt_stream": {"lstm_fwd_train": 5, "lstm_bwd_recur": 5, "lstm_bwd_dwh": 5,
+                          **_RNNT_STEP},
 }
-TRAIN_RECIPES = {"train": RECIPE, "train_rnnt": RNNT_RECIPE}
+TRAIN_RECIPES = {"train": RECIPE, "train_rnnt": RNNT_RECIPE, "train_rnnt_stream": STREAM_RECIPE}
 TRAIN_STEPS = 40
 TRAIN_UTTS = 512
 
@@ -291,6 +354,11 @@ _WRAPPERS = {
     "rnnt_alpha": ("transducer_fused", "rnnt_alpha"),
     "rnnt_beta": ("transducer_fused", "rnnt_beta"),
     "rnnt_joint_bwd": ("transducer_fused", "rnnt_joint_bwd"),
+    "lstm_proj": ("lstm", "lstm_proj"),
+    "lstm_fwd": ("lstm", "lstm_fwd"),
+    "lstm_fwd_train": ("lstm", "lstm_fwd_train"),
+    "lstm_bwd_recur": ("lstm", "lstm_bwd_recur"),
+    "lstm_bwd_dwh": ("lstm", "lstm_bwd_dwh"),
 }
 
 
@@ -521,6 +589,118 @@ def rnnt_last_frame_out_of_dpred(torch, tf):
     return bwd
 
 
+def _unit_cols(torch, H, units, device):
+    """The 4 gate columns of the first ``units`` hidden units."""
+    return torch.cat([torch.arange(g * H, g * H + units) for g in range(4)]).to(device)
+
+
+def lstm_stale_walk(torch, units: int = 8):
+    """Planted walk fault: the gates of the first ``units`` hidden units
+    read h one step late (h_{t-2}), as the block owning them would after
+    passing the step barrier before the others' h was visible. Otherwise
+    ``lstm_fwd_plain``'s arithmetic and signature."""
+    def walk(xw, lengths, wh, h0=None, c0=None, forget_bias: float = 1.0):
+        T, B, H4 = xw.shape
+        H = H4 // 4
+        f32 = torch.float32
+        dev = xw.device
+        cols = _unit_cols(torch, H, units, dev)
+        whf = wh.to(f32)
+        h = torch.zeros((B, H), dtype=f32, device=dev) if h0 is None else h0.to(f32)
+        c = torch.zeros((B, H), dtype=f32, device=dev) if c0 is None else c0.to(f32)
+        h_late = h
+        mask = (torch.arange(T, device=dev)[:, None] < lengths.to(dev)[None, :])[..., None]
+        y = torch.zeros((T, B, H), dtype=xw.dtype, device=dev)
+        for t in range(T):
+            z = xw[t].to(f32) + h @ whf
+            z[:, cols] = xw[t][:, cols].to(f32) + h_late @ whf[:, cols]
+            gi = torch.sigmoid(z[:, :H])
+            gf = torch.sigmoid(z[:, H: 2 * H] + forget_bias)
+            gg = torch.tanh(z[:, 2 * H: 3 * H])
+            go = torch.sigmoid(z[:, 3 * H:])
+            c_new = gf * c + gi * gg
+            h_new = go * torch.tanh(c_new)
+            m = mask[t]
+            h_late = h
+            h = torch.where(m, h_new, h)
+            c = torch.where(m, c_new, c)
+            y[t] = torch.where(m, h_new, 0.0).to(xw.dtype)
+        return y, (h, c)
+    return walk
+
+
+def lstm_carry_not_held(torch):
+    """Planted walk fault: the carry is not held past each lane's length,
+    only the output is masked, so the final carry a stream hands to its
+    next chunk is the padding's."""
+    from nabu_tpu_torch.ops.lstm import lstm_fwd_plain
+
+    def walk(xw, lengths, wh, h0=None, c0=None, forget_bias: float = 1.0):
+        T = xw.shape[0]
+        y, carry = lstm_fwd_plain(xw, torch.full_like(lengths, T), wh, h0, c0, forget_bias)
+        keep = torch.arange(T, device=xw.device)[:, None] < lengths.to(xw.device)[None, :]
+        return y * keep[..., None].to(y.dtype), carry
+    return walk
+
+
+def lstm_faulty_chain(torch, stale_units: int = 8):
+    """Planted chain fault (otherwise ``lstm_bwd_recur_plain``'s
+    arithmetic): dh_prev reads the dgates of the first ``stale_units``
+    hidden units one step stale, as a block would after passing the step
+    barrier before the block owning them had published."""
+    def chain(gates, c, gy, lengths, wh, forget_bias: float = 1.0):
+        T, B, H4 = gates.shape
+        H = H4 // 4
+        f32 = torch.float32
+        dev = gates.device
+        cols = _unit_cols(torch, H, stale_units, dev)
+        wh_now = wh.to(f32).clone()
+        wh_now[:, cols] = 0
+        wh_late = torch.zeros_like(wh_now)
+        wh_late[:, cols] = wh[:, cols].to(f32)
+        mask = (torch.arange(T, device=dev)[:, None]
+                < lengths.to(dev)[None, :]).to(f32)[..., None]
+        dxw = torch.zeros((T, B, H4), dtype=f32, device=dev)
+        zeros = torch.zeros((B, H), dtype=f32, device=dev)
+        dh, dc = zeros, zeros
+        prev = torch.zeros((B, H4), dtype=f32, device=dev)
+        for t in range(T - 1, -1, -1):
+            c_prev = c[t - 1] if t > 0 else zeros
+            m = mask[t]
+            keep = m > 0.5
+            z = gates[t]
+            gi = torch.sigmoid(z[:, :H])
+            gf = torch.sigmoid(z[:, H: 2 * H] + forget_bias)
+            gg = torch.tanh(z[:, 2 * H: 3 * H])
+            go = torch.sigmoid(z[:, 3 * H:])
+            tanh_c = torch.tanh(c[t])
+            dh_total = gy[t].to(f32) * m + dh
+            dh_new = torch.where(keep, dh_total, 0.0)
+            dc_new = torch.where(keep, dc, 0.0) + dh_new * go * (1.0 - tanh_c * tanh_c)
+            dgates = torch.cat([dc_new * gg * gi * (1.0 - gi),
+                                dc_new * c_prev * gf * (1.0 - gf),
+                                dc_new * gi * (1.0 - gg * gg),
+                                dh_new * tanh_c * go * (1.0 - go)], dim=-1)
+            dxw[t] = dgates
+            dh = dgates @ wh_now.t() + prev @ wh_late.t() + torch.where(keep, 0.0, dh_total)
+            prev = dgates
+            dc = dc_new * gf + torch.where(keep, 0.0, dc)
+        return dxw
+    return chain
+
+
+def lstm_dwh_h_late(torch):
+    """Planted dwh fault: each step's dgates paired with h two steps back
+    instead of one (an off-by-one in the row offset of h_prev)."""
+    from nabu_tpu_torch.ops.lstm import lstm_bwd_dwh_plain
+
+    def dwh(hs, dxw):
+        late = torch.zeros_like(hs)
+        late[1:] = hs[:-1]
+        return lstm_bwd_dwh_plain(late, dxw)
+    return dwh
+
+
 # ---------------------------------------------------------------------------
 # synthesized audio and weights (numpy, seeded)
 # ---------------------------------------------------------------------------
@@ -607,7 +787,7 @@ def write_artifact(out_dir: str, seed: int, recipe: str = RECIPE) -> dict:
     from nabu_tpu_torch.features.computers import make_feature_computer
 
     input_dim = make_feature_computer(sections["features"]).dim
-    if enc.get("encoder") == "dblstm":
+    if enc.get("encoder") == "dblstm" and enc.getbool("bidirectional", True):
         flat = recipe_params(
             np.random.default_rng(seed), input_dim, enc.getint("num_layers"),
             enc.getint("num_units"), len(alphabet),
@@ -797,7 +977,212 @@ def phase_kernels(torch, quick: bool) -> dict:
                                          packed, timed, reps))
     rows.update(ctc_rows(torch, timed, reps))
     rows.update(rnnt_rows(torch, timed, reps))
+    rows.update(lstm_rows(torch, timed, reps))
     torch.cuda.synchronize()
+    return rows
+
+
+def lstm_rows(torch, timed, reps) -> dict:
+    """The unidirectional LSTM kernels at B = 32, H = 320 and the
+    streaming encoder's T = 1024 (lstm_proj at D = 320, the layers past
+    the first) and the prediction net's T = U + 1 = 121, bf16 and f32,
+    ragged lengths: the walk with an initial carry (output and final
+    carry), the training walk (output and f32 stores), the chain on the
+    plain walk's residuals, dwh; each against its plain version with a
+    planted fault; kernel / plain / library times and the bound."""
+    from nabu_tpu_torch.ops import lstm as lo
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    H4 = 4 * H
+    rows = {}
+
+    def u(shape, dtype, scale=1.0):
+        return torch.as_tensor(rng.uniform(-scale, scale, shape).astype(np.float32),
+                               device=dev).to(dtype)
+
+    for case, Tq in (("encoder", T), ("pred", 121)):
+        lengths = rng.integers(max(2, Tq // 8), Tq + 1, B).astype(np.int32)
+        lengths[0] = Tq
+        lens = torch.as_tensor(lengths, device=dev)
+        valid = int(lengths.sum())
+        M = Tq * B
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            es = 2 if tag == "bf16" else 4
+            key = f"{tag} {case}"
+            xw = u((Tq, B, H4), dtype)
+            wh = torch.as_tensor(glorot(rng, (H, H4)), device=dev).to(dtype)
+            h0 = u((B, H), torch.float32, 0.5)
+            c0 = u((B, H), torch.float32, 0.5)
+            # library yardstick: a unidirectional cuDNN nn.LSTM layer of
+            # width H on the packed [T, B, H] input, timed only (no forget
+            # bias, no masking beyond the packing, projection included)
+            lstm = torch.nn.LSTM(H, H).to(dev, dtype)
+            x_lib = u((Tq, B, H), dtype)
+            packed = torch.nn.utils.rnn.pack_padded_sequence(
+                x_lib, torch.as_tensor(lengths), enforce_sorted=False)
+            data_g = packed.data.detach().requires_grad_(True)
+            packed_g = torch.nn.utils.rnn.PackedSequence(
+                data_g, packed.batch_sizes, packed.sorted_indices, packed.unsorted_indices)
+            g_lib = torch.ones((data_g.shape[0], H), device=dev, dtype=dtype)
+
+            def lib_infer():
+                with torch.no_grad():
+                    return lstm(packed)[0].data
+
+            def lib_fwd():
+                return lstm(packed_g)[0].data
+
+            def lib_fwd_bwd():
+                lib_fwd().backward(g_lib)
+
+            lib_i = timed(lib_infer, reps)
+            lib_f = timed(lib_fwd, reps)
+            lib_fb = timed(lib_fwd_bwd, reps)
+            del data_g
+
+            # --- the walk with an initial carry -----------------------------
+            tol = TOL[("lstm_fwd", tag)]
+            y, (hT, cT) = lo.lstm_fwd(xw, lens, wh, h0, c0)
+            ry, (rh, rc) = lo.lstm_fwd_plain(xw, lens, wh, h0, c0)
+            err = compare(torch, y, ry, tol, f"lstm_fwd {key}")
+            carry_err = max(compare(torch, hT, rh, TOL["lstm_carry"], f"lstm_fwd {key} h"),
+                            compare(torch, cT, rc, TOL["lstm_carry"], f"lstm_fwd {key} c"))
+            fault = fault_reading(lstm_stale_walk(torch)(xw, lens, wh, h0, c0)[0], ry, tol,
+                                  f"lstm_fwd {key}")
+            carry_fault = fault_reading(lstm_carry_not_held(torch)(xw, lens, wh, h0, c0)[1][1],
+                                        rc, TOL["lstm_carry"], f"lstm_fwd {key} final c")
+            walk_ops = 2 * valid * H * H4 + 12 * valid * H
+            b_ms, b_by = bound(es * (valid * H4 + H * H4 + M * H) + 4 * (B + 4 * B * H),
+                               walk_ops, PEAK_F32)
+            row = {
+                "shape": [Tq, B, H], "dtype": tag, "valid_tokens": valid, "max_abs_err": err,
+                "tol": tol, "carry_max_abs_err": carry_err, "carry_tol": TOL["lstm_carry"],
+                "fault_max_abs_err": fault, "carry_fault_max_abs_err": carry_fault,
+                "ms": timed(lambda: lo.lstm_fwd(xw, lens, wh, h0, c0), reps),
+                "plain_ms": timed(lambda: lo.lstm_fwd_plain(xw, lens, wh, h0, c0),
+                                  min(reps, 1)),
+                "library_ms": lib_i,
+                "library": "cuDNN nn.LSTM unidirectional inference, packed (projection "
+                           "included; no forget bias)",
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernels", "kernel": "lstm_fwd", "case": case, **row})
+            rows[("lstm_fwd", tag, case)] = row
+            del y, ry
+
+            # --- the training walk ------------------------------------------
+            got = lo.lstm_fwd_train(xw, lens, wh)
+            ref = lo.lstm_fwd_train_plain(xw, lens, wh)
+            err = compare(torch, got[0], ref[0], tol, f"lstm_fwd_train {key}")
+            s_err = max(compare(torch, a, r, TOL["lstm_stores"], f"lstm_fwd_train {key} {n}")
+                        for n, a, r in zip(("gates", "c", "h"), got[1:], ref[1:]))
+            fault = fault_reading(lstm_stale_walk(torch)(xw, lens, wh)[0], ref[0], tol,
+                                  f"lstm_fwd_train {key}")
+            b_ms, b_by = bound(es * (valid * H4 + H * H4 + M * H) + 4 * B + 4 * M * (H4 + 2 * H),
+                               walk_ops, PEAK_F32)
+            row = {
+                "shape": [Tq, B, H], "dtype": tag, "max_abs_err": err, "tol": tol,
+                "stores_max_abs_err": s_err, "stores_tol": TOL["lstm_stores"],
+                "fault_max_abs_err": fault,
+                "ms": timed(lambda: lo.lstm_fwd_train(xw, lens, wh), reps),
+                "plain_ms": timed(lambda: lo.lstm_fwd_train_plain(xw, lens, wh), min(reps, 1)),
+                "library_ms": lib_f,
+                "library": "cuDNN nn.LSTM unidirectional training forward, packed "
+                           "(projection included; no forget bias)",
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernels", "kernel": "lstm_fwd_train", "case": case, **row})
+            rows[("lstm_fwd_train", tag, case)] = row
+            del got
+
+            # --- the chain, on the plain walk's residuals ----------------------
+            _, gates, cs, hs = ref
+            gy = u((Tq, B, H), dtype)
+            tol = TOL["lstm_bwd_recur"]
+            dxw = lo.lstm_bwd_recur(gates, cs, gy, lens, wh)
+            ref_dxw = lo.lstm_bwd_recur_plain(gates, cs, gy, lens, wh)
+            err = compare(torch, dxw, ref_dxw, tol, f"lstm_bwd_recur {key}")
+            fault = fault_reading(lstm_faulty_chain(torch)(gates, cs, gy, lens, wh), ref_dxw,
+                                  tol, f"lstm_bwd_recur {key}")
+            b_ms, b_by = bound(4 * M * (H4 + H) + es * (M * H + H * H4) + 4 * B + 4 * M * H4,
+                               2 * valid * H4 * H + 30 * valid * H, PEAK_F32)
+            row = {
+                "shape": [Tq, B, H], "dtype": tag, "max_abs_err": err, "tol": tol,
+                "ref_max_abs": float(ref_dxw.abs().max()), "fault_max_abs_err": fault,
+                "ms": timed(lambda: lo.lstm_bwd_recur(gates, cs, gy, lens, wh), reps),
+                "plain_ms": timed(lambda: lo.lstm_bwd_recur_plain(gates, cs, gy, lens, wh),
+                                  min(reps, 1)),
+                "library_ms": None if lib_f is None else lib_fb - lib_f,
+                "library": "cuDNN nn.LSTM unidirectional backward, packed (fwd+bwd minus "
+                           "fwd; input projection included)",
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernels", "kernel": "lstm_bwd_recur", "case": case, **row})
+            rows[("lstm_bwd_recur", tag, case)] = row
+            del dxw, gates, cs
+
+            # --- dwh ---------------------------------------------------------
+            tol = TOL["lstm_bwd_dwh"]
+            dwh = lo.lstm_bwd_dwh(hs, ref_dxw)
+            ref_w = lo.lstm_bwd_dwh_plain(hs, ref_dxw)
+            err = compare(torch, dwh, ref_w, tol, f"lstm_bwd_dwh {key}")
+            cut = ref_dxw.clone()
+            cut[Tq - 1, 0] = 0  # the last token of the full-length lane
+            fault = fault_reading(lo.lstm_bwd_dwh_plain(hs, cut), ref_w, tol,
+                                  f"lstm_bwd_dwh {key}")
+            hprev = torch.zeros_like(hs)
+            hprev[1:] = hs[:-1]
+            hpt, d2 = hprev.view(M, H).t(), ref_dxw.view(M, H4)
+            b_ms, b_by = bound(4 * (M * H + M * H4 + H * H4), 2 * valid * H * H4, PEAK_F32)
+            row = {
+                "shape": [H, M - B, H4], "dtype": "f32", "max_abs_err": err, "tol": tol,
+                "fault_max_abs_err": fault,
+                "ms": timed(lambda: lo.lstm_bwd_dwh(hs, ref_dxw), reps),
+                "plain_ms": timed(lambda: lo.lstm_bwd_dwh_plain(hs, ref_dxw), reps),
+                "library_ms": timed(lambda: torch.matmul(hpt, d2), reps),
+                "library": "torch.matmul h_prev^T @ dxw (f32)",
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernels", "kernel": "lstm_bwd_dwh", "case": case, "inputs": tag,
+                  **row})
+            rows[("lstm_bwd_dwh", tag, case)] = row
+            del ref, hs, ref_dxw, cut, hprev, hpt, d2
+
+            # --- the projection (the encoder's layers past the first) ----------
+            if case == "encoder":
+                tol = TOL[("lstm_proj", tag)]
+                x = u((M, H), dtype)
+                wx = torch.as_tensor(glorot(rng, (H, H4)), device=dev).to(dtype)
+                bias = u((H4,), dtype, 0.1)
+                got_p = lo.lstm_proj(x, wx, bias)
+                ref_p = lo.lstm_proj_plain(x, wx, bias)
+                err = compare(torch, got_p, ref_p, tol, f"lstm_proj {tag}")
+                x_cut = x.clone()
+                x_cut[:, -1] = 0
+                fault = fault_reading(lo.lstm_proj_plain(x_cut, wx, bias), ref_p, tol,
+                                      f"lstm_proj {tag}")
+                # rows keep their bits whatever the number of rows (a chunk
+                # of 32 frames against the whole sequence)
+                chunk = lo.lstm_proj(x[: 32 * B].contiguous(), wx, bias)
+                check(torch.equal(chunk, got_p[: 32 * B]),
+                      f"lstm_proj {tag}: a chunk's rows differ from the same rows of the "
+                      "whole projection")
+                b_ms, b_by = bound(es * (M * H + H * H4 + H4 + M * H4), 2 * M * H * H4,
+                                   PEAK_BF16 if tag == "bf16" else PEAK_F32)
+                row = {
+                    "shape": [M, H, H4], "dtype": tag, "max_abs_err": err, "tol": tol,
+                    "fault_max_abs_err": fault, "chunk_rows_identical": True,
+                    "ms": timed(lambda: lo.lstm_proj(x, wx, bias), reps),
+                    "plain_ms": timed(lambda: lo.lstm_proj_plain(x, wx, bias), reps),
+                    "library_ms": timed(lambda: torch.addmm(bias, x, wx), reps),
+                    "library": "torch.addmm b + x @ wx",
+                    "bound_ms": b_ms, "bound_by": b_by,
+                }
+                emit({"phase": "kernels", "kernel": "lstm_proj", **row})
+                rows[("lstm_proj", tag)] = row
+                del x, got_p, ref_p, x_cut, chunk
+            del lstm, xw
     return rows
 
 
@@ -1281,10 +1666,32 @@ def rnnt_rows(torch, timed, reps) -> dict:
     nll.sum().backward()
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
-    check(extra < 100e6, f"rnnt loss: {extra} bytes of extra peak memory (limit 100 MB)")
+    check(extra < RNNT_LOSS_LIMIT[Tq],
+          f"rnnt loss: {extra} bytes of extra peak memory (limit {RNNT_LOSS_LIMIT[Tq]})")
     check(bool(torch.isfinite(nll).all()), "rnnt loss: non-finite nll")
-    emit({"phase": "kernels", "kernel": "rnnt_loss", "extra_peak_bytes": extra,
-          "limit_bytes": 100e6, "materialized_h_bytes": 2 * Bq * Tq * U1 * Jq,
+    emit({"phase": "kernels", "kernel": "rnnt_loss", "T": Tq, "extra_peak_bytes": extra,
+          "limit_bytes": RNNT_LOSS_LIMIT[Tq], "materialized_h_bytes": 2 * Bq * Tq * U1 * Jq,
+          "fwd_bwd_ms": timed(lambda: tf.transducer_loss_fused(
+              *leaves, c["llen"], c["targets"], c["tlen"]).sum().backward(), reps)})
+    del leaves, nll, c
+
+    # the streaming recipe's lattice: no subsampling, T' up to 1000
+    Ts = 1000
+    c = rnnt_case(torch, np.random.default_rng(16), Bq, Ts, Uq, Jq, Vq)
+    leaves = [t.detach().requires_grad_(True) for t in (c["enc"], c["pred"], c["w"], c["b"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    nll = tf.transducer_loss_fused(*leaves, c["llen"], c["targets"], c["tlen"])
+    nll.sum().backward()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    check(bool(torch.isfinite(nll).all()), "rnnt loss (T' = 1000): non-finite nll")
+    check(extra < RNNT_LOSS_LIMIT[Ts],
+          f"rnnt loss (T' = 1000): {extra} bytes of extra peak memory "
+          f"(limit {RNNT_LOSS_LIMIT[Ts]})")
+    emit({"phase": "kernels", "kernel": "rnnt_loss", "T": Ts, "extra_peak_bytes": extra,
+          "limit_bytes": RNNT_LOSS_LIMIT[Ts], "materialized_h_bytes": 2 * Bq * Ts * U1 * Jq,
           "fwd_bwd_ms": timed(lambda: tf.transducer_loss_fused(
               *leaves, c["llen"], c["targets"], c["tlen"]).sum().backward(), reps)})
     return rows
@@ -1496,10 +1903,12 @@ def phase_serve_rnnt(torch, smi: str) -> dict:
             check(line.split(" ", 1)[0] == utt, f"serve_rnnt: line {line!r} is not for {utt}")
             check(set(line[len(utt):].replace("<space>", " ")) <= alphabet,
                   f"serve_rnnt: unexpected symbols in {line!r}")
-        for name in SERVE_KERNELS:
+        # the head's precompute is the fixed-order projection (lstm_proj)
+        rnnt_kernels = SERVE_KERNELS + ("lstm_proj",)
+        for name in rnnt_kernels:
             check(launches[name] > 0, f"serve_rnnt: kernel {name} never launched")
         for name in kernels.KERNELS:
-            if name not in SERVE_KERNELS:
+            if name not in rnnt_kernels:
                 check(launches[name] == 0,
                       f"serve_rnnt: {launches[name]} launches of {name} while serving")
         nonempty = sum(1 for t in texts if t.split(" ", 1)[1:] and t.split(" ", 1)[1].strip())
@@ -1553,6 +1962,187 @@ def phase_serve_rnnt(torch, smi: str) -> dict:
         check(score_err <= TOL["rnnt_scores"],
               f"serve_rnnt: n-best scores differ by {score_err}")
     return {"launches": launches}
+
+
+def phase_serve_stream(torch, smi: str) -> dict:
+    """A full-width rnnt_streaming_wsj artifact (seeded random weights)
+    serves 64 synthesized utterances of 1-15 s through ``serving.serve`` at
+    batch 32 with the recipe's transducer_streaming recognizer (chunks of
+    32 frames, 4 symbols a frame): only the frontend and the LSTM forward
+    kernels may run. The same batches through transducer_greedy must give
+    identical ids on every utterance (scores within 1e-4). Then the
+    per-chunk ``feed`` latency at batch 1, and ``serve(streaming=True)`` on
+    a few utterances: PARTIAL / FINAL lines, the FINAL texts against the
+    batch-32 offline greedy texts of the same host features (bf16
+    reported; in f32 compute all must agree)."""
+    from nabu_tpu_torch.config import Conf
+    from nabu_tpu_torch.data import audio_io
+    from nabu_tpu_torch.decoding.recognizers import TransducerGreedyRecognizer
+    from nabu_tpu_torch.ops import kernels
+    from nabu_tpu_torch.serving import load_exported, serve
+
+    def only_stream_kernels(launches, what, need=STREAM_SERVE_KERNELS):
+        for name in need:
+            check(launches[name] > 0, f"{what}: kernel {name} never launched")
+        for name in kernels.KERNELS:
+            if name not in STREAM_SERVE_KERNELS:
+                check(launches[name] == 0, f"{what}: {launches[name]} launches of {name}")
+
+    rng = np.random.default_rng(11)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        art = os.path.join(tmp, "export")
+        manifest = write_artifact(art, seed=12, recipe=STREAM_RECIPE)
+        lines, seconds = [], []
+        for i, sec in enumerate(np.sort(rng.uniform(1.0, 15.0, 64))):
+            sig = synth_utterance(rng, float(sec))
+            path = os.path.join(tmp, f"utt{i:03d}.wav")
+            audio_io.write_wav(path, sig, 16000)
+            seconds.append(len(sig) / 16000.0)
+            lines.append(f"utt{i:03d} {path}")
+        audio_seconds = sum(seconds)
+        model = load_exported(art, batch_size=B)
+        rec = model.recognizer
+        check(model.device.type == "cuda", "serve_stream: model not on the card")
+        check(type(rec).__name__ == "TransducerStreamingRecognizer"
+              and rec.streamer.chunk_frames == 32 and rec.streamer.max_symbols == 4,
+              f"serve_stream: recognizer {type(rec).__name__}")
+        requests = os.path.join(tmp, "requests.scp")
+        with open(requests, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        out = io.StringIO()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with open(requests) as in_stream:
+            served = serve(art, in_stream=in_stream, out_stream=out, batch_size=B, model=model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        texts = out.getvalue().splitlines()
+        check(served == 64 and len(texts) == 64,
+              f"serve_stream: {served} served, {len(texts)} lines")
+        alphabet = set(model.text_proc.alphabet) | {" "}
+        for line, want in zip(texts, lines):
+            utt = want.split()[0]
+            check(line.split(" ", 1)[0] == utt, f"serve_stream: line {line!r} is not for {utt}")
+            check(set(line[len(utt):].replace("<space>", " ")) <= alphabet,
+                  f"serve_stream: unexpected symbols in {line!r}")
+        only_stream_kernels(launches, "serve_stream")
+
+        # the same batches through both recognizers: identical ids
+        greedy = TransducerGreedyRecognizer(
+            Conf({"recognizer": "transducer_greedy", "max_symbols": "4"}, "recognizer"),
+            model.model)
+        same, score_err, t_stream, t_greedy, frames = 0, 0.0, 0.0, 0.0, []
+        for start in range(0, 64, B):
+            sigs = [audio_io.load_audio(line.split()[1])[0] for line in lines[start:start + B]]
+            feats, flens = model.device_fe.batch_features(sigs, 16000.0, B, model.T_BUCKET)
+            frames.append(int(feats.shape[1]))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = rec(model.params, feats, flens)
+            t2 = time.perf_counter()
+            want = greedy(model.params, feats, flens)
+            t3 = time.perf_counter()
+            t_stream += t2 - t1
+            t_greedy += t3 - t2
+            for b in range(len(sigs)):
+                same += int(got.best(b) == want.best(b))
+            score_err = max(score_err, float(np.abs(got.scores[:, 0] - want.scores[:, 0]).max()))
+        nonempty = sum(1 for t in texts if t.split(" ", 1)[1:] and t.split(" ", 1)[1].strip())
+
+        # batch 1: the latency of each chunk's feed (32 frames = 320 ms of
+        # audio) over the longest utterance, host features as serving
+        # streams them
+        streamer = model.streamer
+        feats1 = model.audio_proc.process(lines[-1].split()[1])
+        C = streamer.chunk_frames
+        T1 = feats1.shape[0]
+        padded = np.zeros((1, -(-T1 // C) * C, feats1.shape[1]), np.float32)
+        padded[0, :T1] = feats1
+        state = streamer.start(model.params, batch=1)
+        feed_ms = []
+        for c0 in range(0, padded.shape[1], C):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, state = streamer.feed(model.params, state, padded[:, c0:c0 + C],
+                                     np.asarray([min(C, T1 - c0)], np.int32))
+            torch.cuda.synchronize()
+            feed_ms.append(1e3 * (time.perf_counter() - t1))
+
+        # serve(streaming=True) on a few utterances; FINAL against the
+        # batch-32 offline greedy text of the same host features
+        picks = lines[::16]
+        kernels.reset_launch_counts()
+        sout = io.StringIO()
+        n = serve(art, in_stream=io.StringIO("\n".join(picks) + "\n"), out_stream=sout,
+                  streaming=True, model=model)
+        stream_launches = kernels.launch_counts()
+        check(n == len(picks), f"serve_stream: streaming served {n} of {len(picks)}")
+        # host features: no frontend kernel
+        only_stream_kernels(stream_launches, "serve_stream (streaming=True)",
+                            need=STREAM_SERVE_KERNELS[1:])
+        slines = sout.getvalue().splitlines()
+        finals, partials = {}, {}
+        for line in slines:
+            utt, kind, *rest = line.split(" ", 2)
+            check(kind in ("PARTIAL", "FINAL"), f"serve_stream: line {line!r}")
+            check(utt not in finals, f"serve_stream: a line for {utt} after its FINAL")
+            if kind == "FINAL":
+                finals[utt] = rest[0] if rest else ""
+            else:
+                partials[utt] = partials.get(utt, 0) + 1
+        check(sorted(finals) == sorted(p.split()[0] for p in picks),
+              f"serve_stream: FINAL lines for {sorted(finals)}")
+        host = [model.audio_proc.process(p.split()[1]) for p in picks]
+
+        def offline_texts():
+            saved = model.recognizer
+            model.recognizer = greedy
+            try:
+                return model.recognize_features(host)
+            finally:
+                model.recognizer = saved
+
+        offline = offline_texts()
+        agree = sum(int(finals[p.split()[0]] == o) for p, o in zip(picks, offline))
+        # the same comparison in f32 compute: a bf16 tie between batch 1
+        # and batch 32 (cuBLAS rounds the head's per-step products of other
+        # shapes its own way) may flip a symbol there
+        model.model.compute_dtype = torch.float32
+        try:
+            finals32 = [model.stream_file(p.split()[1]) for p in picks]
+            offline32 = offline_texts()
+        finally:
+            model.model.compute_dtype = torch.bfloat16
+        agree32 = sum(int(a == o) for a, o in zip(finals32, offline32))
+        result = {
+            "phase": "serve_stream", "utterances": served, "audio_seconds": audio_seconds,
+            "serve_wall_seconds": wall, "rtf": wall / audio_seconds,
+            "utterances_per_second": served / wall,
+            "streaming_recognizer_seconds": t_stream, "rtf_streaming": t_stream / audio_seconds,
+            "greedy_recognizer_seconds": t_greedy, "rtf_greedy": t_greedy / audio_seconds,
+            "ids_identical": same, "score_max_abs_err": score_err,
+            "score_tol": TOL["stream_scores"], "frames_per_batch": frames,
+            "nonempty_hypotheses": nonempty, "launches": launches,
+            "feed_chunks": len(feed_ms), "feed_first_ms": feed_ms[0],
+            "feed_median_ms": float(np.median(feed_ms[1:])),
+            "feed_p90_ms": float(np.percentile(feed_ms[1:], 90)),
+            "feed_utterance_seconds": seconds[-1],
+            "streaming_serve_utterances": len(picks),
+            "partial_lines": sum(partials.values()),
+            "final_vs_offline_bf16": agree, "final_vs_offline_f32": agree32,
+            "streaming_serve_launches": stream_launches,
+            "batch_size": B, "card": smi, "manifest": manifest,
+        }
+        emit(result)
+        check(same == 64, f"serve_stream: streamed ids differ from greedy on {64 - same}/64")
+        check(score_err <= TOL["stream_scores"],
+              f"serve_stream: streamed and greedy scores differ by {score_err}")
+        check(agree32 == len(picks),
+              f"serve_stream: f32 FINAL texts differ from offline on {len(picks) - agree32}")
+    total = {k: launches[k] + stream_launches[k] for k in launches}
+    return {"launches": total}
 
 
 # ---------------------------------------------------------------------------
@@ -1689,7 +2279,8 @@ def gradient_check(torch, trainer, params, batch, phase: str):
     out of the sum over directions (and, reported, the backward chain's
     barrier not waiting: every dgates exchange one step stale); for the
     RNN-T recipe each lane's last frame left out of the prediction
-    projection's gradient. Per parameter the reading is
+    projection's gradient; for the streaming recipe the LSTM layers' dwh
+    paired with h one step late. Per parameter the reading is
     ||kernel - plain|| / ||plain||."""
     from nabu_tpu_torch.ops import blstm as bo
     from nabu_tpu_torch.ops import transducer_fused as tf
@@ -1730,8 +2321,11 @@ def gradient_check(torch, trainer, params, batch, phase: str):
         with plain_versions(blstm_bwd_recur=faulty_chain(torch, stale_units=hidden)):
             _, grads_s = loss_and_grads()
         readings["stale_exchange_grads_max_rel_err"] = max(rel(grads_s).values())
-    else:
+    elif phase == "train_rnnt":
         with plain_versions(rnnt_joint_bwd=rnnt_last_frame_out_of_dpred(torch, tf)):
+            _, grads_f = loss_and_grads()
+    else:
+        with plain_versions(lstm_bwd_dwh=lstm_dwh_h_late(torch)):
             _, grads_f = loss_and_grads()
 
     rel_k, rel_f = rel(grads_k), rel(grads_f)
@@ -1767,7 +2361,7 @@ def synth_training_corpus(root: str) -> dict:
     t0 = time.perf_counter()
     train = synth_corpus(os.path.join(root, "train"), rng, TRAIN_UTTS, alphabet)
     dev = synth_corpus(os.path.join(root, "dev"), rng, 32, alphabet)
-    return {"train": train, "dev": dev, "seconds": time.perf_counter() - t0}
+    return {"train": train, "dev": dev, "seconds": time.perf_counter() - t0, "root": root}
 
 
 def head_outputs(torch, model, params, batch):
@@ -1782,9 +2376,24 @@ def head_outputs(torch, model, params, batch):
     return flat
 
 
+def _data_sections(recipe: str) -> dict:
+    from nabu_tpu_torch.config import ConfigFile
+
+    db = ConfigFile.read(os.path.join(recipe, "database.conf"))
+    return {name: dict(db.section(name).items()) for name in db.sections()}
+
+
+# a training phase that trains on a copy of another phase's prepared data
+# (their database.conf sections are checked to be the same)
+DATA_FROM = {"train_rnnt_stream": "train_rnnt"}
+
+
 def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
-    """``cli data`` + ``cli train`` of a recipe (TRAIN_RECIPES[phase]) on
+    """``cli data`` (or, for a phase of DATA_FROM, a copy of its donor's
+    prepared data) + ``cli train`` of a recipe (TRAIN_RECIPES[phase]) on
     the synthesized corpus, then its checks."""
+    import shutil
+
     from nabu_tpu_torch import cli
     from nabu_tpu_torch.ops import kernels
     from nabu_tpu_torch.params import load_npz
@@ -1795,10 +2404,21 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         recipe = write_train_recipe(TRAIN_RECIPES[phase], os.path.join(tmp, "recipe"),
                                     train[:2], dev[:2])
         expdir = os.path.join(tmp, "exp")
+        donor = DATA_FROM.get(phase)
         t1 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
-            cli.main(["data", "--recipe", recipe, "--expdir", expdir,
-                      "--num_workers", str(min(8, os.cpu_count() or 1))])
+        if donor is None:
+            with contextlib.redirect_stdout(sys.stderr):
+                cli.main(["data", "--recipe", recipe, "--expdir", expdir,
+                          "--num_workers", str(min(8, os.cpu_count() or 1))])
+            if phase in DATA_FROM.values():
+                keep = os.path.join(corpus["root"], f"prepared_{phase}")
+                shutil.copytree(os.path.join(expdir, "data"), keep)
+                corpus[f"prepared_{phase}"] = (_data_sections(recipe), keep)
+        else:
+            sections, keep = corpus[f"prepared_{donor}"]
+            check(_data_sections(recipe) == sections,
+                  f"{phase}: database.conf differs from {donor}'s; its data cannot be reused")
+            shutil.copytree(keep, os.path.join(expdir, "data"))
         t2 = time.perf_counter()
 
         record: dict = {}
@@ -1856,7 +2476,8 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
             "phase": phase, "recipe": os.path.relpath(TRAIN_RECIPES[phase], REPO),
             "steps": steps, "utterances": TRAIN_UTTS,
             "corpus_audio_seconds": train[2], "synth_seconds": corpus["seconds"],
-            "data_seconds": t2 - t1, "train_wall_seconds": wall,
+            "data_seconds": t2 - t1, "data_prepared_by": donor or phase,
+            "train_wall_seconds": wall,
             "loss_first5_mean": first, "loss_last5_mean": last,
             "median_step_ms": median_ms,
             "median_pred_net_ms": 1e3 * float(np.median(pred_net[1:])),
@@ -1904,15 +2525,21 @@ def main(argv=None) -> int:
     t3 = time.perf_counter()
     served_rnnt = phase_serve_rnnt(torch, smi)
     t4 = time.perf_counter()
+    served_stream = phase_serve_stream(torch, smi)
+    t5 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as corpus_dir:
         corpus = synth_training_corpus(corpus_dir)
         trained = phase_train(torch, smi, "train", corpus)
-        t5 = time.perf_counter()
+        t6 = time.perf_counter()
         trained_rnnt = phase_train(torch, smi, "train_rnnt", corpus)
+        t7 = time.perf_counter()
+        trained_stream = phase_train(torch, smi, "train_rnnt_stream", corpus)
     emit({"phase": "seconds", "build_device": t1 - t0, "kernels": t2 - t1,
-          "serve": t3 - t2, "serve_rnnt": t4 - t3, "train": t5 - t4,
-          "train_rnnt": time.perf_counter() - t5, "total": time.perf_counter() - t0})
+          "serve": t3 - t2, "serve_rnnt": t4 - t3, "serve_stream": t5 - t4,
+          "train": t6 - t5, "train_rnnt": t7 - t6,
+          "train_rnnt_stream": time.perf_counter() - t7, "total": time.perf_counter() - t0})
     raise_failures()
+    runs = (served, served_rnnt, served_stream, trained, trained_rnnt, trained_stream)
 
     kernels_line = []
     for name, key in (("stft_mel", "stft_mel"),
@@ -1928,13 +2555,19 @@ def main(argv=None) -> int:
                       ("rnnt_joint_fwd", "rnnt_joint_fwd"),
                       ("rnnt_alpha", "rnnt_alpha"),
                       ("rnnt_beta", "rnnt_beta"),
-                      ("rnnt_joint_bwd", "rnnt_joint_bwd")):
+                      ("rnnt_joint_bwd", "rnnt_joint_bwd"),
+                      ("lstm_proj", ("lstm_proj", "bf16")),
+                      ("lstm_fwd", ("lstm_fwd", "bf16", "encoder")),
+                      ("lstm_fwd_train", ("lstm_fwd_train", "bf16", "encoder")),
+                      ("lstm_bwd_recur", ("lstm_bwd_recur", "bf16", "encoder")),
+                      ("lstm_bwd_dwh", ("lstm_bwd_dwh", "bf16", "encoder"))):
         r = rows[key]
+        launched = sum(run["launches"][name] for run in runs)
+        check(launched > 0, f"kernel {name} never launched on a main path")
         kernels_line.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name],
-            "launches": sum(run["launches"][name]
-                            for run in (served, served_rnnt, trained, trained_rnnt)),
+            "launches": launched,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -2,13 +2,15 @@
 
     python -m nabu_tpu_torch.cli data  --recipe R --expdir E [--num_workers N] [--device cpu]
     python -m nabu_tpu_torch.cli train --recipe R --expdir E [--device cpu]
-    python -m nabu_tpu_torch.cli serve --export_dir D [--batch_size N] [--device cpu]
+    python -m nabu_tpu_torch.cli serve --export_dir D [--batch_size N] [--streaming] [--device cpu]
 
 ``data`` prepares every dataset section of the recipe's database.conf
 into ``E/data`` (host work). ``train`` trains the recipe into ``E``
 (checkpoints in ``E/checkpoints/{best,latest}``, metrics in
 ``E/logs/metrics.jsonl``). ``serve`` reads ``utt_id wav_path`` lines on
-stdin and writes ``utt_id hypothesis`` lines on stdout. Each runs on the
+stdin and writes ``utt_id hypothesis`` lines on stdout (with
+``--streaming``, ``utt_id PARTIAL text`` lines as a stream decodes and
+``utt_id FINAL text`` at its end). Each runs on the
 GPU unless ``--device cpu`` is given, and raises without a GPU
 otherwise. The other subcommands of the JAX package's ``run``, and its
 multi-process and mesh flags, are not ported yet.
@@ -52,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="artifact directory written by `run export`")
     sp.add_argument("--batch_size", type=int, default=8)
     sp.add_argument("--streaming", action="store_true",
-                    help="chunked incremental decoding (not ported yet)")
+                    help="chunked incremental decoding (streaming-transducer "
+                         "artifacts): PARTIAL and FINAL lines")
     sp.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return p

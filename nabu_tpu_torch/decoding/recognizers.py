@@ -4,8 +4,7 @@ Port of the CTC and transducer recognizers of the JAX package's
 ``decoding/recognizers.py``. Every recognizer maps ``(params, features,
 feature_lengths) -> Nbest``; features may be a numpy array or a tensor
 already on the model's device (the device frontend's output).
-Attention, joint, rescoring and streaming transducer recognizers are not
-ported yet.
+Attention, joint and rescoring recognizers are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ import torch
 
 from nabu_tpu_torch.config import Conf
 from nabu_tpu_torch.decoding.ctc_beam import ctc_prefix_beam_search
+from nabu_tpu_torch.decoding.streaming import StreamingTransducer
 from nabu_tpu_torch.decoding.transducer import (
     transducer_beam_search,
     transducer_greedy_search,
@@ -226,6 +226,32 @@ class TransducerBeamRecognizer(_TransducerRecognizer):
     def __call__(self, params, features, feature_lengths) -> Nbest:
         encoded, enc_lengths, head_params = self._encode(params, features, feature_lengths)
         return self.nbest_of(*self.search(head_params, encoded, enc_lengths))
+
+
+@RECOGNIZERS.register("transducer_streaming")
+@RECOGNIZERS.register("rnnt_streaming")
+class TransducerStreamingRecognizer(Recognizer):
+    """Chunked streaming RNN-T greedy decode (``decoding.streaming``) as a
+    batch recognizer: the padded batch is fed ``chunk_frames`` at a time.
+    Its output equals ``transducer_greedy``'s (the forward-only encoder has
+    no lookahead). conf: chunk_frames, max_symbols."""
+
+    def __init__(self, conf, model, head=None):
+        super().__init__(conf, model, head)
+        self.streamer = StreamingTransducer(
+            model, head=self.head, chunk_frames=conf.getint("chunk_frames", 32),
+            max_symbols=conf.getint("max_symbols", 4))
+
+    def __call__(self, params, features, feature_lengths) -> Nbest:
+        toks, state = self.streamer.stream(params, features, feature_lengths)
+        B = len(toks)
+        L = max(max((len(t) for t in toks), default=1), 1)
+        ids = np.zeros((B, 1, L), np.int64)
+        lens = np.zeros((B, 1), np.int64)
+        for b, t in enumerate(toks):
+            ids[b, 0, : len(t)] = t
+            lens[b, 0] = len(t)
+        return Nbest(ids=ids, lengths=lens, scores=state["dec"][2].cpu().numpy()[:, None])
 
 
 def build_recognizer(conf: Conf, model) -> Recognizer:

@@ -38,21 +38,28 @@ def transducer_greedy_search(
     encoded: torch.Tensor,  # [B, T, D]
     enc_lengths: torch.Tensor,  # [B]
     max_symbols: int = 4,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    init_carry=None,
+    return_carry: bool = False,
+):
     """-> (ids [B, T*max_symbols], lengths [B], scores [B]): at each frame
     emit the argmax symbol, stepping the prediction net after each, until
     the joint says blank or the frame's budget runs out. ``scores`` is the
     log-probability of that alignment (every emitted symbol plus every
-    consumed blank, at valid frames)."""
+    consumed blank, at valid frames).
+
+    ``init_carry`` / ``return_carry`` expose the running decode state
+    (pred vector, prediction-net state, score), so a streaming caller
+    decodes chunk by chunk to the same result as one offline pass
+    (``decoding.streaming``); with ``return_carry`` the carry is the
+    fourth result."""
     B, T, _ = encoded.shape
     dev = encoded.device
     enc_proj = decoder.precompute(params, encoded)  # [B, T, J]
     enc_mask = sequence_mask(enc_lengths.to(dev), T)
     blank = decoder.blank_id
-    state = decoder.pred_init_state(B, encoded.dtype, dev)
-    pred_vec, state = decoder.pred_step(
-        params, torch.full((B,), decoder.sos_id, dtype=torch.int32, device=dev), state)
-    score = torch.zeros((B,), dtype=torch.float32, device=dev)
+    if init_carry is None:
+        init_carry = initial_carry(decoder, params, B, encoded.dtype, dev)
+    pred_vec, state, score = init_carry
     toks, valid = [], []
     for t in range(T):
         frame_open = enc_mask[:, t]  # lanes still allowed to act this frame
@@ -70,15 +77,29 @@ def transducer_greedy_search(
             toks.append(torch.where(emit, best, blank))
             valid.append(emit)
             frame_open = emit  # a blank closes the frame; emitting keeps it open
+    carry = (pred_vec, state, score)
     if not toks:
-        empty = torch.zeros((B, 0), dtype=torch.int32, device=dev)
-        return empty, torch.zeros((B,), dtype=torch.int32, device=dev), score
-    toks = torch.stack(toks, dim=1)  # [B, T*K], frame-major
-    valid = torch.stack(valid, dim=1)
-    # left-pack the emitted symbols (the stable sort keeps emission order)
-    order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
-    ids = torch.gather(toks, 1, order)
-    return ids, valid.sum(dim=1).to(torch.int32), score
+        ids = torch.zeros((B, 0), dtype=torch.int32, device=dev)
+        lengths = torch.zeros((B,), dtype=torch.int32, device=dev)
+    else:
+        toks = torch.stack(toks, dim=1)  # [B, T*K], frame-major
+        valid = torch.stack(valid, dim=1)
+        # left-pack the emitted symbols (the stable sort keeps emission order)
+        order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+        ids = torch.gather(toks, 1, order)
+        lengths = valid.sum(dim=1).to(torch.int32)
+    if return_carry:
+        return ids, lengths, score, carry
+    return ids, lengths, score
+
+
+def initial_carry(decoder, params: dict, batch: int, dtype, device):
+    """The decode state before the first frame: the prediction net after
+    the start symbol, and a zero score."""
+    state = decoder.pred_init_state(batch, dtype, device)
+    pred_vec, state = decoder.pred_step(
+        params, torch.full((batch,), decoder.sos_id, dtype=torch.int32, device=device), state)
+    return pred_vec, state, torch.zeros((batch,), dtype=torch.float32, device=device)
 
 
 def _gather_beams(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -132,12 +132,21 @@ def lstm_scan(
     lengths: torch.Tensor,  # [B]
     reverse: bool = False,
     forget_bias: float = 1.0,
-) -> torch.Tensor:
+    init_carry: Tuple[torch.Tensor, torch.Tensor] | None = None,
+    return_carry: bool = False,
+):
     """Unidirectional masked LSTM over a padded batch -> [B, T, H].
 
     For ``reverse=True`` the padded array is flipped wholesale; the mask
     gate keeps the carried state at its initial zeros through the
-    leading padding. Everything runs in x's dtype, as the JAX scan."""
+    leading padding. Everything runs in x's dtype, as the JAX scan.
+
+    ``init_carry`` / ``return_carry`` (forward direction only) expose the
+    (h, c) state, so a sequence fed in chunks with the carry threaded
+    through equals one scan: the mask freezes the carry at each lane's
+    last valid frame."""
+    if init_carry is not None and reverse:
+        raise ValueError("init_carry only supports the forward direction")
     B, T, _ = x.shape
     H = p["wh"].shape[0]
     mask = (
@@ -151,8 +160,11 @@ def lstm_scan(
         xw = layer_norm(x @ p["wx"], p["ln_x_g"]) + p["b"]
     else:
         xw = x @ p["wx"] + p["b"]  # [B, T, 4H]
-    h = torch.zeros((B, H), dtype=x.dtype, device=x.device)
-    c = torch.zeros((B, H), dtype=x.dtype, device=x.device)
+    if init_carry is None:
+        h = torch.zeros((B, H), dtype=x.dtype, device=x.device)
+        c = torch.zeros((B, H), dtype=x.dtype, device=x.device)
+    else:
+        h, c = init_carry
     ys = []
     for t in range(T):
         m = mask[:, t, None]
@@ -166,7 +178,7 @@ def lstm_scan(
     y = torch.stack(ys, dim=1) if ys else xw.new_zeros((B, 0, H))
     if reverse:
         y = torch.flip(y, dims=(1,))
-    return y
+    return (y, (h, c)) if return_carry else y
 
 
 def blstm_apply(

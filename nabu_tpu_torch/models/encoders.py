@@ -9,8 +9,11 @@ other encoders of the JAX package are not ported yet.
 
 from __future__ import annotations
 
+import torch
+
 from nabu_tpu_torch.config import Conf
 from nabu_tpu_torch.models import core
+from nabu_tpu_torch.ops import lstm as lstm_ops
 from nabu_tpu_torch.registry import ENCODERS
 
 
@@ -34,13 +37,16 @@ class DBLSTM(Encoder):
     """Deep bidirectional LSTM, no subsampling (the CTC workhorse).
 
     ``use_pallas = true`` (the recipe's key) selects the CUDA BLSTM
-    kernels, time-major end to end; ``bidirectional = false`` builds a
-    forward-only stack on the plain scan. On a CUDA device the stack
-    always runs the kernels: the scan mirrors the JAX package's
-    ``use_pallas = false`` path for CPU tensors only, and a forward-only
-    stack, whose LSTM kernel is not ported yet, raises there. With
-    ``train`` and ``dropout`` > 0, dropout follows every layer, the last
-    one included."""
+    kernels, time-major end to end. ``bidirectional = false`` builds a
+    forward-only stack, the streaming-capable variant: it also has
+    ``stream_init`` / ``stream_step``, which encode a chunk at a time with
+    the LSTM carries threaded through, equal to one offline pass. On a
+    CUDA device the stack always runs the kernels, time-major: the BLSTM
+    kernels, or for a forward-only stack the LSTM kernels of
+    ``ops.lstm`` (f32 carries, as ``lstm_scan_pallas``). The plain scan
+    mirrors the JAX package's path (``core.lstm_scan`` for a forward-only
+    stack, as JAX always runs it) for CPU tensors only. With ``train`` and
+    ``dropout`` > 0, dropout follows every layer, the last one included."""
 
     def __init__(self, conf: Conf, input_dim: int):
         super().__init__(conf, input_dim)
@@ -71,12 +77,13 @@ class DBLSTM(Encoder):
         def drop(x):
             return core.dropout(x, self.dropout, train, generator)
 
-        impl = self.impl
-        if features.is_cuda:
-            if not self.bidirectional:
-                raise NotImplementedError(
-                    "forward-only DBLSTM on CUDA: the LSTM kernel is not ported yet")
-            impl = "kernel"
+        if features.is_cuda and not self.bidirectional:
+            # time-major end to end through the LSTM kernels
+            x = features.transpose(0, 1)
+            for i in range(self.num_layers):
+                x = drop(lstm_ops.lstm_tm_apply(params[f"layer_{i}"], x, lengths)[0])
+            return x.transpose(0, 1), lengths
+        impl = "kernel" if features.is_cuda else self.impl
         if impl == "kernel":
             # time-major end to end: one transpose in, one out
             x = features.transpose(0, 1)
@@ -91,6 +98,41 @@ class DBLSTM(Encoder):
                 x = core.lstm_scan(params[f"layer_{i}"], x, lengths)
             x = drop(x)
         return x, lengths
+
+    # -- streaming (forward-only stacks) ----------------------------------
+    def stream_init(self, batch: int, dtype=torch.float32, device=None):
+        """Per-layer (h, c) carries for a chunked encode: f32 on a CUDA
+        device (the LSTM kernel's carries), else ``dtype`` (the scan's)."""
+        if self.bidirectional:
+            raise ValueError("streaming needs bidirectional = false")
+        device = torch.device("cpu") if device is None else torch.device(device)
+        if device.type == "cuda":
+            dtype = torch.float32
+        return [
+            (torch.zeros((batch, self.num_units), dtype=dtype, device=device),
+             torch.zeros((batch, self.num_units), dtype=dtype, device=device))
+            for _ in range(self.num_layers)
+        ]
+
+    def stream_step(self, params, chunk, lengths, state):
+        """Encode one chunk: ([B, C, F], valid lengths, carries) -> ([B, C,
+        D], carries). Frames past ``lengths`` output zeros and leave the
+        carries untouched."""
+        if self.bidirectional:
+            raise ValueError("streaming needs bidirectional = false")
+        new_state = []
+        if chunk.is_cuda:
+            x = chunk.transpose(0, 1)
+            for i in range(self.num_layers):
+                x, carry = lstm_ops.lstm_tm_apply(params[f"layer_{i}"], x, lengths, state[i])
+                new_state.append(carry)
+            return x.transpose(0, 1), new_state
+        x = chunk
+        for i in range(self.num_layers):
+            x, carry = core.lstm_scan(params[f"layer_{i}"], x, lengths,
+                                      init_carry=state[i], return_carry=True)
+            new_state.append(carry)
+        return x, new_state
 
 
 @ENCODERS.register("listener")

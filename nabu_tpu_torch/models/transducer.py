@@ -13,8 +13,14 @@ the ``[decoder]``-section registry and the multi-head Model container:
 - decode-time recognizers (``decoding.transducer``) drive ``pred_step`` and
   ``joint_step`` frame by frame.
 
-The prediction net is the plain masked ``core.lstm_scan`` on every device
-(the JAX package runs it through ``lax.scan``, no Pallas kernel). Label ids
+On a CUDA device the teacher-forced prediction net (``_pred_sequence``)
+runs each layer through the LSTM kernels of ``ops.lstm`` (the walk that
+``lstm_seq_pallas`` computes, f32 carries; ``LSTMLayer`` when a gradient
+is wanted), and ``precompute`` through that module's fixed-order
+projection, so a streamed chunk and a whole utterance project each frame
+to the same bits. On the CPU the prediction net is the plain masked
+``core.lstm_scan``, as the JAX package runs it (``lax.scan``, no Pallas
+kernel). ``pred_step`` is one plain cell on every device. Label ids
 follow the CTC head: targets in [0, num_labels), blank = num_labels (the
 last index); the start symbol reuses embedding row num_labels.
 """
@@ -28,6 +34,7 @@ import torch
 from nabu_tpu_torch.config import Conf
 from nabu_tpu_torch.models import core
 from nabu_tpu_torch.models.decoders import Decoder
+from nabu_tpu_torch.ops import lstm as lstm_ops
 from nabu_tpu_torch.ops.masking import sequence_mask
 from nabu_tpu_torch.registry import DECODERS
 
@@ -93,8 +100,12 @@ class TransducerDecoder(Decoder):
         targets = targets.to(dev)
         sos = torch.full((B, 1), self.sos_id, dtype=targets.dtype, device=dev)
         x = core.embedding_apply(params["embed"], torch.cat([sos, targets], dim=1))
+        lengths = target_lengths.to(dev) + 1
         for i in range(self.num_layers):
-            x = core.lstm_scan(params[f"lstm_{i}"], x, target_lengths.to(dev) + 1)
+            if x.is_cuda:
+                x = lstm_ops.lstm_scan_kernel(params[f"lstm_{i}"], x, lengths)
+            else:
+                x = core.lstm_scan(params[f"lstm_{i}"], x, lengths)
         return x
 
     # -- joint network ------------------------------------------------------
@@ -106,8 +117,16 @@ class TransducerDecoder(Decoder):
         return core.linear_apply(params["out"], hidden)
 
     def precompute(self, params: dict, encoded: torch.Tensor) -> torch.Tensor:
-        """Step-invariant encoder projection [B, T, J] for decode loops."""
-        return core.linear_apply(params["joint_enc"], encoded)
+        """Step-invariant encoder projection [B, T, J] for decode loops
+        (on a CUDA device each frame's bits independent of T). float64,
+        which no model computes in (a search compared across devices),
+        takes the plain product."""
+        p = params["joint_enc"]
+        if not encoded.is_cuda or encoded.dtype == torch.float64:
+            return core.linear_apply(p, encoded)
+        B, T, D = encoded.shape
+        out = lstm_ops.lstm_proj(encoded.reshape(B * T, D).contiguous(), p["w"], p["b"])
+        return out.view(B, T, -1)
 
     # -- teacher-forced training pass ---------------------------------------
     def apply(self, params, encoded, enc_lengths, targets=None, target_lengths=None,

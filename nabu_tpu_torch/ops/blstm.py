@@ -52,7 +52,7 @@ _PROJ, _NT, _TN = 0, 1, 2
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "gemm": [_P] * 4 + [_I] * 6 + [_P] * 5,
+    "gemm": [_P] * 4 + [_I] * 7 + [_P] * 5,
     "recur": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
     "bwd_recur": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
 }
@@ -93,13 +93,13 @@ def _check_shape(what: str, t: torch.Tensor, shape, dtype=None) -> None:
 
 
 def _gemm(name, tag, a, b, lda, ldb, M, N, K, kind, bias=None, out=None, outf=None,
-          colsum=None) -> None:
-    """One launch of the two-direction GEMM of csrc/blstm.cu; ``a`` and
-    ``b`` are (fw, bw) pointer pairs."""
+          colsum=None, dirs=2) -> None:
+    """One launch of the GEMM of csrc/blstm.cu over ``dirs`` (1 or 2)
+    operand pairs; ``a`` and ``b`` are (fw, bw) pointer pairs."""
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(out.device if out is not None else outf.device):
         err = _launcher("gemm", tag)(
-            a[0], a[1], b[0], b[1], lda, ldb, M, N, K, kind,
+            a[0], a[1], b[0], b[1], lda, ldb, M, N, K, kind, dirs,
             ptr(bias), ptr(out), ptr(outf), ptr(colsum), _stream(),
         )
     build.check(err, name)

@@ -25,6 +25,11 @@ KERNELS = (
     "rnnt_alpha",
     "rnnt_beta",
     "rnnt_joint_bwd",
+    "lstm_proj",
+    "lstm_fwd",
+    "lstm_fwd_train",
+    "lstm_bwd_recur",
+    "lstm_bwd_dwh",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

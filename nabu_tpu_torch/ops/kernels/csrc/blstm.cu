@@ -20,6 +20,9 @@
 //       the same tiles by the blocks of the first output row tile;
 //     - dwh_d = hprev_d^T @ dg_d, hprev read from the layer's output one
 //       step back along each direction's recurrence (no copy).
+//     grid.z runs `dirs` (1 or 2) pointer pairs: the unidirectional LSTM
+//     (ops/lstm.py) takes one pair for its projection and two halves of K
+//     for its dwh (the wrapper adds the halves).
 //     Bound on the H100: operations (4x320 at T = 1024, B = 32, D = 640:
 //     the projection, dx and dwx are 107 GFLOP each and dwh 54 GFLOP of
 //     bf16 against 989 TFLOP/s). Design: a plain tiled GEMM, 64 x 128
@@ -197,6 +200,7 @@ struct GemmArgs {
   const T* b[2];
   int lda, ldb;
   int M, N, K;
+  int dirs;        // grid.z: 1 or 2 pointer pairs
   const T* bias;   // [2, N] (EPI_BIAS)
   T* out;          // [2, M, N] (EPI_BIAS, EPI_CAST)
   float* outf;     // [2, M, N] (EPI_F32)
@@ -438,7 +442,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 template <bool A_COL, bool B_COL, int EPI>
 int launch_gemm_bf16(const GemmArgs<bf16>& g, cudaStream_t stream) {
-  const dim3 grid((g.N + PN - 1) / PN, (g.M + PM - 1) / PM, 2);
+  const dim3 grid((g.N + PN - 1) / PN, (g.M + PM - 1) / PM, g.dirs);
   const bool vec = (A_COL ? g.M : g.K) % 8 == 0 && (B_COL ? g.K : g.N) % 8 == 0 &&
                    g.lda % 8 == 0 && g.ldb % 8 == 0 && aligned16(g.a[0]) && aligned16(g.a[1]) &&
                    aligned16(g.b[0]) && aligned16(g.b[1]);
@@ -449,7 +453,7 @@ int launch_gemm_bf16(const GemmArgs<bf16>& g, cudaStream_t stream) {
 
 template <bool A_COL, bool B_COL, int EPI>
 int launch_gemm_f32(const GemmArgs<float>& g, cudaStream_t stream) {
-  const dim3 grid((g.N + SN - 1) / SN, (g.M + SM_ - 1) / SM_, 2);
+  const dim3 grid((g.N + SN - 1) / SN, (g.M + SM_ - 1) / SM_, g.dirs);
   gemm_simt_f32<A_COL, B_COL, EPI><<<grid, S_THREADS, 0, stream>>>(g);
   return (int)cudaGetLastError();
 }
@@ -459,6 +463,7 @@ int launch_gemm_f32(const GemmArgs<float>& g, cudaStream_t stream) {
 template <typename T>
 int launch_gemm(const GemmArgs<T>& g, int kind, cudaStream_t stream) {
   if (g.M <= 0 || g.N <= 0) return 0;
+  if (g.dirs != 1 && g.dirs != 2) return (int)cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {
     switch (kind) {
       case 0: return launch_gemm_bf16<false, false, EPI_BIAS>(g, stream);
@@ -811,19 +816,19 @@ int launch_bwd_recur(const float* gates, const float* cst, const T* gy, const in
 // 2 = A column-major times B row-major (f32 out, optional column sums of B)
 extern "C" int nabu_blstm_gemm_bf16(const void* a0, const void* a1, const void* b0,
                                     const void* b1, int lda, int ldb, int M, int N, int K,
-                                    int kind, const void* bias, void* out, float* outf,
-                                    float* colsum, void* stream) {
+                                    int kind, int dirs, const void* bias, void* out,
+                                    float* outf, float* colsum, void* stream) {
   GemmArgs<bf16> g{{(const bf16*)a0, (const bf16*)a1}, {(const bf16*)b0, (const bf16*)b1},
-                   lda, ldb, M, N, K, (const bf16*)bias, (bf16*)out, outf, colsum};
+                   lda, ldb, M, N, K, dirs, (const bf16*)bias, (bf16*)out, outf, colsum};
   return launch_gemm(g, kind, (cudaStream_t)stream);
 }
 
 extern "C" int nabu_blstm_gemm_f32(const void* a0, const void* a1, const void* b0,
                                    const void* b1, int lda, int ldb, int M, int N, int K,
-                                   int kind, const void* bias, void* out, float* outf,
-                                   float* colsum, void* stream) {
+                                   int kind, int dirs, const void* bias, void* out,
+                                   float* outf, float* colsum, void* stream) {
   GemmArgs<float> g{{(const float*)a0, (const float*)a1}, {(const float*)b0, (const float*)b1},
-                    lda, ldb, M, N, K, (const float*)bias, (float*)out, outf, colsum};
+                    lda, ldb, M, N, K, dirs, (const float*)bias, (float*)out, outf, colsum};
   return launch_gemm(g, kind, (cudaStream_t)stream);
 }
 

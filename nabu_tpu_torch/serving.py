@@ -13,8 +13,10 @@ the artifacts that the JAX ``run export`` writes::
 
 ``load_exported`` builds a ready recognizer on the GPU (or on the CPU
 when asked for by name); ``serve`` drives it as a worker speaking a line
-protocol (``utt_id wav_path`` in, ``utt_id hypothesis`` out). Streaming
-serve and LM fusion are not ported yet.
+protocol (``utt_id wav_path`` in, ``utt_id hypothesis`` out), or with
+``streaming=True`` the chunked protocol of a streaming-transducer artifact
+(``utt_id PARTIAL text`` lines, then ``utt_id FINAL text``). LM fusion is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -88,6 +90,7 @@ class ExportedModel:
         self.rconf = rconf
         self.recognizer = build_recognizer(rconf, self.model)
         self.batch_size = batch_size
+        self._streamer = None
 
     # -- inference --------------------------------------------------------
     def recognize_features(self, feats: Sequence[np.ndarray]) -> List[str]:
@@ -141,6 +144,38 @@ class ExportedModel:
     def recognize(self, path: str) -> str:
         return self.recognize_files([path])[0]
 
+    # -- streaming inference ------------------------------------------------
+    @property
+    def streamer(self):
+        """The chunked-transducer session of a streaming-capable model (a
+        forward-only encoder and a transducer head), built at first use."""
+        if self._streamer is None:
+            from nabu_tpu_torch.decoding.streaming import StreamingTransducer
+
+            self._streamer = StreamingTransducer(
+                self.model,
+                head=self.rconf.get("head"),
+                chunk_frames=self.rconf.getint("chunk_frames", 32),
+                max_symbols=self.rconf.getint("max_symbols", 4),
+            )
+        return self._streamer
+
+    def stream_file(self, path: str, on_partial=None) -> str:
+        """Decode one file chunk by chunk from host features. After every
+        chunk that emits new tokens, ``on_partial(text_so_far)`` gets the
+        whole running hypothesis. Returns the final text, equal to the
+        offline greedy decode (no lookahead)."""
+        feats = self.audio_proc.process(path)
+        if self.cmvn is not None:
+            feats = (feats - self.cmvn[0]) / self.cmvn[1]
+
+        def on_chunk(new, toks):
+            if new[0] and on_partial is not None:
+                on_partial(self.text_proc.ids_to_text(toks[0]))
+
+        toks, _ = self.streamer.stream(self.params, feats[None], [feats.shape[0]], on_chunk)
+        return self.text_proc.ids_to_text(toks[0])
+
 
 def load_exported(export_dir: str, batch_size: int = 8, device=None) -> ExportedModel:
     """Load an export artifact on ``device``: CUDA by default (raises
@@ -160,13 +195,16 @@ def serve(
     """Line-protocol worker: ``utt_id path`` per input line ->
     ``utt_id hypothesis`` per output line, flushed per batch.
 
+    With ``streaming=True`` (streaming-transducer artifacts) each
+    utterance decodes chunk by chunk, writing ``utt_id PARTIAL <running
+    hypothesis>`` as tokens appear and a closing ``utt_id FINAL
+    <hypothesis>``, equal to the offline decode.
+
     Already-buffered input lines are micro-batched up to ``batch_size``;
     when no further input is immediately readable, the pending batch
     flushes rather than waiting to fill. A blank line is an explicit
     flush barrier. ``model`` reuses an already loaded artifact. Returns
     the number of utterances served."""
-    if streaming:
-        raise NotImplementedError("streaming serve not ported yet")
     in_stream = in_stream if in_stream is not None else sys.stdin
     out_stream = out_stream if out_stream is not None else sys.stdout
     if model is None:
@@ -205,6 +243,16 @@ def serve(
         if not path:
             out_stream.write(f"{utt} **ERROR** missing path\n")
             out_stream.flush()
+            continue
+        if streaming:
+            def on_partial(text, utt=utt):
+                out_stream.write(f"{utt} PARTIAL {text}".rstrip() + "\n")
+                out_stream.flush()
+
+            text = model.stream_file(path.strip(), on_partial=on_partial)
+            out_stream.write(f"{utt} FINAL {text}".rstrip() + "\n")
+            out_stream.flush()
+            served += 1
             continue
         pending.append((utt, path.strip()))
         if len(pending) >= batch_size or not more_ready():

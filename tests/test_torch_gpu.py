@@ -303,7 +303,7 @@ def test_blstm_layer_gradients_on_card_match_cpu(cuda_device, monkeypatch, dtype
 def test_untagged_recipe_trains_through_the_kernels_on_card(cuda_device, tmp_path):
     """A dblstm_ctc model that sets no ``use_pallas`` still runs the BLSTM
     and CTC kernels on the card, forward and backward; a forward-only
-    stack, whose LSTM kernel is not ported, raises there."""
+    stack runs the LSTM kernels (walk, chain, dwh) and no BLSTM kernel."""
     from nabu_tpu_torch.config import ConfigFile
     from nabu_tpu_torch.models.model import build_model
     from nabu_tpu_torch.ops.losses import make_loss_computer
@@ -328,19 +328,20 @@ def test_untagged_recipe_trains_through_the_kernels_on_card(cuda_device, tmp_pat
         flat = {k: v.to(cuda_device).requires_grad_(True)
                 for k, v in flatten(model.init(torch.Generator().manual_seed(0))).items()}
         loss_fn = make_loss_computer(model)
-        if bidirectional == "false":
-            with pytest.raises(NotImplementedError, match="not ported yet"):
-                loss_fn(unflatten(flat), batch, None, False)
-            continue
         kernels.reset_launch_counts()
         loss, _ = loss_fn(unflatten(flat), batch, None, False)
         grads = torch.autograd.grad(loss, list(flat.values()))
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         assert all(bool(torch.isfinite(g).all()) for g in grads)
-        for name in ("blstm_proj", "blstm_recur_train", "blstm_bwd_recur", "blstm_bwd_dx",
-                     "blstm_bwd_dwx", "blstm_bwd_dwh", "ctc_alpha", "ctc_beta"):
+        blstm = ("blstm_proj", "blstm_recur_train", "blstm_bwd_recur", "blstm_bwd_dx",
+                 "blstm_bwd_dwx", "blstm_bwd_dwh")
+        lstm = ("lstm_fwd_train", "lstm_bwd_recur", "lstm_bwd_dwh")
+        ran, idle = (blstm, lstm) if bidirectional == "true" else (lstm, blstm)
+        for name in ran + ("ctc_alpha", "ctc_beta"):
             assert counts[name] > 0, (name, counts)
+        for name in idle:
+            assert counts[name] == 0, (name, counts)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
@@ -600,3 +601,252 @@ def test_rnnt_model_trains_through_the_kernels_on_card(cuda_device, tmp_path):
         assert bool(torch.isfinite(a).all()), name
         np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-2,
                                    atol=1e-2 * max(1e-6, float(c.abs().max())), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the unidirectional LSTM kernels (ops/lstm.py)
+# ---------------------------------------------------------------------------
+
+def _lstm_tol(name, tag):
+    import chip_smoke
+
+    return {"y": chip_smoke.TOL[("lstm_fwd", tag)], "carry": chip_smoke.TOL["lstm_carry"],
+            "stores": chip_smoke.TOL["lstm_stores"], "dxw": chip_smoke.TOL["lstm_bwd_recur"],
+            "dwh": chip_smoke.TOL["lstm_bwd_dwh"],
+            "proj": chip_smoke.TOL[("lstm_proj", tag)]}[name]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,H,lengths", [(37, 9, [37, 20, 8, 1]), (20, 24, [20, 3, 0]),
+                                         (37, 320, [37, 30, 12, 5, 1])])
+def test_lstm_kernels_match_plain(cuda_device, dtype, T, H, lengths):
+    """Each LSTM kernel against its plain version on the same inputs, with
+    chip_smoke.py's tolerances and planted faults, which must fail them:
+    8 units reading h one step late (walk), the carry not held past a
+    length (final carry), the dgates of 8 units one step stale (chain), the
+    last token's term dropped (dwh), the last product dropped (proj). A
+    projection's rows keep their bits whatever the number of rows."""
+    import chip_smoke
+    from nabu_tpu_torch.ops import lstm as lo
+
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    rng = np.random.default_rng(T * H)
+    B = len(lengths)
+    lt = torch.as_tensor(lengths, dtype=torch.int32, device=cuda_device)
+
+    def u(*shape, scale=1.0, dt=dtype):
+        return torch.as_tensor(
+            rng.uniform(-scale, scale, shape).astype(np.float32)).to(cuda_device, dt)
+
+    xw = u(T, B, 4 * H)
+    wh = u(H, 4 * H, scale=float(np.sqrt(6.0 / (5 * H))))
+    h0, c0 = u(B, H, scale=0.5, dt=torch.float32), u(B, H, scale=0.5, dt=torch.float32)
+    gy = u(T, B, H)
+    before = kernels.launch_counts()
+    y, (hT, cT) = lo.lstm_fwd(xw, lt, wh, h0, c0)
+    ry, (rh, rc) = lo.lstm_fwd_plain(xw, lt, wh, h0, c0)
+    got = lo.lstm_fwd_train(xw, lt, wh)
+    ref = lo.lstm_fwd_train_plain(xw, lt, wh)
+    dxw = lo.lstm_bwd_recur(ref[1], ref[2], gy, lt, wh)
+    rdxw = lo.lstm_bwd_recur_plain(ref[1], ref[2], gy, lt, wh)
+    dwh = lo.lstm_bwd_dwh(ref[3], rdxw)
+    rdwh = lo.lstm_bwd_dwh_plain(ref[3], rdxw)
+    x, wx, b = u(T * B, 16), u(16, 4 * H, scale=0.3), u(4 * H, scale=0.1)
+    proj = lo.lstm_proj(x, wx, b)
+    part = lo.lstm_proj(x[: 3 * B].contiguous(), wx, b)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name, n in (("lstm_fwd", 1), ("lstm_fwd_train", 1), ("lstm_bwd_recur", 1),
+                    ("lstm_bwd_dwh", 1), ("lstm_proj", 2)):
+        assert after[name] == before[name] + n, name
+    assert torch.equal(part, proj[: 3 * B])
+    assert y.dtype == dtype and hT.dtype == cT.dtype == dxw.dtype == dwh.dtype == torch.float32
+
+    checks = {"y": (y, ry), "h_final": (hT, rh), "c_final": (cT, rc), "y_train": (got[0], ref[0]),
+              "gates": (got[1], ref[1]), "c": (got[2], ref[2]), "h": (got[3], ref[3]),
+              "dxw": (dxw, rdxw), "dwh": (dwh, rdwh),
+              "proj": (proj, lo.lstm_proj_plain(x, wx, b))}
+    cut = rdxw.clone()
+    cut[T - 1, 0] = 0
+    x_cut = x.clone()
+    x_cut[:, -1] = 0
+    faults = {
+        "y": (chip_smoke.lstm_stale_walk(torch)(xw, lt, wh, h0, c0)[0], ry),
+        "c_final": (chip_smoke.lstm_carry_not_held(torch)(xw, lt, wh, h0, c0)[1][1], rc),
+        "dxw": (chip_smoke.lstm_faulty_chain(torch)(ref[1], ref[2], gy, lt, wh), rdxw),
+        "dwh": (lo.lstm_bwd_dwh_plain(ref[3], cut), rdwh),
+        "proj": (lo.lstm_proj_plain(x_cut, wx, b), checks["proj"][1]),
+    }
+    kind = {"y": "y", "y_train": "y", "h_final": "carry", "c_final": "carry", "gates": "stores",
+            "c": "stores", "h": "stores", "dxw": "dxw", "dwh": "dwh", "proj": "proj"}
+
+    def tol(name, r):
+        atol, rtol = _lstm_tol(kind[name], tag)
+        return atol + rtol * np.abs(r)
+
+    over, sound = _readings(checks, tol)
+    over_f, fault = _readings(faults, tol)
+    passed = sorted(set(faults) - set(over_f))
+    assert not over and not passed, {"beyond tolerance": over, "faults passing": passed,
+                                     "sound": sound, "fault": fault}
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_lstm_layer_gradients_on_card_match_cpu(cuda_device, monkeypatch, dtype, rtol):
+    """lstm_scan_kernel with a gradient (x @ wx + b, then LSTMLayer) on the
+    card against the same on the CPU through the plain versions: output,
+    dx, dwx, dwh, db. A planted fault, dwh paired with h one step late,
+    must fail the tolerance."""
+    import chip_smoke
+    from nabu_tpu_torch.ops import lstm as lo
+
+    rng = np.random.default_rng(21)
+    T, D, H, lengths = 29, 12, 40, [29, 17, 5, 1]
+    p32 = {"wx": rng.uniform(-0.3, 0.3, (D, 4 * H)), "wh": rng.uniform(-0.2, 0.2, (H, 4 * H)),
+           "b": rng.uniform(-0.3, 0.3, 4 * H)}
+    x32 = rng.standard_normal((len(lengths), T, D))
+    gy = torch.as_tensor(rng.standard_normal((len(lengths), T, H)).astype(np.float32))
+
+    def run(dev):
+        p = {k: torch.as_tensor(v.astype(np.float32)).to(dev, dtype).requires_grad_(True)
+             for k, v in p32.items()}
+        x = torch.as_tensor(x32.astype(np.float32)).to(dev, dtype).requires_grad_(True)
+        y = lo.lstm_scan_kernel(p, x, torch.as_tensor(lengths, dtype=torch.int32))
+        (y.float() * gy.to(dev)).sum().backward()
+        return [y, x.grad, p["wx"].grad, p["wh"].grad, p["b"].grad]
+
+    before = kernels.launch_counts()
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name in ("lstm_fwd_train", "lstm_bwd_recur", "lstm_bwd_dwh"):
+        assert after[name] == before[name] + 1, name
+    ref = run(torch.device("cpu"))
+    monkeypatch.setattr(lo, "lstm_bwd_dwh", chip_smoke.lstm_dwh_h_late(torch))
+    faulty = run(cuda_device)
+
+    def tol(name, r):
+        return rtol * (np.abs(r) + np.abs(r).max())
+
+    names = ("y", "dx", "dwx", "dwh", "db")
+    over, sound = _readings({n: (a.detach(), b.detach()) for n, a, b in zip(names, got, ref)},
+                            tol)
+    over_f, fault = _readings({"dwh": (faulty[3], ref[3])}, tol)
+    assert not over and over_f, {"beyond tolerance": over, "sound": sound, "fault": fault}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_carry_threading_on_card_is_exact(cuda_device, dtype):
+    """Chunks of 8 frames with the f32 carry threaded through give the
+    full walk's output and final carry bit for bit (projection included)."""
+    from nabu_tpu_torch.ops import lstm as lo
+
+    rng = np.random.default_rng(22)
+    T, D, H, lengths = 37, 20, 64, [37, 30, 9, 0]
+    p = {k: torch.as_tensor(rng.uniform(-0.3, 0.3, s).astype(np.float32)).to(cuda_device, dtype)
+         for k, s in (("wx", (D, 4 * H)), ("wh", (H, 4 * H)), ("b", (4 * H,)))}
+    x = torch.as_tensor(rng.standard_normal((T, len(lengths), D)).astype(np.float32)).to(
+        cuda_device, dtype)
+    lt = torch.as_tensor(lengths, dtype=torch.int32, device=cuda_device)
+    with torch.no_grad():
+        full, (hf, cf) = lo.lstm_tm_apply(p, x, lt)
+        outs, carry = [], None
+        for c0 in range(0, T, 8):
+            y, carry = lo.lstm_tm_apply(p, x[c0:c0 + 8], torch.clamp(lt - c0, 0, 8), carry)
+            outs.append(y)
+    assert torch.equal(torch.cat(outs), full)
+    assert torch.equal(carry[0], hf) and torch.equal(carry[1], cf)
+    assert float(cf[3].abs().max()) == 0.0  # a lane of length 0 keeps its zero carry
+
+
+_STREAM_CFG = ("[model]\ncompute_dtype = {dtype}\n[encoder]\nencoder = dblstm\n"
+               "bidirectional = false\nnum_layers = 2\nnum_units = 24\n[decoder]\n"
+               "decoder = rnnt\nnum_units = 16\nembed_dim = 8\njoint_units = 32\n")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_streaming_equals_offline_on_card(cuda_device, tmp_path, dtype):
+    """A tiny streaming model on the card: transducer_streaming (chunks of
+    8) gives the ids and the scores of transducer_greedy exactly, through
+    the LSTM kernels."""
+    from nabu_tpu_torch.config import Conf, ConfigFile
+    from nabu_tpu_torch.decoding.recognizers import build_recognizer
+    from nabu_tpu_torch.models.model import build_model
+    from nabu_tpu_torch.params import flatten, unflatten
+
+    path = tmp_path / "model.cfg"
+    path.write_text(_STREAM_CFG.format(dtype=dtype))
+    model = build_model(ConfigFile.read(str(path)), 6, 4)
+    flat = flatten(model.init(torch.Generator().manual_seed(3)))
+    rng = np.random.default_rng(23)
+    flat["decoders/decoder/out/b"] = torch.as_tensor(
+        rng.uniform(-1.0, 1.0, 5).astype(np.float32))
+    params = unflatten({k: v.to(cuda_device) for k, v in flat.items()})
+    feats = (2.0 * rng.standard_normal((4, 45, 6))).astype(np.float32)
+    lengths = np.asarray([45, 30, 9, 1], np.int32)
+    kernels.reset_launch_counts()
+    stream = build_recognizer(Conf({"recognizer": "transducer_streaming", "chunk_frames": "8",
+                                    "max_symbols": "3"}, "r"), model)(params, feats, lengths)
+    greedy = build_recognizer(Conf({"recognizer": "transducer_greedy", "max_symbols": "3"},
+                                   "r"), model)(params, feats, lengths)
+    counts = kernels.launch_counts()
+    assert counts["lstm_fwd"] > 0 and counts["lstm_proj"] > 0, counts
+    assert counts["blstm_recur"] == counts["lstm_fwd_train"] == 0, counts
+    for b in range(4):
+        assert stream.best(b) == greedy.best(b), b
+    assert np.array_equal(stream.scores, greedy.scores)
+    assert sum(len(stream.best(b)) for b in range(4)) > 0
+
+
+def test_lstm_never_takes_a_plain_version_on_card(cuda_device, monkeypatch, tmp_path):
+    """The no-fallback rule: with the LSTM kernels' plain versions and the
+    masked scan made to raise, a forward-only stack and the prediction net
+    train on the card (through the kernels) and the streaming model
+    decodes; a batch beyond the chain's shared memory raises."""
+    from nabu_tpu_torch.config import ConfigFile
+    from nabu_tpu_torch.models import core
+    from nabu_tpu_torch.models.model import build_model
+    from nabu_tpu_torch.ops import lstm as lo
+    from nabu_tpu_torch.ops.losses import make_loss_computer
+    from nabu_tpu_torch.params import flatten, unflatten
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain LSTM path taken on the card")
+
+    for name in ("lstm_walk_plain", "lstm_fwd_plain", "lstm_fwd_train_plain",
+                 "lstm_bwd_recur_plain", "lstm_bwd_dwh_plain", "lstm_proj_plain"):
+        monkeypatch.setattr(lo, name, refuse)
+    monkeypatch.setattr(core, "lstm_scan", refuse)
+    path = tmp_path / "model.cfg"
+    path.write_text(_STREAM_CFG.format(dtype="bfloat16"))
+    model = build_model(ConfigFile.read(str(path)), 6, 4)
+    flat = {k: v.to(cuda_device).requires_grad_(True)
+            for k, v in flatten(model.init(torch.Generator().manual_seed(0))).items()}
+    rng = np.random.default_rng(24)
+    batch = {
+        "features": torch.as_tensor(rng.standard_normal((3, 21, 6)).astype(np.float32)),
+        "feature_lengths": torch.as_tensor([21, 13, 4], dtype=torch.int32),
+        "targets": torch.as_tensor(rng.integers(0, 4, (3, 5)), dtype=torch.int32),
+        "target_lengths": torch.as_tensor([5, 2, 0], dtype=torch.int32),
+        "example_mask": torch.ones(3),
+    }
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    kernels.reset_launch_counts()
+    loss, _ = make_loss_computer(model)(unflatten(flat), batch, None, False)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    # 2 encoder layers and the prediction net
+    for name in ("lstm_fwd_train", "lstm_bwd_recur", "lstm_bwd_dwh"):
+        assert counts[name] == 3, (name, counts)
+    with torch.no_grad():
+        enc, _ = model.encode(unflatten(flat), batch["features"], batch["feature_lengths"])
+    assert enc.shape == (3, 21, 24) and kernels.launch_counts()["lstm_fwd"] == 2
+    z = torch.zeros((3, 64, 4 * 320), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="beyond the kernel's design"):
+        lo.lstm_fwd_train(z, torch.full((64,), 3, dtype=torch.int32, device=cuda_device),
+                          torch.zeros((320, 4 * 320), dtype=torch.bfloat16, device=cuda_device))
+    with pytest.raises(TypeError):  # lengths must be int32
+        lo.lstm_fwd(z[:, :4].contiguous(), torch.full((4,), 3, dtype=torch.int64, device=cuda_device),
+                    torch.zeros((320, 4 * 320), dtype=torch.bfloat16, device=cuda_device))

@@ -189,11 +189,18 @@ class TestServe:
         want = load_exported(beam_f32, device="cpu").recognize(p)
         assert capsys.readouterr().out == f"{u} {want}".rstrip() + "\n"
 
-    def test_streaming_not_ported(self, beam_f32):
+    def test_streaming_not_ported(self, corpus, beam_f32):
+        """Streaming serve is ported (tests/test_torch_streaming.py holds it
+        against JAX's); a bidirectional CTC artifact has no stream and is
+        refused as JAX refuses it."""
         from nabu_tpu_torch.serving import serve
 
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            serve(beam_f32, io.StringIO(""), io.StringIO(), streaming=True, device="cpu")
+        _, entries = corpus
+        assert serve(beam_f32, io.StringIO(""), io.StringIO(), streaming=True, device="cpu") == 0
+        u, p = entries[0]
+        with pytest.raises(ValueError, match="forward-only encoder"):
+            serve(beam_f32, io.StringIO(f"{u} {p}\n"), io.StringIO(), streaming=True,
+                  device="cpu")
 
 
 class TestDevice:

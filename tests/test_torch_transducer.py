@@ -236,7 +236,8 @@ def test_transducer_recognizers_refuse_a_ctc_head(tmp_path):
     for name in RECOGNIZER_CONFS:
         with pytest.raises(ValueError, match="not a transducer head"):
             build_recognizer(Conf({"recognizer": name}, "recognizer"), model)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # the streaming recognizer needs a forward-only encoder first
+    with pytest.raises(ValueError, match="forward-only encoder"):
         build_recognizer(Conf({"recognizer": "transducer_streaming"}, "recognizer"), model)
 
 
