@@ -63,7 +63,20 @@ Phases, each printing JSON lines:
               on the same corpus (40 steps, the same checks; 5 LSTM walks,
               chains and dwh a step). Its database.conf has train_rnnt's
               sections, so it takes a copy of the data train_rnnt's ``cli
-              data`` prepared (checked section by section).
+              data`` prepared (checked section by section);
+10. train_las — ``cli data`` (with the recipe's 3-way speed perturbation,
+              from a third of the corpus: 171 utterances, 513 after
+              perturbation) and 40 steps of ``cli train`` of las_large_wsj
+              (5 BLSTM layers of 512 units through the v1 kernels, the
+              location-attention Speller, label-smoothed cross-entropy,
+              SpecAugment, bf16, B = 64), the same checks (loss and token
+              accuracy a step, the forward's Listener and Speller shares;
+              5 v1 walks, gates recomputes, chains and dwh a step, no v2
+              walk or chain; the gradient check's fault: dwh paired with h
+              one step late), then the recipe's attention_greedy validation
+              decode of the trained checkpoint over the dev set at B = 64
+              (the path of the v1 inference walk): its RTF and launches,
+              and the card's ids against the CPU's in f32 on one batch.
 
 The kernels phase also holds the four RNN-T kernels (joint forward,
 alpha, beta, joint backward) to their plain versions at B = 32, T' = 250,
@@ -72,7 +85,9 @@ adds under 100 MB of device memory there and under 400 MB at the
 streaming recipe's T' = 1000 (no subsampling), and holds the LSTM
 kernels (projection, walk with a carry, training walk, chain, dwh) to
 their plain versions at the encoder's T = 1024 and the prediction net's
-T = 121, B = 32, H = 320.
+T = 121, B = 32, H = 320, and the v1 BLSTM kernels (inference walk,
+training walk, gates recompute, chain, dwh) at las_large's bottom layer
+(T = 1024, D = 80) and pyramid_0 (T = 512, D = 2048), B = 64, H = 512.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -100,6 +115,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 RECIPE = os.path.join(REPO, "config", "recipes", "dblstm_ctc_wsj")
 RNNT_RECIPE = os.path.join(REPO, "config", "recipes", "rnnt_char_wsj")
 STREAM_RECIPE = os.path.join(REPO, "config", "recipes", "rnnt_streaming_wsj")
+LAS_RECIPE = os.path.join(REPO, "config", "recipes", "las_large_wsj")
 
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and
 # f32 non-tensor FLOP/s
@@ -163,6 +179,24 @@ W, K = 400, 256
 #   last token's term dropped
 # - stream_scores: streamed and offline greedy scores, the same bits
 #   expected (identical arithmetic per frame)
+# - blstm_v1_recur(_train): as blstm_recur (the same cell; over 1024
+#   dependent steps one-step bf16 differences of the carry propagate);
+#   its stores: h as the output, c as blstm_recur_train's c; faults: 8
+#   units read h one step late, c and h stored one step late
+# - blstm_v1_bwd_gates: f32 sums of the same bf16 (or f32) products over
+#   K = 512 in another order; fault: the last of the H products dropped
+# - blstm_v1_bwd_recur: as blstm_bwd_recur; fault: the dgates of 8 units
+#   one step stale
+# - blstm_v1_bwd_dwh: as blstm_bwd_dwh; fault: the last token's term
+#   dropped
+# - train_las gradients: the Listener's parameters as train_grads; the
+#   Speller's (bf16, no kernel) at train_grads_speller: its attention
+#   biases' gradients are sums of many cancelling bf16 terms, which one
+#   bf16 step in the Listener's output moves by up to ~4% (0.038 seen at B
+#   = 64, T = 1072); fault: the v1 layers' dwh with the two directions'
+#   carries swapped (the GEMM's operand pairs exchanged); reported, not
+#   required: dwh paired with h one step late (adjacent carries are close,
+#   so its trace is ~2%)
 TOL = {
     "stft_mel": (1e-4, 0.0),
     ("blstm_proj", "bf16"): (1e-2, 1e-2),
@@ -190,6 +224,7 @@ TOL = {
     "logits_bf16": (0.03, 0.0),
     "train_loss": (1e-2, 1e-3),
     "train_grads": 0.02,
+    "train_grads_speller": 0.1,
     ("lstm_proj", "bf16"): (1e-2, 1e-2),
     ("lstm_proj", "f32"): (1e-4, 1e-5),
     ("lstm_fwd", "bf16"): (1e-2, 0.0),
@@ -199,6 +234,16 @@ TOL = {
     "lstm_bwd_recur": (1e-4, 1e-4),
     "lstm_bwd_dwh": (1e-3, 1e-4),
     "stream_scores": 1e-4,
+    ("blstm_v1_recur", "bf16"): (4e-2, 0.0),
+    ("blstm_v1_recur", "f32"): (1e-4, 0.0),
+    ("blstm_v1_stores", "bf16"): (1e-2, 0.0),
+    ("blstm_v1_stores", "f32"): (1e-4, 0.0),
+    ("blstm_v1_bwd_gates", "bf16"): (1e-4, 1e-4),
+    ("blstm_v1_bwd_gates", "f32"): (1e-4, 1e-4),
+    ("blstm_v1_bwd_recur", "bf16"): (2e-2, 0.0),
+    ("blstm_v1_bwd_recur", "f32"): (1e-4, 0.0),
+    ("blstm_v1_bwd_dwh", "bf16"): (1e-2, 1e-3),
+    ("blstm_v1_bwd_dwh", "f32"): (1e-3, 1e-4),
 }
 # the RNN-T loss's extra peak device memory: 100 MB at T' = 250 (the
 # Listener's time / 4); every buffer of the loss is per frame, so the limit
@@ -229,6 +274,12 @@ TPU_KERNELS = {
     "lstm_fwd_train": "nabu_tpu/ops/pallas/lstm.py:173",
     "lstm_bwd_recur": "nabu_tpu/ops/pallas/lstm.py:213",
     "lstm_bwd_dwh": "nabu_tpu/ops/pallas/lstm.py:213",
+    # rows 4-6, the v1 family
+    "blstm_v1_recur": "nabu_tpu/ops/pallas/blstm.py:123",
+    "blstm_v1_recur_train": "nabu_tpu/ops/pallas/blstm.py:388",
+    "blstm_v1_bwd_gates": "nabu_tpu/ops/pallas/blstm.py:463",
+    "blstm_v1_bwd_recur": "nabu_tpu/ops/pallas/blstm.py:463",
+    "blstm_v1_bwd_dwh": "nabu_tpu/ops/pallas/blstm.py:463",
 }
 SOURCES = {name: "nabu_tpu_torch/ops/kernels/csrc/blstm.cu" for name in TPU_KERNELS}
 SOURCES["stft_mel"] = "nabu_tpu_torch/ops/kernels/csrc/stft_mel.cu"
@@ -237,6 +288,8 @@ for _name in ("rnnt_joint_fwd", "rnnt_alpha", "rnnt_beta", "rnnt_joint_bwd"):
     SOURCES[_name] = "nabu_tpu_torch/ops/kernels/csrc/transducer.cu"
 for _name in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd_recur"):
     SOURCES[_name] = "nabu_tpu_torch/ops/kernels/csrc/lstm.cu"
+for _name in ("blstm_v1_recur", "blstm_v1_recur_train", "blstm_v1_bwd_recur"):
+    SOURCES[_name] = "nabu_tpu_torch/ops/kernels/csrc/blstm_v1.cu"
 
 # the kernels each path launches, and per training step of each training
 # phase: the 4-layer DBLSTM-CTC recipe (layer 0's input, the features,
@@ -257,10 +310,24 @@ STEP_LAUNCHES = {
                    "lstm_fwd_train": 1, "lstm_bwd_recur": 1, "lstm_bwd_dwh": 1, **_RNNT_STEP},
     "train_rnnt_stream": {"lstm_fwd_train": 5, "lstm_bwd_recur": 5, "lstm_bwd_dwh": 5,
                           **_RNNT_STEP},
+    # las_large's 5 Listener layers on the v1 family (the bottom layer's
+    # input, the features, needs no dx)
+    "train_las": {"blstm_proj": 5, "blstm_v1_recur_train": 5, "blstm_v1_bwd_gates": 5,
+                  "blstm_v1_bwd_recur": 5, "blstm_v1_bwd_dwh": 5, "blstm_bwd_dx": 4,
+                  "blstm_bwd_dwx": 5},
 }
-TRAIN_RECIPES = {"train": RECIPE, "train_rnnt": RNNT_RECIPE, "train_rnnt_stream": STREAM_RECIPE}
+# the v1 inference walk's decode: the projection and the walk of each layer
+LAS_DECODE_KERNELS = ("blstm_proj", "blstm_v1_recur")
+TRAIN_RECIPES = {"train": RECIPE, "train_rnnt": RNNT_RECIPE, "train_rnnt_stream": STREAM_RECIPE,
+                 "train_las": LAS_RECIPE}
 TRAIN_STEPS = 40
 TRAIN_UTTS = 512
+# las_large: a third of the corpus, x3 after its speed perturbation
+LAS_TRAIN_UTTS = 171
+# the v1 kernel rows: las_large's Listener at B = 64, H = 512, bottom layer
+# and pyramid_0 (T, D)
+V1_B, V1_H = 64, 512
+V1_SHAPES = (("bottom", 1024, 2 * 40), ("pyramid_0", 512, 4 * 512))
 
 
 def emit(obj) -> None:
@@ -359,6 +426,11 @@ _WRAPPERS = {
     "lstm_fwd_train": ("lstm", "lstm_fwd_train"),
     "lstm_bwd_recur": ("lstm", "lstm_bwd_recur"),
     "lstm_bwd_dwh": ("lstm", "lstm_bwd_dwh"),
+    "blstm_v1_recur": ("blstm_v1", "blstm_v1_recur"),
+    "blstm_v1_recur_train": ("blstm_v1", "blstm_v1_recur_train"),
+    "blstm_v1_bwd_gates": ("blstm_v1", "blstm_v1_bwd_gates"),
+    "blstm_v1_bwd_recur": ("blstm_v1", "blstm_v1_bwd_recur"),
+    "blstm_v1_bwd_dwh": ("blstm_v1", "blstm_v1_bwd_dwh"),
 }
 
 
@@ -689,6 +761,38 @@ def lstm_faulty_chain(torch, stale_units: int = 8):
     return chain
 
 
+def hs_one_step_late(torch, hs):
+    """Planted store fault: the v1 walk's stored h carries [2, T + 1, B,
+    H] written one slot further along each direction's walk (zeros where
+    nothing was written)."""
+    late = torch.zeros_like(hs)
+    late[0, 2:], late[1, :-2] = hs[0, 1:-1], hs[1, 1:-1]
+    return late
+
+
+def v1_dwh_directions_swapped(torch):
+    """Planted v1 dwh fault: each direction's dgates paired with the other
+    direction's carries (the GEMM's two operand pairs exchanged)."""
+    from nabu_tpu_torch.ops.blstm_v1 import blstm_v1_bwd_dwh_plain
+
+    def dwh(hs, dg):
+        return blstm_v1_bwd_dwh_plain(hs.flip(0), dg)
+    return dwh
+
+
+def v1_dwh_h_late(torch):
+    """Planted v1 dwh fault: each step's dgates paired with the carry one
+    step further back than the step read (an off-by-one in the row offset
+    of hprev)."""
+    from nabu_tpu_torch.ops.blstm_v1 import blstm_v1_bwd_dwh_plain
+
+    def dwh(hs, dg):
+        late = torch.zeros_like(hs)
+        late[0, 1:], late[1, :-1] = hs[0, :-1], hs[1, 1:]
+        return blstm_v1_bwd_dwh_plain(late, dg)
+    return dwh
+
+
 def lstm_dwh_h_late(torch):
     """Planted dwh fault: each step's dgates paired with h two steps back
     instead of one (an off-by-one in the row offset of h_prev)."""
@@ -978,7 +1082,196 @@ def phase_kernels(torch, quick: bool) -> dict:
     rows.update(ctc_rows(torch, timed, reps))
     rows.update(rnnt_rows(torch, timed, reps))
     rows.update(lstm_rows(torch, timed, reps))
+    rows.update(v1_rows(torch, timed, reps // 4))
     torch.cuda.synchronize()
+    return rows
+
+
+def v1_rows(torch, timed, reps) -> dict:
+    """The v1 BLSTM kernels (rows 4-6) at las_large's Listener widths, B =
+    64, H = 512, bottom layer (T = 1024, D = 80) and pyramid_0 (T = 512, D =
+    2048), bf16 and f32, ragged lengths: the inference walk, the training
+    walk (output and stores), the gates recompute and the chain on the
+    plain walk's carries, dwh; each against its plain version with a
+    planted fault; kernel / plain / library times and the bound. The
+    library yardstick is a bidirectional cuDNN ``nn.LSTM`` of width 512 on
+    the padded [T, B, D] input, timed only (no forget bias, no masking,
+    projection included)."""
+    from nabu_tpu_torch.ops import blstm as bo
+    from nabu_tpu_torch.ops import blstm_v1 as v1
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    Bv, Hv = V1_B, V1_H
+    H4 = 4 * Hv
+    rows = {}
+
+    def u(shape, dtype, scale=1.0):
+        return torch.as_tensor(rng.uniform(-scale, scale, shape).astype(np.float32),
+                               device=dev).to(dtype)
+
+    for case, Tv, D in V1_SHAPES:
+        lengths = rng.integers(Tv // 8, Tv + 1, Bv).astype(np.int32)
+        lengths[0] = Tv
+        lens = torch.as_tensor(lengths, device=dev)
+        valid = int(lengths.sum())
+        M = Tv * Bv
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            es = 2 if tag == "bf16" else 4
+            peak = PEAK_BF16 if tag == "bf16" else PEAK_F32
+            key = f"{tag} {case}"
+            x = torch.as_tensor(rng.standard_normal((Tv, Bv, D)).astype(np.float32),
+                                device=dev).to(dtype)
+            wx = torch.as_tensor(glorot(rng, (2, D, H4)), device=dev).to(dtype)
+            wh = torch.as_tensor(glorot(rng, (2, Hv, H4)), device=dev).to(dtype)
+            xw = bo.blstm_proj(x.view(M, D), wx, u((2, H4), dtype, 0.1)).view(2, Tv, Bv, H4)
+
+            lstm = torch.nn.LSTM(D, Hv, bidirectional=True).to(dev, dtype)
+            x_lib = x.detach().clone().requires_grad_(True)
+            g_lib = torch.ones((Tv, Bv, 2 * Hv), device=dev, dtype=dtype)
+
+            def lib_infer():
+                with torch.no_grad():
+                    return lstm(x)[0]
+
+            def lib_fwd():
+                return lstm(x_lib)[0]
+
+            def lib_fwd_bwd():
+                lib_fwd().backward(g_lib)
+
+            lib_i, lib_f, lib_fb = (timed(f, reps) for f in (lib_infer, lib_fwd, lib_fwd_bwd))
+            library = f"cuDNN nn.LSTM bidirectional H = {Hv}, padded, "
+
+            # --- row 4: the inference walk ------------------------------------
+            tol = TOL[("blstm_v1_recur", tag)]
+            got = v1.blstm_v1_recur(xw, lens, wh)
+            ref = v1.blstm_v1_recur_plain(xw, lens, wh)
+            err = compare(torch, got, ref, tol, f"blstm_v1_recur {key}")
+            fault = fault_reading(stale_recur(torch)(xw, lens, wh), ref, tol,
+                                  f"blstm_v1_recur {key}")
+            walk_ops = 2 * valid * (2 * Hv * H4 + 12 * Hv)
+            walk_bytes = es * (2 * valid * H4 + 2 * Hv * H4 + M * 2 * Hv) + 4 * Bv
+            b_ms, b_by = bound(walk_bytes, walk_ops, peak)
+            row = {
+                "shape": [Tv, Bv, Hv], "D": D, "dtype": tag, "valid_tokens": valid,
+                "max_abs_err": err, "tol": tol, "fault_max_abs_err": fault,
+                "ms": timed(lambda: v1.blstm_v1_recur(xw, lens, wh), reps),
+                "plain_ms": timed(lambda: v1.blstm_v1_recur_plain(xw, lens, wh), min(reps, 1)),
+                "library_ms": lib_i, "library": library + "inference (timed only)",
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernels", "kernel": "blstm_v1_recur", "case": case, **row})
+            rows[("blstm_v1_recur", tag, case)] = row
+            del got, ref
+
+            # --- row 5: the training walk -------------------------------------
+            s_tol = TOL[("blstm_v1_stores", tag)]
+            got = v1.blstm_v1_recur_train(xw, lens, wh)
+            ref = v1.blstm_v1_recur_train_plain(xw, lens, wh)
+            err = compare(torch, got[0], ref[0], tol, f"blstm_v1_recur_train {key} y")
+            h_err = compare(torch, got[1], ref[1], tol, f"blstm_v1_recur_train {key} h")
+            c_err = compare(torch, got[2], ref[2], s_tol, f"blstm_v1_recur_train {key} c")
+            fault = fault_reading(stale_recur(torch)(xw, lens, wh), ref[0], tol,
+                                  f"blstm_v1_recur_train {key}")
+            h_fault = fault_reading(hs_one_step_late(torch, ref[1]), ref[1], tol,
+                                    f"blstm_v1_recur_train {key} h")
+            c_fault = fault_reading(c_one_step_late(torch, ref[2]), ref[2], s_tol,
+                                    f"blstm_v1_recur_train {key} c")
+            b_ms, b_by = bound(walk_bytes + es * 2 * (Tv + 1) * Bv * Hv + 4 * 2 * M * Hv,
+                               walk_ops, peak)
+            row = {
+                "shape": [Tv, Bv, Hv], "D": D, "dtype": tag, "max_abs_err": err, "tol": tol,
+                "h_max_abs_err": h_err, "c_max_abs_err": c_err, "stores_tol": s_tol,
+                "fault_max_abs_err": fault, "h_fault_max_abs_err": h_fault,
+                "c_fault_max_abs_err": c_fault,
+                "ms": timed(lambda: v1.blstm_v1_recur_train(xw, lens, wh), reps),
+                "plain_ms": timed(lambda: v1.blstm_v1_recur_train_plain(xw, lens, wh),
+                                  min(reps, 1)),
+                "library_ms": lib_f, "library": library + "training forward (timed only)",
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernels", "kernel": "blstm_v1_recur_train", "case": case, **row})
+            rows[("blstm_v1_recur_train", tag, case)] = row
+            _, hs, cs = ref
+            del got, ref
+
+            # --- row 6: gates recompute ---------------------------------------
+            tol = TOL[("blstm_v1_bwd_gates", tag)]
+            gates = v1.blstm_v1_bwd_gates(xw, hs, wh)
+            ref_g = v1.blstm_v1_bwd_gates_plain(xw, hs, wh)
+            err = compare(torch, gates, ref_g, tol, f"blstm_v1_bwd_gates {key}")
+            hs_cut = hs.clone()
+            hs_cut[..., -1] = 0
+            fault = fault_reading(v1.blstm_v1_bwd_gates_plain(xw, hs_cut, wh), ref_g, tol,
+                                  f"blstm_v1_bwd_gates {key}")
+            del gates, hs_cut
+            hprev = torch.stack([hs[0, :-1], hs[1, 1:]]).reshape(2, M, Hv)
+            b_ms, b_by = bound(es * (2 * M * H4 + 2 * (Tv + 1) * Bv * Hv + 2 * Hv * H4)
+                               + 4 * 2 * M * H4, 2 * 2 * valid * Hv * H4, peak)
+            row = {
+                "shape": [M, Hv, H4], "D": D, "dtype": tag, "max_abs_err": err, "tol": tol,
+                "fault_max_abs_err": fault,
+                "ms": timed(lambda: v1.blstm_v1_bwd_gates(xw, hs, wh), reps),
+                "plain_ms": timed(lambda: v1.blstm_v1_bwd_gates_plain(xw, hs, wh), reps),
+                "library_ms": timed(lambda: torch.baddbmm(xw.view(2, M, H4), hprev, wh), reps),
+                "library": "torch.baddbmm xw + hprev @ wh (both directions, in the element "
+                           "type)",
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernels", "kernel": "blstm_v1_bwd_gates", "case": case, **row})
+            rows[("blstm_v1_bwd_gates", tag, case)] = row
+
+            # --- row 6: the chain, on the plain walk's carries ----------------
+            gy = u((Tv, Bv, 2 * Hv), dtype)
+            tol = TOL[("blstm_v1_bwd_recur", tag)]
+            dg = v1.blstm_v1_bwd_recur(ref_g, cs, gy, lens, wh)
+            ref_dg = v1.blstm_v1_bwd_recur_plain(ref_g, cs, gy, lens, wh)
+            err = compare(torch, dg, ref_dg, tol, f"blstm_v1_bwd_recur {key}")
+            fault = fault_reading(faulty_chain(torch, stale_units=8)(ref_g, cs, gy, lens, wh),
+                                  ref_dg, tol, f"blstm_v1_bwd_recur {key}")
+            b_ms, b_by = bound(
+                4 * 2 * M * (H4 + Hv) + es * (M * 2 * Hv + 2 * Hv * H4 + 2 * M * H4) + 4 * Bv,
+                2 * valid * (2 * H4 * Hv + 30 * Hv), peak)
+            row = {
+                "shape": [Tv, Bv, Hv], "D": D, "dtype": tag, "max_abs_err": err, "tol": tol,
+                "ref_max_abs": float(ref_dg.float().abs().max()), "fault_max_abs_err": fault,
+                "ms": timed(lambda: v1.blstm_v1_bwd_recur(ref_g, cs, gy, lens, wh), reps),
+                "plain_ms": timed(lambda: v1.blstm_v1_bwd_recur_plain(ref_g, cs, gy, lens, wh),
+                                  min(reps, 1)),
+                "library_ms": None if lib_f is None else lib_fb - lib_f,
+                "library": library + "backward (fwd + bwd minus fwd, timed only)",
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernels", "kernel": "blstm_v1_bwd_recur", "case": case, **row})
+            rows[("blstm_v1_bwd_recur", tag, case)] = row
+            del dg, ref_dg, ref_g, cs, gy
+
+            # --- row 6: dwh on uniform dgates ---------------------------------
+            tol = TOL[("blstm_v1_bwd_dwh", tag)]
+            dgr = u((2, Tv, Bv, H4), dtype)
+            dwh = v1.blstm_v1_bwd_dwh(hs, dgr)
+            ref_w = v1.blstm_v1_bwd_dwh_plain(hs, dgr)
+            err = compare(torch, dwh, ref_w, tol, f"blstm_v1_bwd_dwh {key}")
+            cut = dgr.clone()
+            cut[0, Tv - 1, 0] = 0  # the full-length lane's last fw token
+            fault = fault_reading(v1.blstm_v1_bwd_dwh_plain(hs, cut), ref_w, tol,
+                                  f"blstm_v1_bwd_dwh {key}")
+            hpt, d2 = hprev.transpose(1, 2), dgr.view(2, M, H4)
+            b_ms, b_by = bound(es * (2 * (Tv + 1) * Bv * Hv + 2 * M * H4) + 4 * 2 * Hv * H4,
+                               2 * 2 * valid * Hv * H4, peak)
+            row = {
+                "shape": [Hv, M, H4], "D": D, "dtype": tag, "max_abs_err": err, "tol": tol,
+                "fault_max_abs_err": fault,
+                "ms": timed(lambda: v1.blstm_v1_bwd_dwh(hs, dgr), reps),
+                "plain_ms": timed(lambda: v1.blstm_v1_bwd_dwh_plain(hs, dgr), reps),
+                "library_ms": timed(lambda: torch.matmul(hpt, d2), reps),
+                "library": "torch.matmul hprev^T @ dg (both directions)",
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit({"phase": "kernels", "kernel": "blstm_v1_bwd_dwh", "case": case, **row})
+            rows[("blstm_v1_bwd_dwh", tag, case)] = row
+            del dwh, ref_w, cut, dgr, hprev, hpt, d2, hs, xw, x, x_lib, lstm
     return rows
 
 
@@ -2207,12 +2500,15 @@ def step_timers(torch, record: dict):
     """Synchronized host timers around the trainer's step phases:
     forward (Model.apply_train; inside it a transducer head's prediction
     net, TransducerDecoder._pred_sequence), forward + loss (Trainer._loss), backward
-    (Trainer._backward) and optimizer (Trainer._apply_grads), and the
+    (Trainer._backward) and optimizer (Trainer._apply_grads), inside the
+    forward a Listener's and a Speller's shares (their ``apply``), and the
     synchronized clock at each step's end (``step_end``: the window
     between two such readings holds everything the loop does, loader,
     copy to the device and logging included). Also keeps each step's loss
     and audio frames, the trainer, the model, the live parameters and the
     longest batch."""
+    from nabu_tpu_torch.models.decoders import Speller
+    from nabu_tpu_torch.models.encoders import Listener
     from nabu_tpu_torch.models.model import Model
     from nabu_tpu_torch.models.transducer import TransducerDecoder
     from nabu_tpu_torch.training.trainer import Trainer
@@ -2230,7 +2526,8 @@ def step_timers(torch, record: dict):
     saved = {(Model, "apply_train"): Model.apply_train, (Trainer, "_loss"): Trainer._loss,
              (Trainer, "_backward"): Trainer._backward,
              (Trainer, "_apply_grads"): Trainer._apply_grads,
-             (TransducerDecoder, "_pred_sequence"): TransducerDecoder._pred_sequence}
+             (TransducerDecoder, "_pred_sequence"): TransducerDecoder._pred_sequence,
+             (Listener, "apply"): Listener.apply, (Speller, "apply"): Speller.apply}
     fwd = timed("forward", saved[(Model, "apply_train")])
     loss = timed("forward_loss", saved[(Trainer, "_loss")])
 
@@ -2242,6 +2539,9 @@ def step_timers(torch, record: dict):
         record["trainer"] = self
         out = loss(self, params, batch, generator)
         record.setdefault("loss", []).append(float(out[0].detach()))
+        for k, v in out[1].items():
+            if k.endswith("/token_accuracy"):
+                record.setdefault("token_accuracy", []).append(float(v))
         mask = batch["example_mask"]
         record.setdefault("frames", []).append(
             float((batch["feature_lengths"].float() * mask).sum()))
@@ -2261,6 +2561,8 @@ def step_timers(torch, record: dict):
     Model.apply_train = apply_train
     TransducerDecoder._pred_sequence = timed("pred_net", saved[(TransducerDecoder,
                                                                "_pred_sequence")])
+    Listener.apply = timed("listener", saved[(Listener, "apply")])
+    Speller.apply = timed("speller", saved[(Speller, "apply")])
     Trainer._loss = _loss
     Trainer._backward = timed("backward", saved[(Trainer, "_backward")])
     Trainer._apply_grads = _apply_grads
@@ -2280,7 +2582,10 @@ def gradient_check(torch, trainer, params, batch, phase: str):
     barrier not waiting: every dgates exchange one step stale); for the
     RNN-T recipe each lane's last frame left out of the prediction
     projection's gradient; for the streaming recipe the LSTM layers' dwh
-    paired with h one step late. Per parameter the reading is
+    paired with h one step late; for the LAS recipe the v1 layers' dwh
+    with the directions' carries swapped (and, reported, paired with h one
+    step late). The LAS recipe's Speller parameters have a tolerance of
+    their own (TOL). Per parameter the reading is
     ||kernel - plain|| / ||plain||."""
     from nabu_tpu_torch.ops import blstm as bo
     from nabu_tpu_torch.ops import transducer_fused as tf
@@ -2324,9 +2629,19 @@ def gradient_check(torch, trainer, params, batch, phase: str):
     elif phase == "train_rnnt":
         with plain_versions(rnnt_joint_bwd=rnnt_last_frame_out_of_dpred(torch, tf)):
             _, grads_f = loss_and_grads()
+    elif phase == "train_las":
+        with plain_versions(blstm_v1_bwd_dwh=v1_dwh_directions_swapped(torch)):
+            _, grads_f = loss_and_grads()
+        with plain_versions(blstm_v1_bwd_dwh=v1_dwh_h_late(torch)):
+            _, grads_s = loss_and_grads()
+        readings["h_late_dwh_grads_max_rel_err"] = max(rel(grads_s).values())
     else:
         with plain_versions(lstm_bwd_dwh=lstm_dwh_h_late(torch)):
             _, grads_f = loss_and_grads()
+
+    def tol(k):
+        speller = phase == "train_las" and k.startswith("decoders/")
+        return TOL["train_grads_speller" if speller else "train_grads"]
 
     rel_k, rel_f = rel(grads_k), rel(grads_f)
     for k, g in grads_k.items():
@@ -2334,12 +2649,17 @@ def gradient_check(torch, trainer, params, batch, phase: str):
     loss_err = compare(torch, loss_k, loss_p, TOL["train_loss"], f"{phase} batch loss")
     worst = max(rel_k.values())
     fault = max(rel_f.values())
-    if worst > TOL["train_grads"]:
-        FAILURES.append(f"{phase} gradients: max relative error {worst} beyond "
-                        f"{TOL['train_grads']}")
-    if not fault > TOL["train_grads"]:
-        FAILURES.append(f"{phase} gradients: a planted fault ({fault}) passes "
-                        f"{TOL['train_grads']}")
+    over = {k: v for k, v in rel_k.items() if v > tol(k)}
+    if over:
+        FAILURES.append(f"{phase} gradients: relative errors beyond tolerance: {over}")
+    if not any(v > tol(k) for k, v in rel_f.items()):
+        FAILURES.append(f"{phase} gradients: a planted fault ({fault}) passes the tolerance")
+    if phase == "train_las":
+        readings["grads_tol_speller"] = TOL["train_grads_speller"]
+        readings["speller_grads_max_rel_err"] = max(
+            v for k, v in rel_k.items() if k.startswith("decoders/"))
+        readings["listener_grads_max_rel_err"] = max(
+            v for k, v in rel_k.items() if k.startswith("encoder/"))
     return {
         "batch_shape": list(batch["features"].shape), "loss_kernels": float(loss_k),
         "loss_plain": float(loss_p), "loss_max_abs_err": loss_err,
@@ -2361,7 +2681,21 @@ def synth_training_corpus(root: str) -> dict:
     t0 = time.perf_counter()
     train = synth_corpus(os.path.join(root, "train"), rng, TRAIN_UTTS, alphabet)
     dev = synth_corpus(os.path.join(root, "dev"), rng, 32, alphabet)
-    return {"train": train, "dev": dev, "seconds": time.perf_counter() - t0, "root": root}
+    # train_las: the first LAS_TRAIN_UTTS utterances (its recipe perturbs
+    # each at 0.9, 1.0 and 1.1 speed)
+    third = []
+    for src, name in ((train[0], "wav_third.scp"), (train[1], "text_third")):
+        with open(src) as f:
+            lines = f.read().splitlines()[:LAS_TRAIN_UTTS]
+        third.append(os.path.join(root, "train", name))
+        with open(third[-1], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    from nabu_tpu_torch.data.audio_io import load_audio
+
+    with open(third[0]) as f:
+        third_s = sum(len(load_audio(line.split()[1])[0]) / 16000.0 for line in f)
+    return {"train": train, "dev": dev, "train_las": (*third, third_s),
+            "seconds": time.perf_counter() - t0, "root": root}
 
 
 def head_outputs(torch, model, params, batch):
@@ -2401,6 +2735,8 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
     train, dev = corpus["train"], corpus["dev"]
     per_step = STEP_LAUNCHES[phase]
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as tmp:
+        if phase == "train_las":
+            train = corpus["train_las"]
         recipe = write_train_recipe(TRAIN_RECIPES[phase], os.path.join(tmp, "recipe"),
                                     train[:2], dev[:2])
         expdir = os.path.join(tmp, "exp")
@@ -2442,10 +2778,13 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         }
         step_s = [sum(v[i] for v in phases.values()) for i in range(steps)]
         pred_net = record.get("pred_net", [0.0] * steps)
+        shares = {k: record[k] for k in ("listener", "speller") if k in record}
         for i in range(steps):
             emit({"phase": f"{phase}_step", "step": i + 1, "loss": losses[i],
                   "ms": {k: 1e3 * v[i] for k, v in phases.items()},
-                  "pred_net_ms": 1e3 * pred_net[i]})
+                  "pred_net_ms": 1e3 * pred_net[i],
+                  **{f"{k}_ms": 1e3 * v[i] for k, v in shares.items()},
+                  **{k: record[k][i] for k in ("token_accuracy",) if k in record}})
         median_ms = {k: 1e3 * float(np.median(v[1:])) for k, v in phases.items()}
         audio_s = sum(record["frames"][1:]) * 0.01
         # steps 2..N end to end: from step 1's synchronized end to step N's
@@ -2474,13 +2813,15 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         grad = gradient_check(torch, record["trainer"], params, batch, phase)
         result = {
             "phase": phase, "recipe": os.path.relpath(TRAIN_RECIPES[phase], REPO),
-            "steps": steps, "utterances": TRAIN_UTTS,
+            "steps": steps, "utterances": LAS_TRAIN_UTTS if phase == "train_las" else TRAIN_UTTS,
+            "speed_perturbation": 3 if phase == "train_las" else 1,
             "corpus_audio_seconds": train[2], "synth_seconds": corpus["seconds"],
             "data_seconds": t2 - t1, "data_prepared_by": donor or phase,
             "train_wall_seconds": wall,
             "loss_first5_mean": first, "loss_last5_mean": last,
             "median_step_ms": median_ms,
             "median_pred_net_ms": 1e3 * float(np.median(pred_net[1:])),
+            **{f"median_{k}_ms": 1e3 * float(np.median(v[1:])) for k, v in shares.items()},
             "median_step_total_ms": 1e3 * float(np.median(step_s[1:])),
             "first_step_ms": 1e3 * step_s[0],
             "median_step_wall_ms": 1e3 * float(np.median(np.diff(ends))),
@@ -2492,7 +2833,83 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         }
         emit(result)
         emit({"phase": f"{phase}_check", **grad})
+        if phase == "train_las":
+            result["decode"] = las_decode(torch, smi, recipe, expdir, model, corpus["dev"][2])
     return result
+
+
+def las_decode(torch, smi: str, recipe: str, expdir: str, model, dev_audio_s: float) -> dict:
+    """The recipe's validation evaluator (attention_greedy over the dev
+    set at its B = 64) on the trained checkpoint (``best/``, which the
+    trainer writes at its end when validation never ran): launch counts
+    zeroed just before and read just after (the v1 inference walk must
+    run, no training kernel), RTF over the dev audio; then one dev batch
+    in f32 on the card against the same search on the CPU (ids identical
+    required in f32, not in bf16, where near-ties may flip)."""
+    from nabu_tpu_torch.config import ConfigFile, Recipe
+    from nabu_tpu_torch.evaluators import build_evaluator
+    from nabu_tpu_torch.models.model import build_model
+    from nabu_tpu_torch.ops import kernels
+    from nabu_tpu_torch.params import load_npz
+    from nabu_tpu_torch.scripts.common import make_loader
+
+    dev = torch.device("cuda")
+    rec = Recipe(recipe)
+    vconf = rec.validation_evaluator.section("evaluator")
+    vloader, _, _ = make_loader(rec, expdir, vconf, batch_size=vconf.getint("batch_size"),
+                                num_buckets=vconf.getint("num_buckets", 2))
+    params = load_npz(os.path.join(expdir, "checkpoints", "best", "params.npz"), device=dev)
+    evaluator = build_evaluator(vconf, model, vloader)
+    check(type(evaluator.recognizer).__name__ == "AttentionGreedyRecognizer",
+          "train_las: the validation recognizer is not attention_greedy")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cer = evaluator(params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    batches = vloader.num_batches()
+    for name in kernels.KERNELS:
+        want_some = name in LAS_DECODE_KERNELS
+        check((launches[name] > 0) == want_some,
+              f"las decode: {launches[name]} launches of {name}")
+    check(launches["blstm_v1_recur"] == 5 * batches,
+          f"las decode: {launches['blstm_v1_recur']} v1 walks for {batches} batches")
+
+    # one dev batch in f32: the card's ids against the CPU's
+    with open(os.path.join(recipe, "model.cfg")) as f:
+        cfg = f.read().replace("compute_dtype = bfloat16", "compute_dtype = float32")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "model.cfg"), "w") as f:
+            f.write(cfg)
+        m32 = build_model(ConfigFile.read(os.path.join(tmp, "model.cfg")),
+                          model.encoder.input_dim, model.decoders["decoder"].num_labels)
+    rec32 = type(evaluator.recognizer)(vconf, m32)
+    batch = next(iter(vloader.epoch(0, shuffle=False)))
+    real = int(batch.example_mask.sum())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.reset_launch_counts()
+    ids_g, len_g, sc_g = rec32.search(params, batch.features, batch.feature_lengths)
+    f32_walks = kernels.launch_counts()["blstm_v1_recur"]
+    params_cpu = load_npz(os.path.join(expdir, "checkpoints", "best", "params.npz"))
+    ids_c, len_c, sc_c = rec32.search(params_cpu, batch.features, batch.feature_lengths)
+    same = sum(int(torch.equal(len_g[b].cpu(), len_c[b])
+                   and torch.equal(ids_g[b, : int(len_c[b])].cpu(), ids_c[b, : int(len_c[b])]))
+               for b in range(real))
+    score_err = float((sc_g[:real].cpu() - sc_c[:real]).abs().max())
+    check(f32_walks == 5, f"las decode f32: {f32_walks} v1 walks on the card, want 5")
+    check(same == real, f"las decode f32: card and CPU ids differ on {real - same}/{real}")
+    out = {
+        "phase": "train_las_decode", "recognizer": "attention_greedy",
+        "batch_size": int(batch.features.shape[0]), "batches": batches,
+        "dev_audio_seconds": dev_audio_s, "wall_seconds": wall, "rtf": wall / dev_audio_s,
+        "cer": cer, "launches": launches, "f32_ids_identical": same, "f32_utterances": real,
+        "f32_score_max_abs_err": score_err, "card": smi,
+    }
+    emit(out)
+    return out
 
 
 def main(argv=None) -> int:
@@ -2534,12 +2951,15 @@ def main(argv=None) -> int:
         trained_rnnt = phase_train(torch, smi, "train_rnnt", corpus)
         t7 = time.perf_counter()
         trained_stream = phase_train(torch, smi, "train_rnnt_stream", corpus)
+        t8 = time.perf_counter()
+        trained_las = phase_train(torch, smi, "train_las", corpus)
     emit({"phase": "seconds", "build_device": t1 - t0, "kernels": t2 - t1,
           "serve": t3 - t2, "serve_rnnt": t4 - t3, "serve_stream": t5 - t4,
-          "train": t6 - t5, "train_rnnt": t7 - t6,
-          "train_rnnt_stream": time.perf_counter() - t7, "total": time.perf_counter() - t0})
+          "train": t6 - t5, "train_rnnt": t7 - t6, "train_rnnt_stream": t8 - t7,
+          "train_las": time.perf_counter() - t8, "total": time.perf_counter() - t0})
     raise_failures()
-    runs = (served, served_rnnt, served_stream, trained, trained_rnnt, trained_stream)
+    runs = (served, served_rnnt, served_stream, trained, trained_rnnt, trained_stream,
+            trained_las, trained_las["decode"])
 
     kernels_line = []
     for name, key in (("stft_mel", "stft_mel"),
@@ -2560,7 +2980,12 @@ def main(argv=None) -> int:
                       ("lstm_fwd", ("lstm_fwd", "bf16", "encoder")),
                       ("lstm_fwd_train", ("lstm_fwd_train", "bf16", "encoder")),
                       ("lstm_bwd_recur", ("lstm_bwd_recur", "bf16", "encoder")),
-                      ("lstm_bwd_dwh", ("lstm_bwd_dwh", "bf16", "encoder"))):
+                      ("lstm_bwd_dwh", ("lstm_bwd_dwh", "bf16", "encoder")),
+                      ("blstm_v1_recur", ("blstm_v1_recur", "bf16", "bottom")),
+                      ("blstm_v1_recur_train", ("blstm_v1_recur_train", "bf16", "bottom")),
+                      ("blstm_v1_bwd_gates", ("blstm_v1_bwd_gates", "bf16", "bottom")),
+                      ("blstm_v1_bwd_recur", ("blstm_v1_bwd_recur", "bf16", "bottom")),
+                      ("blstm_v1_bwd_dwh", ("blstm_v1_bwd_dwh", "bf16", "bottom"))):
         r = rows[key]
         launched = sum(run["launches"][name] for run in runs)
         check(launched > 0, f"kernel {name} never launched on a main path")

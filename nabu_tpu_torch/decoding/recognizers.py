@@ -1,10 +1,10 @@
 """Recognizers: batched decoders over a model.
 
-Port of the CTC and transducer recognizers of the JAX package's
-``decoding/recognizers.py``. Every recognizer maps ``(params, features,
-feature_lengths) -> Nbest``; features may be a numpy array or a tensor
-already on the model's device (the device frontend's output).
-Attention, joint and rescoring recognizers are not ported yet.
+Port of the CTC, transducer and attention-greedy recognizers of the JAX
+package's ``decoding/recognizers.py``. Every recognizer maps ``(params,
+features, feature_lengths) -> Nbest``; features may be a numpy array or a
+tensor already on the model's device (the device frontend's output).
+The attention beam, joint and rescoring recognizers are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from nabu_tpu_torch.decoding.transducer import (
 )
 from nabu_tpu_torch.ops import ctc as ctc_ops
 from nabu_tpu_torch.ops.masking import sequence_mask
+from nabu_tpu_torch.params import flatten
 from nabu_tpu_torch.registry import RECOGNIZERS
 
 
@@ -46,7 +47,11 @@ def _as_tensor(x, device, dtype=None) -> torch.Tensor:
 
 
 class Recognizer:
-    """Base recognizer built from a recognizer.cfg section."""
+    """Base recognizer built from a recognizer.cfg section; but for the
+    attention recognizer, the head must be frame-synchronous (CTC or
+    transducer: it has a ``blank_id``)."""
+
+    frame_synchronous = True
 
     def __init__(self, conf: Conf, model, head: Optional[str] = None):
         self.conf = conf
@@ -56,6 +61,8 @@ class Recognizer:
         self.lm_weight = conf.getfloat("lm_weight", 0.0)
         if conf.get("lm_path") and self.lm_weight != 0.0:
             raise NotImplementedError("LM fusion not ported yet")
+        if not self.frame_synchronous:
+            return
         if not hasattr(self.decoder, "blank_id"):
             raise ValueError(
                 f"head {self.head!r} ({type(self.decoder).__name__}) is "
@@ -133,6 +140,65 @@ class CTCBeamRecognizer(Recognizer):
             lengths=lengths[:, :n].cpu().numpy(),
             scores=scores[:, :n].cpu().numpy(),
         )
+
+
+@RECOGNIZERS.register("attention_greedy")
+class AttentionGreedyRecognizer(Recognizer):
+    """Autoregressive argmax decode of an attention Speller head: the
+    encoder once, then up to ``max_steps`` (default ``max(int(T_enc *
+    max_length_ratio), 8)``, ratio 1.0) steps of the head, each scored by
+    an f32 log-softmax; a hypothesis emits <eos> from its first <eos> on
+    and its score stops there. On the card it is a Python loop of steps,
+    as the transducer greedy search is. conf: max_steps,
+    max_length_ratio."""
+
+    frame_synchronous = False
+
+    def __init__(self, conf, model, head=None):
+        super().__init__(conf, model, head)
+        if not hasattr(self.decoder, "step"):
+            raise ValueError(f"head {self.head!r} is not autoregressive")
+        self.max_steps = conf.getint("max_steps", 0)
+        self.length_ratio = conf.getfloat("max_length_ratio", 1.0)
+
+    @torch.no_grad()
+    def search(self, params, features, feature_lengths):
+        """-> (ids [B, max_steps], lengths [B], scores [B]) tensors on the
+        model's device."""
+        device = next(iter(flatten(params["decoders"][self.head]).values())).device
+        encoded, enc_lengths = self.model.encode(
+            params, _as_tensor(features, device, torch.float32),
+            _as_tensor(feature_lengths, device, torch.int32))
+        B, T, _ = encoded.shape
+        dec = self.decoder
+        dparams = self.model._cast_in(params["decoders"][self.head])
+        enc_mask = sequence_mask(enc_lengths, T)
+        max_steps = self.max_steps or max(int(T * self.length_ratio), 8)
+        keys = dec.precompute(dparams, encoded)
+        prev = torch.full((B,), dec.sos_id, dtype=torch.int64, device=device)
+        state = dec.init_state(B, encoded.dtype, enc_frames=T, device=device)
+        finished = torch.zeros((B,), dtype=torch.bool, device=device)
+        score = torch.zeros((B,), dtype=torch.float32, device=device)
+        ids = []
+        for _ in range(max_steps):
+            logits, state = dec.step(dparams, prev, state, encoded, enc_mask, keys=keys)
+            state.pop("attn_weights", None)
+            logprobs = torch.log_softmax(logits.float(), dim=-1)
+            best, nxt = logprobs.max(dim=-1)
+            score = score + torch.where(finished, 0.0, best)
+            prev = torch.where(finished, dec.eos_id, nxt)
+            finished = finished | (nxt == dec.eos_id)
+            ids.append(prev)
+        ids = torch.stack(ids, dim=1)
+        is_eos = ids == dec.eos_id
+        lengths = torch.where(is_eos.any(dim=1), torch.argmax(is_eos.int(), dim=1),
+                              ids.shape[1])
+        return ids, lengths, score
+
+    def __call__(self, params, features, feature_lengths) -> Nbest:
+        ids, lengths, scores = (x.cpu().numpy() for x in
+                                self.search(params, features, feature_lengths))
+        return Nbest(ids=ids[:, None, :], lengths=lengths[:, None], scores=scores[:, None])
 
 
 class _TransducerRecognizer(Recognizer):

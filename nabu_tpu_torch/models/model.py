@@ -7,7 +7,9 @@ parameter and the features at the model boundary, so the forward runs in
 bf16 while the stored parameters (and their gradients, through the
 casts) stay f32; logits come back in f32 for the losses and decoding.
 ``apply`` is the inference forward (no autograd graph); ``apply_train``
-is the same forward with gradients, ``train`` switching dropout on.
+is the same forward with gradients, ``train`` switching dropout on, and
+with ``[model] spec_augment = true`` SpecAugment of the features before
+the encoder (``ops.augment``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from nabu_tpu_torch.config import Conf, ConfigFile
 from nabu_tpu_torch.models.decoders import Decoder, build_decoder
 from nabu_tpu_torch.models.encoders import Encoder, build_encoder
+from nabu_tpu_torch.ops.augment import parse_spec_augment_conf, spec_augment
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -40,6 +43,7 @@ class Model:
         decoders: Dict[str, Decoder],
         head_confs: Dict[str, Conf],
         compute_dtype: str = "float32",
+        spec_augment: Optional[dict] = None,
     ):
         self.encoder = encoder
         self.decoders = decoders
@@ -50,6 +54,8 @@ class Model:
                 f"(one of {sorted(_DTYPES)})"
             )
         self.compute_dtype = _DTYPES[compute_dtype]
+        # SpecAugment params (parse_spec_augment_conf), train time only
+        self.spec_augment = spec_augment
 
     def _cast_in(self, tree):
         if self.compute_dtype == torch.float32:
@@ -90,6 +96,10 @@ class Model:
         """Returns {head name: (logits, logit_lengths)}, with gradients to
         the parameters (logits f32, but for a transducer head's projection
         dict or lattice); ``heads`` restricts which decoder heads run."""
+        if train and self.spec_augment is not None:
+            if generator is None:
+                generator = torch.Generator(device=features.device).manual_seed(0)
+            features = spec_augment(generator, features, feature_lengths, **self.spec_augment)
         encoded, enc_lengths = self.encode(
             params, features, feature_lengths, train=train, generator=generator)
         outputs = {}
@@ -145,4 +155,5 @@ def build_model(model_cfg: ConfigFile, input_dim: int, num_labels: int) -> Model
         conf = model_cfg.section(name)
         decoders[name] = build_decoder(conf, encoder.output_dim, num_labels)
         head_confs[name] = conf
-    return Model(encoder, decoders, head_confs, compute_dtype)
+    return Model(encoder, decoders, head_confs, compute_dtype,
+                 spec_augment=parse_spec_augment_conf(model_section))

@@ -29,6 +29,24 @@ gradient wanted) keeps the residual-free ``blstm_recur``.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for CPU tensors.
+
+Kernel family. ``blstm_tm_apply`` first asks ``kernel_family(B, H)``,
+a pure function of the batch and the width, in training and in inference
+alike (as the JAX package's ``blstm_tm_apply`` decides by shape), so one
+layer never mixes families. It answers "v2" when the v2 training pair
+can hold the layer: the walk's ``recur_layout`` (4 (B (ceil4(H) + 4) +
+ceil4(H) 8 4 + 8 B) bytes) and the chain's ``chain_layout`` (4 ((B + 8)
+(4H + 4) + 16 B) bytes) of ``csrc/blstm.cu`` each within a block's 227 KB
+(232,448 bytes) of shared memory, with the 2 ceil(H / 8) blocks of a
+launch co-resident on the H100's 132 SMs (228 KB of shared memory an SM,
+1 KB of it reserved a block, at most 8 blocks of 256 threads). Else "v1",
+the kernels of ``ops.blstm_v1`` (``csrc/blstm_v1.cu``), whose walk and
+chain stream the exchanged rows in K tiles. At H = 320 the v2 chain holds
+B <= 36, at H = 256 B <= 47, at H = 512 B <= 20: so the 4x320 and 3x256
+recipes at B = 32 run v2, and las_large's 512-unit Listener at B = 32 or
+64 runs v1. The rule is the same on the CPU, where each family runs its
+plain versions. It is decided before any launch and is not a fallback: a
+launch that fails raises.
 """
 
 from __future__ import annotations
@@ -46,8 +64,16 @@ _fns: dict = {}
 # hidden units owned by one block of the recurrence kernels
 UNITS_PER_BLOCK = 8
 
-# GEMM layouts of csrc/blstm.cu: projection, A @ B^T, A^T @ B
-_PROJ, _NT, _TN = 0, 1, 2
+# GEMM layouts of csrc/blstm.cu: projection, A @ B^T, A^T @ B, and the v1
+# gates recompute (f32 A @ B plus an addend)
+_PROJ, _NT, _TN, _ADD = 0, 1, 2, 3
+
+# the H100's SMs, shared memory a block may have and an SM holds (1 KB of
+# it reserved a block), and the blocks of 256 threads an SM holds
+SMS = 132
+SMEM_LIMIT = 232448
+SMEM_PER_SM = 233472
+BLOCKS_PER_SM = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +82,31 @@ _ARGTYPES = {
     "recur": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
     "bwd_recur": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
 }
+
+
+def coresident(smem: int, blocks: int) -> bool:
+    """Whether ``blocks`` blocks of 256 threads and ``smem`` bytes of shared
+    memory fit the card at once (a cooperative launch)."""
+    if smem > SMEM_LIMIT:
+        return False
+    return blocks <= SMS * min(BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024))
+
+
+def v2_smem_bytes(B: int, H: int):
+    """-> (walk, chain) shared memory of one block of the v2 kernels, the
+    layouts ``recur_layout`` and ``chain_layout`` of csrc/blstm.cu."""
+    units = UNITS_PER_BLOCK
+    kp = (H + 3) // 4 * 4
+    walk = 4 * (B * (kp + 4) + kp * units * 4 + B * units)
+    chain = 4 * ((B + units) * (4 * H + 4) + 2 * B * units)
+    return walk, chain
+
+
+def kernel_family(B: int, H: int) -> str:
+    """"v2" when the v2 walk and chain can hold a layer of batch B and
+    width H on the card, else "v1" (see the module docstring)."""
+    blocks = 2 * -(-H // UNITS_PER_BLOCK)
+    return "v2" if all(coresident(m, blocks) for m in v2_smem_bytes(B, H)) else "v1"
 
 
 def _launcher(kind: str, tag: str):
@@ -451,9 +502,13 @@ def _wants_grad(p, x) -> bool:
 
 
 def blstm_tm_apply(p, x_tm, lengths, forget_bias: float = 1.0) -> torch.Tensor:
-    """Time-major BLSTM layer: x [T, B, D] -> [T, B, 2H] in x's dtype.
-    Through ``BLSTMLayer`` when a gradient is wanted, else the
-    residual-free inference kernels."""
+    """Time-major BLSTM layer: x [T, B, D] -> [T, B, 2H] in x's dtype, on
+    the family ``kernel_family`` picks. On v2: through ``BLSTMLayer`` when
+    a gradient is wanted, else the residual-free inference kernels."""
+    if kernel_family(x_tm.shape[1], p["fw"]["wh"].shape[0]) == "v1":
+        from nabu_tpu_torch.ops.blstm_v1 import blstm_v1_tm_apply
+
+        return blstm_v1_tm_apply(p, x_tm, lengths, forget_bias)
     if _wants_grad(p, x_tm):
         return BLSTMLayer.apply(
             x_tm, lengths, p["fw"]["wx"], p["fw"]["b"], p["fw"]["wh"],

@@ -1,0 +1,340 @@
+"""Bidirectional LSTM layer, v1 kernel family: CUDA kernel wrappers and
+their plain PyTorch versions.
+
+Port of the JAX package's v1 kernels in ``ops/pallas/blstm.py``
+(``blstm_apply_fused_v1`` -> ``blstm_seq_fused``), which its
+``blstm_tm_apply`` takes for the shapes the v2 kernels cannot hold, as
+the kernels of ``csrc/blstm_v1.cu``:
+
+- ``blstm_v1_recur`` (``blstm_fused_forward`` -> ``_blstm_kernel``): the
+  inference walk, masked h [T, B, 2H] only;
+- ``blstm_v1_recur_train`` (``_fused_fwd`` -> ``_fwd_train_kernel``): the
+  same walk storing v1's residuals, the post-mask h carries in the
+  compute type and c in f32, per step. The carries are stored as
+  ``hs [2, T + 1, B, H]`` with a zero slot at each direction's start (fw
+  slot 0, bw slot T): ``hs[0, :T]`` and ``hs[1, 1:]`` are then each
+  direction's "hprev" (the carry a step reads), one contiguous matrix;
+- ``blstm_v1_bwd`` (``_fused_bwd`` -> ``_bwd_train_kernel``) as three
+  launches: ``blstm_v1_bwd_gates``, the gates recomputed as one batched
+  product f32(xw) + hprev @ wh (``prep``); ``blstm_v1_bwd_recur``, the
+  serial chain dgates @ wh^T (``direction()``: dh and dc carried in f32,
+  dgates cast to the compute type before the product); and
+  ``blstm_v1_bwd_dwh``, dwh = hprev^T @ dgates in f32 (``accum_dwh``).
+  The recompute and dwh run on ``csrc/blstm.cu``'s GEMM (kinds 3 and 2).
+
+The input projection and dx / dwx / db lie on XLA's side of JAX's v1;
+here they are the v2 family's own launches (``ops.blstm.blstm_proj``,
+``blstm_bwd_dx``, ``blstm_bwd_dwx``), so the projection has the same bits
+in both families.
+
+``BLSTMLayerV1`` is the ``torch.autograd.Function`` over them; its
+gradients come back as ``_fused_bwd``'s do: dxw in the compute type, dwh
+(and dwx, db) cast to the weights' dtype. Inference (no gradient
+wanted) takes the residual-free walk of row 4.
+
+Each wrapper launches its kernel for CUDA tensors and takes its plain
+version only for CPU tensors. ``check_design`` raises before any launch
+for a shape beyond the kernels' design (``csrc/blstm_v1.cu``'s note).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from nabu_tpu_torch.ops import blstm as v2
+from nabu_tpu_torch.ops import kernels
+from nabu_tpu_torch.ops.kernels import build
+
+# csrc/blstm_v1.cu: hidden units a block owns, threads a block, pairs a
+# thread, K-tile widths of the walk and the chain
+UNITS_PER_BLOCK = 8
+THREADS = 256
+PAIRS = 4
+WALK_TILE = 128
+CHAIN_TILE = 256
+
+_fns: dict = {}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "walk": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
+    "chain": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
+}
+
+
+def _launcher(kind: str, tag: str):
+    name = f"blstm_v1_{kind}_{tag}"
+    if name not in _fns:
+        fn = getattr(build.load("blstm_v1"), f"nabu_{name}")
+        fn.argtypes = _ARGTYPES[kind]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return _fns[name]
+
+
+def smem_bytes(B: int, H: int):
+    """-> (walk, chain) shared memory of one block, the layouts of
+    csrc/blstm_v1.cu: wh's gate columns (walk) or rows (chain) of the
+    block's 8 units, one K tile of the exchanged rows, two [B, 8] carries."""
+    units = UNITS_PER_BLOCK
+    walk = 4 * ((H + 3) // 4 * 4 * units * 4 + B * (WALK_TILE + 4) + 2 * B * units)
+    chain = 4 * (units * (4 * H + 4) + B * (CHAIN_TILE + 4) + 2 * B * units)
+    return walk, chain
+
+
+def check_design(what: str, B: int, H: int) -> None:
+    """Raise for a batch and width the v1 kernels cannot hold: at most
+    PAIRS (b, unit) pairs a thread (B <= 128), each kernel's shared memory
+    within a block's, and the 2 ceil(H / 8) blocks of a launch co-resident
+    on the card's SMs (``v2.coresident``)."""
+    if B > PAIRS * THREADS // UNITS_PER_BLOCK:
+        raise ValueError(f"{what}: B = {B} is beyond the kernel's design "
+                         f"(B <= {PAIRS * THREADS // UNITS_PER_BLOCK})")
+    for kind, need in zip(("walk", "chain"), smem_bytes(B, H)):
+        if not v2.coresident(need, 2 * -(-H // UNITS_PER_BLOCK)):
+            raise ValueError(
+                f"{what}: B = {B}, H = {H} is beyond the {kind}'s design ({need} bytes "
+                f"of shared memory a block; limit {v2.SMEM_LIMIT}, all blocks co-resident)")
+
+
+def _walk(name, xw, lengths, wh, forget_bias, store: bool):
+    tag = v2._check_cuda(name, xw, xw=xw, wh=wh, lengths=lengths)
+    if xw.dim() != 4 or xw.shape[0] != 2:
+        raise ValueError(f"{name}: xw {tuple(xw.shape)} is not [2, T, B, 4H]")
+    _, T, B, H4 = xw.shape
+    H = H4 // 4
+    v2._check_shape(f"{name}: wh", wh, (2, H, H4), xw.dtype)
+    v2._check_shape(f"{name}: lengths", lengths, (B,), torch.int32)
+    check_design(name, B, H)
+    dev = xw.device
+    y = torch.empty((T, B, 2 * H), dtype=xw.dtype, device=dev)
+    hx = torch.empty((2, T + 1 if store else 2, B, H), dtype=xw.dtype, device=dev)
+    c = torch.empty((2, T, B, H), dtype=torch.float32, device=dev) if store else None
+    counters = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _launcher("walk", tag)(
+            xw.data_ptr(), lengths.data_ptr(), wh.data_ptr(), y.data_ptr(), hx.data_ptr(),
+            counters.data_ptr(), c.data_ptr() if store else None, T, B, H,
+            float(forget_bias), v2._stream(),
+        )
+    build.check(err, name)
+    kernels.LAUNCHES[name] += 1
+    return y, hx, c
+
+
+# ---------------------------------------------------------------------------
+# the walk (rows 4 and 5)
+# ---------------------------------------------------------------------------
+
+def blstm_v1_recur_train_plain(xw, lengths, wh, forget_bias: float = 1.0):
+    """xw [2, T, B, 4H] (fw, bw; natural time), lengths [B], wh [2, H,
+    4H] -> (masked h [T, B, 2H] in xw's dtype, post-mask h carries hs [2,
+    T + 1, B, H] in xw's dtype with the zero slots, post-mask c [2, T, B,
+    H] f32): the masked cell of ``_cell`` (f32 gates and c, h in the
+    compute type), the bw direction walking time descending."""
+    _, T, B, H4 = xw.shape
+    H = H4 // 4
+    dt = xw.dtype
+    dev = xw.device
+    mask = (torch.arange(T, device=dev)[:, None] < lengths.to(dev)[None, :])[..., None]
+    y = torch.zeros((T, B, 2 * H), dtype=dt, device=dev)
+    hs = torch.zeros((2, T + 1, B, H), dtype=dt, device=dev)
+    cs = torch.zeros((2, T, B, H), dtype=torch.float32, device=dev)
+    for d in range(2):
+        whf = wh[d].to(torch.float32)
+        h = torch.zeros((B, H), dtype=dt, device=dev)
+        c = torch.zeros((B, H), dtype=torch.float32, device=dev)
+        for t in range(T) if d == 0 else range(T - 1, -1, -1):
+            gates = xw[d, t].to(torch.float32) + h.to(torch.float32) @ whf
+            go, c_new = v2._cell(gates, c, forget_bias, H)
+            h_new = (go * torch.tanh(c_new)).to(dt)
+            m = mask[t]
+            h = torch.where(m, h_new, h)
+            c = torch.where(m, c_new, c)
+            y[t, :, d * H: (d + 1) * H] = h * m.to(dt)
+            hs[d, t + 1 if d == 0 else t] = h
+            cs[d, t] = c
+    return y, hs, cs
+
+
+def blstm_v1_recur_plain(xw, lengths, wh, forget_bias: float = 1.0) -> torch.Tensor:
+    """The inference walk: masked h [T, B, 2H] of
+    ``blstm_v1_recur_train_plain``."""
+    return blstm_v1_recur_train_plain(xw, lengths, wh, forget_bias)[0]
+
+
+def blstm_v1_recur(xw, lengths, wh, forget_bias: float = 1.0) -> torch.Tensor:
+    if xw.device.type == "cpu":
+        return blstm_v1_recur_plain(xw, lengths, wh, forget_bias)
+    return _walk("blstm_v1_recur", xw, lengths, wh, forget_bias, store=False)[0]
+
+
+def blstm_v1_recur_train(xw, lengths, wh, forget_bias: float = 1.0):
+    if xw.device.type == "cpu":
+        return blstm_v1_recur_train_plain(xw, lengths, wh, forget_bias)
+    return _walk("blstm_v1_recur_train", xw, lengths, wh, forget_bias, store=True)
+
+
+# ---------------------------------------------------------------------------
+# the backward (row 6)
+# ---------------------------------------------------------------------------
+
+def _hprev(hs):
+    """Each direction's carries entering its steps, [2, T, B, H] views."""
+    return torch.stack([hs[0, :-1], hs[1, 1:]])
+
+
+def blstm_v1_bwd_gates_plain(xw, hs, wh) -> torch.Tensor:
+    """The gates recompute (``prep``): xw [2, T, B, 4H], hs [2, T + 1, B,
+    H], wh [2, H, 4H] -> f32(xw) + hprev @ wh, [2, T, B, 4H] f32 (f32
+    accumulation)."""
+    _, T, B, H4 = xw.shape
+    H = H4 // 4
+    acc = torch.matmul(_hprev(hs).reshape(2, T * B, H).to(torch.float32),
+                       wh.to(torch.float32))
+    return xw.to(torch.float32) + acc.reshape(2, T, B, H4)
+
+
+def blstm_v1_bwd_gates(xw, hs, wh) -> torch.Tensor:
+    if xw.device.type == "cpu":
+        return blstm_v1_bwd_gates_plain(xw, hs, wh)
+    name = "blstm_v1_bwd_gates"
+    tag = v2._check_cuda(name, xw, xw=xw, hs=hs, wh=wh)
+    _, T, B, H4 = xw.shape
+    H = H4 // 4
+    v2._check_shape(f"{name}: hs", hs, (2, T + 1, B, H), xw.dtype)
+    v2._check_shape(f"{name}: wh", wh, (2, H, H4), xw.dtype)
+    gates = torch.empty((2, T, B, H4), dtype=torch.float32, device=xw.device)
+    a = (hs[0].data_ptr(), hs[1].data_ptr() + B * H * hs.element_size())
+    v2._gemm(name, tag, a, (wh[0].data_ptr(), wh[1].data_ptr()), H, H4, T * B, H4, H,
+             v2._ADD, bias=xw, outf=gates)
+    return gates
+
+
+def blstm_v1_bwd_recur_plain(gates, c, gy, lengths, wh, forget_bias: float = 1.0):
+    """The serial chain (``_bwd_train_kernel`` ``direction()``) on the
+    recomputed gates and the stored carries: the same arithmetic as the
+    v2 chain's, ``ops.blstm.blstm_bwd_recur_plain``."""
+    return v2.blstm_bwd_recur_plain(gates, c, gy, lengths, wh, forget_bias)
+
+
+def blstm_v1_bwd_recur(gates, c, gy, lengths, wh, forget_bias: float = 1.0):
+    if gates.device.type == "cpu":
+        return blstm_v1_bwd_recur_plain(gates, c, gy, lengths, wh, forget_bias)
+    name = "blstm_v1_bwd_recur"
+    tag = v2._check_cuda(name, gy, gy=gy, gates=gates, c=c, wh=wh, lengths=lengths)
+    T, B, H2 = gy.shape
+    H = H2 // 2
+    v2._check_shape(f"{name}: gates", gates, (2, T, B, 4 * H), torch.float32)
+    v2._check_shape(f"{name}: c", c, (2, T, B, H), torch.float32)
+    v2._check_shape(f"{name}: wh", wh, (2, H, 4 * H), gy.dtype)
+    v2._check_shape(f"{name}: lengths", lengths, (B,), torch.int32)
+    check_design(name, B, H)
+    dev = gy.device
+    dg = torch.empty((2, T, B, 4 * H), dtype=gy.dtype, device=dev)
+    counters = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _launcher("chain", tag)(
+            gates.data_ptr(), c.data_ptr(), gy.data_ptr(), lengths.data_ptr(), wh.data_ptr(),
+            dg.data_ptr(), counters.data_ptr(), T, B, H, float(forget_bias), v2._stream(),
+        )
+    build.check(err, name)
+    kernels.LAUNCHES[name] += 1
+    return dg
+
+
+def blstm_v1_bwd_dwh_plain(hs, dg) -> torch.Tensor:
+    """dwh (``accum_dwh``): hs [2, T + 1, B, H], dg [2, T, B, 4H] ->
+    hprev^T @ dg, [2, H, 4H] f32."""
+    _, T, B, H4 = dg.shape
+    H = H4 // 4
+    return torch.matmul(_hprev(hs).reshape(2, T * B, H).to(torch.float32).transpose(1, 2),
+                        dg.reshape(2, T * B, H4).to(torch.float32))
+
+
+def blstm_v1_bwd_dwh(hs, dg) -> torch.Tensor:
+    if dg.device.type == "cpu":
+        return blstm_v1_bwd_dwh_plain(hs, dg)
+    name = "blstm_v1_bwd_dwh"
+    tag = v2._check_cuda(name, dg, dg=dg, hs=hs)
+    _, T, B, H4 = dg.shape
+    H = H4 // 4
+    v2._check_shape(f"{name}: hs", hs, (2, T + 1, B, H), dg.dtype)
+    dwh = torch.empty((2, H, H4), dtype=torch.float32, device=dg.device)
+    a = (hs[0].data_ptr(), hs[1].data_ptr() + B * H * hs.element_size())
+    v2._gemm(name, tag, a, (dg[0].data_ptr(), dg[1].data_ptr()), H, H4, H, H4, T * B,
+             v2._TN, outf=dwh)
+    return dwh
+
+
+def blstm_v1_bwd_plain(xw, hs, c, gy, lengths, wh, forget_bias: float = 1.0):
+    """Row 6 as a whole, written out: (dxw [2, T, B, 4H] in gy's dtype,
+    dwh [2, H, 4H] f32)."""
+    gates = blstm_v1_bwd_gates_plain(xw, hs, wh)
+    dg = blstm_v1_bwd_recur_plain(gates, c, gy, lengths, wh, forget_bias)
+    return dg, blstm_v1_bwd_dwh_plain(hs, dg)
+
+
+def blstm_v1_bwd(xw, hs, c, gy, lengths, wh, forget_bias: float = 1.0):
+    """Row 6 through its launches (the plain versions for CPU tensors):
+    the gates recompute, the chain, dwh."""
+    gates = blstm_v1_bwd_gates(xw, hs, wh)
+    dg = blstm_v1_bwd_recur(gates, c, gy, lengths, wh, forget_bias)
+    del gates
+    return dg, blstm_v1_bwd_dwh(hs, dg)
+
+
+# ---------------------------------------------------------------------------
+# layer
+# ---------------------------------------------------------------------------
+
+class BLSTMLayerV1(torch.autograd.Function):
+    """The trainable layer of the v1 family (``blstm_seq_fused`` with the
+    projection): x [T, B, D] -> masked h [T, B, 2H] in x's dtype, keeping
+    x, xw and the walk's carries for the backward."""
+
+    @staticmethod
+    def forward(ctx, x_tm, lengths, wx_fw, b_fw, wh_fw, wx_bw, b_bw, wh_bw, forget_bias):
+        T, B, D = x_tm.shape
+        wx = torch.stack([wx_fw, wx_bw]).contiguous()
+        b = torch.stack([b_fw, b_bw]).contiguous()
+        wh = torch.stack([wh_fw, wh_bw]).contiguous()
+        x = x_tm.contiguous()
+        lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
+        xw = v2.blstm_proj(x.view(T * B, D), wx, b).view(2, T, B, wx.shape[2])
+        y, hs, c = blstm_v1_recur_train(xw, lengths, wh, forget_bias)
+        ctx.save_for_backward(x, lengths, wx, wh, xw, hs, c)
+        ctx.forget_bias = forget_bias
+        ctx.b_dtype = b.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, lengths, wx, wh, xw, hs, c = ctx.saved_tensors
+        gy = gy.to(xw.dtype).contiguous()
+        dg, dwh = blstm_v1_bwd(xw, hs, c, gy, lengths, wh, ctx.forget_bias)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dxd = v2.blstm_bwd_dx(dg, wx)
+            dx = dxd[0] + dxd[1]
+        dwx, db = v2.blstm_bwd_dwx(x, dg)
+        dwx, dwh, db = dwx.to(wx.dtype), dwh.to(wh.dtype), db.to(ctx.b_dtype)
+        return dx, None, dwx[0], db[0], dwh[0], dwx[1], db[1], dwh[1], None
+
+
+def blstm_v1_tm_apply(p, x_tm, lengths, forget_bias: float = 1.0) -> torch.Tensor:
+    """Time-major BLSTM layer on the v1 kernels: x [T, B, D] -> [T, B, 2H]
+    in x's dtype. Through ``BLSTMLayerV1`` when a gradient is wanted, else
+    the projection and the inference walk."""
+    if v2._wants_grad(p, x_tm):
+        return BLSTMLayerV1.apply(
+            x_tm, lengths, p["fw"]["wx"], p["fw"]["b"], p["fw"]["wh"],
+            p["bw"]["wx"], p["bw"]["b"], p["bw"]["wh"], forget_bias,
+        )
+    T, B, D = x_tm.shape
+    wx, b, wh = v2.stack_directions(p)
+    xw = v2.blstm_proj(x_tm.reshape(T * B, D).contiguous(), wx, b)
+    lengths = lengths.to(device=x_tm.device, dtype=torch.int32).contiguous()
+    return blstm_v1_recur(xw.view(2, T, B, wx.shape[2]), lengths, wh, forget_bias)

@@ -19,6 +19,11 @@ KERNELS = (
     "blstm_bwd_dx",
     "blstm_bwd_dwx",
     "blstm_bwd_dwh",
+    "blstm_v1_recur",
+    "blstm_v1_recur_train",
+    "blstm_v1_bwd_gates",
+    "blstm_v1_bwd_recur",
+    "blstm_v1_bwd_dwh",
     "ctc_alpha",
     "ctc_beta",
     "rnnt_joint_fwd",

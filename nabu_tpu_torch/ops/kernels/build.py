@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("stft_mel", "blstm", "ctc", "transducer", "lstm")
+SOURCES = ("stft_mel", "blstm", "blstm_v1", "ctc", "transducer", "lstm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

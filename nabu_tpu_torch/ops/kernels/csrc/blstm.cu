@@ -19,7 +19,10 @@
 //     - dwx_d = x^T @ dg_d, with db_d = sum over rows of dg_d taken from
 //       the same tiles by the blocks of the first output row tile;
 //     - dwh_d = hprev_d^T @ dg_d, hprev read from the layer's output one
-//       step back along each direction's recurrence (no copy).
+//       step back along each direction's recurrence (no copy);
+//     - the v1 family's backward (blstm_v1.cu): its gates recompute
+//       gates_d = f32(xw_d) + hprev_d @ wh_d (f32 out, the addend read in
+//       the element type) and its dwh, both over the stored carries.
 //     grid.z runs `dirs` (1 or 2) pointer pairs: the unidirectional LSTM
 //     (ops/lstm.py) takes one pair for its projection and two halves of K
 //     for its dwh (the wrapper adds the halves).
@@ -190,7 +193,7 @@ __device__ __forceinline__ void direction_barrier(unsigned int* cnt, int s, int 
 // (a) GEMM
 // ---------------------------------------------------------------------------
 
-enum Epilogue { EPI_BIAS = 0, EPI_CAST = 1, EPI_F32 = 2 };
+enum Epilogue { EPI_BIAS = 0, EPI_CAST = 1, EPI_F32 = 2, EPI_ADD_F32 = 3 };
 
 // A(m, k) = A_COL ? a[k * lda + m] : a[m * lda + k], likewise B(k, n) =
 // B_COL ? b[n * ldb + k] : b[k * ldb + n]; one pointer per direction
@@ -201,9 +204,9 @@ struct GemmArgs {
   int lda, ldb;
   int M, N, K;
   int dirs;        // grid.z: 1 or 2 pointer pairs
-  const T* bias;   // [2, N] (EPI_BIAS)
+  const T* bias;   // [2, N] (EPI_BIAS), or the addend [2, M, N] (EPI_ADD_F32)
   T* out;          // [2, M, N] (EPI_BIAS, EPI_CAST)
-  float* outf;     // [2, M, N] (EPI_F32)
+  float* outf;     // [2, M, N] (EPI_F32, EPI_ADD_F32)
   float* colsum;   // [2, N]: sum over k of B(k, n) (row-major B), or null
 };
 
@@ -215,6 +218,8 @@ __device__ __forceinline__ void epilogue_store(const GemmArgs<T>& g, int dir, in
     g.out[i] = bias_epilogue<T>(acc, g.bias[(size_t)dir * g.N + n]);
   } else if constexpr (EPI == EPI_CAST) {
     g.out[i] = from_f<T>(acc);
+  } else if constexpr (EPI == EPI_ADD_F32) {
+    g.outf[i] = to_f(g.bias[i]) + acc;
   } else {
     g.outf[i] = acc;
   }
@@ -458,8 +463,9 @@ int launch_gemm_f32(const GemmArgs<float>& g, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the three layouts the layer uses: proj (row, row, bias), dx (row, col,
-// cast), dwx / dwh (col, row, f32)
+// the layouts the layers use: proj (row, row, bias), dx (row, col,
+// cast), dwx / dwh (col, row, f32), the v1 gates recompute (row, row, f32
+// plus addend)
 template <typename T>
 int launch_gemm(const GemmArgs<T>& g, int kind, cudaStream_t stream) {
   if (g.M <= 0 || g.N <= 0) return 0;
@@ -469,12 +475,14 @@ int launch_gemm(const GemmArgs<T>& g, int kind, cudaStream_t stream) {
       case 0: return launch_gemm_bf16<false, false, EPI_BIAS>(g, stream);
       case 1: return launch_gemm_bf16<false, true, EPI_CAST>(g, stream);
       case 2: return launch_gemm_bf16<true, false, EPI_F32>(g, stream);
+      case 3: return launch_gemm_bf16<false, false, EPI_ADD_F32>(g, stream);
     }
   } else {
     switch (kind) {
       case 0: return launch_gemm_f32<false, false, EPI_BIAS>(g, stream);
       case 1: return launch_gemm_f32<false, true, EPI_CAST>(g, stream);
       case 2: return launch_gemm_f32<true, false, EPI_F32>(g, stream);
+      case 3: return launch_gemm_f32<false, false, EPI_ADD_F32>(g, stream);
     }
   }
   return (int)cudaErrorInvalidValue;
@@ -813,7 +821,8 @@ int launch_bwd_recur(const float* gates, const float* cst, const T* gy, const in
 
 // GEMM: kind 0 = projection (row-major A and B, bias after the cast),
 // 1 = A row-major times B column-major (cast to the element type),
-// 2 = A column-major times B row-major (f32 out, optional column sums of B)
+// 2 = A column-major times B row-major (f32 out, optional column sums of B),
+// 3 = row-major A and B, f32 out plus the addend [2, M, N] passed as bias
 extern "C" int nabu_blstm_gemm_bf16(const void* a0, const void* a1, const void* b0,
                                     const void* b1, int lda, int ldb, int M, int N, int K,
                                     int kind, int dirs, const void* bias, void* out,

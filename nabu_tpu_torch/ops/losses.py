@@ -1,9 +1,10 @@
-"""Loss computers: CTC, RNN-T, and the weighted multi-head combination.
+"""Loss computers: CTC, RNN-T, label-smoothed cross-entropy, and the weighted
+multi-head combination.
 
 Port of the JAX package's ``ops/losses.py``. Every loss masks padding by
 sequence length and fill examples by ``example_mask``; the CTC loss
 reduces to a mean over real, feasible examples, the transducer loss over
-real examples. The cross-entropy loss is registered but not ported yet.
+real examples, the label-smoothed cross-entropy over real target tokens.
 """
 
 from __future__ import annotations
@@ -85,14 +86,38 @@ def transducer_loss_fn(
     }
 
 
-def _not_ported(name):
-    def loss(*args, **kwargs):
-        raise NotImplementedError(f"loss {name!r} not ported yet")
-    return loss
-
-
-for _name in ("cross_entropy", "ce"):
-    LOSSES.register(_name)(_not_ported(_name))
+@LOSSES.register("cross_entropy")
+@LOSSES.register("ce")
+def cross_entropy_loss_fn(
+    logits: torch.Tensor,  # [B, L+1, V+1] f32 (the speller's output, eos step included)
+    logit_lengths: torch.Tensor,  # [B] == target_lengths + 1
+    targets: torch.Tensor,  # [B, L] (no eos)
+    target_lengths: torch.Tensor,
+    example_mask: torch.Tensor,
+    label_smoothing: float = 0.0,
+    blank_id=None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Label-smoothed sequence cross-entropy with <eos> (the last output,
+    V) appended at ``target_lengths``; smoothing spreads over all V + 1
+    outputs. The token mean over real (non-pad, non-fill) positions, eos
+    included, and the ``token_accuracy`` metric over the same positions."""
+    del blank_id
+    B, Lp1, V = logits.shape
+    eos_id = V - 1
+    dev = logits.device
+    pad_tgt = torch.nn.functional.pad(targets.to(dev).long(), (0, Lp1 - targets.shape[1]))
+    pos = torch.arange(Lp1, device=dev)[None, :]
+    tl = target_lengths.to(dev).long()[:, None]
+    tgt_ext = torch.where(pos == tl, eos_id, pad_tgt)
+    valid = (pos <= tl) & (example_mask.to(dev)[:, None] > 0)  # [B, L+1]
+    logprobs = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logprobs, -1, tgt_ext[..., None])[..., 0]
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * -logprobs.mean(dim=-1)
+    denom = torch.clamp(valid.sum(), min=1)
+    loss = torch.where(valid, nll, 0.0).sum() / denom
+    hits = valid & (torch.argmax(logits.detach(), dim=-1) == tgt_ext)
+    return loss, {"token_accuracy": hits.sum() / denom}
 
 
 def make_loss_computer(model) -> Callable:

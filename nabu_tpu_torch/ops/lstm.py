@@ -50,6 +50,7 @@ from nabu_tpu_torch.ops import kernels
 from nabu_tpu_torch.ops.blstm import (
     _PROJ,
     _TN,
+    SMEM_LIMIT,
     UNITS_PER_BLOCK,
     _check_cuda,
     _check_shape,
@@ -57,9 +58,6 @@ from nabu_tpu_torch.ops.blstm import (
     _stream,
 )
 from nabu_tpu_torch.ops.kernels import build
-
-# shared memory a block may have on the H100 (bytes)
-SMEM_LIMIT = 232448
 
 _fns: dict = {}
 _P = ctypes.c_void_p

@@ -1,0 +1,163 @@
+"""The port's v1 BLSTM kernel family (``ops.blstm_v1``) against the JAX
+package's v1 kernels, and the family dispatch.
+
+Same seeded weights (a JAX init, converted through the export layout) and
+inputs through both, f32. The port's plain versions (what the CPU runs in
+place of the CUDA kernels of ``csrc/blstm_v1.cu``) are held to
+``blstm_fused_forward`` (row 4) and to ``jax.grad`` of
+``blstm_apply_fused_v1`` (rows 5-6), both in interpret mode, on ragged
+lengths with T not a multiple of 8: rtol 1e-4 / atol 1e-5, as the JAX
+kernel tests. The two families are one function: a layer through v1 and
+through v2 agrees to the same tolerance.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nabu_tpu.models import core as jcore
+from nabu_tpu.ops.pallas.blstm import blstm_apply_fused_v1, blstm_fused_forward
+from nabu_tpu_torch.ops import blstm as blstm_ops
+from nabu_tpu_torch.ops import blstm_v1
+from nabu_tpu_torch.ops import kernels
+from test_torch_blstm import to_torch_tree
+
+torch.set_num_threads(1)  # Tier-1 runs several xdist workers
+
+T, D, H = 21, 10, 12
+LENGTHS = [T, 13, 6, 1]
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _inputs(seed):
+    p = jcore.blstm_init(jax.random.PRNGKey(seed), D, H)
+    rng = np.random.default_rng(seed)
+    for d in ("fw", "bw"):
+        p[d]["b"] = jnp.asarray(rng.uniform(-0.5, 0.5, 4 * H).astype(np.float32))
+    x = rng.standard_normal((len(LENGTHS), T, D)).astype(np.float32)
+    return p, x, np.asarray(LENGTHS, np.int32)
+
+
+def test_inference_walk_matches_row4_kernel():
+    p, x, lengths = _inputs(1)
+    want = blstm_fused_forward(p, jnp.asarray(x), jnp.asarray(lengths), interpret=True,
+                               block_t=8)
+    before = kernels.launch_counts()
+    with torch.no_grad():
+        got = blstm_v1.blstm_v1_tm_apply(
+            to_torch_tree(p), torch.from_numpy(x).transpose(0, 1), torch.from_numpy(lengths))
+    assert kernels.launch_counts() == before  # CPU: plain versions
+    np.testing.assert_allclose(got.transpose(0, 1).numpy(), np.asarray(want), **TOL)
+    assert float(got[6:, 2].abs().max()) == 0.0  # padded frames are exact zeros
+
+
+def _torch_loss_and_grads(p, x, lengths, g, apply):
+    tp = {d: {k: v.requires_grad_(True) for k, v in q.items()}
+          for d, q in to_torch_tree(p).items()}
+    xt = torch.from_numpy(x).transpose(0, 1).requires_grad_(True)
+    y = apply(tp, xt, torch.from_numpy(lengths))
+    loss = (y.transpose(0, 1) * torch.from_numpy(g)).sum()
+    loss.backward()
+    grads = {f"{d}/{k}": tp[d][k].grad.numpy() for d in tp for k in tp[d]}
+    grads["x"] = xt.grad.transpose(0, 1).numpy()
+    return float(loss.detach()), grads
+
+
+def test_training_layer_matches_row5_row6_gradients():
+    """BLSTMLayerV1 (training walk, gates recompute, chain, dwh) against
+    jax.grad of blstm_apply_fused_v1: dx, dwx, dwh, db."""
+    p, x, lengths = _inputs(2)
+    g = np.random.default_rng(3).standard_normal((len(LENGTHS), T, 2 * H)).astype(np.float32)
+
+    def jloss(p, x):
+        y = blstm_apply_fused_v1(p, x, jnp.asarray(lengths), interpret=True, block_t=8)
+        return jnp.sum(y * g)
+
+    want_loss, (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1))(p, jnp.asarray(x))
+    got_loss, grads = _torch_loss_and_grads(p, x, lengths, g, blstm_v1.blstm_v1_tm_apply)
+    np.testing.assert_allclose(got_loss, float(want_loss), rtol=1e-5)
+    np.testing.assert_allclose(grads["x"], np.asarray(jgx), **TOL)
+    for d in ("fw", "bw"):
+        for k in ("wx", "wh", "b"):
+            np.testing.assert_allclose(grads[f"{d}/{k}"], np.asarray(jgp[d][k]), **TOL,
+                                       err_msg=f"{d}/{k}")
+
+
+def test_both_families_compute_one_function():
+    p, x, lengths = _inputs(4)
+    g = np.random.default_rng(5).standard_normal((len(LENGTHS), T, 2 * H)).astype(np.float32)
+
+    def v2_apply(tp, xt, lens):
+        return blstm_ops.BLSTMLayer.apply(
+            xt, lens, tp["fw"]["wx"], tp["fw"]["b"], tp["fw"]["wh"],
+            tp["bw"]["wx"], tp["bw"]["b"], tp["bw"]["wh"], 1.0)
+
+    l1, g1 = _torch_loss_and_grads(p, x, lengths, g, blstm_v1.blstm_v1_tm_apply)
+    l2, g2 = _torch_loss_and_grads(p, x, lengths, g, v2_apply)
+    np.testing.assert_allclose(l1, l2, rtol=1e-5)
+    for k in g2:
+        np.testing.assert_allclose(g1[k], g2[k], **TOL, err_msg=k)
+
+
+def test_plain_pieces_of_row6():
+    """The stored carries' layout (zero slot at each direction's start)
+    and the recompute: the gates the v2 walk stores equal the v1
+    recompute from the v1 walk's carries."""
+    rng = np.random.default_rng(6)
+    xw = torch.from_numpy(rng.uniform(-1, 1, (2, T, 4, 4 * H)).astype(np.float32))
+    wh = torch.from_numpy(rng.uniform(-0.3, 0.3, (2, H, 4 * H)).astype(np.float32))
+    lens = torch.as_tensor(LENGTHS, dtype=torch.int32)
+    y, hs, c = blstm_v1.blstm_v1_recur_train_plain(xw, lens, wh)
+    y2, c2, gates2 = blstm_ops.blstm_recur_train_plain(xw, lens, wh)
+    assert hs.shape == (2, T + 1, 4, H)
+    assert float(hs[0, 0].abs().max()) == 0.0 and float(hs[1, T].abs().max()) == 0.0
+    torch.testing.assert_close(y, y2, rtol=0, atol=0)
+    torch.testing.assert_close(c, c2, rtol=0, atol=0)
+    torch.testing.assert_close(blstm_v1.blstm_v1_bwd_gates_plain(xw, hs, wh), gates2,
+                               rtol=1e-5, atol=1e-6)
+    gy = torch.from_numpy(rng.standard_normal((T, 4, 2 * H)).astype(np.float32))
+    dg, dwh = blstm_v1.blstm_v1_bwd_plain(xw, hs, c, gy, lens, wh)
+    dg2 = blstm_ops.blstm_bwd_recur_plain(gates2, c2, gy, lens, wh)
+    torch.testing.assert_close(dg, dg2, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dwh, blstm_ops.blstm_bwd_dwh_plain(y2, dg2), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("B, H, family", [
+    (64, 512, "v1"), (32, 512, "v1"),  # las_large's Listener: training, validation
+    (32, 320, "v2"), (32, 256, "v2"),  # dblstm_ctc_wsj / rnnt_char_wsj, las_timit
+    (4, 12, "v2"),                     # the tests' tiny layers
+])
+def test_kernel_family(B, H, family):
+    assert blstm_ops.kernel_family(B, H) == family
+    if family == "v1":
+        blstm_v1.check_design("layer", B, H)  # v1 holds what v2 cannot
+
+
+def test_check_design_raises_beyond_the_design():
+    with pytest.raises(ValueError, match="beyond"):
+        blstm_v1.check_design("layer", 129, 512)
+    with pytest.raises(ValueError, match="beyond"):
+        blstm_v1.check_design("layer", 64, 1024)
+
+
+def test_dispatch_takes_v1_at_las_large_width():
+    """blstm_tm_apply at B = 21, H = 512 (past the v2 chain's limit) runs
+    the v1 walk; at B = 20 the v2 one (monkeypatched walks record it)."""
+    rng = np.random.default_rng(7)
+    seen = []
+    saved = (blstm_v1.blstm_v1_recur, blstm_ops.blstm_recur)
+    blstm_v1.blstm_v1_recur = lambda *a, **k: seen.append("v1") or saved[0](*a, **k)
+    blstm_ops.blstm_recur = lambda *a, **k: seen.append("v2") or saved[1](*a, **k)
+    try:
+        for B in (21, 20):
+            p = {d: {"wx": torch.from_numpy(rng.uniform(-0.1, 0.1, (3, 2048)).astype(np.float32)),
+                     "wh": torch.zeros((512, 2048)), "b": torch.zeros((2048,))}
+                 for d in ("fw", "bw")}
+            with torch.no_grad():
+                blstm_ops.blstm_tm_apply(p, torch.ones((2, B, 3)), torch.full((B,), 2))
+    finally:
+        blstm_v1.blstm_v1_recur, blstm_ops.blstm_recur = saved
+    assert seen == ["v1", "v2"]

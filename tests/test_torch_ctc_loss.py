@@ -150,5 +150,15 @@ def test_ctc_loss_fn_matches_jax(use_pallas):
 
 
 def test_other_losses_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tlosses.LOSSES.get("cross_entropy")(None, None, None, None, None)
+    """Every loss of the JAX package is ported: cross_entropy (alias ce)
+    computes the label-smoothed token mean with <eos> appended; a name
+    no package registers is refused."""
+    assert set(jlosses.LOSSES.names()) <= set(tlosses.LOSSES.names())
+    logits = torch.zeros((1, 2, V))  # uniform: nll log(V) at each of 2 tokens
+    loss, metrics = tlosses.LOSSES.get("cross_entropy")(
+        logits, torch.tensor([2]), torch.tensor([[3]]), torch.tensor([1]),
+        torch.tensor([1.0]), label_smoothing=0.1)
+    np.testing.assert_allclose(float(loss), np.log(V), rtol=1e-6)
+    assert set(metrics) == {"token_accuracy"}
+    with pytest.raises(KeyError, match="unknown"):
+        tlosses.LOSSES.get("mwer")

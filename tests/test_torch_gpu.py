@@ -850,3 +850,207 @@ def test_lstm_never_takes_a_plain_version_on_card(cuda_device, monkeypatch, tmp_
     with pytest.raises(TypeError):  # lengths must be int32
         lo.lstm_fwd(z[:, :4].contiguous(), torch.full((4,), 3, dtype=torch.int64, device=cuda_device),
                     torch.zeros((320, 4 * 320), dtype=torch.bfloat16, device=cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# the v1 BLSTM kernel family (rows 4-6) and the LAS modules
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(37, 4, 9), (37, 5, 12), (23, 128, 16), (64, 64, 512)])
+def test_blstm_v1_kernels_match_plain(cuda_device, dtype, T, B, H):
+    """Each v1 kernel against its plain version on the same inputs, and a
+    planted fault per output that the tolerance must reject: the walks (h
+    of 8 units read one step late; the stored h and c one step late), the
+    gates recompute (the last of the H products dropped), the chain (the
+    dgates of 8 units read one step stale) and dwh (the last token's term
+    dropped). Shapes off the 16-byte paths (H = 9, 12), four rows a thread
+    (B = 128) and las_large's width (H = 512, B = 64); wh at glorot scale."""
+    import chip_smoke
+    from nabu_tpu_torch.ops import blstm_v1 as v1
+
+    rng = np.random.default_rng(T * B + H)
+    lengths = rng.integers(1, T + 1, B).astype(np.int32)
+    lengths[0], lengths[-1] = T, 1
+    lt = torch.as_tensor(lengths, device=cuda_device)
+
+    def u(*shape, scale=1.0):
+        return torch.as_tensor(
+            rng.uniform(-scale, scale, shape).astype(np.float32)).to(cuda_device, dtype)
+
+    xw, gy = u(2, T, B, 4 * H), u(T, B, 2 * H)
+    wh = u(2, H, 4 * H, scale=float(np.sqrt(6.0 / (5 * H))))
+    before = kernels.launch_counts()
+    y_inf = v1.blstm_v1_recur(xw, lt, wh)
+    y, hs, c = v1.blstm_v1_recur_train(xw, lt, wh)
+    ry, rhs, rc = v1.blstm_v1_recur_train_plain(xw, lt, wh)
+    gates = v1.blstm_v1_bwd_gates(xw, rhs, wh)
+    rgates = v1.blstm_v1_bwd_gates_plain(xw, rhs, wh)
+    dg = v1.blstm_v1_bwd_recur(rgates, rc, gy, lt, wh)
+    rdg = v1.blstm_v1_bwd_recur_plain(rgates, rc, gy, lt, wh)
+    dgr = u(2, T, B, 4 * H)
+    dwh, rdwh = v1.blstm_v1_bwd_dwh(rhs, dgr), v1.blstm_v1_bwd_dwh_plain(rhs, dgr)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for name in ("blstm_v1_recur", "blstm_v1_recur_train", "blstm_v1_bwd_gates",
+                 "blstm_v1_bwd_recur", "blstm_v1_bwd_dwh"):
+        assert after[name] == before[name] + 1, name
+    checks = {"y_inference": (y_inf, ry), "y": (y, ry), "h": (hs, rhs), "c": (c, rc),
+              "gates": (gates, rgates), "dgates": (dg, rdg), "dwh": (dwh, rdwh)}
+    hs_cut = rhs.clone()
+    hs_cut[..., -1] = 0
+    dg_tok = dgr.clone()
+    dg_tok[0, T - 1, 0] = 0
+    stale = chip_smoke.stale_recur(torch, units=min(8, H))(xw, lt, wh)
+    faults = {
+        "y_inference": (stale, ry), "y": (stale, ry),
+        "h": (chip_smoke.hs_one_step_late(torch, rhs), rhs),
+        "c": (chip_smoke.c_one_step_late(torch, rc), rc),
+        "gates": (v1.blstm_v1_bwd_gates_plain(xw, hs_cut, wh), rgates),
+        "dgates": (chip_smoke.faulty_chain(torch, stale_units=min(8, H))(rgates, rc, gy, lt, wh),
+                   rdg),
+        "dwh": (v1.blstm_v1_bwd_dwh_plain(rhs, dg_tok), rdwh),
+    }
+
+    def tol(name, ref):
+        if name == "gates":  # f32 sums of the same products in another order
+            return 1e-4 * (1.0 + np.abs(ref))
+        if dtype == torch.float32:
+            return 1e-4 * (1.0 + np.abs(ref))
+        if name in ("y_inference", "y", "h"):
+            return 3e-2 * max(1.0, float(np.abs(ref).max()))
+        if name == "dgates":
+            return 2e-2 * max(1.0, float(np.abs(ref).max()))
+        if name == "c":
+            return 1e-2 * max(1.0, float(np.abs(ref).max()))
+        return 1e-2 * (1.0 + np.abs(ref))
+
+    over, sound = _readings(checks, tol)
+    over_f, fault = _readings(faults, tol)
+    passed = sorted(set(faults) - set(over_f))
+    assert not over and not passed, {"beyond tolerance": over, "faults passing": passed,
+                                     "sound": sound, "fault": fault}
+    assert float(y[1:, -1].float().abs().max()) == 0.0  # the length-1 lane's padding
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_blstm_v1_layer_gradients_on_card_match_cpu(cuda_device, dtype, rtol):
+    """BLSTMLayerV1 through the kernels on the card against the same layer
+    through the plain versions on the CPU: output and every gradient."""
+    from nabu_tpu_torch.ops import blstm_v1 as v1
+
+    rng = np.random.default_rng(21)
+    T, lengths, D, H = 37, [37, 20, 8, 1], 11, 12
+    p32 = _layer(rng, D, H, "cpu", torch.float32, glorot=True)
+    x32 = torch.as_tensor(rng.standard_normal((T, len(lengths), D)).astype(np.float32))
+    gy = torch.as_tensor(rng.standard_normal((T, len(lengths), 2 * H)).astype(np.float32))
+
+    def run(dev):
+        p = {d: {k: v.to(dev, dtype, copy=True).requires_grad_(True) for k, v in q.items()}
+             for d, q in p32.items()}
+        x = x32.to(dev, dtype, copy=True).requires_grad_(True)
+        y = v1.blstm_v1_tm_apply(p, x, torch.as_tensor(lengths, dtype=torch.int32))
+        (y.float() * gy.to(dev)).sum().backward()
+        return [y] + [x.grad] + [p[d][k].grad for d in ("fw", "bw") for k in ("wx", "wh", "b")]
+
+    got = run(cuda_device)
+    ref = run(torch.device("cpu"))
+    names = ["y", "dx"] + [f"{d}/{k}" for d in ("fw", "bw") for k in ("wx", "wh", "b")]
+
+    def tol(name, ref):
+        return rtol * (np.abs(ref) + np.abs(ref).max())
+
+    over, sound = _readings({n: (a.detach(), b.detach()) for n, a, b in zip(names, got, ref)},
+                            tol)
+    assert not over, {"beyond tolerance": over, "sound": sound}
+
+
+def test_listener_at_512_units_runs_only_v1(cuda_device):
+    """kernel_family at las_large's width: a two-layer time-major stack of
+    512-unit layers at B = 64 launches the v1 walks (inference and
+    training), the gates recomputes, chains and dwh, and no v2 walk or
+    chain; the projections and dx / dwx are shared."""
+    from nabu_tpu_torch.models import core
+
+    rng = np.random.default_rng(22)
+    T, B, D, H = 20, 64, 40, 512
+    layers = [_layer(rng, D, H, cuda_device, torch.bfloat16, glorot=True),
+              _layer(rng, 4 * H, H, cuda_device, torch.bfloat16, glorot=True)]
+    for q in layers:
+        for d in q.values():
+            for v in d.values():
+                v.requires_grad_(True)
+    x = torch.as_tensor(rng.standard_normal((T, B, D)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    lengths = torch.as_tensor(rng.integers(1, T + 1, B), dtype=torch.int32)
+
+    def stack():
+        y = core.blstm_apply_tm(layers[0], x, lengths, "kernel")
+        y, lens = core.pyramid_stack_tm(y, lengths)
+        return core.blstm_apply_tm(layers[1], y, lens, "kernel")
+
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        stack()
+    torch.cuda.synchronize()
+    infer = kernels.launch_counts()
+    stack().float().sum().backward()
+    torch.cuda.synchronize()
+    train = {k: v - infer[k] for k, v in kernels.launch_counts().items()}
+    assert {k: v for k, v in infer.items() if v} == {"blstm_proj": 2, "blstm_v1_recur": 2}
+    assert {k: v for k, v in train.items() if v} == {
+        "blstm_proj": 2, "blstm_v1_recur_train": 2, "blstm_v1_bwd_gates": 2,
+        "blstm_v1_bwd_recur": 2, "blstm_v1_bwd_dwh": 2, "blstm_bwd_dx": 1, "blstm_bwd_dwx": 2}
+
+
+def test_blstm_v1_rejects_shapes_beyond_its_design(cuda_device):
+    from nabu_tpu_torch.ops import blstm_v1 as v1
+
+    xw = torch.zeros((2, 3, 129, 64), device=cuda_device)
+    wh = torch.zeros((2, 16, 64), device=cuda_device)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="beyond the kernel's design"):
+        v1.blstm_v1_recur(xw, torch.ones(129, dtype=torch.int32, device=cuda_device), wh)
+    assert kernels.launch_counts() == before
+
+
+def test_speller_loss_and_gradients_on_card_match_cpu(cuda_device, tmp_path):
+    """A tiny LAS model (location attention, label smoothing) in f32: the
+    loss, token accuracy and every gradient on the card against the CPU
+    (rtol 1e-4 of each parameter's largest gradient; TF32 off)."""
+    from nabu_tpu_torch.config import ConfigFile
+    from nabu_tpu_torch.models.model import build_model
+    from nabu_tpu_torch.ops.losses import make_loss_computer
+    from nabu_tpu_torch.params import flatten, unflatten
+
+    torch.backends.cudnn.allow_tf32 = False
+    path = tmp_path / "model.cfg"
+    path.write_text(
+        "[encoder]\nencoder = listener\nnum_layers = 1\nnum_units = 12\nuse_pallas = true\n"
+        "[decoder]\ndecoder = speller\nnum_layers = 2\nnum_units = 10\nembed_dim = 6\n"
+        "attention = location\nlocation_width = 5\nlocation_filters = 3\n"
+        "loss = cross_entropy\nlabel_smoothing = 0.1\n")
+    model = build_model(ConfigFile.read(str(path)), 6, 5)
+    flat = flatten(model.init(torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(23)
+    batch = {"features": rng.standard_normal((3, 19, 6)).astype(np.float32),
+             "feature_lengths": np.asarray([19, 12, 5], np.int32),
+             "targets": rng.integers(0, 5, (3, 6)).astype(np.int32),
+             "target_lengths": np.asarray([6, 3, 0], np.int32),
+             "example_mask": np.ones(3, np.float32)}
+    loss_fn = make_loss_computer(model)
+
+    def run(dev):
+        leaves = {k: v.to(dev).requires_grad_(True) for k, v in flat.items()}
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        loss, metrics = loss_fn(unflatten(leaves), b, None, False)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return (float(loss.detach()), float(metrics["decoder/token_accuracy"]),
+                {k: g.cpu().numpy() for k, g in zip(leaves, grads)})
+
+    got, ref = run(cuda_device), run(torch.device("cpu"))
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5)
+    assert got[1] == ref[1]
+    for k, g in ref[2].items():
+        np.testing.assert_allclose(got[2][k], g, rtol=0, atol=1e-4 * np.abs(g).max() + 1e-12,
+                                   err_msg=k)
