@@ -88,6 +88,13 @@ their plain versions at the encoder's T = 1024 and the prediction net's
 T = 121, B = 32, H = 320, and the v1 BLSTM kernels (inference walk,
 training walk, gates recompute, chain, dwh) at las_large's bottom layer
 (T = 1024, D = 80) and pyramid_0 (T = 512, D = 2048), B = 64, H = 512.
+Each bf16 GEMM row (blstm_proj, dx, dwx + db, dwh, the v1 gates recompute
+and dwh, lstm_proj) also reports the kernel its shape took (``wgmma``:
+TMA + wgmma, or the earlier ``wmma``), its K slices, its TFLOP/s and the
+earlier WMMA kernel's time on the same inputs; the weight gradients (split
+K) launch twice and must repeat bit for bit. Every serving and training
+phase prints its GEMM launches by kernel, and the WMMA kernel must not
+launch in any of them.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -399,6 +406,46 @@ def bound(bytes_, ops, peak_ops, *more):
     t_bytes = bytes_ / PEAK_BYTES * 1e3
     t_ops = max(o / p for o, p in ((ops, peak_ops), *more)) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gemm_fields(torch, timed, reps, fn, kind, M, N, K, ops, ms, repeat=False) -> dict:
+    """The bf16 GEMM row's extra readings: the kernel its launch took
+    (``gemm_variant``), its K slices (``split_k``), its TFLOP/s, the time
+    of the earlier WMMA kernel on the same inputs, and for kind 2 (split
+    K) whether a second launch gives the first one's bits."""
+    from nabu_tpu_torch.ops import blstm as bo
+    from nabu_tpu_torch.ops import kernels
+
+    before = kernels.variant_counts()
+    first = fn()
+    ran = [v for v, n in kernels.variant_counts().items() if n > before[v]]
+    check(len(ran) == 1, f"a bf16 GEMM row launched {ran}")
+    variant = ran[0].rsplit("_", 1)[1]
+    fields = {"variant": variant,
+              "splits": bo.split_k(kind, M, N, K, 2) if variant == "wgmma" else 1,
+              "tflops": None if ms is None else ops / ms / 1e9}
+    with swapped(bo, "gemm_variant", lambda lda, ldb, ptrs: "wmma"):
+        fields["wmma_ms"] = timed(fn, reps)
+    if repeat:
+        second = fn()
+        pairs = zip(first, second) if isinstance(first, tuple) else ((first, second),)
+        same = all(torch.equal(x, y) for x, y in pairs)
+        fields["repeat_bits_equal"] = same
+        if not same:
+            FAILURES.append(f"kind {kind} GEMM M={M} N={N} K={K}: a second launch's bits differ")
+    return fields
+
+
+def gemm_variants(phase: str) -> dict:
+    """The bf16 GEMM launches of the run just read, by kernel, as a line;
+    the earlier WMMA kernel must not run on a recipe's path."""
+    from nabu_tpu_torch.ops import kernels
+
+    counts = kernels.variant_counts()
+    emit({"phase": phase, "gemm_variants": counts})
+    check(counts["gemm_bf16_wmma"] == 0,
+          f"{phase}: {counts['gemm_bf16_wmma']} launches of the WMMA GEMM")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1025,6 +1072,10 @@ def phase_kernels(torch, quick: bool) -> dict:
                 "library": "torch.matmul x @ wx (both directions)",
                 "bound_ms": b_ms, "bound_by": b_by,
             }
+            if tag == "bf16":
+                row.update(gemm_fields(torch, timed, reps,
+                                       lambda: blstm_ops.blstm_proj(x, wx, bias), 0, M, 4 * H,
+                                       D, 2 * 2 * M * D * 4 * H, row["ms"]))
             emit({"phase": "kernels", "kernel": "blstm_proj", **row})
             rows[("blstm_proj", tag, D)] = row
         # recurrence on the projection of the widest layer's input
@@ -1219,6 +1270,10 @@ def v1_rows(torch, timed, reps) -> dict:
                            "type)",
                 "bound_ms": b_ms, "bound_by": b_by,
             }
+            if tag == "bf16":
+                row.update(gemm_fields(torch, timed, reps,
+                                       lambda: v1.blstm_v1_bwd_gates(xw, hs, wh), 3, M, H4, Hv,
+                                       2 * 2 * valid * Hv * H4, row["ms"]))
             emit({"phase": "kernels", "kernel": "blstm_v1_bwd_gates", "case": case, **row})
             rows[("blstm_v1_bwd_gates", tag, case)] = row
 
@@ -1269,6 +1324,10 @@ def v1_rows(torch, timed, reps) -> dict:
                 "library": "torch.matmul hprev^T @ dg (both directions)",
                 "bound_ms": b_ms, "bound_by": b_by,
             }
+            if tag == "bf16":
+                row.update(gemm_fields(torch, timed, reps, lambda: v1.blstm_v1_bwd_dwh(hs, dgr),
+                                       2, Hv, H4, M, 2 * 2 * valid * Hv * H4, row["ms"],
+                                       repeat=True))
             emit({"phase": "kernels", "kernel": "blstm_v1_bwd_dwh", "case": case, **row})
             rows[("blstm_v1_bwd_dwh", tag, case)] = row
             del dwh, ref_w, cut, dgr, hprev, hpt, d2, hs, xw, x, x_lib, lstm
@@ -1472,6 +1531,9 @@ def lstm_rows(torch, timed, reps) -> dict:
                     "library": "torch.addmm b + x @ wx",
                     "bound_ms": b_ms, "bound_by": b_by,
                 }
+                if tag == "bf16":
+                    row.update(gemm_fields(torch, timed, reps, lambda: lo.lstm_proj(x, wx, bias),
+                                           0, M, H4, H, 2 * M * H * H4, row["ms"]))
                 emit({"phase": "kernels", "kernel": "lstm_proj", **row})
                 rows[("lstm_proj", tag)] = row
                 del x, got_p, ref_p, x_cut, chunk
@@ -1606,6 +1668,9 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
             "library": "torch.matmul dg @ wx^T (both directions)",
             "bound_ms": b_ms, "bound_by": b_by,
         }
+        if tag == "bf16":
+            row.update(gemm_fields(torch, timed, reps, lambda: bo.blstm_bwd_dx(dgr, wx), 1, M,
+                                   D, H4, 2 * 2 * M * H4 * D, row["ms"]))
         emit({"phase": "kernels", "kernel": "blstm_bwd_dx", **row})
         rows[("blstm_bwd_dx", tag, D)] = row
 
@@ -1634,6 +1699,9 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
             "library": "torch.matmul x^T @ dg (both directions; db not included)",
             "bound_ms": b_ms, "bound_by": b_by,
         }
+        if tag == "bf16":
+            row.update(gemm_fields(torch, timed, reps, lambda: bo.blstm_bwd_dwx(x, dgr), 2, D,
+                                   H4, M, 2 * (2 * M * D * H4 + M * H4), row["ms"], repeat=True))
         emit({"phase": "kernels", "kernel": "blstm_bwd_dwx", **row})
         rows[("blstm_bwd_dwx", tag, D)] = row
 
@@ -1656,6 +1724,9 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
         "library": "torch.matmul hprev^T @ dg (both directions)",
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    if tag == "bf16":
+        row.update(gemm_fields(torch, timed, reps, lambda: bo.blstm_bwd_dwh(y, dgr), 2, H, H4,
+                               M - B, 2 * 2 * (M - B) * H * H4, row["ms"], repeat=True))
     emit({"phase": "kernels", "kernel": "blstm_bwd_dwh", **row})
     rows[("blstm_bwd_dwh", tag)] = row
     return rows
@@ -2058,6 +2129,7 @@ def phase_serve(torch, smi: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
+        gemm_variants("serve")
 
         texts = out.getvalue().splitlines()
         check(served == 64 and len(texts) == 64, f"serve: {served} served, {len(texts)} lines")
@@ -2187,6 +2259,7 @@ def phase_serve_rnnt(torch, smi: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
+        gemm_variants("serve_rnnt")
         texts = out.getvalue().splitlines()
         check(served == 64 and len(texts) == 64,
               f"serve_rnnt: {served} served, {len(texts)} lines")
@@ -2311,6 +2384,7 @@ def phase_serve_stream(torch, smi: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
+        gemm_variants("serve_stream")
         texts = out.getvalue().splitlines()
         check(served == 64 and len(texts) == 64,
               f"serve_stream: {served} served, {len(texts)} lines")
@@ -2371,6 +2445,7 @@ def phase_serve_stream(torch, smi: str) -> dict:
         n = serve(art, in_stream=io.StringIO("\n".join(picks) + "\n"), out_stream=sout,
                   streaming=True, model=model)
         stream_launches = kernels.launch_counts()
+        gemm_variants("serve_stream (streaming=True)")
         check(n == len(picks), f"serve_stream: streaming served {n} of {len(picks)}")
         # host features: no frontend kernel
         only_stream_kernels(stream_launches, "serve_stream (streaming=True)",
@@ -2767,6 +2842,7 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t3
         launches = kernels.launch_counts()
+        gemm_variants(phase)
         peak = torch.cuda.max_memory_allocated()
 
         losses = record["loss"]
@@ -2869,6 +2945,7 @@ def las_decode(torch, smi: str, recipe: str, expdir: str, model, dev_audio_s: fl
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    gemm_variants("train_las decode")
     batches = vloader.num_batches()
     for name in kernels.KERNELS:
         want_some = name in LAS_DECODE_KERNELS

@@ -47,11 +47,27 @@ recipes at B = 32 run v2, and las_large's 512-unit Listener at B = 32 or
 64 runs v1. The rule is the same on the CPU, where each family runs its
 plain versions. It is decided before any launch and is not a fallback: a
 launch that fails raises.
+
+GEMM kernel. The products (``blstm_proj``, dx, dwx, dwh, the v1 gates
+recompute and dwh, ``ops.lstm.lstm_proj``) run on ``blstm.cu``'s GEMM.
+In bf16, ``gemm_variant`` picks its kernel from the operand layouts alone,
+before the launch: "wgmma" (TMA loads, ``wgmma``) when every operand base
+is 16-byte aligned and both leading dimensions are multiples of 8
+elements, which TMA needs; else "wmma", the earlier tiled kernel. It never
+reads M, so a row's kernel, and its bits, do not depend on how many rows a
+call has; ``blstm_proj`` and ``lstm_proj`` copy an input that starts off
+such a base. The recipes' shapes (D in {80, 120, 640, 1280, 2048}, H in
+{320, 512}, B in {32, 64}) all take "wgmma"; ``kernels.VARIANT_LAUNCHES``
+counts the launches of each. The weight gradients (dwx, dwh, v1 dwh) cut
+K into ``split_k`` slices of whole K tiles when their output tiles fill
+the card poorly; the slices' f32 sums are added in a fixed order, so a
+result repeats bit for bit. The other products never split.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -79,6 +95,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "gemm": [_P] * 4 + [_I] * 7 + [_P] * 5,
+    "gemm_wgmma": [_P] * 4 + [_I] * 8 + [_P] * 7,
     "recur": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
     "bwd_recur": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
 }
@@ -107,6 +124,76 @@ def kernel_family(B: int, H: int) -> str:
     width H on the card, else "v1" (see the module docstring)."""
     blocks = 2 * -(-H // UNITS_PER_BLOCK)
     return "v2" if all(coresident(m, blocks) for m in v2_smem_bytes(B, H)) else "v1"
+
+
+# the wgmma GEMM: 128 x 128 output tiles, 64-deep K tiles; kind 2 runs
+# two blocks resident an SM
+GEMM_TILE = 128
+GEMM_TILE_K = 64
+GEMM_RESIDENT = 2 * SMS
+MAX_SPLITS = 16
+MIN_SLICE_TILES = 8
+# split_k's cost model: one K tile of one block while the card is full (a
+# 128 x 128 x 64 product at ~600 TFLOP/s over 264 blocks), and the rate at
+# which the slices' f32 sums are written and read back
+_TILE_STEP_MS = 0.93e-3
+_SUM_BYTES_PER_MS = 2.5e9
+
+
+def gemm_variant(lda: int, ldb: int, ptrs) -> str:
+    """The bf16 GEMM kernel of a launch: "wgmma" when TMA can read every
+    operand (each base in ``ptrs`` 16-byte aligned, lda and ldb multiples
+    of 8 elements), else "wmma". A pure function of the operand layouts:
+    it never reads M."""
+    ok = lda % 8 == 0 and ldb % 8 == 0 and all(p % 16 == 0 for p in ptrs)
+    return "wgmma" if ok else "wmma"
+
+
+def _split_cost(M: int, N: int, K: int, dirs: int, S: int) -> float:
+    tiles = -(-M // GEMM_TILE) * -(-N // GEMM_TILE) * dirs
+    waves = -(-tiles * S // GEMM_RESIDENT)
+    ms = waves * -(-K // (GEMM_TILE_K * S)) * _TILE_STEP_MS
+    if S > 1:
+        ms += (2 * S + 1) * dirs * M * N * 4 / _SUM_BYTES_PER_MS
+    return ms
+
+
+@functools.lru_cache(maxsize=1024)
+def split_k(kind: int, M: int, N: int, K: int, dirs: int) -> int:
+    """The K slices of a wgmma launch: 1 for kinds 0, 1 and 3, whose rows
+    must keep their bits whatever M; for kind 2 (the weight gradients: few
+    output tiles, K = T x B) the S of at most ``MAX_SPLITS``, each slice at
+    least ``MIN_SLICE_TILES`` K tiles, that minimizes the modelled time
+    (waves of resident blocks times K tiles a slice, plus writing and
+    reading back the slices' sums), a smaller S unless a larger one saves
+    3%. A pure function of (kind, M, N, K, dirs)."""
+    if kind != _TN:
+        return 1
+    ktiles = -(-K // GEMM_TILE_K)
+    best, best_ms = 1, _split_cost(M, N, K, dirs, 1)
+    for S in range(2, MAX_SPLITS + 1):
+        if ktiles // S < MIN_SLICE_TILES:
+            break
+        ms = _split_cost(M, N, K, dirs, S)
+        if ms < 0.97 * best_ms:
+            best, best_ms = S, ms
+    return best
+
+
+def split_bounds(K: int, S: int):
+    """-> the [k0, k1) of each of S slices, in order: slice s takes K
+    tiles [s n / S, (s + 1) n / S) of the n = ceil(K / 64), as the kernel
+    does."""
+    n = -(-K // GEMM_TILE_K)
+    return [((s * n // S) * GEMM_TILE_K, min(K, ((s + 1) * n // S) * GEMM_TILE_K))
+            for s in range(S)]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy on a fresh (aligned) base when t starts off a 16-byte
+    boundary, so a projection's kernel never depends on where a view of
+    its input starts."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launcher(kind: str, tag: str):
@@ -146,15 +233,31 @@ def _check_shape(what: str, t: torch.Tensor, shape, dtype=None) -> None:
 def _gemm(name, tag, a, b, lda, ldb, M, N, K, kind, bias=None, out=None, outf=None,
           colsum=None, dirs=2) -> None:
     """One launch of the GEMM of csrc/blstm.cu over ``dirs`` (1 or 2)
-    operand pairs; ``a`` and ``b`` are (fw, bw) pointer pairs."""
+    operand pairs; ``a`` and ``b`` are (fw, bw) pointer pairs. bf16 takes
+    the kernel ``gemm_variant`` names, with ``split_k``'s slices; the
+    wrapper allocates their workspaces."""
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(out.device if out is not None else outf.device):
-        err = _launcher("gemm", tag)(
-            a[0], a[1], b[0], b[1], lda, ldb, M, N, K, kind, dirs,
-            ptr(bias), ptr(out), ptr(outf), ptr(colsum), _stream(),
-        )
+    dev = out.device if out is not None else outf.device
+    variant = gemm_variant(lda, ldb, a + b) if tag == "bf16" else None
+    with torch.cuda.device(dev):
+        if variant == "wgmma":
+            f32 = torch.float32
+            S = split_k(kind, M, N, K, dirs)
+            ws = torch.empty((S, dirs, M, N), dtype=f32, device=dev) if S > 1 else None
+            cws = None if colsum is None else torch.empty((S, dirs, N), dtype=f32, device=dev)
+            err = _launcher("gemm_wgmma", tag)(
+                a[0], a[1], b[0], b[1], lda, ldb, M, N, K, kind, dirs, S,
+                ptr(bias), ptr(out), ptr(outf), ptr(colsum), ptr(cws), ptr(ws), _stream(),
+            )
+        else:
+            err = _launcher("gemm", tag)(
+                a[0], a[1], b[0], b[1], lda, ldb, M, N, K, kind, dirs,
+                ptr(bias), ptr(out), ptr(outf), ptr(colsum), _stream(),
+            )
     build.check(err, name)
     kernels.LAUNCHES[name] += 1
+    if variant is not None:
+        kernels.VARIANT_LAUNCHES[f"gemm_bf16_{variant}"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +284,7 @@ def blstm_proj(x, wx, b) -> torch.Tensor:
     if wx.dtype != x.dtype or b.dtype != x.dtype:
         raise TypeError("blstm_proj: x, wx and b must share one dtype")
     out = torch.empty((2, M, N), dtype=x.dtype, device=x.device)
+    x = _aligned(x)
     _gemm("blstm_proj", tag, (x.data_ptr(), x.data_ptr()),
           (wx[0].data_ptr(), wx[1].data_ptr()), D, N, M, N, D, _PROJ, bias=b, out=out)
     return out

@@ -39,11 +39,22 @@ KERNELS = (
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
+# launches of each bf16 GEMM of csrc/blstm.cu (the wrappers above that run
+# on it count here too, once a launch, by the kernel the shape took)
+VARIANTS = ("gemm_bf16_wgmma", "gemm_bf16_wmma")
+VARIANT_LAUNCHES: Dict[str, int] = {name: 0 for name in VARIANTS}
+
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    for name in VARIANTS:
+        VARIANT_LAUNCHES[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def variant_counts() -> Dict[str, int]:
+    return dict(VARIANT_LAUNCHES)

@@ -113,8 +113,19 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+# codes of blstm.cu's TMA GEMM beyond cudaError_t
+NO_ENCODER_ERR = 999
+TENSOR_MAP_ERR = 1000
+
+
 def check(err: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a launch function."""
+    """Raise on a non-zero code returned by a launch function: a
+    cudaError_t, or a tensor map CUDA would not encode."""
+    if err == NO_ENCODER_ERR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled is not available")
+    if err >= TENSOR_MAP_ERR:
+        raise RuntimeError(
+            f"{what}: CUDA refused a tensor map (CUresult {err - TENSOR_MAP_ERR})")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 

@@ -9,32 +9,63 @@
 // dx, dwx, dwh and db as block-batched products).
 //
 // (a) gemm: C[m, n] = sum_k A(m, k) B(k, n), one launch for both
-//     directions (grid.z picks each operand's pointer), A and B each
-//     row- or column-major with their own leading dimension, f32
-//     accumulation. Four uses:
-//     - blstm_proj, xw_d = cast(cast(x @ wx_d) + b_d): the bias is added
-//       after the cast to the compute type, as in the TPU kernel;
-//     - dx_d = dg_d @ wx_d^T (cast to the compute type; the wrapper sums
-//       the directions, as the TPU's XLA side does);
-//     - dwx_d = x^T @ dg_d, with db_d = sum over rows of dg_d taken from
-//       the same tiles by the blocks of the first output row tile;
-//     - dwh_d = hprev_d^T @ dg_d, hprev read from the layer's output one
-//       step back along each direction's recurrence (no copy);
-//     - the v1 family's backward (blstm_v1.cu): its gates recompute
-//       gates_d = f32(xw_d) + hprev_d @ wh_d (f32 out, the addend read in
-//       the element type) and its dwh, both over the stored carries.
-//     grid.z runs `dirs` (1 or 2) pointer pairs: the unidirectional LSTM
-//     (ops/lstm.py) takes one pair for its projection and two halves of K
-//     for its dwh (the wrapper adds the halves).
-//     Bound on the H100: operations (4x320 at T = 1024, B = 32, D = 640:
-//     the projection, dx and dwx are 107 GFLOP each and dwh 54 GFLOP of
-//     bf16 against 989 TFLOP/s). Design: a plain tiled GEMM, 64 x 128
-//     block tiles staged in shared memory with 16-byte loads (the next K
-//     tile waits in registers while the current one is multiplied), 8
-//     warps each issuing 2 x 2 WMMA 16x16x16 bf16 fragments (tensor
-//     cores, f32 accumulate), row- or column-major fragments as the
-//     layout asks. The f32 variant is a SIMT tiled GEMM (4 x 4 outputs a
-//     thread), so it checks the arithmetic at full precision without TF32.
+//     directions (grid.z picks each operand pair), A and B each K- or
+//     MN-major with their own leading dimension, f32 accumulation. Uses:
+//     - blstm_proj (kind 0), xw_d = cast(cast(x @ wx_d) + b_d): the bias is
+//       added after the cast to the compute type, as in the TPU kernel
+//       (_tm_fwd's per-block x @ wx, blstm.py:898), and lstm_proj (dirs 1);
+//     - dx_d = dg_d @ wx_d^T (kind 1, cast to the compute type; the wrapper
+//       sums the directions, as the TPU's XLA side does);
+//     - dwx_d = x^T @ dg_d with db_d = the column sums of dg_d, and dwh_d =
+//       hprev_d^T @ dg_d, hprev read from the layer's output one step back
+//       along each direction's recurrence, no copy (kind 2, f32 out;
+//       _tm_bwd's finish, blstm.py:1006);
+//     - the v1 backward (_fused_bwd, blstm.py:509): the gates recompute
+//       gates_d = f32(xw_d) + hprev_d @ wh_d (kind 3, f32 plus the addend)
+//       and its dwh (kind 2), over the stored carries.
+//     Bound on the H100: operations for the v2 products. At T = 1024, B =
+//     32 (valid tokens counted as PERF.md does) the 4x320 projection, dx
+//     and dwx at D = 640 are 107 GFLOP each, 0.109 ms at 989 TFLOP/s bf16,
+//     dwh 54 GFLOP; at D = 1280 (the Listener's pyramid) 215 GFLOP, 0.217
+//     ms; las_large's pyramid_0 projection, dx and dwx 550 GFLOP at D =
+//     2048. Its v1 gates recompute (B = 64, H = 512, T = 1024) is bound by
+//     its 1.6 GB of f32 output and bf16 addend (0.52 ms at 3.35 TB/s), its
+//     v1 dwh by its 0.68 GB of bf16 inputs (0.20 ms).
+//     Design (gemm_wgmma_bf16): a persistent kernel over 128 x 128 output
+//     tiles (x direction x K slice), 64-deep K tiles loaded by TMA (one 2-D
+//     tensor map per operand and direction, built on the host at each call,
+//     128-byte swizzle, zero fill past the ragged M, N and K edges) into a
+//     ring of stages in dynamic shared memory with full / empty mbarriers.
+//     One producer thread issues the loads and runs ahead across tiles; two
+//     consumer warpgroups each multiply a 64-row half with wgmma
+//     m64n128k16 (operands read from shared memory in either major through
+//     the descriptor's layout and the instruction's transpose bits), one
+//     wgmma group kept in flight while the next stage is waited for; 3
+//     stages and two blocks an SM, so one block's epilogue overlaps the
+//     other's products. bf16 outputs (kinds 0, 1) are cast (and biased)
+//     from the accumulator registers into a bf16 staging box in shared
+//     memory, 64 columns a pass, and leave by TMA stores; f32 outputs
+//     (kinds 2, 3) are stored from the registers, each quad of lanes first
+//     trading values so a lane writes 8 contiguous columns. Kind 2 has few output tiles and a long K (T x B): the
+//     wrapper cuts K into S slices of whole K tiles when the tiles x dirs
+//     fill the card's resident blocks poorly (S a pure function of M, N, K
+//     and dirs, decided in Python); each slice writes its f32 partial sums
+//     to a workspace [S, dirs, M, N] and gemm_splitk_sum adds them in the
+//     order 0 .. S-1, so the result repeats bit for bit. db is summed in
+//     the same launch by the blocks of the first row tile, from the B
+//     stages already in shared memory (a fixed order over 16 row groups,
+//     then colsum_finish over the slices): no second read of dg. Kinds 0,
+//     1 and 3 never split: the reduction order of each of their outputs
+//     depends on K alone, so a row's bits do not depend on how many rows a
+//     call has (streamed == offline). The wrapper picks the kernel by a
+//     predicate of the operand layouts alone (16-byte-aligned bases,
+//     leading dimensions multiples of 8 elements, which TMA needs), never
+//     of M: shapes outside it (H = 9, 12 in the tests) take
+//     gemm_wmma_bf16, the earlier tiled kernel (64 x 128 tiles, 8 warps of
+//     2 x 2 WMMA 16x16x16 fragments, the next K tile staged through
+//     registers, the column sums inside the kernel). The f32 variant is a
+//     SIMT tiled GEMM (4 x 4 outputs a thread), so it checks the
+//     arithmetic at full precision without TF32.
 //
 // (b) blstm_recur: one persistent cooperative launch per layer walks the
 //     whole sequence for both directions, as the TPU kernel's sequential
@@ -83,11 +114,13 @@
 // (to check the card tightly). Gates and c are f32; h is carried in the
 // element type, as in the TPU kernel.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -441,6 +474,680 @@ __global__ void __launch_bounds__(S_THREADS) gemm_simt_f32(GemmArgs<float> g) {
   }
   if (sum_cols && n0 + (int)threadIdx.x < g.N)
     g.colsum[(size_t)dir * g.N + n0 + threadIdx.x] = colsum;
+}
+
+// --- the Hopper GEMM: TMA ring + wgmma ---------------------------------------
+
+constexpr int GM = 128, GN = 128, GK = 64;    // output tile, K tile
+constexpr int G_CONSUMERS = 256;              // two warpgroups, 64 rows each
+constexpr int G_THREADS = G_CONSUMERS + 32;   // and one producer warp
+constexpr int G_TILE = GM * GK * 2;           // bytes of an A (or B) stage, 16 KB
+constexpr int G_HALF = G_TILE / 2;            // a 64 x 64 box, 8 KB
+// a 3-stage ring and two blocks an SM, so one block's epilogue overlaps the
+// other's products
+constexpr int G_STAGES = 3;
+constexpr int G_BLOCKS = 2;
+
+// Shared memory of a block by epilogue. bf16 outputs (kinds 0, 1) go out
+// through a bf16 staging buffer (each warpgroup's 64 x 128 outputs in two
+// passes of a 128-byte-swizzled 64 x 64 box) and TMA stores; f32 outputs
+// (kinds 2, 3) are stored from the registers.
+template <int EPI>
+struct WgmmaShape {
+  static constexpr bool STAGED = EPI == EPI_BIAS || EPI == EPI_CAST;
+  static constexpr int RING = 2 * G_STAGES * G_TILE;
+  static constexpr int OUT = STAGED ? 2 * G_HALF : 0;
+  // the barriers, then (kind 2) the 16 row groups' column sums to add
+  static constexpr int RED = EPI == EPI_F32 ? 16 * GN * 4 : 0;
+  static constexpr int NEED = RING + OUT + 2 * G_STAGES * 8 + RED;
+  // all a block may have with two an SM (228 KB, 1 KB reserved a block):
+  // the room left over aligns the ring to the swizzle's 1024 bytes
+  static constexpr int SMEM = 233472 / G_BLOCKS - 1024;
+  static_assert(NEED + 16 * 61 <= SMEM, "shared memory");
+};
+
+// tensor maps of A, B and (staged kinds) the output per direction, in the
+// kernel's parameter space, and the epilogue's operands; outf is the
+// split-K workspace [S, dirs, M, N] when splits > 1
+struct WgmmaArgs {
+  CUtensorMap a[2];
+  CUtensorMap b[2];
+  CUtensorMap o[2];
+  int M, N, K, dirs, splits;
+  int staged;        // the output goes out by TMA (kinds 0, 1 with N a multiple of 8)
+  const bf16* bias;  // [dirs, N] (EPI_BIAS) or the addend [dirs, M, N] (EPI_ADD_F32)
+  bf16* out;         // [dirs, M, N] (EPI_BIAS, EPI_CAST)
+  float* outf;       // [splits, dirs, M, N] (EPI_F32), [dirs, M, N] (EPI_ADD_F32)
+  float* colsum_ws;  // EPI_F32: [splits, dirs, N] column sums of B over each slice, or null
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 2-D tensor map into shared memory: c0 the inner (contiguous)
+// coordinate, c1 the row; completion counted in bytes on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// one box from shared memory into a 2-D tensor map (TMA clips what lies
+// outside the tensor), in the thread's bulk async-group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// 128 threads of one warpgroup meet (barrier 1 + wg; 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 =
+// SWIZZLE_128B. K-major: rows of 64 K elements (128 bytes), 8-row groups
+// 1024 bytes apart (SBO), LBO unused. MN-major: rows of 64 M (or N)
+// elements, one per K, 8-K-row groups 1024 bytes apart (SBO), the next 64
+// M (or N) elements 8 KB on (LBO)
+__device__ __forceinline__ uint64_t gmma_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous product
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128], bf16 operands from shared memory,
+// f32 accumulators; TA / TB: A / B MN-major (transposed)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// the register epilogue of 8 adjacent outputs (m, n .. n + 7), n a
+// multiple of 8: 16-byte stores when the row holds them all and N is a
+// multiple of 8 (then m N + n is too), else one at a time up to N. Kinds 1
+// (N = D not a multiple of 8), 2 and 3; kind 0 always leaves by TMA (its
+// ldb = N is a multiple of 8 for the wgmma kernel)
+template <int EPI>
+__device__ __forceinline__ void wgmma_store(const WgmmaArgs& g, int dir, int split, int m, int n,
+                                            float (&v)[8]) {
+  const bool vec = n + 8 <= g.N && g.N % 8 == 0;
+  const int cnt = min(8, g.N - n);
+  if constexpr (EPI == EPI_CAST) {
+    const size_t i = ((size_t)dir * g.M + m) * g.N + n;
+    bf16 r[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) r[e] = from_f<bf16>(v[e]);
+    if (vec) {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 pair = __halves2bfloat162(r[2 * e], r[2 * e + 1]);
+        w[e] = *reinterpret_cast<const uint32_t*>(&pair);
+      }
+      *reinterpret_cast<uint4*>(g.out + i) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (e < cnt) g.out[i + e] = r[e];
+    }
+  } else if constexpr (EPI == EPI_F32 || EPI == EPI_ADD_F32) {
+    const size_t i = (((size_t)split * g.dirs + dir) * g.M + m) * g.N + n;
+    if constexpr (EPI == EPI_ADD_F32) {
+      if (vec && (reinterpret_cast<uintptr_t>(g.bias) & 15) == 0) {
+        float f[8];
+        unpack16(*reinterpret_cast<const uint4*>(g.bias + i), f, bf16());
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] += f[e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (e < cnt) v[e] += to_f(g.bias[i + e]);
+      }
+    }
+    if (vec) {
+      *reinterpret_cast<float4*>(g.outf + i) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(g.outf + i + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (e < cnt) g.outf[i + e] = v[e];
+    }
+  }
+}
+
+// one output tile of the persistent loop: work item w -> the tile's first
+// row and column, direction, K slice and its K tiles [kt0, kt0 + nk)
+struct TileWork {
+  int m0, n0, dir, split, kt0, nk;
+};
+
+__device__ __forceinline__ TileWork tile_work(const WgmmaArgs& g, int w) {
+  const int tn = (g.N + GN - 1) / GN, tm = (g.M + GM - 1) / GM;
+  TileWork t;
+  t.n0 = (w % tn) * GN;
+  w /= tn;
+  t.m0 = (w % tm) * GM;
+  w /= tm;
+  t.dir = w % g.dirs;
+  t.split = w / g.dirs;
+  // this slice's K tiles: the split of ops/blstm.split_bounds
+  const int ktiles = (g.K + GK - 1) / GK;
+  t.kt0 = (int)((long long)t.split * ktiles / g.splits);
+  t.nk = (int)((long long)(t.split + 1) * ktiles / g.splits) - t.kt0;
+  return t;
+}
+
+// A persistent kernel: block b takes the work items (output tile x
+// direction x K slice) b, b + gridDim.x, ..., N tiles fastest (the blocks
+// in flight share A's rows). A_MN / B_MN: the operand's M (N) elements
+// are contiguous (A(m, k) = a[k lda + m], B(k, n) = b[k ldb + n]), else
+// its K elements. The ring's stage and phase run on across tiles, so the
+// producer loads the next tile while the consumers store this one.
+template <bool A_MN, bool B_MN, int EPI>
+__global__ void __launch_bounds__(G_THREADS, G_BLOCKS)
+    gemm_wgmma_bf16(const __grid_constant__ WgmmaArgs g) {
+  using Shape = WgmmaShape<EPI>;
+  extern __shared__ unsigned char g_smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on it
+  const uint32_t pad = (1024 - (smem_u32(g_smem_raw) & 1023)) & 1023;
+  if (pad + Shape::NEED > Shape::SMEM) __trap();  // the base is 1024-aligned in practice
+  unsigned char* smem = g_smem_raw + pad;
+  unsigned char* a_s = smem;                         // [G_STAGES][G_TILE]
+  unsigned char* b_s = smem + G_STAGES * G_TILE;     // [G_STAGES][G_TILE]
+  unsigned char* out_s = smem + Shape::RING;       // [2 warpgroups][64 x 64 bf16] (staged)
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Shape::RING + Shape::OUT);
+  uint64_t* empty = full + G_STAGES;
+  float* col_red = reinterpret_cast<float*>(empty + G_STAGES);  // [16][GN]
+  const int work = ((g.N + GN - 1) / GN) * ((g.M + GM - 1) / GM) * g.dirs * g.splits;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], G_CONSUMERS / 32);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= G_CONSUMERS) {
+    // producer: one thread keeps the ring full
+    if (threadIdx.x == G_CONSUMERS) {
+      int it = 0;
+      for (int w = blockIdx.x; w < work; w += gridDim.x) {
+        const TileWork tw = tile_work(g, w);
+        const CUtensorMap* ma = &g.a[tw.dir];
+        const CUtensorMap* mb = &g.b[tw.dir];
+        for (int i = 0; i < tw.nk; ++i, ++it) {
+          const int s = it % G_STAGES;
+          if (it >= G_STAGES) mbar_wait(&empty[s], ((it / G_STAGES) - 1) & 1);
+          mbar_expect_tx(&full[s], 2 * G_TILE);
+          const int k = (tw.kt0 + i) * GK;
+          unsigned char* as = a_s + s * G_TILE;
+          unsigned char* bs = b_s + s * G_TILE;
+          if constexpr (A_MN) {
+            tma_load(as, ma, &full[s], tw.m0, k);
+            tma_load(as + G_HALF, ma, &full[s], tw.m0 + 64, k);
+          } else {
+            tma_load(as, ma, &full[s], k, tw.m0);
+          }
+          if constexpr (B_MN) {
+            tma_load(bs, mb, &full[s], tw.n0, k);
+            tma_load(bs + G_HALF, mb, &full[s], tw.n0 + 64, k);
+          } else {
+            tma_load(bs, mb, &full[s], k, tw.n0);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg multiplies output rows [64 wg, 64 wg + 64)
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int q = lane % 4;
+  int it = 0;
+  for (int w = blockIdx.x; w < work; w += gridDim.x) {
+    const TileWork tw = tile_work(g, w);
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    // kind 2's db: the blocks of the first row tile also sum B's columns
+    // over their slice from the stages in shared memory, thread x taking
+    // columns [8 (x % 16), 8 (x % 16) + 8) of rows [4 (x / 16), 4 (x / 16) +
+    // 4) of each K tile (zeros past K), in order
+    const bool sums = EPI == EPI_F32 && g.colsum_ws != nullptr && tw.m0 == 0;
+    float csum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+
+    for (int i = 0; i < tw.nk; ++i, ++it) {
+      const int s = it % G_STAGES;
+      mbar_wait(&full[s], (it / G_STAGES) & 1);
+      // K-major A: rows [64 wg, 64 wg + 64) of the 128-row box; MN-major
+      // A: the box of M elements [64 wg, 64 wg + 64)
+      const unsigned char* as = a_s + s * G_TILE + wg * G_HALF;
+      const unsigned char* bs = b_s + s * G_TILE;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < GK / 16; ++kk) {
+        // 16 K elements on: 32 bytes along a K-major row, 16 rows (2 KB)
+        // of an MN-major box
+        const uint64_t da = A_MN ? gmma_desc(as + kk * 2048, G_HALF, 1024)
+                                 : gmma_desc(as + kk * 32, 16, 1024);
+        const uint64_t db = B_MN ? gmma_desc(bs + kk * 2048, G_HALF, 1024)
+                                 : gmma_desc(bs + kk * 32, 16, 1024);
+        wgmma_m64n128k16<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db);
+      }
+      wgmma_commit();
+      if (sums) {
+        // 16-byte chunk x % 16 of B's MN-major stage: box (x % 16) / 8,
+        // chunk (x % 8) of row r, swizzled to (x % 8) ^ (r % 8)
+        const int cx = threadIdx.x % 16;
+        const unsigned char* box = bs + (cx / 8) * G_HALF;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = 4 * (threadIdx.x / 16) + j;
+          float f[8];
+          unpack16(*reinterpret_cast<const uint4*>(box + r * 128 + (((cx % 8) ^ (r % 8)) << 4)),
+                   f, bf16());
+#pragma unroll
+          for (int e = 0; e < 8; ++e) csum[e] += f[e];
+        }
+      }
+      // the previous stage's products are done: hand its buffers back
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % G_STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (tw.nk > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % G_STAGES]);
+    if (sums) {
+      // the 16 row groups of each column, added in order (barrier 3: the
+      // 256 consumer threads)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        col_red[(threadIdx.x / 16) * GN + 8 * (threadIdx.x % 16) + e] = csum[e];
+      asm volatile("bar.sync 3, %0;" ::"n"(G_CONSUMERS) : "memory");
+      const int n = tw.n0 + threadIdx.x;
+      if (threadIdx.x < GN && n < g.N) {
+        float total = 0.f;
+#pragma unroll
+        for (int r = 0; r < 16; ++r) total += col_red[r * GN + threadIdx.x];
+        g.colsum_ws[((size_t)tw.split * g.dirs + tw.dir) * g.N + n] = total;
+      }
+      asm volatile("bar.sync 3, %0;" ::"n"(G_CONSUMERS) : "memory");
+    }
+
+    // accumulator layout of m64nNk16: lane l of warp v of the warpgroup
+    // holds, for each 8-column chunk j, rows 16 v + l / 4 (+ 8) and
+    // columns 8 j + 2 (l % 4) (+ 1)
+    const int r0 = (t / 32) * 16 + lane / 4;  // row within the warpgroup's 64
+    if constexpr (Shape::STAGED) {
+      if (g.staged) {
+        // bf16 results into this warpgroup's staging box, 64 columns a
+        // pass, laid out as the output map's 64 x 64 box with the 128-byte
+        // swizzle (16-byte chunk c of row r at chunk c ^ (r % 8): no bank
+        // conflicts), then a TMA store. A pass first waits until the
+        // previous store has read the box.
+        unsigned char* buf = out_s + wg * G_HALF;
+        const bf16* bias = g.bias + (size_t)tw.dir * g.N;
+        const bool bias2 = (reinterpret_cast<uintptr_t>(bias) & 3) == 0;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (tw.n0 + 64 * half >= g.N) break;
+          if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+          wg_sync(wg);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = 8 * half + jj;
+            // N is a multiple of 8 here: n < N holds for both columns or neither
+            const int n = tw.n0 + 8 * j + 2 * q;
+            float b0 = 0.f, b1 = 0.f;
+            if (EPI == EPI_BIAS && n < g.N) {
+              if (bias2) {
+                const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + n);
+                b0 = __low2float(bb);
+                b1 = __high2float(bb);
+              } else {
+                b0 = to_f(bias[n]);
+                b1 = to_f(bias[n + 1]);
+              }
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = r0 + 8 * h;
+              float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+              if constexpr (EPI == EPI_BIAS) {
+                // cast, then add the bias in the compute type (bias_epilogue)
+                v0 = to_f(from_f<bf16>(v0)) + b0;
+                v1 = to_f(from_f<bf16>(v1)) + b1;
+              }
+              const __nv_bfloat162 pair = __floats2bfloat162_rn(v0, v1);
+              const uint32_t off = r * 128 + ((jj ^ (r % 8)) << 4) + q * 4;
+              asm volatile("st.shared.b32 [%0], %1;" ::"r"(smem_u32(buf + off)),
+                           "r"(*reinterpret_cast<const uint32_t*>(&pair))
+                           : "memory");
+            }
+          }
+          // the generic-proxy writes, visible to the TMA (async proxy)
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          wg_sync(wg);
+          if (t == 0) {
+            tma_store(&g.o[tw.dir], buf, tw.n0 + 64 * half, tw.m0 + 64 * wg);
+            asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+          }
+        }
+        continue;
+      }
+    }
+    // kind 0 always leaves by TMA (launch_gemm_wgmma checks N)
+    if constexpr (EPI != EPI_BIAS) {
+      // register epilogue: each group of 4 chunks is transposed within the
+      // quad of lanes (4 rounds of shuffles), so lane q stores the 8 columns
+      // of chunk 4 G + q of its two rows: 16- or 32-byte stores, a quad
+      // covering 64 (bf16) or 128 (f32) contiguous bytes of a row
+#pragma unroll
+      for (int G = 0; G < GN / 32; ++G) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v[8];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int c = (q - r) & 3;  // the chunk this lane sends in round r
+            const int p = (q + r) & 3;  // the lane it receives from
+            float s0 = acc[16 * G + 2 * h], s1 = acc[16 * G + 2 * h + 1];
+#pragma unroll
+            for (int k = 1; k < 4; ++k) {
+              if (c == k) {
+                s0 = acc[16 * G + 4 * k + 2 * h];
+                s1 = acc[16 * G + 4 * k + 2 * h + 1];
+              }
+            }
+            const float x0 = __shfl_sync(0xffffffffu, s0, (lane & ~3) | p);
+            const float x1 = __shfl_sync(0xffffffffu, s1, (lane & ~3) | p);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              if (p == k) {
+                v[2 * k] = x0;
+                v[2 * k + 1] = x1;
+              }
+            }
+          }
+          const int m = tw.m0 + wg * 64 + r0 + 8 * h, n = tw.n0 + 8 * (4 * G + q);
+          if (m < g.M && n < g.N) wgmma_store<EPI>(g, tw.dir, tw.split, m, n, v);
+        }
+      }
+    }
+  }
+  // the last stores have left shared memory and landed
+  if constexpr (Shape::STAGED) {
+    if (g.staged && t == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+}
+
+// out[i] = ws[0][i] + ws[1][i] + ... + ws[S-1][i], in that order
+__global__ void __launch_bounds__(256) gemm_splitk_sum(const float* __restrict__ ws,
+                                                       float* __restrict__ out, size_t count,
+                                                       int splits) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < count; i += stride) {
+    float s = ws[i];
+    for (int k = 1; k < splits; ++k) s += ws[(size_t)k * count + i];
+    out[i] = s;
+  }
+}
+
+// db: colsum[i] = ws[0][i] + ... + ws[S-1][i] over the slices' column sums
+// [S, dirs, N] (gemm_wgmma_bf16's), in that order
+__global__ void __launch_bounds__(256) colsum_finish(const float* __restrict__ ws, int splits,
+                                                     int count, float* __restrict__ colsum) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float s = ws[i];
+  for (int k = 1; k < splits; ++k) s += ws[(size_t)k * count + i];
+  colsum[i] = s;
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// error codes of the wgmma entry beyond cudaError_t: no entry point found,
+// and TENSOR_MAP_ERR + the CUresult of a refused encoding
+constexpr int NO_ENCODER_ERR = 999;
+constexpr int TENSOR_MAP_ERR = 1000;
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a bf16 matrix of `rows` rows of `cols` contiguous elements, row stride ld,
+// read in boxes of box_cols x box_rows with the 128-byte swizzle; outside
+// the matrix TMA fills zeros
+int encode_map(CUtensorMap* map, const void* base, int cols, int rows, int ld, int box_cols,
+               int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return NO_ENCODER_ERR;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERR + (int)r;
+}
+
+// the resident blocks of one kernel on the current device (after its
+// shared-memory attributes are set), found once per kernel and device
+template <bool A_MN, bool B_MN, int EPI>
+int wgmma_resident(int* blocks) {
+  auto kernel = gemm_wgmma_bf16<A_MN, B_MN, EPI>;
+  static int cached_device = -1, cached_blocks = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device != cached_device) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               WgmmaShape<EPI>::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    // all of the SM's shared memory for the carve-out, so the blocks fit
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+        cudaSuccess)
+      return (int)err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, G_THREADS,
+                                                             WgmmaShape<EPI>::SMEM)) !=
+        cudaSuccess)
+      return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    cached_blocks = per_sm * sms;
+    cached_device = device;
+  }
+  *blocks = cached_blocks;
+  return 0;
+}
+
+template <bool A_MN, bool B_MN, int EPI>
+int launch_wgmma(const WgmmaArgs& g, cudaStream_t stream) {
+  auto kernel = gemm_wgmma_bf16<A_MN, B_MN, EPI>;
+  int resident = 0;
+  const int err = wgmma_resident<A_MN, B_MN, EPI>(&resident);
+  if (err) return err;
+  // persistent: the resident blocks, or fewer when there is less work
+  const long long work = (long long)((g.N + GN - 1) / GN) * ((g.M + GM - 1) / GM) * g.dirs *
+                         g.splits;
+  const int grid = (int)std::min<long long>(work, resident);
+  kernel<<<grid, G_THREADS, WgmmaShape<EPI>::SMEM, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// kind as nabu_blstm_gemm_bf16's; A and B must be 16-byte aligned with
+// lda, ldb multiples of 8 (the wrapper's predicate), K >= 1. splits > 1
+// (kind 2 only) writes the slices to splitk_ws [splits, dirs, M, N] first;
+// colsum (kind 2) takes colsum_ws [splits, dirs, N]
+int launch_gemm_wgmma(const void* const* a, const void* const* b, int lda, int ldb, int M, int N,
+                      int K, int kind, int dirs, int splits, const void* bias, void* out,
+                      float* outf, float* colsum, float* colsum_ws, float* splitk_ws,
+                      cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if ((dirs != 1 && dirs != 2) || K <= 0 || splits < 1 || (splits > 1 && kind != 2) ||
+      kind < 0 || kind > 3 || (kind == 0 && N % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  WgmmaArgs g;
+  const bool a_mn = kind == 2, b_mn = kind != 1;
+  for (int d = 0; d < dirs; ++d) {
+    int err = a_mn ? encode_map(&g.a[d], a[d], M, K, lda, 64, 64)
+                   : encode_map(&g.a[d], a[d], K, M, lda, 64, GM);
+    if (err) return err;
+    err = b_mn ? encode_map(&g.b[d], b[d], N, K, ldb, 64, 64)
+               : encode_map(&g.b[d], b[d], K, N, ldb, 64, GN);
+    if (err) return err;
+  }
+  // kinds 0 and 1 store through TMA when the output rows are 16-byte
+  // multiples: [M, N] bf16 per direction
+  g.staged = kind <= 1 && N % 8 == 0;
+  for (int d = 0; g.staged && d < dirs; ++d) {
+    const int err = encode_map(&g.o[d], (const bf16*)out + (size_t)d * M * N, N, M, N, 64, 64);
+    if (err) return err;
+  }
+  if (dirs == 1) {
+    g.a[1] = g.a[0];
+    g.b[1] = g.b[0];
+    g.o[1] = g.o[0];
+  }
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.dirs = dirs;
+  g.splits = splits;
+  g.bias = (const bf16*)bias;
+  g.out = (bf16*)out;
+  g.outf = splits > 1 ? splitk_ws : outf;
+  g.colsum_ws = kind == 2 && colsum != nullptr ? colsum_ws : nullptr;
+  int err = 0;
+  switch (kind) {
+    case 0: err = launch_wgmma<false, true, EPI_BIAS>(g, stream); break;
+    case 1: err = launch_wgmma<false, false, EPI_CAST>(g, stream); break;
+    case 2: err = launch_wgmma<true, true, EPI_F32>(g, stream); break;
+    case 3: err = launch_wgmma<false, true, EPI_ADD_F32>(g, stream); break;
+  }
+  if (err) return err;
+  if (splits > 1) {
+    const size_t count = (size_t)dirs * M * N;
+    const int blocks = (int)std::min<size_t>((count + 255) / 256, 132 * 8);
+    gemm_splitk_sum<<<blocks, 256, 0, stream>>>(splitk_ws, outf, count, splits);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  if (g.colsum_ws != nullptr) {
+    colsum_finish<<<(dirs * N + 255) / 256, 256, 0, stream>>>(colsum_ws, splits, dirs * N,
+                                                              colsum);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  return 0;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -830,6 +1537,20 @@ extern "C" int nabu_blstm_gemm_bf16(const void* a0, const void* a1, const void* 
   GemmArgs<bf16> g{{(const bf16*)a0, (const bf16*)a1}, {(const bf16*)b0, (const bf16*)b1},
                    lda, ldb, M, N, K, dirs, (const bf16*)bias, (bf16*)out, outf, colsum};
   return launch_gemm(g, kind, (cudaStream_t)stream);
+}
+
+// the Hopper GEMM (gemm_wgmma_bf16) for operands TMA can read; kinds as
+// above, splits K slices for kind 2 (splitk_ws [splits, dirs, M, N] f32),
+// colsum_ws [splits, dirs, N] f32 for the column sums
+extern "C" int nabu_blstm_gemm_wgmma_bf16(const void* a0, const void* a1, const void* b0,
+                                          const void* b1, int lda, int ldb, int M, int N, int K,
+                                          int kind, int dirs, int splits, const void* bias,
+                                          void* out, float* outf, float* colsum,
+                                          float* colsum_ws, float* splitk_ws, void* stream) {
+  const void* a[2] = {a0, a1};
+  const void* b[2] = {b0, b1};
+  return launch_gemm_wgmma(a, b, lda, ldb, M, N, K, kind, dirs, splits, bias, out, outf, colsum,
+                           colsum_ws, splitk_ws, (cudaStream_t)stream);
 }
 
 extern "C" int nabu_blstm_gemm_f32(const void* a0, const void* a1, const void* b0,

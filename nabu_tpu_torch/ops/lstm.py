@@ -52,6 +52,7 @@ from nabu_tpu_torch.ops.blstm import (
     _TN,
     SMEM_LIMIT,
     UNITS_PER_BLOCK,
+    _aligned,
     _check_cuda,
     _check_shape,
     _gemm,
@@ -122,6 +123,7 @@ def lstm_proj(x, w, b) -> torch.Tensor:
     if w.dtype != x.dtype:
         raise TypeError("lstm_proj: x and w must share one dtype")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    x = _aligned(x)
     _gemm("lstm_proj", tag, (x.data_ptr(), x.data_ptr()), (w.data_ptr(), w.data_ptr()),
           D, N, M, N, D, _PROJ, bias=b, out=out, dirs=1)
     return out

@@ -1054,3 +1054,185 @@ def test_speller_loss_and_gradients_on_card_match_cpu(cuda_device, tmp_path):
     for k, g in ref[2].items():
         np.testing.assert_allclose(got[2][k], g, rtol=0, atol=1e-4 * np.abs(g).max() + 1e-12,
                                    err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 GEMM of csrc/blstm.cu (TMA + wgmma, split-K for kind 2)
+# ---------------------------------------------------------------------------
+
+_GEMM_NAME = {0: "blstm_proj", 1: "blstm_bwd_dx", 2: "blstm_bwd_dwx", 3: "blstm_v1_bwd_gates"}
+
+
+def _gemm_case(device, kind, dirs, M, N, K, seed=0):
+    """Operands of one GEMM launch of ``kind`` in the layouts the wrappers
+    hand it (A: [M, K], or [K, M] for kind 2; B: [K, N], or [N, K] for
+    kind 1), one per direction, bf16, B scaled by 1 / sqrt(K) so the sums
+    stay near 1; -> (launch, reference), each returning (out, colsum)."""
+    rng = np.random.default_rng(seed)
+
+    def u(*shape, scale=1.0):
+        return torch.as_tensor(
+            rng.uniform(-scale, scale, shape).astype(np.float32)).to(device, torch.bfloat16)
+
+    a = u(dirs, K, M) if kind == 2 else u(dirs, M, K)
+    b = u(dirs, N, K, scale=K ** -0.5) if kind == 1 else u(dirs, K, N, scale=K ** -0.5)
+    bias = u(dirs, N, scale=0.1) if kind == 0 else u(dirs, M, N) if kind == 3 else None
+    lda = M if kind == 2 else K
+    ldb = K if kind == 1 else N
+    f32 = torch.float32
+
+    def launch():
+        out = outf = colsum = None
+        if kind in (0, 1):
+            out = torch.empty((dirs, M, N), dtype=torch.bfloat16, device=device)
+        else:
+            outf = torch.empty((dirs, M, N), dtype=f32, device=device)
+        if kind == 2:
+            colsum = torch.empty((dirs, N), dtype=f32, device=device)
+        pa = tuple(a[min(d, dirs - 1)].data_ptr() for d in range(2))
+        pb = tuple(b[min(d, dirs - 1)].data_ptr() for d in range(2))
+        blstm_ops._gemm(_GEMM_NAME[kind], "bf16", pa, pb, lda, ldb, M, N, K, kind,
+                        bias=bias, out=out, outf=outf, colsum=colsum, dirs=dirs)
+        return (out if out is not None else outf), colsum
+
+    def reference():
+        af = a.to(f32).transpose(1, 2) if kind == 2 else a.to(f32)
+        bf = b.to(f32).transpose(1, 2) if kind == 1 else b.to(f32)
+        acc = torch.matmul(af, bf)
+        if kind == 0:
+            return acc.to(torch.bfloat16) + bias[:, None, :], None
+        if kind == 1:
+            return acc.to(torch.bfloat16), None
+        if kind == 2:
+            return acc, b.to(f32).sum(dim=1)
+        return bias.to(f32) + acc, None
+
+    return launch, reference
+
+
+def _gemm_tol(kind):
+    """bf16 outputs (kinds 0, 1): one rounding step where the f32 sums
+    differ in their last bits; f32 outputs: sums of the same products in
+    another order."""
+    return (1e-2, 1e-2) if kind in (0, 1) else (1e-4, 1e-4)
+
+
+def _assert_close(got, ref, tol, what):
+    atol, rtol = tol
+    err = (got.float() - ref.float()).abs()
+    over = float((err - (atol + rtol * ref.float().abs())).max())
+    assert over <= 0, (what, float(err.max()))
+
+
+@pytest.mark.parametrize("dirs", [1, 2])
+@pytest.mark.parametrize("kind,M,N,K", [
+    (0, 1000, 1280, 80), (0, 1000, 2048, 120), (0, 77, 1000, 640),
+    (1, 1000, 1280, 1280), (1, 1000, 2048, 2048), (1, 300, 1000, 120),
+    (2, 80, 1280, 32736), (2, 1000, 2048, 640), (2, 320, 1000, 4100),
+    (3, 1000, 2048, 512), (3, 1000, 1280, 2048),
+])
+def test_gemm_wgmma_matches_plain(cuda_device, kind, M, N, K, dirs):
+    """Each kind of the TMA + wgmma GEMM against the same product in f32 on
+    the card, with M, N and K off the 128 x 128 x 64 tiles, one and two
+    operand pairs; kind 2 with its column sums and, where ``split_k``
+    cuts K, its split path."""
+    launch, reference = _gemm_case(cuda_device, kind, dirs, M, N, K)
+    kernels.reset_launch_counts()
+    got, colsum = launch()
+    ref, ref_colsum = reference()
+    torch.cuda.synchronize()
+    assert kernels.variant_counts() == {"gemm_bf16_wgmma": 1, "gemm_bf16_wmma": 0}
+    _assert_close(got, ref, _gemm_tol(kind), "out")
+    if kind == 2:
+        _assert_close(colsum, ref_colsum, (1e-4, 1e-4), "colsum")
+
+
+@pytest.mark.parametrize("M,N,K", [(320, 1280, 32736), (80, 1280, 32768), (2048, 2048, 640)])
+def test_gemm_kind2_split_and_repeat(cuda_device, M, N, K):
+    """Kind 2, split (S > 1) and unsplit (S = 1): right against the f32
+    product, and a second launch gives the same bits."""
+    S = blstm_ops.split_k(2, M, N, K, 2)
+    assert (S > 1) == (K > 640), S
+    launch, reference = _gemm_case(cuda_device, 2, 2, M, N, K, seed=1)
+    first, first_cs = launch()
+    second, second_cs = launch()
+    ref, ref_cs = reference()
+    torch.cuda.synchronize()
+    _assert_close(first, ref, _gemm_tol(2), f"S = {S}")
+    _assert_close(first_cs, ref_cs, (1e-4, 1e-4), "colsum")
+    assert torch.equal(first, second) and torch.equal(first_cs, second_cs)
+
+
+def test_gemm_variants_of_the_recipe_shapes(cuda_device):
+    """The recipes' layouts (v2 at D = 80, H = 320, B = 32; v1 at H = 512,
+    B = 64; lstm_proj at D = 320) take only the wgmma kernel; H = 12's dwh
+    (the bw h_prev starts H elements into a row: 24 bytes) and H = 9
+    (4H = 36) take the wmma kernel, by the same predicate."""
+    from nabu_tpu_torch.ops import blstm_v1 as v1
+    from nabu_tpu_torch.ops import lstm as lo
+
+    rng = np.random.default_rng(5)
+
+    def u(*shape):
+        return torch.as_tensor(rng.uniform(-1, 1, shape).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+
+    T = 9
+    kernels.reset_launch_counts()
+    for D, H, B in ((80, 320, 32), (640, 320, 32), (1280, 320, 32)):
+        x, dg, y, wx = u(T, B, D), u(2, T, B, 4 * H), u(T, B, 2 * H), u(2, D, 4 * H)
+        blstm_ops.blstm_proj(x.view(T * B, D), wx, u(2, 4 * H))
+        blstm_ops.blstm_bwd_dx(dg, wx)
+        blstm_ops.blstm_bwd_dwx(x, dg)
+        blstm_ops.blstm_bwd_dwh(y, dg)
+    H, B = 512, 64
+    hs, wh = u(2, T + 1, B, H), u(2, H, 4 * H)
+    v1.blstm_v1_bwd_gates(u(2, T, B, 4 * H), hs, wh)
+    v1.blstm_v1_bwd_dwh(hs, u(2, T, B, 4 * H))
+    lo.lstm_proj(u(32 * 8, 320), u(320, 1280), u(1280))
+    # a view that starts 2 bytes off a 16-byte boundary: copied, then wgmma
+    lo.lstm_proj(u(32 * 8 * 320 + 1)[1:].view(32 * 8, 320), u(320, 1280), u(1280))
+    torch.cuda.synchronize()
+    assert kernels.variant_counts() == {"gemm_bf16_wgmma": 16, "gemm_bf16_wmma": 0}
+
+    for H, want in ((12, {"gemm_bf16_wgmma": 0, "gemm_bf16_wmma": 1}),
+                    (9, {"gemm_bf16_wgmma": 0, "gemm_bf16_wmma": 1})):
+        kernels.reset_launch_counts()
+        dg, y = u(2, T, 4, 4 * H), u(T, 4, 2 * H)
+        got = blstm_ops.blstm_bwd_dwh(y, dg)
+        _assert_close(got, blstm_ops.blstm_bwd_dwh_plain(y, dg), (1e-4, 1e-4), f"H = {H}")
+        assert kernels.variant_counts() == want, H
+
+
+def test_gemm_failures_raise_with_the_launch_name(cuda_device, monkeypatch):
+    """A tensor map CUDA refuses to encode (the predicate forced to
+    pass on H = 12's unaligned bw h_prev) and a launch that fails (three
+    operand pairs) raise with the launch's name; nothing runs on the other
+    kernel instead."""
+    rng = np.random.default_rng(6)
+    T, B, H = 9, 4, 12
+    dg = torch.as_tensor(rng.uniform(-1, 1, (2, T, B, 4 * H)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    y = torch.as_tensor(rng.uniform(-1, 1, (T, B, 2 * H)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    kernels.reset_launch_counts()
+    with monkeypatch.context() as m:
+        m.setattr(blstm_ops, "gemm_variant", lambda lda, ldb, ptrs: "wgmma")
+        with pytest.raises(RuntimeError, match="blstm_bwd_dwh: CUDA refused a tensor map"):
+            blstm_ops.blstm_bwd_dwh(y, dg)
+    launch, _ = _gemm_case(cuda_device, 1, 2, 256, 256, 64)
+    with monkeypatch.context() as m:
+        m.setattr(blstm_ops, "_gemm", lambda *a, **kw: _gemm_dirs3(*a, **kw))
+        with pytest.raises(RuntimeError, match="blstm_bwd_dx: CUDA error"):
+            launch()
+    torch.cuda.synchronize()
+    assert kernels.variant_counts() == {"gemm_bf16_wgmma": 0, "gemm_bf16_wmma": 0}
+    assert kernels.launch_counts()["blstm_bwd_dwh"] == kernels.launch_counts()["blstm_bwd_dx"] == 0
+
+
+_real_gemm = blstm_ops._gemm
+
+
+def _gemm_dirs3(*args, **kw):
+    kw["dirs"] = 3
+    return _real_gemm(*args, **kw)
