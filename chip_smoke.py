@@ -61,9 +61,11 @@ Phases, each printing JSON lines:
               required);
 9. train_rnnt_stream — ``cli train`` of the rnnt_streaming_wsj recipe
               on the same corpus (40 steps, the same checks; 5 LSTM walks,
-              chains and dwh a step). Its database.conf has train_rnnt's
-              sections, so it takes a copy of the data train_rnnt's ``cli
-              data`` prepared (checked section by section);
+              chains and dwh a step, and the dwh launches' share of the
+              backward, from CUDA events around them). Its database.conf
+              has train_rnnt's sections, so it takes a copy of the data
+              train_rnnt's ``cli data`` prepared (checked section by
+              section);
 10. train_las — ``cli data`` (with the recipe's 3-way speed perturbation,
               from a third of the corpus: 171 utterances, 513 after
               perturbation) and 40 steps of ``cli train`` of las_large_wsj
@@ -92,7 +94,12 @@ Each bf16 GEMM row (blstm_proj, dx, dwx + db, dwh, the v1 gates recompute
 and dwh, lstm_proj) also reports the kernel its shape took (``wgmma``:
 TMA + wgmma, or the earlier ``wmma``), its K slices, its TFLOP/s and the
 earlier WMMA kernel's time on the same inputs; the weight gradients (split
-K) launch twice and must repeat bit for bit. Every serving and training
+K) launch twice and must repeat bit for bit. Each f32 GEMM row (the same
+wrappers in f32, ``lstm_bwd_dwh``) reports its K slices (``split_k_f32``)
+and TFLOP/s, its kind-2 rows repeating their bits likewise; further f32
+rows (blstm_proj, dx, dwx + db, dwh) run at the layers of the two f32
+recipes, ctc_blstm_timit (H = 128, D = 40 and 256) and las_timit's
+Listener (H = 256, D = 40 and 1024), B = 32. Every serving and training
 phase prints its GEMM launches by kernel, and the WMMA kernel must not
 launch in any of them.
 
@@ -150,7 +157,11 @@ W, K = 400, 256
 #   the last product of the reduction dropped
 # - blstm_bwd_dwx / db / dwh: f32 sums over T x B = 32768 tokens in
 #   another order (the bf16 products' sums reach ~100, where f32 keeps
-#   ~1e-5 of them); fault: the last token's term dropped
+#   ~1e-5 of them); in f32 the plain versions sum the f32 kernel's K
+#   slices in its order (ops.blstm.kind2_product), since one f32 sum in
+#   order over such a K lands up to ~3e-3 from the float64 product and no
+#   split sum can repeat its bits (the rows print both distances); fault:
+#   the last token's term dropped
 # - blstm_recur, blstm_recur_train: over 1024 dependent steps such
 #   one-step differences in the bf16 carry propagate; f32 stays tight;
 #   fault: 8 hidden units read h one step late (a missed barrier or
@@ -182,8 +193,8 @@ W, K = 400, 256
 #   one step late, the carry not held past a length (final carry)
 # - lstm_bwd_recur: f32 dgates from the same residuals (sums in another
 #   order); fault: the dgates of 8 units read one step stale
-# - lstm_bwd_dwh: f32 sums over T x B tokens in another order; fault: the
-#   last token's term dropped
+# - lstm_bwd_dwh: f32 sums over T x B tokens, the plain version in the
+#   kernel's K slices as above; fault: the last token's term dropped
 # - stream_scores: streamed and offline greedy scores, the same bits
 #   expected (identical arithmetic per frame)
 # - blstm_v1_recur(_train): as blstm_recur (the same cell; over 1024
@@ -335,6 +346,12 @@ LAS_TRAIN_UTTS = 171
 # and pyramid_0 (T, D)
 V1_B, V1_H = 64, 512
 V1_SHAPES = (("bottom", 1024, 2 * 40), ("pyramid_0", 512, 4 * 512))
+# the f32 GEMM rows of the two f32 recipes' BLSTM layers, B = 32, (recipe,
+# T, H, D): ctc_blstm_timit (BASELINE config 1: 2 x 128 on fbank 40
+# without deltas, then 2H) and las_timit's Listener (3 x 256: the bottom
+# layer on fbank 40, pyramid_0 on stacked pairs, 4H, at half the frames)
+F32_RECIPE_SHAPES = (("ctc_blstm_timit", 1024, 128, 40), ("ctc_blstm_timit", 1024, 128, 256),
+                     ("las_timit", 1024, 256, 40), ("las_timit", 512, 256, 1024))
 
 
 def emit(obj) -> None:
@@ -433,6 +450,32 @@ def gemm_fields(torch, timed, reps, fn, kind, M, N, K, ops, ms, repeat=False) ->
         fields["repeat_bits_equal"] = same
         if not same:
             FAILURES.append(f"kind {kind} GEMM M={M} N={N} K={K}: a second launch's bits differ")
+    return fields
+
+
+def f32_gemm_fields(torch, fn, kind, M, N, K, dirs, ops, ms, exact=None, library=None) -> dict:
+    """The f32 GEMM row's extra readings: its K slices (``split_k_f32``),
+    its TFLOP/s, and for kind 2 (split K) whether a second launch gives
+    the first one's bits (a row whose bits differ fails the run) and, with
+    ``exact`` (the product in float64), how far the kernel and the one f32
+    library call (a sum over K in one order) land from it."""
+    from nabu_tpu_torch.ops import blstm as bo
+
+    fields = {"splits": bo.split_k_f32(kind, M, N, K, dirs),
+              "tflops": None if ms is None else ops / ms / 1e9}
+    if kind == 2:
+        first, second = fn(), fn()
+        pairs = zip(first, second) if isinstance(first, tuple) else ((first, second),)
+        same = all(torch.equal(x, y) for x, y in pairs)
+        fields["repeat_bits_equal"] = same
+        if not same:
+            FAILURES.append(f"f32 kind 2 GEMM M={M} N={N} K={K}: a second launch's bits differ")
+        if exact is not None:
+            ref = exact()
+            got = first[0] if isinstance(first, tuple) else first
+            fields["f64_max_abs_err"] = float((got.double() - ref).abs().max())
+            fields["library_f64_max_abs_err"] = float((library().double() - ref).abs().max())
+            del ref
     return fields
 
 
@@ -1076,6 +1119,9 @@ def phase_kernels(torch, quick: bool) -> dict:
                 row.update(gemm_fields(torch, timed, reps,
                                        lambda: blstm_ops.blstm_proj(x, wx, bias), 0, M, 4 * H,
                                        D, 2 * 2 * M * D * 4 * H, row["ms"]))
+            else:
+                row.update(f32_gemm_fields(torch, lambda: blstm_ops.blstm_proj(x, wx, bias), 0,
+                                           M, 4 * H, D, 2, 2 * 2 * M * D * 4 * H, row["ms"]))
             emit({"phase": "kernels", "kernel": "blstm_proj", **row})
             rows[("blstm_proj", tag, D)] = row
         # recurrence on the projection of the widest layer's input
@@ -1134,6 +1180,7 @@ def phase_kernels(torch, quick: bool) -> dict:
     rows.update(rnnt_rows(torch, timed, reps))
     rows.update(lstm_rows(torch, timed, reps))
     rows.update(v1_rows(torch, timed, reps // 4))
+    rows.update(f32_recipe_rows(torch, timed, reps))
     torch.cuda.synchronize()
     return rows
 
@@ -1274,6 +1321,9 @@ def v1_rows(torch, timed, reps) -> dict:
                 row.update(gemm_fields(torch, timed, reps,
                                        lambda: v1.blstm_v1_bwd_gates(xw, hs, wh), 3, M, H4, Hv,
                                        2 * 2 * valid * Hv * H4, row["ms"]))
+            else:
+                row.update(f32_gemm_fields(torch, lambda: v1.blstm_v1_bwd_gates(xw, hs, wh), 3,
+                                           M, H4, Hv, 2, 2 * 2 * M * Hv * H4, row["ms"]))
             emit({"phase": "kernels", "kernel": "blstm_v1_bwd_gates", "case": case, **row})
             rows[("blstm_v1_bwd_gates", tag, case)] = row
 
@@ -1328,6 +1378,12 @@ def v1_rows(torch, timed, reps) -> dict:
                 row.update(gemm_fields(torch, timed, reps, lambda: v1.blstm_v1_bwd_dwh(hs, dgr),
                                        2, Hv, H4, M, 2 * 2 * valid * Hv * H4, row["ms"],
                                        repeat=True))
+            else:
+                row.update(f32_gemm_fields(
+                    torch, lambda: v1.blstm_v1_bwd_dwh(hs, dgr), 2, Hv, H4, M, 2,
+                    2 * 2 * M * Hv * H4, row["ms"],
+                    exact=lambda: torch.matmul(hpt.double(), d2.double()),
+                    library=lambda: torch.matmul(hpt, d2)))
             emit({"phase": "kernels", "kernel": "blstm_v1_bwd_dwh", "case": case, **row})
             rows[("blstm_v1_bwd_dwh", tag, case)] = row
             del dwh, ref_w, cut, dgr, hprev, hpt, d2, hs, xw, x, x_lib, lstm
@@ -1496,6 +1552,11 @@ def lstm_rows(torch, timed, reps) -> dict:
                 "library": "torch.matmul h_prev^T @ dxw (f32)",
                 "bound_ms": b_ms, "bound_by": b_by,
             }
+            row.update(f32_gemm_fields(
+                torch, lambda: lo.lstm_bwd_dwh(hs, ref_dxw), 2, H, H4, M - B, 1,
+                2 * (M - B) * H * H4, row["ms"],
+                exact=lambda: torch.matmul(hpt.double(), d2.double()),
+                library=lambda: torch.matmul(hpt, d2)))
             emit({"phase": "kernels", "kernel": "lstm_bwd_dwh", "case": case, "inputs": tag,
                   **row})
             rows[("lstm_bwd_dwh", tag, case)] = row
@@ -1534,6 +1595,9 @@ def lstm_rows(torch, timed, reps) -> dict:
                 if tag == "bf16":
                     row.update(gemm_fields(torch, timed, reps, lambda: lo.lstm_proj(x, wx, bias),
                                            0, M, H4, H, 2 * M * H * H4, row["ms"]))
+                else:
+                    row.update(f32_gemm_fields(torch, lambda: lo.lstm_proj(x, wx, bias), 0, M,
+                                               H4, H, 1, 2 * M * H * H4, row["ms"]))
                 emit({"phase": "kernels", "kernel": "lstm_proj", **row})
                 rows[("lstm_proj", tag)] = row
                 del x, got_p, ref_p, x_cut, chunk
@@ -1671,6 +1735,9 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
         if tag == "bf16":
             row.update(gemm_fields(torch, timed, reps, lambda: bo.blstm_bwd_dx(dgr, wx), 1, M,
                                    D, H4, 2 * 2 * M * H4 * D, row["ms"]))
+        else:
+            row.update(f32_gemm_fields(torch, lambda: bo.blstm_bwd_dx(dgr, wx), 1, M, D, H4, 2,
+                                       2 * 2 * M * H4 * D, row["ms"]))
         emit({"phase": "kernels", "kernel": "blstm_bwd_dx", **row})
         rows[("blstm_bwd_dx", tag, D)] = row
 
@@ -1702,6 +1769,12 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
         if tag == "bf16":
             row.update(gemm_fields(torch, timed, reps, lambda: bo.blstm_bwd_dwx(x, dgr), 2, D,
                                    H4, M, 2 * (2 * M * D * H4 + M * H4), row["ms"], repeat=True))
+        else:
+            row.update(f32_gemm_fields(
+                torch, lambda: bo.blstm_bwd_dwx(x, dgr), 2, D, H4, M, 2,
+                2 * (2 * M * D * H4 + M * H4), row["ms"],
+                exact=lambda: torch.matmul(xt.double(), dg2.double()),
+                library=lambda: torch.matmul(xt, dg2)))
         emit({"phase": "kernels", "kernel": "blstm_bwd_dwx", **row})
         rows[("blstm_bwd_dwx", tag, D)] = row
 
@@ -1727,8 +1800,102 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
     if tag == "bf16":
         row.update(gemm_fields(torch, timed, reps, lambda: bo.blstm_bwd_dwh(y, dgr), 2, H, H4,
                                M - B, 2 * 2 * (M - B) * H * H4, row["ms"], repeat=True))
+    else:
+        row.update(f32_gemm_fields(
+            torch, lambda: bo.blstm_bwd_dwh(y, dgr), 2, H, H4, M - B, 2,
+            2 * 2 * (M - B) * H * H4, row["ms"],
+            exact=lambda: torch.matmul(hpt.double(), dg2.double()),
+            library=lambda: torch.matmul(hpt, dg2)))
     emit({"phase": "kernels", "kernel": "blstm_bwd_dwh", **row})
     rows[("blstm_bwd_dwh", tag)] = row
+    return rows
+
+
+def f32_recipe_rows(torch, timed, reps) -> dict:
+    """The f32 GEMM at the BLSTM layers of the two f32 recipes, B = 32
+    (``F32_RECIPE_SHAPES``): blstm_proj, dx, dwx + db and dwh, each against
+    its plain version with the training rows' planted fault, one PyTorch
+    call as the yardstick (TF32 off), the bound, its K slices and TFLOP/s;
+    the kind-2 rows launch twice and must repeat their bits."""
+    from nabu_tpu_torch.ops import blstm as bo
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    rows = {}
+
+    def u(*shape, scale=1.0):
+        return torch.as_tensor(rng.uniform(-scale, scale, shape).astype(np.float32), device=dev)
+
+    for recipe, Tr, Hr, D in F32_RECIPE_SHAPES:
+        M, H4 = Tr * B, 4 * Hr
+        case = f"{recipe} T={Tr} H={Hr} D={D}"
+        x, bias = u(Tr, B, D), u(2, H4, scale=0.1)
+        wx = torch.as_tensor(glorot(rng, (2, D, H4)), device=dev)
+        dg, y = u(2, Tr, B, H4), u(Tr, B, 2 * Hr)
+        x2, dg2 = x.view(M, D), dg.view(2, M, H4)
+        xe = x2.expand(2, M, D)
+        hprev = torch.zeros((2, Tr, B, Hr), device=dev)
+        hprev[0, 1:], hprev[1, :-1] = y[:-1, :, :Hr], y[1:, :, Hr:]
+        hpt = hprev.view(2, M, Hr).transpose(1, 2)
+        x_cut, dg_col, dg_tok = x2.clone(), dg.clone(), dg.clone()
+        x_cut[:, -1] = 0  # the last reduction product of the projection
+        dg_col[..., -1] = 0  # the last of dx's 4H products
+        dg_tok[:, -1, -1] = 0  # the last token's term of db and dwh
+        x_tok = x.clone()
+        x_tok[-1, -1] = 0  # the last token's term of dwx
+        tol_dw = TOL[("blstm_bwd_dw", "f32")]
+        products = (
+            # name, kind, (M, N, K), kernel, plain, fault, library, bytes, tol,
+            # and for kind 2 the product in float64
+            ("blstm_proj", 0, (M, H4, D), lambda: bo.blstm_proj(x2, wx, bias),
+             lambda: bo.blstm_proj_plain(x2, wx, bias),
+             lambda: bo.blstm_proj_plain(x_cut, wx, bias),
+             ("torch.baddbmm b + x @ wx (both directions)",
+              lambda: torch.baddbmm(bias[:, None, :], xe, wx)),
+             M * D + 2 * D * H4 + 2 * H4 + 2 * M * H4, TOL[("blstm_proj", "f32")], None),
+            ("blstm_bwd_dx", 1, (M, D, H4), lambda: bo.blstm_bwd_dx(dg, wx),
+             lambda: bo.blstm_bwd_dx_plain(dg, wx), lambda: bo.blstm_bwd_dx_plain(dg_col, wx),
+             ("torch.matmul dg @ wx^T (both directions)",
+              lambda: torch.matmul(dg2, wx.transpose(1, 2))),
+             2 * M * H4 + 2 * D * H4 + 2 * M * D, TOL[("blstm_bwd_dx", "f32")], None),
+            ("blstm_bwd_dwx", 2, (D, H4, M), lambda: bo.blstm_bwd_dwx(x, dg),
+             lambda: bo.blstm_bwd_dwx_plain(x, dg),
+             lambda: (bo.blstm_bwd_dwx_plain(x_tok, dg)[0], bo.blstm_bwd_dwx_plain(x, dg_tok)[1]),
+             ("torch.matmul x^T @ dg (both directions; db not included)",
+              lambda: torch.matmul(x2.t(), dg2)),
+             M * D + 2 * M * H4 + 2 * D * H4 + 2 * H4, tol_dw,
+             lambda: torch.matmul(x2.t().double(), dg2.double())),
+            ("blstm_bwd_dwh", 2, (Hr, H4, M - B), lambda: bo.blstm_bwd_dwh(y, dg),
+             lambda: bo.blstm_bwd_dwh_plain(y, dg), lambda: bo.blstm_bwd_dwh_plain(y, dg_tok),
+             ("torch.matmul hprev^T @ dg (both directions)", lambda: torch.matmul(hpt, dg2)),
+             M * 2 * Hr + 2 * M * H4 + 2 * Hr * H4, tol_dw,
+             lambda: torch.matmul(hpt.double(), dg2.double())),
+        )
+        for name, kind, (Mk, Nk, Kk), fn, plain, faulty, (library, lib), nbytes, tol, exact \
+                in products:
+            got, ref, bad = fn(), plain(), faulty()
+            pairs = zip(got, ref, bad) if isinstance(got, tuple) else ((got, ref, bad),)
+            errs, faults = [], []
+            for part, (g, r, f) in zip(("", " db"), pairs):
+                errs.append(compare(torch, g, r, tol, f"{name} f32 {case}{part}"))
+                faults.append(fault_reading(f, r, tol, f"{name} f32 {case}{part}"))
+            ops = 2 * 2 * Mk * Nk * Kk
+            b_ms, b_by = bound(4 * nbytes, ops, PEAK_F32)
+            row = {
+                "case": case, "shape": [Mk, Nk, Kk], "dtype": "f32", "max_abs_err": errs[0],
+                "tol": tol, "fault_max_abs_err": faults[0],
+                "ms": timed(fn, reps), "plain_ms": timed(plain, reps),
+                "library_ms": timed(lib, reps), "library": library,
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            if len(errs) > 1:
+                row.update({"db_max_abs_err": errs[1], "db_fault_max_abs_err": faults[1]})
+            row.update(f32_gemm_fields(torch, fn, kind, Mk, Nk, Kk, 2, ops, row["ms"],
+                                       exact=exact, library=lib))
+            emit({"phase": "kernels", "kernel": name, **row})
+            rows[(name, "f32", recipe, Tr, D)] = row
+            del got, ref, bad
+        del x, dg, y, hprev, x_cut, dg_col, dg_tok, x_tok
     return rows
 
 
@@ -2581,11 +2748,13 @@ def step_timers(torch, record: dict):
     between two such readings holds everything the loop does, loader,
     copy to the device and logging included). Also keeps each step's loss
     and audio frames, the trainer, the model, the live parameters and the
-    longest batch."""
+    longest batch, and CUDA events around each ``lstm_bwd_dwh`` launch
+    (inside the backward; no synchronization) with its step."""
     from nabu_tpu_torch.models.decoders import Speller
     from nabu_tpu_torch.models.encoders import Listener
     from nabu_tpu_torch.models.model import Model
     from nabu_tpu_torch.models.transducer import TransducerDecoder
+    from nabu_tpu_torch.ops import lstm as lstm_ops
     from nabu_tpu_torch.training.trainer import Trainer
 
     def timed(name, fn):
@@ -2602,7 +2771,8 @@ def step_timers(torch, record: dict):
              (Trainer, "_backward"): Trainer._backward,
              (Trainer, "_apply_grads"): Trainer._apply_grads,
              (TransducerDecoder, "_pred_sequence"): TransducerDecoder._pred_sequence,
-             (Listener, "apply"): Listener.apply, (Speller, "apply"): Speller.apply}
+             (Listener, "apply"): Listener.apply, (Speller, "apply"): Speller.apply,
+             (lstm_ops, "lstm_bwd_dwh"): lstm_ops.lstm_bwd_dwh}
     fwd = timed("forward", saved[(Model, "apply_train")])
     loss = timed("forward_loss", saved[(Trainer, "_loss")])
 
@@ -2633,7 +2803,17 @@ def step_timers(torch, record: dict):
         record.setdefault("step_end", []).append(time.perf_counter())
         return out
 
+    def lstm_bwd_dwh(hs, dxw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = saved[(lstm_ops, "lstm_bwd_dwh")](hs, dxw)
+        end.record()
+        record.setdefault("dwh_events", []).append((len(record.get("loss", ())) - 1, start, end))
+        return out
+
     Model.apply_train = apply_train
+    lstm_ops.lstm_bwd_dwh = lstm_bwd_dwh
     TransducerDecoder._pred_sequence = timed("pred_net", saved[(TransducerDecoder,
                                                                "_pred_sequence")])
     Listener.apply = timed("listener", saved[(Listener, "apply")])
@@ -2862,6 +3042,10 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
                   **{f"{k}_ms": 1e3 * v[i] for k, v in shares.items()},
                   **{k: record[k][i] for k in ("token_accuracy",) if k in record}})
         median_ms = {k: 1e3 * float(np.median(v[1:])) for k, v in phases.items()}
+        # the LSTM dwh launches' device time a step, against the backward's
+        dwh_ms = [0.0] * steps
+        for i, start, end in record.get("dwh_events", []):
+            dwh_ms[i] += start.elapsed_time(end)
         audio_s = sum(record["frames"][1:]) * 0.01
         # steps 2..N end to end: from step 1's synchronized end to step N's
         ends = record["step_end"]
@@ -2897,6 +3081,8 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
             "loss_first5_mean": first, "loss_last5_mean": last,
             "median_step_ms": median_ms,
             "median_pred_net_ms": 1e3 * float(np.median(pred_net[1:])),
+            "median_lstm_bwd_dwh_ms": float(np.median(dwh_ms[1:])),
+            "lstm_bwd_dwh_share_of_backward": float(np.median(dwh_ms[1:])) / median_ms["backward"],
             **{f"median_{k}_ms": 1e3 * float(np.median(v[1:])) for k, v in shares.items()},
             "median_step_total_ms": 1e3 * float(np.median(step_s[1:])),
             "first_step_ms": 1e3 * step_s[0],

@@ -61,13 +61,18 @@ such a base. The recipes' shapes (D in {80, 120, 640, 1280, 2048}, H in
 counts the launches of each. The weight gradients (dwx, dwh, v1 dwh) cut
 K into ``split_k`` slices of whole K tiles when their output tiles fill
 the card poorly; the slices' f32 sums are added in a fixed order, so a
-result repeats bit for bit. The other products never split.
+result repeats bit for bit. The other products never split. In f32 every
+launch takes one kernel, the register-blocked FFMA GEMM (no TF32), which
+reads every layout (16-byte copies where it can, 4-byte ones elsewhere),
+and its weight gradients split by ``split_k_f32``, the same rule over its
+own 16-deep K tiles.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import operator
 
 import torch
 
@@ -93,9 +98,12 @@ BLOCKS_PER_SM = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the GEMM entries with K slices and their workspaces (bf16 wgmma, f32)
+_SPLIT_GEMM = [_P] * 4 + [_I] * 8 + [_P] * 7
 _ARGTYPES = {
-    "gemm": [_P] * 4 + [_I] * 7 + [_P] * 5,
-    "gemm_wgmma": [_P] * 4 + [_I] * 8 + [_P] * 7,
+    "gemm_bf16": [_P] * 4 + [_I] * 7 + [_P] * 5,
+    "gemm_f32": _SPLIT_GEMM,
+    "gemm_wgmma_bf16": _SPLIT_GEMM,
     "recur": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
     "bwd_recur": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
 }
@@ -149,13 +157,40 @@ def gemm_variant(lda: int, ldb: int, ptrs) -> str:
     return "wgmma" if ok else "wmma"
 
 
-def _split_cost(M: int, N: int, K: int, dirs: int, S: int) -> float:
-    tiles = -(-M // GEMM_TILE) * -(-N // GEMM_TILE) * dirs
-    waves = -(-tiles * S // GEMM_RESIDENT)
-    ms = waves * -(-K // (GEMM_TILE_K * S)) * _TILE_STEP_MS
+# the f32 GEMM (FFMA): 64 x 128 output tiles, 16-deep K tiles, two blocks
+# resident an SM; split_k_f32's cost model: one K tile of one block while
+# the card is full (1.69 us, measured on the H100 at lstm_bwd_dwh's shape:
+# a 64 x 128 x 16 product at ~41 TFLOP/s over 264 blocks)
+F32_TILE_M, F32_TILE_K = 64, 16
+F32_MIN_SLICE_TILES = 16
+_F32_TILE_STEP_MS = 1.69e-3
+# (tile rows, tile columns, tile depth, resident blocks, ms a K tile)
+_BF16_MODEL = (GEMM_TILE, GEMM_TILE, GEMM_TILE_K, GEMM_RESIDENT, _TILE_STEP_MS)
+_F32_MODEL = (F32_TILE_M, GEMM_TILE, F32_TILE_K, 2 * SMS, _F32_TILE_STEP_MS)
+
+
+def _split_cost(M, N, K, dirs, S, model=_BF16_MODEL) -> float:
+    tile_m, tile_n, tile_k, resident, step_ms = model
+    tiles = -(-M // tile_m) * -(-N // tile_n) * dirs
+    waves = -(-tiles * S // resident)
+    ms = waves * -(-K // (tile_k * S)) * step_ms
     if S > 1:
         ms += (2 * S + 1) * dirs * M * N * 4 / _SUM_BYTES_PER_MS
     return ms
+
+
+def _best_split(kind, M, N, K, dirs, model, min_slice_tiles) -> int:
+    if kind != _TN:
+        return 1
+    ktiles = -(-K // model[2])
+    best, best_ms = 1, _split_cost(M, N, K, dirs, 1, model)
+    for S in range(2, MAX_SPLITS + 1):
+        if ktiles // S < min_slice_tiles:
+            break
+        ms = _split_cost(M, N, K, dirs, S, model)
+        if ms < 0.97 * best_ms:
+            best, best_ms = S, ms
+    return best
 
 
 @functools.lru_cache(maxsize=1024)
@@ -167,26 +202,46 @@ def split_k(kind: int, M: int, N: int, K: int, dirs: int) -> int:
     (waves of resident blocks times K tiles a slice, plus writing and
     reading back the slices' sums), a smaller S unless a larger one saves
     3%. A pure function of (kind, M, N, K, dirs)."""
-    if kind != _TN:
-        return 1
-    ktiles = -(-K // GEMM_TILE_K)
-    best, best_ms = 1, _split_cost(M, N, K, dirs, 1)
-    for S in range(2, MAX_SPLITS + 1):
-        if ktiles // S < MIN_SLICE_TILES:
-            break
-        ms = _split_cost(M, N, K, dirs, S)
-        if ms < 0.97 * best_ms:
-            best, best_ms = S, ms
-    return best
+    return _best_split(kind, M, N, K, dirs, _BF16_MODEL, MIN_SLICE_TILES)
 
 
-def split_bounds(K: int, S: int):
+@functools.lru_cache(maxsize=1024)
+def split_k_f32(kind: int, M: int, N: int, K: int, dirs: int) -> int:
+    """``split_k`` for the f32 GEMM: the same rule over its 64 x 128
+    output tiles and 16-deep K tiles, each slice at least
+    ``F32_MIN_SLICE_TILES`` of them, with its own time a K tile. A pure
+    function of (kind, M, N, K, dirs)."""
+    return _best_split(kind, M, N, K, dirs, _F32_MODEL, F32_MIN_SLICE_TILES)
+
+
+def split_bounds(K: int, S: int, tile_k: int = GEMM_TILE_K):
     """-> the [k0, k1) of each of S slices, in order: slice s takes K
-    tiles [s n / S, (s + 1) n / S) of the n = ceil(K / 64), as the kernel
-    does."""
-    n = -(-K // GEMM_TILE_K)
-    return [((s * n // S) * GEMM_TILE_K, min(K, ((s + 1) * n // S) * GEMM_TILE_K))
-            for s in range(S)]
+    tiles [s n / S, (s + 1) n / S) of the n = ceil(K / tile_k) (64 for the
+    bf16 kernel, ``F32_TILE_K`` for the f32 one), as the kernels do."""
+    n = -(-K // tile_k)
+    return [((s * n // S) * tile_k, min(K, ((s + 1) * n // S) * tile_k)) for s in range(S)]
+
+
+def kind2_product(a, b, dirs: int) -> torch.Tensor:
+    """The weight gradients' product a^T @ b (kind 2): a [..., K, M], b
+    [..., K, N] -> [..., M, N] f32, ``dirs`` (1 or 2) leading operand
+    pairs. f32 operands are summed as the f32 GEMM sums them: one product
+    for each of ``split_k_f32``'s K slices, the slices added in the order
+    0 .. S - 1 (so an f32 plain version repeats the kernel's reduction;
+    one f32 sum in order over K = 32768 tokens lands up to ~3e-3 from the
+    float64 product, PERF.md). Other dtypes are upcast, one product."""
+    f32 = torch.float32
+    af, bf = a.to(f32).transpose(-1, -2), b.to(f32)
+    if a.dtype != f32 or b.dtype != f32:
+        return torch.matmul(af, bf)
+    K, M, N = a.shape[-2], a.shape[-1], b.shape[-1]
+    return functools.reduce(operator.add, (torch.matmul(af[..., k0:k1], bf[..., k0:k1, :])
+                                           for k0, k1 in _f32_slices(M, N, K, dirs)))
+
+
+def _f32_slices(M: int, N: int, K: int, dirs: int):
+    """The [k0, k1) of the f32 GEMM's K slices in a kind-2 launch."""
+    return split_bounds(K, split_k_f32(_TN, M, N, K, dirs), F32_TILE_K)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -200,7 +255,7 @@ def _launcher(kind: str, tag: str):
     name = f"blstm_{kind}_{tag}"
     if name not in _fns:
         fn = getattr(build.load("blstm"), f"nabu_{name}")
-        fn.argtypes = _ARGTYPES[kind]
+        fn.argtypes = _ARGTYPES.get(f"{kind}_{tag}") or _ARGTYPES[kind]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -234,25 +289,26 @@ def _gemm(name, tag, a, b, lda, ldb, M, N, K, kind, bias=None, out=None, outf=No
           colsum=None, dirs=2) -> None:
     """One launch of the GEMM of csrc/blstm.cu over ``dirs`` (1 or 2)
     operand pairs; ``a`` and ``b`` are (fw, bw) pointer pairs. bf16 takes
-    the kernel ``gemm_variant`` names, with ``split_k``'s slices; the
-    wrapper allocates their workspaces."""
+    the kernel ``gemm_variant`` names, with ``split_k``'s slices; f32 takes
+    the FFMA kernel (every layout) with ``split_k_f32``'s. The wrapper
+    allocates the slices' workspaces."""
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     dev = out.device if out is not None else outf.device
     variant = gemm_variant(lda, ldb, a + b) if tag == "bf16" else None
     with torch.cuda.device(dev):
-        if variant == "wgmma":
-            f32 = torch.float32
-            S = split_k(kind, M, N, K, dirs)
-            ws = torch.empty((S, dirs, M, N), dtype=f32, device=dev) if S > 1 else None
-            cws = None if colsum is None else torch.empty((S, dirs, N), dtype=f32, device=dev)
-            err = _launcher("gemm_wgmma", tag)(
-                a[0], a[1], b[0], b[1], lda, ldb, M, N, K, kind, dirs, S,
-                ptr(bias), ptr(out), ptr(outf), ptr(colsum), ptr(cws), ptr(ws), _stream(),
-            )
-        else:
+        if variant == "wmma":
             err = _launcher("gemm", tag)(
                 a[0], a[1], b[0], b[1], lda, ldb, M, N, K, kind, dirs,
                 ptr(bias), ptr(out), ptr(outf), ptr(colsum), _stream(),
+            )
+        else:
+            f32 = torch.float32
+            S = (split_k if variant else split_k_f32)(kind, M, N, K, dirs)
+            ws = torch.empty((S, dirs, M, N), dtype=f32, device=dev) if S > 1 else None
+            cws = None if colsum is None else torch.empty((S, dirs, N), dtype=f32, device=dev)
+            err = _launcher("gemm_wgmma" if variant else "gemm", tag)(
+                a[0], a[1], b[0], b[1], lda, ldb, M, N, K, kind, dirs, S,
+                ptr(bias), ptr(out), ptr(outf), ptr(colsum), ptr(cws), ptr(ws), _stream(),
             )
     build.check(err, name)
     kernels.LAUNCHES[name] += 1
@@ -493,11 +549,16 @@ def blstm_bwd_dx(dg, wx) -> torch.Tensor:
 
 def blstm_bwd_dwx_plain(x, dg):
     """x [T, B, D], dg [2, T, B, 4H] -> (dwx_d = x^T @ dg_d [2, D, 4H],
-    db_d = sum of dg_d over rows [2, 4H]), both f32."""
+    db_d = sum of dg_d over rows [2, 4H]), both f32 (``kind2_product``;
+    in f32, db too is summed slice by slice)."""
     _, T, B, H4 = dg.shape
-    dgf = dg.reshape(2, T * B, H4).to(torch.float32)
-    dwx = torch.matmul(x.reshape(T * B, -1).to(torch.float32).t(), dgf)
-    return dwx, dgf.sum(dim=1)
+    dgr = dg.reshape(2, T * B, H4)
+    dwx = kind2_product(x.reshape(T * B, -1), dgr, 2)
+    dgf = dgr.to(torch.float32)
+    if dg.dtype != torch.float32:
+        return dwx, dgf.sum(dim=1)
+    return dwx, functools.reduce(operator.add, (dgf[:, k0:k1].sum(dim=1) for k0, k1
+                                                in _f32_slices(x.shape[-1], H4, T * B, 2)))
 
 
 def blstm_bwd_dwx(x, dg):
@@ -518,14 +579,13 @@ def blstm_bwd_dwx(x, dg):
 def blstm_bwd_dwh_plain(y, dg) -> torch.Tensor:
     """y [T, B, 2H] (the layer output), dg [2, T, B, 4H] -> dwh_d =
     hprev_d^T @ dg_d [2, H, 4H] f32, hprev the stored masked h one step
-    back along each direction's recurrence (zero at its first step)."""
+    back along each direction's recurrence (zero at its first step, so
+    the (T - 1) B tokens that have one: ``kind2_product``)."""
     _, T, B, H4 = dg.shape
     H = H4 // 4
-    hprev = torch.zeros((2, T, B, H), dtype=torch.float32, device=dg.device)
-    hprev[0, 1:] = y[:-1, :, :H].to(torch.float32)
-    hprev[1, :-1] = y[1:, :, H:].to(torch.float32)
-    return torch.matmul(hprev.reshape(2, T * B, H).transpose(1, 2),
-                        dg.reshape(2, T * B, H4).to(torch.float32))
+    K = (T - 1) * B
+    hprev = torch.stack([y[:-1, :, :H], y[1:, :, H:]]).reshape(2, K, H)
+    return kind2_product(hprev, torch.stack([dg[0, 1:], dg[1, :-1]]).reshape(2, K, H4), 2)
 
 
 def blstm_bwd_dwh(y, dg) -> torch.Tensor:

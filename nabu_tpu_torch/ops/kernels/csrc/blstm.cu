@@ -63,9 +63,31 @@
 //     of M: shapes outside it (H = 9, 12 in the tests) take
 //     gemm_wmma_bf16, the earlier tiled kernel (64 x 128 tiles, 8 warps of
 //     2 x 2 WMMA 16x16x16 fragments, the next K tile staged through
-//     registers, the column sums inside the kernel). The f32 variant is a
-//     SIMT tiled GEMM (4 x 4 outputs a thread), so it checks the
-//     arithmetic at full precision without TF32.
+//     registers, the column sums inside the kernel).
+//     The f32 GEMM (gemm_ffma_f32) takes every f32 launch of every layout:
+//     the dwh of nabu_tpu/ops/pallas/lstm.py's _bwd (lstm.py:137-139,
+//     lstm_bwd_dwh) and the f32 forms of _tm_fwd's, _tm_bwd's and
+//     _fused_bwd's products (blstm_proj, lstm_proj, dx, dwx + db, dwh, the
+//     v1 gates recompute and dwh). It stays on the FFMA units, no TF32, so
+//     the f32 path checks the arithmetic at full precision; bound on the
+//     H100 by operations at 67 TFLOP/s (lstm_bwd_dwh at T = 1024, B = 32,
+//     H = 320: 26.8 GFLOP, 0.40 ms). Design: 64 x 128 output tiles of 128
+//     threads, each thread 8 x 8 accumulators read as two 4-wide halves a
+//     side, so one k costs four conflict-free LDS.128 for 64 FFMA; 16-deep
+//     K tiles through a 4-stage ring in dynamic shared memory, filled by
+//     cp.async (16-byte cp.async.cg for an MN-major operand on a 16-byte
+//     base with a leading dimension a multiple of 4, 4-byte cp.async.ca
+//     otherwise; a K-major operand -- A of kinds 0, 1, 3, B of kind 1 --
+//     is transposed on the way in by its 4-byte copies, so the inner loop
+//     reads contiguous m and n whatever the layout), three tiles in flight
+//     while one is multiplied; two blocks an SM with up to 255 registers a
+//     thread (at 128, as 128 x 128 tiles of 256 threads had it, kinds 0 and
+//     3 spilled). 64-row tiles waste nothing at M = 320 (lstm_bwd_dwh's H)
+//     and let the K split fill the card in whole waves. Kind 2 splits K as
+//     the bf16 kernel does, by ops/blstm.split_k_f32 (its own tile, depth
+//     and time a K tile), with the same second pass (gemm_splitk_sum,
+//     colsum_finish) and db summed from the B stages in shared memory;
+//     kinds 0, 1, 3 never split, so a row's bits do not depend on M.
 //
 // (b) blstm_recur: one persistent cooperative launch per layer walks the
 //     whole sequence for both directions, as the TPU kernel's sequential
@@ -404,73 +426,6 @@ __global__ void __launch_bounds__(P_THREADS) gemm_wmma_bf16(GemmArgs<bf16> g) {
     const int r = i / PN, c = i % PN;
     const int m = m0 + r, n = n0 + c;
     if (m < g.M && n < g.N) epilogue_store<bf16, EPI>(g, dir, m, n, c_s[r * CS + c]);
-  }
-  if (sum_cols && n0 + (int)threadIdx.x < g.N)
-    g.colsum[(size_t)dir * g.N + n0 + threadIdx.x] = colsum;
-}
-
-constexpr int SM_ = 64, SN = 64, SK = 16;
-constexpr int S_THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-
-// f32: SIMT tiles (no tensor cores, no TF32)
-template <bool A_COL, bool B_COL, int EPI>
-__global__ void __launch_bounds__(S_THREADS) gemm_simt_f32(GemmArgs<float> g) {
-  __shared__ __align__(16) float a_s[SK][SM_ + 4];  // [k][m]
-  __shared__ __align__(16) float b_s[SK][SN + 4];   // [k][n]
-  const int dir = blockIdx.z;
-  const float* a = g.a[dir];
-  const float* b = g.b[dir];
-  const int m0 = blockIdx.y * SM_;
-  const int n0 = blockIdx.x * SN;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const bool sum_cols = g.colsum != nullptr && blockIdx.y == 0 && threadIdx.x < SN;
-  float colsum = 0.f;
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < g.K; k0 += SK) {
-    // consecutive threads walk the contiguous dimension of each operand
-    for (int i = threadIdx.x; i < SM_ * SK; i += S_THREADS) {
-      const int r = A_COL ? i % SM_ : i / SK, c = A_COL ? i / SM_ : i % SK;
-      const int m = m0 + r, k = k0 + c;
-      a_s[c][r] = (m < g.M && k < g.K)
-                      ? (A_COL ? a[(size_t)k * g.lda + m] : a[(size_t)m * g.lda + k])
-                      : 0.f;
-    }
-    for (int i = threadIdx.x; i < SK * SN; i += S_THREADS) {
-      const int r = B_COL ? i % SK : i / SN, c = B_COL ? i / SK : i % SN;
-      const int k = k0 + r, n = n0 + c;
-      b_s[r][c] = (k < g.K && n < g.N)
-                      ? (B_COL ? b[(size_t)n * g.ldb + k] : b[(size_t)k * g.ldb + n])
-                      : 0.f;
-    }
-    __syncthreads();
-    if (sum_cols) {
-#pragma unroll
-      for (int k = 0; k < SK; ++k) colsum += b_s[k][threadIdx.x];
-    }
-#pragma unroll
-    for (int k = 0; k < SK; ++k) {
-      const float4 av4 = *reinterpret_cast<const float4*>(&a_s[k][ty * 4]);
-      const float4 bv4 = *reinterpret_cast<const float4*>(&b_s[k][tx * 4]);
-      const float av[4] = {av4.x, av4.y, av4.z, av4.w};
-      const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < g.N) epilogue_store<float, EPI>(g, dir, m, n, acc[i][j]);
-    }
   }
   if (sum_cols && n0 + (int)threadIdx.x < g.N)
     g.colsum[(size_t)dir * g.N + n0 + threadIdx.x] = colsum;
@@ -992,6 +947,227 @@ __global__ void __launch_bounds__(256) colsum_finish(const float* __restrict__ w
   colsum[i] = s;
 }
 
+// --- the f32 GEMM: register-blocked FFMA tiles, cp.async ring ----------------
+
+// 64 x 128 output tiles of 128 threads (4 warps of 64 x 32 outputs along
+// N), FK-deep K tiles through an F_STAGES-deep ring. A stage holds each
+// operand's K tile as [FK][rows + 4] floats, K rows of contiguous M (or N)
+// elements; the 4-float pad spreads the transposing 4-byte copies over all
+// 32 banks. Two blocks an SM: up to 255 registers a thread, so the 64
+// accumulators, the next k's operands and the copies' addresses never
+// spill (capped at 128 they did).
+constexpr int FM = 64, FN = 128, FK = 16, F_STAGES = 4;
+constexpr int F_THREADS = 128, F_BLOCKS = 2;
+constexpr int F_A_LD = FM + 4, F_B_LD = FN + 4;
+constexpr int F_STAGE = FK * (F_A_LD + F_B_LD);
+constexpr int F_SMEM = (F_STAGES * F_STAGE + F_THREADS) * 4;  // the ring, then db's parts
+static_assert(FK % 8 == 0, "the transposing copies take K in groups of 8");
+
+struct FfmaArgs {
+  const float* a[2];
+  const float* b[2];
+  int lda, ldb;
+  int M, N, K, dirs, splits;
+  int a_vec, b_vec;   // the MN-major operand is read in 16-byte copies
+  int vec_out;        // N a multiple of 4 and 16-byte-aligned outputs (and addend)
+  const float* bias;  // [dirs, N] (EPI_BIAS) or the addend [dirs, M, N] (EPI_ADD_F32)
+  float* out;         // [splits, dirs, M, N] (splits > 1 only for EPI_F32)
+  float* colsum_ws;   // EPI_F32: [splits, dirs, N] column sums of B over each slice, or null
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Issue the copies of one operand's K tile into stage s ([FK][ROWS + 4]
+// floats), by THREADS threads: s[r][i] = X(k0 + r, c0 + i), zero outside
+// [K) x [C) (the copies' source size 0 or short). MN: X(k, c) = p[k ld +
+// c], 16-byte copies of 4 contiguous elements when vec (a 16-byte-aligned
+// base, ld a multiple of 4), else 4-byte copies. K-major: X(k, c) = p[c ld
+// + k], 4-byte copies transposed on the way in: a warp takes 8 consecutive
+// k (one 32-byte sector) of 4 consecutive rows, landing on banks (4 k + c)
+// mod 32, all distinct (ROWS + 4 = 4 mod 32).
+template <int ROWS, int THREADS, bool MN>
+__device__ __forceinline__ void ffma_stage(float* s, const float* p, int ld, int k0, int c0,
+                                           int K, int C, bool vec) {
+  constexpr int LD = ROWS + 4;
+  if constexpr (MN) {
+    if (vec) {
+#pragma unroll
+      for (int u = 0; u < FK * ROWS / 4 / THREADS; ++u) {
+        const int i = threadIdx.x + u * THREADS;
+        const int r = i / (ROWS / 4), c = (i % (ROWS / 4)) * 4;
+        const int k = k0 + r, col = c0 + c;
+        const int bytes = k < K ? 4 * max(0, min(4, C - col)) : 0;
+        cp_async16(s + r * LD + c, bytes ? p + (size_t)k * ld + col : p, bytes);
+      }
+      return;
+    }
+#pragma unroll
+    for (int u = 0; u < FK * ROWS / THREADS; ++u) {
+      const int i = threadIdx.x + u * THREADS;
+      const int r = i / ROWS, c = i % ROWS;
+      const bool in = k0 + r < K && c0 + c < C;
+      cp_async4(s + r * LD + c, in ? p + (size_t)(k0 + r) * ld + c0 + c : p, in ? 4 : 0);
+    }
+  } else {
+    constexpr int KO = FK / 8;  // groups of 8 k
+#pragma unroll
+    for (int u = 0; u < FK * ROWS / THREADS; ++u) {
+      const int i = threadIdx.x + u * THREADS;
+      const int r = (i & 7) + ((i >> 5) % KO) * 8;
+      const int c = ((i >> 5) / KO) * 4 + ((i >> 3) & 3);
+      const bool in = k0 + r < K && c0 + c < C;
+      cp_async4(s + r * LD + c, in ? p + (size_t)(c0 + c) * ld + k0 + r : p, in ? 4 : 0);
+    }
+  }
+}
+
+// One 64 x 128 output tile (x direction x K slice) a block. Thread (warp
+// w, lane l) holds the 8 x 8 outputs of rows 4 (l / 4) + {0..3, 32..35} and
+// columns 32 w + 4 (l % 4) + {0..3, 16..19}: each k reads
+// two float4 of A and two of B (a quarter warp reads 2 and 4 adjacent
+// float4: no bank conflict) for 64 FFMA. The K tiles stream through an
+// F_STAGES-deep cp.async ring, F_STAGES - 1 tiles in flight while one is
+// multiplied, one __syncthreads a tile. Each output's sum runs over its K
+// range in order, one FFMA a k, whatever M or the tile.
+template <bool A_MN, bool B_MN, int EPI>
+__global__ void __launch_bounds__(F_THREADS, F_BLOCKS)
+    gemm_ffma_f32(const __grid_constant__ FfmaArgs g) {
+  constexpr int NT = F_THREADS;
+  extern __shared__ __align__(16) float f_smem[];
+  float* red = f_smem + F_STAGES * F_STAGE;  // [NT / FN][FN]
+  const int n0 = blockIdx.x * FN, m0 = blockIdx.y * FM;
+  const int dir = blockIdx.z % g.dirs, split = blockIdx.z / g.dirs;
+  const float* a = g.a[dir];
+  const float* b = g.b[dir];
+  // this slice's K tiles: the split of ops/blstm.split_bounds
+  const int ktiles = (g.K + FK - 1) / FK;
+  const int kt0 = (int)((long long)split * ktiles / g.splits);
+  const int nk = (int)((long long)(split + 1) * ktiles / g.splits) - kt0;
+
+  auto stage = [&](int slot, int kt) {
+    float* st = f_smem + slot * F_STAGE;
+    ffma_stage<FM, NT, A_MN>(st, a, g.lda, kt * FK, m0, g.K, g.M, g.a_vec);
+    ffma_stage<FN, NT, B_MN>(st + FK * F_A_LD, b, g.ldb, kt * FK, n0, g.K, g.N, g.b_vec);
+  };
+#pragma unroll
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < nk) stage(s, kt0 + s);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int am = (lane / 4) * 4;
+  const int bn = warp * 32 + (lane % 4) * 4;
+  // kind 2's db: the blocks of the first row tile also sum B's columns
+  // over their slice from the stages, thread x taking column x % 128 of
+  // the x / 128-th run of FK FN / NT rows of each K tile, in order
+  constexpr int CROWS = FK * FN / NT;
+  const bool sums = EPI == EPI_F32 && g.colsum_ws != nullptr && blockIdx.y == 0;
+  float csum = 0.f;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int t = 0; t < nk; ++t) {
+    // tile t has landed, and every thread is done with tile t - 1, whose
+    // slot the next copies take
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();
+    if (t + F_STAGES - 1 < nk) stage((t + F_STAGES - 1) % F_STAGES, kt0 + t + F_STAGES - 1);
+    cp_async_commit();
+    const float* as = f_smem + (t % F_STAGES) * F_STAGE;
+    const float* bs = as + FK * F_A_LD;
+    if (sums) {
+      const float* col = bs + (threadIdx.x / FN) * CROWS * F_B_LD + threadIdx.x % FN;
+#pragma unroll
+      for (int r = 0; r < CROWS; ++r) csum += col[r * F_B_LD];
+    }
+#pragma unroll
+    for (int k = 0; k < FK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + k * F_A_LD + am);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + k * F_A_LD + am + 32);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * F_B_LD + bn);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + k * F_B_LD + bn + 16);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  if (sums) {
+    // the runs of rows of each column, added in order
+    red[threadIdx.x] = csum;
+    __syncthreads();
+    const int n = n0 + threadIdx.x;
+    if (threadIdx.x < FN && n < g.N) {
+      float total = red[threadIdx.x];
+#pragma unroll
+      for (int q = 1; q < NT / FN; ++q) total += red[q * FN + threadIdx.x];
+      g.colsum_ws[((size_t)split * g.dirs + dir) * g.N + n] = total;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + am + (i < 4 ? i : 28 + i);
+    if (m >= g.M) continue;
+    const size_t row = (((size_t)split * g.dirs + dir) * g.M + m) * g.N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + bn + 16 * h;
+      if (n >= g.N) continue;
+      float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
+      const int cnt = min(4, g.N - n);
+      if constexpr (EPI == EPI_BIAS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (e < cnt) v[e] += g.bias[(size_t)dir * g.N + n + e];
+      } else if constexpr (EPI == EPI_ADD_F32) {
+        if (g.vec_out && cnt == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(g.bias + row + n);
+          v[0] = x.x + v[0];
+          v[1] = x.y + v[1];
+          v[2] = x.z + v[2];
+          v[3] = x.w + v[3];
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (e < cnt) v[e] = g.bias[row + n + e] + v[e];
+        }
+      }
+      if (g.vec_out && cnt == 4) {
+        *reinterpret_cast<float4*>(g.out + row + n) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (e < cnt) g.out[row + n + e] = v[e];
+      }
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -1085,6 +1261,26 @@ int launch_wgmma(const WgmmaArgs& g, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// kind 2's second pass: the K slices' sums [splits, dirs, M, N] into outf
+// and (colsum_ws not null) their column sums [splits, dirs, N] into
+// colsum, each added in the order 0 .. splits - 1
+int finish_kind2(int dirs, int M, int N, int splits, const float* splitk_ws, float* outf,
+                 const float* colsum_ws, float* colsum, cudaStream_t stream) {
+  int err = 0;
+  if (splits > 1) {
+    const size_t count = (size_t)dirs * M * N;
+    const int blocks = (int)std::min<size_t>((count + 255) / 256, 132 * 8);
+    gemm_splitk_sum<<<blocks, 256, 0, stream>>>(splitk_ws, outf, count, splits);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  if (colsum_ws != nullptr) {
+    colsum_finish<<<(dirs * N + 255) / 256, 256, 0, stream>>>(colsum_ws, splits, dirs * N,
+                                                              colsum);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  return 0;
+}
+
 // kind as nabu_blstm_gemm_bf16's; A and B must be 16-byte aligned with
 // lda, ldb multiples of 8 (the wrapper's predicate), K >= 1. splits > 1
 // (kind 2 only) writes the slices to splitk_ws [splits, dirs, M, N] first;
@@ -1136,18 +1332,7 @@ int launch_gemm_wgmma(const void* const* a, const void* const* b, int lda, int l
     case 3: err = launch_wgmma<false, true, EPI_ADD_F32>(g, stream); break;
   }
   if (err) return err;
-  if (splits > 1) {
-    const size_t count = (size_t)dirs * M * N;
-    const int blocks = (int)std::min<size_t>((count + 255) / 256, 132 * 8);
-    gemm_splitk_sum<<<blocks, 256, 0, stream>>>(splitk_ws, outf, count, splits);
-    if ((err = (int)cudaGetLastError())) return err;
-  }
-  if (g.colsum_ws != nullptr) {
-    colsum_finish<<<(dirs * N + 255) / 256, 256, 0, stream>>>(colsum_ws, splits, dirs * N,
-                                                              colsum);
-    if ((err = (int)cudaGetLastError())) return err;
-  }
-  return 0;
+  return finish_kind2(dirs, M, N, splits, splitk_ws, outf, g.colsum_ws, colsum, stream);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -1163,36 +1348,82 @@ int launch_gemm_bf16(const GemmArgs<bf16>& g, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool A_COL, bool B_COL, int EPI>
-int launch_gemm_f32(const GemmArgs<float>& g, cudaStream_t stream) {
-  const dim3 grid((g.N + SN - 1) / SN, (g.M + SM_ - 1) / SM_, g.dirs);
-  gemm_simt_f32<A_COL, B_COL, EPI><<<grid, S_THREADS, 0, stream>>>(g);
-  return (int)cudaGetLastError();
-}
-
 // the layouts the layers use: proj (row, row, bias), dx (row, col,
 // cast), dwx / dwh (col, row, f32), the v1 gates recompute (row, row, f32
 // plus addend)
-template <typename T>
-int launch_gemm(const GemmArgs<T>& g, int kind, cudaStream_t stream) {
+int launch_gemm_wmma(const GemmArgs<bf16>& g, int kind, cudaStream_t stream) {
   if (g.M <= 0 || g.N <= 0) return 0;
   if (g.dirs != 1 && g.dirs != 2) return (int)cudaErrorInvalidValue;
-  if constexpr (sizeof(T) == 2) {
-    switch (kind) {
-      case 0: return launch_gemm_bf16<false, false, EPI_BIAS>(g, stream);
-      case 1: return launch_gemm_bf16<false, true, EPI_CAST>(g, stream);
-      case 2: return launch_gemm_bf16<true, false, EPI_F32>(g, stream);
-      case 3: return launch_gemm_bf16<false, false, EPI_ADD_F32>(g, stream);
-    }
-  } else {
-    switch (kind) {
-      case 0: return launch_gemm_f32<false, false, EPI_BIAS>(g, stream);
-      case 1: return launch_gemm_f32<false, true, EPI_CAST>(g, stream);
-      case 2: return launch_gemm_f32<true, false, EPI_F32>(g, stream);
-      case 3: return launch_gemm_f32<false, false, EPI_ADD_F32>(g, stream);
-    }
+  switch (kind) {
+    case 0: return launch_gemm_bf16<false, false, EPI_BIAS>(g, stream);
+    case 1: return launch_gemm_bf16<false, true, EPI_CAST>(g, stream);
+    case 2: return launch_gemm_bf16<true, false, EPI_F32>(g, stream);
+    case 3: return launch_gemm_bf16<false, false, EPI_ADD_F32>(g, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <bool A_MN, bool B_MN, int EPI>
+int launch_ffma(const FfmaArgs& g, cudaStream_t stream) {
+  auto kernel = gemm_ffma_f32<A_MN, B_MN, EPI>;
+  // the ring is dynamic shared memory beyond 48 KB, and the resident
+  // blocks need the whole carve-out: set once per kernel and device
+  static int configured_device = -1;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device != configured_device) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    configured_device = device;
+  }
+  const dim3 grid((g.N + FN - 1) / FN, (g.M + FM - 1) / FM, g.dirs * g.splits);
+  kernel<<<grid, F_THREADS, F_SMEM, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// the f32 GEMM (gemm_ffma_f32), every layout; kinds as nabu_blstm_gemm_bf16's,
+// splits K slices for kind 2 (splitk_ws [splits, dirs, M, N]), colsum_ws
+// [splits, dirs, N] for the column sums
+int launch_gemm_ffma(const void* const* a, const void* const* b, int lda, int ldb, int M, int N,
+                     int K, int kind, int dirs, int splits, const void* bias, void* out,
+                     float* outf, float* colsum, float* colsum_ws, float* splitk_ws,
+                     cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if ((dirs != 1 && dirs != 2) || K < 0 || splits < 1 || (splits > 1 && kind != 2) ||
+      kind < 0 || kind > 3)
+    return (int)cudaErrorInvalidValue;
+  FfmaArgs g;
+  for (int d = 0; d < 2; ++d) {
+    g.a[d] = (const float*)a[std::min(d, dirs - 1)];
+    g.b[d] = (const float*)b[std::min(d, dirs - 1)];
+  }
+  g.lda = lda;
+  g.ldb = ldb;
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.dirs = dirs;
+  g.splits = splits;
+  // A is MN-major for kind 2 only, B for every kind but 1
+  g.a_vec = kind == 2 && lda % 4 == 0 && aligned16(g.a[0]) && aligned16(g.a[1]);
+  g.b_vec = kind != 1 && ldb % 4 == 0 && aligned16(g.b[0]) && aligned16(g.b[1]);
+  g.bias = (const float*)bias;
+  g.out = kind <= 1 ? (float*)out : splits > 1 ? splitk_ws : outf;
+  g.vec_out = N % 4 == 0 && aligned16(g.out) && (kind != 3 || aligned16(bias));
+  g.colsum_ws = kind == 2 && colsum != nullptr ? colsum_ws : nullptr;
+  int err = 0;
+  switch (kind) {
+    case 0: err = launch_ffma<false, true, EPI_BIAS>(g, stream); break;
+    case 1: err = launch_ffma<false, false, EPI_CAST>(g, stream); break;
+    case 2: err = launch_ffma<true, true, EPI_F32>(g, stream); break;
+    case 3: err = launch_ffma<false, true, EPI_ADD_F32>(g, stream); break;
+  }
+  if (err || kind != 2) return err;
+  return finish_kind2(dirs, M, N, splits, splitk_ws, outf, g.colsum_ws, colsum, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1536,7 +1767,7 @@ extern "C" int nabu_blstm_gemm_bf16(const void* a0, const void* a1, const void* 
                                     float* outf, float* colsum, void* stream) {
   GemmArgs<bf16> g{{(const bf16*)a0, (const bf16*)a1}, {(const bf16*)b0, (const bf16*)b1},
                    lda, ldb, M, N, K, dirs, (const bf16*)bias, (bf16*)out, outf, colsum};
-  return launch_gemm(g, kind, (cudaStream_t)stream);
+  return launch_gemm_wmma(g, kind, (cudaStream_t)stream);
 }
 
 // the Hopper GEMM (gemm_wgmma_bf16) for operands TMA can read; kinds as
@@ -1553,13 +1784,17 @@ extern "C" int nabu_blstm_gemm_wgmma_bf16(const void* a0, const void* a1, const 
                            colsum_ws, splitk_ws, (cudaStream_t)stream);
 }
 
+// the f32 GEMM (gemm_ffma_f32) for every layout; arguments as
+// nabu_blstm_gemm_wgmma_bf16's
 extern "C" int nabu_blstm_gemm_f32(const void* a0, const void* a1, const void* b0,
                                    const void* b1, int lda, int ldb, int M, int N, int K,
-                                   int kind, int dirs, const void* bias, void* out,
-                                   float* outf, float* colsum, void* stream) {
-  GemmArgs<float> g{{(const float*)a0, (const float*)a1}, {(const float*)b0, (const float*)b1},
-                    lda, ldb, M, N, K, dirs, (const float*)bias, (float*)out, outf, colsum};
-  return launch_gemm(g, kind, (cudaStream_t)stream);
+                                   int kind, int dirs, int splits, const void* bias, void* out,
+                                   float* outf, float* colsum, float* colsum_ws,
+                                   float* splitk_ws, void* stream) {
+  const void* a[2] = {a0, a1};
+  const void* b[2] = {b0, b1};
+  return launch_gemm_ffma(a, b, lda, ldb, M, N, K, kind, dirs, splits, bias, out, outf, colsum,
+                          colsum_ws, splitk_ws, (cudaStream_t)stream);
 }
 
 extern "C" int nabu_blstm_recur_bf16(const void* xw, const int* lengths, const void* wh,

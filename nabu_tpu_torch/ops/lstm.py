@@ -25,8 +25,9 @@ Port of the JAX package's ``ops/pallas/lstm.py`` (``lstm_scan_pallas`` ->
 - ``lstm_bwd_recur``: the backward's serial chain (``_bwd_kernel``'s
   per-step arithmetic), dh and dc carried in f32, dxw written in f32;
 - ``lstm_bwd_dwh``: ``h_prev^T @ dxw`` in f32 (accumulated inside
-  ``_bwd_kernel`` on the TPU), the GEMM over two halves of the rows,
-  added by the wrapper.
+  ``_bwd_kernel`` on the TPU), one launch of the f32 GEMM over all
+  (T - 1) B rows, whose split plan (``ops.blstm.split_k_f32``) cuts K
+  into slices added in a fixed order.
 
 ``LSTMLayer`` is the ``torch.autograd.Function`` over the walk and the
 chain; the projection's gradients (dx, dwx, db) come from autograd
@@ -57,6 +58,7 @@ from nabu_tpu_torch.ops.blstm import (
     _check_shape,
     _gemm,
     _stream,
+    kind2_product,
 )
 from nabu_tpu_torch.ops.kernels import build
 
@@ -303,11 +305,11 @@ def lstm_bwd_recur(gates, c, gy, lengths, wh, forget_bias: float = 1.0):
 
 def lstm_bwd_dwh_plain(hs, dxw) -> torch.Tensor:
     """hs [T, B, H] the carried h, dxw [T, B, 4H] -> dwh = h_prev^T @ dxw
-    [H, 4H] f32, h_prev the carry one step back (zero at the first)."""
+    [H, 4H] f32, h_prev the carry one step back (zero at the first, so
+    the (T - 1) B tokens that have one: ``kind2_product``)."""
     T, B, H = hs.shape
-    hprev = torch.zeros((T, B, H), dtype=torch.float32, device=hs.device)
-    hprev[1:] = hs[:-1].to(torch.float32)
-    return torch.matmul(hprev.reshape(T * B, H).t(), dxw.reshape(T * B, 4 * H).to(torch.float32))
+    K = (T - 1) * B
+    return kind2_product(hs[:-1].reshape(K, H), dxw[1:].reshape(K, 4 * H), 1)
 
 
 def lstm_bwd_dwh(hs, dxw) -> torch.Tensor:
@@ -321,15 +323,12 @@ def lstm_bwd_dwh(hs, dxw) -> torch.Tensor:
     _check_shape(f"{name}: dxw", dxw, (T, B, H4), torch.float32)
     if T <= 1:  # h_prev is zero throughout
         return torch.zeros((H, H4), dtype=torch.float32, device=dxw.device)
-    K = (T - 1) * B  # rows of h_prev^T @ dxw[1:]
-    dirs = 2 if K % 2 == 0 else 1
-    Kd = K // dirs
-    out = torch.zeros((dirs, H, H4), dtype=torch.float32, device=dxw.device)
-    a0, b0 = hs.data_ptr(), dxw.data_ptr() + B * H4 * 4
-    a = (a0, a0 + Kd * H * 4)
-    b = (b0, b0 + Kd * H4 * 4)
-    _gemm(name, "f32", a, b, H, H4, H, H4, Kd, _TN, outf=out, dirs=dirs)
-    return out[0] + out[1] if dirs == 2 else out[0]
+    # one launch over the (T - 1) B rows of h_prev^T @ dxw[1:]; the GEMM's
+    # split plan cuts K
+    out = torch.empty((H, H4), dtype=torch.float32, device=dxw.device)
+    a, b = hs.data_ptr(), dxw.data_ptr() + B * H4 * 4
+    _gemm(name, "f32", (a, a), (b, b), H, H4, H, H4, (T - 1) * B, _TN, outf=out, dirs=1)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""The pure Python parts that decide how ``csrc/blstm.cu``'s bf16 GEMM
-runs on the card: the kernel a launch takes (``gemm_variant``) and the K
-slices of the weight gradients (``split_k``, ``split_bounds``).
+"""The pure Python parts that decide how ``csrc/blstm.cu``'s GEMMs run on
+the card: the bf16 kernel a launch takes (``gemm_variant``) and the K
+slices of the weight gradients (``split_k`` for bf16, ``split_k_f32`` for
+the f32 FFMA kernel, ``split_bounds``).
 
 The launches below are the ones the wrappers of ``ops.blstm``,
 ``ops.blstm_v1`` and ``ops.lstm`` make (leading dimensions and each
@@ -195,3 +196,106 @@ def test_split_v1_dwh_agrees_with_the_whole():
     dwh = sum(torch.matmul(a[:, k0:k1].transpose(1, 2), b[:, k0:k1])
               for k0, k1 in bo.split_bounds(K, S))
     _close(dwh, v1.blstm_v1_bwd_dwh_plain(hs, dg))
+
+
+# --- the f32 GEMM's split plan ------------------------------------------------
+
+@pytest.mark.parametrize("M", [1, 128, 1000, 32768, 1 << 20])
+@pytest.mark.parametrize("kind", [0, 1, 3])
+def test_f32_plan_splits_only_kind_2(kind, M):
+    """The f32 plan never splits kinds 0, 1 and 3, whatever M (lstm_proj's
+    rows keep their bits chunk by chunk)."""
+    for N, K, dirs in ((512, 40, 2), (1024, 1024, 2), (1280, 320, 1), (2048, 32768, 2)):
+        assert bo.split_k_f32(kind, M, N, K, dirs) == 1
+
+
+@pytest.mark.parametrize("K", [1, 15, 16, 17, 3840, 32736, 65536])
+@pytest.mark.parametrize("S", [1, 2, 8, 13, 16])
+def test_f32_split_bounds_cover_k_in_whole_tiles(K, S):
+    tiles = -(-K // bo.F32_TILE_K)
+    if S > tiles:
+        return
+    bounds = bo.split_bounds(K, S, bo.F32_TILE_K)
+    assert len(bounds) == S and bounds[0][0] == 0 and bounds[-1][1] == K
+    for (a0, a1), (b0, _) in zip(bounds, bounds[1:]):
+        assert a1 == b0 and a1 % bo.F32_TILE_K == 0
+    assert all(k0 % bo.F32_TILE_K == 0 and k1 > k0 for k0, k1 in bounds)
+
+
+# (M, N, K, dirs) of the recipes' f32 kind-2 launches at B = 32 (v1: 64),
+# T = 1024, and the S the plan takes
+_F32_KIND2 = [
+    # lstm_bwd_dwh (dirs 1), the streaming encoder and the prediction net
+    ((320, 1280, 1023 * 32, 1), 5),
+    ((320, 1280, 120 * 32, 1), 5),
+    # dwx + db at H = 320: the first layers (D = 40, 80), 2H, the pyramids
+    ((40, 1280, 32768, 2), 13),
+    ((80, 1280, 32768, 2), 13),
+    ((256, 1280, 32768, 2), 13),
+    ((640, 1280, 32768, 2), 5),
+    ((1024, 1280, 32768, 2), 4),
+    ((1280, 1280, 32768, 2), 5),
+    ((2048, 1280, 32768, 2), 2),
+    # dwh at H = 128 (ctc_blstm_timit), 256 (las_timit), 320, 512
+    ((128, 512, 1023 * 32, 2), 16),
+    ((256, 1024, 1023 * 32, 2), 4),
+    ((320, 1280, 1023 * 32, 2), 5),
+    ((512, 2048, 1023 * 32, 2), 1),
+    # v1 dwh at B = 64
+    ((512, 2048, 1024 * 64, 2), 1),
+    ((512, 2048, 512 * 64, 2), 1),
+]
+
+
+@pytest.mark.parametrize("shape,want", _F32_KIND2)
+def test_split_k_f32_of_the_recipes(shape, want):
+    """S is a pure function of (M, N, K, dirs), at most MAX_SPLITS slices
+    of at least F32_MIN_SLICE_TILES 16-deep K tiles each."""
+    M, N, K, dirs = shape
+    S = bo.split_k_f32(2, M, N, K, dirs)
+    assert S == want == bo.split_k_f32(2, M, N, K, dirs)
+    assert 1 <= S <= bo.MAX_SPLITS
+    assert S == 1 or -(-K // bo.F32_TILE_K) // S >= bo.F32_MIN_SLICE_TILES
+
+
+@pytest.mark.parametrize("T", [2, 9, 121])
+def test_lstm_bwd_dwh_split_agrees_with_the_whole(T):
+    """lstm_bwd_dwh's one launch over K = (T - 1) B rows (h_prev at t with
+    dxw at t, t >= 1): the plain product summed slice by slice over the f32
+    plan's slices equals the whole."""
+    from nabu_tpu_torch.ops import lstm as lo
+
+    rng = np.random.default_rng(3)
+    B, H = 32, 16
+    K = (T - 1) * B
+    hs = torch.as_tensor(rng.uniform(-1, 1, (T, B, H)).astype(np.float32))
+    dxw = torch.as_tensor(rng.uniform(-1, 1, (T, B, 4 * H)).astype(np.float32))
+    S = max(2, min(bo.split_k_f32(2, H, 4 * H, K, 1), -(-K // bo.F32_TILE_K)))
+    a, b = hs[:-1].reshape(K, H), dxw[1:].reshape(K, 4 * H)
+    dwh = sum(torch.matmul(a[k0:k1].t(), b[k0:k1])
+              for k0, k1 in bo.split_bounds(K, S, bo.F32_TILE_K))
+    _close(dwh, lo.lstm_bwd_dwh_plain(hs, dxw))
+    assert torch.equal(lo.lstm_bwd_dwh(hs, dxw), lo.lstm_bwd_dwh_plain(hs, dxw))
+
+
+def test_kind2_product_sums_the_f32_slices_in_order():
+    """The f32 weight gradients' plain product repeats the f32 kernel's
+    reduction: one product a K slice of ``split_k_f32``, the slices added
+    in order (bit for bit), equal to the whole product at rtol 1e-5; bf16
+    operands take one upcast product."""
+    rng = np.random.default_rng(4)
+    K, M, N = 9 * 512, 16, 64
+    S = bo.split_k_f32(2, M, N, K, 2)
+    assert S > 1
+    a = torch.as_tensor(rng.uniform(-1, 1, (2, K, M)).astype(np.float32))
+    b = torch.as_tensor(rng.uniform(-1, 1, (2, K, N)).astype(np.float32))
+    got = bo.kind2_product(a, b, 2)
+    want = None
+    for k0, k1 in bo.split_bounds(K, S, bo.F32_TILE_K):
+        part = torch.matmul(a[:, k0:k1].transpose(1, 2), b[:, k0:k1])
+        want = part if want is None else want + part
+    assert torch.equal(got, want)
+    _close(got, torch.matmul(a.transpose(1, 2), b))
+    ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    assert torch.equal(bo.kind2_product(ab, bb, 2),
+                       torch.matmul(ab.float().transpose(1, 2), bb.float()))

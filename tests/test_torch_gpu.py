@@ -1236,3 +1236,171 @@ _real_gemm = blstm_ops._gemm
 def _gemm_dirs3(*args, **kw):
     kw["dirs"] = 3
     return _real_gemm(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the f32 GEMM of csrc/blstm.cu (register-blocked FFMA, split-K for kind 2)
+# ---------------------------------------------------------------------------
+
+def _f32_case(device, kind, dirs, M, N, K, seed=0):
+    """Operands of one f32 GEMM launch of ``kind`` in the wrappers' layouts
+    (as ``_gemm_case``), B scaled by 1 / sqrt(K); -> (launch, reference),
+    launch(rows) running the output rows [r0, r1) (A's rows and the addend
+    cut to them; every row by default), reference in float64."""
+    rng = np.random.default_rng(seed)
+
+    def u(*shape, scale=1.0):
+        return torch.as_tensor(rng.uniform(-scale, scale, shape).astype(np.float32)).to(device)
+
+    a = u(dirs, K, M) if kind == 2 else u(dirs, M, K)
+    b = u(dirs, N, K, scale=K ** -0.5) if kind == 1 else u(dirs, K, N, scale=K ** -0.5)
+    bias = u(dirs, N, scale=0.1) if kind == 0 else u(dirs, M, N) if kind == 3 else None
+    lda = M if kind == 2 else K
+    ldb = K if kind == 1 else N
+
+    def launch(rows=(0, M)):
+        r0, r1 = rows
+        m = r1 - r0
+        out = torch.empty((dirs, m, N), dtype=torch.float32, device=device)
+        colsum = torch.empty((dirs, N), dtype=torch.float32, device=device) if kind == 2 else None
+        add = bias[:, r0:r1].contiguous() if kind == 3 else bias
+        pa = tuple(a[min(d, dirs - 1), r0:].data_ptr() for d in range(2))
+        pb = tuple(b[min(d, dirs - 1)].data_ptr() for d in range(2))
+        blstm_ops._gemm(_GEMM_NAME[kind], "f32", pa, pb, lda, ldb, m, N, K, kind, bias=add,
+                        out=out if kind <= 1 else None, outf=out if kind >= 2 else None,
+                        colsum=colsum, dirs=dirs)
+        return out, colsum
+
+    def reference():
+        f64 = torch.float64
+        af = a.to(f64).transpose(1, 2) if kind == 2 else a.to(f64)
+        bf = b.to(f64).transpose(1, 2) if kind == 1 else b.to(f64)
+        acc = torch.matmul(af, bf)
+        if kind == 0:
+            return acc + bias.to(f64)[:, None, :], None
+        if kind == 2:
+            return acc, b.to(f64).sum(dim=1)
+        if kind == 3:
+            return acc + bias.to(f64), None
+        return acc, None
+
+    return launch, reference
+
+
+# f32 sums of K products in order (or in S slices) against float64: the
+# rounding of a running sum of order 1, ~1e-7 a step
+_F32_TOL = (1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("dirs", [1, 2])
+@pytest.mark.parametrize("kind,M,N,K", [
+    (0, 1000, 1280, 80), (0, 77, 1001, 640), (0, 300, 36, 11),
+    (1, 1000, 1280, 1280), (1, 300, 11, 36), (1, 129, 1000, 120),
+    (2, 320, 1280, 32736), (2, 9, 36, 150), (2, 1000, 2048, 640), (2, 321, 1001, 4100),
+    (3, 1000, 2048, 512), (3, 150, 36, 9), (3, 130, 1001, 320),
+])
+def test_gemm_f32_matches_float64(cuda_device, kind, M, N, K, dirs):
+    """Each kind of the f32 FFMA GEMM against the float64 product, with M, N
+    and K off the 128 x 128 x 16 tiles, one and two operand pairs, leading
+    dimensions that are and are not multiples of 4 (16- and 4-byte
+    copies); kind 2 with its column sums, split where ``split_k_f32``
+    cuts K. No bf16 GEMM runs."""
+    launch, reference = _f32_case(cuda_device, kind, dirs, M, N, K)
+    kernels.reset_launch_counts()
+    got, colsum = launch()
+    ref, ref_colsum = reference()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[_GEMM_NAME[kind]] == 1
+    assert kernels.variant_counts() == {"gemm_bf16_wgmma": 0, "gemm_bf16_wmma": 0}
+    _assert_close(got, ref, _F32_TOL, "out")
+    if kind == 2:
+        _assert_close(colsum, ref_colsum, _F32_TOL, "colsum")
+
+
+@pytest.mark.parametrize("M,N,K,dirs", [(320, 1280, 32736, 1), (320, 1280, 32736, 2),
+                                        (128, 512, 3840, 2), (2048, 2048, 640, 2)])
+def test_gemm_f32_kind2_split_and_repeat(cuda_device, M, N, K, dirs):
+    """Kind 2, split (S > 1) and unsplit: right against float64, and a
+    second launch gives the same bits, column sums included."""
+    S = blstm_ops.split_k_f32(2, M, N, K, dirs)
+    assert (S > 1) == (K > 640), S
+    launch, reference = _f32_case(cuda_device, 2, dirs, M, N, K, seed=1)
+    first, first_cs = launch()
+    second, second_cs = launch()
+    ref, ref_cs = reference()
+    torch.cuda.synchronize()
+    _assert_close(first, ref, _F32_TOL, f"S = {S}")
+    _assert_close(first_cs, ref_cs, _F32_TOL, "colsum")
+    assert torch.equal(first, second) and torch.equal(first_cs, second_cs)
+
+
+@pytest.mark.parametrize("kind,M,N,K", [(0, 1000, 1280, 320), (1, 1000, 36, 1280),
+                                        (3, 1000, 1280, 320), (0, 700, 1001, 9)])
+def test_gemm_f32_rows_keep_their_bits_whatever_m(cuda_device, kind, M, N, K):
+    """Kinds 0, 1 and 3 never split: rows [37, 237) of an M-row launch
+    equal, bit for bit, the same rows launched alone (other tile origins,
+    another M), as a streamed chunk's projection must equal the offline
+    one's."""
+    launch, _ = _f32_case(cuda_device, kind, 2, M, N, K, seed=2)
+    whole, _ = launch()
+    part, _ = launch((37, 237))
+    torch.cuda.synchronize()
+    assert torch.equal(whole[:, 37:237], part)
+
+
+@pytest.mark.parametrize("T,B,H", [(9, 4, 9), (9, 5, 12), (121, 32, 16)])
+def test_gemm_f32_wrappers_at_odd_widths(cuda_device, T, B, H):
+    """H = 9 and 12: the bw h_prev of dwh starts H elements into a row and
+    the leading dimensions (2H, H, 4H = 36) are off 16 bytes, so the
+    MN-major operands take the 4-byte copies; every f32 wrapper on the
+    GEMM against its plain version."""
+    from nabu_tpu_torch.ops import blstm_v1 as v1
+    from nabu_tpu_torch.ops import lstm as lo
+
+    rng = np.random.default_rng(7)
+
+    def u(*shape):
+        return torch.as_tensor(rng.uniform(-1, 1, shape).astype(np.float32)).to(cuda_device)
+
+    D, H4 = 11, 4 * H
+    x, dg, y, wx = u(T, B, D), u(2, T, B, H4), u(T, B, 2 * H), u(2, D, H4)
+    hs, wh, xw = u(2, T + 1, B, H), u(2, H, H4), u(2, T, B, H4)
+    bias = u(2, H4)
+    hl, dxw = hs[0, 1:], xw[0]
+    checks = {
+        "proj": (blstm_ops.blstm_proj(x.view(T * B, D), wx, bias),
+                 blstm_ops.blstm_proj_plain(x.view(T * B, D), wx, bias)),
+        "dx": (blstm_ops.blstm_bwd_dx(dg, wx), blstm_ops.blstm_bwd_dx_plain(dg, wx)),
+        "dwx": (blstm_ops.blstm_bwd_dwx(x, dg)[0], blstm_ops.blstm_bwd_dwx_plain(x, dg)[0]),
+        "db": (blstm_ops.blstm_bwd_dwx(x, dg)[1], blstm_ops.blstm_bwd_dwx_plain(x, dg)[1]),
+        "dwh": (blstm_ops.blstm_bwd_dwh(y, dg), blstm_ops.blstm_bwd_dwh_plain(y, dg)),
+        "v1_gates": (v1.blstm_v1_bwd_gates(xw, hs, wh), v1.blstm_v1_bwd_gates_plain(xw, hs, wh)),
+        "v1_dwh": (v1.blstm_v1_bwd_dwh(hs, dg), v1.blstm_v1_bwd_dwh_plain(hs, dg)),
+        "lstm_dwh": (lo.lstm_bwd_dwh(hl, dxw), lo.lstm_bwd_dwh_plain(hl, dxw)),
+    }
+    torch.cuda.synchronize()
+    # both f32, sums in another order (as test_blstm_backward_kernels_match_plain)
+    for name, (got, ref) in checks.items():
+        _assert_close(got, ref, _F32_TOL, name)
+
+
+def test_gemm_f32_failures_raise_with_the_launch_name(cuda_device, monkeypatch):
+    """A launch the kernel refuses (three operand pairs) and one CUDA
+    refuses (a grid of more than 65,535 row tiles) raise with the launch's
+    name; nothing is retried and no bf16 GEMM runs instead."""
+    kernels.reset_launch_counts()
+    launch, _ = _f32_case(cuda_device, 1, 2, 256, 256, 64)
+    with monkeypatch.context() as m:
+        m.setattr(blstm_ops, "_gemm", lambda *a, **kw: _gemm_dirs3(*a, **kw))
+        with pytest.raises(RuntimeError, match="blstm_bwd_dx: CUDA error"):
+            launch()
+    M = 65536 * 128 + 1
+    a = torch.zeros((M, 1), dtype=torch.float32, device=cuda_device)
+    b = torch.zeros((1, 1), dtype=torch.float32, device=cuda_device)
+    out = torch.empty((1, M, 1), dtype=torch.float32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="blstm_bwd_dx: CUDA error"):
+        blstm_ops._gemm("blstm_bwd_dx", "f32", (a.data_ptr(),) * 2, (b.data_ptr(),) * 2, 1, 1,
+                        M, 1, 1, 1, out=out, dirs=1)
+    torch.cuda.synchronize()
+    assert kernels.variant_counts() == {"gemm_bf16_wgmma": 0, "gemm_bf16_wmma": 0}
+    assert kernels.launch_counts()["blstm_bwd_dx"] == 0
