@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --quick    # build + one check of each kernel
+    python3 chip_smoke.py --sweep    # build + the f32 GEMM's K splits timed
 
 Phases, each printing JSON lines:
 
@@ -96,7 +97,8 @@ TMA + wgmma, or the earlier ``wmma``), its K slices, its TFLOP/s and the
 earlier WMMA kernel's time on the same inputs; the weight gradients (split
 K) launch twice and must repeat bit for bit. Each f32 GEMM row (the same
 wrappers in f32, ``lstm_bwd_dwh``) reports its K slices (``split_k_f32``)
-and TFLOP/s, its kind-2 rows repeating their bits likewise; further f32
+and TFLOP/s, its kind-2 rows (held to the float64 product) repeating their
+bits likewise; further f32
 rows (blstm_proj, dx, dwx + db, dwh) run at the layers of the two f32
 recipes, ctc_blstm_timit (H = 128, D = 40 and 256) and las_timit's
 Listener (H = 256, D = 40 and 1024), B = 32. Every serving and training
@@ -157,11 +159,11 @@ W, K = 400, 256
 #   the last product of the reduction dropped
 # - blstm_bwd_dwx / db / dwh: f32 sums over T x B = 32768 tokens in
 #   another order (the bf16 products' sums reach ~100, where f32 keeps
-#   ~1e-5 of them); in f32 the plain versions sum the f32 kernel's K
-#   slices in its order (ops.blstm.kind2_product), since one f32 sum in
-#   order over such a K lands up to ~3e-3 from the float64 product and no
-#   split sum can repeat its bits (the rows print both distances); fault:
-#   the last token's term dropped
+#   ~1e-5 of them); in f32 the kernel is held to the float64 product,
+#   since the plain version, one f32 sum over such a K in cuBLAS's order,
+#   lands up to ~3e-3 from it, and the kernel's split sums in another
+#   order (each row also prints that f32 product's distance from float64);
+#   fault: the last token's term dropped, the plain version's
 # - blstm_recur, blstm_recur_train: over 1024 dependent steps such
 #   one-step differences in the bf16 carry propagate; f32 stays tight;
 #   fault: 8 hidden units read h one step late (a missed barrier or
@@ -193,8 +195,8 @@ W, K = 400, 256
 #   one step late, the carry not held past a length (final carry)
 # - lstm_bwd_recur: f32 dgates from the same residuals (sums in another
 #   order); fault: the dgates of 8 units read one step stale
-# - lstm_bwd_dwh: f32 sums over T x B tokens, the plain version in the
-#   kernel's K slices as above; fault: the last token's term dropped
+# - lstm_bwd_dwh: f32 sums over T x B tokens, held to the float64 product
+#   as above; fault: the last token's term dropped
 # - stream_scores: streamed and offline greedy scores, the same bits
 #   expected (identical arithmetic per frame)
 # - blstm_v1_recur(_train): as blstm_recur (the same cell; over 1024
@@ -457,8 +459,8 @@ def f32_gemm_fields(torch, fn, kind, M, N, K, dirs, ops, ms, exact=None, library
     """The f32 GEMM row's extra readings: its K slices (``split_k_f32``),
     its TFLOP/s, and for kind 2 (split K) whether a second launch gives
     the first one's bits (a row whose bits differ fails the run) and, with
-    ``exact`` (the product in float64), how far the kernel and the one f32
-    library call (a sum over K in one order) land from it."""
+    ``exact`` (the product in float64, the row's reference), how far one
+    f32 library call (a sum over K in its own order) lands from it."""
     from nabu_tpu_torch.ops import blstm as bo
 
     fields = {"splits": bo.split_k_f32(kind, M, N, K, dirs),
@@ -471,11 +473,7 @@ def f32_gemm_fields(torch, fn, kind, M, N, K, dirs, ops, ms, exact=None, library
         if not same:
             FAILURES.append(f"f32 kind 2 GEMM M={M} N={N} K={K}: a second launch's bits differ")
         if exact is not None:
-            ref = exact()
-            got = first[0] if isinstance(first, tuple) else first
-            fields["f64_max_abs_err"] = float((got.double() - ref).abs().max())
-            fields["library_f64_max_abs_err"] = float((library().double() - ref).abs().max())
-            del ref
+            fields["library_f64_max_abs_err"] = float((library().double() - exact).abs().max())
     return fields
 
 
@@ -1356,13 +1354,15 @@ def v1_rows(torch, timed, reps) -> dict:
             tol = TOL[("blstm_v1_bwd_dwh", tag)]
             dgr = u((2, Tv, Bv, H4), dtype)
             dwh = v1.blstm_v1_bwd_dwh(hs, dgr)
-            ref_w = v1.blstm_v1_bwd_dwh_plain(hs, dgr)
+            hpt, d2 = hprev.transpose(1, 2), dgr.view(2, M, H4)
+            # f32 is held to the float64 product (TOL), bf16 to the plain version
+            ref_w = (torch.matmul(hpt.double(), d2.double()) if tag == "f32"
+                     else v1.blstm_v1_bwd_dwh_plain(hs, dgr))
             err = compare(torch, dwh, ref_w, tol, f"blstm_v1_bwd_dwh {key}")
             cut = dgr.clone()
             cut[0, Tv - 1, 0] = 0  # the full-length lane's last fw token
             fault = fault_reading(v1.blstm_v1_bwd_dwh_plain(hs, cut), ref_w, tol,
                                   f"blstm_v1_bwd_dwh {key}")
-            hpt, d2 = hprev.transpose(1, 2), dgr.view(2, M, H4)
             b_ms, b_by = bound(es * (2 * (Tv + 1) * Bv * Hv + 2 * M * H4) + 4 * 2 * Hv * H4,
                                2 * 2 * valid * Hv * H4, peak)
             row = {
@@ -1381,8 +1381,7 @@ def v1_rows(torch, timed, reps) -> dict:
             else:
                 row.update(f32_gemm_fields(
                     torch, lambda: v1.blstm_v1_bwd_dwh(hs, dgr), 2, Hv, H4, M, 2,
-                    2 * 2 * M * Hv * H4, row["ms"],
-                    exact=lambda: torch.matmul(hpt.double(), d2.double()),
+                    2 * 2 * M * Hv * H4, row["ms"], exact=ref_w,
                     library=lambda: torch.matmul(hpt, d2)))
             emit({"phase": "kernels", "kernel": "blstm_v1_bwd_dwh", "case": case, **row})
             rows[("blstm_v1_bwd_dwh", tag, case)] = row
@@ -1533,15 +1532,15 @@ def lstm_rows(torch, timed, reps) -> dict:
             # --- dwh ---------------------------------------------------------
             tol = TOL["lstm_bwd_dwh"]
             dwh = lo.lstm_bwd_dwh(hs, ref_dxw)
-            ref_w = lo.lstm_bwd_dwh_plain(hs, ref_dxw)
+            hprev = torch.zeros_like(hs)
+            hprev[1:] = hs[:-1]
+            hpt, d2 = hprev.view(M, H).t(), ref_dxw.view(M, H4)
+            ref_w = torch.matmul(hpt.double(), d2.double())  # f32: float64 (TOL)
             err = compare(torch, dwh, ref_w, tol, f"lstm_bwd_dwh {key}")
             cut = ref_dxw.clone()
             cut[Tq - 1, 0] = 0  # the last token of the full-length lane
             fault = fault_reading(lo.lstm_bwd_dwh_plain(hs, cut), ref_w, tol,
                                   f"lstm_bwd_dwh {key}")
-            hprev = torch.zeros_like(hs)
-            hprev[1:] = hs[:-1]
-            hpt, d2 = hprev.view(M, H).t(), ref_dxw.view(M, H4)
             b_ms, b_by = bound(4 * (M * H + M * H4 + H * H4), 2 * valid * H * H4, PEAK_F32)
             row = {
                 "shape": [H, M - B, H4], "dtype": "f32", "max_abs_err": err, "tol": tol,
@@ -1554,8 +1553,7 @@ def lstm_rows(torch, timed, reps) -> dict:
             }
             row.update(f32_gemm_fields(
                 torch, lambda: lo.lstm_bwd_dwh(hs, ref_dxw), 2, H, H4, M - B, 1,
-                2 * (M - B) * H * H4, row["ms"],
-                exact=lambda: torch.matmul(hpt.double(), d2.double()),
+                2 * (M - B) * H * H4, row["ms"], exact=ref_w,
                 library=lambda: torch.matmul(hpt, d2)))
             emit({"phase": "kernels", "kernel": "lstm_bwd_dwh", "case": case, "inputs": tag,
                   **row})
@@ -1743,7 +1741,12 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
 
         # dwx and db: the last token's term dropped
         dwx, db = bo.blstm_bwd_dwx(x, dgr)
-        ref_w, ref_b = bo.blstm_bwd_dwx_plain(x, dgr)
+        xt = x.view(M, D).t()
+        # f32 is held to the float64 product (TOL), bf16 to the plain version
+        if tag == "f32":
+            ref_w, ref_b = torch.matmul(xt.double(), dg2.double()), dg2.double().sum(dim=1)
+        else:
+            ref_w, ref_b = bo.blstm_bwd_dwx_plain(x, dgr)
         err = compare(torch, dwx, ref_w, tol_dw, f"blstm_bwd_dwx {tag} D={D}")
         db_err = compare(torch, db, ref_b, tol_dw, f"blstm_bwd_dwx {tag} D={D} db")
         x_cut = x.clone()
@@ -1756,7 +1759,6 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
                                  f"blstm_bwd_dwx {tag} D={D} db")
         b_ms, b_by = bound(es * (M * D + 2 * M * H4) + 4 * (2 * D * H4 + 2 * H4),
                            2 * (2 * M * D * H4 + M * H4), peak)
-        xt = x.view(M, D).t()
         row = {
             "shape": [D, M, H4], "dtype": tag, "max_abs_err": err, "db_max_abs_err": db_err,
             "tol": tol_dw, "fault_max_abs_err": fault, "db_fault_max_abs_err": db_fault,
@@ -1772,22 +1774,22 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
         else:
             row.update(f32_gemm_fields(
                 torch, lambda: bo.blstm_bwd_dwx(x, dgr), 2, D, H4, M, 2,
-                2 * (2 * M * D * H4 + M * H4), row["ms"],
-                exact=lambda: torch.matmul(xt.double(), dg2.double()),
+                2 * (2 * M * D * H4 + M * H4), row["ms"], exact=ref_w,
                 library=lambda: torch.matmul(xt, dg2)))
         emit({"phase": "kernels", "kernel": "blstm_bwd_dwx", **row})
         rows[("blstm_bwd_dwx", tag, D)] = row
 
     # dwh: the last token's term dropped
     dwh = bo.blstm_bwd_dwh(y, dgr)
-    ref = bo.blstm_bwd_dwh_plain(y, dgr)
+    hpt = hprev.view(2, M, H).transpose(1, 2)
+    ref = (torch.matmul(hpt.double(), dg2.double()) if tag == "f32"
+           else bo.blstm_bwd_dwh_plain(y, dgr))
     err = compare(torch, dwh, ref, tol_dw, f"blstm_bwd_dwh {tag}")
     cut = dgr.clone()
     cut[0, -1, -1] = 0
     fault = fault_reading(bo.blstm_bwd_dwh_plain(y, cut), ref, tol_dw, f"blstm_bwd_dwh {tag}")
     b_ms, b_by = bound(es * (M * 2 * H + 2 * M * H4) + 4 * 2 * H * H4,
                        2 * 2 * (M - B) * H * H4, peak)
-    hpt = hprev.view(2, M, H).transpose(1, 2)
     row = {
         "shape": [H, M - B, H4], "dtype": tag, "max_abs_err": err, "tol": tol_dw,
         "fault_max_abs_err": fault,
@@ -1803,8 +1805,7 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
     else:
         row.update(f32_gemm_fields(
             torch, lambda: bo.blstm_bwd_dwh(y, dgr), 2, H, H4, M - B, 2,
-            2 * 2 * (M - B) * H * H4, row["ms"],
-            exact=lambda: torch.matmul(hpt.double(), dg2.double()),
+            2 * 2 * (M - B) * H * H4, row["ms"], exact=ref,
             library=lambda: torch.matmul(hpt, dg2)))
     emit({"phase": "kernels", "kernel": "blstm_bwd_dwh", **row})
     rows[("blstm_bwd_dwh", tag)] = row
@@ -1814,9 +1815,10 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
 def f32_recipe_rows(torch, timed, reps) -> dict:
     """The f32 GEMM at the BLSTM layers of the two f32 recipes, B = 32
     (``F32_RECIPE_SHAPES``): blstm_proj, dx, dwx + db and dwh, each against
-    its plain version with the training rows' planted fault, one PyTorch
-    call as the yardstick (TF32 off), the bound, its K slices and TFLOP/s;
-    the kind-2 rows launch twice and must repeat their bits."""
+    its plain version (kind 2: the product in float64, see TOL) with the
+    training rows' planted fault, one PyTorch call as the yardstick (TF32
+    off), the bound, its K slices and TFLOP/s; the kind-2 rows launch twice
+    and must repeat their bits."""
     from nabu_tpu_torch.ops import blstm as bo
 
     dev = torch.device("cuda")
@@ -1846,7 +1848,7 @@ def f32_recipe_rows(torch, timed, reps) -> dict:
         tol_dw = TOL[("blstm_bwd_dw", "f32")]
         products = (
             # name, kind, (M, N, K), kernel, plain, fault, library, bytes, tol,
-            # and for kind 2 the product in float64
+            # and for kind 2 the reference: the product in float64
             ("blstm_proj", 0, (M, H4, D), lambda: bo.blstm_proj(x2, wx, bias),
              lambda: bo.blstm_proj_plain(x2, wx, bias),
              lambda: bo.blstm_proj_plain(x_cut, wx, bias),
@@ -1864,7 +1866,7 @@ def f32_recipe_rows(torch, timed, reps) -> dict:
              ("torch.matmul x^T @ dg (both directions; db not included)",
               lambda: torch.matmul(x2.t(), dg2)),
              M * D + 2 * M * H4 + 2 * D * H4 + 2 * H4, tol_dw,
-             lambda: torch.matmul(x2.t().double(), dg2.double())),
+             lambda: (torch.matmul(x2.t().double(), dg2.double()), dg2.double().sum(dim=1))),
             ("blstm_bwd_dwh", 2, (Hr, H4, M - B), lambda: bo.blstm_bwd_dwh(y, dg),
              lambda: bo.blstm_bwd_dwh_plain(y, dg), lambda: bo.blstm_bwd_dwh_plain(y, dg_tok),
              ("torch.matmul hprev^T @ dg (both directions)", lambda: torch.matmul(hpt, dg2)),
@@ -1873,7 +1875,8 @@ def f32_recipe_rows(torch, timed, reps) -> dict:
         )
         for name, kind, (Mk, Nk, Kk), fn, plain, faulty, (library, lib), nbytes, tol, exact \
                 in products:
-            got, ref, bad = fn(), plain(), faulty()
+            got, bad = fn(), faulty()
+            ref = plain() if exact is None else exact()
             pairs = zip(got, ref, bad) if isinstance(got, tuple) else ((got, ref, bad),)
             errs, faults = [], []
             for part, (g, r, f) in zip(("", " db"), pairs):
@@ -1891,12 +1894,77 @@ def f32_recipe_rows(torch, timed, reps) -> dict:
             if len(errs) > 1:
                 row.update({"db_max_abs_err": errs[1], "db_fault_max_abs_err": faults[1]})
             row.update(f32_gemm_fields(torch, fn, kind, Mk, Nk, Kk, 2, ops, row["ms"],
-                                       exact=exact, library=lib))
+                                       exact=ref[0] if isinstance(ref, tuple) else ref,
+                                       library=lib))
             emit({"phase": "kernels", "kernel": name, **row})
             rows[(name, "f32", recipe, Tr, D)] = row
             del got, ref, bad
         del x, dg, y, hprev, x_cut, dg_col, dg_tok, x_tok
     return rows
+
+
+# the f32 GEMM's kind-2 launches of the recipes, B = 32 (v1: 64), for
+# --sweep: (launch, T, H, D); D is dwx's input width, None for dwh
+F32_SWEEP = (("lstm_bwd_dwh", 1024, 320, None), ("lstm_bwd_dwh", 121, 320, None),
+             ("blstm_bwd_dwh", 1024, 320, None), ("blstm_bwd_dwx", 1024, 320, 80),
+             ("blstm_bwd_dwx", 1024, 320, 640), ("blstm_bwd_dwx", 1024, 320, 1280),
+             ("blstm_bwd_dwx", 1024, 128, 40), ("blstm_bwd_dwx", 1024, 128, 256),
+             ("blstm_bwd_dwh", 1024, 128, None), ("blstm_bwd_dwx", 1024, 256, 40),
+             ("blstm_bwd_dwx", 512, 256, 1024), ("blstm_bwd_dwh", 1024, 256, None),
+             ("blstm_bwd_dwh", 512, 256, None), ("blstm_v1_bwd_dwh", 1024, 512, None),
+             ("blstm_v1_bwd_dwh", 512, 512, None))
+
+
+def phase_sweep(torch, reps: int = 20) -> None:
+    """Time each kind-2 f32 launch of ``F32_SWEEP`` at every K split S
+    (1 .. MAX_SPLITS, at least one K tile a slice), ``split_k_f32`` set to
+    S: one line a launch and S with the time (CUDA events, mean of
+    ``reps``) and ``split_k_f32``'s cost model, then one a launch with the
+    plan's S, the fastest S, and the time a K tile of one block that the
+    plan's reading implies (the model's constant, ``_F32_TILE_STEP_MS``)."""
+    from nabu_tpu_torch.ops import blstm as bo
+    from nabu_tpu_torch.ops import blstm_v1 as v1
+    from nabu_tpu_torch.ops import lstm as lo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+
+    def u(*shape):
+        return torch.as_tensor(rng.uniform(-1, 1, shape).astype(np.float32), device=dev)
+
+    for launch, Tq, Hq, D in F32_SWEEP:
+        Bq, H4 = (64 if launch == "blstm_v1_bwd_dwh" else B), 4 * Hq
+        if launch == "lstm_bwd_dwh":
+            hs, dxw = u(Tq, Bq, Hq), u(Tq, Bq, H4)
+            fn, (M, K, dirs) = (lambda: lo.lstm_bwd_dwh(hs, dxw)), (Hq, (Tq - 1) * Bq, 1)
+        elif launch == "blstm_bwd_dwx":
+            x, dg = u(Tq, Bq, D), u(2, Tq, Bq, H4)
+            fn, (M, K, dirs) = (lambda: bo.blstm_bwd_dwx(x, dg)), (D, Tq * Bq, 2)
+        elif launch == "blstm_bwd_dwh":
+            y, dg = u(Tq, Bq, 2 * Hq), u(2, Tq, Bq, H4)
+            fn, (M, K, dirs) = (lambda: bo.blstm_bwd_dwh(y, dg)), (Hq, (Tq - 1) * Bq, 2)
+        else:
+            hs, dg = u(2, Tq + 1, Bq, Hq), u(2, Tq, Bq, H4)
+            fn, (M, K, dirs) = (lambda: v1.blstm_v1_bwd_dwh(hs, dg)), (Hq, Tq * Bq, 2)
+        N, ktiles = H4, -(-K // bo.F32_TILE_K)
+        plan = bo.split_k_f32(2, M, N, K, dirs)
+        case = {"launch": launch, "T": Tq, "H": Hq, "D": D, "shape": [M, N, K], "dirs": dirs}
+        times = {}
+        for S in range(1, min(bo.MAX_SPLITS, ktiles) + 1):
+            with swapped(bo, "split_k_f32", lambda *a, S=S: S):
+                times[S] = time_ms(torch, fn, reps)
+            emit({"phase": "sweep", **case, "S": S, "ms": times[S],
+                  "model_ms": bo._split_cost(M, N, K, dirs, S, bo._F32_MODEL)})
+        tm, tn, tk, resident, _ = bo._F32_MODEL
+        waves = -(-(-(-M // tm) * -(-N // tn) * dirs * plan) // resident)
+        sums_ms = (2 * plan + 1) * dirs * M * N * 4 / bo._SUM_BYTES_PER_MS if plan > 1 else 0.0
+        best = min(times, key=times.get)
+        emit({"phase": "sweep_best", **case, "plan_S": plan, "plan_ms": times[plan],
+              "best_S": best, "best_ms": times[best],
+              "step_ms": (times[plan] - sums_ms) / (waves * -(-ktiles // plan)),
+              "model_step_ms": bo._F32_TILE_STEP_MS})
+        torch.cuda.empty_cache()
 
 
 def ctc_rows(torch, timed, reps) -> dict:
@@ -3180,6 +3248,9 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build (with the compiler's resource report) and check "
                          "each kernel once at full shape; no timing, no serve")
+    ap.add_argument("--sweep", action="store_true",
+                    help="build, then time the f32 GEMM's kind-2 launches of the "
+                         "recipes at every K split; no checks, no result")
     args = ap.parse_args(argv)
 
     import torch
@@ -3194,6 +3265,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_build(verbose=args.quick)
     smi = phase_device(torch)
+    if args.sweep:
+        phase_sweep(torch)
+        print("chip_smoke: sweep done (no result)", file=sys.stderr)
+        return 0
     t1 = time.perf_counter()
     rows = phase_kernels(torch, args.quick)
     t2 = time.perf_counter()

@@ -72,7 +72,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import operator
 
 import torch
 
@@ -159,8 +158,10 @@ def gemm_variant(lda: int, ldb: int, ptrs) -> str:
 
 # the f32 GEMM (FFMA): 64 x 128 output tiles, 16-deep K tiles, two blocks
 # resident an SM; split_k_f32's cost model: one K tile of one block while
-# the card is full (1.69 us, measured on the H100 at lstm_bwd_dwh's shape:
-# a 64 x 128 x 16 product at ~41 TFLOP/s over 264 blocks)
+# the card is full (1.69 us: a 64 x 128 x 16 product at ~40 TFLOP/s over
+# 264 blocks; ``chip_smoke.py --sweep`` on an H100 reads 1.15-1.83 us at the
+# plan's S of the recipes' kind-2 launches, 1.62-1.73 at lstm_bwd_dwh's and
+# the v2 and v1 dwh, and the plan's S within 4% of the fastest S it times)
 F32_TILE_M, F32_TILE_K = 64, 16
 F32_MIN_SLICE_TILES = 16
 _F32_TILE_STEP_MS = 1.69e-3
@@ -220,28 +221,6 @@ def split_bounds(K: int, S: int, tile_k: int = GEMM_TILE_K):
     bf16 kernel, ``F32_TILE_K`` for the f32 one), as the kernels do."""
     n = -(-K // tile_k)
     return [((s * n // S) * tile_k, min(K, ((s + 1) * n // S) * tile_k)) for s in range(S)]
-
-
-def kind2_product(a, b, dirs: int) -> torch.Tensor:
-    """The weight gradients' product a^T @ b (kind 2): a [..., K, M], b
-    [..., K, N] -> [..., M, N] f32, ``dirs`` (1 or 2) leading operand
-    pairs. f32 operands are summed as the f32 GEMM sums them: one product
-    for each of ``split_k_f32``'s K slices, the slices added in the order
-    0 .. S - 1 (so an f32 plain version repeats the kernel's reduction;
-    one f32 sum in order over K = 32768 tokens lands up to ~3e-3 from the
-    float64 product, PERF.md). Other dtypes are upcast, one product."""
-    f32 = torch.float32
-    af, bf = a.to(f32).transpose(-1, -2), b.to(f32)
-    if a.dtype != f32 or b.dtype != f32:
-        return torch.matmul(af, bf)
-    K, M, N = a.shape[-2], a.shape[-1], b.shape[-1]
-    return functools.reduce(operator.add, (torch.matmul(af[..., k0:k1], bf[..., k0:k1, :])
-                                           for k0, k1 in _f32_slices(M, N, K, dirs)))
-
-
-def _f32_slices(M: int, N: int, K: int, dirs: int):
-    """The [k0, k1) of the f32 GEMM's K slices in a kind-2 launch."""
-    return split_bounds(K, split_k_f32(_TN, M, N, K, dirs), F32_TILE_K)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -549,16 +528,11 @@ def blstm_bwd_dx(dg, wx) -> torch.Tensor:
 
 def blstm_bwd_dwx_plain(x, dg):
     """x [T, B, D], dg [2, T, B, 4H] -> (dwx_d = x^T @ dg_d [2, D, 4H],
-    db_d = sum of dg_d over rows [2, 4H]), both f32 (``kind2_product``;
-    in f32, db too is summed slice by slice)."""
+    db_d = sum of dg_d over rows [2, 4H]), both f32."""
     _, T, B, H4 = dg.shape
-    dgr = dg.reshape(2, T * B, H4)
-    dwx = kind2_product(x.reshape(T * B, -1), dgr, 2)
-    dgf = dgr.to(torch.float32)
-    if dg.dtype != torch.float32:
-        return dwx, dgf.sum(dim=1)
-    return dwx, functools.reduce(operator.add, (dgf[:, k0:k1].sum(dim=1) for k0, k1
-                                                in _f32_slices(x.shape[-1], H4, T * B, 2)))
+    dgf = dg.reshape(2, T * B, H4).to(torch.float32)
+    dwx = torch.matmul(x.reshape(T * B, -1).to(torch.float32).t(), dgf)
+    return dwx, dgf.sum(dim=1)
 
 
 def blstm_bwd_dwx(x, dg):
@@ -579,13 +553,14 @@ def blstm_bwd_dwx(x, dg):
 def blstm_bwd_dwh_plain(y, dg) -> torch.Tensor:
     """y [T, B, 2H] (the layer output), dg [2, T, B, 4H] -> dwh_d =
     hprev_d^T @ dg_d [2, H, 4H] f32, hprev the stored masked h one step
-    back along each direction's recurrence (zero at its first step, so
-    the (T - 1) B tokens that have one: ``kind2_product``)."""
+    back along each direction's recurrence (zero at its first step)."""
     _, T, B, H4 = dg.shape
     H = H4 // 4
-    K = (T - 1) * B
-    hprev = torch.stack([y[:-1, :, :H], y[1:, :, H:]]).reshape(2, K, H)
-    return kind2_product(hprev, torch.stack([dg[0, 1:], dg[1, :-1]]).reshape(2, K, H4), 2)
+    hprev = torch.zeros((2, T, B, H), dtype=torch.float32, device=dg.device)
+    hprev[0, 1:] = y[:-1, :, :H].to(torch.float32)
+    hprev[1, :-1] = y[1:, :, H:].to(torch.float32)
+    return torch.matmul(hprev.reshape(2, T * B, H).transpose(1, 2),
+                        dg.reshape(2, T * B, H4).to(torch.float32))
 
 
 def blstm_bwd_dwh(y, dg) -> torch.Tensor:

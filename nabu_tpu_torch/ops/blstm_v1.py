@@ -250,7 +250,8 @@ def blstm_v1_bwd_dwh_plain(hs, dg) -> torch.Tensor:
     hprev^T @ dg, [2, H, 4H] f32."""
     _, T, B, H4 = dg.shape
     H = H4 // 4
-    return v2.kind2_product(_hprev(hs).reshape(2, T * B, H), dg.reshape(2, T * B, H4), 2)
+    return torch.matmul(_hprev(hs).reshape(2, T * B, H).to(torch.float32).transpose(1, 2),
+                        dg.reshape(2, T * B, H4).to(torch.float32))
 
 
 def blstm_v1_bwd_dwh(hs, dg) -> torch.Tensor:

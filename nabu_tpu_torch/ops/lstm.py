@@ -58,7 +58,6 @@ from nabu_tpu_torch.ops.blstm import (
     _check_shape,
     _gemm,
     _stream,
-    kind2_product,
 )
 from nabu_tpu_torch.ops.kernels import build
 
@@ -305,11 +304,11 @@ def lstm_bwd_recur(gates, c, gy, lengths, wh, forget_bias: float = 1.0):
 
 def lstm_bwd_dwh_plain(hs, dxw) -> torch.Tensor:
     """hs [T, B, H] the carried h, dxw [T, B, 4H] -> dwh = h_prev^T @ dxw
-    [H, 4H] f32, h_prev the carry one step back (zero at the first, so
-    the (T - 1) B tokens that have one: ``kind2_product``)."""
+    [H, 4H] f32, h_prev the carry one step back (zero at the first)."""
     T, B, H = hs.shape
-    K = (T - 1) * B
-    return kind2_product(hs[:-1].reshape(K, H), dxw[1:].reshape(K, 4 * H), 1)
+    hprev = torch.zeros((T, B, H), dtype=torch.float32, device=hs.device)
+    hprev[1:] = hs[:-1].to(torch.float32)
+    return torch.matmul(hprev.reshape(T * B, H).t(), dxw.reshape(T * B, 4 * H).to(torch.float32))
 
 
 def lstm_bwd_dwh(hs, dxw) -> torch.Tensor:
