@@ -103,7 +103,11 @@ rows (blstm_proj, dx, dwx + db, dwh) run at the layers of the two f32
 recipes, ctc_blstm_timit (H = 128, D = 40 and 256) and las_timit's
 Listener (H = 256, D = 40 and 1024), B = 32. Every serving and training
 phase prints its GEMM launches by kernel, and the WMMA kernel must not
-launch in any of them.
+launch in any of them. The stft_mel row (a real FFT) reports its GFLOP/s
+and its share of the bound beside the rfft path's time; each v1 chain row
+its µs a step, its split (``chain_plan``) and whether a second launch
+repeats its bits (a row whose bits differ fails the run), the bf16 rows
+also the µs a step at twice the rows a block.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -533,6 +537,16 @@ def swapped(mod, name, fn):
         setattr(mod, name, saved)
 
 
+def _plain_of(mod, attr):
+    """A wrapper's plain version, called as the paths call the wrapper
+    (``stft_mel`` also takes the kernel's FFT constants, which its plain
+    version does not read)."""
+    plain = getattr(mod, f"{attr}_plain")
+    if attr == "stft_mel":
+        return lambda frames, cossin, mel, fft: plain(frames, cossin, mel)
+    return plain
+
+
 @contextlib.contextmanager
 def plain_versions(**faults):
     """Run the paths through the kernels' plain versions (the reference
@@ -546,7 +560,7 @@ def plain_versions(**faults):
     with contextlib.ExitStack() as stack:
         for name, (modname, attr) in _WRAPPERS.items():
             mod = importlib.import_module(f"nabu_tpu_torch.ops.{modname}")
-            fn = faults.get(name) or getattr(mod, f"{attr}_plain")
+            fn = faults.get(name) or _plain_of(mod, attr)
             stack.enter_context(swapped(mod, attr, fn))
         before = kernels.launch_counts()
         yield
@@ -556,7 +570,7 @@ def plain_versions(**faults):
 def drop_last_tap(stft_plain):
     """Planted STFT+Mel fault: the last of the W taps is skipped (an
     off-by-one in the loop over the window)."""
-    def faulty(frames, cossin, mel):
+    def faulty(frames, cossin, mel, fft):
         cut = cossin.clone()
         cut[-1] = 0.0
         return stft_plain(frames, cut, mel)
@@ -1038,17 +1052,17 @@ def phase_kernels(torch, quick: bool) -> dict:
 
     # --- STFT + Mel at N = 32 x 1024 frames ------------------------------
     fp = tf.make_frontend_params(16000.0, nfilt=NFILT, device=dev)
-    cossin, mel = fp.folded()
+    cossin, mel, fftc = fp.folded()
     sig = torch.as_tensor(
         np.stack([synth_utterance(rng, 10.3) for _ in range(B)]), device=dev)
     frames = tf.frame_signal(sig, fp.frame_len, fp.frame_step, T)
     frames = frames.reshape(B * T, fp.frame_len).contiguous()
     N = frames.shape[0]
     check(tuple(cossin.shape) == (W, 2 * K), f"stft_mel: cossin {tuple(cossin.shape)}")
-    got = stft_ops.stft_mel(frames, cossin, mel)
+    got = stft_ops.stft_mel(frames, cossin, mel, fftc)
     ref = stft_ops.stft_mel_plain(frames, cossin, mel)
     err = compare(torch, got, ref, TOL["stft_mel"], "stft_mel")
-    fault = fault_reading(drop_last_tap(stft_ops.stft_mel_plain)(frames, cossin, mel),
+    fault = fault_reading(drop_last_tap(stft_ops.stft_mel_plain)(frames, cossin, mel, fftc),
                           ref, TOL["stft_mel"], "stft_mel")
 
     def fft_log_mel():
@@ -1063,10 +1077,12 @@ def phase_kernels(torch, quick: bool) -> dict:
     ops = N * (W + 2.5 * fp.nfft * math.log2(fp.nfft) + 3 * K + NFILT) + 2 * N * nnz
     bytes_ = 4 * (N * W + W * 2 * K + K * NFILT + N * NFILT)
     b_ms, b_by = bound(bytes_, ops, PEAK_F32)
+    ms = timed(lambda: stft_ops.stft_mel(frames, cossin, mel, fftc), reps)
     rows["stft_mel"] = {
         "shape": [N, W, K, NFILT], "dtype": "f32", "max_abs_err": err,
-        "tol": TOL["stft_mel"], "fault_max_abs_err": fault,
-        "ms": timed(lambda: stft_ops.stft_mel(frames, cossin, mel), reps),
+        "tol": TOL["stft_mel"], "fault_max_abs_err": fault, "ms": ms,
+        "gflops": None if ms is None else ops / ms / 1e6,
+        "bound_share": None if ms is None else b_ms / ms,
         "plain_ms": timed(lambda: stft_ops.stft_mel_plain(frames, cossin, mel), reps),
         "library_ms": timed(lambda: torch.matmul(frames, cossin), reps),
         "library": "torch.matmul frames @ cossin (the DFT product only)",
@@ -1336,16 +1352,29 @@ def v1_rows(torch, timed, reps) -> dict:
             b_ms, b_by = bound(
                 4 * 2 * M * (H4 + Hv) + es * (M * 2 * Hv + 2 * Hv * H4 + 2 * M * H4) + 4 * Bv,
                 2 * valid * (2 * H4 * Hv + 30 * Hv), peak)
+            same = torch.equal(dg, v1.blstm_v1_bwd_recur(ref_g, cs, gy, lens, wh))
+            if not same:
+                FAILURES.append(f"blstm_v1_bwd_recur {key}: a second launch's bits differ")
+            ms = timed(lambda: v1.blstm_v1_bwd_recur(ref_g, cs, gy, lens, wh), reps)
             row = {
                 "shape": [Tv, Bv, Hv], "D": D, "dtype": tag, "max_abs_err": err, "tol": tol,
                 "ref_max_abs": float(ref_dg.float().abs().max()), "fault_max_abs_err": fault,
-                "ms": timed(lambda: v1.blstm_v1_bwd_recur(ref_g, cs, gy, lens, wh), reps),
+                "ms": ms, "us_per_step": None if ms is None else 1e3 * ms / Tv,
+                "repeat_bits_equal": same, "plan": v1.chain_plan(Bv, Hv, tag),
                 "plain_ms": timed(lambda: v1.blstm_v1_bwd_recur_plain(ref_g, cs, gy, lens, wh),
                                   min(reps, 1)),
                 "library_ms": None if lib_f is None else lib_fb - lib_f,
                 "library": library + "backward (fwd + bwd minus fwd, timed only)",
                 "bound_ms": b_ms, "bound_by": b_by,
             }
+            if tag == "bf16" and reps:
+                # the split's measurement: the same launch at 32 rows x 32 units
+                # a block (half the blocks, twice the rows each block pulls)
+                mt, blocks, need = row["plan"]
+                with swapped(v1, "chain_plan", lambda *_: (2 * mt, blocks // 2, need)):
+                    wide = timed(lambda: v1.blstm_v1_bwd_recur(ref_g, cs, gy, lens, wh), reps)
+                row["us_per_step_by_split"] = {f"{16 * mt}x32": row["us_per_step"],
+                                               f"{32 * mt}x32": 1e3 * wide / Tv}
             emit({"phase": "kernels", "kernel": "blstm_v1_bwd_recur", "case": case, **row})
             rows[("blstm_v1_bwd_recur", tag, case)] = row
             del dg, ref_dg, ref_g, cs, gy

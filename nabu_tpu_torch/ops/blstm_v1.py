@@ -47,20 +47,31 @@ from nabu_tpu_torch.ops import blstm as v2
 from nabu_tpu_torch.ops import kernels
 from nabu_tpu_torch.ops.kernels import build
 
-# csrc/blstm_v1.cu: hidden units a block owns, threads a block, pairs a
-# thread, K-tile widths of the walk and the chain
+# csrc/blstm_v1.cu, the walks: hidden units a block owns, threads a
+# block, pairs a thread, K-tile width
 UNITS_PER_BLOCK = 8
 THREADS = 256
 PAIRS = 4
 WALK_TILE = 128
-CHAIN_TILE = 256
+# the chain: rows of an m-tile; by element type the units a block owns,
+# the K chunk a warp pulls at once, the row stride of the warps' partial
+# sums, the m-tiles a block at most; bf16's K chunks a warp at most (its A
+# fragments), f32's staged row stride
+CHAIN_ROWS = 16
+CHAIN_WARPS = THREADS // 32
+CHAIN_UNITS = {"bf16": 32, "f32": 8}
+CHAIN_K_CHUNK = {"bf16": 32, "f32": 16}
+CHAIN_PART_LD = {"bf16": 40, "f32": 8}
+CHAIN_MAX_MT = {"bf16": 2, "f32": 8}
+CHAIN_MAX_CHUNKS = 8
+CHAIN_STAGE_LD = 20
 
 _fns: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "walk": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
-    "chain": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
+    "chain": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
 }
 
 
@@ -74,29 +85,68 @@ def _launcher(kind: str, tag: str):
     return _fns[name]
 
 
-def smem_bytes(B: int, H: int):
-    """-> (walk, chain) shared memory of one block, the layouts of
-    csrc/blstm_v1.cu: wh's gate columns (walk) or rows (chain) of the
-    block's 8 units, one K tile of the exchanged rows, two [B, 8] carries."""
+def chain_bytes(tag: str, mt: int, H: int) -> int:
+    """Shared memory of one chain block of 16 mt rows (``chain_bytes`` of
+    csrc/blstm_v1.cu): wh of its units (bf16 in the B fragments' order, 16
+    bytes a (chunk, n-tile, lane); f32 [8][chain_wld]), f32's staged K
+    chunks, the warps' partial sums."""
+    chunks = -(-4 * H // CHAIN_K_CHUNK[tag])
+    rows = CHAIN_ROWS * mt
+    part = 4 * CHAIN_WARPS * rows * CHAIN_PART_LD[tag]
+    if tag == "bf16":
+        return chunks * 4 * 32 * 16 + part
+    wld = -(-chunks * 16 // 32) * 32 + 4
+    return 4 * (CHAIN_UNITS[tag] * wld + CHAIN_WARPS * rows * CHAIN_STAGE_LD) + part
+
+
+def chain_plan(B: int, H: int, tag: str):
+    """-> (mt, blocks, shared memory bytes) of the chain: the fewest
+    m-tiles of 16 rows a block (1, 2, 4 or 8, at most CHAIN_MAX_MT) whose
+    2 ceil(B / 16 mt) ceil(H / U) blocks fit the card one an SM (its
+    registers allow no more) with their shared memory; None if none does,
+    or (bf16) 4H is beyond the A fragments of CHAIN_MAX_CHUNKS K chunks a
+    warp."""
+    if tag == "bf16" and -(-4 * H // CHAIN_K_CHUNK[tag]) > CHAIN_WARPS * CHAIN_MAX_CHUNKS:
+        return None
+    for mt in (1, 2, 4, 8):
+        if mt > CHAIN_MAX_MT[tag]:
+            break
+        blocks = 2 * -(-B // (CHAIN_ROWS * mt)) * -(-H // CHAIN_UNITS[tag])
+        need = chain_bytes(tag, mt, H)
+        if blocks <= v2.SMS and need <= v2.SMEM_LIMIT:
+            return mt, blocks, need
+    return None
+
+
+def smem_bytes(B: int, H: int, tag: str = "bf16"):
+    """-> (walk, chain) shared memory of one block: the walk's layout of
+    csrc/blstm_v1.cu (wh's gate columns of the block's 8 units, one K tile
+    of h, two [B, 8] carries), the chain's of its ``chain_plan`` (None
+    when no plan holds B and H)."""
     units = UNITS_PER_BLOCK
     walk = 4 * ((H + 3) // 4 * 4 * units * 4 + B * (WALK_TILE + 4) + 2 * B * units)
-    chain = 4 * (units * (4 * H + 4) + B * (CHAIN_TILE + 4) + 2 * B * units)
-    return walk, chain
+    plan = chain_plan(B, H, tag)
+    return walk, None if plan is None else plan[2]
 
 
-def check_design(what: str, B: int, H: int) -> None:
+def check_design(what: str, B: int, H: int, tag: str = "bf16") -> None:
     """Raise for a batch and width the v1 kernels cannot hold: at most
-    PAIRS (b, unit) pairs a thread (B <= 128), each kernel's shared memory
-    within a block's, and the 2 ceil(H / 8) blocks of a launch co-resident
-    on the card's SMs (``v2.coresident``)."""
+    PAIRS (b, unit) pairs a walk thread (B <= 128), the walk's shared
+    memory within a block's and its 2 ceil(H / 8) blocks co-resident on
+    the card's SMs (``v2.coresident``), and a ``chain_plan`` for the
+    chain in the element type ``tag``."""
     if B > PAIRS * THREADS // UNITS_PER_BLOCK:
         raise ValueError(f"{what}: B = {B} is beyond the kernel's design "
                          f"(B <= {PAIRS * THREADS // UNITS_PER_BLOCK})")
-    for kind, need in zip(("walk", "chain"), smem_bytes(B, H)):
-        if not v2.coresident(need, 2 * -(-H // UNITS_PER_BLOCK)):
-            raise ValueError(
-                f"{what}: B = {B}, H = {H} is beyond the {kind}'s design ({need} bytes "
-                f"of shared memory a block; limit {v2.SMEM_LIMIT}, all blocks co-resident)")
+    walk, chain = smem_bytes(B, H, tag)
+    if not v2.coresident(walk, 2 * -(-H // UNITS_PER_BLOCK)):
+        raise ValueError(
+            f"{what}: B = {B}, H = {H} is beyond the walk's design ({walk} bytes "
+            f"of shared memory a block; limit {v2.SMEM_LIMIT}, all blocks co-resident)")
+    if chain is None:
+        raise ValueError(
+            f"{what}: B = {B}, H = {H} is beyond the chain's design in {tag} (no split "
+            f"of 16 mt rows x {CHAIN_UNITS[tag]} units fits the card one block an SM)")
 
 
 def _walk(name, xw, lengths, wh, forget_bias, store: bool):
@@ -107,7 +157,7 @@ def _walk(name, xw, lengths, wh, forget_bias, store: bool):
     H = H4 // 4
     v2._check_shape(f"{name}: wh", wh, (2, H, H4), xw.dtype)
     v2._check_shape(f"{name}: lengths", lengths, (B,), torch.int32)
-    check_design(name, B, H)
+    check_design(name, B, H, tag)
     dev = xw.device
     y = torch.empty((T, B, 2 * H), dtype=xw.dtype, device=dev)
     hx = torch.empty((2, T + 1 if store else 2, B, H), dtype=xw.dtype, device=dev)
@@ -231,14 +281,16 @@ def blstm_v1_bwd_recur(gates, c, gy, lengths, wh, forget_bias: float = 1.0):
     v2._check_shape(f"{name}: c", c, (2, T, B, H), torch.float32)
     v2._check_shape(f"{name}: wh", wh, (2, H, 4 * H), gy.dtype)
     v2._check_shape(f"{name}: lengths", lengths, (B,), torch.int32)
-    check_design(name, B, H)
+    check_design(name, B, H, tag)
+    mt = chain_plan(B, H, tag)[0]
     dev = gy.device
     dg = torch.empty((2, T, B, 4 * H), dtype=gy.dtype, device=dev)
-    counters = torch.zeros((2,), dtype=torch.int32, device=dev)
+    # one counter a direction and row group
+    counters = torch.zeros((2 * -(-B // CHAIN_ROWS),), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _launcher("chain", tag)(
             gates.data_ptr(), c.data_ptr(), gy.data_ptr(), lengths.data_ptr(), wh.data_ptr(),
-            dg.data_ptr(), counters.data_ptr(), T, B, H, float(forget_bias), v2._stream(),
+            dg.data_ptr(), counters.data_ptr(), T, B, H, mt, float(forget_bias), v2._stream(),
         )
     build.check(err, name)
     kernels.LAUNCHES[name] += 1

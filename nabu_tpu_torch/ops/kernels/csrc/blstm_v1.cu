@@ -44,30 +44,44 @@
 //     h, not by either.
 //
 // (b) blstm_v1_bwd_recur: the backward's serial chain, one cooperative
-//     persistent launch for both directions with the walk's split: block g
-//     of a direction keeps the rows of wh of its 8 units, [8, 4H] (f32).
-//     The fw direction walks time descending, the bw direction ascending.
-//     Each step every block needs all of the previous step's dgates [B,
-//     4H] (256 KB in bf16 at B = 64, H = 512: beyond a block's 227 KB),
-//     so it streams them from the dg output itself (the exchange buffer:
-//     each row is written once, then read by every block of its direction
-//     with ld.global.cg) in K tiles of 256 columns, [B, 256] f32 in shared
-//     memory, and accumulates dh_prev = dgates_prev @ wh^T for its (b,
-//     unit) pairs in registers. Then the masked cell backward of
+//     persistent launch for both directions. The fw direction walks time
+//     descending, the bw direction ascending. Each step computes dh_prev =
+//     dgates_prev @ wh^T, then the masked cell backward of
 //     _bwd_train_kernel's direction() from the recomputed f32 gates and
-//     the stored carries; dh and dc are carried in f32, the dgates are cast
-//     to the compute type before they are stored (and so before the chain
-//     product reads them, :337-344). Bound at the same shape: 275 GFLOP of
-//     the chain product and ~1.6 GB of gates, carries and dgates, 0.48 ms
-//     by bytes; the pace is again T dependent steps.
+//     the stored carries; dh and dc are carried in f32, the dgates are
+//     cast to the compute type before they are stored (and so before the
+//     chain product reads them, :337-344). The rows of the batch are
+//     independent in the chain, so a block owns 16 MT rows x U units
+//     (bf16: U = 32, f32: U = 8), keeps wh's rows of its units in shared
+//     memory for the whole launch (bf16: 128 KB at H = 512, in the order
+//     the B fragments read them), and meets only the ceil(H / U) blocks of
+//     its rows at its own counter. MT (1 or 2 in bf16, up to 8 in f32) is
+//     the least that keeps every block co-resident: 16 rows x 32 units,
+//     128 blocks at las_large's B = 64, H = 512.
+//     Bound at that shape: 275 GFLOP of the chain product (0.28 ms of
+//     bf16 tensor rate) and ~1.6 GB of gates, carries and dgates, 0.48 ms
+//     by bytes; the pace is set by T dependent steps. A step of the earlier
+//     design (every block all 64 rows x 8 units) pulled the whole previous
+//     dgates [B, 4H] (256 KB) in 8 serial L2 round trips restaged in f32,
+//     ran the product on the FMA pipes out of shared memory and read the
+//     cell's operands after it: ~60 us. Now, after the barrier, a block
+//     pulls its own 16 rows once (64 KB in bf16, every 16-byte load of
+//     the step in flight at once, ld.global.cg straight into mma A
+//     fragments), the 8 warps split K and run mma.sync m16n8k16 (bf16 in,
+//     f32 accumulators), and their partial sums are added in warp order (a
+//     launch repeats its bits); the cell's own operands of step s + 1 were
+//     fetched before the step-s barrier ended. The f32 instantiation (the
+//     tight check, 1e-4: no TF32) runs the same split with an FFMA
+//     product from chunks staged per warp.
 //
 // Limits of the design (ops/blstm_v1.check_design raises before any
-// launch beyond them): B <= 128 (B x 8 pairs over 256 threads, 4 a
-// thread); shared memory of a block 4 (4 ceil4(H) 8 + 132 B + 16 B) bytes
-// (walk) and 4 (8 (4H + 4) + 260 B + 16 B) bytes (chain) within 227 KB,
-// e.g. 103 KB and 136 KB at B = 64, H = 512; and the 2 ceil(H / 8) blocks
-// co-resident on the card's 132 SMs (128 at H = 512). The launch is
-// cooperative, so the runtime also refuses it unless every block is
+// launch beyond them): B <= 128 (walk: B x 8 pairs over 256 threads, 4 a
+// thread); walk shared memory 4 (4 ceil4(H) 8 + 132 B + 16 B) bytes within
+// 227 KB and its 2 ceil(H / 8) blocks co-resident (128 at H = 512); chain
+// (ops/blstm_v1.chain_plan): bf16 H <= 512 (the A fragments of 8 K chunks
+// a warp), 2 ceil(B / 16 MT) ceil(H / U) blocks of one an SM on the
+// card's 132 SMs, shared memory (chain_bytes) within 227 KB. The launches
+// are cooperative, so the runtime also refuses them unless every block is
 // co-resident (a spin barrier over blocks that are not would deadlock).
 //
 // Element types: __nv_bfloat16 (the training and serving path) and float
@@ -86,7 +100,6 @@ constexpr int HS = 8;      // hidden units a block owns
 constexpr int PAIRS = 4;   // (b, unit) pairs a thread at most: B <= PAIRS * THREADS / HS
 constexpr int RSTEP = THREADS / HS;  // rows between one thread's pairs
 constexpr int WKT = 128;   // walk: columns of h in one K tile
-constexpr int CKT = 256;   // chain: columns of dgates in one K tile
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -196,9 +209,6 @@ __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
 // shared memory of one block, in floats
 __host__ __device__ inline size_t walk_floats(int B, int H) {
   return (size_t)round4(H) * HS * 4 + (size_t)B * (WKT + 4) + 2 * (size_t)B * HS;
-}
-__host__ __device__ inline size_t chain_floats(int B, int H) {
-  return (size_t)HS * (4 * H + 4) + (size_t)B * (CKT + 4) + 2 * (size_t)B * HS;
 }
 
 // ---------------------------------------------------------------------------
@@ -347,124 +357,370 @@ __global__ void __launch_bounds__(THREADS) v1_walk_kernel(
 // (b) the backward chain (row 6)
 // ---------------------------------------------------------------------------
 
+constexpr int WARPS = THREADS / 32;
+constexpr int MROWS = 16;          // rows of an m-tile (mma m16n8k16)
+constexpr int MAX_CHUNKS = 8;      // bf16: K chunks a warp at most (4H <= 8 x 8 x 32)
+constexpr int STAGE_LD = 20;       // f32: row stride of a warp's staged K chunk
+
+// the chain's split of a block by element type: U units, the exchanged
+// rows pulled in K chunks of KC columns, the warps' partial sums [R][PST]
 template <typename T>
-__global__ void __launch_bounds__(THREADS) v1_chain_kernel(
+struct Chain;
+template <>
+struct Chain<bf16> {
+  static constexpr int U = 32;       // 4 n-tiles of 8
+  static constexpr int KC = 32;      // two k16 steps
+  static constexpr int PST = U + 8;  // float2 stores of a fragment free of bank conflicts
+  static constexpr int MAX_MT = 2;
+  static constexpr int MAX_NCH = WARPS * MAX_CHUNKS;  // the A fragments the warps hold
+};
+template <>
+struct Chain<float> {
+  static constexpr int U = 8;
+  static constexpr int KC = 16;
+  static constexpr int PST = U;
+  static constexpr int MAX_MT = 8;
+  static constexpr int MAX_NCH = 1 << 20;  // staged chunk by chunk: shared memory bounds H
+};
+
+__host__ __device__ inline int chain_chunks(int H, int kc) { return (4 * H + kc - 1) / kc; }
+// f32: row stride of wh in shared memory (= 4 mod 32: float4 reads of the
+// 8 units free of bank conflicts)
+__host__ __device__ inline int chain_wld(int H) {
+  return (chain_chunks(H, 16) * 16 + 31) / 32 * 32 + 4;
+}
+// shared memory of one block, in bytes: wh of the block's units, (f32)
+// the warps' staged K chunks, the warps' partial sums
+inline size_t chain_bytes(bf16, int MT, int H) {
+  return (size_t)chain_chunks(H, Chain<bf16>::KC) * 4 * 32 * sizeof(uint4) +
+         sizeof(float) * WARPS * MROWS * MT * Chain<bf16>::PST;
+}
+inline size_t chain_bytes(float, int MT, int H) {
+  const size_t R = (size_t)MROWS * MT;
+  return sizeof(float) * ((size_t)Chain<float>::U * chain_wld(H) + WARPS * R * STAGE_LD +
+                          WARPS * R * Chain<float>::PST);
+}
+
+__device__ __forceinline__ void mma_16816(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 8 consecutive bf16 of an exchanged row from L2, zeros past n; one
+// 16-byte load where rows are whole vectors
+__device__ __forceinline__ uint4 load8_cg(const bf16* row, int col, int n, bool vec) {
+  if (vec) {
+    return col < n ? __ldcg(reinterpret_cast<const uint4*>(row + col)) : make_uint4(0, 0, 0, 0);
+  }
+  const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+  unsigned int w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int c = col + 2 * q;
+    const unsigned int lo = c < n ? __ldcg(r + c) : 0u;
+    const unsigned int hi = c + 1 < n ? __ldcg(r + c + 1) : 0u;
+    w[q] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// bf16: wh rows of the block's units j0 + [0, 32) in the order the B
+// fragments read them: uint4 (c, nt, lane) holds wh[j0 + 8 nt + lane / 4]
+// [32 c + 8 (lane % 4), + 8), zero past H and 4H. The A fragments take
+// the same 8 columns of their rows (the k order inside a chunk is a
+// permutation both operands share), so one 16-byte load serves two k16
+// steps of one row.
+__device__ void stage_wh(const bf16* whd, int j0, int H, int nch, unsigned char* smem) {
+  unsigned short* w = reinterpret_cast<unsigned short*>(smem);
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(whd);
+  const int H4 = 4 * H;
+  for (int e = threadIdx.x; e < nch * 4 * 32 * 8; e += blockDim.x) {
+    const int q = e & 7, lane = (e >> 3) & 31, nt = (e >> 8) & 3, c = e >> 10;
+    const int unit = j0 + 8 * nt + (lane >> 2), col = 32 * c + 8 * (lane & 3) + q;
+    w[e] = (unit < H && col < H4) ? src[(size_t)unit * H4 + col] : (unsigned short)0;
+  }
+}
+
+// f32: wh rows of the block's units j0 + [0, 8), [8][chain_wld(H)]
+__device__ void stage_wh(const float* whd, int j0, int H, int, unsigned char* smem) {
+  float* w = reinterpret_cast<float*>(smem);
+  const int H4 = 4 * H, ld = chain_wld(H);
+  for (int e = threadIdx.x; e < Chain<float>::U * ld; e += blockDim.x) {
+    const int u = e / ld, k = e - u * ld;
+    w[e] = (j0 + u < H && k < H4) ? whd[(size_t)(j0 + u) * H4 + k] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float* chain_part(bf16, unsigned char* smem, int H, int MT) {
+  return reinterpret_cast<float*>(smem + (size_t)chain_chunks(H, Chain<bf16>::KC) * 4 * 32 *
+                                             sizeof(uint4));
+}
+__device__ __forceinline__ float* chain_part(float, unsigned char* smem, int H, int MT) {
+  return reinterpret_cast<float*>(smem) + (size_t)Chain<float>::U * chain_wld(H) +
+         (size_t)WARPS * MROWS * MT * STAGE_LD;
+}
+
+// bf16 step product on tensor cores: the block's rows row0 + [0, 16 MT)
+// of the previous step's dgates (prev, [B, 4H]) times wh^T of its units.
+// The warps split K: warp w takes chunks [w cpw, (w + 1) cpw) of 32
+// columns, issues every 16-byte load of its A fragments at once (ld.cg,
+// straight into registers), then runs mma.sync m16n8k16 over them in
+// chunk order into f32 accumulators, and stores its partial [16 MT, 32]
+// sums; the block adds the 8 partials in warp order.
+template <int MT>
+__device__ __forceinline__ void chain_product(const bf16* prev, int row0, int B, int H,
+                                              unsigned char* smem) {
+  constexpr int PST = Chain<bf16>::PST;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int H4 = 4 * H;
+  const int nch = chain_chunks(H, Chain<bf16>::KC);
+  const int cpw = (nch + WARPS - 1) / WARPS;
+  const int c0 = warp * cpw;
+  const bool vec = (H4 & 7) == 0;
+  uint4 a[MAX_CHUNKS][MT][2];
+#pragma unroll
+  for (int i = 0; i < MAX_CHUNKS; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + MROWS * mt + 8 * h + g;
+        a[i][mt][h] = (i < cpw && c0 + i < nch && r < B)
+                          ? load8_cg(prev + (size_t)r * H4, 32 * (c0 + i) + 8 * t4, H4, vec)
+                          : make_uint4(0, 0, 0, 0);
+      }
+  float acc[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  const uint4* whs = reinterpret_cast<const uint4*>(smem);
+#pragma unroll
+  for (int i = 0; i < MAX_CHUNKS; ++i) {
+    if (i < cpw && c0 + i < nch) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint4 b = whs[((c0 + i) * 4 + nt) * 32 + lane];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint4 lo = a[i][mt][0], hi = a[i][mt][1];  // rows g, g + 8
+          mma_16816(acc[mt][nt], lo.x, hi.x, lo.y, hi.y, b.x, b.y);
+          mma_16816(acc[mt][nt], lo.z, hi.z, lo.w, hi.w, b.z, b.w);
+        }
+      }
+    }
+  }
+  float* pw = chain_part(bf16(), smem, H, MT) + (size_t)warp * MROWS * MT * PST;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float* p = pw + (size_t)(MROWS * mt + g) * PST + 8 * nt + 2 * t4;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(p + 8 * PST) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+}
+
+// f32 step product on the FMA pipes (the tight check: no TF32): the warps
+// split K as above in chunks of 16 columns; a warp stages a chunk of its
+// rows in its own shared rows (the next chunk's loads in flight in
+// registers meanwhile), and lane (rg, u) = (lane / 8, lane % 8) sums rows
+// rg + 4 i of unit u in k order; then the same partials and warp-order sum.
+template <int MT>
+__device__ __forceinline__ void chain_product(const float* prev, int row0, int B, int H,
+                                              unsigned char* smem) {
+  constexpr int R = MROWS * MT;
+  constexpr int RL = R / 4;  // rows a lane sums
+  constexpr int SL = R / 2;  // staged values a lane loads a chunk
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 3, u = lane & 7;
+  const int H4 = 4 * H, wld = chain_wld(H);
+  const int nch = chain_chunks(H, Chain<float>::KC);
+  const int cpw = (nch + WARPS - 1) / WARPS;
+  const int c0 = warp * cpw, c1 = min(c0 + cpw, nch);
+  const float* whs = reinterpret_cast<const float*>(smem);
+  float* st = reinterpret_cast<float*>(smem) + (size_t)Chain<float>::U * wld +
+              (size_t)warp * R * STAGE_LD;
+  float acc[RL];
+#pragma unroll
+  for (int i = 0; i < RL; ++i) acc[i] = 0.f;
+  float nxt[SL];
+  auto fetch = [&](int c) {
+#pragma unroll
+    for (int i = 0; i < SL; ++i) {
+      const int r = row0 + 2 * i + (lane >> 4), col = 16 * c + (lane & 15);
+      nxt[i] = (r < B && col < H4) ? __ldcg(prev + (size_t)r * H4 + col) : 0.f;
+    }
+  };
+  if (c0 < c1) fetch(c0);
+  for (int c = c0; c < c1; ++c) {
+#pragma unroll
+    for (int i = 0; i < SL; ++i) st[(2 * i + (lane >> 4)) * STAGE_LD + (lane & 15)] = nxt[i];
+    __syncwarp();
+    if (c + 1 < c1) fetch(c + 1);
+    const float* wr = whs + (size_t)u * wld + 16 * c;
+#pragma unroll
+    for (int kk = 0; kk < 16; kk += 4) {
+      const float4 w = *reinterpret_cast<const float4*>(wr + kk);
+#pragma unroll
+      for (int i = 0; i < RL; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(st + (rg + 4 * i) * STAGE_LD + kk);
+        acc[i] = fmaf(x.x, w.x, acc[i]);
+        acc[i] = fmaf(x.y, w.y, acc[i]);
+        acc[i] = fmaf(x.z, w.z, acc[i]);
+        acc[i] = fmaf(x.w, w.w, acc[i]);
+      }
+    }
+    __syncwarp();  // the chunk is read before the next one is staged
+  }
+  float* pw = chain_part(float(), smem, H, MT) + (size_t)warp * R * Chain<float>::PST;
+#pragma unroll
+  for (int i = 0; i < RL; ++i) pw[(rg + 4 * i) * Chain<float>::PST + u] = acc[i];
+}
+
+// Block (dir, rg, ug) owns rows rg 16 MT + [0, 16 MT) and units ug U + [0,
+// U) of direction dir; rows are independent in the chain, so the blocks of
+// one (dir, rg) meet at their own counter each step. A thread owns the
+// pairs p = tid + 256 q, (row, unit) = (p / U, p % U), and keeps their dh
+// and dc carries in registers.
+template <typename T, int MT>
+__global__ void __launch_bounds__(THREADS, 1) v1_chain_kernel(
     const float* __restrict__ gates,  // [2, T, B, 4H] recomputed f32 pre-activations
     const float* __restrict__ cst,    // [2, T, B, H] f32 post-mask carries
     const T* __restrict__ gy,         // [T, B, 2H] cotangent of the layer output
     const int* __restrict__ lengths,  // [B]
     const T* __restrict__ wh,         // [2, H, 4H]
     T* dg,                            // [2, T, B, 4H] out; also the exchange
-    unsigned int* counters,           // [2], zero at launch
-    int Tn, int B, int H, int G, float forget_bias) {
-  extern __shared__ __align__(16) float smem[];
+    unsigned int* counters,           // [2, NRG], zero at launch
+    int Tn, int B, int H, int NRG, int GU, float forget_bias) {
+  using C = Chain<T>;
+  constexpr int R = MROWS * MT;
+  constexpr int NP = (R * C::U + THREADS - 1) / THREADS;
+  extern __shared__ __align__(16) unsigned char chain_smem[];
+  unsigned char* smem = chain_smem;
   const int H4 = 4 * H;
-  const int rp = H4 + 4;
-  constexpr int LDG = CKT + 4;
-  float* w_s = smem;                          // [HS][rp]: wh rows of this block's units
-  float* dg_s = w_s + (size_t)HS * rp;        // [B][LDG]: a K tile of the previous dgates
-  float* dh_s = dg_s + (size_t)B * LDG;       // [B * HS] dh passed through masked steps
-  float* dc_s = dh_s + (size_t)B * HS;        // [B * HS] dc carry
-
-  const int dir = blockIdx.x / G;
-  const int j0 = (blockIdx.x % G) * HS;
-  const T* whd = wh + (size_t)dir * H * H4;
-  for (int i = threadIdx.x; i < HS * rp; i += blockDim.x) {
-    const int jl = i / rp, k = i % rp;
-    w_s[i] = (j0 + jl < H && k < H4) ? to_f(whd[(size_t)(j0 + jl) * H4 + k]) : 0.f;
-  }
-  for (int i = threadIdx.x; i < B * HS; i += blockDim.x) {
-    dh_s[i] = 0.f;
-    dc_s[i] = 0.f;
-  }
+  const int ug = blockIdx.x % GU;
+  const int rgp = (blockIdx.x / GU) % NRG;
+  const int dir = blockIdx.x / (GU * NRG);
+  const int j0 = ug * C::U, row0 = rgp * R;
+  stage_wh(wh + (size_t)dir * H * H4, j0, H, chain_chunks(H, C::KC), smem);
   __syncthreads();
+  const float* part = chain_part(T(), smem, H, MT);
 
   const size_t dstride = (size_t)Tn * B;  // rows of one direction
   const float* gd = gates + (size_t)dir * dstride * H4;
   const float* cd = cst + (size_t)dir * dstride * H;
   T* dgd = dg + (size_t)dir * dstride * H4;
-  unsigned int* cnt = counters + dir;
-  // a thread's pairs share one unit: rows b0, b0 + RSTEP, ... of j0 + jl
-  const int jl = threadIdx.x % HS;
-  const int b0 = threadIdx.x / HS;
-  const int j = j0 + jl;
-  const float* wrow = w_s + (size_t)jl * rp;
+  unsigned int* cnt = counters + dir * NRG + rgp;
+
+  int pr[NP], pb[NP], pj[NP], len[NP];
+  bool live[NP];
+  float dh[NP], dc[NP];
+  float zi[NP], zf[NP], zg[NP], zo[NP], c_t[NP], c_prev[NP], gyv[NP];
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    const int p = threadIdx.x + THREADS * q;
+    pr[q] = p / C::U;
+    pb[q] = row0 + pr[q];
+    pj[q] = j0 + p % C::U;
+    live[q] = p < R * C::U && pb[q] < B && pj[q] < H;
+    len[q] = live[q] ? __ldg(lengths + pb[q]) : 0;
+    dh[q] = 0.f;
+    dc[q] = 0.f;
+  }
+  // the cell's own operands of step s: none depends on the chain, so they
+  // are fetched before the barrier that precedes step s ends
+  auto fetch = [&](int s) {
+    const int t = dir == 0 ? Tn - 1 - s : s;
+    const int t_fprev = dir == 0 ? t - 1 : t + 1;  // the forward recurrence's previous step
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      if (!live[q]) continue;
+      const size_t row = (size_t)t * B + pb[q];
+      const float* gr = gd + row * H4 + pj[q];
+      zi[q] = __ldg(gr);
+      zf[q] = __ldg(gr + H);
+      zg[q] = __ldg(gr + 2 * (size_t)H);
+      zo[q] = __ldg(gr + 3 * (size_t)H);
+      c_t[q] = __ldg(cd + row * H + pj[q]);
+      c_prev[q] = (t_fprev >= 0 && t_fprev < Tn)
+                      ? __ldg(cd + ((size_t)t_fprev * B + pb[q]) * H + pj[q]) : 0.f;
+      gyv[q] = to_f(gy[row * 2 * H + (size_t)dir * H + pj[q]]);
+    }
+  };
+  fetch(0);
 
   for (int s = 0; s < Tn; ++s) {
     // the fw direction's backward walks time descending, the bw one ascending
     const int t = dir == 0 ? Tn - 1 - s : s;
-    const int t_chain = dir == 0 ? t + 1 : t - 1;  // the step processed before
-    const int t_fprev = dir == 0 ? t - 1 : t + 1;  // the forward recurrence's previous step
-    float acc[PAIRS][4];  // four partial sums a pair (the float4 lanes)
+    float prod[NP];
 #pragma unroll
-    for (int i = 0; i < PAIRS; ++i)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
-
+    for (int q = 0; q < NP; ++q) prod[q] = 0.f;
     if (s > 0) {
-      const T* prev = dgd + (size_t)t_chain * B * H4;
-      for (int k0 = 0; k0 < H4; k0 += CKT) {
-        const int kw = min(CKT, H4 - k0);  // a multiple of 4
-        stage_tile<T, 8>(prev, B, H4, k0, kw, kw, dg_s, LDG);
-        __syncthreads();
-        const float4* wr = reinterpret_cast<const float4*>(wrow + k0);
-        for (int q = 0; q < kw / 4; ++q) {
-          const float4 wv = wr[q];
-#pragma unroll
-          for (int i = 0; i < PAIRS; ++i) {
-            const int b = b0 + i * RSTEP;
-            if (b < B) {
-              const float4 dv = reinterpret_cast<const float4*>(dg_s + (size_t)b * LDG)[q];
-              acc[i][0] = fmaf(dv.x, wv.x, acc[i][0]);
-              acc[i][1] = fmaf(dv.y, wv.y, acc[i][1]);
-              acc[i][2] = fmaf(dv.z, wv.z, acc[i][2]);
-              acc[i][3] = fmaf(dv.w, wv.w, acc[i][3]);
-            }
-          }
+      // wait until every block of this row group has published step s - 1
+      if (threadIdx.x == 0) {
+        const unsigned int target = (unsigned int)s * (unsigned int)GU;
+        while (ld_acquire(cnt) < target) {
         }
-        __syncthreads();  // the tile is read before the next one lands
+        __threadfence();
+      }
+      __syncthreads();
+      const int t_chain = dir == 0 ? t + 1 : t - 1;  // the step processed before
+      chain_product<MT>(dgd + (size_t)t_chain * B * H4, row0, B, H, smem);
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        const int p = threadIdx.x + THREADS * q;
+        if (p >= R * C::U) continue;
+        const float* pp = part + (size_t)pr[q] * C::PST + p % C::U;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) prod[q] += pp[(size_t)w * R * C::PST];
       }
     }
 
 #pragma unroll
-    for (int i = 0; i < PAIRS; ++i) {
-      const int b = b0 + i * RSTEP;
-      if (b >= B || j >= H) continue;
-      const int p = b * HS + jl;
-      const size_t row = (size_t)t * B + b;
-      const float* gr = gd + row * H4 + j;
-      const float zi = gr[0], zf = gr[H], zg = gr[2 * (size_t)H], zo = gr[3 * (size_t)H];
-      const float c_t = cd[row * H + j];
-      const float c_prev =
-          (t_fprev >= 0 && t_fprev < Tn) ? cd[((size_t)t_fprev * B + b) * H + j] : 0.f;
-      const float gyv = to_f(gy[row * 2 * H + (size_t)dir * H + j]);
-      const bool m = t < __ldg(lengths + b);
-      const float mf = m ? 1.f : 0.f;
-      const float dh = ((acc[i][0] + acc[i][1]) + (acc[i][2] + acc[i][3])) + dh_s[p];
+    for (int q = 0; q < NP; ++q) {
+      if (!live[q]) continue;
       // the masked cell backward (_bwd_train_kernel direction())
-      const float gi = sigmoid_f(zi);
-      const float gf = sigmoid_f(zf + forget_bias);
-      const float gg = tanhf(zg);
-      const float go = sigmoid_f(zo);
-      const float tanh_c = tanhf(c_t);
-      const float dh_total = gyv * mf + dh;
+      const bool m = t < len[q];
+      const float mf = m ? 1.f : 0.f;
+      const float gi = sigmoid_f(zi[q]);
+      const float gf = sigmoid_f(zf[q] + forget_bias);
+      const float gg = tanhf(zg[q]);
+      const float go = sigmoid_f(zo[q]);
+      const float tanh_c = tanhf(c_t[q]);
+      const float dh_total = gyv[q] * mf + (prod[q] + dh[q]);
       const float dh_new = m ? dh_total : 0.f;
-      const float dc_new = (m ? dc_s[p] : 0.f) + dh_new * go * (1.f - tanh_c * tanh_c);
+      const float dc_new = (m ? dc[q] : 0.f) + dh_new * go * (1.f - tanh_c * tanh_c);
       const float dgi = dc_new * gg * gi * (1.f - gi);
-      const float dgf = dc_new * c_prev * gf * (1.f - gf);
+      const float dgf = dc_new * c_prev[q] * gf * (1.f - gf);
       const float dgg = dc_new * gi * (1.f - gg * gg);
       const float dgo = dh_new * tanh_c * go * (1.f - go);
-      T* out = dgd + row * H4 + j;
+      T* out = dgd + ((size_t)t * B + pb[q]) * H4 + pj[q];
       out[0] = from_f<T>(dgi);
       out[H] = from_f<T>(dgf);
       out[2 * (size_t)H] = from_f<T>(dgg);
       out[3 * (size_t)H] = from_f<T>(dgo);
-      dh_s[p] = m ? 0.f : dh_total;
-      dc_s[p] = dc_new * gf + (m ? 0.f : dc_s[p]);
+      dh[q] = m ? 0.f : dh_total;
+      dc[q] = dc_new * gf + (m ? 0.f : dc[q]);
     }
 
-    // hand this step's dgates over to the other blocks of this direction
-    direction_barrier(cnt, s, G);
+    if (s + 1 < Tn) {
+      // publish this step's dgates to the row group, then fetch the next
+      // step's operands while the other blocks catch up
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        __threadfence();
+        atomicAdd(cnt, 1u);
+      }
+      fetch(s + 1);
+    }
   }
 }
 
@@ -510,24 +766,51 @@ int launch_walk(const T* xw, const int* lengths, const T* wh, T* y, T* hx,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_chain(const float* gates, const float* cst, const T* gy, const int* lengths,
-                 const T* wh, T* dg, unsigned int* counters, int Tn, int B, int H,
-                 float forget_bias, void* stream) {
-  if (Tn <= 0 || B <= 0) return 0;
-  if (!within_design(B, H)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * chain_floats(B, H);
-  auto kernel = v1_chain_kernel<T>;
-  int G = (H + HS - 1) / HS;
-  cudaError_t err = check_coresident(kernel, 2 * G, smem);
+template <typename T, int MT>
+int launch_chain_mt(const float* gates, const float* cst, const T* gy, const int* lengths,
+                    const T* wh, T* dg, unsigned int* counters, int Tn, int B, int H,
+                    float forget_bias, void* stream) {
+  int NRG = (B + MROWS * MT - 1) / (MROWS * MT);
+  int GU = (H + Chain<T>::U - 1) / Chain<T>::U;
+  const size_t smem = chain_bytes(T(), MT, H);
+  auto kernel = v1_chain_kernel<T, MT>;
+  cudaError_t err = check_coresident(kernel, 2 * NRG * GU, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&gates, (void*)&cst, (void*)&gy, (void*)&lengths, (void*)&wh,
                   (void*)&dg, (void*)&counters, (void*)&Tn, (void*)&B, (void*)&H,
-                  (void*)&G, (void*)&forget_bias};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(2 * G), dim3(THREADS), args, smem,
-                                    (cudaStream_t)stream);
+                  (void*)&NRG, (void*)&GU, (void*)&forget_bias};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(2 * NRG * GU), dim3(THREADS), args,
+                                    smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// MT: m-tiles of 16 rows a block (ops/blstm_v1.chain_plan); counters hold
+// 2 ceil(B / 16) zeros
+template <typename T>
+int launch_chain(const float* gates, const float* cst, const T* gy, const int* lengths,
+                 const T* wh, T* dg, unsigned int* counters, int Tn, int B, int H, int MT,
+                 float forget_bias, void* stream) {
+  if (Tn <= 0 || B <= 0) return 0;
+  if (B > PAIRS * THREADS / HS || H <= 0 || MT > Chain<T>::MAX_MT) return (int)cudaErrorInvalidValue;
+  if (chain_chunks(H, Chain<T>::KC) > Chain<T>::MAX_NCH) return (int)cudaErrorInvalidValue;
+  switch (MT) {
+    case 1:
+      return launch_chain_mt<T, 1>(gates, cst, gy, lengths, wh, dg, counters, Tn, B, H,
+                                   forget_bias, stream);
+    case 2:
+      return launch_chain_mt<T, 2>(gates, cst, gy, lengths, wh, dg, counters, Tn, B, H,
+                                   forget_bias, stream);
+  }
+  if constexpr (Chain<T>::MAX_MT >= 8) {
+    if (MT == 4)
+      return launch_chain_mt<T, 4>(gates, cst, gy, lengths, wh, dg, counters, Tn, B, H,
+                                   forget_bias, stream);
+    if (MT == 8)
+      return launch_chain_mt<T, 8>(gates, cst, gy, lengths, wh, dg, counters, Tn, B, H,
+                                   forget_bias, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -556,16 +839,16 @@ extern "C" int nabu_blstm_v1_walk_f32(const void* xw, const int* lengths, const 
 
 extern "C" int nabu_blstm_v1_chain_bf16(const float* gates, const float* cst, const void* gy,
                                         const int* lengths, const void* wh, void* dg,
-                                        unsigned int* counters, int T, int B, int H,
+                                        unsigned int* counters, int T, int B, int H, int MT,
                                         float forget_bias, void* stream) {
   return launch_chain<bf16>(gates, cst, (const bf16*)gy, lengths, (const bf16*)wh, (bf16*)dg,
-                            counters, T, B, H, forget_bias, stream);
+                            counters, T, B, H, MT, forget_bias, stream);
 }
 
 extern "C" int nabu_blstm_v1_chain_f32(const float* gates, const float* cst, const void* gy,
                                        const int* lengths, const void* wh, void* dg,
-                                       unsigned int* counters, int T, int B, int H,
+                                       unsigned int* counters, int T, int B, int H, int MT,
                                        float forget_bias, void* stream) {
   return launch_chain<float>(gates, cst, (const float*)gy, lengths, (const float*)wh, (float*)dg,
-                             counters, T, B, H, forget_bias, stream);
+                             counters, T, B, H, MT, forget_bias, stream);
 }

@@ -141,6 +141,34 @@ def test_check_design_raises_beyond_the_design():
         blstm_v1.check_design("layer", 129, 512)
     with pytest.raises(ValueError, match="beyond"):
         blstm_v1.check_design("layer", 64, 1024)
+    with pytest.raises(ValueError, match="chain's design"):  # 4H past 8 K chunks a warp
+        blstm_v1.check_design("layer", 64, 520, "bf16")
+
+
+@pytest.mark.parametrize("tag", ["bf16", "f32"])
+@pytest.mark.parametrize("H", [9, 12, 16, 320, 512])
+def test_design_admits_the_tests_and_recipes_shapes(tag, H):
+    """Every batch up to 128 at the widths the tests and recipes use has a
+    chain split whose blocks fit the card one an SM, and smem_bytes reports
+    that split's shared memory."""
+    for B in (1, 4, 5, 23, 32, 64, 128):
+        blstm_v1.check_design("layer", B, H, tag)
+        mt, blocks, smem = blstm_v1.chain_plan(B, H, tag)
+        assert mt <= blstm_v1.CHAIN_MAX_MT[tag]
+        assert blocks <= blstm_ops.SMS and smem <= blstm_ops.SMEM_LIMIT
+        assert blstm_v1.smem_bytes(B, H, tag)[1] == smem
+
+
+@pytest.mark.parametrize("B, H, tag, plan", [
+    # las_large's Listener: 16 rows x 32 units a block, 4 row groups x 16
+    # unit groups x 2 directions; wh 64 K chunks x 2 KB, partials 8 x 16 x 40
+    (64, 512, "bf16", (1, 128, 64 * 2048 + 4 * 8 * 16 * 40)),
+    (128, 512, "bf16", (2, 128, 64 * 2048 + 4 * 8 * 32 * 40)),
+    (64, 512, "f32", (4, 128, 4 * (8 * 2052 + 8 * 64 * 20 + 8 * 64 * 8))),
+    (32, 512, "bf16", (1, 64, 64 * 2048 + 4 * 8 * 16 * 40)),  # its validation batch
+])
+def test_chain_plan_at_las_large(B, H, tag, plan):
+    assert blstm_v1.chain_plan(B, H, tag) == plan
 
 
 def test_dispatch_takes_v1_at_las_large_width():

@@ -8,6 +8,8 @@ sides; the audio has a noise floor, so no mel band is near-silent), with
 a relative 1e-5 on top for MFCCs, whose magnitudes reach ~1e2.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,6 +75,60 @@ class TestStftMel:
         assert got.shape == (75, 40) and got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
 
+
+    @pytest.mark.parametrize("rate,nfilt", [(RATE, 40), (8000.0, 23), (44100.0, 80)])
+    def test_fft_constants_cover_the_mel_matrix(self, rate, nfilt):
+        """The kernel's sparse Mel product: each filter's bin range runs
+        from its first to its last non-zero, no non-zero lies outside the
+        ranges, the packed weights are the matrix's, and summing over the
+        ranges gives power @ mel (1e-6: positive terms in another order).
+        At 44.1 kHz the 1102-tap window is cut to nfft's 512 taps."""
+        fp = tf.make_frontend_params(rate, nfft=512, nfilt=nfilt)
+        _, mel, fftc = fp.folded()
+        m, r, w = mel.numpy(), fftc.ranges.numpy(), fftc.weights.numpy()
+        K, M = m.shape
+        assert r.shape == (M, 3) and fftc.window.shape == (min(fp.frame_len, 512),)
+        covered = np.zeros(m.shape, bool)
+        for j, (lo, hi, off) in enumerate(r):
+            covered[lo:hi, j] = True
+            if hi > lo:
+                assert m[lo, j] != 0 and m[hi - 1, j] != 0
+            np.testing.assert_array_equal(w[off: off + hi - lo], m[lo:hi, j])
+        assert not (m != 0)[~covered].any()
+        assert w.shape == (int((r[:, 1] - r[:, 0]).sum()),)
+        power = np.random.default_rng(0).uniform(0.0, 1e6, (7, K)).astype(np.float32)
+        sparse = np.zeros((7, M), np.float32)
+        for j, (lo, hi, off) in enumerate(r):
+            for k in range(lo, hi):
+                sparse[:, j] += power[:, k] * w[off + k - lo]
+        np.testing.assert_allclose(sparse, power @ m, rtol=1e-6, atol=0)
+
+    def test_twiddles_are_float64_rounded_once(self):
+        k = np.arange(512)
+        want = np.exp(-2j * np.pi * k / 512)  # complex128
+        tw = stft_ops.twiddle_table(512)
+        np.testing.assert_array_equal(tw[:, 0], want.real.astype(np.float32))
+        np.testing.assert_array_equal(tw[:, 1], want.imag.astype(np.float32))
+        _, _, fftc = tf.make_frontend_params(RATE, nfft=512).folded()
+        np.testing.assert_array_equal(fftc.twiddles.numpy(), tw)
+
+    def test_kernel_design_limits_raise(self):
+        """What the FFT kernel holds (checked before any launch): nfft =
+        512, the frames' first min(W, 512) taps, at most 257 bins, at most
+        MAX_FILTERS filters."""
+        cossin, mel, fftc = tf.make_frontend_params(RATE, nfft=512).folded()
+        stft_ops.check_design(400, 256, 40, fftc)  # every recipe's constants
+        _, mel2, f2 = tf.make_frontend_params(RATE, nfft=1024).folded()
+        with pytest.raises(ValueError, match="beyond the kernel's design"):
+            stft_ops.check_design(400, mel2.shape[0], 40, f2)
+        with pytest.raises(ValueError, match="taps"):
+            stft_ops.check_design(300, 256, 40, fftc)
+        with pytest.raises(ValueError, match="bins"):
+            stft_ops.check_design(400, 300, 40, fftc)
+        many = stft_ops.MAX_FILTERS + 1
+        wide = dataclasses.replace(fftc, ranges=torch.zeros((many, 3), dtype=torch.int32))
+        with pytest.raises(ValueError, match="beyond the kernel's design"):
+            stft_ops.check_design(400, 256, many, wide)
 
     def test_log_mel_spectrogram_matches_jax(self):
         """One utterance through the port's log_mel_spectrogram and the

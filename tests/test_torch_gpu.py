@@ -73,18 +73,38 @@ def _readings(checks, tol_of):
     return over, seen
 
 
-def test_stft_mel_kernel_matches_plain(cuda_device):
-    fp = tf.make_frontend_params(16000.0, nfft=512, nfilt=40, device=cuda_device)
-    cossin, mel = fp.folded()
+@pytest.mark.parametrize("rate,n_frames", [
+    (16000.0, 297),        # N not a multiple of a block's 8 frames
+    (16000.0, 1),
+    (16000.0, 32 * 1026),  # a served batch of 32 at the 1026-frame bucket
+    (32000.0, 97),         # W = 800 > nfft: the transform keeps the first 512 taps
+])
+def test_stft_mel_kernel_matches_plain(cuda_device, rate, n_frames):
+    fp = tf.make_frontend_params(rate, nfft=512, nfilt=40, device=cuda_device)
+    cossin, mel, fftc = fp.folded()
     rng = np.random.default_rng(0)
-    sig = torch.as_tensor((1000.0 * rng.standard_normal(48000)).astype(np.float32))
-    frames = tf.frame_signal(sig, 400, 160, 297).contiguous().to(cuda_device)  # N % 32 != 0
+    n = (n_frames - 1) * fp.frame_step + fp.frame_len
+    sig = torch.as_tensor((1000.0 * rng.standard_normal(n)).astype(np.float32))
+    frames = tf.frame_signal(sig, fp.frame_len, fp.frame_step, n_frames)
+    frames = frames.contiguous().to(cuda_device)
     before = kernels.launch_counts()["stft_mel"]
-    got = stft_ops.stft_mel(frames, cossin, mel)
+    got = stft_ops.stft_mel(frames, cossin, mel, fftc)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["stft_mel"] == before + 1
     ref = stft_ops.stft_mel_plain(frames, cossin, mel)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-4, rtol=0)
+
+
+def test_stft_mel_rejects_constants_beyond_its_design(cuda_device):
+    """nfft = 1024 is beyond the FFT's design: the wrapper raises before
+    any launch (and never falls back to the plain version)."""
+    fp = tf.make_frontend_params(16000.0, nfft=1024, nfilt=40, device=cuda_device)
+    cossin, mel, fftc = fp.folded()
+    frames = torch.zeros((8, fp.frame_len), device=cuda_device)
+    before = kernels.launch_counts()["stft_mel"]
+    with pytest.raises(ValueError, match="beyond the kernel's design"):
+        stft_ops.stft_mel(frames, cossin, mel, fftc)
+    assert kernels.launch_counts()["stft_mel"] == before
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 4e-2)])
@@ -359,7 +379,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         blstm_ops.blstm_recur(z(2, 5, 3, 8), torch.zeros(3, dtype=torch.int64,
                                                          device=cuda_device), z(2, 2, 8))
     with pytest.raises(TypeError):
-        stft_ops.stft_mel(z(4, 400, dtype=torch.bfloat16), z(400, 512), z(256, 40))
+        stft_ops.stft_mel(z(4, 400, dtype=torch.bfloat16), z(400, 512), z(256, 40), None)
 
 
 def test_beam_search_on_card_matches_cpu(cuda_device):
@@ -931,6 +951,36 @@ def test_blstm_v1_kernels_match_plain(cuda_device, dtype, T, B, H):
     assert not over and not passed, {"beyond tolerance": over, "faults passing": passed,
                                      "sound": sound, "fault": fault}
     assert float(y[1:, -1].float().abs().max()) == 0.0  # the length-1 lane's padding
+
+
+@pytest.mark.parametrize("T,B,H", [(64, 64, 512), (16, 128, 512)])
+def test_blstm_v1_chain_repeats_its_bits(cuda_device, T, B, H):
+    """The bf16 chain's step product adds the warps' partial sums in a
+    fixed order: a second launch gives the first one's bits, at las_large's
+    split (16 rows x 32 units a block) and at B = 128 (32 rows a block),
+    both within the chain's tolerance of the plain version."""
+    from nabu_tpu_torch.ops import blstm_v1 as v1
+
+    rng = np.random.default_rng(T + B + H)
+    lengths = rng.integers(1, T + 1, B).astype(np.int32)
+    lengths[0] = T
+    lt = torch.as_tensor(lengths, device=cuda_device)
+
+    def u(*shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.as_tensor(
+            rng.uniform(-scale, scale, shape).astype(np.float32)).to(cuda_device, dtype)
+
+    wh = u(2, H, 4 * H, scale=float(np.sqrt(6.0 / (5 * H))))
+    gates = u(2, T, B, 4 * H, scale=2.0, dtype=torch.float32)
+    c = u(2, T, B, H, scale=2.0, dtype=torch.float32)
+    gy = u(T, B, 2 * H)
+    assert v1.chain_plan(B, H, "bf16")[0] == (1 if B <= 64 else 2)
+    first = v1.blstm_v1_bwd_recur(gates, c, gy, lt, wh)
+    second = v1.blstm_v1_bwd_recur(gates, c, gy, lt, wh)
+    ref = v1.blstm_v1_bwd_recur_plain(gates, c, gy, lt, wh)
+    assert torch.equal(first, second)
+    err = float((first.float() - ref.float()).abs().max())
+    assert err <= 2e-2 * max(1.0, float(ref.float().abs().max())), err
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
