@@ -103,8 +103,9 @@ rows (blstm_proj, dx, dwx + db, dwh) run at the layers of the two f32
 recipes, ctc_blstm_timit (H = 128, D = 40 and 256) and las_timit's
 Listener (H = 256, D = 40 and 1024), B = 32. Every serving and training
 phase prints its GEMM launches by kernel, and the WMMA kernel must not
-launch in any of them. The stft_mel row (a real FFT) reports its GFLOP/s
-and its share of the bound beside the rfft path's time; each v1 chain row
+launch in any of them. The stft_mel row reports its GFLOP/s and its
+share of the bound beside the rfft path's time, and how far it and the
+plain version land from the float64 spectrum; each v1 chain row
 its µs a step, its split (``chain_plan``) and whether a second launch
 repeats its bits (a row whose bits differ fails the run), the bf16 rows
 also the µs a step at twice the rows a block.
@@ -539,11 +540,11 @@ def swapped(mod, name, fn):
 
 def _plain_of(mod, attr):
     """A wrapper's plain version, called as the paths call the wrapper
-    (``stft_mel`` also takes the kernel's FFT constants, which its plain
+    (``stft_mel`` also takes the kernel's Mel ranges, which its plain
     version does not read)."""
     plain = getattr(mod, f"{attr}_plain")
     if attr == "stft_mel":
-        return lambda frames, cossin, mel, fft: plain(frames, cossin, mel)
+        return lambda frames, cossin, mel, mr: plain(frames, cossin, mel)
     return plain
 
 
@@ -570,7 +571,7 @@ def plain_versions(**faults):
 def drop_last_tap(stft_plain):
     """Planted STFT+Mel fault: the last of the W taps is skipped (an
     off-by-one in the loop over the window)."""
-    def faulty(frames, cossin, mel, fft):
+    def faulty(frames, cossin, mel, mr):
         cut = cossin.clone()
         cut[-1] = 0.0
         return stft_plain(frames, cut, mel)
@@ -1052,17 +1053,17 @@ def phase_kernels(torch, quick: bool) -> dict:
 
     # --- STFT + Mel at N = 32 x 1024 frames ------------------------------
     fp = tf.make_frontend_params(16000.0, nfilt=NFILT, device=dev)
-    cossin, mel, fftc = fp.folded()
+    cossin, mel, mr = fp.folded()
     sig = torch.as_tensor(
         np.stack([synth_utterance(rng, 10.3) for _ in range(B)]), device=dev)
     frames = tf.frame_signal(sig, fp.frame_len, fp.frame_step, T)
     frames = frames.reshape(B * T, fp.frame_len).contiguous()
     N = frames.shape[0]
     check(tuple(cossin.shape) == (W, 2 * K), f"stft_mel: cossin {tuple(cossin.shape)}")
-    got = stft_ops.stft_mel(frames, cossin, mel, fftc)
+    got = stft_ops.stft_mel(frames, cossin, mel, mr)
     ref = stft_ops.stft_mel_plain(frames, cossin, mel)
     err = compare(torch, got, ref, TOL["stft_mel"], "stft_mel")
-    fault = fault_reading(drop_last_tap(stft_ops.stft_mel_plain)(frames, cossin, mel, fftc),
+    fault = fault_reading(drop_last_tap(stft_ops.stft_mel_plain)(frames, cossin, mel, mr),
                           ref, TOL["stft_mel"], "stft_mel")
 
     def fft_log_mel():
@@ -1071,17 +1072,22 @@ def phase_kernels(torch, quick: bool) -> dict:
         power = spec.real * spec.real + spec.imag * spec.imag
         return torch.log(torch.clamp(power @ mel, min=1e-30))
 
+    spec = torch.fft.rfft(frames.double() * fp.window.double(), n=fp.nfft)[:, :K]
+    exact = torch.log(torch.clamp((spec.abs() ** 2) @ mel.double(), min=1e-30))
+    del spec
+
     # least work: the window, a real FFT (~2.5 nfft log2 nfft operations a
     # frame), the power, the mel product over its nonzeros, the log
     nnz = int((mel != 0).sum())
     ops = N * (W + 2.5 * fp.nfft * math.log2(fp.nfft) + 3 * K + NFILT) + 2 * N * nnz
     bytes_ = 4 * (N * W + W * 2 * K + K * NFILT + N * NFILT)
     b_ms, b_by = bound(bytes_, ops, PEAK_F32)
-    ms = timed(lambda: stft_ops.stft_mel(frames, cossin, mel, fftc), reps)
+    ms = timed(lambda: stft_ops.stft_mel(frames, cossin, mel, mr), reps)
     rows["stft_mel"] = {
         "shape": [N, W, K, NFILT], "dtype": "f32", "max_abs_err": err,
         "tol": TOL["stft_mel"], "fault_max_abs_err": fault, "ms": ms,
-        "gflops": None if ms is None else ops / ms / 1e6,
+        # the kernel's own rate: the DFT product it computes (2 N W 2K)
+        "gflops": None if ms is None else 4 * N * W * K / ms / 1e6,
         "bound_share": None if ms is None else b_ms / ms,
         "plain_ms": timed(lambda: stft_ops.stft_mel_plain(frames, cossin, mel), reps),
         "library_ms": timed(lambda: torch.matmul(frames, cossin), reps),
@@ -1089,6 +1095,10 @@ def phase_kernels(torch, quick: bool) -> dict:
         "fft_ms": timed(fft_log_mel, reps),
         "fft_max_abs_err": float((fft_log_mel() - ref).abs().max()),
         "fft": "torch.fft.rfft, power, mel product, log",
+        # how far the plain version and the kernel land from the float64
+        # spectrum (the f32 table and sum order set the near-silent bands)
+        "plain_f64_max_abs_err": float((ref.double() - exact).abs().max()),
+        "kernel_f64_max_abs_err": float((got.double() - exact).abs().max()),
         "bound_ms": b_ms, "bound_by": b_by, "mel_nonzeros": nnz,
     }
     emit({"phase": "kernels", "kernel": "stft_mel", **rows["stft_mel"]})

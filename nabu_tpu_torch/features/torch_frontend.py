@@ -1,9 +1,9 @@
 """Device-side feature extraction: batched STFT + log-Mel on tensors.
 
-Port of the JAX package's ``features/jax_frontend.py``. The spectrum's plain
-version is computed against precomputed DFT cos/sin matrices (frames
-[N, W] @ dft [W, K]); the STFT+Mel step runs as the CUDA kernel
-(``ops.stft_mel``, a real FFT) on the card, while pre-emphasis, framing, DCT,
+Port of the JAX package's ``features/jax_frontend.py``. The spectrum is
+computed against precomputed DFT cos/sin matrices (frames [N, W] @ dft
+[W, K]); the STFT+Mel step runs as the CUDA kernel
+(``ops.stft_mel``) on the card, while pre-emphasis, framing, DCT,
 energy, deltas and CMVN stay plain torch around it, as they are XLA
 around the Pallas call in JAX. Golden-tested against the numpy
 computers and against the JAX frontend.
@@ -34,13 +34,12 @@ class FrontendParams:
     preemph: float
 
     def folded(self):
-        """(cossin [W, 2K], mel / nfft [K, M], the kernel's FFT constants)
-        for ``stft_mel``: its plain version reads the first two, the
-        kernel the third."""
+        """(cossin [W, 2K], mel / nfft [K, M], the Mel matrix as the
+        kernel reads it) for ``stft_mel``."""
         cossin, mel = stft_mel_ops.fold_constants(
             self.window, self.dft_cos, self.dft_sin, self.mel, self.nfft
         )
-        return cossin, mel, stft_mel_ops.fft_constants(self.window, mel, self.nfft)
+        return cossin, mel, stft_mel_ops.mel_ranges(mel)
 
 
 def make_frontend_params(
@@ -161,7 +160,7 @@ def frame_lengths(slens: np.ndarray, frame_len: int, frame_step: int) -> np.ndar
 
 def device_features(
     fp: FrontendParams,
-    consts,  # (cossin, mel_scaled, fft) from fp.folded()
+    consts,  # (cossin, mel_scaled, mel ranges) from fp.folded()
     dct,  # [numcep, nfilt] or None (fbank)
     lift,  # [numcep] or None
     signals: torch.Tensor,  # [B, S] zero-padded float32

@@ -118,7 +118,7 @@ def chain_plan(B: int, H: int, tag: str):
     return None
 
 
-def smem_bytes(B: int, H: int, tag: str = "bf16"):
+def smem_bytes(B: int, H: int, tag: str):
     """-> (walk, chain) shared memory of one block: the walk's layout of
     csrc/blstm_v1.cu (wh's gate columns of the block's 8 units, one K tile
     of h, two [B, 8] carries), the chain's of its ``chain_plan`` (None
@@ -129,7 +129,7 @@ def smem_bytes(B: int, H: int, tag: str = "bf16"):
     return walk, None if plan is None else plan[2]
 
 
-def check_design(what: str, B: int, H: int, tag: str = "bf16") -> None:
+def check_design(what: str, B: int, H: int, tag: str) -> None:
     """Raise for a batch and width the v1 kernels cannot hold: at most
     PAIRS (b, unit) pairs a walk thread (B <= 128), the walk's shared
     memory within a block's and its 2 ceil(H / 8) blocks co-resident on

@@ -1,260 +1,232 @@
-// Fused STFT power spectrum + Mel projection + log for Hopper (sm_90a),
-// through an in-chip f32 FFT.
+// Fused STFT power spectrum + Mel projection + log for Hopper (sm_90a).
 //
 // Replaces the TPU kernel nabu_tpu/ops/pallas/stft_mel.py
 // (stft_mel_pallas -> _stft_mel_kernel): frames [N, W] @ window-folded
 // cos|sin [W, 2K], then re^2 + im^2, then @ (mel / nfft) [K, M], then
-// log(max(., 1e-30)). The TPU kernel computes the DFT as a product on
-// its matrix unit; this kernel computes the same spectrum as a real FFT
-// of nfft = 512 points a frame, the same function in fewer operations.
+// log(max(., 1e-30)). The window and 1/nfft are folded into the
+// constant operands on the host, as the TPU wrapper does.
 //
 // What bounds it on the H100: the function's least time is its memory
 // traffic. At the serving shape (N = 32 x 1024 frames, W = 400, K = 256,
-// M = 40) it moves 58.5 MB, ~17.5 us at 3.35 TB/s; a real FFT of 512
-// points a frame plus the sparse mel product is ~0.45 GFLOP, ~7 us at
-// the 67 TFLOP/s non-tensor f32 rate. The earlier kernel computed the
-// DFT as a product (13.4 GFLOP of f32 FMA, >= 0.2 ms by operations). It
-// stays in f32 on the FMA pipes, with no TF32: near-silent mel bins
-// carry energies so small that a reduced-precision transform puts
-// several log-units of noise into them (the hazard the TPU kernel's
-// notes measure for bf16).
+// M = 40) it moves 58.5 MB, ~17.5 us at 3.35 TB/s; its least work is a
+// real FFT of nfft = 512 points per frame plus the sparse mel product,
+// ~0.45 GFLOP. This kernel computes the DFT as a product, as the TPU
+// kernel and the plain version do: 13.4 GFLOP of f32 FMA, >= 0.2 ms at
+// the 67 TFLOP/s non-tensor f32 rate, so its operations bound it. A real
+// f32 FFT was built and measured on the H100 (chip_smoke.py): 0.068 ms,
+// but 1.1e-3 from the plain version in a near-silent mel band, against
+// the 1e-4 tolerance. The plain version's own rounding (its f32 table,
+// its sum over W in order) sets such a band, further from the float64
+// spectrum than 1e-4 (chip_smoke.py prints both distances), so only the
+// same products summed in the same order agree to 1e-4. It stays in f32
+// on the FMA pipes, with no TF32: a reduced-precision DFT puts several
+// log-units of noise into such bands (the hazard the TPU kernel's notes
+// measure for bf16).
 //
-// What the design does about it: one warp transforms one frame at a
-// time and walks a grid-stride list of frames, its next frame's samples
-// loaded (coalesced, each byte once) while it transforms the current
-// one. The real 512-point transform is a 256-point complex FFT of z[n] =
-// x[2n] + i x[2n+1], the window applied on load (samples W..nfft-1 are
-// zero; past nfft they are dropped, as rfft truncates), then the split
-// step X[k] = (Z[k] + conj Z[256-k]) / 2 + w^k (Z[k] - conj Z[256-k]) /
-// 2i. The 256 points factor as 8 x 8 x 4: an 8-point DFT in registers
-// (each lane 8 points of stride 32), twiddles, an exchange through the
-// warp's shared memory, a second 8-point DFT, twiddles, an exchange, 4-
-// point DFTs; the exchanges' row strides (36 and 33 floats, real and
-// imaginary parts apart) keep every shared-memory access free of bank
-// conflicts. The twiddles w^k = exp(-2 pi i k / 512) come from a table
-// computed on the host in float64 and rounded once to f32, held in
-// shared memory. The power of the K kept bins goes to the warp's shared
-// row, then each filter sums its own bin range only (the filters'
-// first and end bins and their weights, mel / nfft, packed on the
-// host), in ascending bin order, and writes log(max(., 1e-30)): only
-// [N, M] leaves the chip.
+// What the design does about it: the product as register-blocked FFMA
+// tiles, each output summed over the window taps in order, one FFMA a
+// tap (the plain version's order). A block owns 64 frames and all 256
+// bins, so the power and the mel product stay in the block; thread t
+// holds 16 frames x 4 bins, re and im (128 accumulators, one block an
+// SM: up to 255 registers, no spill), and each tap reads four float4 of
+// frames (a warp's are one broadcast each) and two of the table from
+// shared memory for 128 FFMA. The taps stream through a 2-stage cp.async
+// ring, 8 taps a stage: the frames transposed by 4-byte copies (banks 4 w
+// + r, all distinct), the cos and sin rows by 16-byte copies; the table
+// is read from L2 once per 64 frames. The power rows (re^2 + im^2,
+// unfused, as the plain version rounds them) then take the ring's shared
+// memory, and each filter sums its own bin range only (its first and end
+// bins and its weights, mel / nfft, packed on the host: the zero weights
+// outside add nothing), in ascending bin order, and writes log(max(.,
+// 1e-30)): only [N, M] leaves the chip.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int NFFT = 512;               // the one transform size of the design
-constexpr int NC = NFFT / 2;            // complex points
-constexpr int LOADS = NC / 32;          // complex points a lane holds (2 samples each)
-constexpr int S1 = 36;                  // row stride of the first exchange [8][32]
-constexpr int S2 = 33;                  // row stride of the second exchange [8][32]
-constexpr int WARP_FLOATS = 2 * 8 * S1 + 260;  // exchange (re, im) + power row
+constexpr int TF = 64;                 // frames a block
+constexpr int FPT = TF / 4;            // frames a thread
+constexpr int KB = 256;                // bins a block (all of them): 64 threads x 4
+constexpr int WC = 8;                  // window taps a stage
+constexpr int STAGES = 2;
+constexpr int F_LD = TF + 4;           // staged frames [WC][F_LD], transposed
+constexpr int C_LD = 2 * KB;           // staged table [WC][cos KB | sin KB]
+constexpr int STAGE = WC * (C_LD + F_LD);
+constexpr int P_LD = KB + 4;           // power rows [TF][P_LD]
+constexpr int SMEM_MAIN = TF * P_LD > STAGES * STAGE ? TF * P_LD : STAGES * STAGE;
+static_assert(WC % 8 == 0 && WC * TF % THREADS == 0, "the frames' copies take taps by 8");
 
-struct cf {
-  float x, y;
-};
-__device__ __forceinline__ cf add(cf a, cf b) { return {a.x + b.x, a.y + b.y}; }
-__device__ __forceinline__ cf sub(cf a, cf b) { return {a.x - b.x, a.y - b.y}; }
-__device__ __forceinline__ cf mul(cf a, cf b) {
-  return {a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x};
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ cf mul_mi(cf a) { return {a.y, -a.x}; }  // a * (-i)
-
-// 8-point DFT in place, natural order in and out (radix 2, decimation in
-// frequency)
-__device__ __forceinline__ void dft8(cf* v) {
-  const float r = 0.70710678118654752f;
-  const cf a0 = add(v[0], v[4]), a1 = add(v[1], v[5]), a2 = add(v[2], v[6]),
-           a3 = add(v[3], v[7]);
-  const cf a4 = sub(v[0], v[4]);
-  const cf a5 = mul(sub(v[1], v[5]), cf{r, -r});
-  const cf a6 = mul_mi(sub(v[2], v[6]));
-  const cf a7 = mul(sub(v[3], v[7]), cf{-r, -r});
-  const cf b0 = add(a0, a2), b2 = sub(a0, a2), b1 = add(a1, a3), b3 = mul_mi(sub(a1, a3));
-  const cf c0 = add(a4, a6), c2 = sub(a4, a6), c1 = add(a5, a7), c3 = mul_mi(sub(a5, a7));
-  v[0] = add(b0, b1);
-  v[4] = sub(b0, b1);
-  v[2] = add(b2, b3);
-  v[6] = sub(b2, b3);
-  v[1] = add(c0, c1);
-  v[5] = sub(c0, c1);
-  v[3] = add(c2, c3);
-  v[7] = sub(c2, c3);
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-__global__ void __launch_bounds__(THREADS) stft_mel_fft_kernel(
+// Issue the copies of taps [w0, w0 + WC) into a stage: the frames' taps
+// transposed, 4 bytes each (a warp takes 8 consecutive taps, one sector,
+// of 4 frames: banks 4 w + r, all distinct), and the table's rows, cos
+// and sin halves each at column 0 and KB, 16 bytes each where K is a
+// multiple of 4; zeros past N, W and K.
+__device__ __forceinline__ void stage(float* s, const float* frames, const float* cossin,
+                                      int n0, int w0, int N, int W, int K, bool vec) {
+  float* fs = s;
+  float* cs = s + WC * F_LD;
+#pragma unroll
+  for (int u = 0; u < WC * TF / THREADS; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    const int w = (i & 7) + 8 * (i / (8 * TF)), r = (i >> 3) % TF;
+    const bool in = n0 + r < N && w0 + w < W;
+    cp_async4(fs + w * F_LD + r, in ? frames + (size_t)(n0 + r) * W + w0 + w : frames,
+              in ? 4 : 0);
+  }
+  if (vec) {
+#pragma unroll
+    for (int u = 0; u < WC * C_LD / 4 / THREADS; ++u) {
+      const int i = threadIdx.x + u * THREADS;
+      const int w = i / (C_LD / 4), c = (i % (C_LD / 4)) * 4;  // c < KB: cos, else sin
+      const int half = c / KB, k = c % KB;
+      const int bytes = w0 + w < W ? 4 * max(0, min(4, K - k)) : 0;
+      cp_async16(cs + w * C_LD + c,
+                 bytes ? cossin + (size_t)(w0 + w) * 2 * K + half * K + k : cossin, bytes);
+    }
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < WC * C_LD / THREADS; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    const int w = i / C_LD, c = i % C_LD;
+    const int half = c / KB, k = c % KB;
+    const bool in = w0 + w < W && k < K;
+    cp_async4(cs + w * C_LD + c, in ? cossin + (size_t)(w0 + w) * 2 * K + half * K + k : cossin,
+              in ? 4 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) stft_mel_dft_kernel(
     const float* __restrict__ frames,   // [N, W]
-    const float* __restrict__ window,   // [Wk], Wk = min(W, nfft)
-    const float* __restrict__ twiddle,  // [nfft, 2] exp(-2 pi i k / nfft)
+    const float* __restrict__ cossin,   // [W, 2K] window-folded cos | sin
     const int* __restrict__ ranges,     // [M, 3] first bin, end bin, offset in weights
     const float* __restrict__ weights,  // [nnz] mel / nfft over the ranges
     float* __restrict__ out,            // [N, M]
-    int N, int W, int Wk, int M, int nnz) {
+    int N, int W, int K, int M, int nnz) {
   extern __shared__ __align__(16) float smem[];
-  float* tw_re = smem;                       // [NFFT]
-  float* tw_im = tw_re + NFFT;               // [NFFT]
-  float* win_s = tw_im + NFFT;               // [NFFT], zero past Wk
-  float* wts_s = win_s + NFFT;               // [nnz]
+  float* ring = smem;                                // [STAGES][STAGE], then the power rows
+  float* wts_s = smem + SMEM_MAIN;                   // [nnz]
   int* rng_s = reinterpret_cast<int*>(wts_s + nnz);  // [M, 3]
-  float* warp_s = reinterpret_cast<float*>(rng_s + 3 * M) +
-                  (threadIdx.x / 32) * WARP_FLOATS;
-  float* ex_re = warp_s;                     // [8][S1] / [8][S2] / [256]
-  float* ex_im = warp_s + 8 * S1;
-  float* pow_s = warp_s + 2 * 8 * S1;        // [257]
-
-  for (int i = threadIdx.x; i < NFFT; i += blockDim.x) {
-    tw_re[i] = twiddle[2 * i];
-    tw_im[i] = twiddle[2 * i + 1];
-    win_s[i] = i < Wk ? window[i] : 0.f;
+  const int n0 = blockIdx.x * TF;
+  const int ntiles = (W + WC - 1) / WC;
+  const bool vec = (K & 3) == 0;
+  for (int i = threadIdx.x; i < nnz; i += THREADS) wts_s[i] = weights[i];
+  for (int i = threadIdx.x; i < 3 * M; i += THREADS) rng_s[i] = ranges[i];
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) stage(ring + s * STAGE, frames, cossin, n0, s * WC, N, W, K, vec);
+    cp_async_commit();
   }
-  for (int i = threadIdx.x; i < nnz; i += blockDim.x) wts_s[i] = weights[i];
-  for (int i = threadIdx.x; i < 3 * M; i += blockDim.x) rng_s[i] = ranges[i];
+
+  // thread t: frames 16 (t / 64) + [0, 16), bins 4 (t % 64) + [0, 4), re and im
+  const int fr = FPT * (threadIdx.x / 64), bn = 4 * (threadIdx.x % 64);
+  float re[FPT][4], im[FPT][4];
+#pragma unroll
+  for (int i = 0; i < FPT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      re[i][j] = 0.f;
+      im[i][j] = 0.f;
+    }
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (t + STAGES - 1 < ntiles)
+      stage(ring + ((t + STAGES - 1) % STAGES) * STAGE, frames, cossin, n0,
+            (t + STAGES - 1) * WC, N, W, K, vec);
+    cp_async_commit();
+    const float* fs = ring + (t % STAGES) * STAGE;
+    const float* cs = fs + WC * F_LD;
+#pragma unroll
+    for (int w = 0; w < WC; ++w) {
+      float fv[FPT];
+#pragma unroll
+      for (int q = 0; q < FPT / 4; ++q) {
+        const float4 f = *reinterpret_cast<const float4*>(fs + w * F_LD + fr + 4 * q);
+        fv[4 * q] = f.x;
+        fv[4 * q + 1] = f.y;
+        fv[4 * q + 2] = f.z;
+        fv[4 * q + 3] = f.w;
+      }
+      const float4 c4 = *reinterpret_cast<const float4*>(cs + w * C_LD + bn);
+      const float4 s4 = *reinterpret_cast<const float4*>(cs + w * C_LD + KB + bn);
+      const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int i = 0; i < FPT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          re[i][j] = fmaf(fv[i], cv[j], re[i][j]);
+          im[i][j] = fmaf(fv[i], sv[j], im[i][j]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread is done with the ring: the power rows take it
+
+  float* p_s = ring;  // [TF][P_LD]
+#pragma unroll
+  for (int i = 0; i < FPT; ++i) {
+    float4 p;
+    p.x = __fadd_rn(__fmul_rn(re[i][0], re[i][0]), __fmul_rn(im[i][0], im[i][0]));
+    p.y = __fadd_rn(__fmul_rn(re[i][1], re[i][1]), __fmul_rn(im[i][1], im[i][1]));
+    p.z = __fadd_rn(__fmul_rn(re[i][2], re[i][2]), __fmul_rn(im[i][2], im[i][2]));
+    p.w = __fadd_rn(__fmul_rn(re[i][3], re[i][3]), __fmul_rn(im[i][3], im[i][3]));
+    *reinterpret_cast<float4*>(p_s + (fr + i) * P_LD + bn) = p;
+  }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * WARPS;
-  // the first stage's twiddles w256^(t k1) = w512^(2 t k1) of this lane
-  cf tw1[8];
-#pragma unroll
-  for (int k1 = 0; k1 < 8; ++k1) tw1[k1] = cf{tw_re[2 * lane * k1], tw_im[2 * lane * k1]};
-  int f = blockIdx.x * WARPS + threadIdx.x / 32;
-
-  // lane t holds samples 2n, 2n + 1 of the complex points n = t + 32 j
-  float cur[2 * LOADS];
-  auto load = [&](int frame, float* dst) {
-    const float* row = frames + (size_t)frame * W;
-#pragma unroll
-    for (int j = 0; j < LOADS; ++j) {
-      const int s = 2 * lane + 64 * j;
-      dst[2 * j] = (frame < N && s < Wk) ? __ldg(row + s) : 0.f;
-      dst[2 * j + 1] = (frame < N && s + 1 < Wk) ? __ldg(row + s + 1) : 0.f;
-    }
-  };
-  load(f, cur);
-
-  for (; f < N; f += stride) {
-    float nxt[2 * LOADS];
-    load(f + stride, nxt);
-
-    // 1. 8-point DFTs over j, lane t = n mod 32; twiddle w256^(t k1)
-    cf v[8];
-#pragma unroll
-    for (int j = 0; j < LOADS; ++j) {
-      const int s = 2 * lane + 64 * j;
-      v[j] = cf{cur[2 * j] * win_s[s], cur[2 * j + 1] * win_s[s + 1]};
-    }
-    dft8(v);
-#pragma unroll
-    for (int k1 = 0; k1 < 8; ++k1) {
-      const cf a = k1 == 0 ? v[0] : mul(v[k1], tw1[k1]);
-      ex_re[k1 * S1 + lane] = a.x;
-      ex_im[k1 * S1 + lane] = a.y;
-    }
-    __syncwarp();
-
-    // 2. lane = 4 k1 + a: 8-point DFT over b of row k1, points a + 4b;
-    //    twiddle w32^(a c)
-    const int k1 = lane >> 2, a = lane & 3;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) v[b] = cf{ex_re[k1 * S1 + a + 4 * b], ex_im[k1 * S1 + a + 4 * b]};
-    dft8(v);
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int e = 16 * a * c;  // w32^(a c) = w512^(16 a c)
-      const cf y = (a == 0 || c == 0) ? v[c] : mul(v[c], cf{tw_re[e], tw_im[e]});
-      ex_re[c * S2 + lane] = y.x;
-      ex_im[c * S2 + lane] = y.y;
-    }
-    __syncwarp();
-
-    // 3. 4-point DFTs over a for (k1, c) = (lane & 7, (lane >> 3) + 4r):
-    //    Z[k1 + 8 c + 64 d] = Z[lane + 32 r + 64 d]
-    cf z[2][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int q1 = lane & 7, c = (lane >> 3) + 4 * r;
-      cf u[4];
-#pragma unroll
-      for (int aa = 0; aa < 4; ++aa) u[aa] = cf{ex_re[c * S2 + 4 * q1 + aa], ex_im[c * S2 + 4 * q1 + aa]};
-      const cf s02 = add(u[0], u[2]), d02 = sub(u[0], u[2]);
-      const cf s13 = add(u[1], u[3]), d13 = mul_mi(sub(u[1], u[3]));
-      z[r][0] = add(s02, s13);
-      z[r][1] = add(d02, d13);
-      z[r][2] = sub(s02, s13);
-      z[r][3] = sub(d02, d13);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        ex_re[lane + 32 * r + 64 * d] = z[r][d].x;
-        ex_im[lane + 32 * r + 64 * d] = z[r][d].y;
-      }
-    __syncwarp();
-
-    // 4. split step: the real transform's bins k = lane + 32 q (and the
-    //    Nyquist bin 256), their power to the warp's row
-#pragma unroll
-    for (int q = 0; q < 9; ++q) {
-      const int k = lane + 32 * q;
-      if (k > NC) break;
-      const int kz = k & (NC - 1), km = (NC - k) & (NC - 1);
-      const float zr = ex_re[kz], zi = ex_im[kz], mr = ex_re[km], mi = ex_im[km];
-      const cf fe = {0.5f * (zr + mr), 0.5f * (zi - mi)};
-      const cf fo = {0.5f * (zi + mi), -0.5f * (zr - mr)};
-      const cf x = add(fe, mul(fo, cf{tw_re[k], tw_im[k]}));
-      pow_s[k] = x.x * x.x + x.y * x.y;
-    }
-    __syncwarp();
-
-    // 5. each filter over its own bins, ascending; the log
-    for (int m = lane; m < M; m += 32) {
-      const int lo = rng_s[3 * m], hi = rng_s[3 * m + 1], off = rng_s[3 * m + 2] - lo;
-      float acc = 0.f;
-      for (int k = lo; k < hi; ++k) acc = fmaf(pow_s[k], wts_s[off + k], acc);
-      out[(size_t)f * M + m] = logf(fmaxf(acc, 1e-30f));
-    }
-    __syncwarp();  // the row and the exchange are read before the next frame
-#pragma unroll
-    for (int i = 0; i < 2 * LOADS; ++i) cur[i] = nxt[i];
+  const int rows = min(TF, N - n0);
+  for (int i = threadIdx.x; i < rows * M; i += THREADS) {
+    const int r = i / M, m = i - r * M;
+    const int lo = rng_s[3 * m], hi = rng_s[3 * m + 1], off = rng_s[3 * m + 2] - lo;
+    const float* pr = p_s + r * P_LD;
+    float acc = 0.f;
+    for (int k = lo; k < hi; ++k) acc = fmaf(pr[k], wts_s[off + k], acc);
+    out[(size_t)(n0 + r) * M + m] = logf(fmaxf(acc, 1e-30f));
   }
 }
 
 size_t smem_bytes(int M, int nnz) {
-  return sizeof(float) * (3 * (size_t)NFFT + nnz + 3 * (size_t)M + (size_t)WARPS * WARP_FLOATS);
+  return sizeof(float) * ((size_t)SMEM_MAIN + nnz + 3 * (size_t)M);
 }
 
 }  // namespace
 
-// nfft must be 512 and the filters' bins within [0, 257) (the wrapper,
-// ops/stft_mel.check_design, raises before any launch otherwise)
-extern "C" int nabu_stft_mel_fft_f32(const float* frames, const float* window,
-                                     const float* twiddle, const int* ranges,
-                                     const float* weights, float* out, int N, int W, int nfft,
-                                     int M, int nnz, void* stream) {
+// K <= 256 bins (the wrapper, ops/stft_mel.check_design, raises before any
+// launch otherwise)
+extern "C" int nabu_stft_mel_f32(const float* frames, const float* cossin, const int* ranges,
+                                 const float* weights, float* out, int N, int W, int K, int M,
+                                 int nnz, void* stream) {
   if (N <= 0) return 0;
-  if (nfft != NFFT || W <= 0 || M <= 0 || nnz < 0) return (int)cudaErrorInvalidValue;
-  const int Wk = W < NFFT ? W : NFFT;
+  if (W <= 0 || K <= 0 || K > KB || M <= 0 || nnz < 0) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(M, nnz);
   cudaError_t err = cudaFuncSetAttribute(
-      stft_mel_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      stft_mel_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-      cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stft_mel_fft_kernel,
-                                                           THREADS, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int need = (N + WARPS - 1) / WARPS;
-  const int grid = need < per_sm * sms ? need : per_sm * sms;
-  stft_mel_fft_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      frames, window, twiddle, ranges, weights, out, N, W, Wk, M, nnz);
+  stft_mel_dft_kernel<<<(N + TF - 1) / TF, THREADS, smem, (cudaStream_t)stream>>>(
+      frames, cossin, ranges, weights, out, N, W, K, M, nnz);
   return (int)cudaGetLastError();
 }

@@ -7,10 +7,10 @@ once per sample rate (``fold_constants``), exactly as the TPU wrapper
 folds them; the plain version then computes ``log(max((f @ C)^2 + (f @
 S)^2) @ mel', 1e-30))`` for a batch of frames, in f32 throughout.
 
-The kernel (``csrc/stft_mel.cu``) computes the same function through a
-real FFT of nfft points a frame and a sparse Mel product. It reads its
-own host constants (``fft_constants``, made beside ``fold_constants``):
-the window, the twiddle table and each filter's bin range and weights.
+The kernel (``csrc/stft_mel.cu``) computes the same products in the same
+order, fused with the power, a sparse Mel product and the log. Besides
+the folded operands it reads each filter's bin range and weights
+(``mel_ranges``, made beside ``fold_constants``).
 
 ``stft_mel`` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors.
@@ -27,9 +27,9 @@ import torch
 from nabu_tpu_torch.ops import kernels
 from nabu_tpu_torch.ops.kernels import build
 
-# csrc/stft_mel.cu: the one transform size of its design, and the largest
-# filter count and packed weight count its shared memory is sized for
-NFFT = 512
+# csrc/stft_mel.cu: the bins a block holds, and the largest filter count
+# and packed weight count its shared memory is sized for
+MAX_BINS = 256
 MAX_FILTERS = 512
 MAX_WEIGHTS = 8192
 
@@ -37,12 +37,10 @@ _fn = None
 
 
 @dataclasses.dataclass(frozen=True)
-class FFTConstants:
-    """What the kernel reads in place of the folded DFT matrix."""
+class MelRanges:
+    """The Mel matrix as the kernel reads it: each filter's bin range and
+    its weights."""
 
-    nfft: int
-    window: torch.Tensor  # [min(W, nfft)] f32: the taps the DFT keeps
-    twiddles: torch.Tensor  # [nfft, 2] f32: cos, -sin of 2 pi k / nfft
     ranges: torch.Tensor  # [M, 3] int32: first bin, end bin, offset in weights
     weights: torch.Tensor  # [nnz] f32: mel / nfft over each filter's range
 
@@ -58,42 +56,26 @@ def fold_constants(window, dft_cos, dft_sin, mel, nfft: int):
     )
 
 
-def twiddle_table(nfft: int) -> np.ndarray:
-    """[nfft, 2] f32: exp(-2 pi i k / nfft) in float64, rounded once."""
-    ang = 2.0 * np.pi * np.arange(nfft, dtype=np.float64) / nfft
-    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
-
-
-def mel_ranges(mel_scaled: np.ndarray):
-    """[K, M] mel / nfft -> (ranges [M, 3] int32: each filter's first and
-    end bin, from its first to its last non-zero, and the offset of its
-    weights; weights [nnz] f32, the filters' ranges one after another).
-    A filter with no non-zero has the empty range (0, 0)."""
-    K, M = mel_scaled.shape
+def mel_ranges(mel_scaled) -> MelRanges:
+    """[K, M] mel / nfft -> each filter's first and end bin, from its
+    first to its last non-zero, with the offset of its weights, and the
+    weights, the filters' ranges one after another (on mel_scaled's
+    device). A filter with no non-zero has the empty range (0, 0)."""
+    mel = mel_scaled.detach().cpu().numpy()
+    K, M = mel.shape
     ranges = np.zeros((M, 3), np.int32)
     weights = []
     off = 0
     for m in range(M):
-        nz = np.flatnonzero(mel_scaled[:, m])
+        nz = np.flatnonzero(mel[:, m])
         lo, hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
         ranges[m] = (lo, hi, off)
-        weights.append(mel_scaled[lo:hi, m])
+        weights.append(mel[lo:hi, m])
         off += hi - lo
-    return ranges, np.concatenate(weights).astype(np.float32)
-
-
-def fft_constants(window, mel_scaled, nfft: int) -> FFTConstants:
-    """The kernel's constants on the device of ``mel_scaled``: the window's
-    first min(W, nfft) taps (rfft drops the rest, as the DFT rows' ``trunc``
-    does), the twiddles, and ``mel_ranges`` of ``mel_scaled``."""
     dev = mel_scaled.device
-    ranges, weights = mel_ranges(mel_scaled.detach().cpu().numpy())
-    return FFTConstants(
-        nfft=nfft,
-        window=window.to(torch.float32)[:nfft].contiguous(),
-        twiddles=torch.as_tensor(twiddle_table(nfft), device=dev),
+    return MelRanges(
         ranges=torch.as_tensor(ranges, device=dev),
-        weights=torch.as_tensor(weights, device=dev),
+        weights=torch.as_tensor(np.concatenate(weights).astype(np.float32), device=dev),
     )
 
 
@@ -107,44 +89,34 @@ def stft_mel_plain(frames, cossin, mel_scaled) -> torch.Tensor:
     return torch.log(torch.clamp(power @ mel_scaled, min=1e-30))
 
 
-def check_design(W: int, K: int, M: int, fft: FFTConstants) -> None:
-    """Raise for constants the kernel's design does not hold: nfft other
-    than 512, a window that is not the frames' first min(W, nfft) taps,
-    more than nfft / 2 + 1 bins, more filters or weights than its shared
-    memory is sized for. (``fft_constants`` keeps each filter's bins
-    within the K rows of its mel matrix.)"""
-    if fft.nfft != NFFT:
-        raise ValueError(f"stft_mel: nfft = {fft.nfft} is beyond the kernel's design "
-                         f"(nfft = {NFFT})")
-    if K > NFFT // 2 + 1:
-        raise ValueError(f"stft_mel: K = {K} bins beyond nfft / 2 + 1 = {NFFT // 2 + 1}")
-    if tuple(fft.window.shape) != (min(W, NFFT),):
-        raise ValueError(f"stft_mel: window {tuple(fft.window.shape)} is not the first "
-                         f"min(W, nfft) = {min(W, NFFT)} taps of frames of W = {W}")
-    if tuple(fft.twiddles.shape) != (NFFT, 2):
-        raise ValueError(f"stft_mel: twiddles {tuple(fft.twiddles.shape)}, want ({NFFT}, 2)")
-    if tuple(fft.ranges.shape) != (M, 3):
-        raise ValueError(f"stft_mel: ranges {tuple(fft.ranges.shape)}, want ({M}, 3)")
-    nnz = fft.weights.shape[0]
-    if M > MAX_FILTERS or nnz > MAX_WEIGHTS:
-        raise ValueError(f"stft_mel: M = {M} filters, {nnz} weights are beyond the kernel's "
-                         f"design ({MAX_FILTERS}, {MAX_WEIGHTS})")
+def check_design(K: int, M: int, mr: MelRanges) -> None:
+    """Raise for a shape the kernel's design does not hold: more than
+    MAX_BINS bins (a block holds all of a frame's), more filters or
+    weights than its shared memory is sized for, ranges of another
+    filter count. (``mel_ranges`` keeps each filter's bins within the K
+    rows of its mel matrix.)"""
+    nnz = mr.weights.shape[0]
+    if K > MAX_BINS or M > MAX_FILTERS or nnz > MAX_WEIGHTS:
+        raise ValueError(f"stft_mel: K = {K} bins, M = {M} filters, {nnz} weights are beyond "
+                         f"the kernel's design ({MAX_BINS}, {MAX_FILTERS}, {MAX_WEIGHTS})")
+    if tuple(mr.ranges.shape) != (M, 3):
+        raise ValueError(f"stft_mel: ranges {tuple(mr.ranges.shape)}, want ({M}, 3)")
 
 
 def _launcher():
     global _fn
     if _fn is None:
-        fn = build.load("stft_mel").nabu_stft_mel_fft_f32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn = build.load("stft_mel").nabu_stft_mel_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def stft_mel(frames, cossin, mel_scaled, fft: FFTConstants) -> torch.Tensor:
+def stft_mel(frames, cossin, mel_scaled, mr: MelRanges) -> torch.Tensor:
     """[N, W] raw frames (f32) -> [N, M] log-mel (f32). CPU tensors take
-    the plain version on (cossin, mel_scaled); CUDA tensors launch the
-    kernel on ``fft`` (``fft_constants`` of the same window and mel)."""
+    the plain version; CUDA tensors launch the kernel, which reads the Mel
+    matrix as ``mr`` (``mel_ranges`` of the same mel_scaled)."""
     if frames.device.type == "cpu":
         return stft_mel_plain(frames, cossin, mel_scaled)
     if frames.device.type != "cuda":
@@ -157,26 +129,21 @@ def stft_mel(frames, cossin, mel_scaled, fft: FFTConstants) -> torch.Tensor:
             f"stft_mel: shapes frames {tuple(frames.shape)}, cossin "
             f"{tuple(cossin.shape)}, mel {tuple(mel_scaled.shape)} disagree"
         )
-    for name, t in (("frames", frames), ("cossin", cossin), ("mel", mel_scaled)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"stft_mel: {name} must be float32, got {t.dtype}")
-    tensors = (("frames", frames, torch.float32), ("window", fft.window, torch.float32),
-               ("twiddles", fft.twiddles, torch.float32), ("ranges", fft.ranges, torch.int32),
-               ("weights", fft.weights, torch.float32))
-    for name, t, dtype in tensors:
+    for name, t, dtype in (("frames", frames, torch.float32), ("cossin", cossin, torch.float32),
+                           ("mel", mel_scaled, torch.float32), ("ranges", mr.ranges, torch.int32),
+                           ("weights", mr.weights, torch.float32)):
         if t.dtype != dtype:
             raise TypeError(f"stft_mel: {name} must be {dtype}, got {t.dtype}")
         if t.device != frames.device:
             raise ValueError(f"stft_mel: {name} is on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"stft_mel: {name} must be contiguous")
-    check_design(W, K, M, fft)
+    check_design(K, M, mr)
     out = torch.empty((N, M), dtype=torch.float32, device=frames.device)
     with torch.cuda.device(frames.device):
         err = _launcher()(
-            frames.data_ptr(), fft.window.data_ptr(), fft.twiddles.data_ptr(),
-            fft.ranges.data_ptr(), fft.weights.data_ptr(), out.data_ptr(),
-            N, W, fft.nfft, M, fft.weights.shape[0],
+            frames.data_ptr(), cossin.data_ptr(), mr.ranges.data_ptr(), mr.weights.data_ptr(),
+            out.data_ptr(), N, W, K, M, mr.weights.shape[0],
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, "stft_mel")

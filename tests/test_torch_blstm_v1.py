@@ -133,14 +133,14 @@ def test_plain_pieces_of_row6():
 def test_kernel_family(B, H, family):
     assert blstm_ops.kernel_family(B, H) == family
     if family == "v1":
-        blstm_v1.check_design("layer", B, H)  # v1 holds what v2 cannot
+        blstm_v1.check_design("layer", B, H, "bf16")  # v1 holds what v2 cannot
 
 
 def test_check_design_raises_beyond_the_design():
     with pytest.raises(ValueError, match="beyond"):
-        blstm_v1.check_design("layer", 129, 512)
+        blstm_v1.check_design("layer", 129, 512, "bf16")
     with pytest.raises(ValueError, match="beyond"):
-        blstm_v1.check_design("layer", 64, 1024)
+        blstm_v1.check_design("layer", 64, 1024, "bf16")
     with pytest.raises(ValueError, match="chain's design"):  # 4H past 8 K chunks a warp
         blstm_v1.check_design("layer", 64, 520, "bf16")
 

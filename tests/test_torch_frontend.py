@@ -77,17 +77,16 @@ class TestStftMel:
 
 
     @pytest.mark.parametrize("rate,nfilt", [(RATE, 40), (8000.0, 23), (44100.0, 80)])
-    def test_fft_constants_cover_the_mel_matrix(self, rate, nfilt):
+    def test_mel_ranges_cover_the_mel_matrix(self, rate, nfilt):
         """The kernel's sparse Mel product: each filter's bin range runs
         from its first to its last non-zero, no non-zero lies outside the
         ranges, the packed weights are the matrix's, and summing over the
-        ranges gives power @ mel (1e-6: positive terms in another order).
-        At 44.1 kHz the 1102-tap window is cut to nfft's 512 taps."""
+        ranges gives power @ mel (1e-6: positive terms in another order)."""
         fp = tf.make_frontend_params(rate, nfft=512, nfilt=nfilt)
-        _, mel, fftc = fp.folded()
-        m, r, w = mel.numpy(), fftc.ranges.numpy(), fftc.weights.numpy()
+        _, mel, mr = fp.folded()
+        m, r, w = mel.numpy(), mr.ranges.numpy(), mr.weights.numpy()
         K, M = m.shape
-        assert r.shape == (M, 3) and fftc.window.shape == (min(fp.frame_len, 512),)
+        assert r.shape == (M, 3)
         covered = np.zeros(m.shape, bool)
         for j, (lo, hi, off) in enumerate(r):
             covered[lo:hi, j] = True
@@ -103,32 +102,21 @@ class TestStftMel:
                 sparse[:, j] += power[:, k] * w[off + k - lo]
         np.testing.assert_allclose(sparse, power @ m, rtol=1e-6, atol=0)
 
-    def test_twiddles_are_float64_rounded_once(self):
-        k = np.arange(512)
-        want = np.exp(-2j * np.pi * k / 512)  # complex128
-        tw = stft_ops.twiddle_table(512)
-        np.testing.assert_array_equal(tw[:, 0], want.real.astype(np.float32))
-        np.testing.assert_array_equal(tw[:, 1], want.imag.astype(np.float32))
-        _, _, fftc = tf.make_frontend_params(RATE, nfft=512).folded()
-        np.testing.assert_array_equal(fftc.twiddles.numpy(), tw)
-
     def test_kernel_design_limits_raise(self):
-        """What the FFT kernel holds (checked before any launch): nfft =
-        512, the frames' first min(W, 512) taps, at most 257 bins, at most
-        MAX_FILTERS filters."""
-        cossin, mel, fftc = tf.make_frontend_params(RATE, nfft=512).folded()
-        stft_ops.check_design(400, 256, 40, fftc)  # every recipe's constants
-        _, mel2, f2 = tf.make_frontend_params(RATE, nfft=1024).folded()
+        """What the kernel holds (checked before any launch): at most 256
+        bins (a block holds all of a frame's), MAX_FILTERS filters, ranges
+        of the filter count."""
+        _, mel, mr = tf.make_frontend_params(RATE, nfft=512).folded()
+        stft_ops.check_design(256, 40, mr)  # every recipe's constants
+        _, mel2, mr2 = tf.make_frontend_params(RATE, nfft=1024).folded()
         with pytest.raises(ValueError, match="beyond the kernel's design"):
-            stft_ops.check_design(400, mel2.shape[0], 40, f2)
-        with pytest.raises(ValueError, match="taps"):
-            stft_ops.check_design(300, 256, 40, fftc)
-        with pytest.raises(ValueError, match="bins"):
-            stft_ops.check_design(400, 300, 40, fftc)
+            stft_ops.check_design(mel2.shape[0], 40, mr2)
+        with pytest.raises(ValueError, match="ranges"):
+            stft_ops.check_design(256, 39, mr)
         many = stft_ops.MAX_FILTERS + 1
-        wide = dataclasses.replace(fftc, ranges=torch.zeros((many, 3), dtype=torch.int32))
+        wide = dataclasses.replace(mr, ranges=torch.zeros((many, 3), dtype=torch.int32))
         with pytest.raises(ValueError, match="beyond the kernel's design"):
-            stft_ops.check_design(400, 256, many, wide)
+            stft_ops.check_design(256, many, wide)
 
     def test_log_mel_spectrogram_matches_jax(self):
         """One utterance through the port's log_mel_spectrogram and the

@@ -77,18 +77,18 @@ def _readings(checks, tol_of):
     (16000.0, 297),        # N not a multiple of a block's 8 frames
     (16000.0, 1),
     (16000.0, 32 * 1026),  # a served batch of 32 at the 1026-frame bucket
-    (32000.0, 97),         # W = 800 > nfft: the transform keeps the first 512 taps
+    (32000.0, 97),         # W = 800 > nfft: the DFT rows past 512 are zero
 ])
 def test_stft_mel_kernel_matches_plain(cuda_device, rate, n_frames):
     fp = tf.make_frontend_params(rate, nfft=512, nfilt=40, device=cuda_device)
-    cossin, mel, fftc = fp.folded()
+    cossin, mel, mr = fp.folded()
     rng = np.random.default_rng(0)
     n = (n_frames - 1) * fp.frame_step + fp.frame_len
     sig = torch.as_tensor((1000.0 * rng.standard_normal(n)).astype(np.float32))
     frames = tf.frame_signal(sig, fp.frame_len, fp.frame_step, n_frames)
     frames = frames.contiguous().to(cuda_device)
     before = kernels.launch_counts()["stft_mel"]
-    got = stft_ops.stft_mel(frames, cossin, mel, fftc)
+    got = stft_ops.stft_mel(frames, cossin, mel, mr)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["stft_mel"] == before + 1
     ref = stft_ops.stft_mel_plain(frames, cossin, mel)
@@ -96,14 +96,14 @@ def test_stft_mel_kernel_matches_plain(cuda_device, rate, n_frames):
 
 
 def test_stft_mel_rejects_constants_beyond_its_design(cuda_device):
-    """nfft = 1024 is beyond the FFT's design: the wrapper raises before
-    any launch (and never falls back to the plain version)."""
+    """nfft = 1024 (512 bins) is beyond the kernel's design: the wrapper
+    raises before any launch (and never falls back to the plain version)."""
     fp = tf.make_frontend_params(16000.0, nfft=1024, nfilt=40, device=cuda_device)
-    cossin, mel, fftc = fp.folded()
+    cossin, mel, mr = fp.folded()
     frames = torch.zeros((8, fp.frame_len), device=cuda_device)
     before = kernels.launch_counts()["stft_mel"]
     with pytest.raises(ValueError, match="beyond the kernel's design"):
-        stft_ops.stft_mel(frames, cossin, mel, fftc)
+        stft_ops.stft_mel(frames, cossin, mel, mr)
     assert kernels.launch_counts()["stft_mel"] == before
 
 
@@ -379,7 +379,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         blstm_ops.blstm_recur(z(2, 5, 3, 8), torch.zeros(3, dtype=torch.int64,
                                                          device=cuda_device), z(2, 2, 8))
     with pytest.raises(TypeError):
-        stft_ops.stft_mel(z(4, 400, dtype=torch.bfloat16), z(400, 512), z(256, 40), None)
+        stft_ops.stft_mel(z(4, 400, dtype=torch.bfloat16), z(400, 512), z(256, 40),
+                          stft_ops.mel_ranges(z(256, 40)))
 
 
 def test_beam_search_on_card_matches_cpu(cuda_device):
