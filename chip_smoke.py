@@ -2285,6 +2285,7 @@ def rnnt_rows(torch, timed, reps) -> dict:
         "ref_max_abs": {n: float(r.abs().max()) for n, r in zip(("denc", "dpred", "dw", "db"),
                                                                    ref)},
         "fault_max_abs_err": fault,
+        "plan": dict(zip(("F", "C", "partial_bytes"), tf.joint_bwd_plan(Bq, Tq, U1, Jq))),
         "ms": timed(lambda: tf.rnnt_joint_bwd(*bwd_args), reps),
         "plain_ms": timed(lambda: tf.rnnt_joint_bwd_plain(*bwd_args), min(reps, 2)),
         "library_ms": None if lib_f is None else lib_fb - lib_f,
@@ -2309,6 +2310,8 @@ def rnnt_rows(torch, timed, reps) -> dict:
     check(bool(torch.isfinite(nll).all()), "rnnt loss: non-finite nll")
     emit({"phase": "kernels", "kernel": "rnnt_loss", "T": Tq, "extra_peak_bytes": extra,
           "limit_bytes": RNNT_LOSS_LIMIT[Tq], "materialized_h_bytes": 2 * Bq * Tq * U1 * Jq,
+          "joint_bwd_plan": dict(zip(("F", "C", "partial_bytes"),
+                                     tf.joint_bwd_plan(Bq, Tq, U1, Jq))),
           "fwd_bwd_ms": timed(lambda: tf.transducer_loss_fused(
               *leaves, c["llen"], c["targets"], c["tlen"]).sum().backward(), reps)})
     del leaves, nll, c
@@ -2330,6 +2333,8 @@ def rnnt_rows(torch, timed, reps) -> dict:
           f"(limit {RNNT_LOSS_LIMIT[Ts]})")
     emit({"phase": "kernels", "kernel": "rnnt_loss", "T": Ts, "extra_peak_bytes": extra,
           "limit_bytes": RNNT_LOSS_LIMIT[Ts], "materialized_h_bytes": 2 * Bq * Ts * U1 * Jq,
+          "joint_bwd_plan": dict(zip(("F", "C", "partial_bytes"),
+                                     tf.joint_bwd_plan(Bq, Ts, U1, Jq))),
           "fwd_bwd_ms": timed(lambda: tf.transducer_loss_fused(
               *leaves, c["llen"], c["targets"], c["tlen"]).sum().backward(), reps)})
     return rows

@@ -27,8 +27,9 @@ become four kernels of ``csrc/transducer.cu``:
   ``dlogits = gb (softmax - 1_blank) + ge (softmax - 1_target)``, back
   through W_o and the tanh (its derivative from the f32 tanh, as XLA
   computes the TPU kernel): d_enc_proj [B, T, J] (sum over u), d_pred_proj
-  [B, U+1, J] (sum over t), dW_o [J, V], db_o [V], all f32, the sums
-  across blocks taken in a fixed order by a second pass.
+  [B, U+1, J] (sum over t), dW_o [J, V], db_o [V], all f32. Blocks
+  walk chunks of frames in parallel (``joint_bwd_plan``); the sums across
+  them are taken in a fixed order by a second pass.
 
 Lattice nodes outside each example's lattice (t >= T_b or u > U_b) take
 no part: their ``lp_blank`` reads 0 and ``lp_emit`` NEG, and they add
@@ -59,10 +60,12 @@ from nabu_tpu_torch.ops.transducer import NEG
 
 # design limits of the kernels (csrc/transducer.cu)
 VOCAB_MAX = 32  # the vocabulary, blank included, padded to 32 lanes
-JOINT_MAX = 368  # the widest joint whose backward block fits in shared memory
+JOINT_MAX = 368  # the widest joint the backward takes: 6 n-tiles of 8 columns a warp
 LANES_MAX = 1024  # U + 1: one thread per lattice lane in the recursions
 UT = 32  # lattice rows (u) per tile of the joint kernels
 FRAMES = 8  # frames of the joint computed at once by the plain versions
+BWD_FRAMES = 32  # the fewest frames a block of the joint's backward walks
+BWD_PARTIAL_RATIO = 8  # the backward's partials: at most 8 times d_enc_proj's bytes
 
 _fns: dict = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -70,7 +73,7 @@ _ARGTYPES = {
     "rnnt_joint_fwd": [_P] * 7 + [_I] * 7 + [_P] * 3,
     "rnnt_alpha": [_P] * 6 + [_I] * 3 + [_P],
     "rnnt_beta": [_P] * 9 + [_I] * 3 + [_P],
-    "rnnt_joint_bwd": [_P] * 9 + [_I] * 7 + [_P] * 8,
+    "rnnt_joint_bwd": [_P] * 9 + [_I] * 8 + [_P] * 8,
 }
 
 
@@ -131,6 +134,26 @@ def check_design(name: str, J: int = 16, V: int = 1, U1: int = 1) -> None:
     if U1 > LANES_MAX:
         raise ValueError(f"{name}: U + 1 = {U1} lanes is beyond the kernel's design "
                          f"(one thread a lane, at most {LANES_MAX})")
+
+
+def joint_bwd_plan(B: int, T: int, U1: int, J: int):
+    """-> (F, C, partial bytes) of ``rnnt_joint_bwd``: blocks walk chunks
+    of F frames (C = ceil(T / F) a lane) in parallel, each leaving an f32
+    partial of d_pred_proj [U+1, J] and of dW_o^T [32, J] and db_o [32]
+    for the second pass to add in chunk order. F is the least power of two
+    from BWD_FRAMES whose partials stay within BWD_PARTIAL_RATIO times
+    d_enc_proj's own bytes (fewer, longer chunks hold less), or one chunk:
+    F = 32 while U + 1 <= 224."""
+    def partials(F):
+        C = -(-T // F)
+        return C, 4 * C * B * (U1 * J + VOCAB_MAX * J + VOCAB_MAX)
+
+    F = BWD_FRAMES
+    C, nbytes = partials(F)
+    while C > 1 and nbytes > BWD_PARTIAL_RATIO * 4 * B * T * J:
+        F *= 2
+        C, nbytes = partials(F)
+    return F, C, nbytes
 
 
 def _check_lattice(name, logit_lengths, target_lengths, **rows):
@@ -425,12 +448,13 @@ def rnnt_joint_bwd(enc, pred, w, b, targets, target_lengths, logit_lengths, gb, 
         if t.dtype != torch.float32 or tuple(t.shape) != (T, B, U1):
             raise TypeError(f"{name}: {what} must be f32 [{T}, {B}, {U1}]")
     dev = enc.device
-    tiles = -(-U1 // UT)
+    F, C, _ = joint_bwd_plan(B, T, U1, J)
     f32 = dict(dtype=torch.float32, device=dev)
-    # per-block partial sums, reduced in a fixed order by the second pass
-    denc_part = torch.empty((tiles, B, T, J), **f32)
-    dw_part = torch.empty((B * tiles, J, VOCAB_MAX), **f32)
-    db_part = torch.empty((B * tiles, VOCAB_MAX), **f32)
+    # per-chunk and per-block partial sums, added in a fixed order by the
+    # second pass
+    dpred_part = torch.empty((C, B, U1, J), **f32)
+    dw_part = torch.empty((B * C, VOCAB_MAX, J), **f32)
+    db_part = torch.empty((B * C, VOCAB_MAX), **f32)
     denc = torch.empty((B, T, J), **f32)
     dpred = torch.empty((B, U1, J), **f32)
     dw = torch.empty((J, V), **f32)
@@ -439,8 +463,8 @@ def rnnt_joint_bwd(enc, pred, w, b, targets, target_lengths, logit_lengths, gb, 
         err = _launcher(name)(
             enc.data_ptr(), pred.data_ptr(), w.data_ptr(), b.data_ptr(), _ptr(targets),
             target_lengths.data_ptr(), logit_lengths.data_ptr(), gb.data_ptr(), ge.data_ptr(),
-            B, T, U1, U1 - 1, J, V, int(blank_id),
-            denc_part.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), denc.data_ptr(),
+            B, T, U1, U1 - 1, J, V, int(blank_id), F,
+            dpred_part.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), denc.data_ptr(),
             dpred.data_ptr(), dw.data_ptr(), db.data_ptr(), _stream(),
         )
     build.check(err, name)

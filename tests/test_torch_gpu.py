@@ -466,14 +466,21 @@ def _rnnt_inputs(rng, device, B, T, U, J, V):
             torch.as_tensor(tl, dtype=torch.int32, device=device))
 
 
-@pytest.mark.parametrize("B,T,U,J,V", [(4, 9, 5, 16, 6), (5, 37, 40, 48, 29)])
+@pytest.mark.parametrize("B,T,U,J,V", [
+    (4, 9, 5, 16, 6), (5, 37, 40, 48, 29),
+    # the joint backward's chunks (F = 32): every lattice shorter than a
+    # chunk; T' = 70 not a multiple of F with U + 1 = 131 over 128 (five u
+    # tiles) at the narrowest joint; the widest joint and vocabulary with a
+    # one-frame last chunk
+    (4, 20, 10, 320, 29), (6, 70, 130, 16, 29), (3, 33, 20, 368, 32)])
 def test_rnnt_kernels_match_plain(cuda_device, B, T, U, J, V):
     """Each RNN-T kernel against its plain version on the same inputs, and
     each planted fault of chip_smoke.py rejected by the tolerance: the
     last of the J products dropped (joint forward), the emit term dropped
     from the prefix (alpha), the blank occupancy read with beta[t] (beta),
     each lane's last frame left out of d_pred_proj (joint backward). The
-    joint backward repeats bit for bit (fixed-order sums)."""
+    joint backward repeats bit for bit across two launches (fixed-order
+    sums over its chunks)."""
     import chip_smoke
 
     rng = np.random.default_rng(B * T)

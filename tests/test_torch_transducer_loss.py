@@ -236,3 +236,39 @@ def test_kernel_wrappers_refuse_what_they_cannot_take():
                 dict(U1=tf.LANES_MAX + 1)):
         with pytest.raises(ValueError, match="beyond the kernel's design"):
             tf.check_design("rnnt", **bad)
+
+
+@pytest.mark.parametrize("T, F, C", [(250, 32, 8), (1000, 32, 32)])
+def test_joint_bwd_plan_at_the_recipes_lattices(T, F, C):
+    """rnnt_char_wsj's lattice (B = 32, U + 1 = 121, J = 320) at T' = 250
+    and the streaming recipe's T' = 1000: chunks of 32 frames, and
+    partials that, beside the loss's f32 lattice rows (lp_blank, lp_emit,
+    alphas, gb, ge) and d_enc_proj, stay under chip_smoke.py's extra-peak
+    limits (100 MB and 400 MB)."""
+    import chip_smoke
+
+    B, U1, J = 32, 121, 320
+    got_f, got_c, nbytes = tf.joint_bwd_plan(B, T, U1, J)
+    assert (got_f, got_c) == (F, C)
+    assert nbytes == 4 * C * B * (U1 * J + tf.VOCAB_MAX * J + tf.VOCAB_MAX)
+    assert nbytes <= tf.BWD_PARTIAL_RATIO * 4 * B * T * J
+    held = nbytes + 5 * 4 * T * B * U1 + 4 * B * T * J
+    assert held < chip_smoke.RNNT_LOSS_LIMIT[T], held
+
+
+@pytest.mark.parametrize("B, T, U1, J", [(32, 250, 1024, 320), (4, 9, 6, 16), (5, 37, 41, 48),
+                                         (6, 70, 131, 16), (3, 33, 21, 368), (8, 2000, 300, 64)])
+def test_joint_bwd_plan_covers_every_frame_within_its_ratio(B, T, U1, J):
+    """Every frame lies in one of C chunks of F frames, F a power of two
+    from 32; a longer chunk is taken only while the partials exceed their
+    ratio to d_enc_proj, and F = 32 whenever U + 1 <= 224."""
+    F, C, nbytes = tf.joint_bwd_plan(B, T, U1, J)
+    assert F >= tf.BWD_FRAMES and F & (F - 1) == 0 and C == -(-T // F)
+    assert nbytes == 4 * C * B * (U1 * J + tf.VOCAB_MAX * J + tf.VOCAB_MAX)
+    assert C == 1 or nbytes <= tf.BWD_PARTIAL_RATIO * 4 * B * T * J
+    if F > tf.BWD_FRAMES:
+        half = -(-T // (F // 2))
+        assert 4 * half * B * (U1 * J + tf.VOCAB_MAX * (J + 1)) > (
+            tf.BWD_PARTIAL_RATIO * 4 * B * T * J)
+    if U1 <= 224:
+        assert F == tf.BWD_FRAMES
