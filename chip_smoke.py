@@ -1553,10 +1553,15 @@ def lstm_rows(torch, timed, reps) -> dict:
                                   tol, f"lstm_bwd_recur {key}")
             b_ms, b_by = bound(4 * M * (H4 + H) + es * (M * H + H * H4) + 4 * B + 4 * M * H4,
                                2 * valid * H4 * H + 30 * valid * H, PEAK_F32)
+            same = torch.equal(dxw, lo.lstm_bwd_recur(gates, cs, gy, lens, wh))
+            if not same:
+                FAILURES.append(f"lstm_bwd_recur {key}: a second launch's bits differ")
+            ms = timed(lambda: lo.lstm_bwd_recur(gates, cs, gy, lens, wh), reps)
             row = {
                 "shape": [Tq, B, H], "dtype": tag, "max_abs_err": err, "tol": tol,
                 "ref_max_abs": float(ref_dxw.abs().max()), "fault_max_abs_err": fault,
-                "ms": timed(lambda: lo.lstm_bwd_recur(gates, cs, gy, lens, wh), reps),
+                "ms": ms, "us_per_step": None if ms is None else 1e3 * ms / Tq,
+                "repeat_bits_equal": same, "plan": lo.chain_plan(B, H),
                 "plain_ms": timed(lambda: lo.lstm_bwd_recur_plain(gates, cs, gy, lens, wh),
                                   min(reps, 1)),
                 "library_ms": None if lib_f is None else lib_fb - lib_f,

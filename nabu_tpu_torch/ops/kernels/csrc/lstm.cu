@@ -19,8 +19,7 @@
 //
 // Bound on the H100 by the serial chain, not by bytes or operations: T
 // dependent steps, each a [B, H] x [H, 4H] product in f32 plus the cell,
-// and a grid-wide hand-off. Design, as csrc/blstm.cu's walks with one
-// direction:
+// and a hand-off between blocks. Design:
 // - lstm_fwd: one cooperative persistent launch; block g owns hidden units
 //   [g*HS, (g+1)*HS) and keeps their four gate columns of wh, [H, 4*HS]
 //   f32, in shared memory for the whole walk, with c for its units. Each
@@ -35,17 +34,30 @@
 //   gates (without the forget bias), the f32 carry c and the f32 carried h
 //   (dwh's h_prev). At T = 1024, B = 32, H = 320 that is 168 + 42 + 42 MB
 //   a layer.
-// - lstm_bwd_recur: one cooperative persistent launch with the forward's
-//   split; block g keeps its units' rows of wh, [HS, 4H] f32, in shared
-//   memory. Each step it stages the previous chain step's dgates [B, 4H]
-//   (f32) from the dxw output itself, which doubles as the exchange
-//   buffer, forms dh_prev = dgates_prev @ wh^T for its units, runs the
-//   masked cell backward from the stored gates and carries, writes its
-//   dgates and meets the others at a counter barrier.
+// - lstm_bwd_recur: one cooperative persistent launch. The rows of the
+//   batch are independent in the chain, so block (rg, ug) owns 16 MT rows
+//   x 8 units (MT from ops/lstm.chain_plan: the least of 1 or 2 that keeps
+//   every block co-resident, one an SM), keeps its units' rows of wh,
+//   [8, 4H] f32, in shared memory, and meets only the ceil(H / 8) blocks
+//   of its row group, at a counter of its own. Each step, after the
+//   barrier, it pulls only its rows of the previous step's dgates from the
+//   dxw output itself (the exchange buffer; 16 x 4H x 4 = 80 KB at H =
+//   320, every 16-byte load of a pass in flight at once, ld.cg straight
+//   into registers), forms dh_prev = dgates_prev @ wh^T for its units in
+//   f32 with the loads register-blocked (each thread 4 rows x 8 units over
+//   a K slice: one float4 of dgates feeds 8 units, one of wh 4 rows), adds
+//   the K slices by shuffles and the warps in a fixed order, runs the
+//   masked cell backward from the stored gates and carries (fetched before
+//   the barrier: they do not depend on the exchange), writes its dgates
+//   and arrives at its group's counter. An earlier design had all B rows
+//   in every block (40 blocks at H = 320): a [B, 4H] f32 stage through
+//   shared memory, a dot product a thread out of it, and one barrier of
+//   the whole grid; ~15.6 us a step at B = 32, whatever T.
 // Shared memory, the design limit (ops/lstm.py raises beyond it): forward
 // 4 (B (H' + 4) + 4 H' HS + B HS) bytes, H' = H rounded up to 4 (83 KB at
-// B = 32, H = 320); chain 4 ((B + HS)(4H + 4) + 2 B HS) bytes (207 KB
-// there; B <= 36 at H = 320 fits the 227 KB of a block).
+// B = 32, H = 320); chain 4 (8 x 4H + 8 x 32 MT) bytes (42 KB at H = 320)
+// with ceil(B / 16 MT) ceil(H / 8) blocks on the card's 132 SMs (B <= 96
+// at H = 320).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -299,146 +311,228 @@ int launch_fwd(const T* xw, const int* lengths, const T* wh, const float* c0, T*
 // backward chain
 // ---------------------------------------------------------------------------
 
-struct ChainLayout {
-  int rp;  // row stride (floats) of the staged dgates and the wh rows: 4H + 4
-  size_t smem_bytes;
-};
+constexpr int CH_ROWS = 16;   // rows of an m-tile; a block owns 16 MT rows
+constexpr int CH_UNITS = 8;   // hidden units a chain block owns
+constexpr int CH_KS = 64;     // K slices of a step product: the threads of a row block
+constexpr int CH_NQ = 5;      // float4 of a row a thread loads a pass (4H = 1280 at H = 320)
+constexpr int CH_MAX_MT = 2;  // a cell pair a thread: 16 MT x 8 <= THREADS
 
-__host__ __device__ inline ChainLayout chain_layout(int B, int H, int hs) {
-  ChainLayout l;
-  l.rp = 4 * H + 4;
-  l.smem_bytes = sizeof(float) * ((size_t)(B + hs) * l.rp + 2 * (size_t)B * hs);
-  return l;
+// shared memory of a chain block: wh rows of its units [8][4H] f32 and the
+// warps' reduced partial sums [8][32 MT]
+__host__ __device__ inline size_t chain_bytes(int H, int MT) {
+  return sizeof(float) * ((size_t)CH_UNITS * 4 * H + (size_t)(THREADS / 32) * 32 * MT);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) lstm_bwd_recur_kernel(
+// one round of a warp's reduce-scatter over N values a lane: after the
+// round of offset O the lane keeps the half of v selected by lane & O,
+// added to its partner's copy; five rounds leave lane l the sums over the
+// warp of v[l N / 32 + k], k < N / 32, in a fixed order
+template <int N, int O>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
+  const bool upper = lane & O;
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k) {
+    const float send = upper ? v[k] : v[k + N / 2];
+    const float keep = upper ? v[k + N / 2] : v[k];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+  if constexpr (O > 1) reduce_scatter<N / 2, O / 2>(v, lane);
+}
+
+// Block (rg, ug) owns rows rg 16 MT + [0, 16 MT) and units ug 8 + [0, 8);
+// rows are independent in the chain, so the blocks of one row group meet
+// at their own counter each step. Step product: warp w takes rows 4 (w /
+// 2) + [0, 4) of each m-tile and K slice ks = 32 (w % 2) + lane, the
+// float4 columns ks + 64 p of the previous step's dgates (ld.cg straight
+// into registers, every load of the pass in flight at once), and sums its
+// 4 MT rows x 8 units over them (one float4 of dgates feeds 8 units, one
+// of wh 4 rows); the warp's 32 K slices are added by a reduce-scatter of
+// shuffles, the two warps of a row block in warp order. Thread p <
+// 128 MT owns the cell pair (row, unit) = (p / 8, p % 8) and keeps its dh
+// and dc carries in registers.
+template <typename T, int MT>
+__global__ void __launch_bounds__(THREADS, 1) lstm_bwd_recur_kernel(
     const float* __restrict__ gates,  // [T, B, 4H] f32 pre-activations
     const float* __restrict__ cst,    // [T, B, H] f32 carries
     const T* __restrict__ gy,         // [T, B, H] cotangent of the output
     const int* __restrict__ lengths,  // [B]
     const T* __restrict__ wh,         // [H, 4H]
     float* dxw,                       // [T, B, 4H] out; also the exchange
-    unsigned int* counter,            // zero at launch
-    int Tn, int B, int H, int hs, int G, float forget_bias) {
+    unsigned int* counters,           // [ceil(B / 16 MT)], zero at launch
+    int Tn, int B, int H, int GU, float forget_bias) {
+  constexpr int R = CH_ROWS * MT;
+  constexpr int WARPS = THREADS / 32;
   extern __shared__ __align__(16) float smem[];
-  const ChainLayout L = chain_layout(B, H, hs);
+  float* w_s = smem;                                  // [8][4H]
+  float* part = w_s + (size_t)CH_UNITS * 4 * H;       // [WARPS][32 MT]
   const int H4 = 4 * H;
-  float* dg_s = smem;                     // [B][rp]: the previous chain step's dgates
-  float* w_s = dg_s + (size_t)B * L.rp;   // [hs][rp]: wh rows of this block's units
-  float* dh_s = w_s + (size_t)hs * L.rp;  // [B][hs] dh passed through masked steps
-  float* dc_s = dh_s + (size_t)B * hs;    // [B][hs] dc carry
-
-  const int j0 = blockIdx.x * hs;
-  for (int i = threadIdx.x; i < hs * L.rp; i += blockDim.x) {
-    const int jl = i / L.rp, k = i % L.rp;
-    w_s[i] = (j0 + jl < H && k < H4) ? to_f(wh[(size_t)(j0 + jl) * H4 + k]) : 0.f;
-  }
-  for (int i = threadIdx.x; i < B * hs; i += blockDim.x) {
-    dh_s[i] = 0.f;
-    dc_s[i] = 0.f;
+  const int ug = blockIdx.x % GU, rg = blockIdx.x / GU;
+  const int j0 = ug * CH_UNITS, row0 = rg * R;
+  unsigned int* cnt = counters + rg;
+  for (int i = threadIdx.x; i < CH_UNITS * H4; i += THREADS) {
+    const int u = i / H4, k = i - u * H4;
+    w_s[i] = j0 + u < H ? to_f(wh[(size_t)(j0 + u) * H4 + k]) : 0.f;
   }
   __syncthreads();
-  const int nq = H4 / 4;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rb = warp >> 1, ks = (warp & 1) * 32 + lane;
+  const float4* w4 = reinterpret_cast<const float4*>(w_s);
+  // the cell pair of this thread
+  const int p = threadIdx.x, pr = p / CH_UNITS, pu = p % CH_UNITS;
+  const int pb = row0 + pr, pj = j0 + pu;
+  const bool live = p < R * CH_UNITS && pb < B && pj < H;
+  const int len = live ? __ldg(lengths + pb) : 0;
+  const int pm = pr / CH_ROWS, prr = pr % CH_ROWS;  // m-tile, row in it
+  const int pw = 2 * (prr >> 2), pl = (prr & 3) * CH_UNITS + pu;  // its warps' slot
+  float dh = 0.f, dc = 0.f;
+  float zi = 0.f, zf = 0.f, zg = 0.f, zo = 0.f, c_t = 0.f, c_prev = 0.f, gyv = 0.f;
+  // the cell's own operands of step s: none depends on the chain, so they
+  // are fetched before the barrier that precedes step s ends
+  auto fetch = [&](int s) {
+    if (!live) return;
+    const int t = Tn - 1 - s;
+    const size_t row = (size_t)t * B + pb;
+    const float* gr = gates + row * H4 + pj;
+    zi = __ldg(gr);
+    zf = __ldg(gr + H);
+    zg = __ldg(gr + 2 * (size_t)H);
+    zo = __ldg(gr + 3 * (size_t)H);
+    c_t = __ldg(cst + row * H + pj);
+    c_prev = t > 0 ? __ldg(cst + ((size_t)(t - 1) * B + pb) * H + pj) : 0.f;
+    gyv = to_f(gy[row * H + pj]);
+  };
+  fetch(0);
 
   for (int s = 0; s < Tn; ++s) {
     const int t = Tn - 1 - s;
-    // the step's inputs of one (b, j): gates i f g o, c_t, c_{t-1}, the
-    // output cotangent and the mask
-    auto load_inputs = [&](int p, float* v) {
-      const int b = p / hs;
-      const int j = j0 + p % hs;
-      const size_t row = (size_t)t * B + b;
-      const float* gr = gates + row * H4 + j;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) v[g] = gr[g * (size_t)H];
-      v[4] = cst[row * H + j];
-      v[5] = t > 0 ? cst[((size_t)(t - 1) * B + b) * H + j] : 0.f;
-      v[6] = to_f(gy[row * H + j]);
-      v[7] = t < __ldg(lengths + b) ? 1.f : 0.f;
-    };
-    // the first (b, j)'s inputs are fetched ahead so their latency
-    // overlaps the staging of the dgates
-    float pre[8];
-    const int p0 = threadIdx.x;
-    if (p0 < B * hs && j0 + p0 % hs < H) load_inputs(p0, pre);
-    if (s > 0) stage_rows<8>(dxw + (size_t)(t + 1) * B * H4, dg_s, B, H4, L.rp);
-    __syncthreads();
-
-    for (int p = threadIdx.x; p < B * hs; p += blockDim.x) {
-      const int b = p / hs;
-      const int jl = p - b * hs;
-      const int j = j0 + jl;
-      if (j >= H) continue;
-      const size_t row = (size_t)t * B + b;
-      float v[8];
-      if (p == p0) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) v[q] = pre[q];
-      } else {
-        load_inputs(p, v);
-      }
-      const float zi = v[0], zf = v[1], zg = v[2], zo = v[3];
-      const float c_t = v[4], c_prev = v[5], gyv = v[6], mf = v[7];
-      // dh_prev = dgates_{t+1} @ wh^T for this unit
-      float acc = 0.f;
-      if (s > 0) {
-        const float4* dr = reinterpret_cast<const float4*>(dg_s + (size_t)b * L.rp);
-        const float4* wr = reinterpret_cast<const float4*>(w_s + (size_t)jl * L.rp);
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-        for (int q = 0; q < nq; ++q) {
-          const float4 dv = dr[q];
-          const float4 wv = wr[q];
-          a0 = fmaf(dv.x, wv.x, a0);
-          a1 = fmaf(dv.y, wv.y, a1);
-          a2 = fmaf(dv.z, wv.z, a2);
-          a3 = fmaf(dv.w, wv.w, a3);
+    float prod = 0.f;
+    if (s > 0) {
+      // wait until every block of this row group has published step s - 1
+      if (threadIdx.x == 0) {
+        const unsigned int target = (unsigned int)s * (unsigned int)GU;
+        while (ld_acquire(cnt) < target) {
         }
-        acc = (a0 + a1) + (a2 + a3);
+        __threadfence();
       }
-      const float dh = acc + dh_s[p];
+      __syncthreads();
+      // dh_prev = dgates_{t+1} @ wh^T for the block's rows and units
+      const float4* prev = reinterpret_cast<const float4*>(dxw + (size_t)(t + 1) * B * H4);
+      float v[32 * MT];  // [(i 8 + u) MT + m]: row 16 m + 4 rb + i, unit u
+#pragma unroll
+      for (int k = 0; k < 32 * MT; ++k) v[k] = 0.f;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        for (int q0 = 0; q0 < H; q0 += CH_KS * CH_NQ) {
+          float4 x[4][CH_NQ];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = row0 + CH_ROWS * m + 4 * rb + i;
+#pragma unroll
+            for (int pq = 0; pq < CH_NQ; ++pq) {
+              const int q = q0 + ks + CH_KS * pq;
+              x[i][pq] = (r < B && q < H) ? __ldcg(prev + (size_t)r * H + q)
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+          }
+#pragma unroll
+          for (int pq = 0; pq < CH_NQ; ++pq) {
+            const int q = q0 + ks + CH_KS * pq;
+            if (q < H) {
+#pragma unroll
+              for (int u = 0; u < CH_UNITS; ++u) {
+                const float4 w = w4[(size_t)u * H + q];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  float& a = v[(i * CH_UNITS + u) * MT + m];
+                  a = fmaf(x[i][pq].x, w.x, a);
+                  a = fmaf(x[i][pq].y, w.y, a);
+                  a = fmaf(x[i][pq].z, w.z, a);
+                  a = fmaf(x[i][pq].w, w.w, a);
+                }
+              }
+            }
+          }
+        }
+      }
+      reduce_scatter<32 * MT, 16>(v, lane);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) part[warp * 32 * MT + m * 32 + lane] = v[m];
+      __syncthreads();
+      if (live) {
+        const float* pp = part + pw * 32 * MT + pm * 32 + pl;
+        prod = pp[0] + pp[32 * MT];
+      }
+    }
+
+    if (live) {
       // the masked cell backward (_bwd_kernel, lstm.py:118-146)
+      const bool m = t < len;
+      const float mf = m ? 1.f : 0.f;
       const float gi = sigmoid_f(zi);
       const float gf = sigmoid_f(zf + forget_bias);
       const float gg = tanhf(zg);
       const float go = sigmoid_f(zo);
       const float tanh_c = tanhf(c_t);
-      const float dh_total = gyv * mf + dh;
-      const bool m = mf > 0.5f;
+      const float dh_total = gyv * mf + (prod + dh);
       const float dh_new = m ? dh_total : 0.f;
-      const float dc_new = (m ? dc_s[p] : 0.f) + dh_new * go * (1.f - tanh_c * tanh_c);
-      float* out = dxw + row * H4 + j;
+      const float dc_new = (m ? dc : 0.f) + dh_new * go * (1.f - tanh_c * tanh_c);
+      float* out = dxw + ((size_t)t * B + pb) * H4 + pj;
       out[0] = dc_new * gg * gi * (1.f - gi);
       out[H] = dc_new * c_prev * gf * (1.f - gf);
       out[2 * (size_t)H] = dc_new * gi * (1.f - gg * gg);
       out[3 * (size_t)H] = dh_new * tanh_c * go * (1.f - go);
-      dh_s[p] = m ? 0.f : dh_total;
-      dc_s[p] = dc_new * gf + (m ? 0.f : dc_s[p]);
+      dh = m ? 0.f : dh_total;
+      dc = dc_new * gf + (m ? 0.f : dc);
     }
 
-    // hand this step's dgates over to the other blocks
-    grid_barrier(counter, s, G);
+    if (s + 1 < Tn) {
+      // publish this step's dgates to the row group, then fetch the next
+      // step's operands while the other blocks catch up
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        __threadfence();
+        atomicAdd(cnt, 1u);
+      }
+      fetch(s + 1);
+    }
   }
 }
 
-template <typename T>
-int launch_bwd_recur(const float* gates, const float* cst, const T* gy, const int* lengths,
-                     const T* wh, float* dxw, unsigned int* counter, int Tn, int B, int H, int hs,
-                     float forget_bias, void* stream) {
-  if (Tn <= 0 || B <= 0) return 0;
-  if (hs <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const ChainLayout L = chain_layout(B, H, hs);
-  auto kernel = lstm_bwd_recur_kernel<T>;
-  int G = (H + hs - 1) / hs;
-  cudaError_t err = check_coresident(kernel, G, L.smem_bytes);
+template <typename T, int MT>
+int launch_bwd_recur_mt(const float* gates, const float* cst, const T* gy, const int* lengths,
+                        const T* wh, float* dxw, unsigned int* counters, int Tn, int B, int H,
+                        float forget_bias, void* stream) {
+  int GU = (H + CH_UNITS - 1) / CH_UNITS;
+  const int blocks = (B + CH_ROWS * MT - 1) / (CH_ROWS * MT) * GU;
+  const size_t smem = chain_bytes(H, MT);
+  auto kernel = lstm_bwd_recur_kernel<T, MT>;
+  cudaError_t err = check_coresident(kernel, blocks, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&gates, (void*)&cst, (void*)&gy, (void*)&lengths, (void*)&wh,
-                  (void*)&dxw,   (void*)&counter, (void*)&Tn, (void*)&B, (void*)&H,
-                  (void*)&hs,    (void*)&G,   (void*)&forget_bias};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(G), dim3(THREADS), args,
-                                    L.smem_bytes, (cudaStream_t)stream);
+                  (void*)&dxw,   (void*)&counters, (void*)&Tn, (void*)&B, (void*)&H,
+                  (void*)&GU,    (void*)&forget_bias};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(THREADS), args, smem,
+                                    (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// MT: m-tiles of 16 rows a block (ops/lstm.chain_plan); counters hold
+// ceil(B / 16) zeros
+template <typename T>
+int launch_bwd_recur(const float* gates, const float* cst, const T* gy, const int* lengths,
+                     const T* wh, float* dxw, unsigned int* counters, int Tn, int B, int H, int MT,
+                     float forget_bias, void* stream) {
+  if (Tn <= 0 || B <= 0) return 0;
+  if (H <= 0) return (int)cudaErrorInvalidValue;
+  if (MT == 1)
+    return launch_bwd_recur_mt<T, 1>(gates, cst, gy, lengths, wh, dxw, counters, Tn, B, H,
+                                     forget_bias, stream);
+  if (MT == 2)
+    return launch_bwd_recur_mt<T, 2>(gates, cst, gy, lengths, wh, dxw, counters, Tn, B, H,
+                                     forget_bias, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -476,16 +570,16 @@ extern "C" int nabu_lstm_fwd_f32(const void* xw, const int* lengths, const void*
 
 extern "C" int nabu_lstm_bwd_recur_bf16(const float* gates, const float* cst, const void* gy,
                                         const int* lengths, const void* wh, float* dxw,
-                                        unsigned int* counter, int T, int B, int H, int hs,
+                                        unsigned int* counters, int T, int B, int H, int mt,
                                         float forget_bias, void* stream) {
   return launch_bwd_recur<bf16>(gates, cst, (const bf16*)gy, lengths, (const bf16*)wh, dxw,
-                                counter, T, B, H, hs, forget_bias, stream);
+                                counters, T, B, H, mt, forget_bias, stream);
 }
 
 extern "C" int nabu_lstm_bwd_recur_f32(const float* gates, const float* cst, const void* gy,
                                        const int* lengths, const void* wh, float* dxw,
-                                       unsigned int* counter, int T, int B, int H, int hs,
+                                       unsigned int* counters, int T, int B, int H, int mt,
                                        float forget_bias, void* stream) {
   return launch_bwd_recur<float>(gates, cst, (const float*)gy, lengths, (const float*)wh, dxw,
-                                 counter, T, B, H, hs, forget_bias, stream);
+                                 counters, T, B, H, mt, forget_bias, stream);
 }

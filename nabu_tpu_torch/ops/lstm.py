@@ -23,7 +23,9 @@ Port of the JAX package's ``ops/pallas/lstm.py`` (``lstm_scan_pallas`` ->
   c and carried h (the TPU stores the post-step (h, c) and recomputes the
   gates in its backward);
 - ``lstm_bwd_recur``: the backward's serial chain (``_bwd_kernel``'s
-  per-step arithmetic), dh and dc carried in f32, dxw written in f32;
+  per-step arithmetic), dh and dc carried in f32, dxw written in f32; its
+  blocks own 16-row groups x 8 units (``chain_plan``) and meet only their
+  row group each step;
 - ``lstm_bwd_dwh``: ``h_prev^T @ dxw`` in f32 (accumulated inside
   ``_bwd_kernel`` on the TPU), one launch of the f32 GEMM over all
   (T - 1) B rows, whose split plan (``ops.blstm.split_k_f32``) cuts K
@@ -38,7 +40,8 @@ through ``x @ wx + b``, which lies outside the kernel in JAX too.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for CPU tensors. A shape beyond a kernel's design (the
-shared memory of a block, see ``check_design``) raises.
+shared memory of a block, the chain's blocks on the card's SMs, see
+``check_design``) raises.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from nabu_tpu_torch.ops.blstm import (
     _PROJ,
     _TN,
     SMEM_LIMIT,
+    SMS,
     UNITS_PER_BLOCK,
     _aligned,
     _check_cuda,
@@ -80,25 +84,54 @@ def _launcher(kind: str, tag: str):
     return _fns[name]
 
 
+CHAIN_ROWS = 16  # rows of an m-tile of the chain; a block owns 16 mt rows
+CHAIN_MAX_MT = 2  # one cell pair a thread: 16 mt x 8 units <= 256 threads
+
+
+def chain_bytes(H: int, mt: int) -> int:
+    """Shared memory of a chain block: wh rows of its 8 units [8, 4H] f32
+    and the 8 warps' reduced partial sums [8, 32 mt] (csrc/lstm.cu)."""
+    return 4 * (UNITS_PER_BLOCK * 4 * H + 8 * 32 * mt)
+
+
+def chain_plan(B: int, H: int):
+    """-> (mt, blocks, shared memory bytes) of the chain: the fewest
+    m-tiles of 16 rows a block (1 or 2) whose ceil(B / 16 mt) row groups
+    x ceil(H / 8) unit groups fit the card one block an SM (its registers
+    allow no more) with their shared memory; None if none does."""
+    for mt in range(1, CHAIN_MAX_MT + 1):
+        blocks = -(-B // (CHAIN_ROWS * mt)) * -(-H // UNITS_PER_BLOCK)
+        need = chain_bytes(H, mt)
+        if blocks <= SMS and need <= SMEM_LIMIT:
+            return mt, blocks, need
+    return None
+
+
 def smem_bytes(B: int, H: int, units: int = UNITS_PER_BLOCK):
     """-> (forward walk, backward chain) shared memory of one block, the
-    layouts of csrc/lstm.cu."""
+    layouts of csrc/lstm.cu; the chain's is its ``chain_plan``'s (None
+    when no plan holds B and H)."""
     kp = (H + 3) // 4 * 4
     fwd = 4 * (B * (kp + 4) + kp * units * 4 + B * units)
-    chain = 4 * ((B + units) * (4 * H + 4) + 2 * B * units)
-    return fwd, chain
+    plan = chain_plan(B, H)
+    return fwd, None if plan is None else plan[2]
 
 
 def check_design(what: str, B: int, H: int, chain: bool) -> None:
     """Raise for a batch and width the kernels cannot hold: B rows of h
-    (forward) or of dgates (chain) plus the block's slice of wh must fit
-    the shared memory of one block."""
+    plus the block's slice of wh in the shared memory of one block
+    (forward), and (chain) a ``chain_plan``: row groups x unit groups
+    co-resident one an SM."""
     fwd, bwd = smem_bytes(B, H)
-    need = max(fwd, bwd) if chain else fwd
-    if need > SMEM_LIMIT:
+    if fwd > SMEM_LIMIT:
         raise ValueError(
             f"{what}: B = {B}, H = {H} is beyond the kernel's design "
-            f"({need} bytes of shared memory a block, limit {SMEM_LIMIT})")
+            f"({fwd} bytes of shared memory a block, limit {SMEM_LIMIT})")
+    if chain and bwd is None:
+        raise ValueError(
+            f"{what}: B = {B}, H = {H} is beyond the kernel's design (no split of "
+            f"16 mt rows x {UNITS_PER_BLOCK} units, mt <= {CHAIN_MAX_MT}, fits the card's "
+            f"{SMS} SMs one block an SM)")
 
 
 # ---------------------------------------------------------------------------
@@ -288,14 +321,16 @@ def lstm_bwd_recur(gates, c, gy, lengths, wh, forget_bias: float = 1.0):
     _check_shape(f"{name}: wh", wh, (H, 4 * H), gy.dtype)
     _check_shape(f"{name}: lengths", lengths, (B,), torch.int32)
     check_design(name, B, H, chain=True)
+    mt = chain_plan(B, H)[0]
     dev = gy.device
     dxw = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
-    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+    # one counter a row group
+    counters = torch.zeros((-(-B // CHAIN_ROWS),), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _launcher("bwd_recur", tag)(
             gates.data_ptr(), c.data_ptr(), gy.data_ptr(), lengths.data_ptr(),
-            wh.data_ptr(), dxw.data_ptr(), counter.data_ptr(),
-            T, B, H, UNITS_PER_BLOCK, float(forget_bias), _stream(),
+            wh.data_ptr(), dxw.data_ptr(), counters.data_ptr(),
+            T, B, H, mt, float(forget_bias), _stream(),
         )
     build.check(err, name)
     kernels.LAUNCHES[name] += 1

@@ -644,9 +644,19 @@ def _lstm_tol(name, tag):
             "proj": chip_smoke.TOL[("lstm_proj", tag)]}[name]
 
 
+def _lengths(T, B):
+    """B ragged lengths from T down, the first the full T."""
+    return [T - (7 * i) % T for i in range(B)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,H,lengths", [(37, 9, [37, 20, 8, 1]), (20, 24, [20, 3, 0]),
-                                         (37, 320, [37, 30, 12, 5, 1])])
+@pytest.mark.parametrize("T,H,lengths", [
+    (37, 9, [37, 20, 8, 1]), (20, 24, [20, 3, 0]), (37, 320, [37, 30, 12, 5, 1]),
+    # the chain's row groups of 16: one row, one whole group, a group and
+    # one row, the recipes' two groups, and the largest batch its plan
+    # admits at H = 320 (three groups of 32 rows)
+    (29, 320, [23]), (29, 320, _lengths(29, 16)), (29, 320, _lengths(29, 17)),
+    (29, 320, _lengths(29, 32)), (13, 320, _lengths(13, 96))])
 def test_lstm_kernels_match_plain(cuda_device, dtype, T, H, lengths):
     """Each LSTM kernel against its plain version on the same inputs, with
     chip_smoke.py's tolerances and planted faults, which must fail them:
@@ -695,7 +705,7 @@ def test_lstm_kernels_match_plain(cuda_device, dtype, T, H, lengths):
               "dxw": (dxw, rdxw), "dwh": (dwh, rdwh),
               "proj": (proj, lo.lstm_proj_plain(x, wx, b))}
     cut = rdxw.clone()
-    cut[T - 1, 0] = 0
+    cut[lengths[0] - 1, 0] = 0  # lane 0's last token (T but in the one-row case)
     x_cut = x.clone()
     x_cut[:, -1] = 0
     faults = {
@@ -717,6 +727,37 @@ def test_lstm_kernels_match_plain(cuda_device, dtype, T, H, lengths):
     passed = sorted(set(faults) - set(over_f))
     assert not over and not passed, {"beyond tolerance": over, "faults passing": passed,
                                      "sound": sound, "fault": fault}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(64, 32, 320), (16, 96, 320), (40, 17, 24)])
+def test_lstm_chain_repeats_its_bits(cuda_device, dtype, T, B, H):
+    """The chain adds its K slices and warps in a fixed order: a second
+    launch gives the first one's bits, at the recipes' split (16 rows x 8
+    units a block), at B = 96 (32 rows a block) and with a partial row
+    group, each within the chain's tolerance of the plain version."""
+    import chip_smoke
+    from nabu_tpu_torch.ops import lstm as lo
+
+    rng = np.random.default_rng(T + B + H)
+    lt = torch.as_tensor(_lengths(T, B), dtype=torch.int32, device=cuda_device)
+
+    def u(*shape, scale=1.0, dt=dtype):
+        return torch.as_tensor(
+            rng.uniform(-scale, scale, shape).astype(np.float32)).to(cuda_device, dt)
+
+    wh = u(H, 4 * H, scale=float(np.sqrt(6.0 / (5 * H))))
+    gates = u(T, B, 4 * H, scale=2.0, dt=torch.float32)
+    c = u(T, B, H, scale=2.0, dt=torch.float32)
+    gy = u(T, B, H)
+    assert lo.chain_plan(B, H)[0] == (1 if B <= 48 else 2)
+    first = lo.lstm_bwd_recur(gates, c, gy, lt, wh)
+    second = lo.lstm_bwd_recur(gates, c, gy, lt, wh)
+    ref = lo.lstm_bwd_recur_plain(gates, c, gy, lt, wh)
+    assert torch.equal(first, second)
+    atol, rtol = chip_smoke.TOL["lstm_bwd_recur"]
+    excess = float(((first - ref).abs() - atol - rtol * ref.abs()).max())
+    assert excess <= 0, excess
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
@@ -830,7 +871,8 @@ def test_lstm_never_takes_a_plain_version_on_card(cuda_device, monkeypatch, tmp_
     """The no-fallback rule: with the LSTM kernels' plain versions and the
     masked scan made to raise, a forward-only stack and the prediction net
     train on the card (through the kernels) and the streaming model
-    decodes; a batch beyond the chain's shared memory raises."""
+    decodes; a batch beyond the chain's row groups on the card's SMs (97
+    rows at H = 320) raises."""
     from nabu_tpu_torch.config import ConfigFile
     from nabu_tpu_torch.models import core
     from nabu_tpu_torch.models.model import build_model
@@ -871,9 +913,9 @@ def test_lstm_never_takes_a_plain_version_on_card(cuda_device, monkeypatch, tmp_
     with torch.no_grad():
         enc, _ = model.encode(unflatten(flat), batch["features"], batch["feature_lengths"])
     assert enc.shape == (3, 21, 24) and kernels.launch_counts()["lstm_fwd"] == 2
-    z = torch.zeros((3, 64, 4 * 320), dtype=torch.bfloat16, device=cuda_device)
+    z = torch.zeros((3, 97, 4 * 320), dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="beyond the kernel's design"):
-        lo.lstm_fwd_train(z, torch.full((64,), 3, dtype=torch.int32, device=cuda_device),
+        lo.lstm_fwd_train(z, torch.full((97,), 3, dtype=torch.int32, device=cuda_device),
                           torch.zeros((320, 4 * 320), dtype=torch.bfloat16, device=cuda_device))
     with pytest.raises(TypeError):  # lengths must be int32
         lo.lstm_fwd(z[:, :4].contiguous(), torch.full((4,), 3, dtype=torch.int64, device=cuda_device),

@@ -191,13 +191,44 @@ def test_projection_is_the_compute_type_sum():
 
 
 def test_design_limits():
-    """The recipes' shapes fit a block's shared memory; a batch whose chain
-    rows do not raises before any launch."""
+    """The recipes' shapes fit a block's shared memory and the chain's
+    row groups fit the card; a batch whose chain blocks do not raises
+    before any launch."""
     fwd, chain = lo.smem_bytes(32, 320)
-    assert fwd == 83456 and chain == 207488 and chain <= lo.SMEM_LIMIT
+    # the chain: wh rows of 8 units [8, 1280] f32 and 8 warps' partials [8, 32]
+    assert fwd == 83456 and chain == 4 * (8 * 1280 + 8 * 32) and chain <= lo.SMEM_LIMIT
     lo.check_design("lstm_fwd_train", 32, 320, chain=True)
     lo.check_design("lstm_fwd", 64, 320, chain=False)  # inference holds B = 64
+    lo.check_design("lstm_fwd_train", 96, 320, chain=True)  # 3 groups of 32 rows x 40
     with pytest.raises(ValueError, match="beyond the kernel's design"):
-        lo.check_design("lstm_bwd_recur", 64, 320, chain=True)
+        lo.check_design("lstm_bwd_recur", 97, 320, chain=True)
     with pytest.raises(ValueError, match="beyond the kernel's design"):
         lo.check_design("lstm_fwd", 32, 1024, chain=False)
+
+
+@pytest.mark.parametrize("B, H, plan", [
+    # the recipes' batch: 2 row groups of 16 x 40 unit groups of 8
+    (32, 320, (1, 80, 4 * (8 * 1280 + 8 * 32))),
+    (1, 320, (1, 40, 4 * (8 * 1280 + 8 * 32))),
+    (17, 320, (1, 80, 4 * (8 * 1280 + 8 * 32))),
+    (48, 320, (1, 120, 4 * (8 * 1280 + 8 * 32))),
+    (49, 320, (2, 80, 4 * (8 * 1280 + 8 * 64))),  # 4 groups of 16 would be 160 blocks
+    (96, 320, (2, 120, 4 * (8 * 1280 + 8 * 64))),
+    (96, 640, None),  # 3 groups x 80 unit groups
+    (4, 9, (1, 2, 4 * (8 * 36 + 8 * 32))),
+])
+def test_chain_plan(B, H, plan):
+    assert lo.chain_plan(B, H) == plan
+
+
+@pytest.mark.parametrize("H", [9, 12, 16, 24, 64, 320])
+def test_chain_plan_admits_the_tests_and_recipes_batches(H):
+    """Every batch up to 96 at the widths the tests and recipes use has a
+    chain split whose blocks fit the card one an SM, and smem_bytes
+    reports that split's shared memory."""
+    for B in (1, 4, 5, 16, 17, 23, 32, 33, 48, 64, 96):
+        lo.check_design("layer", B, H, chain=True)
+        mt, blocks, smem = lo.chain_plan(B, H)
+        assert mt <= lo.CHAIN_MAX_MT and blocks <= lo.SMS and smem <= lo.SMEM_LIMIT
+        assert blocks == -(-B // (16 * mt)) * -(-H // 8)
+        assert lo.smem_bytes(B, H)[1] == smem
