@@ -315,7 +315,7 @@ constexpr int CH_ROWS = 16;   // rows of an m-tile; a block owns 16 MT rows
 constexpr int CH_UNITS = 8;   // hidden units a chain block owns
 constexpr int CH_KS = 64;     // K slices of a step product: the threads of a row block
 constexpr int CH_NQ = 5;      // float4 of a row a thread loads a pass (4H = 1280 at H = 320)
-constexpr int CH_MAX_MT = 2;  // a cell pair a thread: 16 MT x 8 <= THREADS
+static_assert(CH_ROWS == 4 * THREADS / CH_KS, "a row block of 4 rows a warp pair");
 
 // shared memory of a chain block: wh rows of its units [8][4H] f32 and the
 // warps' reduced partial sums [8][32 MT]
@@ -362,6 +362,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_recur_kernel(
     int Tn, int B, int H, int GU, float forget_bias) {
   constexpr int R = CH_ROWS * MT;
   constexpr int WARPS = THREADS / 32;
+  static_assert(R * CH_UNITS <= THREADS, "one cell pair a thread");
   extern __shared__ __align__(16) float smem[];
   float* w_s = smem;                                  // [8][4H]
   float* part = w_s + (size_t)CH_UNITS * 4 * H;       // [WARPS][32 MT]

@@ -107,11 +107,12 @@ def chain_plan(B: int, H: int):
     return None
 
 
-def smem_bytes(B: int, H: int, units: int = UNITS_PER_BLOCK):
+def smem_bytes(B: int, H: int):
     """-> (forward walk, backward chain) shared memory of one block, the
     layouts of csrc/lstm.cu; the chain's is its ``chain_plan``'s (None
     when no plan holds B and H)."""
     kp = (H + 3) // 4 * 4
+    units = UNITS_PER_BLOCK
     fwd = 4 * (B * (kp + 4) + kp * units * 4 + B * units)
     plan = chain_plan(B, H)
     return fwd, None if plan is None else plan[2]

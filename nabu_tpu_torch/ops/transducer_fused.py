@@ -60,9 +60,8 @@ from nabu_tpu_torch.ops.transducer import NEG
 
 # design limits of the kernels (csrc/transducer.cu)
 VOCAB_MAX = 32  # the vocabulary, blank included, padded to 32 lanes
-JOINT_MAX = 368  # the widest joint the backward takes: 6 n-tiles of 8 columns a warp
+JOINT_MAX = 368  # the widest joint the kernels take
 LANES_MAX = 1024  # U + 1: one thread per lattice lane in the recursions
-UT = 32  # lattice rows (u) per tile of the joint kernels
 FRAMES = 8  # frames of the joint computed at once by the plain versions
 BWD_FRAMES = 32  # the fewest frames a block of the joint's backward walks
 BWD_PARTIAL_RATIO = 8  # the backward's partials: at most 8 times d_enc_proj's bytes
