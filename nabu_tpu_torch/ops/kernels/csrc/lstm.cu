@@ -49,10 +49,7 @@
 //   the K slices by shuffles and the warps in a fixed order, runs the
 //   masked cell backward from the stored gates and carries (fetched before
 //   the barrier: they do not depend on the exchange), writes its dgates
-//   and arrives at its group's counter. An earlier design had all B rows
-//   in every block (40 blocks at H = 320): a [B, 4H] f32 stage through
-//   shared memory, a dot product a thread out of it, and one barrier of
-//   the whole grid; ~15.6 us a step at B = 32, whatever T.
+//   and arrives at its group's counter.
 // Shared memory, the design limit (ops/lstm.py raises beyond it): forward
 // 4 (B (H' + 4) + 4 H' HS + B HS) bytes, H' = H rounded up to 4 (83 KB at
 // B = 32, H = 320); chain 4 (8 x 4H + 8 x 32 MT) bytes (42 KB at H = 320)
