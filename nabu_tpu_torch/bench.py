@@ -1,0 +1,234 @@
+"""Training throughput of the DBLSTM-CTC step on one GPU.
+
+Port of the JAX package's ``bench.py`` default measurement (``--model
+dblstm``, the training mode): BASELINE config 2's 4x320 DBLSTM encoder,
+the linear CTC head and the CTC loss, through the kernels (``use_pallas =
+true`` in both sections), in bf16 by default. The batch is ``make_batch``'s
+(B = 32, T = 1000, 80 features, 100 labels, every length full), made from
+``--seed`` with numpy and put on the device once, outside the timed loop.
+A step is forward, loss, backward, then the optimizer of
+``training.trainer.Optimizer``: global-norm clipping at 5.0, then Adam at
+1e-3. Defaults: 2 warmup steps, then 3 repeats of 8 timed steps.
+
+Run on the card (the default device), or on the CPU only when asked:
+
+    python -m nabu_tpu_torch.bench [--device cpu] [--batch 32] [--frames 1000]
+        [--steps 8] [--warmup 2] [--repeats 3] [--seed 0] [--no-bf16]
+
+It prints ONE JSON line:
+
+- ``metric`` ``train_audio_seconds_per_second_per_chip``, ``value`` the
+  median over the repeats of the audio trained per second (B x T x 10 ms
+  a step), ``unit`` ``audio_s/s``;
+- ``median_step_ms``, the median of the timed steps, and its split
+  ``forward_ms`` (``Model.apply_train``), ``loss_ms``, ``backward_ms``
+  and ``optimizer_ms`` (each the median of its phase); on a GPU each is
+  taken between CUDA events recorded on the stream, on the CPU by the
+  host clock;
+- ``peak_memory_bytes`` of the timed steps (null on the CPU);
+- ``device`` and ``power_limit_w`` as ``nvidia-smi --query-gpu=name,
+  power.limit`` reports them (the CPU: ``cpu`` and null);
+- ``first_loss`` (the loss of the first step, on the initial weights) and
+  ``last_loss``, the shape, the dtype and the kernels' launches.
+
+The JAX line's ``vs_baseline`` is left out: its denominator is a naive
+JAX port (per-step input projection inside an XLA scan) timed on the same
+TPU, and that has no counterpart on the GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from nabu_tpu_torch.config import Conf, ConfigFile
+from nabu_tpu_torch.data.pipeline import batch_to_device
+from nabu_tpu_torch.device import resolve_device
+from nabu_tpu_torch.models.model import build_model
+from nabu_tpu_torch.ops import kernels
+from nabu_tpu_torch.ops.losses import make_loss_computer
+from nabu_tpu_torch.params import flatten, unflatten
+from nabu_tpu_torch.training.trainer import Optimizer
+
+METRIC = "train_audio_seconds_per_second_per_chip"
+FEATURES, LABELS, NUM_LABELS = 80, 100, 31
+FRAME_SHIFT = 0.01
+
+
+def build_model_and_loss(bf16: bool = True, num_layers: int = 4, num_units: int = 320):
+    """-> (model, loss_fn) of ``bench.py``'s ``build_model_and_loss`` for
+    ``dblstm`` with both kernels on (``num_layers`` x ``num_units`` is
+    4 x 320 there)."""
+    cfg = ConfigFile({
+        "model": Conf({"compute_dtype": "bfloat16" if bf16 else "float32"}, "model"),
+        "encoder": Conf({"encoder": "dblstm", "num_layers": str(num_layers),
+                         "num_units": str(num_units), "use_pallas": "true"}, "encoder"),
+        "decoder": Conf({"decoder": "linear_ctc", "loss": "ctc", "use_pallas": "true"},
+                        "decoder"),
+    })
+    model = build_model(cfg, input_dim=FEATURES, num_labels=NUM_LABELS)
+    return model, make_loss_computer(model)
+
+
+def make_batch(B: int, T: int, F: int, L: int, rng) -> Dict[str, np.ndarray]:
+    """``bench.py``'s ``make_batch``: the same arrays from the same rng."""
+    return {
+        "features": rng.standard_normal((B, T, F)).astype(np.float32),
+        "feature_lengths": np.full((B,), T, np.int32),
+        "targets": rng.integers(0, NUM_LABELS, (B, L)).astype(np.int32),
+        "target_lengths": np.full((B,), L, np.int32),
+        "example_mask": np.ones((B,), np.float32),
+    }
+
+
+def card() -> tuple:
+    """-> (name, power limit in W) of GPU 0 from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    name, limit = out.strip().splitlines()[0].rsplit(",", 1)
+    return name.strip(), float(limit.strip().split()[0])
+
+
+class _Clock:
+    """Marks on the device's stream (CUDA events) or the host clock (CPU)."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+
+    def mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def ms(self, a, b) -> float:
+        return a.elapsed_time(b) if self.cuda else 1e3 * (b - a)
+
+
+def train_line(batch: int = 32, frames: int = 1000, steps: int = 8, warmup: int = 2,
+               repeats: int = 3, seed: int = 0, device=None, bf16: bool = True,
+               num_layers: int = 4, num_units: int = 320, labels: int = LABELS,
+               params: Optional[dict] = None) -> dict:
+    """Time the training step; -> the JSON line's fields. ``params`` (f32,
+    the model's tree) replaces the seeded initial weights."""
+    dev = resolve_device(device)
+    model, loss_fn = build_model_and_loss(bf16, num_layers, num_units)
+    rng = np.random.default_rng(seed)
+    arrays = make_batch(batch, frames, FEATURES, labels, rng)
+    data = batch_to_device(arrays, dev, feature_dtype=model.compute_dtype)
+    if params is None:
+        params = model.init(torch.Generator().manual_seed(seed))
+    flat = {k: v.detach().to(dev, torch.float32).clone().requires_grad_(True)
+            for k, v in flatten(params).items()}
+    tree = unflatten(flat)
+    leaves = list(flat.values())
+    optimizer = Optimizer(Conf({"optimizer": "adam", "learning_rate": "1e-3",
+                                "clip_grad_norm": "5.0"}, "bench"))
+    opt_state = optimizer.init(tree)
+    clock = _Clock(dev)
+    marks: list = []
+
+    forward = model.apply_train
+
+    def timed_forward(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        marks.append(clock.mark())
+        return out
+
+    model.apply_train = timed_forward  # the loss computer calls it
+
+    def step():
+        """One step; -> its loss and its five marks (start, forward, loss,
+        backward, optimizer)."""
+        marks.clear()
+        start = clock.mark()
+        loss, _ = loss_fn(tree, data, None, True)
+        after_loss = clock.mark()
+        grads = torch.autograd.grad(loss, leaves)
+        after_backward = clock.mark()
+        optimizer.step(tree, dict(zip(flat, grads)), opt_state, 1.0)
+        end = clock.mark()
+        return loss.detach(), (start, marks[0], after_loss, after_backward, end)
+
+    kernels.reset_launch_counts()
+    first_loss = None
+    for _ in range(warmup):
+        loss, _ = step()
+        if first_loss is None:
+            first_loss = float(loss)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    timed, values = [], []
+    for _ in range(max(repeats, 1)):
+        run = [step() for _ in range(steps)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if first_loss is None:
+            first_loss = float(run[0][0])
+        timed += [m for _, m in run]
+        elapsed_ms = clock.ms(run[0][1][0], run[-1][1][-1])
+        values.append(batch * frames * FRAME_SHIFT * steps / (1e-3 * elapsed_ms))
+    last_loss = float(run[-1][0])
+
+    def median(i, j):
+        return statistics.median(clock.ms(m[i], m[j]) for m in timed)
+
+    if dev.type == "cuda":
+        name, limit = card()
+        peak = torch.cuda.max_memory_allocated(dev)
+    else:
+        name, limit, peak = "cpu", None, None
+    return {
+        "metric": METRIC,
+        "value": statistics.median(values),
+        "unit": "audio_s/s",
+        "median_step_ms": median(0, 4),
+        "forward_ms": median(0, 1),
+        "loss_ms": median(1, 2),
+        "backward_ms": median(2, 3),
+        "optimizer_ms": median(3, 4),
+        "peak_memory_bytes": peak,
+        "device": name,
+        "power_limit_w": limit,
+        "first_loss": first_loss,
+        "last_loss": last_loss,
+        "model": f"dblstm {num_layers}x{num_units} + linear_ctc, ctc loss",
+        "dtype": "bfloat16" if bf16 else "float32",
+        "batch": batch, "frames": frames, "labels": labels,
+        "warmup": warmup, "steps": steps, "repeats": max(repeats, 1), "seed": seed,
+        "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--frames", type=int, default=1000)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="measurements; the median is reported")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
+                    help="bfloat16 compute dtype")
+    args = ap.parse_args(argv)
+    line = train_line(batch=args.batch, frames=args.frames, steps=args.steps,
+                      warmup=args.warmup, repeats=args.repeats, seed=args.seed,
+                      device=args.device, bf16=args.bf16)
+    print(json.dumps(line), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,86 @@
+"""The port's bench line (``nabu_tpu_torch.bench``) on the CPU.
+
+Its schema at a tiny width (2 layers x 8 units, B = 2, T = 20, 2 steps,
+the plain kernels), and its first step's loss against the JAX bench's
+``build_model_and_loss("dblstm")`` (4 x 320, the Pallas kernels in
+interpret mode on the CPU) on the same numpy batch and the same weights,
+carried across by ``params.from_jax_params``, in f32 within rtol 1e-5.
+No check reads a time.
+"""
+
+import json
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bench as jbench
+from nabu_tpu_torch import bench
+from nabu_tpu_torch.ops import kernels
+from nabu_tpu_torch.params import from_jax_params
+
+torch.set_num_threads(1)  # Tier-1 runs several xdist workers
+
+KEYS = {"metric", "value", "unit", "median_step_ms", "forward_ms", "loss_ms", "backward_ms",
+        "optimizer_ms", "peak_memory_bytes", "device", "power_limit_w", "first_loss",
+        "last_loss", "model", "dtype", "batch", "frames", "labels", "warmup", "steps",
+        "repeats", "seed", "launches"}
+
+
+def _flat_jax(tree) -> dict:
+    return {
+        "/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+        for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]
+    }
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_line_schema_at_a_tiny_width(bf16):
+    before = kernels.launch_counts()
+    line = bench.train_line(batch=2, frames=20, steps=2, warmup=1, repeats=2, device="cpu",
+                            bf16=bf16, num_layers=2, num_units=8, labels=5)
+    assert kernels.launch_counts() == before  # CPU tensors: the plain versions
+    assert set(line) == KEYS
+    assert line["metric"] == "train_audio_seconds_per_second_per_chip"
+    assert line["unit"] == "audio_s/s" and line["value"] > 0
+    assert all(line[k] >= 0 for k in ("median_step_ms", "forward_ms", "loss_ms",
+                                      "backward_ms", "optimizer_ms"))
+    assert math.isfinite(line["first_loss"]) and math.isfinite(line["last_loss"])
+    assert line["device"] == "cpu" and line["power_limit_w"] is None
+    assert line["peak_memory_bytes"] is None and line["launches"] == {}
+    assert line["dtype"] == ("bfloat16" if bf16 else "float32")
+    json.loads(json.dumps(line))  # one JSON line
+
+
+def test_main_prints_one_json_line(capsys):
+    assert bench.main(["--device", "cpu", "--batch", "1", "--frames", "4", "--steps", "1",
+                       "--warmup", "0", "--repeats", "1", "--no-bf16"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    line = json.loads(out[0])
+    assert set(line) == KEYS and line["steps"] == 1 and line["dtype"] == "float32"
+
+
+def test_batch_is_the_jax_bench_batch():
+    ours = bench.make_batch(3, 7, 80, 5, np.random.default_rng(4))
+    theirs = jbench.make_batch(3, 7, 80, 5, np.random.default_rng(4))
+    assert set(ours) == set(theirs)
+    for k in ours:
+        np.testing.assert_array_equal(ours[k], theirs[k], err_msg=k)
+        assert ours[k].dtype == theirs[k].dtype
+
+
+def test_first_step_loss_matches_the_jax_bench():
+    B, T, L = 2, 20, 5
+    model, loss_fn = jbench.build_model_and_loss(True, True, "float32", "dblstm")
+    params = model.init(jax.random.PRNGKey(0))
+    batch = jbench.make_batch(B, T, 80, L, np.random.default_rng(0))
+    want, _ = loss_fn(params, {k: jnp.asarray(v) for k, v in batch.items()},
+                      jax.random.PRNGKey(0), True)
+    line = bench.train_line(batch=B, frames=T, steps=1, warmup=0, repeats=1, device="cpu",
+                            bf16=False, labels=L, params=from_jax_params(_flat_jax(params)))
+    assert line["model"] == "dblstm 4x320 + linear_ctc, ctc loss"
+    np.testing.assert_allclose(line["first_loss"], float(want), rtol=1e-5)
