@@ -79,7 +79,13 @@ Phases, each printing JSON lines:
               one step late), then the recipe's attention_greedy validation
               decode of the trained checkpoint over the dev set at B = 64
               (the path of the v1 inference walk): its RTF and launches,
-              and the card's ids against the CPU's in f32 on one batch.
+              and the card's ids against the CPU's in f32 on one batch;
+11. bench_ctc — the port's bench line (``python -m nabu_tpu_torch.bench``,
+              run in process): the 4x320 DBLSTM-CTC step at B = 32, T =
+              1000, bf16, warmup 2, 3 repeats of 8 steps, its audio
+              seconds a second, median step and its split (CUDA events);
+              its launches must be the train phase's per-step launches
+              x the steps run.
 
 The kernels phase also holds the four RNN-T kernels (joint forward,
 alpha, beta, joint backward) to their plain versions at B = 32, T' = 250,
@@ -108,7 +114,10 @@ share of the bound beside the rfft path's time, and how far it and the
 plain version land from the float64 spectrum; each v1 chain row
 its µs a step, its split (``chain_plan``) and whether a second launch
 repeats its bits (a row whose bits differ fails the run), the bf16 rows
-also the µs a step at twice the rows a block.
+also the µs a step at twice the rows a block; the v2 chain's rows
+likewise (``ops.blstm.chain_plan``), the bf16 row the µs a step of every
+form of its plan's work a block (``us_per_step_by_split``) and whether
+their bits equal the plan's.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -1728,10 +1737,16 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
     b_ms, b_by = bound(
         4 * 2 * M * (H4 + H) + es * (M * 2 * H + 2 * H * H4 + 2 * M * H4) + 4 * B,
         2 * valid * (2 * H4 * H + 30 * H), peak)
+    same = torch.equal(dg, bo.blstm_bwd_recur(gates, c, gy, lens_t, wh))
+    if not same:
+        FAILURES.append(f"blstm_bwd_recur {tag}: a second launch's bits differ")
+    ms = timed(lambda: bo.blstm_bwd_recur(gates, c, gy, lens_t, wh), reps)
+    plan = bo.chain_plan(B, H)
     row = {
         "shape": [T, B, H], "dtype": tag, "max_abs_err": err, "tol": tol,
         "ref_max_abs": float(ref_dg.float().abs().max()), "fault_max_abs_err": fault,
-        "ms": timed(lambda: bo.blstm_bwd_recur(gates, c, gy, lens_t, wh), reps),
+        "ms": ms, "us_per_step": None if ms is None else 1e3 * ms / T,
+        "repeat_bits_equal": same, "plan": plan,
         "plain_ms": timed(lambda: bo.blstm_bwd_recur_plain(gates, c, gy, lens_t, wh),
                           min(reps, 1)),
         "library_ms": None if lib_f is None else lib_fb - lib_f,
@@ -1739,6 +1754,22 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
                    "input projection included)",
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    if tag == "bf16" and reps:
+        # the split's measurement: every form of the plan's work a block
+        # (16 mt rows x units) that fits the card, the same launch each;
+        # the rows' sums do not depend on the form, so neither do the bits
+        by_split, bits = {}, True
+        for units, mt in bo.CHAIN_FORMS:
+            blocks = 2 * -(-B // (16 * mt)) * -(-H // units)
+            if mt * units != plan[0] * plan[1] or blocks > bo.SMS:
+                continue
+            form = (units, mt, blocks, bo.chain_bytes(H, units, mt))
+            with swapped(bo, "chain_plan", lambda *_, f=form: f):
+                by_split[f"{16 * mt}x{units}"] = 1e3 * timed(
+                    lambda: bo.blstm_bwd_recur(gates, c, gy, lens_t, wh), reps) / T
+                bits &= torch.equal(dg, bo.blstm_bwd_recur(gates, c, gy, lens_t, wh))
+        row["us_per_step_by_split"] = by_split
+        row["bits_equal_across_splits"] = bits
     emit({"phase": "kernels", "kernel": "blstm_bwd_recur", **row})
     rows[("blstm_bwd_recur", tag)] = row
     del gates, c, dg, ref_dg
@@ -3217,6 +3248,24 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
     return result
 
 
+def phase_bench_ctc(torch) -> dict:
+    """The port's bench line (``nabu_tpu_torch.bench.train_line``, as
+    ``python -m nabu_tpu_torch.bench`` prints it) in process: the 4x320
+    DBLSTM-CTC step at B = 32, T = 1000, bf16, through the kernels; its
+    launches must be the train phase's per-step launches x the steps run,
+    and its losses finite."""
+    from nabu_tpu_torch import bench
+
+    line = bench.train_line()
+    print(json.dumps(line), flush=True)
+    runs = line["warmup"] + line["steps"] * line["repeats"]
+    want = {k: n * runs for k, n in STEP_LAUNCHES["train"].items()}
+    check(line["launches"] == want, f"bench_ctc: launches {line['launches']}, want {want}")
+    check(math.isfinite(line["first_loss"]) and math.isfinite(line["last_loss"]),
+          "bench_ctc: a loss is not finite")
+    return line
+
+
 def las_decode(torch, smi: str, recipe: str, expdir: str, model, dev_audio_s: float) -> dict:
     """The recipe's validation evaluator (attention_greedy over the dev
     set at its B = 64) on the trained checkpoint (``best/``, which the
@@ -3340,10 +3389,13 @@ def main(argv=None) -> int:
         trained_stream = phase_train(torch, smi, "train_rnnt_stream", corpus)
         t8 = time.perf_counter()
         trained_las = phase_train(torch, smi, "train_las", corpus)
+    t9 = time.perf_counter()
+    phase_bench_ctc(torch)
     emit({"phase": "seconds", "build_device": t1 - t0, "kernels": t2 - t1,
           "serve": t3 - t2, "serve_rnnt": t4 - t3, "serve_stream": t5 - t4,
           "train": t6 - t5, "train_rnnt": t7 - t6, "train_rnnt_stream": t8 - t7,
-          "train_las": time.perf_counter() - t8, "total": time.perf_counter() - t0})
+          "train_las": t9 - t8, "bench_ctc": time.perf_counter() - t9,
+          "total": time.perf_counter() - t0})
     raise_failures()
     runs = (served, served_rnnt, served_stream, trained, trained_rnnt, trained_stream,
             trained_las, trained_las["decode"])

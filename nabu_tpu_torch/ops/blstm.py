@@ -18,7 +18,8 @@ Port of the JAX package's ``ops/pallas/blstm.py`` (``blstm_tm_apply`` ->
   recompute ``hprev @ wh``;
 - ``blstm_bwd_recur``: the backward's serial chain (``direction()`` of
   ``_bwd_train_kernel2``) for both directions: dgates in the compute
-  type, dh and dc carried in f32;
+  type, dh and dc carried in f32; its blocks own a row group x a unit
+  group of one direction, split by ``chain_plan``;
 - ``blstm_bwd_dx``, ``blstm_bwd_dwx`` (with db) and ``blstm_bwd_dwh``:
   the backward's block-batched products (``finish``), f32 accumulation.
 
@@ -35,18 +36,19 @@ a pure function of the batch and the width, in training and in inference
 alike (as the JAX package's ``blstm_tm_apply`` decides by shape), so one
 layer never mixes families. It answers "v2" when the v2 training pair
 can hold the layer: the walk's ``recur_layout`` (4 (B (ceil4(H) + 4) +
-ceil4(H) 8 4 + 8 B) bytes) and the chain's ``chain_layout`` (4 ((B + 8)
-(4H + 4) + 16 B) bytes) of ``csrc/blstm.cu`` each within a block's 227 KB
-(232,448 bytes) of shared memory, with the 2 ceil(H / 8) blocks of a
-launch co-resident on the H100's 132 SMs (228 KB of shared memory an SM,
-1 KB of it reserved a block, at most 8 blocks of 256 threads). Else "v1",
-the kernels of ``ops.blstm_v1`` (``csrc/blstm_v1.cu``), whose walk and
-chain stream the exchanged rows in K tiles. At H = 320 the v2 chain holds
-B <= 36, at H = 256 B <= 47, at H = 512 B <= 20: so the 4x320 and 3x256
-recipes at B = 32 run v2, and las_large's 512-unit Listener at B = 32 or
-64 runs v1. The rule is the same on the CPU, where each family runs its
-plain versions. It is decided before any launch and is not a fallback: a
-launch that fails raises.
+ceil4(H) 8 4 + 8 B) bytes of shared memory a block) with its 2 ceil(H /
+8) blocks co-resident on the H100's 132 SMs (228 KB of shared memory an
+SM, 1 KB of it reserved a block, at most 8 blocks of 256 threads), and a
+``chain_plan`` for the chain. Else "v1", the
+kernels of ``ops.blstm_v1`` (``csrc/blstm_v1.cu``), whose walk and chain
+stream the exchanged rows in K tiles. The chain's blocks own a row group
+x a unit group of one direction, so its limit is the card's SMs: at H =
+320 the v2 pair holds B <= 48, at H = 256 B <= 64, at H = 512 B <= 32.
+So the 4x320 and 3x256 recipes at B = 32 run v2, and las_large's 512-unit
+Listener at B = 64 runs v1 (at its validation batch, 32, v2). The rule is
+the same on the CPU, where each family runs its plain versions. It is
+decided before any launch and is not a fallback: a launch that fails
+raises.
 
 GEMM kernel. The products (``blstm_proj``, dx, dwx, dwh, the v1 gates
 recompute and dwh, ``ops.lstm.lstm_proj``) run on ``blstm.cu``'s GEMM.
@@ -104,7 +106,7 @@ _ARGTYPES = {
     "gemm_f32": _SPLIT_GEMM,
     "gemm_wgmma_bf16": _SPLIT_GEMM,
     "recur": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
-    "bwd_recur": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
+    "bwd_recur": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
 }
 
 
@@ -116,21 +118,65 @@ def coresident(smem: int, blocks: int) -> bool:
     return blocks <= SMS * min(BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024))
 
 
+# the chain (csrc/blstm.cu (c)): rows of an m-tile, and its forms (units,
+# m-tiles) a block in the order chain_plan tries them, least work first (a
+# thread sums 4 mt rows x units, at most 64; a block's 16 mt x units cell
+# pairs, at most its 256 threads): 4 x 4 holds the batches of the
+# narrowest layers (B <= 4224 at H <= 4)
+CHAIN_ROWS = 16
+CHAIN_FORMS = ((8, 1), (16, 1), (8, 2), (4, 4))
+
+
+def chain_bytes(H: int, units: int, mt: int) -> int:
+    """Shared memory of a chain block (``chain_bytes`` of csrc/blstm.cu):
+    the wh rows of its units [units, 4H] f32 and the 8 warps' partial
+    sums [8, 4 units mt]."""
+    return 4 * (units * 4 * H + 8 * 4 * units * mt)
+
+
+def chain_plan(B: int, H: int):
+    """-> (units, mt, blocks, shared memory bytes) of the chain: the first
+    of ``CHAIN_FORMS`` (units x 16 mt rows a block) whose 2 ceil(B / 16 mt)
+    ceil(H / units) blocks fit the card one an SM (its registers allow no
+    more) with their shared memory; None if none does. A pure function of
+    (B, H), the same in both element types."""
+    for units, mt in CHAIN_FORMS:
+        blocks = 2 * -(-B // (CHAIN_ROWS * mt)) * -(-H // units)
+        need = chain_bytes(H, units, mt)
+        if blocks <= SMS and need <= SMEM_LIMIT:
+            return units, mt, blocks, need
+    return None
+
+
+def check_chain_design(what: str, B: int, H: int):
+    """-> the chain's ``chain_plan``; raises for a batch and width beyond
+    it."""
+    plan = chain_plan(B, H)
+    if plan is None:
+        raise ValueError(
+            f"{what}: B = {B}, H = {H} is beyond the chain's design (no block of 16 mt "
+            f"rows x units of one direction, {CHAIN_FORMS}, fits the card's {SMS} SMs "
+            f"one block an SM)")
+    return plan
+
+
 def v2_smem_bytes(B: int, H: int):
-    """-> (walk, chain) shared memory of one block of the v2 kernels, the
-    layouts ``recur_layout`` and ``chain_layout`` of csrc/blstm.cu."""
+    """-> (walk, chain) shared memory of one block of the v2 kernels: the
+    walk's ``recur_layout`` of csrc/blstm.cu, the chain's of its
+    ``chain_plan`` (None when no plan holds B and H)."""
     units = UNITS_PER_BLOCK
     kp = (H + 3) // 4 * 4
     walk = 4 * (B * (kp + 4) + kp * units * 4 + B * units)
-    chain = 4 * ((B + units) * (4 * H + 4) + 2 * B * units)
-    return walk, chain
+    plan = chain_plan(B, H)
+    return walk, None if plan is None else plan[3]
 
 
 def kernel_family(B: int, H: int) -> str:
     """"v2" when the v2 walk and chain can hold a layer of batch B and
     width H on the card, else "v1" (see the module docstring)."""
-    blocks = 2 * -(-H // UNITS_PER_BLOCK)
-    return "v2" if all(coresident(m, blocks) for m in v2_smem_bytes(B, H)) else "v1"
+    walk, chain = v2_smem_bytes(B, H)
+    fits = chain is not None and coresident(walk, 2 * -(-H // UNITS_PER_BLOCK))
+    return "v2" if fits else "v1"
 
 
 # the wgmma GEMM: 128 x 128 output tiles, 64-deep K tiles; kind 2 runs
@@ -485,14 +531,16 @@ def blstm_bwd_recur(gates, c, gy, lengths, wh, forget_bias: float = 1.0):
     _check_shape(f"{name}: c", c, (2, T, B, H), torch.float32)
     _check_shape(f"{name}: wh", wh, (2, H, 4 * H), gy.dtype)
     _check_shape(f"{name}: lengths", lengths, (B,), torch.int32)
+    units, mt = check_chain_design(name, B, H)[:2]
     dev = gy.device
     dg = torch.empty((2, T, B, 4 * H), dtype=gy.dtype, device=dev)
-    counters = torch.zeros((2,), dtype=torch.int32, device=dev)
+    # one counter a direction and row group
+    counters = torch.zeros((2 * -(-B // (CHAIN_ROWS * mt)),), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _launcher("bwd_recur", tag)(
             gates.data_ptr(), c.data_ptr(), gy.data_ptr(), lengths.data_ptr(),
             wh.data_ptr(), dg.data_ptr(), counters.data_ptr(),
-            T, B, H, UNITS_PER_BLOCK, float(forget_bias), _stream(),
+            T, B, H, units, mt, float(forget_bias), _stream(),
         )
     build.check(err, name)
     kernels.LAUNCHES[name] += 1

@@ -116,21 +116,39 @@
 //     kernel of 54 GFLOP.
 //
 // (c) blstm_bwd_recur: the backward's serial chain, one cooperative
-//     persistent launch for both directions with the forward's split:
-//     block g of a direction owns hidden units [g*HS, (g+1)*HS) and keeps
-//     their rows of wh, [HS, 4H] (f32), in shared memory. The fw
-//     direction walks time descending, the bw direction ascending. Each
-//     step a block reads all of the previous step's dgates [B, 4H] (compute
-//     type) from the dg output itself, which doubles as the exchange
-//     buffer (each row is written once, then read by every block of its
-//     direction: ld.global.cg, 16-byte loads eight deep), forms
-//     dh_prev = dgates_prev @ wh^T for its units (f32), runs the masked
-//     cell backward of _bwd_train_kernel2's direction() on its 4 x HS gate
-//     columns from the stored gates and carries, writes its dgates (cast
-//     to the compute type) to dg [T, B, 4H], and meets the other blocks of
-//     its direction at a counter barrier as in (b). Per step it exchanges
-//     4x the bytes of the forward (80 KB of dgates against 20 KB of h at
-//     B = 32, H = 320). The dh and dc carries stay f32.
+//     persistent launch for both directions; the fw direction walks time
+//     descending, the bw direction ascending. Bound on the H100 by bytes in
+//     the reckoning of (a) (the f32 gates and carries read once, gy and wh
+//     read, dg written: 0.63 GB at T = 1024, B = 32, H = 320 in bf16, 0.19
+//     ms at 3.35 TB/s), but run by its T dependent steps, each a
+//     [B, 4H] x [4H, H] product a direction, the cell and a hand-off
+//     between blocks. Rows of the batch are independent in the chain.
+//     Design: block (dir, rg, ug) owns 16 MT rows x U units of one
+//     direction (U x MT = 8 x 1, 16 x 1, 8 x 2 or 4 x 4, from
+//     ops/blstm.chain_plan: the least work a block whose 2 ceil(B / 16 MT)
+//     ceil(H / U) blocks are co-resident one an SM), keeps its units' rows
+//     of wh, [U, 4H] f32, in shared memory, and meets only the ceil(H / U)
+//     blocks of its (direction, row group), at a counter of their own. The
+//     rows' sums do not depend on the form. Each step, after
+//     that counter shows the previous step published, it pulls only its
+//     rows of the previous step's dgates from the dg output, which doubles
+//     as the exchange buffer: the dgates as stored in the compute type
+//     (bf16: the rounded values, 4 to an 8-byte ld.cg straight into
+//     registers, widened there; 16 MT x 4H x 2 bytes = 40 KB MT at H =
+//     320), every load of a pass in flight at once. It forms dh_prev =
+//     dgates_prev @ wh^T for its units in f32 with register-blocked FFMA (a
+//     thread 4 MT rows x U units over a K slice of H / 64 quads of 4
+//     values, 5 at H = 320 in both types: a quad feeds U units, a float4
+//     of wh 4 rows), adds the 64 K slices by a reduce-scatter of shuffles
+//     and the two warps of a row block in warp
+//     order (a second launch repeats the bits), runs the masked cell
+//     backward of _bwd_train_kernel2's direction() from the stored gates
+//     and carries (fetched before the barrier: they do not depend on the
+//     exchange), writes its dgates cast to the compute type and arrives at
+//     its counter. The dh and dc carries stay f32, in registers. Shared
+//     memory 4 (U 4H + 8 x 4 U MT) bytes (82 KB at 16 x 1, H = 320), so the
+//     design limit is the card's SMs: B <= 48 at H = 320, 64 at 256, 32 at
+//     512.
 //
 // Element types: __nv_bfloat16 (the training and serving path) and float
 // (to check the card tightly). Gates and c are f32; h is carried in the
@@ -1598,46 +1616,84 @@ int launch_recur(const T* xw, const int* lengths, const T* wh, T* y, T* hbuf,
 // (c) backward chain
 // ---------------------------------------------------------------------------
 
-struct ChainLayout {
-  int rp;  // row stride (floats) of the staged dgates and the wh rows: 4H + 4
-  size_t smem_bytes;
-};
+constexpr int CH_ROWS = 16;  // rows of an m-tile; a block owns 16 MT rows
+constexpr int CH_KS = 64;    // K slices of a step product: the threads of a row block
+static_assert(CH_ROWS == 4 * R_THREADS / CH_KS, "a row block of 4 rows a warp pair");
 
-__host__ __device__ inline ChainLayout chain_layout(int B, int H, int hs) {
-  ChainLayout l;
-  l.rp = 4 * H + 4;
-  l.smem_bytes = sizeof(float) * ((size_t)(B + hs) * l.rp + 2 * (size_t)B * hs);
-  return l;
+// shared memory of a chain block of U units and 16 MT rows: the wh rows of
+// its units in f32, [U][4H], and the warps' reduced partial sums [8][4 U MT]
+__host__ __device__ inline size_t chain_bytes(int H, int U, int MT) {
+  return sizeof(float) * ((size_t)U * 4 * H + (size_t)(R_THREADS / 32) * 4 * U * MT);
 }
 
+// one round of a warp's reduce-scatter over N values a lane: after the
+// round of offset O the lane keeps the half of v selected by lane & O,
+// added to its partner's copy; five rounds leave lane l the sums over the
+// warp of v[l N / 32 + k], k < N / 32, in a fixed order
+template <int N, int O>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
+  const bool upper = lane & O;
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k) {
+    const float send = upper ? v[k] : v[k + N / 2];
+    const float keep = upper ? v[k + N / 2] : v[k];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+  if constexpr (O > 1) reduce_scatter<N / 2, O / 2>(v, lane);
+}
+
+// four consecutive values of an exchanged row as loaded: 8 bytes of bf16,
+// 16 of f32; widened to f32 where they are used
 template <typename T>
-__global__ void __launch_bounds__(R_THREADS) blstm_bwd_recur_kernel(
+using quad_t = std::conditional_t<sizeof(T) == 2, uint2, float4>;
+
+__device__ __forceinline__ float4 widen(const float4& q) { return q; }
+__device__ __forceinline__ float4 widen(const uint2& q) {
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+}
+
+// Block (dir, rg, ug) owns rows rg 16 MT + [0, 16 MT) and units ug U + [0,
+// U) of direction dir; rows are independent in the chain, so the blocks of
+// one (direction, row group) meet at their own counter each step. Step
+// product: warp w takes rows 4 (w / 2) + [0, 4) of each m-tile and K slice
+// ks = 32 (w % 2) + lane, the quads (4 values) ks + 64 p of the previous
+// step's dgates rows (ld.cg straight into registers, 8 bytes in bf16, 16 in
+// f32, every load of the pass in flight at once; bf16 is widened in
+// registers), and sums its 4 MT rows x U units over them (a quad feeds U
+// units, a float4 of wh 4 rows); the warp's 32 K slices are added by a
+// reduce-scatter of shuffles, the two warps of a row block in warp order.
+// Thread p < 16 MT U owns the cell pair (row, unit) = (p / U, p % U) and
+// keeps its dh and dc carries in registers.
+template <typename T, int U, int MT>
+__global__ void __launch_bounds__(R_THREADS, 1) blstm_bwd_recur_kernel(
     const float* __restrict__ gates,  // [2, T, B, 4H] f32 pre-activations
     const float* __restrict__ cst,    // [2, T, B, H] f32 carries
     const T* __restrict__ gy,         // [T, B, 2H] cotangent of the layer output
     const int* __restrict__ lengths,  // [B]
     const T* __restrict__ wh,         // [2, H, 4H]
     T* dg,                            // [2, T, B, 4H] out; also the exchange
-    unsigned int* counters,           // [2], zero at launch
-    int Tn, int B, int H, int hs, int G, float forget_bias) {
+    unsigned int* counters,           // [2, RG], zero at launch
+    int Tn, int B, int H, int RG, int GU, float forget_bias) {
+  constexpr int R = CH_ROWS * MT;
+  constexpr int N = 4 * U * MT;      // a thread's product sums
+  constexpr int NK = N / 32;         // a lane's sums after the reduce-scatter
+  // quads of a row a thread loads a pass (H of them: one pass at H = 320)
+  constexpr int NQ = 5;
+  static_assert(R * U <= R_THREADS, "one cell pair a thread");
+  static_assert(N % 32 == 0 && N <= 64, "the product's sums fit the registers");
   extern __shared__ __align__(16) float smem[];
-  const ChainLayout L = chain_layout(B, H, hs);
   const int H4 = 4 * H;
-  float* dg_s = smem;                          // [B][rp]: previous step's dgates
-  float* w_s = dg_s + (size_t)B * L.rp;        // [hs][rp]: wh rows of this block's units
-  float* dh_s = w_s + (size_t)hs * L.rp;       // [B][hs] dh passed through masked steps
-  float* dc_s = dh_s + (size_t)B * hs;         // [B][hs] dc carry
-
-  const int dir = blockIdx.x / G;
-  const int j0 = (blockIdx.x % G) * hs;
+  float* w_s = smem;                     // [U][4H]
+  float* part = w_s + (size_t)U * H4;    // [8 warps][N]
+  const int dir = blockIdx.x / (RG * GU);
+  const int rg = blockIdx.x / GU % RG, ug = blockIdx.x % GU;
+  const int j0 = ug * U, row0 = rg * R;
+  unsigned int* cnt = counters + dir * RG + rg;
   const T* whd = wh + (size_t)dir * H * H4;
-  for (int i = threadIdx.x; i < hs * L.rp; i += blockDim.x) {
-    const int jl = i / L.rp, k = i % L.rp;
-    w_s[i] = (j0 + jl < H && k < H4) ? to_f(whd[(size_t)(j0 + jl) * H4 + k]) : 0.f;
-  }
-  for (int i = threadIdx.x; i < B * hs; i += blockDim.x) {
-    dh_s[i] = 0.f;
-    dc_s[i] = 0.f;
+  for (int i = threadIdx.x; i < U * H4; i += R_THREADS) {
+    const int u = i / H4, k = i - u * H4;
+    w_s[i] = j0 + u < H ? to_f(whd[(size_t)(j0 + u) * H4 + k]) : 0.f;
   }
   __syncthreads();
 
@@ -1645,114 +1701,180 @@ __global__ void __launch_bounds__(R_THREADS) blstm_bwd_recur_kernel(
   const float* gd = gates + (size_t)dir * dstride * H4;
   const float* cd = cst + (size_t)dir * dstride * H;
   T* dgd = dg + (size_t)dir * dstride * H4;
-  unsigned int* cnt = counters + dir;
-  const int nq = H4 / 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rb = warp >> 1, ks = (warp & 1) * 32 + lane;
+  const float4* w4 = reinterpret_cast<const float4*>(w_s);
+  // the cell pair of this thread, and where its product's sum lands
+  const int p = threadIdx.x, pr = p / U, pu = p % U;
+  const int pb = row0 + pr, pj = j0 + pu;
+  const bool live = p < R * U && pb < B && pj < H;
+  const int len = live ? __ldg(lengths + pb) : 0;
+  const int prr = pr % CH_ROWS;
+  const int pw = 2 * (prr >> 2);                                // its row block's first warp
+  const int pf = ((prr & 3) * U + pu) * MT + pr / CH_ROWS;      // its index in v
+  const int pidx = (pf % NK) * 32 + pf / NK;                    // in a warp's partials
+  float dh = 0.f, dc = 0.f;
+  float zi = 0.f, zf = 0.f, zg = 0.f, zo = 0.f, c_t = 0.f, c_prev = 0.f, gyv = 0.f;
+  // the cell's own operands of step s: none depends on the chain, so they
+  // are fetched before the barrier that precedes step s ends
+  auto fetch = [&](int s) {
+    if (!live) return;
+    const int t = dir == 0 ? Tn - 1 - s : s;
+    const int t_fprev = dir == 0 ? t - 1 : t + 1;  // the forward's previous step
+    const size_t row = (size_t)t * B + pb;
+    const float* gr = gd + row * H4 + pj;
+    zi = __ldg(gr);
+    zf = __ldg(gr + H);
+    zg = __ldg(gr + 2 * (size_t)H);
+    zo = __ldg(gr + 3 * (size_t)H);
+    c_t = __ldg(cd + row * H + pj);
+    c_prev = (t_fprev >= 0 && t_fprev < Tn) ? __ldg(cd + ((size_t)t_fprev * B + pb) * H + pj)
+                                            : 0.f;
+    gyv = to_f(gy[row * 2 * H + (size_t)dir * H + pj]);
+  };
+  fetch(0);
 
   for (int s = 0; s < Tn; ++s) {
     // the fw direction's backward walks time descending, the bw one ascending
     const int t = dir == 0 ? Tn - 1 - s : s;
-    const int t_chain = dir == 0 ? t + 1 : t - 1;  // the step processed before
-    const int t_fprev = dir == 0 ? t - 1 : t + 1;  // the forward recurrence's previous step
-    // the step's inputs of one (b, j): gates i f g o, c_t, c_prev, the
-    // output cotangent and the mask
-    auto load_inputs = [&](int p, float* v) {
-      const int b = p / hs;
-      const int j = j0 + p % hs;
-      const size_t row = (size_t)t * B + b;
-      const float* gr = gd + row * H4 + j;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) v[g] = gr[g * (size_t)H];
-      v[4] = cd[row * H + j];
-      v[5] = (t_fprev >= 0 && t_fprev < Tn) ? cd[((size_t)t_fprev * B + b) * H + j] : 0.f;
-      v[6] = to_f(gy[row * 2 * H + (size_t)dir * H + j]);
-      v[7] = t < __ldg(lengths + b) ? 1.f : 0.f;
-    };
-    // the first (b, j)'s inputs are fetched ahead so their latency
-    // overlaps the staging of the dgates
-    float pre[8];
-    const int p0 = threadIdx.x;
-    if (p0 < B * hs && j0 + p0 % hs < H) load_inputs(p0, pre);
-    if (s > 0) stage_rows<T, 8>(dgd + (size_t)t_chain * B * H4, dg_s, B, H4, L.rp);
-    __syncthreads();
-
-    for (int p = threadIdx.x; p < B * hs; p += blockDim.x) {
-      const int b = p / hs;
-      const int jl = p - b * hs;
-      const int j = j0 + jl;
-      if (j >= H) continue;
-      const size_t row = (size_t)t * B + b;
-      float v[8];
-      if (p == p0) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) v[q] = pre[q];
-      } else {
-        load_inputs(p, v);
-      }
-      const float zi = v[0], zf = v[1], zg = v[2], zo = v[3];
-      const float c_t = v[4], c_prev = v[5], gyv = v[6], mf = v[7];
-      // dh_prev = dgates_prev @ wh^T for this unit
-      float acc = 0.f;
-      if (s > 0) {
-        const float4* dr = reinterpret_cast<const float4*>(dg_s + (size_t)b * L.rp);
-        const float4* wr = reinterpret_cast<const float4*>(w_s + (size_t)jl * L.rp);
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-        for (int q = 0; q < nq; ++q) {
-          const float4 dv = dr[q];
-          const float4 wv = wr[q];
-          a0 = fmaf(dv.x, wv.x, a0);
-          a1 = fmaf(dv.y, wv.y, a1);
-          a2 = fmaf(dv.z, wv.z, a2);
-          a3 = fmaf(dv.w, wv.w, a3);
+    float prod = 0.f;
+    if (s > 0) {
+      // wait until every block of this (direction, row group) has
+      // published step s - 1
+      if (threadIdx.x == 0) {
+        const unsigned int target = (unsigned int)s * (unsigned int)GU;
+        while (ld_acquire(cnt) < target) {
         }
-        acc = (a0 + a1) + (a2 + a3);
+        __threadfence();
       }
-      const float dh = acc + dh_s[p];
+      __syncthreads();
+      // dh_prev = dgates_prev @ wh^T for the block's rows and units, from
+      // the dgates as stored (the compute type), in f32
+      const T* prev = dgd + (size_t)(dir == 0 ? t + 1 : t - 1) * B * H4;
+      float v[N];  // [(i U + u) MT + m]: row 16 m + 4 rb + i, unit u
+#pragma unroll
+      for (int k = 0; k < N; ++k) v[k] = 0.f;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        for (int q0 = 0; q0 < H; q0 += CH_KS * NQ) {
+          quad_t<T> x[4][NQ];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = row0 + CH_ROWS * m + 4 * rb + i;
+            const quad_t<T>* row = reinterpret_cast<const quad_t<T>*>(prev + (size_t)r * H4);
+#pragma unroll
+            for (int pq = 0; pq < NQ; ++pq) {
+              const int q = q0 + ks + CH_KS * pq;
+              x[i][pq] = (r < B && q < H) ? __ldcg(row + q) : quad_t<T>{};
+            }
+          }
+#pragma unroll
+          for (int pq = 0; pq < NQ; ++pq) {
+            const int q = q0 + ks + CH_KS * pq;
+            if (q < H) {
+              float4 xq[4];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) xq[i] = widen(x[i][pq]);
+#pragma unroll
+              for (int u = 0; u < U; ++u) {
+                const float4 w = w4[(size_t)u * H + q];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  float& a = v[(i * U + u) * MT + m];
+                  a = fmaf(xq[i].x, w.x, a);
+                  a = fmaf(xq[i].y, w.y, a);
+                  a = fmaf(xq[i].z, w.z, a);
+                  a = fmaf(xq[i].w, w.w, a);
+                }
+              }
+            }
+          }
+        }
+      }
+      reduce_scatter<N, 16>(v, lane);
+#pragma unroll
+      for (int k = 0; k < NK; ++k) part[warp * N + k * 32 + lane] = v[k];
+      __syncthreads();
+      if (live) prod = part[pw * N + pidx] + part[(pw + 1) * N + pidx];
+    }
+
+    if (live) {
       // the masked cell backward (_bwd_train_kernel2 direction())
+      const bool m = t < len;
+      const float mf = m ? 1.f : 0.f;
       const float gi = sigmoid_f(zi);
       const float gf = sigmoid_f(zf + forget_bias);
       const float gg = tanhf(zg);
       const float go = sigmoid_f(zo);
       const float tanh_c = tanhf(c_t);
-      const float dh_total = gyv * mf + dh;
-      const bool m = mf > 0.5f;
+      const float dh_total = gyv * mf + (prod + dh);
       const float dh_new = m ? dh_total : 0.f;
-      const float dc_new = (m ? dc_s[p] : 0.f) + dh_new * go * (1.f - tanh_c * tanh_c);
-      const float dgi = dc_new * gg * gi * (1.f - gi);
-      const float dgf = dc_new * c_prev * gf * (1.f - gf);
-      const float dgg = dc_new * gi * (1.f - gg * gg);
-      const float dgo = dh_new * tanh_c * go * (1.f - go);
-      T* out = dgd + row * H4 + j;
-      out[0] = from_f<T>(dgi);
-      out[H] = from_f<T>(dgf);
-      out[2 * (size_t)H] = from_f<T>(dgg);
-      out[3 * (size_t)H] = from_f<T>(dgo);
-      dh_s[p] = m ? 0.f : dh_total;
-      dc_s[p] = dc_new * gf + (m ? 0.f : dc_s[p]);
+      const float dc_new = (m ? dc : 0.f) + dh_new * go * (1.f - tanh_c * tanh_c);
+      T* out = dgd + ((size_t)t * B + pb) * H4 + pj;
+      out[0] = from_f<T>(dc_new * gg * gi * (1.f - gi));
+      out[H] = from_f<T>(dc_new * c_prev * gf * (1.f - gf));
+      out[2 * (size_t)H] = from_f<T>(dc_new * gi * (1.f - gg * gg));
+      out[3 * (size_t)H] = from_f<T>(dh_new * tanh_c * go * (1.f - go));
+      dh = m ? 0.f : dh_total;
+      dc = dc_new * gf + (m ? 0.f : dc);
     }
 
-    // hand this step's dgates over to the other blocks of this direction
-    direction_barrier(cnt, s, G);
+    if (s + 1 < Tn) {
+      // publish this step's dgates to the (direction, row group), then
+      // fetch the next step's operands while the other blocks catch up
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        __threadfence();
+        atomicAdd(cnt, 1u);
+      }
+      fetch(s + 1);
+    }
   }
 }
 
-template <typename T>
-int launch_bwd_recur(const float* gates, const float* cst, const T* gy, const int* lengths,
-                     const T* wh, T* dg, unsigned int* counters, int Tn, int B, int H, int hs,
-                     float forget_bias, void* stream) {
-  if (Tn <= 0 || B <= 0) return 0;
-  if (hs <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const ChainLayout L = chain_layout(B, H, hs);
-  auto kernel = blstm_bwd_recur_kernel<T>;
-  int G = (H + hs - 1) / hs;
-  cudaError_t err = check_coresident(kernel, 2 * G, L.smem_bytes);
+template <typename T, int U, int MT>
+int launch_bwd_recur_form(const float* gates, const float* cst, const T* gy, const int* lengths,
+                          const T* wh, T* dg, unsigned int* counters, int Tn, int B, int H,
+                          float forget_bias, void* stream) {
+  // the quads of dg's rows are 8-byte (bf16) or 16-byte (f32) loads
+  if (reinterpret_cast<uintptr_t>(dg) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  int RG = (B + CH_ROWS * MT - 1) / (CH_ROWS * MT);
+  int GU = (H + U - 1) / U;
+  const int blocks = 2 * RG * GU;
+  const size_t smem = chain_bytes(H, U, MT);
+  auto kernel = blstm_bwd_recur_kernel<T, U, MT>;
+  cudaError_t err = check_coresident(kernel, blocks, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&gates, (void*)&cst, (void*)&gy, (void*)&lengths, (void*)&wh,
-                  (void*)&dg, (void*)&counters, (void*)&Tn, (void*)&B, (void*)&H,
-                  (void*)&hs, (void*)&G, (void*)&forget_bias};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(2 * G), dim3(R_THREADS), args,
-                                    L.smem_bytes, (cudaStream_t)stream);
+                  (void*)&dg,    (void*)&counters, (void*)&Tn, (void*)&B, (void*)&H,
+                  (void*)&RG,    (void*)&GU,       (void*)&forget_bias};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(R_THREADS), args,
+                                    smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// units U and m-tiles MT a block (ops/blstm.chain_plan: 8 x 1, 16 x 1,
+// 8 x 2 or 4 x 4); counters hold 2 ceil(B / 16 MT) zeros
+template <typename T>
+int launch_bwd_recur(const float* gates, const float* cst, const T* gy, const int* lengths,
+                     const T* wh, T* dg, unsigned int* counters, int Tn, int B, int H, int U,
+                     int MT, float forget_bias, void* stream) {
+  if (Tn <= 0 || B <= 0) return 0;
+  if (H <= 0) return (int)cudaErrorInvalidValue;
+  if (U == 8 && MT == 1)
+    return launch_bwd_recur_form<T, 8, 1>(gates, cst, gy, lengths, wh, dg, counters, Tn, B, H,
+                                          forget_bias, stream);
+  if (U == 16 && MT == 1)
+    return launch_bwd_recur_form<T, 16, 1>(gates, cst, gy, lengths, wh, dg, counters, Tn, B, H,
+                                           forget_bias, stream);
+  if (U == 8 && MT == 2)
+    return launch_bwd_recur_form<T, 8, 2>(gates, cst, gy, lengths, wh, dg, counters, Tn, B, H,
+                                          forget_bias, stream);
+  if (U == 4 && MT == 4)
+    return launch_bwd_recur_form<T, 4, 4>(gates, cst, gy, lengths, wh, dg, counters, Tn, B, H,
+                                          forget_bias, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1825,16 +1947,16 @@ extern "C" int nabu_blstm_recur_f32(const void* xw, const int* lengths, const vo
 
 extern "C" int nabu_blstm_bwd_recur_bf16(const float* gates, const float* cst, const void* gy,
                                          const int* lengths, const void* wh, void* dg,
-                                         unsigned int* counters, int T, int B, int H, int hs,
-                                         float forget_bias, void* stream) {
+                                         unsigned int* counters, int T, int B, int H, int units,
+                                         int mt, float forget_bias, void* stream) {
   return launch_bwd_recur<bf16>(gates, cst, (const bf16*)gy, lengths, (const bf16*)wh,
-                                (bf16*)dg, counters, T, B, H, hs, forget_bias, stream);
+                                (bf16*)dg, counters, T, B, H, units, mt, forget_bias, stream);
 }
 
 extern "C" int nabu_blstm_bwd_recur_f32(const float* gates, const float* cst, const void* gy,
                                         const int* lengths, const void* wh, void* dg,
-                                        unsigned int* counters, int T, int B, int H, int hs,
-                                        float forget_bias, void* stream) {
+                                        unsigned int* counters, int T, int B, int H, int units,
+                                        int mt, float forget_bias, void* stream) {
   return launch_bwd_recur<float>(gates, cst, (const float*)gy, lengths, (const float*)wh,
-                                 (float*)dg, counters, T, B, H, hs, forget_bias, stream);
+                                 (float*)dg, counters, T, B, H, units, mt, forget_bias, stream);
 }

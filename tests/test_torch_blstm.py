@@ -184,3 +184,66 @@ class TestModel:
         want = jm.init(jax.random.PRNGKey(0))["decoders"]["decoder"]
         assert jax.tree.map(lambda t: tuple(t.shape), got) == jax.tree.map(
             lambda a: tuple(a.shape), want)
+
+
+def _old_v2(B, H):
+    """kernel_family's v2 before the chain's row groups: the walk and a
+    chain block staging all B rows of dgates, 4 ((B + 8) (4H + 4) + 16 B)
+    bytes, each within a block's shared memory with the 2 ceil(H / 8)
+    blocks co-resident."""
+    kp = (H + 3) // 4 * 4
+    walk = 4 * (B * (kp + 4) + kp * 8 * 4 + B * 8)
+    chain = 4 * ((B + 8) * (4 * H + 4) + 2 * B * 8)
+    return all(blstm_ops.coresident(m, 2 * -(-H // 8)) for m in (walk, chain))
+
+
+class TestChainPlan:
+    @pytest.mark.parametrize("B, H, plan", [
+        (4, 320, (8, 1, 80, 4 * (8 * 1280 + 8 * 32))),     # 1 row group x 40 x 2
+        # dblstm_ctc_wsj / rnnt_char_wsj: 16 rows x 16 units, 2 x 20 x 2
+        # blocks, in bf16 and f32 alike (the plan takes no element type)
+        (32, 320, (16, 1, 80, 4 * (16 * 1280 + 8 * 64))),
+        (36, 320, (16, 1, 120, 4 * (16 * 1280 + 8 * 64))),  # the old limit at 320
+        (47, 256, (16, 1, 96, 4 * (16 * 1024 + 8 * 64))),   # ... at 256
+        (20, 512, (16, 1, 128, 4 * (16 * 2048 + 8 * 64))),  # ... at 512
+        (2113, 1, (4, 4, 68, 4 * (4 * 4 + 8 * 64))),        # past 8 x 2's 66 row groups
+    ])
+    def test_chain_plan_at_the_recipes_shapes(self, B, H, plan):
+        assert blstm_ops.chain_plan(B, H) == plan
+        assert plan[2] <= blstm_ops.SMS and plan[3] <= blstm_ops.SMEM_LIMIT
+        assert blstm_ops.chain_bytes(H, *plan[:2]) == plan[3]
+
+    @pytest.mark.parametrize("H", [9, 12, 16, 256, 320, 512])
+    def test_every_batch_of_the_old_limit_has_a_plan(self, H):
+        """Every B the old chain held (up to 36 at H = 320, 47 at 256, 20 at
+        512) has a plan, whose blocks fit the card's SMs one an SM and whose
+        shared memory fits a block's."""
+        B = 1
+        while _old_v2(B, H):
+            units, mt, blocks, smem = blstm_ops.check_chain_design("chain", B, H)
+            assert (units, mt) in blstm_ops.CHAIN_FORMS
+            assert blocks == 2 * -(-B // (16 * mt)) * -(-H // units) <= blstm_ops.SMS
+            assert smem <= blstm_ops.SMEM_LIMIT
+            B += 1
+        assert B > 20
+
+    def test_kernel_family_moves_no_v2_shape_to_v1(self):
+        """At every H up to 1100 and every B the old rule sent to v2, the
+        new rule does too; the recipes' layers keep their families."""
+        for H in range(1, 1101):
+            B = 1
+            while _old_v2(B, H):
+                assert blstm_ops.kernel_family(B, H) == "v2", (B, H)
+                B += 1
+        assert blstm_ops.kernel_family(32, 320) == "v2"  # dblstm_ctc_wsj, rnnt_char_wsj
+        assert blstm_ops.kernel_family(64, 512) == "v1"  # las_large in training
+
+    @pytest.mark.parametrize("B, H", [(49, 320), (65, 256), (33, 512)])
+    def test_beyond_the_plan_raises(self, B, H):
+        """One batch past the new limits (48 at H = 320, 64 at 256, 32 at
+        512): no plan, v1, and the chain's check raises."""
+        assert blstm_ops.chain_plan(B - 1, H) is not None
+        assert blstm_ops.chain_plan(B, H) is None
+        assert blstm_ops.kernel_family(B, H) == "v1"
+        with pytest.raises(ValueError, match="beyond"):
+            blstm_ops.check_chain_design("blstm_bwd_recur", B, H)

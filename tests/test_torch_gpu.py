@@ -320,6 +320,127 @@ def test_blstm_layer_gradients_on_card_match_cpu(cuda_device, monkeypatch, dtype
     assert not over and over_f, {"beyond tolerance": over, "sound": sound, "fault": fault}
 
 
+def _chain_inputs(rng, device, dtype, T, B, H):
+    """Ragged lengths from T down, f32 gates and carries at scale 2, gy,
+    and wh at the model's glorot scale, for the v2 chain."""
+    def u(*shape, scale=1.0, dt=dtype):
+        return torch.as_tensor(
+            rng.uniform(-scale, scale, shape).astype(np.float32)).to(device, dt)
+
+    lengths = torch.as_tensor(_lengths(T, B), dtype=torch.int32, device=device)
+    gates = u(2, T, B, 4 * H, scale=2.0, dt=torch.float32)
+    c = u(2, T, B, H, scale=2.0, dt=torch.float32)
+    wh = u(2, H, 4 * H, scale=float(np.sqrt(6.0 / (5 * H))))
+    return gates, c, u(T, B, 2 * H), lengths, wh
+
+
+def _chain_excess(got, ref, tag):
+    import chip_smoke
+
+    atol, rtol = chip_smoke.TOL[("blstm_bwd_recur", tag)]
+    return float(((got.float() - ref.float()).abs() - atol - rtol * ref.float().abs()).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H,form", [
+    (64, 4, 320, (8, 1)),    # one row group of 8 units
+    (64, 32, 320, (16, 1)),  # dblstm_ctc_wsj / rnnt_char_wsj: 2 groups x 20 x 2 blocks
+    (40, 36, 320, (16, 1)),  # the old chain's limit at each width
+    (40, 47, 256, (16, 1)),
+    (40, 20, 512, (16, 1)),
+    (24, 48, 320, (16, 1)),  # the new limits: 3 groups x 20 x 2, 128 blocks
+    (24, 32, 512, (16, 1)),
+])
+def test_blstm_chain_matches_plain_at_its_plans(cuda_device, dtype, T, B, H, form):
+    """The v2 chain at the split ``chain_plan`` picks for each shape,
+    ragged lengths: within chip_smoke.py's tolerance of the plain version,
+    and a second launch gives the first one's bits."""
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert blstm_ops.chain_plan(B, H)[:2] == form
+    args = _chain_inputs(np.random.default_rng(T + B + H), cuda_device, dtype, T, B, H)
+    before = kernels.launch_counts()["blstm_bwd_recur"]
+    first = blstm_ops.blstm_bwd_recur(*args)
+    second = blstm_ops.blstm_bwd_recur(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["blstm_bwd_recur"] == before + 2
+    assert first.dtype == dtype and torch.equal(first, second)
+    excess = _chain_excess(first, blstm_ops.blstm_bwd_recur_plain(*args), tag)
+    assert excess <= 0, excess
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(37, 37, 24), (29, 33, 9)])
+def test_blstm_chain_forms_give_one_result(cuda_device, monkeypatch, dtype, T, B, H):
+    """Every form of the chain (units x 16 mt rows a block), forced at one
+    shape: each within the tolerance of the plain version, all with the
+    same bits (a row's sums do not depend on the form); H = 9 (rows of 36
+    values: 9 quads, a partial unit group)."""
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    args = _chain_inputs(np.random.default_rng(T * B + H), cuda_device, dtype, T, B, H)
+    ref = blstm_ops.blstm_bwd_recur_plain(*args)
+    outs = []
+    for units, mt in blstm_ops.CHAIN_FORMS:
+        blocks = 2 * -(-B // (16 * mt)) * -(-H // units)
+        form = (units, mt, blocks, blstm_ops.chain_bytes(H, units, mt))
+        monkeypatch.setattr(blstm_ops, "chain_plan", lambda *_, f=form: f)
+        outs.append(blstm_ops.blstm_bwd_recur(*args))
+        excess = _chain_excess(outs[-1], ref, tag)
+        assert excess <= 0, (units, mt, excess)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+def test_blstm_chain_rejects_shapes_beyond_its_plan(cuda_device):
+    """B = 49 at H = 320: no split fits the card's SMs one block an SM;
+    the wrapper raises before any launch."""
+    args = _chain_inputs(np.random.default_rng(3), cuda_device, torch.bfloat16, 3, 49, 320)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="beyond the chain's design"):
+        blstm_ops.blstm_bwd_recur(*args)
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,H", [(32, 512), (48, 320)])
+def test_shapes_moved_to_v2_match_cpu(cuda_device, dtype, rtol, B, H):
+    """Shapes that left v1 for v2 with the chain's row groups (las_large's
+    validation batch, B = 32 at H = 512; B = 37-48 at H = 320):
+    blstm_tm_apply forward and backward through the v2 kernels on the
+    card against the same layer on the CPU (plain versions), ragged
+    lengths; output and every gradient within the layer test's
+    tolerance."""
+    assert blstm_ops.kernel_family(B, H) == "v2"
+    rng = np.random.default_rng(B + H)
+    T, D = 24, 40
+    lengths = _lengths(T, B)
+    p32 = _layer(rng, D, H, "cpu", torch.float32, glorot=True)
+    x32 = torch.as_tensor(rng.standard_normal((T, B, D)).astype(np.float32))
+    gy = torch.as_tensor(rng.standard_normal((T, B, 2 * H)).astype(np.float32))
+
+    def run(dev):
+        p = {d: {k: v.to(dev, dtype, copy=True).requires_grad_(True) for k, v in q.items()}
+             for d, q in p32.items()}
+        x = x32.to(dev, dtype, copy=True).requires_grad_(True)
+        y = blstm_ops.blstm_tm_apply(p, x, torch.as_tensor(lengths, dtype=torch.int32))
+        (y.float() * gy.to(dev)).sum().backward()
+        return [y, x.grad] + [p[d][k].grad for d in ("fw", "bw") for k in ("wx", "wh", "b")]
+
+    kernels.reset_launch_counts()
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == {"blstm_proj": 1, "blstm_recur_train": 1, "blstm_bwd_recur": 1,
+                      "blstm_bwd_dx": 1, "blstm_bwd_dwx": 1, "blstm_bwd_dwh": 1}, counts
+    ref = run(torch.device("cpu"))
+    names = ["y", "dx"] + [f"{d}/{k}" for d in ("fw", "bw") for k in ("wx", "wh", "b")]
+
+    def tol(name, r):
+        return rtol * (np.abs(r) + np.abs(r).max())
+
+    over, sound = _readings({n: (a.detach(), b.detach()) for n, a, b in zip(names, got, ref)},
+                            tol)
+    assert not over, {"beyond tolerance": over, "sound": sound}
+
+
 def test_untagged_recipe_trains_through_the_kernels_on_card(cuda_device, tmp_path):
     """A dblstm_ctc model that sets no ``use_pallas`` still runs the BLSTM
     and CTC kernels on the card, forward and backward; a forward-only
