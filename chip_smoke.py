@@ -3248,7 +3248,7 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
     return result
 
 
-def phase_bench_ctc(torch) -> dict:
+def phase_bench_ctc() -> None:
     """The port's bench line (``nabu_tpu_torch.bench.train_line``, as
     ``python -m nabu_tpu_torch.bench`` prints it) in process: the 4x320
     DBLSTM-CTC step at B = 32, T = 1000, bf16, through the kernels; its
@@ -3263,7 +3263,6 @@ def phase_bench_ctc(torch) -> dict:
     check(line["launches"] == want, f"bench_ctc: launches {line['launches']}, want {want}")
     check(math.isfinite(line["first_loss"]) and math.isfinite(line["last_loss"]),
           "bench_ctc: a loss is not finite")
-    return line
 
 
 def las_decode(torch, smi: str, recipe: str, expdir: str, model, dev_audio_s: float) -> dict:
@@ -3390,7 +3389,7 @@ def main(argv=None) -> int:
         t8 = time.perf_counter()
         trained_las = phase_train(torch, smi, "train_las", corpus)
     t9 = time.perf_counter()
-    phase_bench_ctc(torch)
+    phase_bench_ctc()
     emit({"phase": "seconds", "build_device": t1 - t0, "kernels": t2 - t1,
           "serve": t3 - t2, "serve_rnnt": t4 - t3, "serve_stream": t5 - t4,
           "train": t6 - t5, "train_rnnt": t7 - t6, "train_rnnt_stream": t8 - t7,

@@ -39,16 +39,15 @@ can hold the layer: the walk's ``recur_layout`` (4 (B (ceil4(H) + 4) +
 ceil4(H) 8 4 + 8 B) bytes of shared memory a block) with its 2 ceil(H /
 8) blocks co-resident on the H100's 132 SMs (228 KB of shared memory an
 SM, 1 KB of it reserved a block, at most 8 blocks of 256 threads), and a
-``chain_plan`` for the chain. Else "v1", the
-kernels of ``ops.blstm_v1`` (``csrc/blstm_v1.cu``), whose walk and chain
-stream the exchanged rows in K tiles. The chain's blocks own a row group
-x a unit group of one direction, so its limit is the card's SMs: at H =
-320 the v2 pair holds B <= 48, at H = 256 B <= 64, at H = 512 B <= 32.
-So the 4x320 and 3x256 recipes at B = 32 run v2, and las_large's 512-unit
-Listener at B = 64 runs v1 (at its validation batch, 32, v2). The rule is
-the same on the CPU, where each family runs its plain versions. It is
-decided before any launch and is not a fallback: a launch that fails
-raises.
+``chain_plan`` for the chain. Else "v1", the kernels of ``ops.blstm_v1``
+(``csrc/blstm_v1.cu``), whose walk and chain stream the exchanged rows in
+K tiles. The chain's blocks own a row group x a unit group of one
+direction, so its limit is the card's SMs: at H = 320 the v2 pair holds B
+<= 48, at H = 256 B <= 64, at H = 512 B <= 32. So the 4x320 and 3x256
+recipes at B = 32 run v2, and las_large's 512-unit Listener at B = 64
+runs v1 (at its validation batch, 32, v2). The rule is the same on the
+CPU, where each family runs its plain versions. It is decided before any
+launch and is not a fallback: a launch that fails raises.
 
 GEMM kernel. The products (``blstm_proj``, dx, dwx, dwh, the v1 gates
 recompute and dwh, ``ops.lstm.lstm_proj``) run on ``blstm.cu``'s GEMM.
