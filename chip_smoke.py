@@ -117,7 +117,12 @@ repeats its bits (a row whose bits differ fails the run), the bf16 rows
 also the µs a step at twice the rows a block; the v2 chain's rows
 likewise (``ops.blstm.chain_plan``), the bf16 row the µs a step of every
 form of its plan's work a block (``us_per_step_by_split``) and whether
-their bits equal the plan's.
+their bits equal the plan's. The v2 walk's rows (``blstm_recur``,
+``blstm_recur_train``, both types) print the same for ``ops.blstm.walk_plan``
+and a second planted fault, one whole unit group of the plan reading h one
+step late; the training rows also their step probe (``step_probe``: a
+step's cycles split into waiting at the counter, pulling h, the product
+and the cell, from a build of the walk that only the probe launches).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -501,6 +506,63 @@ def gemm_variants(phase: str) -> dict:
     check(counts["gemm_bf16_wmma"] == 0,
           f"{phase}: {counts['gemm_bf16_wmma']} launches of the WMMA GEMM")
     return counts
+
+
+def walk_fields(torch, timed, reps, fn, first, ms) -> dict:
+    """The v2 walk row's extra readings (T = 1024, B = 32, H = 320): the
+    split it ran (``walk_plan``), whether a second launch gives the first
+    one's bits (a row whose bits differ fails the run), its µs a step and,
+    timed, the µs a step of every form of the walk whose blocks fit the
+    card (``us_per_step_by_split``), the same launch each, with whether
+    their bits equal the plan's (a form whose bits differ fails the run)."""
+    from nabu_tpu_torch.ops import blstm as bo
+
+    def same(a, b):
+        pairs = zip(a, b) if isinstance(a, tuple) else ((a, b),)
+        return all(torch.equal(x, y) for x, y in pairs)
+
+    repeat = same(first, fn())
+    if not repeat:
+        FAILURES.append(f"{fn.__name__}: a second launch's bits differ")
+    fields = {"plan": bo.walk_plan(B, H), "repeat_bits_equal": repeat,
+              "us_per_step": None if ms is None else 1e3 * ms / T}
+    if reps:
+        by_split, bits = {}, True
+        for units, mt in bo.WALK_FORMS:
+            blocks = 2 * -(-B // (16 * mt)) * -(-H // units)
+            if blocks > bo.SMS:
+                continue
+            form = (units, mt, blocks, bo.walk_bytes(H, units, mt))
+            with swapped(bo, "walk_plan", lambda *_, f=form: f):
+                by_split[f"{16 * mt}x{units}"] = 1e3 * timed(fn, reps) / T
+                bits &= same(first, fn())
+        fields["us_per_step_by_split"] = by_split
+        fields["bits_equal_across_splits"] = bits
+        if not bits:
+            FAILURES.append(f"{fn.__name__}: the forms' bits differ")
+    return fields
+
+
+def walk_probe(torch, timed, reps, xw, lens_t, wh) -> dict:
+    """The step probe of the v2 training walk: its build that sums each
+    block's clock64 cycles of a step by part (``ops.blstm.PROBE_PARTS``:
+    waiting at the group's counter, pulling h_{t-1}, the product to its
+    gates' sums, the cell with its stores), the mean over blocks a step,
+    each part's share, the probe's own µs a step (CUDA events; it adds two
+    block barriers a step) and its parts in µs by those shares."""
+    from nabu_tpu_torch.ops import blstm as bo
+
+    *_, cycles = bo.blstm_recur_train_probe(xw, lens_t, wh)
+    per = (cycles.double().mean(dim=0) / max(T - 1, 1)).tolist()
+    ms = timed(lambda: bo.blstm_recur_train_probe(xw, lens_t, wh), reps)
+    us = None if ms is None else 1e3 * ms / T
+    shares = [c / sum(per) for c in per]
+    wait = cycles[:, 0].double() / max(T - 1, 1)
+    return {"cycles_per_step": dict(zip(bo.PROBE_PARTS, per)),
+            "share": dict(zip(bo.PROBE_PARTS, shares)),
+            "wait_cycles_min_max": [float(wait.min()), float(wait.max())],
+            "probe_us_per_step": us,
+            "us": None if us is None else {p: f * us for p, f in zip(bo.PROBE_PARTS, shares)}}
 
 
 # ---------------------------------------------------------------------------
@@ -1166,6 +1228,10 @@ def phase_kernels(torch, quick: bool) -> dict:
         err = compare(torch, got_r, ref_r, tol, f"blstm_recur {tag}")
         fault = fault_reading(stale_recur(torch)(xw, lens_t, wh), ref_r, tol,
                               f"blstm_recur {tag}")
+        # one whole unit group of the walk's plan reads h one step late
+        group = blstm_ops.walk_plan(B, H)[0]
+        group_fault = fault_reading(stale_recur(torch, units=group)(xw, lens_t, wh), ref_r, tol,
+                                    f"blstm_recur {tag} ({group} units)")
         b_ms, b_by = bound(
             es * (2 * valid * 4 * H + 2 * H * 4 * H + T * B * 2 * H) + 4 * B,
             2 * valid * (2 * H * 4 * H + 12 * H), peak)
@@ -1194,10 +1260,14 @@ def phase_kernels(torch, quick: bool) -> dict:
              "bw": {"wx": wx[1], "wh": wh[1], "b": bias[1]}},
             x.view(T, B, D), lens_t)
         cudnn_err = float((cudnn_out.float() - ours.float()).abs().max())
+
+        def blstm_recur():
+            return blstm_ops.blstm_recur(xw, lens_t, wh)
+
         row = {
             "shape": [T, B, H], "dtype": tag, "max_abs_err": err, "tol": tol,
-            "fault_max_abs_err": fault,
-            "ms": timed(lambda: blstm_ops.blstm_recur(xw, lens_t, wh), reps),
+            "fault_max_abs_err": fault, "group_fault_max_abs_err": group_fault,
+            "ms": timed(blstm_recur, reps),
             "plain_ms": timed(lambda: blstm_ops.blstm_recur_plain(xw, lens_t, wh),
                               min(reps, 2)),
             "library_ms": timed(run_cudnn, reps),
@@ -1205,6 +1275,7 @@ def phase_kernels(torch, quick: bool) -> dict:
             "cudnn_layer_max_abs_err": cudnn_err,
             "bound_ms": b_ms, "bound_by": b_by,
         }
+        row.update(walk_fields(torch, timed, reps, blstm_recur, got_r, row["ms"]))
         emit({"phase": "kernels", "kernel": "blstm_recur", **row})
         rows[("blstm_recur", tag)] = row
         rows.update(training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm,
@@ -1702,6 +1773,9 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
     g_err = compare(torch, got[2], ref[2], s_tol, f"blstm_recur_train {tag} gates")
     fault = fault_reading(stale_recur(torch)(xw, lens_t, wh), ref[0], tol,
                           f"blstm_recur_train {tag}")
+    group = bo.walk_plan(B, H)[0]
+    group_fault = fault_reading(stale_recur(torch, units=group)(xw, lens_t, wh), ref[0], tol,
+                                f"blstm_recur_train {tag} ({group} units)")
     c_fault = fault_reading(c_one_step_late(torch, ref[1]), ref[1], s_tol,
                             f"blstm_recur_train {tag} c")
     g_fault = fault_reading(forget_bias_folded(ref[2]), ref[2], s_tol,
@@ -1709,18 +1783,25 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
     b_ms, b_by = bound(
         es * (2 * valid * H4 + 2 * H * H4 + M * 2 * H) + 4 * B + 4 * 2 * M * (H + H4),
         2 * valid * (2 * H * H4 + 12 * H), peak)
+
+    def blstm_recur_train():
+        return bo.blstm_recur_train(xw, lens_t, wh)
+
     row = {
         "shape": [T, B, H], "dtype": tag, "max_abs_err": err, "c_max_abs_err": c_err,
         "gates_max_abs_err": g_err, "tol": tol, "fault_max_abs_err": fault,
+        "group_fault_max_abs_err": group_fault,
         "stores_tol": s_tol, "c_fault_max_abs_err": c_fault,
         "gates_fault_max_abs_err": g_fault,
-        "ms": timed(lambda: bo.blstm_recur_train(xw, lens_t, wh), reps),
+        "ms": timed(blstm_recur_train, reps),
         "plain_ms": timed(lambda: bo.blstm_recur_train_plain(xw, lens_t, wh), min(reps, 1)),
         "library_ms": lib_f,
         "library": "cuDNN nn.LSTM bidirectional training forward, packed (projection "
                    "included)",
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    row.update(walk_fields(torch, timed, reps, blstm_recur_train, got, row["ms"]))
+    row["step_probe"] = walk_probe(torch, timed, reps, xw, lens_t, wh)
     emit({"phase": "kernels", "kernel": "blstm_recur_train", **row})
     rows[("blstm_recur_train", tag)] = row
 

@@ -12,10 +12,12 @@ Port of the JAX package's ``ops/pallas/blstm.py`` (``blstm_tm_apply`` ->
   for both directions with the masked cell of ``_cell`` (f32 gates and
   c, h in the compute type; the backward direction walks time
   descending) and writes masked h in natural time order into one
-  ``[T, B, 2H]`` output (fw ++ bw). ``blstm_recur_train`` is the same
-  walk writing the backward's residuals too: the f32 carry c and the
-  f32 pre-activation gates, which stand in for the TPU backward's
-  recompute ``hprev @ wh``;
+  ``[T, B, 2H]`` output (fw ++ bw); its blocks own a row group x a unit
+  group of one direction, split by ``walk_plan``, and form a step's
+  product on tensor cores in bf16, on the FMA pipes in f32.
+  ``blstm_recur_train`` is the same walk writing the backward's residuals
+  too: the f32 carry c and the f32 pre-activation gates, which stand in
+  for the TPU backward's recompute ``hprev @ wh``;
 - ``blstm_bwd_recur``: the backward's serial chain (``direction()`` of
   ``_bwd_train_kernel2``) for both directions: dgates in the compute
   type, dh and dc carried in f32; its blocks own a row group x a unit
@@ -35,19 +37,18 @@ Kernel family. ``blstm_tm_apply`` first asks ``kernel_family(B, H)``,
 a pure function of the batch and the width, in training and in inference
 alike (as the JAX package's ``blstm_tm_apply`` decides by shape), so one
 layer never mixes families. It answers "v2" when the v2 training pair
-can hold the layer: the walk's ``recur_layout`` (4 (B (ceil4(H) + 4) +
-ceil4(H) 8 4 + 8 B) bytes of shared memory a block) with its 2 ceil(H /
-8) blocks co-resident on the H100's 132 SMs (228 KB of shared memory an
-SM, 1 KB of it reserved a block, at most 8 blocks of 256 threads), and a
-``chain_plan`` for the chain. Else "v1", the kernels of ``ops.blstm_v1``
-(``csrc/blstm_v1.cu``), whose walk and chain stream the exchanged rows in
-K tiles. The chain's blocks own a row group x a unit group of one
-direction, so its limit is the card's SMs: at H = 320 the v2 pair holds B
-<= 48, at H = 256 B <= 64, at H = 512 B <= 32. So the 4x320 and 3x256
-recipes at B = 32 run v2, and las_large's 512-unit Listener at B = 64
-runs v1 (at its validation batch, 32, v2). The rule is the same on the
-CPU, where each family runs its plain versions. It is decided before any
-launch and is not a fallback: a launch that fails raises.
+can hold the layer: a ``walk_plan`` for the walk and a ``chain_plan`` for
+the chain, each a split of the batch and the units into blocks of 16 mt
+rows x units of one direction, all co-resident one an SM on the H100's
+132 SMs, with their units' wh in shared memory. Else "v1", the kernels of
+``ops.blstm_v1`` (``csrc/blstm_v1.cu``), whose walk and chain stream the
+exchanged rows in K tiles. The v2 limit is the card's SMs: at H = 320 the
+v2 pair holds B <= 48, at H = 256 B <= 64, at H = 512 B <= 32 (the walk
+holds every shape the chain holds). So the 4x320 and 3x256 recipes at B =
+32 run v2, and las_large's 512-unit Listener at B = 64 runs v1 (at its
+validation batch, 32, v2). The rule is the same on the CPU, where each
+family runs its plain versions. It is decided before any launch and is
+not a fallback: a launch that fails raises.
 
 GEMM kernel. The products (``blstm_proj``, dx, dwx, dwh, the v1 gates
 recompute and dwh, ``ops.lstm.lstm_proj``) run on ``blstm.cu``'s GEMM.
@@ -82,7 +83,7 @@ from nabu_tpu_torch.ops.kernels import build
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _fns: dict = {}
 
-# hidden units owned by one block of the recurrence kernels
+# hidden units owned by one block of the LSTM walk and chain (``ops.lstm``)
 UNITS_PER_BLOCK = 8
 
 # GEMM layouts of csrc/blstm.cu: projection, A @ B^T, A^T @ B, and the v1
@@ -104,7 +105,7 @@ _ARGTYPES = {
     "gemm_bf16": [_P] * 4 + [_I] * 7 + [_P] * 5,
     "gemm_f32": _SPLIT_GEMM,
     "gemm_wgmma_bf16": _SPLIT_GEMM,
-    "recur": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
+    "recur": [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
     "bwd_recur": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
 }
 
@@ -133,49 +134,88 @@ def chain_bytes(H: int, units: int, mt: int) -> int:
     return 4 * (units * 4 * H + 8 * 4 * units * mt)
 
 
-def chain_plan(B: int, H: int):
-    """-> (units, mt, blocks, shared memory bytes) of the chain: the first
-    of ``CHAIN_FORMS`` (units x 16 mt rows a block) whose 2 ceil(B / 16 mt)
-    ceil(H / units) blocks fit the card one an SM (its registers allow no
-    more) with their shared memory; None if none does. A pure function of
-    (B, H), the same in both element types."""
-    for units, mt in CHAIN_FORMS:
+def _first_form(B: int, H: int, forms, smem):
+    """-> (units, mt, blocks, shared memory bytes) of the first of
+    ``forms`` (units x 16 mt rows a block, ``smem(units, mt)`` bytes) whose
+    2 ceil(B / 16 mt) ceil(H / units) blocks fit the card one an SM (the
+    serial kernels' registers allow no more) with their shared memory;
+    None if none does."""
+    for units, mt in forms:
         blocks = 2 * -(-B // (CHAIN_ROWS * mt)) * -(-H // units)
-        need = chain_bytes(H, units, mt)
+        need = smem(units, mt)
         if blocks <= SMS and need <= SMEM_LIMIT:
             return units, mt, blocks, need
     return None
 
 
-def check_chain_design(what: str, B: int, H: int):
-    """-> the chain's ``chain_plan``; raises for a batch and width beyond
-    it."""
-    plan = chain_plan(B, H)
+def _check_plan(what: str, kernel: str, B: int, H: int, plan, forms):
     if plan is None:
         raise ValueError(
-            f"{what}: B = {B}, H = {H} is beyond the chain's design (no block of 16 mt "
-            f"rows x units of one direction, {CHAIN_FORMS}, fits the card's {SMS} SMs "
+            f"{what}: B = {B}, H = {H} is beyond the {kernel}'s design (no block of 16 mt "
+            f"rows x units of one direction, {forms}, fits the card's {SMS} SMs "
             f"one block an SM)")
     return plan
 
 
+def chain_plan(B: int, H: int):
+    """-> (units, mt, blocks, shared memory bytes) of the chain: the first
+    of ``CHAIN_FORMS`` that fits (``_first_form``). A pure function of
+    (B, H), the same in both element types."""
+    return _first_form(B, H, CHAIN_FORMS, lambda units, mt: chain_bytes(H, units, mt))
+
+
+def check_chain_design(what: str, B: int, H: int):
+    """-> the chain's ``chain_plan``; raises for a batch and width beyond
+    it."""
+    return _check_plan(what, "chain", B, H, chain_plan(B, H), CHAIN_FORMS)
+
+
+# the walk (csrc/blstm.cu (b)): a thread runs one cell pair and, in f32,
+# sums 4 rows x 4 units' 4 gates over one of 16 K slices (a half warp), so a
+# block's 16 mt rows x units fill its 256 threads only at units x mt = 16:
+# the chain's forms but 8 x 1, in its order
+WALK_FORMS = tuple(f for f in CHAIN_FORMS if f[0] * f[1] == 16)
+
+
+def walk_bytes(H: int, units: int, mt: int) -> int:
+    """Shared memory of a walk block, the larger of the two element types'
+    (``walk_bytes`` of csrc/blstm.cu): in f32 the four gate columns of wh
+    of its units, [4 units, ceil4(H)] f32; in bf16 the same columns as
+    mma B fragments, ceil(H / 32) chunks x units / 2 n-tiles x 32 lanes x
+    16 bytes, and the 8 warps' partial sums [8, 16 mt, 4 units + 8] f32."""
+    f32 = 16 * units * (-(-H // 4) * 4)
+    bf16 = -(-H // 32) * (units // 2) * 32 * 16 + 4 * 8 * 16 * mt * (4 * units + 8)
+    return max(f32, bf16)
+
+
+def walk_plan(B: int, H: int):
+    """-> (units, mt, blocks, shared memory bytes) of the walk: the first
+    of ``WALK_FORMS`` that fits (``_first_form``). A pure function of (B,
+    H), the same in both element types. It holds every (B, H)
+    ``chain_plan`` holds: at the same units its blocks are as many, 8 x 2
+    has no more blocks than 8 x 1, and its shared memory fits wherever the
+    chain's does."""
+    return _first_form(B, H, WALK_FORMS, lambda units, mt: walk_bytes(H, units, mt))
+
+
+def check_walk_design(what: str, B: int, H: int):
+    """-> the walk's ``walk_plan``; raises for a batch and width beyond
+    it."""
+    return _check_plan(what, "walk", B, H, walk_plan(B, H), WALK_FORMS)
+
+
 def v2_smem_bytes(B: int, H: int):
-    """-> (walk, chain) shared memory of one block of the v2 kernels: the
-    walk's ``recur_layout`` of csrc/blstm.cu, the chain's of its
-    ``chain_plan`` (None when no plan holds B and H)."""
-    units = UNITS_PER_BLOCK
-    kp = (H + 3) // 4 * 4
-    walk = 4 * (B * (kp + 4) + kp * units * 4 + B * units)
-    plan = chain_plan(B, H)
-    return walk, None if plan is None else plan[3]
+    """-> (walk, chain) shared memory of one block of the v2 kernels, each
+    of its plan (``walk_plan``, ``chain_plan``; None where no plan holds B
+    and H)."""
+    walk, chain = walk_plan(B, H), chain_plan(B, H)
+    return tuple(None if plan is None else plan[3] for plan in (walk, chain))
 
 
 def kernel_family(B: int, H: int) -> str:
     """"v2" when the v2 walk and chain can hold a layer of batch B and
     width H on the card, else "v1" (see the module docstring)."""
-    walk, chain = v2_smem_bytes(B, H)
-    fits = chain is not None and coresident(walk, 2 * -(-H // UNITS_PER_BLOCK))
-    return "v2" if fits else "v1"
+    return "v1" if None in v2_smem_bytes(B, H) else "v2"
 
 
 # the wgmma GEMM: 128 x 128 output tiles, 64-deep K tiles; kind 2 runs
@@ -424,7 +464,7 @@ def blstm_recur_plain(xw, lengths, wh, forget_bias: float = 1.0) -> torch.Tensor
     return blstm_recur_train_plain(xw, lengths, wh, forget_bias)[0]
 
 
-def _launch_recur(name, xw, lengths, wh, forget_bias, store: bool):
+def _launch_recur(name, xw, lengths, wh, forget_bias, store: bool, probe: bool = False):
     tag = _check_cuda(name, xw, xw=xw, wh=wh, lengths=lengths)
     if xw.dim() != 4 or xw.shape[0] != 2:
         raise ValueError(f"{name}: xw {tuple(xw.shape)} is not [2, T, B, 4H]")
@@ -436,22 +476,30 @@ def _launch_recur(name, xw, lengths, wh, forget_bias, store: bool):
         raise TypeError(f"{name}: xw and wh must share one dtype")
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,):
         raise TypeError(f"{name}: lengths must be int32 [B]")
+    units, mt, blocks = check_walk_design(name, B, H)[:3]
     dev = xw.device
     y = torch.empty((T, B, 2 * H), dtype=xw.dtype, device=dev)
-    hbuf = torch.empty((2, 2, B, H), dtype=xw.dtype, device=dev)
-    counters = torch.zeros((2,), dtype=torch.int32, device=dev)
-    c = g = None
+    # the exchange of the carried h, [direction, slot, B, ceil8(H)] (rows
+    # of whole 16-byte loads): the padding columns stay zero
+    hx = torch.zeros((2, 2, B, -(-H // 8) * 8), dtype=xw.dtype, device=dev)
+    # one counter a direction and row group
+    counters = torch.zeros((2 * -(-B // (CHAIN_ROWS * mt)),), dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    c = g = cycles = None
     if store:
         c = torch.empty((2, T, B, H), dtype=torch.float32, device=dev)
         g = torch.empty((2, T, B, H4), dtype=torch.float32, device=dev)
+    if probe:
+        cycles = torch.zeros((blocks, 4), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         err = _launcher("recur", tag)(
             xw.data_ptr(), lengths.data_ptr(), wh.data_ptr(), y.data_ptr(),
-            hbuf.data_ptr(), counters.data_ptr(),
-            c.data_ptr() if store else None, g.data_ptr() if store else None,
-            T, B, H, UNITS_PER_BLOCK, float(forget_bias), _stream(),
+            hx.data_ptr(), counters.data_ptr(), ptr(c), ptr(g), ptr(cycles),
+            T, B, H, units, mt, float(forget_bias), _stream(),
         )
     build.check(err, name)
+    if probe:
+        return y, c, g, cycles
     kernels.LAUNCHES[name] += 1
     return y, c, g
 
@@ -466,6 +514,22 @@ def blstm_recur_train(xw, lengths, wh, forget_bias: float = 1.0):
     if xw.device.type == "cpu":
         return blstm_recur_train_plain(xw, lengths, wh, forget_bias)
     return _launch_recur("blstm_recur_train", xw, lengths, wh, forget_bias, store=True)
+
+
+# the step probe's parts, in the order of its cycle sums
+PROBE_PARTS = ("wait", "pull", "product", "cell")
+
+
+def blstm_recur_train_probe(xw, lengths, wh, forget_bias: float = 1.0):
+    """The training walk on the card built with its step probe, for
+    measurement only (no path calls it, and it counts no launch): ->
+    (y, c, gates, cycles [blocks, 4] int64), each block's clock64 cycles
+    of the steps after the first summed by ``PROBE_PARTS``: waiting at its
+    counter, pulling h_{t-1} (to its first use), the product (to the gates'
+    sums), the cell and its stores (to the next step). The probe adds two
+    block barriers a step."""
+    return _launch_recur("blstm_recur_train_probe", xw, lengths, wh, forget_bias,
+                         store=True, probe=True)
 
 
 # ---------------------------------------------------------------------------

@@ -92,28 +92,66 @@
 // (b) blstm_recur: one persistent cooperative launch per layer walks the
 //     whole sequence for both directions, as the TPU kernel's sequential
 //     grid does. Bound on the H100 by the serial chain, not by bytes or
-//     operations: T dependent steps, each a [B, H] x [H, 4H] product plus
-//     the cell, and a grid-wide hand-off of h. Design: wh (2 x [320, 1280]
-//     bf16, 1.6 MB) cannot sit in one SM, so block g of direction d owns
-//     hidden units [g*HS, (g+1)*HS) and keeps their four gate columns of
-//     wh, [H, 4*HS], in shared memory for the whole sequence, with c for
-//     its units in shared memory (f32). Each step it reads h_{t-1} [B, H]
-//     from a per-direction ping-pong buffer in global memory (L2
-//     resident, read with ld.global.cg so no stale L1 line is seen, in
-//     16-byte loads four deep per thread so the L2 latencies overlap;
-//     the step's xw inputs are fetched before that),
-//     computes its gates with f32 accumulation, applies the masked cell
-//     and writes its slice of h. The blocks of a direction then meet at a
-//     barrier: an atomic counter, a release fence before the arrival and
-//     an acquire load in the spin. The launch is cooperative, so the
-//     runtime refuses it unless every block is co-resident (a spin
-//     barrier over blocks that are not would deadlock).
+//     operations: T dependent steps, each a [B, H] x [H, 4H] product a
+//     direction plus the cell, and a hand-off of h between blocks. Rows of
+//     the batch are independent in the walk. Design (the chain's of (c),
+//     carried over): block (dir, rg, ug) owns 16 MT rows x U units of one
+//     direction (U x MT = 16 x 1, 8 x 2 or 4 x 4, from ops/blstm.walk_plan:
+//     the first whose 2 ceil(B / 16 MT) ceil(H / U) blocks are co-resident
+//     one an SM; 16 x 1 at B = 32, H = 320, 80 blocks), keeps its units'
+//     four gate columns of wh in shared memory for the whole walk and c and
+//     h of its cell pairs (one a thread) in registers, and meets only the
+//     ceil(H / U) blocks of its (direction, row group), at a counter of
+//     their own: a release add after a block barrier to arrive, an acquire
+//     load then a block barrier to wait (no further fence). Each step, after
+//     that counter shows the previous step published, it pulls only its
+//     rows of h_{t-1} from the exchange (ld.cg straight into registers,
+//     every load in flight at once) and forms the gates' h-part in f32:
+//     - bf16 on tensor cores: the 8 warps split K = H into chunks of 32 (10
+//       at H = 320, two a warp), each runs mma.sync m16n8k16 over its
+//       chunks for the block's 16 MT rows x 4U columns (wh's columns staged
+//       once as B fragments, 40 KB at U = 16, H = 320; h's 16-byte loads
+//       are the A fragments) and stores its partial sums; after a block
+//       barrier each thread adds its 4 gates' partials in warp order;
+//     - f32 on the FMA pipes (no TF32: the 1e-4 check), register-blocked:
+//       a half warp owns 4 rows x 4 units' 4 gates (16 columns of wh, [4U,
+//       ceil4(H)] f32, 80 KB); its 16 lanes take the quads ks + 16 p of K
+//       (5 each at H = 320), so a quad of h feeds 16 columns and a float4
+//       of wh 4 rows, and a reduce-scatter of shuffles over the half warp
+//       adds the 16 K slices and leaves each lane the 4 gates of its cell.
+//     Both sum each output in a fixed order that depends on H alone, so a
+//     second launch repeats the bits and a row's sums depend neither on B
+//     nor on the form. Then the masked cell on the step's xw (fetched
+//     before the barrier: it does not depend on the exchange), the carried
+//     h to the exchange, the arrival (whose release waits for those stores
+//     alone), then y and (training) the stores of c and the gates. Shared
+//     memory at most 16 U ceil4(H) bytes, so the design limit is the
+//     card's SMs, as the chain's: B <= 48 at H = 320, 64 at 256, 32 at 512.
+//     Where it was hard: the walk's K (H) and outputs (4 gates a unit) are
+//     the chain's transposed, whose 64 K slices of 5 quads (K = 4H) do not
+//     split H = 320's 80 quads: hence 16 slices a half warp in f32, K
+//     chunks a warp in bf16, and a thread map that lands a unit's 4 gates
+//     in the thread of its cell. On the fw direction's padding frames the
+//     carried h is held but y is 0, and the stored gates there come from
+//     the held h, so the exchange is a buffer of its own, [2 directions][2
+//     slots][B][ceil8(H)], of the carried h, not y (rows of whole 16-byte
+//     loads, the padding zero: H = 9 and 12 in the tests; partial row and
+//     unit groups are masked). The slots ping-pong: a block writes slot (s
+//     + 1) % 2 at step s only after its counter showed every block of its
+//     group arrived s times, and a block arrives at step s - 1 only after
+//     its loads of that step's slot, (s - 1) % 2 = (s + 1) % 2, were
+//     consumed, so no block overwrites a slot another may still read (no
+//     block arrives s + 1 times before all arrived s times). Registers: 154
+//     to 233 a thread at one block an SM (the f32 form's 64 sums and 4 x 5
+//     quads of h the most), no spills.
 //     The training variant also writes the residuals of the backward: the
 //     f32 carry c and the f32 pre-activation gates (x-part + h-part,
 //     without the forget bias). Storing the gates replaces the TPU
 //     backward's batched recompute hprev @ wh (_bwd_train_kernel2 prep):
 //     335 MB a layer at T = 1024, B = 32, H = 320 against a product
-//     kernel of 54 GFLOP.
+//     kernel of 54 GFLOP. A third variant, launched only by the step probe,
+//     sums each block's clock64 cycles a step by wait, pull, product and
+//     cell.
 //
 // (c) blstm_bwd_recur: the backward's serial chain, one cooperative
 //     persistent launch for both directions; the fw direction walks time
@@ -183,16 +221,16 @@ __device__ __forceinline__ T bias_epilogue(float acc, T b) {
   return from_f<T>(to_f(from_f<T>(acc)) + to_f(b));
 }
 
-// loads that bypass L1 (rewritten by other blocks during the launch)
-__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ bf16 load_cg(const bf16* p) {
-  return __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p)));
-}
-
 __device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
   unsigned int v;
   asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
+}
+
+// the arrival at a counter: a release add at gpu scope (after a block
+// barrier, it orders the block's earlier stores before the count)
+__device__ __forceinline__ void red_release(unsigned int* p) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" : : "l"(p) : "memory");
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
@@ -211,55 +249,6 @@ __device__ __forceinline__ void unpack16(const uint4& r, float* dst, bf16) {
     dst[2 * q] = __uint_as_float(w[q] << 16);  // element 2q: low half
     dst[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
   }
-}
-
-// stage rows [R, W] (element type T, written by other blocks) into
-// shared memory as f32 rows of stride rp. The loads go through L2
-// (ld.cg) and are issued DEPTH at a time per thread so their latencies
-// overlap.
-template <typename T, int DEPTH>
-__device__ __forceinline__ void stage_rows(const T* src_rows, float* dst, int R, int W, int rp) {
-  constexpr int EPV = 16 / sizeof(T);  // elements per 16-byte vector
-  if (W % EPV == 0) {
-    const int nvec = R * W / EPV;
-    const uint4* src = reinterpret_cast<const uint4*>(src_rows);
-    for (int v0 = threadIdx.x; v0 < nvec; v0 += DEPTH * blockDim.x) {
-      uint4 r[DEPTH];
-#pragma unroll
-      for (int u = 0; u < DEPTH; ++u) {
-        const int v = v0 + u * blockDim.x;
-        r[u] = v < nvec ? __ldcg(src + v) : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < DEPTH; ++u) {
-        const int v = v0 + u * blockDim.x;
-        if (v < nvec) {
-          const int e = v * EPV;
-          const int b = e / W;
-          unpack16(r[u], dst + (size_t)b * rp + (e - b * W), T());
-        }
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * W; i += blockDim.x) {
-      const int b = i / W;
-      dst[(size_t)b * rp + (i - b * W)] = to_f(load_cg(src_rows + i));
-    }
-  }
-}
-
-// grid-wide barrier of the G blocks of one direction at step s
-__device__ __forceinline__ void direction_barrier(unsigned int* cnt, int s, int G) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(cnt, 1u);
-    const unsigned int target = (unsigned int)(s + 1) * (unsigned int)G;
-    while (ld_acquire(cnt) < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
@@ -1445,135 +1434,12 @@ int launch_gemm_ffma(const void* const* a, const void* const* b, int lda, int ld
 }
 
 // ---------------------------------------------------------------------------
-// (b) persistent recurrence (forward)
+// the serial kernels, (b) and (c): blocks of 256 threads owning 16 MT rows
+// of one direction, launched cooperatively
 // ---------------------------------------------------------------------------
 
 constexpr int R_THREADS = 256;
-
-struct RecurLayout {
-  int hp;  // padded row stride of the staged h (floats, multiple of 4)
-  int kp;  // H rounded up to a multiple of 4 (rows of the staged wh)
-  size_t smem_bytes;
-};
-
-__host__ __device__ inline RecurLayout recur_layout(int B, int H, int hs) {
-  RecurLayout l;
-  l.kp = (H + 3) / 4 * 4;
-  l.hp = l.kp + 4;
-  l.smem_bytes = sizeof(float) * ((size_t)B * l.hp + (size_t)l.kp * hs * 4 + (size_t)B * hs);
-  return l;
-}
-
-template <typename T, bool STORE>
-__global__ void __launch_bounds__(R_THREADS) blstm_recur_kernel(
-    const T* __restrict__ xw,        // [2, T, B, 4H]
-    const int* __restrict__ lengths, // [B]
-    const T* __restrict__ wh,        // [2, H, 4H]
-    T* __restrict__ y,               // [T, B, 2H] masked outputs
-    T* hbuf,                         // [2 dir][2 slot][B, H] scratch
-    unsigned int* counters,          // [2], zero at launch
-    float* __restrict__ c_out,       // STORE: [2, T, B, H] f32 carries
-    float* __restrict__ g_out,       // STORE: [2, T, B, 4H] f32 pre-activation gates
-    int Tn, int B, int H, int hs, int G, float forget_bias) {
-  extern __shared__ __align__(16) float smem[];
-  const RecurLayout L = recur_layout(B, H, hs);
-  float* h_s = smem;                          // [B][hp]
-  float* w_s = h_s + (size_t)B * L.hp;        // [kp][hs][4 gates]
-  float* c_s = w_s + (size_t)L.kp * hs * 4;   // [B][hs]
-
-  const int dir = blockIdx.x / G;
-  const int j0 = (blockIdx.x % G) * hs;
-  const size_t H4 = 4 * (size_t)H;
-
-  const T* whd = wh + (size_t)dir * H * H4;
-  for (int i = threadIdx.x; i < L.kp * hs * 4; i += blockDim.x) {
-    const int gate = i % 4;
-    const int jl = (i / 4) % hs;
-    const int k = i / (4 * hs);
-    const int j = j0 + jl;
-    w_s[i] = (k < H && j < H) ? to_f(whd[(size_t)k * H4 + gate * H + j]) : 0.f;
-  }
-  for (int i = threadIdx.x; i < B * L.hp; i += blockDim.x) h_s[i] = 0.f;
-  for (int i = threadIdx.x; i < B * hs; i += blockDim.x) c_s[i] = 0.f;
-  __syncthreads();
-
-  const T* xwd = xw + (size_t)dir * Tn * B * H4;
-  T* hb = hbuf + (size_t)dir * 2 * B * H;
-  unsigned int* cnt = counters + dir;
-  const float4* w4 = reinterpret_cast<const float4*>(w_s);
-  const int nq = L.kp / 4;
-
-  for (int s = 0; s < Tn; ++s) {
-    const int t = dir == 0 ? s : Tn - 1 - s;
-    const T* hin = hb + (size_t)(s & 1) * B * H;
-    T* hout = hb + (size_t)((s + 1) & 1) * B * H;
-    // this thread's first (b, j) gate inputs, fetched ahead so their
-    // latency overlaps the staging of h
-    float xpre[4] = {0.f, 0.f, 0.f, 0.f};
-    const int p0 = threadIdx.x;
-    if (p0 < B * hs && j0 + p0 % hs < H) {
-      const T* xr = xwd + ((size_t)t * B + p0 / hs) * H4 + j0 + p0 % hs;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) xpre[g] = to_f(xr[g * H]);
-    }
-    if (s > 0) stage_rows<T, 4>(hin, h_s, B, H, L.hp);  // h_{-1} = 0 is already staged
-    __syncthreads();
-
-    for (int p = threadIdx.x; p < B * hs; p += blockDim.x) {
-      const int b = p / hs;
-      const int jl = p - b * hs;
-      const int j = j0 + jl;
-      if (j >= H) continue;
-      const float4* hrow = reinterpret_cast<const float4*>(h_s + (size_t)b * L.hp);
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      for (int q = 0; q < nq; ++q) {
-        const float4 hv = hrow[q];
-        const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float4 wv = w4[(size_t)(4 * q + u) * hs + jl];
-          a0 = fmaf(hk[u], wv.x, a0);
-          a1 = fmaf(hk[u], wv.y, a1);
-          a2 = fmaf(hk[u], wv.z, a2);
-          a3 = fmaf(hk[u], wv.w, a3);
-        }
-      }
-      float xg[4];
-      if (p == p0) {
-#pragma unroll
-        for (int g = 0; g < 4; ++g) xg[g] = xpre[g];
-      } else {
-        const T* xr = xwd + ((size_t)t * B + b) * H4 + j;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) xg[g] = to_f(xr[g * H]);
-      }
-      const float z0 = xg[0] + a0, z1 = xg[1] + a1, z2 = xg[2] + a2, z3 = xg[3] + a3;
-      const float gi = sigmoid_f(z0);
-      const float gf = sigmoid_f(z1 + forget_bias);
-      const float gg = tanhf(z2);
-      const float go = sigmoid_f(z3);
-      const float c_new = gf * c_s[p] + gi * gg;
-      const T h_new = from_f<T>(go * tanhf(c_new));
-      const bool valid = t < __ldg(lengths + b);
-      if (valid) c_s[p] = c_new;
-      // masked carry: padding frames keep h (the staged value is exact)
-      hout[(size_t)b * H + j] = valid ? h_new : from_f<T>(h_s[(size_t)b * L.hp + j]);
-      y[((size_t)t * B + b) * 2 * H + (size_t)dir * H + j] = valid ? h_new : from_f<T>(0.f);
-      if constexpr (STORE) {
-        const size_t row = ((size_t)dir * Tn + t) * B + b;
-        c_out[row * H + j] = c_s[p];
-        float* gr = g_out + row * H4 + j;
-        gr[0] = z0;
-        gr[H] = z1;
-        gr[2 * (size_t)H] = z2;
-        gr[3 * (size_t)H] = z3;
-      }
-    }
-
-    // hand h over to the other blocks of this direction
-    direction_barrier(cnt, s, G);
-  }
-}
+constexpr int CH_ROWS = 16;  // rows of an m-tile; a block owns 16 MT rows
 
 // co-residency check shared by the cooperative launches
 template <typename K>
@@ -1592,44 +1458,12 @@ cudaError_t check_coresident(K kernel, int blocks, size_t smem) {
   return cudaSuccess;
 }
 
-template <typename T, bool STORE>
-int launch_recur(const T* xw, const int* lengths, const T* wh, T* y, T* hbuf,
-                 unsigned int* counters, float* c_out, float* g_out, int Tn, int B, int H, int hs,
-                 float forget_bias, void* stream) {
-  if (Tn <= 0 || B <= 0) return 0;
-  if (hs <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const RecurLayout L = recur_layout(B, H, hs);
-  auto kernel = blstm_recur_kernel<T, STORE>;
-  int G = (H + hs - 1) / hs;
-  cudaError_t err = check_coresident(kernel, 2 * G, L.smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {(void*)&xw, (void*)&lengths, (void*)&wh, (void*)&y, (void*)&hbuf,
-                  (void*)&counters, (void*)&c_out, (void*)&g_out, (void*)&Tn, (void*)&B,
-                  (void*)&H, (void*)&hs, (void*)&G, (void*)&forget_bias};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(2 * G), dim3(R_THREADS), args,
-                                    L.smem_bytes, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// (c) backward chain
-// ---------------------------------------------------------------------------
-
-constexpr int CH_ROWS = 16;  // rows of an m-tile; a block owns 16 MT rows
-constexpr int CH_KS = 64;    // K slices of a step product: the threads of a row block
-static_assert(CH_ROWS == 4 * R_THREADS / CH_KS, "a row block of 4 rows a warp pair");
-
-// shared memory of a chain block of U units and 16 MT rows: the wh rows of
-// its units in f32, [U][4H], and the warps' reduced partial sums [8][4 U MT]
-__host__ __device__ inline size_t chain_bytes(int H, int U, int MT) {
-  return sizeof(float) * ((size_t)U * 4 * H + (size_t)(R_THREADS / 32) * 4 * U * MT);
-}
-
 // one round of a warp's reduce-scatter over N values a lane: after the
 // round of offset O the lane keeps the half of v selected by lane & O,
-// added to its partner's copy; five rounds leave lane l the sums over the
-// warp of v[l N / 32 + k], k < N / 32, in a fixed order
+// added to its partner's copy; from O = 16, five rounds leave lane l the
+// sums over the warp of v[l N / 32 + k], k < N / 32, in a fixed order;
+// from O = 8, four rounds leave lane l the sums over its half warp of
+// v[(l % 16) N / 16 + k], k < N / 16
 template <int N, int O>
 __device__ __forceinline__ void reduce_scatter(float* v, int lane) {
   const bool upper = lane & O;
@@ -1651,6 +1485,468 @@ __device__ __forceinline__ float4 widen(const float4& q) { return q; }
 __device__ __forceinline__ float4 widen(const uint2& q) {
   return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
                      __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+}
+
+// ---------------------------------------------------------------------------
+// (b) persistent recurrence (forward)
+// ---------------------------------------------------------------------------
+
+constexpr int W_KS = 16;  // f32: K slices of a walk step's product, the lanes of a half warp
+constexpr int W_NQ = 5;   // f32: quads of h a K slice loads a pass (80: H = 320 in one)
+constexpr int W_WARPS = R_THREADS / 32;
+
+// the exchange's row stride: H rounded up to whole 16-byte vectors of bf16
+__host__ __device__ inline int walk_xp(int H) { return (H + 7) / 8 * 8; }
+// bf16: K chunks of 32 (two mma k16 steps), and the warps' partial sums'
+// row stride (float2 stores of a fragment free of bank conflicts)
+__host__ __device__ inline int walk_chunks(int H) { return (H + 31) / 32; }
+__host__ __device__ constexpr int walk_pst(int U) { return 4 * U + 8; }
+
+// shared memory of a walk block of U units and 16 MT rows. f32: the four
+// gate columns of wh of its units, [4 U][ceil4(H)]; bf16: the same columns
+// as B fragments, [chunk][n-tile][lane] of 16 bytes, then the warps'
+// partial sums [8][16 MT][4 U + 8] f32
+template <typename T>
+__host__ __device__ inline size_t walk_bytes(int H, int U, int MT) {
+  if (sizeof(T) == 4) return sizeof(float) * 4 * (size_t)U * ((H + 3) / 4 * 4);
+  return (size_t)walk_chunks(H) * (U / 2) * 32 * sizeof(uint4) +
+         sizeof(float) * W_WARPS * CH_ROWS * MT * walk_pst(U);
+}
+
+__device__ __forceinline__ void mma_16816(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// the probe's stamp: the cycles since the last one, added to spent[part]
+template <bool PROBE>
+__device__ __forceinline__ void probe_stamp(unsigned long long* spent, int part,
+                                            unsigned long long& stamp) {
+  if constexpr (PROBE) {
+    const unsigned long long now = clock64();
+    spent[part] += now - stamp;
+    stamp = now;
+  }
+}
+
+// bf16: wh's gate columns of the block's units j0 + [0, U) in the order the
+// B fragments read them: uint4 (c, nt, lane) holds column n = 8 nt + lane /
+// 4 (unit n / 4, gate n % 4) at k = 32 c + 8 (lane % 4) + [0, 8), zero past
+// H. The A fragments take the same 8 k of their rows (the k order inside a
+// chunk is a permutation both operands share), so one 16-byte load of h
+// serves two k16 steps of one row.
+template <int U>
+__device__ void stage_walk_wh(const bf16* whd, int j0, int H, unsigned char* smem) {
+  constexpr int NT = U / 2;
+  unsigned short* w = reinterpret_cast<unsigned short*>(smem);
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(whd);
+  const int H4 = 4 * H, n_all = walk_chunks(H) * NT * 32 * 8;
+  for (int e = threadIdx.x; e < n_all; e += R_THREADS) {
+    const int q = e & 7, lane = (e >> 3) & 31, nt = (e >> 8) % NT, c = (e >> 8) / NT;
+    const int n = 8 * nt + (lane >> 2), k = 32 * c + 8 * (lane & 3) + q;
+    const int u = n >> 2, g = n & 3;
+    w[e] = (k < H && j0 + u < H) ? src[(size_t)k * H4 + g * H + j0 + u] : (unsigned short)0;
+  }
+}
+
+// f32: w_s[(4 u + g) HP + k] = wh[k, g H + j0 + u], HP = ceil4(H), read
+// with u fastest
+template <int U>
+__device__ void stage_walk_wh(const float* whd, int j0, int H, unsigned char* smem) {
+  float* w_s = reinterpret_cast<float*>(smem);
+  const int HP = (H + 3) / 4 * 4, H4 = 4 * H;
+  for (int i = threadIdx.x; i < 4 * U * HP; i += R_THREADS) {
+    const int k = i / (4 * U), g = i / U % 4, u = i % U;
+    w_s[(4 * u + g) * HP + k] = (k < H && j0 + u < H) ? whd[(size_t)k * H4 + g * H + j0 + u]
+                                                      : 0.f;
+  }
+}
+
+// bf16 step product on tensor cores: z[g] = the h-part of gate g of this
+// thread's cell pair (local row pr, unit pu). The warps split K: warp w
+// takes chunks [w cpw, (w + 1) cpw) of 32 k, issues every 16-byte load of
+// its A fragments (its chunks of the block's 16 MT rows of h_{t-1}) at once
+// (ld.cg, straight into registers), runs mma.sync m16n8k16 over them in
+// chunk order into f32 accumulators (16 MT rows x 4 U columns) and stores
+// its partial sums; after a block barrier the thread adds its 4 gates'
+// partials in warp order.
+template <int U, int MT, bool PROBE>
+__device__ __forceinline__ void walk_product(const bf16* hin, int xp, int row0, int B, int H,
+                                             unsigned char* smem, int pr, int pu, float* z,
+                                             unsigned long long* spent,
+                                             unsigned long long& stamp) {
+  constexpr int NT = U / 2, PST = walk_pst(U), MAXC = 8 / MT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int nch = walk_chunks(H), cpw = (nch + W_WARPS - 1) / W_WARPS, c0 = warp * cpw;
+  uint4 a[MAXC][MT][2];
+#pragma unroll
+  for (int i = 0; i < MAXC; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + CH_ROWS * mt + 8 * h + g, col = 32 * (c0 + i) + 8 * t4;
+        a[i][mt][h] = (i < cpw && c0 + i < nch && r < B && col < xp)
+                          ? __ldcg(reinterpret_cast<const uint4*>(hin + (size_t)r * xp + col))
+                          : make_uint4(0u, 0u, 0u, 0u);
+      }
+  if constexpr (PROBE) {
+    // the pull ends where its values are first used
+    unsigned int bits = 0u;
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) bits ^= a[i][mt][h].x ^ a[i][mt][h].y ^ a[i][mt][h].z ^
+                                            a[i][mt][h].w;
+    if (bits == 0x9e3779b9u) spent[0] += 1;  // a use the compiler cannot drop
+    __syncthreads();
+    probe_stamp<PROBE>(spent, 1, stamp);
+  }
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  const uint4* wb = reinterpret_cast<const uint4*>(smem);
+#pragma unroll
+  for (int i = 0; i < MAXC; ++i) {
+    if (i < cpw && c0 + i < nch) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint4 b = wb[((c0 + i) * NT + nt) * 32 + lane];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint4 lo = a[i][mt][0], hi = a[i][mt][1];  // rows g, g + 8
+          mma_16816(acc[mt][nt], lo.x, hi.x, lo.y, hi.y, b.x, b.y);
+          mma_16816(acc[mt][nt], lo.z, hi.z, lo.w, hi.w, b.z, b.w);
+        }
+      }
+    }
+  }
+  float* part = reinterpret_cast<float*>(smem + (size_t)nch * NT * 32 * sizeof(uint4));
+  if (c0 < nch) {
+    float* pw = part + (size_t)warp * CH_ROWS * MT * PST;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float* p = pw + (size_t)(CH_ROWS * mt + g) * PST + 8 * nt + 2 * t4;
+        *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<float2*>(p + 8 * PST) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      }
+  }
+  __syncthreads();
+  const int warps = (nch + cpw - 1) / cpw;  // the warps that hold a chunk
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int w = 0; w < warps; ++w) {
+    const float4 p =
+        *reinterpret_cast<const float4*>(part + ((size_t)w * CH_ROWS * MT + pr) * PST + 4 * pu);
+    sum.x += p.x;
+    sum.y += p.y;
+    sum.z += p.z;
+    sum.w += p.w;
+  }
+  z[0] = sum.x;
+  z[1] = sum.y;
+  z[2] = sum.z;
+  z[3] = sum.w;
+  if constexpr (PROBE) {
+    __syncthreads();
+    probe_stamp<PROBE>(spent, 2, stamp);
+  }
+}
+
+// f32 step product on the FMA pipes (the tight check: no TF32): the half
+// warp of tile x = 2 warp + lane / 16 takes rows 4 (x % 4 MT) + [0, 4) and
+// units 4 (x / 4 MT) + [0, 4) with their 4 gates (16 columns of wh); lane
+// ks = lane % 16 takes the quads ks + 16 p of h_{t-1} (ld.cg straight into
+// registers, every load of a pass in flight at once) and sums the tile's 4
+// rows x 16 columns over them (a quad of h feeds 16 columns, a float4 of wh
+// 4 rows); a reduce-scatter of shuffles over the half warp adds the 16 K
+// slices in a fixed order and leaves lane ks the 4 gates of row 4 (x % 4
+// MT) + ks / 4, unit 4 (x / 4 MT) + ks % 4, its cell pair.
+template <int U, int MT, bool PROBE>
+__device__ __forceinline__ void walk_product(const float* hin, int xp, int row0, int B, int H,
+                                             unsigned char* smem, int, int, float* z,
+                                             unsigned long long* spent,
+                                             unsigned long long& stamp) {
+  const int HQ = (H + 3) / 4;
+  const int lane = threadIdx.x & 31, ks = lane & 15;
+  const int x = (threadIdx.x >> 5) * 2 + (lane >> 4);
+  const int rt = x % (4 * MT), ut = x / (4 * MT);
+  // column 4 uu + g of the tile (unit 4 ut + uu, gate g) at w4[(4 uu + g) HQ + q]
+  const float4* w4 = reinterpret_cast<const float4*>(smem) + (size_t)16 * ut * HQ;
+  float v[64];  // [16 i + 4 uu + g]: row 4 rt + i, unit 4 ut + uu, gate g
+#pragma unroll
+  for (int k = 0; k < 64; ++k) v[k] = 0.f;
+  for (int q0 = 0; q0 < HQ; q0 += W_KS * W_NQ) {
+    float4 hq[4][W_NQ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + 4 * rt + i;
+      const float4* row = reinterpret_cast<const float4*>(hin + (size_t)r * xp);
+#pragma unroll
+      for (int p = 0; p < W_NQ; ++p) {
+        const int q = q0 + ks + W_KS * p;
+        hq[i][p] = (r < B && q < HQ) ? __ldcg(row + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    if constexpr (PROBE) {
+      if (q0 == 0) {
+        unsigned int bits = 0u;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int p = 0; p < W_NQ; ++p)
+            bits ^= __float_as_uint(hq[i][p].x) ^ __float_as_uint(hq[i][p].y) ^
+                    __float_as_uint(hq[i][p].z) ^ __float_as_uint(hq[i][p].w);
+        if (bits == 0x9e3779b9u) spent[0] += 1;  // a use the compiler cannot drop
+        __syncthreads();
+        probe_stamp<PROBE>(spent, 1, stamp);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < W_NQ; ++p) {
+      const int q = q0 + ks + W_KS * p;
+      if (q < HQ) {
+#pragma unroll
+        for (int col = 0; col < 16; ++col) {
+          const float4 w = w4[(size_t)col * HQ + q];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float& a = v[16 * i + col];
+            a = fmaf(hq[i][p].x, w.x, a);
+            a = fmaf(hq[i][p].y, w.y, a);
+            a = fmaf(hq[i][p].z, w.z, a);
+            a = fmaf(hq[i][p].w, w.w, a);
+          }
+        }
+      }
+    }
+  }
+  reduce_scatter<64, 8>(v, lane);
+#pragma unroll
+  for (int g = 0; g < 4; ++g) z[g] = v[g];
+  if constexpr (PROBE) {
+    __syncthreads();
+    probe_stamp<PROBE>(spent, 2, stamp);
+  }
+}
+
+// Block (dir, rg, ug) owns rows rg 16 MT + [0, 16 MT) and units ug U + [0,
+// U) of direction dir (U MT = 16); rows are independent in the walk, so the
+// blocks of one (direction, row group) meet at their own counter each step.
+// Thread p runs the cell pair (row 4 (x % 4 MT) + ks / 4, unit 4 (x / 4 MT)
+// + ks % 4), x = p / 16, ks = p % 16 (where the f32 product's reduce-scatter
+// leaves its 4 gates), and keeps its c and h carries in registers. PROBE:
+// thread 0 sums the clock64 cycles of each step after the first spent
+// waiting, pulling (to the loads' first use), multiplying (to the gates'
+// sums) and in the cell (to the next step's start) into probe[block][4],
+// with a block barrier after the pull and after the product.
+template <typename T, bool STORE, int U, int MT, bool PROBE>
+__global__ void __launch_bounds__(R_THREADS, 1) blstm_recur_kernel(
+    const T* __restrict__ xw,         // [2, T, B, 4H]
+    const int* __restrict__ lengths,  // [B]
+    const T* __restrict__ wh,         // [2, H, 4H]
+    T* __restrict__ y,                // [T, B, 2H] masked outputs
+    T* hx,                            // [2 dir][2 slot][B][walk_xp(H)] carried h, zero at launch
+    unsigned int* counters,           // [2, RG], zero at launch
+    float* __restrict__ c_out,        // STORE: [2, T, B, H] f32 carries
+    float* __restrict__ g_out,        // STORE: [2, T, B, 4H] f32 pre-activation gates
+    unsigned long long* probe,        // PROBE: [blocks][4] cycles
+    int Tn, int B, int H, int RG, int GU, float forget_bias) {
+  constexpr int R = CH_ROWS * MT;
+  static_assert(R * U == R_THREADS && U % 4 == 0, "one cell pair a thread, units in fours");
+  extern __shared__ __align__(16) float smem_f[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const int xp = walk_xp(H), H4 = 4 * H;
+  const int dir = blockIdx.x / (RG * GU);
+  const int rg = blockIdx.x / GU % RG, ug = blockIdx.x % GU;
+  const int j0 = ug * U, row0 = rg * R;
+  unsigned int* cnt = counters + dir * RG + rg;
+  stage_walk_wh<U>(wh + (size_t)dir * H * H4, j0, H, smem);
+  __syncthreads();
+
+  // the cell pair of this thread
+  const int ks = threadIdx.x & 15, x = threadIdx.x >> 4;
+  const int pr = 4 * (x % (4 * MT)) + (ks >> 2), pu = 4 * (x / (4 * MT)) + (ks & 3);
+  const int pb = row0 + pr, pj = j0 + pu;
+  const bool live = pb < B && pj < H;
+  const int len = live ? __ldg(lengths + pb) : 0;
+  const T* xwd = xw + (size_t)dir * Tn * B * H4;
+  T* hxd = hx + (size_t)dir * 2 * B * xp;
+  float c = 0.f;
+  T h = from_f<T>(0.f);
+  float xg[4] = {0.f, 0.f, 0.f, 0.f};
+  // the cell's input of step s: it does not depend on the walk, so it is
+  // fetched before the barrier that precedes step s ends
+  auto fetch = [&](int s) {
+    if (!live) return;
+    const int t = dir == 0 ? s : Tn - 1 - s;
+    const T* xr = xwd + ((size_t)t * B + pb) * H4 + pj;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) xg[g] = to_f(xr[(size_t)g * H]);
+  };
+  fetch(0);
+  unsigned long long spent[4] = {0ull, 0ull, 0ull, 0ull};
+  unsigned long long stamp = 0ull;
+
+  for (int s = 0; s < Tn; ++s) {
+    const int t = dir == 0 ? s : Tn - 1 - s;
+    float zh[4] = {0.f, 0.f, 0.f, 0.f};  // the h-part of the cell pair's gates
+    if (s > 0) {
+      if constexpr (PROBE) {
+        const unsigned long long now = clock64();
+        if (s > 1) spent[3] += now - stamp;
+        stamp = now;
+      }
+      // wait until every block of this (direction, row group) has
+      // published step s - 1: an acquire load, then the block barrier
+      if (threadIdx.x == 0) {
+        const unsigned int target = (unsigned int)s * (unsigned int)GU;
+        while (ld_acquire(cnt) < target) {
+        }
+      }
+      __syncthreads();
+      probe_stamp<PROBE>(spent, 0, stamp);
+      walk_product<U, MT, PROBE>(hxd + (size_t)(s & 1) * B * xp, xp, row0, B, H, smem, pr, pu,
+                                 zh, spent, stamp);
+    }
+
+    // the masked cell (_cell): gates and c in f32, h in the compute type
+    const float z0 = xg[0] + zh[0], z1 = xg[1] + zh[1], z2 = xg[2] + zh[2], z3 = xg[3] + zh[3];
+    T y_t = from_f<T>(0.f);
+    if (live) {
+      const float gi = sigmoid_f(z0);
+      const float gf = sigmoid_f(z1 + forget_bias);
+      const float gg = tanhf(z2);
+      const float go = sigmoid_f(z3);
+      const float c_new = gf * c + gi * gg;
+      const T h_new = from_f<T>(go * tanhf(c_new));
+      // masked carry: padding frames keep c and h; y is zero there
+      if (t < len) {
+        c = c_new;
+        h = h_new;
+        y_t = h_new;
+      }
+      if (s + 1 < Tn) hxd[((size_t)((s + 1) & 1) * B + pb) * xp + pj] = h;
+    }
+    if (s + 1 < Tn) {
+      // publish this step's h to the (direction, row group): the block
+      // barrier, then a release add, which waits for the exchange's stores
+      // alone (the outputs' follow)
+      __syncthreads();
+      if (threadIdx.x == 0) red_release(cnt);
+    }
+    if (live) {
+      y[((size_t)t * B + pb) * 2 * H + (size_t)dir * H + pj] = y_t;
+      if constexpr (STORE) {
+        const size_t row = ((size_t)dir * Tn + t) * B + pb;
+        c_out[row * H + pj] = c;
+        float* gr = g_out + row * H4 + pj;
+        gr[0] = z0;
+        gr[H] = z1;
+        gr[2 * (size_t)H] = z2;
+        gr[3 * (size_t)H] = z3;
+      }
+    }
+    // the next step's input, fetched while the other blocks catch up
+    if (s + 1 < Tn) fetch(s + 1);
+  }
+  if constexpr (PROBE) {
+    if (threadIdx.x == 0) {
+      if (Tn > 1) spent[3] += clock64() - stamp;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) probe[(size_t)blockIdx.x * 4 + k] = spent[k];
+    }
+  }
+}
+
+template <typename T, bool STORE, bool PROBE, int U, int MT>
+int launch_recur_form(const T* xw, const int* lengths, const T* wh, T* y, T* hx,
+                      unsigned int* counters, float* c_out, float* g_out,
+                      unsigned long long* probe, int Tn, int B, int H, float forget_bias,
+                      void* stream) {
+  // hx's rows are read in 16-byte loads
+  if (reinterpret_cast<uintptr_t>(hx) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  // bf16: a warp's K chunks are held in registers, at most 8 / MT
+  if (sizeof(T) == 2 && (walk_chunks(H) + W_WARPS - 1) / W_WARPS > 8 / MT)
+    return (int)cudaErrorInvalidValue;
+  int RG = (B + CH_ROWS * MT - 1) / (CH_ROWS * MT);
+  int GU = (H + U - 1) / U;
+  const int blocks = 2 * RG * GU;
+  const size_t smem = walk_bytes<T>(H, U, MT);
+  auto kernel = blstm_recur_kernel<T, STORE, U, MT, PROBE>;
+  cudaError_t err = check_coresident(kernel, blocks, smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {(void*)&xw, (void*)&lengths, (void*)&wh,     (void*)&y,  (void*)&hx,
+                  (void*)&counters, (void*)&c_out, (void*)&g_out, (void*)&probe,
+                  (void*)&Tn, (void*)&B, (void*)&H, (void*)&RG, (void*)&GU, (void*)&forget_bias};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(R_THREADS), args,
+                                    smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// units U and m-tiles MT a block (ops/blstm.walk_plan: 16 x 1, 8 x 2 or
+// 4 x 4); counters hold 2 ceil(B / 16 MT) zeros
+template <typename T, bool STORE, bool PROBE>
+int launch_recur_forms(const T* xw, const int* lengths, const T* wh, T* y, T* hx,
+                       unsigned int* counters, float* c_out, float* g_out,
+                       unsigned long long* probe, int Tn, int B, int H, int U, int MT,
+                       float forget_bias, void* stream) {
+  if (U == 16 && MT == 1)
+    return launch_recur_form<T, STORE, PROBE, 16, 1>(xw, lengths, wh, y, hx, counters, c_out,
+                                                     g_out, probe, Tn, B, H, forget_bias, stream);
+  if (U == 8 && MT == 2)
+    return launch_recur_form<T, STORE, PROBE, 8, 2>(xw, lengths, wh, y, hx, counters, c_out,
+                                                    g_out, probe, Tn, B, H, forget_bias, stream);
+  if (U == 4 && MT == 4)
+    return launch_recur_form<T, STORE, PROBE, 4, 4>(xw, lengths, wh, y, hx, counters, c_out,
+                                                    g_out, probe, Tn, B, H, forget_bias, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// c_out and g_out null: the inference walk; probe non-null: the training
+// walk with its step probe
+template <typename T>
+int launch_recur(const T* xw, const int* lengths, const T* wh, T* y, T* hx,
+                 unsigned int* counters, float* c_out, float* g_out, unsigned long long* probe,
+                 int Tn, int B, int H, int U, int MT, float forget_bias, void* stream) {
+  if (Tn <= 0 || B <= 0) return 0;
+  if (H <= 0) return (int)cudaErrorInvalidValue;
+  if (probe != nullptr) {
+    if (c_out == nullptr || g_out == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_recur_forms<T, true, true>(xw, lengths, wh, y, hx, counters, c_out, g_out,
+                                             probe, Tn, B, H, U, MT, forget_bias, stream);
+  }
+  if (c_out != nullptr)
+    return launch_recur_forms<T, true, false>(xw, lengths, wh, y, hx, counters, c_out, g_out,
+                                              nullptr, Tn, B, H, U, MT, forget_bias, stream);
+  return launch_recur_forms<T, false, false>(xw, lengths, wh, y, hx, counters, nullptr,
+                                             nullptr, nullptr, Tn, B, H, U, MT, forget_bias,
+                                             stream);
+}
+
+// ---------------------------------------------------------------------------
+// (c) backward chain
+// ---------------------------------------------------------------------------
+
+constexpr int CH_KS = 64;    // K slices of a step product: the threads of a row block
+static_assert(CH_ROWS == 4 * R_THREADS / CH_KS, "a row block of 4 rows a warp pair");
+
+// shared memory of a chain block of U units and 16 MT rows: the wh rows of
+// its units in f32, [U][4H], and the warps' reduced partial sums [8][4 U MT]
+__host__ __device__ inline size_t chain_bytes(int H, int U, int MT) {
+  return sizeof(float) * ((size_t)U * 4 * H + (size_t)(R_THREADS / 32) * 4 * U * MT);
 }
 
 // Block (dir, rg, ug) owns rows rg 16 MT + [0, 16 MT) and units ug U + [0,
@@ -1919,30 +2215,26 @@ extern "C" int nabu_blstm_gemm_f32(const void* a0, const void* a1, const void* b
                           colsum_ws, splitk_ws, (cudaStream_t)stream);
 }
 
+// the walk (units U and m-tiles MT a block from ops/blstm.walk_plan): c_out
+// and g_out null for inference; probe [blocks][4] for the step probe
 extern "C" int nabu_blstm_recur_bf16(const void* xw, const int* lengths, const void* wh,
-                                     void* y, void* hbuf, unsigned int* counters, float* c_out,
-                                     float* g_out, int T, int B, int H, int hs,
-                                     float forget_bias, void* stream) {
-  if (c_out != nullptr)
-    return launch_recur<bf16, true>((const bf16*)xw, lengths, (const bf16*)wh, (bf16*)y,
-                                    (bf16*)hbuf, counters, c_out, g_out, T, B, H, hs,
-                                    forget_bias, stream);
-  return launch_recur<bf16, false>((const bf16*)xw, lengths, (const bf16*)wh, (bf16*)y,
-                                   (bf16*)hbuf, counters, nullptr, nullptr, T, B, H, hs,
-                                   forget_bias, stream);
+                                     void* y, void* hx, unsigned int* counters, float* c_out,
+                                     float* g_out, unsigned long long* probe, int T, int B,
+                                     int H, int units, int mt, float forget_bias,
+                                     void* stream) {
+  return launch_recur<bf16>((const bf16*)xw, lengths, (const bf16*)wh, (bf16*)y, (bf16*)hx,
+                            counters, c_out, g_out, probe, T, B, H, units, mt, forget_bias,
+                            stream);
 }
 
 extern "C" int nabu_blstm_recur_f32(const void* xw, const int* lengths, const void* wh,
-                                    void* y, void* hbuf, unsigned int* counters, float* c_out,
-                                    float* g_out, int T, int B, int H, int hs,
-                                    float forget_bias, void* stream) {
-  if (c_out != nullptr)
-    return launch_recur<float, true>((const float*)xw, lengths, (const float*)wh, (float*)y,
-                                     (float*)hbuf, counters, c_out, g_out, T, B, H, hs,
-                                     forget_bias, stream);
-  return launch_recur<float, false>((const float*)xw, lengths, (const float*)wh, (float*)y,
-                                    (float*)hbuf, counters, nullptr, nullptr, T, B, H, hs,
-                                    forget_bias, stream);
+                                    void* y, void* hx, unsigned int* counters, float* c_out,
+                                    float* g_out, unsigned long long* probe, int T, int B,
+                                    int H, int units, int mt, float forget_bias,
+                                    void* stream) {
+  return launch_recur<float>((const float*)xw, lengths, (const float*)wh, (float*)y,
+                             (float*)hx, counters, c_out, g_out, probe, T, B, H, units, mt,
+                             forget_bias, stream);
 }
 
 extern "C" int nabu_blstm_bwd_recur_bf16(const float* gates, const float* cst, const void* gy,

@@ -247,3 +247,67 @@ class TestChainPlan:
         assert blstm_ops.kernel_family(B, H) == "v1"
         with pytest.raises(ValueError, match="beyond"):
             blstm_ops.check_chain_design("blstm_bwd_recur", B, H)
+
+
+class TestWalkPlan:
+    # shared memory, the larger of the f32 layout (wh's gate columns, 16
+    # units ceil4(H) bytes) and the bf16 one (B fragments, ceil(H / 32)
+    # chunks x units / 2 n-tiles x 512 bytes, then 8 warps' partial sums of
+    # 16 mt rows x (4 units + 8) f32)
+    @pytest.mark.parametrize("B, H, plan", [
+        # dblstm_ctc_wsj / rnnt_char_wsj: 16 rows x 16 units, 2 x 20 x 2
+        # blocks, in bf16 and f32 alike (the plan takes no element type)
+        (32, 320, (16, 1, 80, 16 * 16 * 320)),
+        (32, 256, (16, 1, 64, 8 * 8 * 512 + 8 * 16 * 72 * 4)),  # las_timit's Listener
+        (32, 512, (16, 1, 128, 16 * 16 * 512)),  # las_large's validation batch
+        (48, 320, (16, 1, 120, 16 * 16 * 320)),  # the limit at 320
+        (1, 9, (16, 1, 2, 1 * 8 * 512 + 8 * 16 * 72 * 4)),
+        # 16 x 1 needs 136 blocks
+        (49, 260, (8, 2, 132, 9 * 4 * 512 + 8 * 32 * 40 * 4)),
+        # 8 x 2 needs 140
+        (1100, 12, (4, 4, 108, 1 * 2 * 512 + 8 * 64 * 24 * 4)),
+    ])
+    def test_walk_plan_at_the_recipes_shapes(self, B, H, plan):
+        assert blstm_ops.walk_plan(B, H) == plan
+        assert plan[2] <= blstm_ops.SMS and plan[3] <= blstm_ops.SMEM_LIMIT
+        assert blstm_ops.walk_bytes(H, *plan[:2]) == plan[3]
+
+    def test_walk_forms_fill_a_block(self):
+        """The walk's forms are the chain's whose 16 mt rows x units make
+        one cell pair for each of a block's 256 threads, in its order."""
+        assert blstm_ops.WALK_FORMS == ((16, 1), (8, 2), (4, 4))
+        assert all(f in blstm_ops.CHAIN_FORMS for f in blstm_ops.WALK_FORMS)
+
+    @pytest.mark.parametrize("H", [1, 4, 9, 12, 16, 100, 256, 260, 320, 512, 600, 908, 1000])
+    def test_walk_holds_every_shape_the_chain_holds(self, H):
+        """Wherever the chain has a plan the walk has one, within the card's
+        SMs one block an SM and a block's shared memory; so the v2 family
+        is the chain's plans."""
+        B = 1
+        while blstm_ops.chain_plan(B, H) is not None:
+            units, mt, blocks, smem = blstm_ops.check_walk_design("walk", B, H)
+            assert blocks == 2 * -(-B // (16 * mt)) * -(-H // units) <= blstm_ops.SMS
+            assert smem <= blstm_ops.SMEM_LIMIT
+            assert blstm_ops.kernel_family(B, H) == "v2"
+            B += 1
+        assert B > 1 or H > 900
+
+    @pytest.mark.parametrize("B, H, smem", [
+        (32, 320, (16 * 16 * 320, 4 * (16 * 1280 + 8 * 64))),
+        (4, 12, (8 * 512 + 8 * 16 * 72 * 4, 4 * (8 * 48 + 8 * 32))),
+        (49, 320, (None, None)),
+        (33, 512, (None, None)),
+    ])
+    def test_v2_smem_bytes_reads_both_plans(self, B, H, smem):
+        assert blstm_ops.v2_smem_bytes(B, H) == smem
+        assert blstm_ops.kernel_family(B, H) == ("v1" if None in smem else "v2")
+
+    @pytest.mark.parametrize("B, H", [(49, 320), (65, 256), (33, 512)])
+    def test_beyond_the_walk_plan_raises(self, B, H):
+        """One batch past the walk's limits (48 at H = 320, 64 at 256, 32 at
+        512, the chain's): no plan, v1, and the walk's check raises."""
+        assert blstm_ops.walk_plan(B - 1, H) is not None
+        assert blstm_ops.walk_plan(B, H) is None
+        assert blstm_ops.kernel_family(B, H) == "v1"
+        with pytest.raises(ValueError, match="beyond the walk's design"):
+            blstm_ops.check_walk_design("blstm_recur", B, H)

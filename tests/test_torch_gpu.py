@@ -399,6 +399,111 @@ def test_blstm_chain_rejects_shapes_beyond_its_plan(cuda_device):
     assert kernels.launch_counts() == before
 
 
+def _walk_inputs(rng, device, dtype, T, B, H):
+    """Ragged lengths from T down, xw uniform in [-1, 1] and wh at the
+    model's glorot scale, for the v2 walk."""
+    def u(*shape, scale=1.0):
+        return torch.as_tensor(
+            rng.uniform(-scale, scale, shape).astype(np.float32)).to(device, dtype)
+
+    lengths = torch.as_tensor(_lengths(T, B), dtype=torch.int32, device=device)
+    return u(2, T, B, 4 * H), lengths, u(2, H, 4 * H, scale=float(np.sqrt(6.0 / (5 * H))))
+
+
+def _walk_excess(got, ref, tag):
+    """The largest excess of the training walk's outputs over chip_smoke.py's
+    tolerances: h at the walk's, c and the gates at the stores'."""
+    import chip_smoke
+
+    tols = [chip_smoke.TOL[("blstm_recur", tag)]] + 2 * [
+        chip_smoke.TOL[("blstm_recur_train_stores", tag)]]
+    return max(float(((g.float() - r.float()).abs() - atol - rtol * r.float().abs()).max())
+               for g, r, (atol, rtol) in zip(got, ref, tols))
+
+
+# T in {1, 3, 67} at the recipes' widths, their batches and the limits at
+# 320 and 512, and the tests' narrow layers (H = 9, 12: rows of whole quads
+# but the last, a partial unit group); then a shape of each later form
+WALK_SHAPES = [(T, B, H) for T in (1, 3, 67)
+               for B, H in ((1, 9), (17, 12), (32, 320), (48, 320), (17, 512), (32, 512))]
+WALK_SHAPES += [(3, 49, 260), (3, 1100, 12)]  # 8 units x 2 m-tiles, 4 x 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", WALK_SHAPES)
+def test_blstm_walk_matches_plain_at_its_plans(cuda_device, dtype, T, B, H):
+    """The v2 walk, inference and training forms, at the split
+    ``walk_plan`` picks for each shape, ragged lengths: within
+    chip_smoke.py's tolerances of the plain version; a second launch gives
+    the first one's bits, and both forms give one h."""
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    plan = blstm_ops.walk_plan(B, H)
+    assert plan is not None and (plan[0], plan[1]) in blstm_ops.WALK_FORMS
+    args = _walk_inputs(np.random.default_rng(T + B + H), cuda_device, dtype, T, B, H)
+    before = kernels.launch_counts()
+    y = [blstm_ops.blstm_recur(*args) for _ in range(2)]
+    train = [blstm_ops.blstm_recur_train(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["blstm_recur"] == before["blstm_recur"] + 2
+    assert after["blstm_recur_train"] == before["blstm_recur_train"] + 2
+    assert y[0].dtype == dtype and torch.equal(y[0], y[1])
+    assert all(torch.equal(a, b) for a, b in zip(*train))
+    assert torch.equal(train[0][0], y[0])
+    excess = _walk_excess(train[0], blstm_ops.blstm_recur_train_plain(*args), tag)
+    assert excess <= 0, (plan, excess)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(37, 37, 24), (29, 33, 9)])
+def test_blstm_walk_forms_give_one_result(cuda_device, monkeypatch, dtype, T, B, H):
+    """Every form of the walk (units x 16 mt rows a block), forced at one
+    shape: each within the tolerances of the plain version, all with the
+    same bits (a row's sums do not depend on the form); H = 9 (rows of 3
+    quads, the last one partial, a partial unit group)."""
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    args = _walk_inputs(np.random.default_rng(T * B + H), cuda_device, dtype, T, B, H)
+    ref = blstm_ops.blstm_recur_train_plain(*args)
+    outs = []
+    for units, mt in blstm_ops.WALK_FORMS:
+        blocks = 2 * -(-B // (16 * mt)) * -(-H // units)
+        form = (units, mt, blocks, blstm_ops.walk_bytes(H, units, mt))
+        monkeypatch.setattr(blstm_ops, "walk_plan", lambda *_, f=form: f)
+        outs.append(blstm_ops.blstm_recur_train(*args))
+        excess = _walk_excess(outs[-1], ref, tag)
+        assert excess <= 0, (units, mt, excess)
+    assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))
+
+
+@pytest.mark.parametrize("B,H", [(49, 320), (65, 256), (33, 512)])
+def test_blstm_walk_rejects_shapes_beyond_its_plan(cuda_device, B, H):
+    """One batch past the walk's limits (48 at H = 320, 64 at 256, 32 at
+    512): no split fits the card's SMs one block an SM; both forms raise
+    before any launch."""
+    args = _walk_inputs(np.random.default_rng(3), cuda_device, torch.bfloat16, 3, B, H)
+    before = kernels.launch_counts()
+    for walk in (blstm_ops.blstm_recur, blstm_ops.blstm_recur_train):
+        with pytest.raises(ValueError, match="beyond the walk's design"):
+            walk(*args)
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blstm_walk_probe_keeps_the_walks_bits(cuda_device, dtype):
+    """The step probe's build of the training walk gives the walk's bits,
+    counts no launch, and sums positive cycles of every part in every
+    block (T = 9, B = 32, H = 320: 80 blocks)."""
+    args = _walk_inputs(np.random.default_rng(5), cuda_device, dtype, 9, 32, 320)
+    want = blstm_ops.blstm_recur_train(*args)
+    before = kernels.launch_counts()
+    *got, cycles = blstm_ops.blstm_recur_train_probe(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tuple(cycles.shape) == (80, len(blstm_ops.PROBE_PARTS))
+    assert bool((cycles > 0).all()), cycles
+
+
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("B,H", [(32, 512), (48, 320)])
 def test_shapes_moved_to_v2_match_cpu(cuda_device, dtype, rtol, B, H):
