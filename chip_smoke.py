@@ -122,7 +122,12 @@ their bits equal the plan's. The v2 walk's rows (``blstm_recur``,
 and a second planted fault, one whole unit group of the plan reading h one
 step late; the training rows also their step probe (``step_probe``: a
 step's cycles split into waiting at the counter, pulling h, the product
-and the cell, from a build of the walk that only the probe launches).
+and the cell, from a build of the walk that only the probe launches). The
+LSTM walk's rows (``lstm_fwd``, ``lstm_fwd_train``, both types, T = 1024
+and 121) print the same for ``ops.lstm.walk_plan`` and its step probe
+(``ops.lstm.lstm_fwd_train_probe``), its planted group fault a whole unit
+group of the plan past the first 8 units; the stream's own shape, a
+32-frame chunk with a carry at B = 32 and B = 1, gets a row of its own.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -211,7 +216,8 @@ W, K = 400, 256
 #   h is written in the input type, where such a difference may move a
 #   bf16 output by one rounding step (0.0039 at |h| < 1); the final carry
 #   and the f32 stores (gates, c, h) stay tight; faults: 8 units read h
-#   one step late, the carry not held past a length (final carry)
+#   one step late, the second unit group of the walk's plan read h one
+#   step late, the carry not held past a length (final carry)
 # - lstm_bwd_recur: f32 dgates from the same residuals (sums in another
 #   order); fault: the dgates of 8 units read one step stale
 # - lstm_bwd_dwh: f32 sums over T x B tokens, held to the float64 product
@@ -508,61 +514,65 @@ def gemm_variants(phase: str) -> dict:
     return counts
 
 
-def walk_fields(torch, timed, reps, fn, first, ms) -> dict:
-    """The v2 walk row's extra readings (T = 1024, B = 32, H = 320): the
-    split it ran (``walk_plan``), whether a second launch gives the first
-    one's bits (a row whose bits differ fails the run), its µs a step and,
-    timed, the µs a step of every form of the walk whose blocks fit the
-    card (``us_per_step_by_split``), the same launch each, with whether
-    their bits equal the plan's (a form whose bits differ fails the run)."""
-    from nabu_tpu_torch.ops import blstm as bo
+def walk_fields(torch, timed, reps, fn, first, ms, ops, dirs, Tq=T, Bq=B) -> dict:
+    """A walk row's extra readings (Tq steps, Bq rows, H = 320) for the
+    v2 walk (``ops`` = ``ops.blstm``, two directions) or the LSTM walk
+    (``ops.lstm``, one): the split it ran (``ops.walk_plan``), whether a
+    second launch gives the first one's bits, its µs a step and, timed,
+    the µs a step of every form of the walk whose blocks fit the card
+    (``us_per_step_by_split``), the same launch each, with whether their
+    bits equal the plan's (a differing second launch or form fails the
+    run)."""
+    def flat(out):
+        out = out if isinstance(out, tuple) else (out,)
+        return [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
 
     def same(a, b):
-        pairs = zip(a, b) if isinstance(a, tuple) else ((a, b),)
-        return all(torch.equal(x, y) for x, y in pairs)
+        return all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
 
     repeat = same(first, fn())
     if not repeat:
-        FAILURES.append(f"{fn.__name__}: a second launch's bits differ")
-    fields = {"plan": bo.walk_plan(B, H), "repeat_bits_equal": repeat,
-              "us_per_step": None if ms is None else 1e3 * ms / T}
+        FAILURES.append(f"{fn.__name__} T={Tq} B={Bq}: a second launch's bits differ")
+    fields = {"plan": ops.walk_plan(Bq, H), "repeat_bits_equal": repeat,
+              "us_per_step": None if ms is None else 1e3 * ms / Tq}
     if reps:
         by_split, bits = {}, True
-        for units, mt in bo.WALK_FORMS:
-            blocks = 2 * -(-B // (16 * mt)) * -(-H // units)
-            if blocks > bo.SMS:
+        for units, mt in ops.WALK_FORMS:
+            blocks = dirs * -(-Bq // (16 * mt)) * -(-H // units)
+            if blocks > ops.SMS:
                 continue
-            form = (units, mt, blocks, bo.walk_bytes(H, units, mt))
-            with swapped(bo, "walk_plan", lambda *_, f=form: f):
-                by_split[f"{16 * mt}x{units}"] = 1e3 * timed(fn, reps) / T
+            form = (units, mt, blocks, ops.walk_bytes(H, units, mt))
+            with swapped(ops, "walk_plan", lambda *_, f=form: f):
+                by_split[f"{16 * mt}x{units}"] = 1e3 * timed(fn, reps) / Tq
                 bits &= same(first, fn())
         fields["us_per_step_by_split"] = by_split
         fields["bits_equal_across_splits"] = bits
         if not bits:
-            FAILURES.append(f"{fn.__name__}: the forms' bits differ")
+            FAILURES.append(f"{fn.__name__} T={Tq} B={Bq}: the forms' bits differ")
     return fields
 
 
-def walk_probe(torch, timed, reps, xw, lens_t, wh) -> dict:
-    """The step probe of the v2 training walk: its build that sums each
-    block's clock64 cycles of a step by part (``ops.blstm.PROBE_PARTS``:
-    waiting at the group's counter, pulling h_{t-1}, the product to its
-    gates' sums, the cell with its stores), the mean over blocks a step,
-    each part's share, the probe's own µs a step (CUDA events; it adds two
-    block barriers a step) and its parts in µs by those shares."""
-    from nabu_tpu_torch.ops import blstm as bo
+def walk_probe(torch, timed, reps, probe, Tq, counted) -> dict:
+    """The step probe of a training walk: ``probe()`` launches its build
+    that sums each block's clock64 cycles of the ``counted`` steps by part
+    (``ops.blstm.PROBE_PARTS``: waiting at the group's counter, pulling
+    h_{t-1}, the product to its gates' sums, the cell with its stores).
+    -> the mean over blocks a step, each part's share, the probe's own µs
+    a step over its Tq steps (CUDA events; it adds two block barriers a
+    step) and its parts in µs by those shares."""
+    from nabu_tpu_torch.ops.blstm import PROBE_PARTS
 
-    *_, cycles = bo.blstm_recur_train_probe(xw, lens_t, wh)
-    per = (cycles.double().mean(dim=0) / max(T - 1, 1)).tolist()
-    ms = timed(lambda: bo.blstm_recur_train_probe(xw, lens_t, wh), reps)
-    us = None if ms is None else 1e3 * ms / T
+    *_, cycles = probe()
+    per = (cycles.double().mean(dim=0) / max(counted, 1)).tolist()
+    ms = timed(probe, reps)
+    us = None if ms is None else 1e3 * ms / Tq
     shares = [c / sum(per) for c in per]
-    wait = cycles[:, 0].double() / max(T - 1, 1)
-    return {"cycles_per_step": dict(zip(bo.PROBE_PARTS, per)),
-            "share": dict(zip(bo.PROBE_PARTS, shares)),
+    wait = cycles[:, 0].double() / max(counted, 1)
+    return {"cycles_per_step": dict(zip(PROBE_PARTS, per)),
+            "share": dict(zip(PROBE_PARTS, shares)),
             "wait_cycles_min_max": [float(wait.min()), float(wait.max())],
             "probe_us_per_step": us,
-            "us": None if us is None else {p: f * us for p, f in zip(bo.PROBE_PARTS, shares)}}
+            "us": None if us is None else {p: f * us for p, f in zip(PROBE_PARTS, shares)}}
 
 
 # ---------------------------------------------------------------------------
@@ -835,22 +845,23 @@ def rnnt_last_frame_out_of_dpred(torch, tf):
     return bwd
 
 
-def _unit_cols(torch, H, units, device):
-    """The 4 gate columns of the first ``units`` hidden units."""
-    return torch.cat([torch.arange(g * H, g * H + units) for g in range(4)]).to(device)
+def _unit_cols(torch, H, units, device, first: int = 0):
+    """The 4 gate columns of the hidden units [first, first + units)."""
+    return torch.cat([torch.arange(g * H + first, g * H + first + units)
+                      for g in range(4)]).to(device)
 
 
-def lstm_stale_walk(torch, units: int = 8):
-    """Planted walk fault: the gates of the first ``units`` hidden units
-    read h one step late (h_{t-2}), as the block owning them would after
-    passing the step barrier before the others' h was visible. Otherwise
-    ``lstm_fwd_plain``'s arithmetic and signature."""
+def lstm_stale_walk(torch, units: int = 8, first: int = 0):
+    """Planted walk fault: the gates of the ``units`` hidden units from
+    ``first`` on read h one step late (h_{t-2}), as the block owning them
+    would after passing its row group's barrier before the others' h was
+    visible. Otherwise ``lstm_fwd_plain``'s arithmetic and signature."""
     def walk(xw, lengths, wh, h0=None, c0=None, forget_bias: float = 1.0):
         T, B, H4 = xw.shape
         H = H4 // 4
         f32 = torch.float32
         dev = xw.device
-        cols = _unit_cols(torch, H, units, dev)
+        cols = _unit_cols(torch, H, units, dev, first)
         whf = wh.to(f32)
         h = torch.zeros((B, H), dtype=f32, device=dev) if h0 is None else h0.to(f32)
         c = torch.zeros((B, H), dtype=f32, device=dev) if c0 is None else c0.to(f32)
@@ -1275,7 +1286,7 @@ def phase_kernels(torch, quick: bool) -> dict:
             "cudnn_layer_max_abs_err": cudnn_err,
             "bound_ms": b_ms, "bound_by": b_by,
         }
-        row.update(walk_fields(torch, timed, reps, blstm_recur, got_r, row["ms"]))
+        row.update(walk_fields(torch, timed, reps, blstm_recur, got_r, row["ms"], blstm_ops, 2))
         emit({"phase": "kernels", "kernel": "blstm_recur", **row})
         rows[("blstm_recur", tag)] = row
         rows.update(training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm,
@@ -1515,7 +1526,8 @@ def lstm_rows(torch, timed, reps) -> dict:
     ragged lengths: the walk with an initial carry (output and final
     carry), the training walk (output and f32 stores), the chain on the
     plain walk's residuals, dwh; each against its plain version with a
-    planted fault; kernel / plain / library times and the bound."""
+    planted fault; kernel / plain / library times and the bound. Then the
+    walk with a carry at the stream's chunk of 32 frames, B = 32 and 1."""
     from nabu_tpu_torch.ops import lstm as lo
 
     dev = torch.device("cuda")
@@ -1576,6 +1588,10 @@ def lstm_rows(torch, timed, reps) -> dict:
                             compare(torch, cT, rc, TOL["lstm_carry"], f"lstm_fwd {key} c"))
             fault = fault_reading(lstm_stale_walk(torch)(xw, lens, wh, h0, c0)[0], ry, tol,
                                   f"lstm_fwd {key}")
+            group = lo.walk_plan(B, H)[0]
+            group_fault = fault_reading(
+                lstm_stale_walk(torch, group, first=group)(xw, lens, wh, h0, c0)[0], ry, tol,
+                f"lstm_fwd {key} (unit group {group}..{2 * group - 1})")
             carry_fault = fault_reading(lstm_carry_not_held(torch)(xw, lens, wh, h0, c0)[1][1],
                                         rc, TOL["lstm_carry"], f"lstm_fwd {key} final c")
             walk_ops = 2 * valid * H * H4 + 12 * valid * H
@@ -1584,7 +1600,8 @@ def lstm_rows(torch, timed, reps) -> dict:
             row = {
                 "shape": [Tq, B, H], "dtype": tag, "valid_tokens": valid, "max_abs_err": err,
                 "tol": tol, "carry_max_abs_err": carry_err, "carry_tol": TOL["lstm_carry"],
-                "fault_max_abs_err": fault, "carry_fault_max_abs_err": carry_fault,
+                "fault_max_abs_err": fault, "group_fault_max_abs_err": group_fault,
+                "carry_fault_max_abs_err": carry_fault,
                 "ms": timed(lambda: lo.lstm_fwd(xw, lens, wh, h0, c0), reps),
                 "plain_ms": timed(lambda: lo.lstm_fwd_plain(xw, lens, wh, h0, c0),
                                   min(reps, 1)),
@@ -1593,6 +1610,12 @@ def lstm_rows(torch, timed, reps) -> dict:
                            "included; no forget bias)",
                 "bound_ms": b_ms, "bound_by": b_by,
             }
+
+            def lstm_fwd():
+                return lo.lstm_fwd(xw, lens, wh, h0, c0)
+
+            row.update(walk_fields(torch, timed, reps, lstm_fwd, (y, (hT, cT)), row["ms"], lo, 1,
+                                   Tq))
             emit({"phase": "kernels", "kernel": "lstm_fwd", "case": case, **row})
             rows[("lstm_fwd", tag, case)] = row
             del y, ry
@@ -1605,12 +1628,15 @@ def lstm_rows(torch, timed, reps) -> dict:
                         for n, a, r in zip(("gates", "c", "h"), got[1:], ref[1:]))
             fault = fault_reading(lstm_stale_walk(torch)(xw, lens, wh)[0], ref[0], tol,
                                   f"lstm_fwd_train {key}")
+            group_fault = fault_reading(
+                lstm_stale_walk(torch, group, first=group)(xw, lens, wh)[0], ref[0], tol,
+                f"lstm_fwd_train {key} (unit group {group}..{2 * group - 1})")
             b_ms, b_by = bound(es * (valid * H4 + H * H4 + M * H) + 4 * B + 4 * M * (H4 + 2 * H),
                                walk_ops, PEAK_F32)
             row = {
                 "shape": [Tq, B, H], "dtype": tag, "max_abs_err": err, "tol": tol,
                 "stores_max_abs_err": s_err, "stores_tol": TOL["lstm_stores"],
-                "fault_max_abs_err": fault,
+                "fault_max_abs_err": fault, "group_fault_max_abs_err": group_fault,
                 "ms": timed(lambda: lo.lstm_fwd_train(xw, lens, wh), reps),
                 "plain_ms": timed(lambda: lo.lstm_fwd_train_plain(xw, lens, wh), min(reps, 1)),
                 "library_ms": lib_f,
@@ -1618,6 +1644,13 @@ def lstm_rows(torch, timed, reps) -> dict:
                            "(projection included; no forget bias)",
                 "bound_ms": b_ms, "bound_by": b_by,
             }
+
+            def lstm_fwd_train():
+                return lo.lstm_fwd_train(xw, lens, wh)
+
+            row.update(walk_fields(torch, timed, reps, lstm_fwd_train, got, row["ms"], lo, 1, Tq))
+            row["step_probe"] = walk_probe(torch, timed, reps,
+                                           lambda: lo.lstm_fwd_train_probe(xw, lens, wh), Tq, Tq)
             emit({"phase": "kernels", "kernel": "lstm_fwd_train", "case": case, **row})
             rows[("lstm_fwd_train", tag, case)] = row
             del got
@@ -1724,6 +1757,56 @@ def lstm_rows(torch, timed, reps) -> dict:
                 rows[("lstm_proj", tag)] = row
                 del x, got_p, ref_p, x_cut, chunk
             del lstm, xw
+
+    # --- the stream's own shape: a 32-frame chunk with a carry, at batch
+    # 32 and 1 (serve_stream's two feeds), where the launch's set-up
+    # (staging wh) weighs most ----------------------------------------------
+    Tc = 32
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        es = 2 if tag == "bf16" else 4
+        wh = torch.as_tensor(glorot(rng, (H, H4)), device=dev).to(dtype)
+        lstm = torch.nn.LSTM(H, H).to(dev, dtype)
+        for Bc in (B, 1):
+            xw = u((Tc, Bc, H4), dtype)
+            lens = torch.full((Bc,), Tc, dtype=torch.int32, device=dev)
+            h0 = u((Bc, H), torch.float32, 0.5)
+            c0 = u((Bc, H), torch.float32, 0.5)
+            x_lib = u((Tc, Bc, H), dtype)
+            key = f"{tag} chunk B={Bc}"
+            tol = TOL[("lstm_fwd", tag)]
+            y, (hT, cT) = lo.lstm_fwd(xw, lens, wh, h0, c0)
+            ry, (rh, rc) = lo.lstm_fwd_plain(xw, lens, wh, h0, c0)
+            err = compare(torch, y, ry, tol, f"lstm_fwd {key}")
+            carry_err = max(compare(torch, hT, rh, TOL["lstm_carry"], f"lstm_fwd {key} h"),
+                            compare(torch, cT, rc, TOL["lstm_carry"], f"lstm_fwd {key} c"))
+
+            def lstm_fwd():
+                return lo.lstm_fwd(xw, lens, wh, h0, c0)
+
+            def lib_chunk():
+                with torch.no_grad():
+                    return lstm(x_lib)[0]
+
+            M = Tc * Bc
+            b_ms, b_by = bound(es * (M * H4 + H * H4 + M * H) + 4 * (Bc + 4 * Bc * H),
+                               2 * M * H * H4 + 12 * M * H, PEAK_F32)
+            row = {
+                "shape": [Tc, Bc, H], "dtype": tag, "max_abs_err": err, "tol": tol,
+                "carry_max_abs_err": carry_err, "carry_tol": TOL["lstm_carry"],
+                "ms": timed(lstm_fwd, reps),
+                "plain_ms": timed(lambda: lo.lstm_fwd_plain(xw, lens, wh, h0, c0),
+                                  min(reps, 1)),
+                "library_ms": timed(lib_chunk, reps),
+                "library": "cuDNN nn.LSTM unidirectional inference, T = 32 (projection "
+                           "included; no forget bias)",
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            row.update(walk_fields(torch, timed, reps, lstm_fwd, (y, (hT, cT)), row["ms"], lo, 1,
+                                   Tc, Bc))
+            emit({"phase": "kernels", "kernel": "lstm_fwd", "case": f"chunk B={Bc}", **row})
+            rows[("lstm_fwd", tag, f"chunk B={Bc}")] = row
+            del xw, y, ry
+        del lstm
     return rows
 
 
@@ -1800,8 +1883,10 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
                    "included)",
         "bound_ms": b_ms, "bound_by": b_by,
     }
-    row.update(walk_fields(torch, timed, reps, blstm_recur_train, got, row["ms"]))
-    row["step_probe"] = walk_probe(torch, timed, reps, xw, lens_t, wh)
+    row.update(walk_fields(torch, timed, reps, blstm_recur_train, got, row["ms"], bo, 2))
+    # its first step waits for nothing and is not counted
+    row["step_probe"] = walk_probe(torch, timed, reps,
+                                   lambda: bo.blstm_recur_train_probe(xw, lens_t, wh), T, T - 1)
     emit({"phase": "kernels", "kernel": "blstm_recur_train", **row})
     rows[("blstm_recur_train", tag)] = row
 

@@ -21,7 +21,13 @@ Port of the JAX package's ``ops/pallas/lstm.py`` (``lstm_scan_pallas`` ->
   and returns the final one, both f32. ``lstm_fwd_train`` is the same
   walk storing the backward's residuals: f32 pre-activation gates, carry
   c and carried h (the TPU stores the post-step (h, c) and recomputes the
-  gates in its backward);
+  gates in its backward). Its blocks own 16 mt rows x units
+  (``walk_plan``) and meet only their row group each step; the carried h
+  goes through an f32 exchange of its own. The step product is the f32
+  function in both types: on the FMA pipes in f32, on tensor cores in bf16
+  (h split exactly into three bf16 pieces, each product exact), summed in
+  an order set by H alone, so a row's bits depend neither on B, T nor a
+  chunk's start;
 - ``lstm_bwd_recur``: the backward's serial chain (``_bwd_kernel``'s
   per-step arithmetic), dh and dc carried in f32, dxw written in f32; its
   blocks own 16-row groups x 8 units (``chain_plan``) and meet only their
@@ -39,9 +45,9 @@ through ``x @ wx + b``, which lies outside the kernel in JAX too.
 ``core.lstm_scan`` has them.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-version only for CPU tensors. A shape beyond a kernel's design (the
-shared memory of a block, the chain's blocks on the card's SMs, see
-``check_design``) raises.
+version only for CPU tensors. A shape beyond a kernel's design (the walk's
+and the chain's blocks on the card's SMs, see ``check_design``) raises
+before any launch.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from nabu_tpu_torch.ops import kernels
 from nabu_tpu_torch.ops.blstm import (
     _PROJ,
     _TN,
+    PROBE_PARTS,
     SMEM_LIMIT,
     SMS,
     UNITS_PER_BLOCK,
@@ -69,7 +76,7 @@ _fns: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "fwd": [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P],
+    "fwd": [_P] * 13 + [_I] * 5 + [ctypes.c_float, _P],
     "bwd_recur": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
 }
 
@@ -84,7 +91,7 @@ def _launcher(kind: str, tag: str):
     return _fns[name]
 
 
-CHAIN_ROWS = 16  # rows of an m-tile of the chain; a block owns 16 mt rows
+CHAIN_ROWS = 16  # rows of an m-tile; a walk or chain block owns 16 mt rows
 CHAIN_MAX_MT = 2  # one cell pair a thread: 16 mt x 8 units <= 256 threads
 
 
@@ -107,32 +114,68 @@ def chain_plan(B: int, H: int):
     return None
 
 
+# the walk (csrc/lstm.cu): a block owns 16 mt rows x units, and each of its
+# threads runs one cell pair, two in 16 x 2 (512 pairs on 256 threads):
+# min(256, 16 mt units) threads. In f32 a half warp sums 4 rows x 4 units'
+# 4 gates over one of 16 K slices, its lanes the tile's 16 pairs; in bf16
+# 4 K groups a warp, and (256 threads) two halves of the n-tiles. The forms
+# (units, mt) in the order walk_plan tries them, the fastest first at B =
+# 32, H = 320: 8 x 1 and 8 x 2 hold every shape the chain's plan holds, 16
+# x 2 the largest inference batches (B <= 192 at H = 320)
+WALK_FORMS = ((8, 1), (16, 1), (8, 2), (16, 2))
+
+
+def walk_bytes(H: int, units: int, mt: int) -> int:
+    """Shared memory of a walk block, the larger of the two element types'
+    (``walk_bytes`` of csrc/lstm.cu): in f32 the four gate columns of wh
+    of its units, [4 units, ceil4(H) + 4] f32; in bf16 the same columns as
+    mma B fragments, ceil(H / 16) k16 steps x units / 2 n-tiles x 32 lanes
+    x 8 bytes, and the 4 K groups' partial sums [4, 16 mt, 4 units + 8]
+    f32."""
+    f32 = 16 * units * (-(-H // 4) * 4 + 4)
+    bf16 = -(-H // 16) * (units // 2) * 32 * 8 + 4 * 4 * 16 * mt * (4 * units + 8)
+    return max(f32, bf16)
+
+
+def walk_plan(B: int, H: int):
+    """-> (units, mt, blocks, shared memory bytes) of the walk: the first
+    of ``WALK_FORMS`` whose ceil(B / 16 mt) row groups x ceil(H / units)
+    unit groups fit the card one block an SM (its registers allow no more)
+    with their shared memory; None if none does. A pure function of (B,
+    H), the same in both element types, for the inference and the
+    training walk."""
+    for units, mt in WALK_FORMS:
+        blocks = -(-B // (CHAIN_ROWS * mt)) * -(-H // units)
+        need = walk_bytes(H, units, mt)
+        if blocks <= SMS and need <= SMEM_LIMIT:
+            return units, mt, blocks, need
+    return None
+
+
 def smem_bytes(B: int, H: int):
-    """-> (forward walk, backward chain) shared memory of one block, the
-    layouts of csrc/lstm.cu; the chain's is its ``chain_plan``'s (None
-    when no plan holds B and H)."""
-    kp = (H + 3) // 4 * 4
-    units = UNITS_PER_BLOCK
-    fwd = 4 * (B * (kp + 4) + kp * units * 4 + B * units)
-    plan = chain_plan(B, H)
-    return fwd, None if plan is None else plan[2]
+    """-> (forward walk, backward chain) shared memory of one block, each
+    of its plan (``walk_plan``, ``chain_plan``; None where no plan holds B
+    and H)."""
+    return tuple(None if plan is None else plan[-1]
+                 for plan in (walk_plan(B, H), chain_plan(B, H)))
 
 
-def check_design(what: str, B: int, H: int, chain: bool) -> None:
-    """Raise for a batch and width the kernels cannot hold: B rows of h
-    plus the block's slice of wh in the shared memory of one block
-    (forward), and (chain) a ``chain_plan``: row groups x unit groups
-    co-resident one an SM."""
-    fwd, bwd = smem_bytes(B, H)
-    if fwd > SMEM_LIMIT:
+def check_design(what: str, B: int, H: int, chain: bool):
+    """-> the walk's ``walk_plan``; raises for a batch and width the
+    kernels cannot hold: no walk form (16 mt rows x units a block) whose
+    row groups x unit groups are co-resident one an SM, and (chain) no
+    ``chain_plan``."""
+    plan = walk_plan(B, H)
+    if plan is None:
         raise ValueError(
-            f"{what}: B = {B}, H = {H} is beyond the kernel's design "
-            f"({fwd} bytes of shared memory a block, limit {SMEM_LIMIT})")
-    if chain and bwd is None:
+            f"{what}: B = {B}, H = {H} is beyond the kernel's design (no walk form of 16 mt "
+            f"rows x units, {WALK_FORMS}, fits the card's {SMS} SMs one block an SM)")
+    if chain and chain_plan(B, H) is None:
         raise ValueError(
             f"{what}: B = {B}, H = {H} is beyond the kernel's design (no split of "
             f"16 mt rows x {UNITS_PER_BLOCK} units, mt <= {CHAIN_MAX_MT}, fits the card's "
             f"{SMS} SMs one block an SM)")
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +244,7 @@ def lstm_walk_plain(xw, lengths, wh, h0=None, c0=None, forget_bias: float = 1.0)
     return y, (h, c), (gs, cs, hs)
 
 
-def _launch_fwd(name, xw, lengths, wh, h0, c0, forget_bias, store: bool):
+def _launch_fwd(name, xw, lengths, wh, h0, c0, forget_bias, store: bool, probe: bool = False):
     tag = _check_cuda(name, xw, xw=xw, wh=wh, lengths=lengths)
     if xw.dim() != 3:
         raise ValueError(f"{name}: xw {tuple(xw.shape)} is not [T, B, 4H]")
@@ -216,31 +259,42 @@ def _launch_fwd(name, xw, lengths, wh, h0, c0, forget_bias, store: bool):
             _check_shape(f"{name}: {what}", t, (B, H), torch.float32)
             if t.device != xw.device or not t.is_contiguous():
                 raise ValueError(f"{name}: {what} must be contiguous on {xw.device}")
-    check_design(name, B, H, chain=store)
+    units, mt, blocks, _ = check_design(name, B, H, chain=store)
     dev = xw.device
     f32 = torch.float32
-    hbuf = torch.zeros((2, B, H), dtype=f32, device=dev)
+    # the exchange of the carried h, [slot, B, ceil4(H)] (rows of whole
+    # 16-byte loads): slot 0 holds h0, the padding columns stay zero
+    hx = torch.zeros((2, B, -(-H // 4) * 4), dtype=f32, device=dev)
     if h0 is not None:
-        hbuf[0].copy_(h0)
-    c_last = torch.zeros((B, H), dtype=f32, device=dev) if c0 is None else c0.clone()
+        hx[0, :, :H].copy_(h0)
+    if T == 0:  # nothing to walk: the carry passes through
+        h_last = hx[0, :, :H].clone()
+        c_last = torch.zeros((B, H), dtype=f32, device=dev) if c0 is None else c0.clone()
+    else:
+        h_last = torch.empty((B, H), dtype=f32, device=dev)
+        c_last = torch.empty((B, H), dtype=f32, device=dev)
     y = torch.empty((T, B, H), dtype=xw.dtype, device=dev)
-    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+    # one counter a row group
+    counters = torch.zeros((-(-B // (CHAIN_ROWS * mt)),), dtype=torch.int32, device=dev)
     res = (None, None, None)
     if store:
         res = (torch.empty((T, B, H4), dtype=f32, device=dev),
                torch.empty((T, B, H), dtype=f32, device=dev),
                torch.empty((T, B, H), dtype=f32, device=dev))
+    cycles = torch.zeros((blocks, 4), dtype=torch.int64, device=dev) if probe else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         err = _launcher("fwd", tag)(
             xw.data_ptr(), lengths.data_ptr(), wh.data_ptr(), ptr(c0), y.data_ptr(),
-            hbuf.data_ptr(), c_last.data_ptr(), counter.data_ptr(),
-            ptr(res[0]), ptr(res[1]), ptr(res[2]),
-            T, B, H, UNITS_PER_BLOCK, float(forget_bias), _stream(),
+            hx.data_ptr(), h_last.data_ptr(), c_last.data_ptr(), counters.data_ptr(),
+            ptr(res[0]), ptr(res[1]), ptr(res[2]), ptr(cycles),
+            T, B, H, units, mt, float(forget_bias), _stream(),
         )
     build.check(err, name)
+    if probe:
+        return y, res, cycles
     kernels.LAUNCHES[name] += 1
-    return y, (hbuf[T % 2], c_last), res
+    return y, (h_last, c_last), res
 
 
 def lstm_fwd_plain(xw, lengths, wh, h0=None, c0=None, forget_bias: float = 1.0):
@@ -267,6 +321,20 @@ def lstm_fwd_train(xw, lengths, wh, forget_bias: float = 1.0):
     y, _, res = _launch_fwd("lstm_fwd_train", xw, lengths, wh, None, None, forget_bias,
                             store=True)
     return (y, *res)
+
+
+
+def lstm_fwd_train_probe(xw, lengths, wh, forget_bias: float = 1.0):
+    """The training walk on the card built with its step probe, for
+    measurement only (no path calls it, and it counts no launch): -> (y,
+    gates, c, h, cycles [blocks, 4] int64), each block's clock64 cycles
+    of all T steps summed by ``PROBE_PARTS``: waiting at its row group's
+    counter, pulling h_{t-1} (to its first use), the product (to the
+    gates' sums), the cell and its stores (to the next step). The probe
+    adds two block barriers a step."""
+    y, res, cycles = _launch_fwd("lstm_fwd_train_probe", xw, lengths, wh, None, None,
+                                 forget_bias, store=True, probe=True)
+    return (y, *res, cycles)
 
 
 # ---------------------------------------------------------------------------

@@ -986,6 +986,172 @@ def test_lstm_chain_repeats_its_bits(cuda_device, dtype, T, B, H):
     assert excess <= 0, excess
 
 
+def _lstm_walk_inputs(rng, device, dtype, T, B, H):
+    """The LSTM walk's inputs: xw uniform in [-1, 1], wh at the model's
+    glorot scale, an f32 carry (h0, c0) uniform in [-0.5, 0.5], ragged
+    lengths from T down with a last lane of length 0 (B > 1)."""
+    def u(*shape, scale=1.0, dt=dtype):
+        return torch.as_tensor(
+            rng.uniform(-scale, scale, shape).astype(np.float32)).to(device, dt)
+
+    lengths = _lengths(T, B)
+    if B > 1:
+        lengths[-1] = 0
+    lt = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+    xw, wh = u(T, B, 4 * H), u(H, 4 * H, scale=float(np.sqrt(6.0 / (5 * H))))
+    h0 = u(B, H, scale=0.5, dt=torch.float32)
+    c0 = u(B, H, scale=0.5, dt=torch.float32)
+    return xw, lt, wh, h0, c0
+
+
+def _lstm_walk_excess(got, ref, tag):
+    """The largest excess of the walk's outputs over chip_smoke.py's
+    tolerances: (y, final h, final c) or (y, gates, c, carried h)."""
+    tols = [_lstm_tol("y", tag)] + [_lstm_tol("carry" if len(got) == 3 else "stores", tag)] * (
+        len(got) - 1)
+    return max(float(((g.float() - r.float()).abs() - atol - rtol * r.float().abs()).max())
+               for g, r, (atol, rtol) in zip(got, ref, tols))
+
+
+def _walk_out(out):
+    """(y, (h, c)) of lstm_fwd, flattened."""
+    return (out[0], *out[1])
+
+
+# T in {1, 3, 37}: the tests' narrow layers (H = 9, 12: rows of 3 quads,
+# the last partial, a partial unit group), one row, a whole row group, a
+# group and one row, the recipes' batch and the training limit at H = 320;
+# then the inference batch of the two-pair form (16 x 2)
+LSTM_WALK_SHAPES = [(T, B, H) for T in (1, 3, 37)
+                    for B, H in ((1, 9), (17, 12), (16, 320), (32, 320), (96, 320))]
+LSTM_WALK_SHAPES += [(5, 1, 320), (9, 144, 320)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", LSTM_WALK_SHAPES)
+def test_lstm_walk_matches_plain_at_its_plans(cuda_device, dtype, T, B, H):
+    """The LSTM walk with a carry (lstm_fwd) and, where the chain's plan
+    holds the batch, its training form, at the form ``walk_plan`` picks,
+    ragged lengths with a lane of length 0: within chip_smoke.py's
+    tolerances of the plain version; a second launch gives the first one's
+    bits, and both forms give one y from a zero carry."""
+    from nabu_tpu_torch.ops import lstm as lo
+
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    plan = lo.walk_plan(B, H)
+    assert plan is not None and (plan[0], plan[1]) in lo.WALK_FORMS
+    xw, lt, wh, h0, c0 = _lstm_walk_inputs(np.random.default_rng(T + B + H), cuda_device, dtype,
+                                           T, B, H)
+    train = lo.chain_plan(B, H) is not None
+    before = kernels.launch_counts()
+    y = [_walk_out(lo.lstm_fwd(xw, lt, wh, h0, c0)) for _ in range(2)]
+    y0 = lo.lstm_fwd(xw, lt, wh)[0]
+    got = [lo.lstm_fwd_train(xw, lt, wh) for _ in range(2)] if train else []
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["lstm_fwd"] == before["lstm_fwd"] + 3
+    assert after["lstm_fwd_train"] == before["lstm_fwd_train"] + 2 * train
+    assert y[0][0].dtype == dtype and all(torch.equal(a, b) for a, b in zip(*y))
+    excess = _lstm_walk_excess(y[0], _walk_out(lo.lstm_fwd_plain(xw, lt, wh, h0, c0)), tag)
+    assert excess <= 0, (plan, excess)
+    if train:
+        assert all(torch.equal(a, b) for a, b in zip(*got))
+        assert torch.equal(got[0][0], y0)
+        excess = _lstm_walk_excess(got[0], lo.lstm_fwd_train_plain(xw, lt, wh), tag)
+        assert excess <= 0, (plan, excess)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(37, 37, 24), (29, 33, 9)])
+def test_lstm_walk_forms_give_one_result(cuda_device, monkeypatch, dtype, T, B, H):
+    """Every form of the LSTM walk (units x 16 mt rows a block), forced at
+    one shape: each within the tolerances of the plain version, all with
+    the same bits, with a carry and in the training form (a row's sums do
+    not depend on the form); H = 9 (rows of 3 quads, the last partial, a
+    partial unit group)."""
+    from nabu_tpu_torch.ops import lstm as lo
+
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    xw, lt, wh, h0, c0 = _lstm_walk_inputs(np.random.default_rng(T * B + H), cuda_device, dtype,
+                                           T, B, H)
+    ref_y = _walk_out(lo.lstm_fwd_plain(xw, lt, wh, h0, c0))
+    ref_t = lo.lstm_fwd_train_plain(xw, lt, wh)
+    outs = []
+    for units, mt in lo.WALK_FORMS:
+        blocks = -(-B // (16 * mt)) * -(-H // units)
+        form = (units, mt, blocks, lo.walk_bytes(H, units, mt))
+        monkeypatch.setattr(lo, "walk_plan", lambda *_, f=form: f)
+        outs.append((_walk_out(lo.lstm_fwd(xw, lt, wh, h0, c0)), lo.lstm_fwd_train(xw, lt, wh)))
+        for got, ref in zip(outs[-1], (ref_y, ref_t)):
+            excess = _lstm_walk_excess(got, ref, tag)
+            assert excess <= 0, (units, mt, excess)
+    assert all(torch.equal(a, b) for o in outs[1:] for i in range(2)
+               for a, b in zip(o[i], outs[0][i]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_walk_row_alone_equals_row_in_batch(cuda_device, dtype):
+    """The streaming contract: a row walked alone (B = 1, its own plan)
+    gives the same bits as inside a batch of 32 (8 x 1) or 144 (16 x 2),
+    with a carry (output, final carry) and in the training form."""
+    from nabu_tpu_torch.ops import lstm as lo
+
+    T, H = 33, 320
+    xw, lt, wh, h0, c0 = _lstm_walk_inputs(np.random.default_rng(31), cuda_device, dtype,
+                                           T, 144, H)
+    full = {B: (_walk_out(lo.lstm_fwd(xw[:, :B].contiguous(), lt[:B].contiguous(), wh,
+                                      h0[:B].contiguous(), c0[:B].contiguous())),
+                lo.lstm_fwd_train(xw[:, :32].contiguous(), lt[:32].contiguous(), wh))
+            for B in (32, 144)}
+    for b in (0, 5, 17, 31):
+        one = lambda t: t[:, b:b + 1].contiguous()  # noqa: E731
+        alone = _walk_out(lo.lstm_fwd(one(xw), lt[b:b + 1].contiguous(), wh,
+                                      h0[b:b + 1].contiguous(), c0[b:b + 1].contiguous()))
+        for B in (32, 144):
+            y, hT, cT = full[B][0]
+            assert torch.equal(alone[0], y[:, b:b + 1]), (b, B)
+            assert torch.equal(alone[1], hT[b:b + 1]) and torch.equal(alone[2], cT[b:b + 1])
+        train = lo.lstm_fwd_train(one(xw), lt[b:b + 1].contiguous(), wh)
+        assert all(torch.equal(a, one(r)) for a, r in zip(train, full[32][1])), b
+
+
+@pytest.mark.parametrize("B,H,train", [(193, 320, False), (33, 1024, False), (97, 320, True)])
+def test_lstm_walk_rejects_shapes_beyond_its_plan(cuda_device, B, H, train):
+    """A batch past the walk's limits (192 at H = 320, 32 at 1024) raises
+    before any launch, and so does the training form past the chain's (96
+    at H = 320)."""
+    from nabu_tpu_torch.ops import lstm as lo
+
+    xw, lt, wh, h0, c0 = _lstm_walk_inputs(np.random.default_rng(3), cuda_device,
+                                           torch.bfloat16, 3, B, H)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="beyond the kernel's design"):
+        if train:
+            lo.lstm_fwd_train(xw, lt, wh)
+        else:
+            lo.lstm_fwd(xw, lt, wh, h0, c0)
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_walk_probe_keeps_the_walks_bits(cuda_device, dtype):
+    """The step probe's build of the training walk gives the walk's bits,
+    counts no launch, and sums positive cycles of every part in every
+    block (T = 9, B = 32, H = 320: the plan's 80 blocks)."""
+    from nabu_tpu_torch.ops import lstm as lo
+
+    xw, lt, wh, _, _ = _lstm_walk_inputs(np.random.default_rng(5), cuda_device, dtype,
+                                         9, 32, 320)
+    want = lo.lstm_fwd_train(xw, lt, wh)
+    before = kernels.launch_counts()
+    *got, cycles = lo.lstm_fwd_train_probe(xw, lt, wh)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tuple(cycles.shape) == (lo.walk_plan(32, 320)[2], len(lo.PROBE_PARTS))
+    assert bool((cycles > 0).all()), cycles
+
+
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 def test_lstm_layer_gradients_on_card_match_cpu(cuda_device, monkeypatch, dtype, rtol):
     """lstm_scan_kernel with a gradient (x @ wx + b, then LSTMLayer) on the

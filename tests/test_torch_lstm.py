@@ -13,7 +13,8 @@ its kernel wrappers take for CPU tensors:
 - ``LSTMLayer``'s gradients (dx, dwx, dwh, db) against ``jax.grad`` through
   ``lstm_scan_pallas``, rtol 1e-4;
 - the chain's dxw and ``dwh`` against the custom VJP of ``lstm_seq_pallas``;
-- the design limit of the kernels' shared memory.
+- the walk's and the chain's plans (forms of 16 mt rows x units a block
+  on the card's SMs) and the limits they set.
 """
 
 import jax
@@ -191,19 +192,85 @@ def test_projection_is_the_compute_type_sum():
 
 
 def test_design_limits():
-    """The recipes' shapes fit a block's shared memory and the chain's
-    row groups fit the card; a batch whose chain blocks do not raises
+    """The recipes' shapes fit the walk's and the chain's plans, their
+    blocks co-resident on the card's SMs; a batch beyond either plan raises
     before any launch."""
     fwd, chain = lo.smem_bytes(32, 320)
-    # the chain: wh rows of 8 units [8, 1280] f32 and 8 warps' partials [8, 32]
-    assert fwd == 83456 and chain == 4 * (8 * 1280 + 8 * 32) and chain <= lo.SMEM_LIMIT
+    # the walk (8 units x 16 rows): wh's gate columns of 8 units [32, 320 + 4]
+    # f32; the chain: wh rows of 8 units [8, 1280] f32 and 8 warps' partials
+    # [8, 32]
+    assert fwd == 4 * 32 * 324 and chain == 4 * (8 * 1280 + 8 * 32) and chain <= lo.SMEM_LIMIT
     lo.check_design("lstm_fwd_train", 32, 320, chain=True)
-    lo.check_design("lstm_fwd", 64, 320, chain=False)  # inference holds B = 64
-    lo.check_design("lstm_fwd_train", 96, 320, chain=True)  # 3 groups of 32 rows x 40
+    lo.check_design("lstm_fwd", 64, 320, chain=False)  # inference holds B = 64 (16 x 1)
+    lo.check_design("lstm_fwd", 144, 320, chain=False)  # and B = 144 (16 x 2, two pairs a thread)
+    lo.check_design("lstm_fwd_train", 96, 320, chain=True)  # 6 groups of 16 rows x 20 of 16
     with pytest.raises(ValueError, match="beyond the kernel's design"):
         lo.check_design("lstm_bwd_recur", 97, 320, chain=True)
     with pytest.raises(ValueError, match="beyond the kernel's design"):
-        lo.check_design("lstm_fwd", 32, 1024, chain=False)
+        lo.check_design("lstm_fwd", 33, 1024, chain=False)
+
+
+@pytest.mark.parametrize("B, H, plan", [
+    # the recipes' batch (the streaming encoder's layers and the prediction
+    # net of both RNN-T recipes, 320 units): 2 row groups of 16 x 40 unit
+    # groups of 8, 128 threads a block
+    (32, 320, (8, 1, 80, 4 * 32 * 324)),
+    (1, 320, (8, 1, 40, 4 * 32 * 324)),  # the streamed feed at batch 1
+    (4, 320, (8, 1, 40, 4 * 32 * 324)),  # serve(streaming=True) on 4
+    (48, 320, (8, 1, 120, 4 * 32 * 324)),
+    (64, 320, (16, 1, 80, 4 * 64 * 324)),  # 4 groups of 8 units would be 160 blocks
+    (96, 320, (16, 1, 120, 4 * 64 * 324)),
+    (144, 320, (16, 2, 100, 4 * 64 * 324)),
+    (192, 320, (16, 2, 120, 4 * 64 * 324)),
+    (32, 1024, (8, 2, 128, 4 * 32 * 1028)),  # 16 x 2's 263 KB is over the limit
+    # narrow layers: the bf16 layout's K groups' partial sums set the bytes
+    (1, 9, (8, 1, 2, 256 * 4 + 4 * 4 * 16 * 40)),
+    (4, 12, (8, 1, 2, 256 * 4 + 4 * 4 * 16 * 40)),
+    (1100, 12, (16, 1, 69, 256 * 8 + 4 * 4 * 16 * 72)),
+    (193, 320, None),
+    (33, 1024, None),
+])
+def test_walk_plan(B, H, plan):
+    assert lo.walk_plan(B, H) == plan
+
+
+@pytest.mark.parametrize("units, mt", lo.WALK_FORMS)
+def test_walk_forms_fill_a_block(units, mt):
+    """A half warp sums a tile of 4 rows x 4 units and each of its lanes
+    runs one cell pair of it: every form is whole tiles on whole warps,
+    one or two pairs a thread, at most 256 threads."""
+    pairs = 16 * mt * units
+    threads = min(256, pairs)  # csrc/lstm.cu's WalkForm
+    assert units % 4 == 0 and threads % 32 == 0 and threads <= 256
+    assert pairs % threads == 0 and pairs // threads in (1, 2)
+    assert lo.walk_bytes(320, units, mt) <= lo.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("H", [9, 12, 16, 24, 64, 320])
+def test_walk_plan_holds_every_chain_shape(H):
+    """Every batch up to 96 that the chain's plan holds at the widths the
+    tests and recipes use, the walk's plan holds too: its blocks fit the
+    card one an SM with their shared memory, and smem_bytes reports it."""
+    held = 0
+    for B in range(1, 97):
+        if lo.chain_plan(B, H) is None:
+            continue
+        units, mt, blocks, smem = lo.check_design("lstm_fwd_train", B, H, chain=True)
+        assert (units, mt) in lo.WALK_FORMS
+        assert blocks == -(-B // (16 * mt)) * -(-H // units) and blocks <= lo.SMS
+        assert smem == lo.walk_bytes(H, units, mt) <= lo.SMEM_LIMIT
+        assert lo.smem_bytes(B, H)[0] == smem
+        held += 1
+    assert held == 96
+
+
+@pytest.mark.parametrize("B, H", [(193, 320), (33, 1024), (32, 2048), (4300, 9)])
+def test_walk_beyond_its_plan_raises(B, H):
+    """One batch past the walk's limits (192 at H = 320, 32 at 1024; at
+    2048 no form's shared memory fits): raises with the design message."""
+    assert lo.walk_plan(B, H) is None and lo.smem_bytes(B, H)[0] is None
+    with pytest.raises(ValueError, match=r"beyond the kernel's design \(no walk form"):
+        lo.check_design("lstm_fwd", B, H, chain=False)
 
 
 @pytest.mark.parametrize("B, H, plan", [
