@@ -514,15 +514,15 @@ def gemm_variants(phase: str) -> dict:
     return counts
 
 
-def walk_fields(torch, timed, reps, fn, first, ms, ops, dirs, Tq=T, Bq=B) -> dict:
+def walk_fields(torch, timed, reps, fn, first, ms, ops, Tq=T, Bq=B) -> dict:
     """A walk row's extra readings (Tq steps, Bq rows, H = 320) for the
-    v2 walk (``ops`` = ``ops.blstm``, two directions) or the LSTM walk
-    (``ops.lstm``, one): the split it ran (``ops.walk_plan``), whether a
-    second launch gives the first one's bits, its µs a step and, timed,
-    the µs a step of every form of the walk whose blocks fit the card
-    (``us_per_step_by_split``), the same launch each, with whether their
-    bits equal the plan's (a differing second launch or form fails the
-    run)."""
+    v2 walk (``ops`` = ``ops.blstm``) or the LSTM walk (``ops.lstm``): the
+    split it ran (``ops.walk_plan``), whether a second launch gives the
+    first one's bits, its µs a step and, timed, the µs a step of every
+    form of the walk whose blocks fit the card (``ops.walk_plan`` of that
+    form alone; ``us_per_step_by_split``), the same launch each, with
+    whether their bits equal the plan's (a differing second launch or form
+    fails the run)."""
     def flat(out):
         out = out if isinstance(out, tuple) else (out,)
         return [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
@@ -538,11 +538,10 @@ def walk_fields(torch, timed, reps, fn, first, ms, ops, dirs, Tq=T, Bq=B) -> dic
     if reps:
         by_split, bits = {}, True
         for units, mt in ops.WALK_FORMS:
-            blocks = dirs * -(-Bq // (16 * mt)) * -(-H // units)
-            if blocks > ops.SMS:
+            plan = ops.walk_plan(Bq, H, ((units, mt),))
+            if plan is None:
                 continue
-            form = (units, mt, blocks, ops.walk_bytes(H, units, mt))
-            with swapped(ops, "walk_plan", lambda *_, f=form: f):
+            with swapped(ops, "walk_plan", lambda *_, f=plan: f):
                 by_split[f"{16 * mt}x{units}"] = 1e3 * timed(fn, reps) / Tq
                 bits &= same(first, fn())
         fields["us_per_step_by_split"] = by_split
@@ -1286,7 +1285,7 @@ def phase_kernels(torch, quick: bool) -> dict:
             "cudnn_layer_max_abs_err": cudnn_err,
             "bound_ms": b_ms, "bound_by": b_by,
         }
-        row.update(walk_fields(torch, timed, reps, blstm_recur, got_r, row["ms"], blstm_ops, 2))
+        row.update(walk_fields(torch, timed, reps, blstm_recur, got_r, row["ms"], blstm_ops))
         emit({"phase": "kernels", "kernel": "blstm_recur", **row})
         rows[("blstm_recur", tag)] = row
         rows.update(training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm,
@@ -1539,6 +1538,15 @@ def lstm_rows(torch, timed, reps) -> dict:
         return torch.as_tensor(rng.uniform(-scale, scale, shape).astype(np.float32),
                                device=dev).to(dtype)
 
+    def walk_bound(bytes_, valid, tag):
+        # the step product on the pipe the walk runs it on: f32 FFMA, or in
+        # bf16 three mma.sync passes over the exact split of h beside the
+        # f32 cell
+        prod, cell = 2 * valid * H * H4, 12 * valid * H
+        if tag == "bf16":
+            return bound(bytes_, 3 * prod, PEAK_BF16, (cell, PEAK_F32))
+        return bound(bytes_, prod + cell, PEAK_F32)
+
     for case, Tq in (("encoder", T), ("pred", 121)):
         lengths = rng.integers(max(2, Tq // 8), Tq + 1, B).astype(np.int32)
         lengths[0] = Tq
@@ -1594,9 +1602,8 @@ def lstm_rows(torch, timed, reps) -> dict:
                 f"lstm_fwd {key} (unit group {group}..{2 * group - 1})")
             carry_fault = fault_reading(lstm_carry_not_held(torch)(xw, lens, wh, h0, c0)[1][1],
                                         rc, TOL["lstm_carry"], f"lstm_fwd {key} final c")
-            walk_ops = 2 * valid * H * H4 + 12 * valid * H
-            b_ms, b_by = bound(es * (valid * H4 + H * H4 + M * H) + 4 * (B + 4 * B * H),
-                               walk_ops, PEAK_F32)
+            b_ms, b_by = walk_bound(es * (valid * H4 + H * H4 + M * H) + 4 * (B + 4 * B * H),
+                                    valid, tag)
             row = {
                 "shape": [Tq, B, H], "dtype": tag, "valid_tokens": valid, "max_abs_err": err,
                 "tol": tol, "carry_max_abs_err": carry_err, "carry_tol": TOL["lstm_carry"],
@@ -1614,7 +1621,7 @@ def lstm_rows(torch, timed, reps) -> dict:
             def lstm_fwd():
                 return lo.lstm_fwd(xw, lens, wh, h0, c0)
 
-            row.update(walk_fields(torch, timed, reps, lstm_fwd, (y, (hT, cT)), row["ms"], lo, 1,
+            row.update(walk_fields(torch, timed, reps, lstm_fwd, (y, (hT, cT)), row["ms"], lo,
                                    Tq))
             emit({"phase": "kernels", "kernel": "lstm_fwd", "case": case, **row})
             rows[("lstm_fwd", tag, case)] = row
@@ -1631,8 +1638,8 @@ def lstm_rows(torch, timed, reps) -> dict:
             group_fault = fault_reading(
                 lstm_stale_walk(torch, group, first=group)(xw, lens, wh)[0], ref[0], tol,
                 f"lstm_fwd_train {key} (unit group {group}..{2 * group - 1})")
-            b_ms, b_by = bound(es * (valid * H4 + H * H4 + M * H) + 4 * B + 4 * M * (H4 + 2 * H),
-                               walk_ops, PEAK_F32)
+            b_ms, b_by = walk_bound(
+                es * (valid * H4 + H * H4 + M * H) + 4 * B + 4 * M * (H4 + 2 * H), valid, tag)
             row = {
                 "shape": [Tq, B, H], "dtype": tag, "max_abs_err": err, "tol": tol,
                 "stores_max_abs_err": s_err, "stores_tol": TOL["lstm_stores"],
@@ -1648,7 +1655,7 @@ def lstm_rows(torch, timed, reps) -> dict:
             def lstm_fwd_train():
                 return lo.lstm_fwd_train(xw, lens, wh)
 
-            row.update(walk_fields(torch, timed, reps, lstm_fwd_train, got, row["ms"], lo, 1, Tq))
+            row.update(walk_fields(torch, timed, reps, lstm_fwd_train, got, row["ms"], lo, Tq))
             row["step_probe"] = walk_probe(torch, timed, reps,
                                            lambda: lo.lstm_fwd_train_probe(xw, lens, wh), Tq, Tq)
             emit({"phase": "kernels", "kernel": "lstm_fwd_train", "case": case, **row})
@@ -1760,25 +1767,51 @@ def lstm_rows(torch, timed, reps) -> dict:
 
     # --- the stream's own shape: a 32-frame chunk with a carry, at batch
     # 32 and 1 (serve_stream's two feeds), where the launch's set-up
-    # (staging wh) weighs most ----------------------------------------------
+    # (staging wh) weighs most; each with the walk's planted faults --------
     Tc = 32
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         es = 2 if tag == "bf16" else 4
+        tol = TOL[("lstm_fwd", tag)]
         wh = torch.as_tensor(glorot(rng, (H, H4)), device=dev).to(dtype)
         lstm = torch.nn.LSTM(H, H).to(dev, dtype)
         for Bc in (B, 1):
             xw = u((Tc, Bc, H4), dtype)
-            lens = torch.full((Bc,), Tc, dtype=torch.int32, device=dev)
             h0 = u((Bc, H), torch.float32, 0.5)
             c0 = u((Bc, H), torch.float32, 0.5)
             x_lib = u((Tc, Bc, H), dtype)
+            # streamed lanes at batch 32: one ends inside the chunk, one
+            # ended before it (its length clamped to 0, its carry held)
+            lengths = np.full((Bc,), Tc, np.int32)
+            if Bc > 1:
+                lengths[1], lengths[2] = rng.integers(1, Tc), 0
+            lens = torch.as_tensor(lengths, device=dev)
+            valid = int(lengths.sum())
             key = f"{tag} chunk B={Bc}"
-            tol = TOL[("lstm_fwd", tag)]
             y, (hT, cT) = lo.lstm_fwd(xw, lens, wh, h0, c0)
             ry, (rh, rc) = lo.lstm_fwd_plain(xw, lens, wh, h0, c0)
             err = compare(torch, y, ry, tol, f"lstm_fwd {key}")
             carry_err = max(compare(torch, hT, rh, TOL["lstm_carry"], f"lstm_fwd {key} h"),
                             compare(torch, cT, rc, TOL["lstm_carry"], f"lstm_fwd {key} c"))
+            fault = fault_reading(lstm_stale_walk(torch)(xw, lens, wh, h0, c0)[0], ry, tol,
+                                  f"lstm_fwd {key}")
+            group = lo.walk_plan(Bc, H)[0]
+            group_fault = fault_reading(
+                lstm_stale_walk(torch, group, first=group)(xw, lens, wh, h0, c0)[0], ry, tol,
+                f"lstm_fwd {key} (unit group {group}..{2 * group - 1})")
+            # the lone lane of batch 1 runs the whole chunk, and again as a
+            # stream's last chunk, which ends inside it
+            short = lens
+            if Bc == 1:
+                short = torch.full((1,), int(rng.integers(1, Tc)), dtype=torch.int32, device=dev)
+                sy, (sh, sc) = lo.lstm_fwd(xw, short, wh, h0, c0)
+                rsy, (rsh, rc) = lo.lstm_fwd_plain(xw, short, wh, h0, c0)
+                err = max(err, compare(torch, sy, rsy, tol, f"lstm_fwd {key} last"))
+                carry_err = max(
+                    carry_err,
+                    compare(torch, sh, rsh, TOL["lstm_carry"], f"lstm_fwd {key} last h"),
+                    compare(torch, sc, rc, TOL["lstm_carry"], f"lstm_fwd {key} last c"))
+            carry_fault = fault_reading(lstm_carry_not_held(torch)(xw, short, wh, h0, c0)[1][1],
+                                        rc, TOL["lstm_carry"], f"lstm_fwd {key} final c")
 
             def lstm_fwd():
                 return lo.lstm_fwd(xw, lens, wh, h0, c0)
@@ -1788,11 +1821,14 @@ def lstm_rows(torch, timed, reps) -> dict:
                     return lstm(x_lib)[0]
 
             M = Tc * Bc
-            b_ms, b_by = bound(es * (M * H4 + H * H4 + M * H) + 4 * (Bc + 4 * Bc * H),
-                               2 * M * H * H4 + 12 * M * H, PEAK_F32)
+            b_ms, b_by = walk_bound(es * (valid * H4 + H * H4 + M * H) + 4 * (Bc + 4 * Bc * H),
+                                    valid, tag)
             row = {
-                "shape": [Tc, Bc, H], "dtype": tag, "max_abs_err": err, "tol": tol,
+                "shape": [Tc, Bc, H], "dtype": tag, "lengths": lengths.tolist(),
+                "short_length": int(short[-1] if Bc == 1 else lengths[1]), "max_abs_err": err, "tol": tol,
                 "carry_max_abs_err": carry_err, "carry_tol": TOL["lstm_carry"],
+                "fault_max_abs_err": fault, "group_fault_max_abs_err": group_fault,
+                "carry_fault_max_abs_err": carry_fault,
                 "ms": timed(lstm_fwd, reps),
                 "plain_ms": timed(lambda: lo.lstm_fwd_plain(xw, lens, wh, h0, c0),
                                   min(reps, 1)),
@@ -1801,7 +1837,7 @@ def lstm_rows(torch, timed, reps) -> dict:
                            "included; no forget bias)",
                 "bound_ms": b_ms, "bound_by": b_by,
             }
-            row.update(walk_fields(torch, timed, reps, lstm_fwd, (y, (hT, cT)), row["ms"], lo, 1,
+            row.update(walk_fields(torch, timed, reps, lstm_fwd, (y, (hT, cT)), row["ms"], lo,
                                    Tc, Bc))
             emit({"phase": "kernels", "kernel": "lstm_fwd", "case": f"chunk B={Bc}", **row})
             rows[("lstm_fwd", tag, f"chunk B={Bc}")] = row
@@ -1883,7 +1919,7 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
                    "included)",
         "bound_ms": b_ms, "bound_by": b_by,
     }
-    row.update(walk_fields(torch, timed, reps, blstm_recur_train, got, row["ms"], bo, 2))
+    row.update(walk_fields(torch, timed, reps, blstm_recur_train, got, row["ms"], bo))
     # its first step waits for nothing and is not counted
     row["step_probe"] = walk_probe(torch, timed, reps,
                                    lambda: bo.blstm_recur_train_probe(xw, lens_t, wh), T, T - 1)
@@ -1926,10 +1962,9 @@ def training_kernel_rows(torch, rng, tag, dtype, xw, lengths, wh, lstm, packed, 
         # the rows' sums do not depend on the form, so neither do the bits
         by_split, bits = {}, True
         for units, mt in bo.CHAIN_FORMS:
-            blocks = 2 * -(-B // (16 * mt)) * -(-H // units)
-            if mt * units != plan[0] * plan[1] or blocks > bo.SMS:
+            form = bo.chain_plan(B, H, ((units, mt),))
+            if mt * units != plan[0] * plan[1] or form is None:
                 continue
-            form = (units, mt, blocks, bo.chain_bytes(H, units, mt))
             with swapped(bo, "chain_plan", lambda *_, f=form: f):
                 by_split[f"{16 * mt}x{units}"] = 1e3 * timed(
                     lambda: bo.blstm_bwd_recur(gates, c, gy, lens_t, wh), reps) / T

@@ -134,14 +134,14 @@ def chain_bytes(H: int, units: int, mt: int) -> int:
     return 4 * (units * 4 * H + 8 * 4 * units * mt)
 
 
-def _first_form(B: int, H: int, forms, smem):
+def _first_form(B: int, H: int, forms, smem, dirs: int = 2):
     """-> (units, mt, blocks, shared memory bytes) of the first of
     ``forms`` (units x 16 mt rows a block, ``smem(units, mt)`` bytes) whose
-    2 ceil(B / 16 mt) ceil(H / units) blocks fit the card one an SM (the
-    serial kernels' registers allow no more) with their shared memory;
-    None if none does."""
+    dirs ceil(B / 16 mt) ceil(H / units) blocks fit the card one an SM
+    (the serial kernels' registers allow no more) with their shared
+    memory; None if none does."""
     for units, mt in forms:
-        blocks = 2 * -(-B // (CHAIN_ROWS * mt)) * -(-H // units)
+        blocks = dirs * -(-B // (CHAIN_ROWS * mt)) * -(-H // units)
         need = smem(units, mt)
         if blocks <= SMS and need <= SMEM_LIMIT:
             return units, mt, blocks, need
@@ -157,11 +157,11 @@ def _check_plan(what: str, kernel: str, B: int, H: int, plan, forms):
     return plan
 
 
-def chain_plan(B: int, H: int):
+def chain_plan(B: int, H: int, forms=CHAIN_FORMS):
     """-> (units, mt, blocks, shared memory bytes) of the chain: the first
-    of ``CHAIN_FORMS`` that fits (``_first_form``). A pure function of
-    (B, H), the same in both element types."""
-    return _first_form(B, H, CHAIN_FORMS, lambda units, mt: chain_bytes(H, units, mt))
+    of ``forms`` that fits (``_first_form``). A pure function of (B, H),
+    the same in both element types."""
+    return _first_form(B, H, forms, lambda units, mt: chain_bytes(H, units, mt))
 
 
 def check_chain_design(what: str, B: int, H: int):
@@ -188,14 +188,14 @@ def walk_bytes(H: int, units: int, mt: int) -> int:
     return max(f32, bf16)
 
 
-def walk_plan(B: int, H: int):
+def walk_plan(B: int, H: int, forms=WALK_FORMS):
     """-> (units, mt, blocks, shared memory bytes) of the walk: the first
-    of ``WALK_FORMS`` that fits (``_first_form``). A pure function of (B,
+    of ``forms`` that fits (``_first_form``). A pure function of (B,
     H), the same in both element types. It holds every (B, H)
     ``chain_plan`` holds: at the same units its blocks are as many, 8 x 2
     has no more blocks than 8 x 1, and its shared memory fits wherever the
     chain's does."""
-    return _first_form(B, H, WALK_FORMS, lambda units, mt: walk_bytes(H, units, mt))
+    return _first_form(B, H, forms, lambda units, mt: walk_bytes(H, units, mt))
 
 
 def check_walk_design(what: str, B: int, H: int):

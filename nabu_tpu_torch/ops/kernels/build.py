@@ -3,8 +3,9 @@
 Each source in ``csrc/`` becomes one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), compiled for
 Hopper (``sm_90a``) into ``_build/`` (git-ignored). The library's file
-name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded. Wrappers pass pointers from
+name carries a hash of its source, the headers of ``csrc/`` and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. Wrappers pass pointers from
 ``tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``.
 
@@ -53,7 +54,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 

@@ -193,47 +193,20 @@
 // element type, as in the TPU kernel.
 
 #include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
 
 #include <algorithm>
 #include <type_traits>
 
+#include "serial.cuh"
+
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
 
 // cast(cast(acc) + b): the bias is added in the compute type
 template <typename T>
 __device__ __forceinline__ T bias_epilogue(float acc, T b) {
   return from_f<T>(to_f(from_f<T>(acc)) + to_f(b));
 }
-
-__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
-  unsigned int v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// the arrival at a counter: a release add at gpu scope (after a block
-// barrier, it orders the block's earlier stores before the count)
-__device__ __forceinline__ void red_release(unsigned int* p) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" : : "l"(p) : "memory");
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
 // 16 bytes of T -> floats
 __device__ __forceinline__ void unpack16(const uint4& r, float* dst, float) {
@@ -1441,41 +1414,6 @@ int launch_gemm_ffma(const void* const* a, const void* const* b, int lda, int ld
 constexpr int R_THREADS = 256;
 constexpr int CH_ROWS = 16;  // rows of an m-tile; a block owns 16 MT rows
 
-// co-residency check shared by the cooperative launches
-template <typename K>
-cudaError_t check_coresident(K kernel, int blocks, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, R_THREADS, smem)) !=
-      cudaSuccess)
-    return err;
-  if (blocks > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
-  return cudaSuccess;
-}
-
-// one round of a warp's reduce-scatter over N values a lane: after the
-// round of offset O the lane keeps the half of v selected by lane & O,
-// added to its partner's copy; from O = 16, five rounds leave lane l the
-// sums over the warp of v[l N / 32 + k], k < N / 32, in a fixed order;
-// from O = 8, four rounds leave lane l the sums over its half warp of
-// v[(l % 16) N / 16 + k], k < N / 16
-template <int N, int O>
-__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
-  const bool upper = lane & O;
-#pragma unroll
-  for (int k = 0; k < N / 2; ++k) {
-    const float send = upper ? v[k] : v[k + N / 2];
-    const float keep = upper ? v[k + N / 2] : v[k];
-    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-  }
-  if constexpr (O > 1) reduce_scatter<N / 2, O / 2>(v, lane);
-}
-
 // four consecutive values of an exchanged row as loaded: 8 bytes of bf16,
 // 16 of f32; widened to f32 where they are used
 template <typename T>
@@ -1511,26 +1449,6 @@ __host__ __device__ inline size_t walk_bytes(int H, int U, int MT) {
   if (sizeof(T) == 4) return sizeof(float) * 4 * (size_t)U * ((H + 3) / 4 * 4);
   return (size_t)walk_chunks(H) * (U / 2) * 32 * sizeof(uint4) +
          sizeof(float) * W_WARPS * CH_ROWS * MT * walk_pst(U);
-}
-
-__device__ __forceinline__ void mma_16816(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// the probe's stamp: the cycles since the last one, added to spent[part]
-template <bool PROBE>
-__device__ __forceinline__ void probe_stamp(unsigned long long* spent, int part,
-                                            unsigned long long& stamp) {
-  if constexpr (PROBE) {
-    const unsigned long long now = clock64();
-    spent[part] += now - stamp;
-    stamp = now;
-  }
 }
 
 // bf16: wh's gate columns of the block's units j0 + [0, U) in the order the
@@ -1885,7 +1803,7 @@ int launch_recur_form(const T* xw, const int* lengths, const T* wh, T* y, T* hx,
   const int blocks = 2 * RG * GU;
   const size_t smem = walk_bytes<T>(H, U, MT);
   auto kernel = blstm_recur_kernel<T, STORE, U, MT, PROBE>;
-  cudaError_t err = check_coresident(kernel, blocks, smem);
+  cudaError_t err = check_coresident(kernel, blocks, R_THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&xw, (void*)&lengths, (void*)&wh,     (void*)&y,  (void*)&hx,
                   (void*)&counters, (void*)&c_out, (void*)&g_out, (void*)&probe,
@@ -2139,7 +2057,7 @@ int launch_bwd_recur_form(const float* gates, const float* cst, const T* gy, con
   const int blocks = 2 * RG * GU;
   const size_t smem = chain_bytes(H, U, MT);
   auto kernel = blstm_bwd_recur_kernel<T, U, MT>;
-  cudaError_t err = check_coresident(kernel, blocks, smem);
+  cudaError_t err = check_coresident(kernel, blocks, R_THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&gates, (void*)&cst, (void*)&gy, (void*)&lengths, (void*)&wh,
                   (void*)&dg,    (void*)&counters, (void*)&Tn, (void*)&B, (void*)&H,

@@ -87,13 +87,9 @@
 // Element types: __nv_bfloat16 (the training and serving path) and float
 // (to check the card tightly).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "serial.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;
 constexpr int HS = 8;      // hidden units a block owns
@@ -101,29 +97,11 @@ constexpr int PAIRS = 4;   // (b, unit) pairs a thread at most: B <= PAIRS * THR
 constexpr int RSTEP = THREADS / HS;  // rows between one thread's pairs
 constexpr int WKT = 128;   // walk: columns of h in one K tile
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
-
 // loads that bypass L1 (rewritten by other blocks during the launch)
 __device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ bf16 load_cg(const bf16* p) {
   return __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p)));
 }
-
-__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
-  unsigned int v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
 // 16 bytes of T -> floats
 __device__ __forceinline__ void unpack16(const uint4& r, float* dst, float) {
@@ -399,15 +377,6 @@ inline size_t chain_bytes(float, int MT, int H) {
   const size_t R = (size_t)MROWS * MT;
   return sizeof(float) * ((size_t)Chain<float>::U * chain_wld(H) + WARPS * R * STAGE_LD +
                           WARPS * R * Chain<float>::PST);
-}
-
-__device__ __forceinline__ void mma_16816(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // 8 consecutive bf16 of an exchanged row from L2, zeros past n; one
@@ -728,22 +697,6 @@ __global__ void __launch_bounds__(THREADS, 1) v1_chain_kernel(
 // launches
 // ---------------------------------------------------------------------------
 
-template <typename K>
-cudaError_t check_coresident(K kernel, int blocks, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
-      cudaSuccess)
-    return err;
-  if (blocks > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
-  return cudaSuccess;
-}
-
 bool within_design(int B, int H) { return B > 0 && H > 0 && B * HS <= PAIRS * THREADS; }
 
 template <typename T, bool STORE>
@@ -755,7 +708,7 @@ int launch_walk(const T* xw, const int* lengths, const T* wh, T* y, T* hx,
   const size_t smem = sizeof(float) * walk_floats(B, H);
   auto kernel = v1_walk_kernel<T, STORE>;
   int G = (H + HS - 1) / HS;
-  cudaError_t err = check_coresident(kernel, 2 * G, smem);
+  cudaError_t err = check_coresident(kernel, 2 * G, THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&xw, (void*)&lengths, (void*)&wh, (void*)&y, (void*)&hx,
                   (void*)&counters, (void*)&c_out, (void*)&Tn, (void*)&B, (void*)&H,
@@ -774,7 +727,7 @@ int launch_chain_mt(const float* gates, const float* cst, const T* gy, const int
   int GU = (H + Chain<T>::U - 1) / Chain<T>::U;
   const size_t smem = chain_bytes(T(), MT, H);
   auto kernel = v1_chain_kernel<T, MT>;
-  cudaError_t err = check_coresident(kernel, 2 * NRG * GU, smem);
+  cudaError_t err = check_coresident(kernel, 2 * NRG * GU, THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&gates, (void*)&cst, (void*)&gy, (void*)&lengths, (void*)&wh,
                   (void*)&dg, (void*)&counters, (void*)&Tn, (void*)&B, (void*)&H,

@@ -101,75 +101,12 @@
 // 192 at H = 320, by 16 x 2); chain 4 (8 x 4H + 8 x 32 MT) bytes (42 KB at
 // H = 320) with ceil(B / 16 MT) ceil(H / 8) blocks (B <= 96 at H = 320).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "serial.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
-
-__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
-  unsigned int v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// the arrival at a counter: a release add at gpu scope (after a block
-// barrier, it orders the block's earlier stores before the count)
-__device__ __forceinline__ void red_release(unsigned int* p) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" : : "l"(p) : "memory");
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
-
 constexpr int THREADS = 256;
 constexpr int CH_ROWS = 16;  // rows of an m-tile; a block owns 16 MT rows
-
-// one round of a warp's reduce-scatter over N values a lane: after the
-// round of offset O the lane keeps the half of v selected by lane & O,
-// added to its partner's copy; from O = 16, five rounds leave lane l the
-// sums over the warp of v[l N / 32 + k], k < N / 32, in a fixed order;
-// from O = 8, four rounds leave lane l the sums over its half warp of
-// v[(l % 16) N / 16 + k], k < N / 16
-template <int N, int O>
-__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
-  const bool upper = lane & O;
-#pragma unroll
-  for (int k = 0; k < N / 2; ++k) {
-    const float send = upper ? v[k] : v[k + N / 2];
-    const float keep = upper ? v[k + N / 2] : v[k];
-    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-  }
-  if constexpr (O > 1) reduce_scatter<N / 2, O / 2>(v, lane);
-}
-
-// co-residency check of a cooperative launch of `blocks` blocks
-template <typename K>
-cudaError_t check_coresident(K kernel, int blocks, int threads, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
-      cudaSuccess)
-    return err;
-  if (blocks > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
-  return cudaSuccess;
-}
 
 // ---------------------------------------------------------------------------
 // forward walk
@@ -229,17 +166,6 @@ struct WalkArgs {
   float forget_bias;
 };
 
-// the probe's stamp: the cycles since the last one, added to spent[part]
-template <bool PROBE>
-__device__ __forceinline__ void probe_stamp(unsigned long long* spent, int part,
-                                            unsigned long long& stamp) {
-  if constexpr (PROBE) {
-    const unsigned long long now = clock64();
-    spent[part] += now - stamp;
-    stamp = now;
-  }
-}
-
 // f32: w_s[(4 u + g) WP + k] = wh[k, g H + j0 + u], zero past H
 template <int U, int NT>
 __device__ void stage_walk_wh(const float* wh, int j0, int H, unsigned char* smem) {
@@ -273,15 +199,6 @@ __device__ void stage_walk_wh(const bf16* wh, int j0, int H, unsigned char* smem
     w[(((size_t)st * NTN + (n >> 3)) * 32 + lane) * 4 + (k & 3)] =
         (k < H && j0 + u < H) ? src[(size_t)k * H4 + g * H + j0 + u] : (unsigned short)0;
   }
-}
-
-__device__ __forceinline__ void mma_16816(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t bits2(__nv_bfloat162 v) {

@@ -67,6 +67,7 @@ from nabu_tpu_torch.ops.blstm import (
     _aligned,
     _check_cuda,
     _check_shape,
+    _first_form,
     _gemm,
     _stream,
 )
@@ -105,13 +106,11 @@ def chain_plan(B: int, H: int):
     """-> (mt, blocks, shared memory bytes) of the chain: the fewest
     m-tiles of 16 rows a block (1 or 2) whose ceil(B / 16 mt) row groups
     x ceil(H / 8) unit groups fit the card one block an SM (its registers
-    allow no more) with their shared memory; None if none does."""
-    for mt in range(1, CHAIN_MAX_MT + 1):
-        blocks = -(-B // (CHAIN_ROWS * mt)) * -(-H // UNITS_PER_BLOCK)
-        need = chain_bytes(H, mt)
-        if blocks <= SMS and need <= SMEM_LIMIT:
-            return mt, blocks, need
-    return None
+    allow no more) with their shared memory (``ops.blstm._first_form``,
+    one direction); None if none does."""
+    forms = tuple((UNITS_PER_BLOCK, mt) for mt in range(1, CHAIN_MAX_MT + 1))
+    plan = _first_form(B, H, forms, lambda units, mt: chain_bytes(H, mt), dirs=1)
+    return None if plan is None else plan[1:]
 
 
 # the walk (csrc/lstm.cu): a block owns 16 mt rows x units, and each of its
@@ -137,19 +136,14 @@ def walk_bytes(H: int, units: int, mt: int) -> int:
     return max(f32, bf16)
 
 
-def walk_plan(B: int, H: int):
+def walk_plan(B: int, H: int, forms=WALK_FORMS):
     """-> (units, mt, blocks, shared memory bytes) of the walk: the first
-    of ``WALK_FORMS`` whose ceil(B / 16 mt) row groups x ceil(H / units)
-    unit groups fit the card one block an SM (its registers allow no more)
-    with their shared memory; None if none does. A pure function of (B,
-    H), the same in both element types, for the inference and the
-    training walk."""
-    for units, mt in WALK_FORMS:
-        blocks = -(-B // (CHAIN_ROWS * mt)) * -(-H // units)
-        need = walk_bytes(H, units, mt)
-        if blocks <= SMS and need <= SMEM_LIMIT:
-            return units, mt, blocks, need
-    return None
+    of ``forms`` whose ceil(B / 16 mt) row groups x ceil(H / units) unit
+    groups fit the card one block an SM (its registers allow no more)
+    with their shared memory (``ops.blstm._first_form``, one direction);
+    None if none does. A pure function of (B, H), the same in both
+    element types, for the inference and the training walk."""
+    return _first_form(B, H, forms, lambda units, mt: walk_bytes(H, units, mt), dirs=1)
 
 
 def smem_bytes(B: int, H: int):
@@ -321,7 +315,6 @@ def lstm_fwd_train(xw, lengths, wh, forget_bias: float = 1.0):
     y, _, res = _launch_fwd("lstm_fwd_train", xw, lengths, wh, None, None, forget_bias,
                             store=True)
     return (y, *res)
-
 
 
 def lstm_fwd_train_probe(xw, lengths, wh, forget_bias: float = 1.0):
