@@ -128,6 +128,11 @@ and 121) print the same for ``ops.lstm.walk_plan`` and its step probe
 (``ops.lstm.lstm_fwd_train_probe``), its planted group fault a whole unit
 group of the plan past the first 8 units; the stream's own shape, a
 32-frame chunk with a carry at B = 32 and B = 1, gets a row of its own.
+The v1 walk's rows (``blstm_v1_recur``, ``blstm_v1_recur_train``, both
+types, T = 1024 and 512) print the same for ``ops.blstm_v1.walk_plan``
+(the bf16 rows also the 32 units x 16 rows form, which no plan takes at
+H = 512) and its step probe (``ops.blstm_v1.blstm_v1_recur_train_probe``),
+its planted group fault the plan's second unit group.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -514,9 +519,10 @@ def gemm_variants(phase: str) -> dict:
     return counts
 
 
-def walk_fields(torch, timed, reps, fn, first, ms, ops, Tq=T, Bq=B) -> dict:
-    """A walk row's extra readings (Tq steps, Bq rows, H = 320) for the
-    v2 walk (``ops`` = ``ops.blstm``) or the LSTM walk (``ops.lstm``): the
+def walk_fields(torch, timed, reps, fn, first, ms, ops, Tq=T, Bq=B, Hq=H) -> dict:
+    """A walk row's extra readings (Tq steps, Bq rows, Hq units) for the
+    v2 walk (``ops`` = ``ops.blstm``), the v1 walk (``ops.blstm_v1``) or
+    the LSTM walk (``ops.lstm``): the
     split it ran (``ops.walk_plan``), whether a second launch gives the
     first one's bits, its µs a step and, timed, the µs a step of every
     form of the walk whose blocks fit the card (``ops.walk_plan`` of that
@@ -533,12 +539,12 @@ def walk_fields(torch, timed, reps, fn, first, ms, ops, Tq=T, Bq=B) -> dict:
     repeat = same(first, fn())
     if not repeat:
         FAILURES.append(f"{fn.__name__} T={Tq} B={Bq}: a second launch's bits differ")
-    fields = {"plan": ops.walk_plan(Bq, H), "repeat_bits_equal": repeat,
+    fields = {"plan": ops.walk_plan(Bq, Hq), "repeat_bits_equal": repeat,
               "us_per_step": None if ms is None else 1e3 * ms / Tq}
     if reps:
         by_split, bits = {}, True
         for units, mt in ops.WALK_FORMS:
-            plan = ops.walk_plan(Bq, H, ((units, mt),))
+            plan = ops.walk_plan(Bq, Hq, ((units, mt),))
             if plan is None:
                 continue
             with swapped(ops, "walk_plan", lambda *_, f=plan: f):
@@ -658,17 +664,16 @@ def drop_last_tap(stft_plain):
     return faulty
 
 
-def stale_recur(torch, units: int = 8):
-    """Planted recurrence fault: the gates of the first ``units`` hidden
-    units read h one step late (h_{t-2}), as the block owning them would
-    after passing the step barrier before the others' h was visible.
-    Otherwise the plain masked cell."""
+def stale_recur(torch, units: int = 8, first: int = 0):
+    """Planted recurrence fault: the gates of the ``units`` hidden units
+    from ``first`` on read h one step late (h_{t-2}), as the block owning
+    them would after passing the step barrier before the others' h was
+    visible. Otherwise the plain masked cell."""
     def recur(xw, lengths, wh, forget_bias: float = 1.0):
         _, T, B, H4 = xw.shape
         H = H4 // 4
         dt = xw.dtype
-        cols = torch.cat([torch.arange(g * H, g * H + units) for g in range(4)])
-        cols = cols.to(xw.device)
+        cols = _unit_cols(torch, H, units, xw.device, first)
         mask = (torch.arange(T, device=xw.device)[:, None]
                 < lengths.to(xw.device)[None, :])[..., None]
         y = torch.zeros((T, B, 2 * H), dtype=dt, device=xw.device)
@@ -1322,6 +1327,20 @@ def v1_rows(torch, timed, reps) -> dict:
         return torch.as_tensor(rng.uniform(-scale, scale, shape).astype(np.float32),
                                device=dev).to(dtype)
 
+    def bf16_wide_form(fn, first, Tq):
+        """The µs a step of bf16's 32 units x 16 rows a block, a form no plan
+        takes at H = 512 (the plan serves both types, and f32's wh of 32
+        units takes 256 KB); a walk whose bits differ from the plan's fails
+        the run."""
+        form = (32, 1, 2 * -(-Bv // 16) * -(-Hv // 32), None)
+        with swapped(v1, "walk_plan", lambda *_: form):
+            us = 1e3 * timed(fn, reps) / Tq
+            out = fn()
+        out, first = (x if isinstance(x, tuple) else (x,) for x in (out, first))
+        if not all(torch.equal(a, b) for a, b in zip(out, first)):
+            FAILURES.append(f"{fn.__name__} T={Tq}: bf16 32 x 1's bits differ")
+        return us
+
     for case, Tv, D in V1_SHAPES:
         lengths = rng.integers(Tv // 8, Tv + 1, Bv).astype(np.int32)
         lengths[0] = Tv
@@ -1362,17 +1381,32 @@ def v1_rows(torch, timed, reps) -> dict:
             err = compare(torch, got, ref, tol, f"blstm_v1_recur {key}")
             fault = fault_reading(stale_recur(torch)(xw, lens, wh), ref, tol,
                                   f"blstm_v1_recur {key}")
+            # the plan's second unit group reads h one step late
+            group = v1.walk_plan(Bv, Hv)[0]
+            stale_group = stale_recur(torch, units=group, first=group)(xw, lens, wh)
+            group_fault = fault_reading(stale_group, ref, tol,
+                                        f"blstm_v1_recur {key} (unit group {group}.."
+                                        f"{2 * group - 1})")
             walk_ops = 2 * valid * (2 * Hv * H4 + 12 * Hv)
             walk_bytes = es * (2 * valid * H4 + 2 * Hv * H4 + M * 2 * Hv) + 4 * Bv
             b_ms, b_by = bound(walk_bytes, walk_ops, peak)
             row = {
                 "shape": [Tv, Bv, Hv], "D": D, "dtype": tag, "valid_tokens": valid,
                 "max_abs_err": err, "tol": tol, "fault_max_abs_err": fault,
+                "group_fault_max_abs_err": group_fault,
                 "ms": timed(lambda: v1.blstm_v1_recur(xw, lens, wh), reps),
                 "plain_ms": timed(lambda: v1.blstm_v1_recur_plain(xw, lens, wh), min(reps, 1)),
                 "library_ms": lib_i, "library": library + "inference (timed only)",
                 "bound_ms": b_ms, "bound_by": b_by,
             }
+
+            def blstm_v1_recur():
+                return v1.blstm_v1_recur(xw, lens, wh)
+
+            row.update(walk_fields(torch, timed, reps, blstm_v1_recur, got, row["ms"], v1,
+                                   Tv, Bv, Hv))
+            if tag == "bf16" and reps:
+                row["us_per_step_by_split"]["16x32"] = bf16_wide_form(blstm_v1_recur, got, Tv)
             emit({"phase": "kernels", "kernel": "blstm_v1_recur", "case": case, **row})
             rows[("blstm_v1_recur", tag, case)] = row
             del got, ref
@@ -1386,6 +1420,9 @@ def v1_rows(torch, timed, reps) -> dict:
             c_err = compare(torch, got[2], ref[2], s_tol, f"blstm_v1_recur_train {key} c")
             fault = fault_reading(stale_recur(torch)(xw, lens, wh), ref[0], tol,
                                   f"blstm_v1_recur_train {key}")
+            group_fault = fault_reading(stale_group, ref[0], tol,
+                                        f"blstm_v1_recur_train {key} (unit group {group}.."
+                                        f"{2 * group - 1})")
             h_fault = fault_reading(hs_one_step_late(torch, ref[1]), ref[1], tol,
                                     f"blstm_v1_recur_train {key} h")
             c_fault = fault_reading(c_one_step_late(torch, ref[2]), ref[2], s_tol,
@@ -1395,18 +1432,31 @@ def v1_rows(torch, timed, reps) -> dict:
             row = {
                 "shape": [Tv, Bv, Hv], "D": D, "dtype": tag, "max_abs_err": err, "tol": tol,
                 "h_max_abs_err": h_err, "c_max_abs_err": c_err, "stores_tol": s_tol,
-                "fault_max_abs_err": fault, "h_fault_max_abs_err": h_fault,
-                "c_fault_max_abs_err": c_fault,
+                "fault_max_abs_err": fault, "group_fault_max_abs_err": group_fault,
+                "h_fault_max_abs_err": h_fault, "c_fault_max_abs_err": c_fault,
                 "ms": timed(lambda: v1.blstm_v1_recur_train(xw, lens, wh), reps),
                 "plain_ms": timed(lambda: v1.blstm_v1_recur_train_plain(xw, lens, wh),
                                   min(reps, 1)),
                 "library_ms": lib_f, "library": library + "training forward (timed only)",
                 "bound_ms": b_ms, "bound_by": b_by,
             }
+
+            def blstm_v1_recur_train():
+                return v1.blstm_v1_recur_train(xw, lens, wh)
+
+            row.update(walk_fields(torch, timed, reps, blstm_v1_recur_train, got, row["ms"], v1,
+                                   Tv, Bv, Hv))
+            if tag == "bf16" and reps:
+                row["us_per_step_by_split"]["16x32"] = bf16_wide_form(blstm_v1_recur_train, got,
+                                                                      Tv)
+            # its first step waits for nothing and is not counted
+            row["step_probe"] = walk_probe(
+                torch, timed, reps, lambda: v1.blstm_v1_recur_train_probe(xw, lens, wh), Tv,
+                Tv - 1)
             emit({"phase": "kernels", "kernel": "blstm_v1_recur_train", "case": case, **row})
             rows[("blstm_v1_recur_train", tag, case)] = row
             _, hs, cs = ref
-            del got, ref
+            del got, ref, stale_group
 
             # --- row 6: gates recompute ---------------------------------------
             tol = TOL[("blstm_v1_bwd_gates", tag)]

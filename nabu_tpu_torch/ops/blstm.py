@@ -41,14 +41,15 @@ can hold the layer: a ``walk_plan`` for the walk and a ``chain_plan`` for
 the chain, each a split of the batch and the units into blocks of 16 mt
 rows x units of one direction, all co-resident one an SM on the H100's
 132 SMs, with their units' wh in shared memory. Else "v1", the kernels of
-``ops.blstm_v1`` (``csrc/blstm_v1.cu``), whose walk and chain stream the
-exchanged rows in K tiles. The v2 limit is the card's SMs: at H = 320 the
-v2 pair holds B <= 48, at H = 256 B <= 64, at H = 512 B <= 32 (the walk
-holds every shape the chain holds). So the 4x320 and 3x256 recipes at B =
-32 run v2, and las_large's 512-unit Listener at B = 64 runs v1 (at its
-validation batch, 32, v2). The rule is the same on the CPU, where each
-family runs its plain versions. It is decided before any launch and is
-not a fallback: a launch that fails raises.
+``ops.blstm_v1`` (``csrc/blstm_v1.cu``), whose walk blocks hold 2 or 4
+cells a thread and whose chain blocks 32 units (bf16). The v2 limit is
+the card's SMs: at H = 320 the v2 pair holds B <= 48, at H = 256 B <=
+64, at H = 512 B <= 32 (the walk holds every shape the chain holds). So
+the 4x320 and 3x256 recipes at B = 32 run v2, and las_large's 512-unit
+Listener at B = 64 runs v1 (at its validation batch, 32, v2). The rule
+is the same on the CPU, where each family runs its plain versions. It is
+decided before any launch and is not a fallback: a launch that fails
+raises.
 
 GEMM kernel. The products (``blstm_proj``, dx, dwx, dwh, the v1 gates
 recompute and dwh, ``ops.lstm.lstm_proj``) run on ``blstm.cu``'s GEMM.

@@ -7,7 +7,10 @@ Port of the JAX package's v1 kernels in ``ops/pallas/blstm.py``
 the kernels of ``csrc/blstm_v1.cu``:
 
 - ``blstm_v1_recur`` (``blstm_fused_forward`` -> ``_blstm_kernel``): the
-  inference walk, masked h [T, B, 2H] only;
+  inference walk, masked h [T, B, 2H] only; its blocks own a row group x
+  a unit group of one direction, 2 or 4 cells a thread, split by
+  ``walk_plan``, and form a step's product on tensor cores in bf16, on
+  the FMA pipes in f32;
 - ``blstm_v1_recur_train`` (``_fused_fwd`` -> ``_fwd_train_kernel``): the
   same walk storing v1's residuals, the post-mask h carries in the
   compute type and c in f32, per step. The carries are stored as
@@ -45,14 +48,13 @@ import torch
 
 from nabu_tpu_torch.ops import blstm as v2
 from nabu_tpu_torch.ops import kernels
+from nabu_tpu_torch.ops.blstm import PROBE_PARTS
 from nabu_tpu_torch.ops.kernels import build
 
-# csrc/blstm_v1.cu, the walks: hidden units a block owns, threads a
-# block, pairs a thread, K-tile width
-UNITS_PER_BLOCK = 8
+# csrc/blstm_v1.cu: threads a block, and the batches the forms are sized
+# for (16 x 4 holds every B <= 128 at H <= 528)
 THREADS = 256
-PAIRS = 4
-WALK_TILE = 128
+MAX_BATCH = 128
 # the chain: rows of an m-tile; by element type the units a block owns,
 # the K chunk a warp pulls at once, the row stride of the warps' partial
 # sums, the m-tiles a block at most; bf16's K chunks a warp at most (its A
@@ -70,7 +72,7 @@ _fns: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "walk": [_P] * 7 + [_I] * 3 + [ctypes.c_float, _P],
+    "walk": [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
     "chain": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
 }
 
@@ -118,38 +120,71 @@ def chain_plan(B: int, H: int, tag: str):
     return None
 
 
+# the walk (csrc/blstm_v1.cu (a)): a block owns 16 mt rows x units of one
+# direction, 512 or 1024 cells, 2 or 4 a thread; in f32 a half warp sums 4
+# rows x 4 units' 4 gates a tile over one of 16 K slices, in bf16 the 8
+# warps split K. The forms (units, mt) in the order walk_plan tries them:
+# 32 x 1 pulls the fewest rows a block, 16 x 4 holds every B <= 128 at H
+# <= 528
+WALK_FORMS = ((32, 1), (16, 2), (8, 4), (16, 4))
+
+
+def walk_xp(H: int) -> int:
+    """The exchange's row stride: H rounded up to whole 16-byte vectors of
+    bf16."""
+    return -(-H // 8) * 8
+
+
+def walk_bytes(H: int, units: int, mt: int) -> int:
+    """Shared memory of a walk block, the larger of the two element types'
+    (``walk_bytes`` of csrc/blstm_v1.cu): in f32 the four gate columns of
+    wh of its units, [4 units, ceil4(H)] f32; in bf16 the same columns as
+    mma B fragments, ceil(H / 32) chunks x units / 2 n-tiles x 32 lanes x
+    16 bytes, and the 8 warps' partial sums [8, 16 mt, 4 units + 8] f32."""
+    f32 = 16 * units * (-(-H // 4) * 4)
+    bf16 = -(-H // 32) * (units // 2) * 32 * 16 + 4 * 8 * CHAIN_ROWS * mt * (4 * units + 8)
+    return max(f32, bf16)
+
+
+def walk_plan(B: int, H: int, forms=WALK_FORMS):
+    """-> (units, mt, blocks, shared memory bytes) of the walk: the first
+    of ``forms`` whose 2 ceil(B / 16 mt) row groups x ceil(H / units) unit
+    groups fit the card one block an SM with their shared memory
+    (``ops.blstm._first_form``); None if none does. A pure function of (B,
+    H), the same in both element types, for the inference and the
+    training walk."""
+    return v2._first_form(B, H, forms, lambda units, mt: walk_bytes(H, units, mt))
+
+
 def smem_bytes(B: int, H: int, tag: str):
-    """-> (walk, chain) shared memory of one block: the walk's layout of
-    csrc/blstm_v1.cu (wh's gate columns of the block's 8 units, one K tile
-    of h, two [B, 8] carries), the chain's of its ``chain_plan`` (None
-    when no plan holds B and H)."""
-    units = UNITS_PER_BLOCK
-    walk = 4 * ((H + 3) // 4 * 4 * units * 4 + B * (WALK_TILE + 4) + 2 * B * units)
-    plan = chain_plan(B, H, tag)
-    return walk, None if plan is None else plan[2]
+    """-> (walk, chain) shared memory of one block, each of its plan
+    (``walk_plan``, ``chain_plan``; None where no plan holds B and H)."""
+    walk, chain = walk_plan(B, H), chain_plan(B, H, tag)
+    return None if walk is None else walk[3], None if chain is None else chain[2]
 
 
-def check_design(what: str, B: int, H: int, tag: str) -> None:
-    """Raise for a batch and width the v1 kernels cannot hold: at most
-    PAIRS (b, unit) pairs a walk thread (B <= 128), the walk's shared
-    memory within a block's and its 2 ceil(H / 8) blocks co-resident on
-    the card's SMs (``v2.coresident``), and a ``chain_plan`` for the
-    chain in the element type ``tag``."""
-    if B > PAIRS * THREADS // UNITS_PER_BLOCK:
-        raise ValueError(f"{what}: B = {B} is beyond the kernel's design "
-                         f"(B <= {PAIRS * THREADS // UNITS_PER_BLOCK})")
-    walk, chain = smem_bytes(B, H, tag)
-    if not v2.coresident(walk, 2 * -(-H // UNITS_PER_BLOCK)):
+def check_design(what: str, B: int, H: int, tag: str):
+    """-> the walk's ``walk_plan``; raises for a batch and width the v1
+    kernels cannot hold: B past ``MAX_BATCH``, no walk form whose blocks
+    fit the card one an SM with their shared memory, and no ``chain_plan``
+    for the chain in the element type ``tag`` (which also bounds bf16 at
+    H <= 512, the walk's A fragments of 2 K chunks a warp)."""
+    if B > MAX_BATCH:
+        raise ValueError(f"{what}: B = {B} is beyond the kernel's design (B <= {MAX_BATCH})")
+    plan = walk_plan(B, H)
+    if plan is None:
         raise ValueError(
-            f"{what}: B = {B}, H = {H} is beyond the walk's design ({walk} bytes "
-            f"of shared memory a block; limit {v2.SMEM_LIMIT}, all blocks co-resident)")
-    if chain is None:
+            f"{what}: B = {B}, H = {H} is beyond the walk's design (no block of 16 mt rows x "
+            f"units of one direction, {WALK_FORMS}, fits the card's {v2.SMS} SMs one block "
+            f"an SM)")
+    if chain_plan(B, H, tag) is None:
         raise ValueError(
             f"{what}: B = {B}, H = {H} is beyond the chain's design in {tag} (no split "
             f"of 16 mt rows x {CHAIN_UNITS[tag]} units fits the card one block an SM)")
+    return plan
 
 
-def _walk(name, xw, lengths, wh, forget_bias, store: bool):
+def _walk(name, xw, lengths, wh, forget_bias, store: bool, probe: bool = False):
     tag = v2._check_cuda(name, xw, xw=xw, wh=wh, lengths=lengths)
     if xw.dim() != 4 or xw.shape[0] != 2:
         raise ValueError(f"{name}: xw {tuple(xw.shape)} is not [2, T, B, 4H]")
@@ -157,21 +192,32 @@ def _walk(name, xw, lengths, wh, forget_bias, store: bool):
     H = H4 // 4
     v2._check_shape(f"{name}: wh", wh, (2, H, H4), xw.dtype)
     v2._check_shape(f"{name}: lengths", lengths, (B,), torch.int32)
-    check_design(name, B, H, tag)
+    units, mt, blocks, _ = check_design(name, B, H, tag)
     dev = xw.device
     y = torch.empty((T, B, 2 * H), dtype=xw.dtype, device=dev)
-    hx = torch.empty((2, T + 1 if store else 2, B, H), dtype=xw.dtype, device=dev)
-    c = torch.empty((2, T, B, H), dtype=torch.float32, device=dev) if store else None
-    counters = torch.zeros((2,), dtype=torch.int32, device=dev)
+    # the exchange of the carried h, [direction, slot, B, ceil8(H)] (rows
+    # of whole 16-byte loads): the padding columns stay zero
+    hx = torch.zeros((2, 2, B, walk_xp(H)), dtype=xw.dtype, device=dev)
+    hs = c = cycles = None
+    if store:
+        hs = torch.empty((2, T + 1, B, H), dtype=xw.dtype, device=dev)
+        c = torch.empty((2, T, B, H), dtype=torch.float32, device=dev)
+    if probe:
+        cycles = torch.zeros((blocks, len(PROBE_PARTS)), dtype=torch.int64, device=dev)
+    # one counter a direction and row group
+    counters = torch.zeros((2 * -(-B // (CHAIN_ROWS * mt)),), dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         err = _launcher("walk", tag)(
             xw.data_ptr(), lengths.data_ptr(), wh.data_ptr(), y.data_ptr(), hx.data_ptr(),
-            counters.data_ptr(), c.data_ptr() if store else None, T, B, H,
+            ptr(hs), ptr(c), counters.data_ptr(), ptr(cycles), T, B, H, units, mt,
             float(forget_bias), v2._stream(),
         )
     build.check(err, name)
+    if probe:
+        return y, hs, c, cycles
     kernels.LAUNCHES[name] += 1
-    return y, hx, c
+    return y, hs, c
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +271,18 @@ def blstm_v1_recur_train(xw, lengths, wh, forget_bias: float = 1.0):
     if xw.device.type == "cpu":
         return blstm_v1_recur_train_plain(xw, lengths, wh, forget_bias)
     return _walk("blstm_v1_recur_train", xw, lengths, wh, forget_bias, store=True)
+
+
+def blstm_v1_recur_train_probe(xw, lengths, wh, forget_bias: float = 1.0):
+    """The training walk on the card built with its step probe, for
+    measurement only (no path calls it, and it counts no launch): -> (y,
+    hs, c, cycles [blocks, 4] int64), each block's clock64 cycles of the
+    steps after the first summed by ``PROBE_PARTS``: waiting at its
+    counter, pulling h_{t-1} (to its first use), the product (to the gates'
+    sums), the cell and its stores (to the next step). The probe adds two
+    block barriers a step."""
+    return _walk("blstm_v1_recur_train_probe", xw, lengths, wh, forget_bias, store=True,
+                 probe=True)
 
 
 # ---------------------------------------------------------------------------

@@ -20,28 +20,70 @@
 //
 // (a) blstm_v1_walk: one cooperative persistent launch walks the whole
 //     sequence for both directions; the backward direction walks time
-//     descending, so no flipped copy of xw exists. Block g of direction d
-//     owns hidden units [8g, 8g + 8) and keeps their four gate columns of
-//     wh, [H, 8 x 4] (f32), in shared memory for the whole sequence, with
-//     c and its own h carry (f32). Each step it streams h_{t-1} [B, H]
-//     from global memory (L2 resident, ld.global.cg, 16-byte loads four
-//     deep per thread) in K tiles of 128 columns, so shared memory holds
-//     [B, 128] of h and not [B, H]; each thread accumulates the four gates
-//     of up to 4 (b, unit) pairs over the tiles in registers. Then the
-//     masked cell of _cell (:53-70): f32 gates and c, h in the compute
-//     type; padding frames hold the carry and output zeros. The blocks of
-//     a direction meet at a counter barrier each step (release fence
-//     before the arrival, acquire load in the spin). The inference walk
-//     exchanges h through a ping-pong buffer [2, 2, B, H]; the training
-//     walk exchanges it through its own store of the post-mask carries,
-//     [2, T + 1, B, H] with a zero slot at each direction's start (fw slot
-//     0, bw slot T), so row t of direction d's "hprev" is one contiguous
-//     [T, B, H] matrix for the backward's two products.
-//     Bound on the H100 at las_large's bottom layer (T = 1024, B = 64,
-//     H = 512, both directions): h @ wh is 275 GFLOP, 0.28 ms of bf16
-//     tensor rate; the bytes (xw read, h and c stored) ~0.94 GB, 0.28 ms.
-//     The pace is set by T dependent steps, each a grid-wide hand-off of
-//     h, not by either.
+//     descending, so no flipped copy of xw exists. Bound on the H100 at
+//     las_large's bottom layer (T = 1024, B = 64, H = 512, both
+//     directions): h @ wh is 275 GFLOP, 0.28 ms of bf16 tensor rate; the
+//     bytes (xw read, h and c stored) ~0.94 GB, 0.28 ms. The pace is set
+//     by T dependent steps, each a [B, H] x [H, 4H] product a direction,
+//     the cell and a hand-off of h, not by either. Rows of the batch are
+//     independent in the walk. Design (the v2 and LSTM walks' of blstm.cu
+//     (b) and lstm.cu, carried over): block (dir, rg, ug) owns 16 MT rows
+//     x U units of one direction, 512 or 1024 cells, 2 or 4 a thread (U x
+//     MT = 32 x 1, 16 x 2, 8 x 4 or 16 x 4, from ops/blstm_v1.walk_plan:
+//     the first whose 2 ceil(B / 16 MT) ceil(H / U) blocks are co-resident
+//     one an SM with their shared memory; 16 x 2 at B = 64, H = 512, 128
+//     blocks). It keeps its units' four gate columns of wh in shared
+//     memory for the whole walk and c and h of its cells in registers, and
+//     meets only the ceil(H / U) blocks of its (direction, row group), at
+//     a counter of their own: a release add after a block barrier to
+//     arrive, an acquire load then a block barrier to wait (no further
+//     fence). The step's xw is fetched before the wait and held as loaded
+//     (widening it at the load made the LSTM walk's cell wait). After the
+//     wait the block pulls only its own rows of h_{t-1} from the exchange
+//     (ld.cg straight into registers, every load in flight at once) and
+//     forms the gates' h-part in f32:
+//     - bf16 on tensor cores: h and wh are exact bf16 values, so one
+//       mma.sync m16n8k16 pass with f32 accumulators is the reference's
+//       product. The 8 warps split K = H into chunks of 32 (two a warp at
+//       H = 512), each runs its chunks for the block's 16 MT rows x 4U
+//       columns (wh's columns staged once as B fragments, 64 KB at U = 16;
+//       h's 16-byte loads are the A fragments), MW m-tiles a pass (64
+//       accumulators), and stores its partial sums; after a block barrier
+//       each thread adds its cells' 4 gates over the warps in warp order;
+//     - f32 on the FMA pipes (no TF32: the 1e-4 check), register-blocked:
+//       a half warp owns 4 rows x 4 units' 4 gates a tile (P tiles in
+//       turn), its 16 lanes take the quads ks + 16 p of K, and a
+//       reduce-scatter of shuffles over the half warp adds the 16 K slices
+//       and leaves each lane the 4 gates of its cell.
+//     Both sum each output in an order set by H alone: a second launch
+//     repeats the bits, every form gives the same bits, and a row alone
+//     equals the same row in a batch. Then the masked cell of _cell
+//     (:53-70): f32 gates and c, h in the compute type; padding frames
+//     hold h and c and output zeros. The carried h goes to the exchange,
+//     the block arrives (the release waits for those stores alone), then
+//     y and (training) the stores.
+//     The exchange is a buffer of its own in both walks, [2 directions][2
+//     slots][B][ceil8(H)] of the carried h (rows of whole 16-byte loads,
+//     the padding zero: H = 9 and 12 in the tests). The slots ping-pong: a
+//     block writes slot (s + 1) % 2 at step s only after its counter showed
+//     every block of its group arrived s times, and a block arrives at
+//     step s - 1 only after its loads of that step's slot were consumed.
+//     The training walk stores the post-mask carries after its arrival as
+//     hs [2, T + 1, B, H], with a zero slot at each direction's start (fw
+//     slot 0, bw slot T), so row t of direction d's "hprev" is one
+//     contiguous [T, B, H] matrix for the backward's two products (lda =
+//     H), and c [2, T, B, H] f32. A third build, launched only by the step
+//     probe, sums each block's clock64 cycles a step by wait, pull,
+//     product and cell.
+//     Where it was hard: H = 512 at B = 64 is past the v2 walk's 256
+//     cells a block (256 blocks), so a block here holds 2 or 4 cells a
+//     thread: the bf16 product runs its m-tiles in passes to stay within
+//     the registers beside the A fragments, and the plan weighs f32's wh
+//     (4 U H 4 bytes, 256 KB at 32 x 1, past a block's 227 KB) against the
+//     rows a block pulls. The earlier design (every block all 64 rows x 8
+//     units, h restaged through shared memory in K tiles with two block
+//     barriers a tile, an FFMA product, a fenced grid-wide barrier over the
+//     direction) ran ~29 us a step.
 //
 // (b) blstm_v1_bwd_recur: the backward's serial chain, one cooperative
 //     persistent launch for both directions. The fw direction walks time
@@ -75,9 +117,11 @@
 //     product from chunks staged per warp.
 //
 // Limits of the design (ops/blstm_v1.check_design raises before any
-// launch beyond them): B <= 128 (walk: B x 8 pairs over 256 threads, 4 a
-// thread); walk shared memory 4 (4 ceil4(H) 8 + 132 B + 16 B) bytes within
-// 227 KB and its 2 ceil(H / 8) blocks co-resident (128 at H = 512); chain
+// launch beyond them): B <= 128, the batches the forms are sized for; walk
+// (ops/blstm_v1.walk_plan): 2 ceil(B / 16 MT) ceil(H / U) blocks of one
+// form one an SM on the card's 132 SMs, shared memory (walk_bytes, the
+// larger type's) within 227 KB, bf16 H <= 512 (the A fragments of 2 K
+// chunks a warp); 16 x 4 holds every B <= 128 at H <= 528. Chain
 // (ops/blstm_v1.chain_plan): bf16 H <= 512 (the A fragments of 8 K chunks
 // a warp), 2 ceil(B / 16 MT) ceil(H / U) blocks of one an SM on the
 // card's 132 SMs, shared memory (chain_bytes) within 227 KB. The launches
@@ -92,242 +136,442 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int HS = 8;      // hidden units a block owns
-constexpr int PAIRS = 4;   // (b, unit) pairs a thread at most: B <= PAIRS * THREADS / HS
-constexpr int RSTEP = THREADS / HS;  // rows between one thread's pairs
-constexpr int WKT = 128;   // walk: columns of h in one K tile
-
-// loads that bypass L1 (rewritten by other blocks during the launch)
-__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ bf16 load_cg(const bf16* p) {
-  return __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p)));
-}
-
-// 16 bytes of T -> floats
-__device__ __forceinline__ void unpack16(const uint4& r, float* dst, float) {
-  dst[0] = __uint_as_float(r.x);
-  dst[1] = __uint_as_float(r.y);
-  dst[2] = __uint_as_float(r.z);
-  dst[3] = __uint_as_float(r.w);
-}
-__device__ __forceinline__ void unpack16(const uint4& r, float* dst, bf16) {
-  const unsigned int w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    dst[2 * q] = __uint_as_float(w[q] << 16);  // element 2q: low half
-    dst[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
-  }
-}
-
-// Stage the K tile [k0, k0 + kw) of R rows of a row-major matrix of W
-// columns (element type T, written by other blocks) into shared memory as
-// f32 rows of stride ld, zero-filled up to kw4 = kw rounded up to 4. The
-// loads go through L2 (ld.cg), DEPTH 16-byte vectors at a time per thread
-// so their latencies overlap, where W is a whole number of vectors (then
-// so are k0 and kw, both multiples of 8 or the rest of a row).
-template <typename T, int DEPTH>
-__device__ __forceinline__ void stage_tile(const T* src, int R, int W, int k0, int kw, int kw4,
-                                           float* dst, int ld) {
-  constexpr int EPV = 16 / sizeof(T);
-  if (W % EPV == 0) {
-    const int per_row = kw / EPV;
-    const int nvec = R * per_row;
-    for (int v0 = threadIdx.x; v0 < nvec; v0 += DEPTH * blockDim.x) {
-      uint4 r[DEPTH];
-#pragma unroll
-      for (int u = 0; u < DEPTH; ++u) {
-        const int v = v0 + u * blockDim.x;
-        if (v < nvec) {
-          const int row = v / per_row;
-          const int cv = v - row * per_row;
-          r[u] = __ldcg(reinterpret_cast<const uint4*>(src + (size_t)row * W + k0 + cv * EPV));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < DEPTH; ++u) {
-        const int v = v0 + u * blockDim.x;
-        if (v < nvec) {
-          const int row = v / per_row;
-          const int cv = v - row * per_row;
-          unpack16(r[u], dst + (size_t)row * ld + cv * EPV, T());
-        }
-      }
-    }
-    if (kw4 > kw) {
-      for (int i = threadIdx.x; i < R * (kw4 - kw); i += blockDim.x) {
-        const int row = i / (kw4 - kw);
-        dst[(size_t)row * ld + kw + (i - row * (kw4 - kw))] = 0.f;
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * kw4; i += blockDim.x) {
-      const int row = i / kw4;
-      const int c = i - row * kw4;
-      dst[(size_t)row * ld + c] = c < kw ? to_f(load_cg(src + (size_t)row * W + k0 + c)) : 0.f;
-    }
-  }
-}
-
-// grid-wide barrier of the G blocks of one direction at step s
-__device__ __forceinline__ void direction_barrier(unsigned int* cnt, int s, int G) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(cnt, 1u);
-    const unsigned int target = (unsigned int)(s + 1) * (unsigned int)G;
-    while (ld_acquire(cnt) < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-__host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
-
-// shared memory of one block, in floats
-__host__ __device__ inline size_t walk_floats(int B, int H) {
-  return (size_t)round4(H) * HS * 4 + (size_t)B * (WKT + 4) + 2 * (size_t)B * HS;
-}
+constexpr int WARPS = THREADS / 32;
+constexpr int MROWS = 16;    // rows of an m-tile (mma m16n8k16); a block owns 16 MT rows
+constexpr int MAX_B = 128;   // the batches the forms are sized for (16 x 4 holds every H <= 528)
 
 // ---------------------------------------------------------------------------
 // (a) the walk (rows 4 and 5)
 // ---------------------------------------------------------------------------
 
-template <typename T, bool STORE>
-__global__ void __launch_bounds__(THREADS) v1_walk_kernel(
-    const T* __restrict__ xw,        // [2, T, B, 4H], both directions in natural time
-    const int* __restrict__ lengths, // [B]
-    const T* __restrict__ wh,        // [2, H, 4H]
-    T* __restrict__ y,               // [T, B, 2H] masked outputs
-    T* hx,                           // exchange: [2, 2, B, H] ping-pong, or (STORE)
-                                     // the stored carries [2, T + 1, B, H]
-    unsigned int* counters,          // [2], zero at launch
-    float* __restrict__ c_out,       // STORE: [2, T, B, H] post-mask c
-    int Tn, int B, int H, int G, float forget_bias) {
-  extern __shared__ __align__(16) float smem[];
-  const int kp = round4(H);
-  float* w_s = smem;                          // [kp][HS][4 gates]
-  float* h_s = w_s + (size_t)kp * HS * 4;     // [B][WKT + 4]: a K tile of h_{t-1}
-  float* c_s = h_s + (size_t)B * (WKT + 4);   // [B * HS] c carry
-  float* hc_s = c_s + (size_t)B * HS;         // [B * HS] own h carry (exact in f32)
-  constexpr int LDH = WKT + 4;
+constexpr int W_KS = 16;    // f32: K slices of a step's product, the lanes of a half warp
+constexpr int W_NQ = 5;     // f32: quads of h a K slice loads a pass
+constexpr int W_MAXC = 2;   // bf16: K chunks of 32 a warp holds at most (H <= 512)
 
-  const int dir = blockIdx.x / G;
-  const int j0 = (blockIdx.x % G) * HS;
-  const size_t H4 = 4 * (size_t)H;
-  const size_t BH = (size_t)B * H;
+// the exchange's row stride: H rounded up to whole 16-byte vectors of bf16
+__host__ __device__ inline int walk_xp(int H) { return (H + 7) / 8 * 8; }
+// bf16: K chunks of 32 (two mma k16 steps), and the warps' partial sums'
+// row stride (float2 stores of a fragment free of bank conflicts)
+__host__ __device__ inline int walk_chunks(int H) { return (H + 31) / 32; }
+__host__ __device__ constexpr int walk_pst(int U) { return 4 * U + 8; }
 
-  const T* whd = wh + (size_t)dir * H * H4;
-  for (int i = threadIdx.x; i < kp * HS * 4; i += blockDim.x) {
-    const int gate = i % 4;
-    const int jl = (i / 4) % HS;
-    const int k = i / (4 * HS);
-    const int j = j0 + jl;
-    w_s[i] = (k < H && j < H) ? to_f(whd[(size_t)k * H4 + gate * H + j]) : 0.f;
+// a form of U units x 16 MT rows a block: P cell pairs a thread (2 or 4);
+// bf16 forms the product in passes of MW m-tiles (64 f32 accumulators)
+template <int U, int MT>
+struct WalkForm {
+  static constexpr int R = MROWS * MT;
+  static constexpr int P = R * U / THREADS;
+  static constexpr int MW = MT < 32 / U ? MT : 32 / U;
+  static_assert(U % 4 == 0 && P >= 1 && R * U == P * THREADS && MT % MW == 0,
+                "tiles of 4 x 4, whole cell pairs a thread, whole passes");
+};
+
+// shared memory of a walk block of U units and 16 MT rows. f32: the four
+// gate columns of wh of its units, [4 U][ceil4(H)]; bf16: the same columns
+// as B fragments, [chunk][n-tile][lane] of 16 bytes, then the warps'
+// partial sums [8][16 MT][4 U + 8] f32
+template <typename T>
+inline size_t walk_bytes(int H, int U, int MT) {
+  if (sizeof(T) == 4) return sizeof(float) * 4 * (size_t)U * ((H + 3) / 4 * 4);
+  return (size_t)walk_chunks(H) * (U / 2) * 32 * sizeof(uint4) +
+         sizeof(float) * WARPS * MROWS * MT * walk_pst(U);
+}
+
+// bf16: wh's gate columns of the block's units j0 + [0, U) in the order the
+// B fragments read them: uint4 (c, nt, lane) holds column n = 8 nt + lane /
+// 4 (unit n / 4, gate n % 4) at k = 32 c + 8 (lane % 4) + [0, 8), zero past
+// H. The A fragments take the same 8 k of their rows (the k order inside a
+// chunk is a permutation both operands share), so one 16-byte load of h
+// serves two k16 steps of one row. Read in wh's order (units fastest), so a
+// warp's loads fall on a few rows of wh.
+template <int U>
+__device__ void stage_walk_wh(const bf16* whd, int j0, int H, unsigned char* smem) {
+  constexpr int NT = U / 2;
+  unsigned short* w = reinterpret_cast<unsigned short*>(smem);
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(whd);
+  const int H4 = 4 * H, n_all = walk_chunks(H) * 32 * 4 * U;
+  for (int i = threadIdx.x; i < n_all; i += THREADS) {
+    const int u = i % U, g = i / U % 4, k = i / (4 * U);
+    const int n = 4 * u + g, kk = k & 31, lane = (n & 7) * 4 + (kk >> 3);
+    w[((((size_t)(k >> 5) * NT + (n >> 3)) * 32 + lane) << 3) + (kk & 7)] =
+        (k < H && j0 + u < H) ? src[(size_t)k * H4 + g * H + j0 + u] : (unsigned short)0;
   }
-  for (int i = threadIdx.x; i < B * HS; i += blockDim.x) {
-    c_s[i] = 0.f;
-    hc_s[i] = 0.f;
+}
+
+// f32: w_s[(4 u + g) HP + k] = wh[k, g H + j0 + u], HP = ceil4(H), read
+// with u fastest
+template <int U>
+__device__ void stage_walk_wh(const float* whd, int j0, int H, unsigned char* smem) {
+  float* w_s = reinterpret_cast<float*>(smem);
+  const int HP = (H + 3) / 4 * 4, H4 = 4 * H;
+  for (int i = threadIdx.x; i < 4 * U * HP; i += THREADS) {
+    const int k = i / (4 * U), g = i / U % 4, u = i % U;
+    w_s[(4 * u + g) * HP + k] = (k < H && j0 + u < H) ? whd[(size_t)k * H4 + g * H + j0 + u] : 0.f;
   }
-  T* hxd = hx + (size_t)dir * (STORE ? (size_t)(Tn + 1) : 2) * BH;
-  if constexpr (STORE) {
-    // the zero slot each direction starts from (read by the backward)
-    T* zero = hxd + (size_t)(dir == 0 ? 0 : Tn) * BH;
-    for (int i = threadIdx.x; i < B * HS; i += blockDim.x) {
-      const int j = j0 + i % HS;
-      if (j < H) zero[(size_t)(i / HS) * H + j] = from_f<T>(0.f);
+}
+
+// bf16 step product on tensor cores: z[p][g] = the h-part of gate g of the
+// thread's cell pair p (local row pr[p], unit pu[p]). h and wh are exact
+// bf16 values, so one mma.sync m16n8k16 pass with f32 accumulators forms
+// the reference's product. The warps split K by H alone: warp w takes
+// chunks [w cpw, (w + 1) cpw) of 32 k and issues every 16-byte load of
+// its A fragments (those chunks of the block's 16 MT rows of h_{t-1}) at
+// once (ld.cg, straight into registers); then, MW m-tiles a pass, it runs
+// mma.sync over them in chunk order into f32 accumulators (16 MW rows x 4U
+// columns) and stores its partial sums; after a block barrier each thread
+// adds its cell pairs' 4 gates over the warps in warp order.
+template <int U, int MT, bool PROBE>
+__device__ __forceinline__ void walk_product(const bf16* hin, int xp, int row0, int B, int H,
+                                             unsigned char* smem, const int* pr, const int* pu,
+                                             float (*z)[4], unsigned long long* spent,
+                                             unsigned long long& stamp) {
+  using F = WalkForm<U, MT>;
+  constexpr int NT = U / 2, PST = walk_pst(U), MW = F::MW, R = F::R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int nch = walk_chunks(H), cpw = (nch + WARPS - 1) / WARPS, c0 = warp * cpw;
+  uint4 a[W_MAXC][MT][2];
+#pragma unroll
+  for (int i = 0; i < W_MAXC; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + MROWS * mt + 8 * h + g, col = 32 * (c0 + i) + 8 * t4;
+        a[i][mt][h] = (i < cpw && c0 + i < nch && r < B && col < xp)
+                          ? __ldcg(reinterpret_cast<const uint4*>(hin + (size_t)r * xp + col))
+                          : make_uint4(0u, 0u, 0u, 0u);
+      }
+  if constexpr (PROBE) {
+    // the pull ends where its values are first used
+    unsigned int bits = 0u;
+#pragma unroll
+    for (int i = 0; i < W_MAXC; ++i)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          bits ^= a[i][mt][h].x ^ a[i][mt][h].y ^ a[i][mt][h].z ^ a[i][mt][h].w;
+    if (bits == 0x9e3779b9u) spent[0] += 1;  // a use the compiler cannot drop
+    __syncthreads();
+    probe_stamp<PROBE>(spent, 1, stamp);
+  }
+  const uint4* wb = reinterpret_cast<const uint4*>(smem);
+  float* part = reinterpret_cast<float*>(smem + (size_t)nch * NT * 32 * sizeof(uint4));
+#pragma unroll
+  for (int m0 = 0; m0 < MT; m0 += MW) {
+    float acc[MW][NT][4];
+#pragma unroll
+    for (int m = 0; m < MW; ++m)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[m][nt][q] = 0.f;
+#pragma unroll
+    for (int i = 0; i < W_MAXC; ++i) {
+      if (i < cpw && c0 + i < nch) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint4 b = wb[((c0 + i) * NT + nt) * 32 + lane];
+#pragma unroll
+          for (int m = 0; m < MW; ++m) {
+            const uint4 lo = a[i][m0 + m][0], hi = a[i][m0 + m][1];  // rows g, g + 8
+            mma_16816(acc[m][nt], lo.x, hi.x, lo.y, hi.y, b.x, b.y);
+            mma_16816(acc[m][nt], lo.z, hi.z, lo.w, hi.w, b.z, b.w);
+          }
+        }
+      }
+    }
+    if (c0 < nch) {
+      float* pw = part + (size_t)warp * R * PST;
+#pragma unroll
+      for (int m = 0; m < MW; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float* p = pw + (size_t)(MROWS * (m0 + m) + g) * PST + 8 * nt + 2 * t4;
+          *reinterpret_cast<float2*>(p) = make_float2(acc[m][nt][0], acc[m][nt][1]);
+          *reinterpret_cast<float2*>(p + 8 * PST) = make_float2(acc[m][nt][2], acc[m][nt][3]);
+        }
     }
   }
   __syncthreads();
+  const int warps = (nch + cpw - 1) / cpw;  // the warps that hold a chunk
+#pragma unroll
+  for (int k = 0; k < F::P; ++k) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w = 0; w < warps; ++w) {
+      const float4 p = *reinterpret_cast<const float4*>(part + ((size_t)w * R + pr[k]) * PST +
+                                                        4 * pu[k]);
+      sum.x += p.x;
+      sum.y += p.y;
+      sum.z += p.z;
+      sum.w += p.w;
+    }
+    z[k][0] = sum.x;
+    z[k][1] = sum.y;
+    z[k][2] = sum.z;
+    z[k][3] = sum.w;
+  }
+  if constexpr (PROBE) {
+    __syncthreads();
+    probe_stamp<PROBE>(spent, 2, stamp);
+  }
+}
 
+// f32 step product on the FMA pipes (the tight check: no TF32) of tile x
+// (rows 4 (x % 4 MT) + [0, 4), units 4 (x / 4 MT) + [0, 4) of the block,
+// their 4 gates: 16 columns of wh): lane ks = lane % 16 of its half warp
+// takes the quads ks + 16 p of h_{t-1} (ld.cg straight into registers,
+// every load of a pass in flight at once) and sums the tile's 4 rows x 16
+// columns over them (a quad of h feeds 16 columns, a float4 of wh 4 rows);
+// a reduce-scatter of shuffles over the half warp adds the 16 K slices in
+// a fixed order and leaves lane ks the 4 gates of row 4 (x % 4 MT) + ks /
+// 4, unit 4 (x / 4 MT) + ks % 4 in z.
+template <int MT, bool PROBE>
+__device__ __forceinline__ void walk_product_f32(const float* hin, int xp, int x, int row0,
+                                                 int B, int H, const unsigned char* smem,
+                                                 float* z, unsigned long long* spent,
+                                                 unsigned long long& stamp) {
+  const int HQ = (H + 3) / 4;
+  const int lane = threadIdx.x & 31, ks = lane & 15;
+  const int rt = x % (4 * MT), ut = x / (4 * MT);
+  // column 4 uu + g of the tile (unit 4 ut + uu, gate g) at w4[(4 uu + g) HQ + q]
+  const float4* w4 = reinterpret_cast<const float4*>(smem) + (size_t)16 * ut * HQ;
+  float v[64];  // [16 i + 4 uu + g]: row 4 rt + i, unit 4 ut + uu, gate g
+#pragma unroll
+  for (int k = 0; k < 64; ++k) v[k] = 0.f;
+  for (int q0 = 0; q0 < HQ; q0 += W_KS * W_NQ) {
+    float4 hq[4][W_NQ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + 4 * rt + i;
+      const float4* row = reinterpret_cast<const float4*>(hin + (size_t)r * xp);
+#pragma unroll
+      for (int p = 0; p < W_NQ; ++p) {
+        const int q = q0 + ks + W_KS * p;
+        hq[i][p] = (r < B && q < HQ) ? __ldcg(row + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    if constexpr (PROBE) {
+      if (q0 == 0) {
+        // the pull ends where its values are first used
+        unsigned int bits = 0u;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int p = 0; p < W_NQ; ++p)
+            bits ^= __float_as_uint(hq[i][p].x) ^ __float_as_uint(hq[i][p].y) ^
+                    __float_as_uint(hq[i][p].z) ^ __float_as_uint(hq[i][p].w);
+        if (bits == 0x9e3779b9u) spent[0] += 1;  // a use the compiler cannot drop
+        __syncthreads();
+        probe_stamp<PROBE>(spent, 1, stamp);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < W_NQ; ++p) {
+      const int q = q0 + ks + W_KS * p;
+      if (q < HQ) {
+#pragma unroll
+        for (int col = 0; col < 16; ++col) {
+          const float4 w = w4[(size_t)col * HQ + q];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float& acc = v[16 * i + col];
+            acc = fmaf(hq[i][p].x, w.x, acc);
+            acc = fmaf(hq[i][p].y, w.y, acc);
+            acc = fmaf(hq[i][p].z, w.z, acc);
+            acc = fmaf(hq[i][p].w, w.w, acc);
+          }
+        }
+      }
+    }
+  }
+  reduce_scatter<64, 8>(v, lane);
+#pragma unroll
+  for (int g = 0; g < 4; ++g) z[g] = v[g];
+  if constexpr (PROBE) {
+    __syncthreads();
+    probe_stamp<PROBE>(spent, 2, stamp);
+  }
+}
+
+struct WalkArgs {
+  const void* xw;             // [2, T, B, 4H], both directions in natural time
+  const int* lengths;         // [B]
+  const void* wh;             // [2, H, 4H]
+  void* y;                    // [T, B, 2H] masked outputs
+  void* hx;                   // exchange: [2 dir][2 slot][B][walk_xp(H)], zero at launch
+  void* hs;                   // STORE: [2, T + 1, B, H] post-mask h carries
+  float* c_out;               // STORE: [2, T, B, H] post-mask c
+  unsigned int* counters;     // [2, RG], zero at launch
+  unsigned long long* probe;  // PROBE: [blocks][4] cycles
+  int Tn, B, H, RG, GU;
+  float forget_bias;
+};
+
+// Block (dir, rg, ug) owns rows rg 16 MT + [0, 16 MT) and units ug U + [0,
+// U) of direction dir; rows are independent in the walk, so the blocks of
+// one (direction, row group) meet at their own counter each step. Thread
+// p runs P cell pairs, with their c and h carries in registers: in f32
+// those of tiles x = p / 16 + 16 k, k < P, at lane ks = p % 16 (where the
+// product's reduce-scatter leaves its 4 gates), row 4 (x % 4 MT) + ks / 4,
+// unit 4 (x / 4 MT) + ks % 4; in bf16 (any cell reads its partial sums)
+// cell p + 256 k, units fastest, which cuts a warp's scattered 2-byte
+// loads of xw and stores of h, y and c to 1 to 4 rows (8 in f32's map).
+// PROBE: thread 0 sums the clock64 cycles of each
+// step after the first spent waiting, pulling (to the loads' first use),
+// multiplying (to the gates' sums) and in the cell (to the next step's
+// start) into probe[block][4], with a block barrier after the pull and
+// after the product.
+template <typename T, bool STORE, bool PROBE, int U, int MT>
+__global__ void __launch_bounds__(THREADS, 1) v1_walk_kernel(WalkArgs a) {
+  using F = WalkForm<U, MT>;
+  constexpr int P = F::P;
+  extern __shared__ __align__(16) float smem_f[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const T* __restrict__ xw = static_cast<const T*>(a.xw);
+  T* __restrict__ y = static_cast<T*>(a.y);
+  const int Tn = a.Tn, B = a.B, H = a.H, H4 = 4 * H, xp = walk_xp(H);
+  const size_t BH = (size_t)B * H;
+  const int dir = blockIdx.x / (a.RG * a.GU);
+  const int rg = blockIdx.x / a.GU % a.RG, ug = blockIdx.x % a.GU;
+  const int j0 = ug * U, row0 = rg * F::R;
+  unsigned int* cnt = a.counters + dir * a.RG + rg;
+  stage_walk_wh<U>(static_cast<const T*>(a.wh) + (size_t)dir * H * H4, j0, H, smem);
+
+  // the cell pairs of this thread, with their carries
+  const int ks = threadIdx.x & 15;
+  int px[P], pr[P], pu[P], pb[P], pj[P], len[P];
+  bool live[P];
+  float c[P];
+  T h[P];
+  T xg[P][4];  // held as loaded: widening them here would wait for the loads
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    if constexpr (sizeof(T) == 2) {
+      // units fastest, so a warp's loads and stores run along 1 to 4 rows
+      pr[k] = (threadIdx.x + THREADS * k) / U;
+      pu[k] = (threadIdx.x + THREADS * k) % U;
+    } else {
+      px[k] = (threadIdx.x >> 4) + (THREADS / 16) * k;
+      pr[k] = 4 * (px[k] % (4 * MT)) + (ks >> 2);
+      pu[k] = 4 * (px[k] / (4 * MT)) + (ks & 3);
+    }
+    pb[k] = row0 + pr[k];
+    pj[k] = j0 + pu[k];
+    live[k] = pb[k] < B && pj[k] < H;
+    len[k] = live[k] ? __ldg(a.lengths + pb[k]) : 0;
+    c[k] = 0.f;
+    h[k] = from_f<T>(0.f);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) xg[k][g] = from_f<T>(0.f);
+  }
   const T* xwd = xw + (size_t)dir * Tn * B * H4;
-  unsigned int* cnt = counters + dir;
-  // a thread's pairs share one unit (THREADS is a multiple of HS): rows
-  // b0, b0 + RSTEP, ... of unit j0 + jl
-  const int jl = threadIdx.x % HS;
-  const int b0 = threadIdx.x / HS;
-  const int j = j0 + jl;
-  const float4* w4 = reinterpret_cast<const float4*>(w_s) + jl;
+  T* hxd = static_cast<T*>(a.hx) + (size_t)dir * 2 * B * xp;
+  T* hsd = STORE ? static_cast<T*>(a.hs) + (size_t)dir * (Tn + 1) * BH : nullptr;
+  if constexpr (STORE) {
+    // the zero slot each direction starts from (fw slot 0, bw slot T),
+    // read by the backward's products
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      if (live[k])
+        hsd[(size_t)(dir == 0 ? 0 : Tn) * BH + (size_t)pb[k] * H + pj[k]] = from_f<T>(0.f);
+  }
+  // the cells' input of step s: it does not depend on the walk, so it is
+  // fetched before the wait that precedes step s ends
+  auto fetch = [&](int s) {
+    const int t = dir == 0 ? s : Tn - 1 - s;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (!live[k]) continue;
+      const T* xr = xwd + ((size_t)t * B + pb[k]) * H4 + pj[k];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xg[k][g] = __ldg(xr + (size_t)g * H);
+    }
+  };
+  fetch(0);
+  __syncthreads();
+  unsigned long long spent[4] = {0ull, 0ull, 0ull, 0ull};
+  unsigned long long stamp = 0ull;
 
   for (int s = 0; s < Tn; ++s) {
     const int t = dir == 0 ? s : Tn - 1 - s;
-    const T* hin;
-    T* hout;
-    if constexpr (STORE) {
-      // fw: slot t holds the carry entering step t, slot t + 1 the one
-      // leaving it; bw: slot t + 1 entering, slot t leaving
-      hin = hxd + (size_t)(dir == 0 ? t : t + 1) * BH;
-      hout = hxd + (size_t)(dir == 0 ? t + 1 : t) * BH;
-    } else {
-      hin = hxd + (size_t)(s & 1) * BH;
-      hout = hxd + (size_t)((s + 1) & 1) * BH;
-    }
-    float acc[PAIRS][4];
+    float zh[P][4];  // the h-part of the cell pairs' gates (h_{-1} = 0)
 #pragma unroll
-    for (int i = 0; i < PAIRS; ++i)
+    for (int k = 0; k < P; ++k)
 #pragma unroll
-      for (int g = 0; g < 4; ++g) acc[i][g] = 0.f;
-
-    if (s > 0) {  // h_{-1} = 0
-      for (int k0 = 0; k0 < H; k0 += WKT) {
-        const int kw = min(WKT, H - k0);
-        const int nq = round4(kw) / 4;
-        stage_tile<T, 4>(hin, B, H, k0, kw, round4(kw), h_s, LDH);
-        __syncthreads();
-        const float4* wk = w4 + (size_t)k0 * HS;
-        for (int q = 0; q < nq; ++q) {
-          float4 wv[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) wv[u] = wk[(size_t)(4 * q + u) * HS];
-#pragma unroll
-          for (int i = 0; i < PAIRS; ++i) {
-            const int b = b0 + i * RSTEP;
-            if (b < B) {
-              const float4 hv = reinterpret_cast<const float4*>(h_s + (size_t)b * LDH)[q];
-              const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-              for (int u = 0; u < 4; ++u) {
-                acc[i][0] = fmaf(hk[u], wv[u].x, acc[i][0]);
-                acc[i][1] = fmaf(hk[u], wv[u].y, acc[i][1]);
-                acc[i][2] = fmaf(hk[u], wv[u].z, acc[i][2]);
-                acc[i][3] = fmaf(hk[u], wv[u].w, acc[i][3]);
-              }
-            }
-          }
+      for (int g = 0; g < 4; ++g) zh[k][g] = 0.f;
+    if (s > 0) {
+      if constexpr (PROBE) {
+        const unsigned long long now = clock64();
+        if (s > 1) spent[3] += now - stamp;
+        stamp = now;
+      }
+      // wait until every block of this (direction, row group) has
+      // published step s - 1: an acquire load, then the block barrier
+      if (threadIdx.x == 0) {
+        const unsigned int target = (unsigned int)s * (unsigned int)a.GU;
+        while (ld_acquire(cnt) < target) {
         }
-        __syncthreads();  // the tile is read before the next one lands
       }
-    }
-
+      __syncthreads();
+      probe_stamp<PROBE>(spent, 0, stamp);
+      const T* hin = hxd + (size_t)(s & 1) * B * xp;
+      if constexpr (sizeof(T) == 2) {
+        walk_product<U, MT, PROBE>(hin, xp, row0, B, H, smem, pr, pu, zh, spent, stamp);
+      } else {
 #pragma unroll
-    for (int i = 0; i < PAIRS; ++i) {
-      const int b = b0 + i * RSTEP;
-      if (b >= B || j >= H) continue;
-      const int p = b * HS + jl;
-      const T* xr = xwd + ((size_t)t * B + b) * H4 + j;
-      const float z0 = to_f(xr[0]) + acc[i][0];
-      const float z1 = to_f(xr[H]) + acc[i][1];
-      const float z2 = to_f(xr[2 * (size_t)H]) + acc[i][2];
-      const float z3 = to_f(xr[3 * (size_t)H]) + acc[i][3];
-      const float gi = sigmoid_f(z0);
-      const float gf = sigmoid_f(z1 + forget_bias);
-      const float gg = tanhf(z2);
-      const float go = sigmoid_f(z3);
-      const float c_new = gf * c_s[p] + gi * gg;
-      const T h_new = from_f<T>(go * tanhf(c_new));
-      const bool valid = t < __ldg(lengths + b);
-      if (valid) {
-        c_s[p] = c_new;
-        hc_s[p] = to_f(h_new);
+        for (int k = 0; k < P; ++k)
+          walk_product_f32<MT, PROBE>(hin, xp, px[k], row0, B, H, smem, zh[k], spent, stamp);
       }
-      // masked carry: padding frames keep h and c
-      hout[(size_t)b * H + j] = from_f<T>(hc_s[p]);
-      y[((size_t)t * B + b) * 2 * H + (size_t)dir * H + j] = valid ? h_new : from_f<T>(0.f);
-      if constexpr (STORE) c_out[(((size_t)dir * Tn + t) * B + b) * H + j] = c_s[p];
     }
 
-    // hand h over to the other blocks of this direction
-    direction_barrier(cnt, s, G);
+    // the masked cell (_cell): gates and c in f32, h in the compute type
+    T* hout = hxd + (size_t)((s + 1) & 1) * B * xp;
+    T y_t[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      y_t[k] = from_f<T>(0.f);
+      if (!live[k]) continue;
+      const float gi = sigmoid_f(to_f(xg[k][0]) + zh[k][0]);
+      const float gf = sigmoid_f(to_f(xg[k][1]) + zh[k][1] + a.forget_bias);
+      const float gg = tanhf(to_f(xg[k][2]) + zh[k][2]);
+      const float go = sigmoid_f(to_f(xg[k][3]) + zh[k][3]);
+      const float c_new = gf * c[k] + gi * gg;
+      const T h_new = from_f<T>(go * tanhf(c_new));
+      // masked carry: padding frames keep c and h; y is zero there
+      if (t < len[k]) {
+        c[k] = c_new;
+        h[k] = h_new;
+        y_t[k] = h_new;
+      }
+      if (s + 1 < Tn) hout[(size_t)pb[k] * xp + pj[k]] = h[k];
+    }
+    if (s + 1 < Tn) {
+      // publish this step's h to the (direction, row group): the block
+      // barrier, then a release add, which waits for the exchange's stores
+      // alone (the outputs' follow)
+      __syncthreads();
+      if (threadIdx.x == 0) red_release(cnt);
+    }
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (!live[k]) continue;
+      y[((size_t)t * B + pb[k]) * 2 * H + (size_t)dir * H + pj[k]] = y_t[k];
+      if constexpr (STORE) {
+        // fw: slot t + 1 holds the carry leaving step t; bw: slot t
+        hsd[(size_t)(dir == 0 ? t + 1 : t) * BH + (size_t)pb[k] * H + pj[k]] = h[k];
+        a.c_out[(((size_t)dir * Tn + t) * B + pb[k]) * H + pj[k]] = c[k];
+      }
+    }
+    // the next step's input, fetched while the other blocks catch up
+    if (s + 1 < Tn) fetch(s + 1);
+  }
+  if constexpr (PROBE) {
+    if (threadIdx.x == 0) {
+      if (Tn > 1) spent[3] += clock64() - stamp;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) a.probe[(size_t)blockIdx.x * 4 + k] = spent[k];
+    }
   }
 }
 
@@ -335,8 +579,6 @@ __global__ void __launch_bounds__(THREADS) v1_walk_kernel(
 // (b) the backward chain (row 6)
 // ---------------------------------------------------------------------------
 
-constexpr int WARPS = THREADS / 32;
-constexpr int MROWS = 16;          // rows of an m-tile (mma m16n8k16)
 constexpr int MAX_CHUNKS = 8;      // bf16: K chunks a warp at most (4H <= 8 x 8 x 32)
 constexpr int STAGE_LD = 20;       // f32: row stride of a warp's staged K chunk
 
@@ -697,26 +939,53 @@ __global__ void __launch_bounds__(THREADS, 1) v1_chain_kernel(
 // launches
 // ---------------------------------------------------------------------------
 
-bool within_design(int B, int H) { return B > 0 && H > 0 && B * HS <= PAIRS * THREADS; }
-
-template <typename T, bool STORE>
-int launch_walk(const T* xw, const int* lengths, const T* wh, T* y, T* hx,
-                unsigned int* counters, float* c_out, int Tn, int B, int H, float forget_bias,
-                void* stream) {
-  if (Tn <= 0 || B <= 0) return 0;
-  if (!within_design(B, H)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * walk_floats(B, H);
-  auto kernel = v1_walk_kernel<T, STORE>;
-  int G = (H + HS - 1) / HS;
-  cudaError_t err = check_coresident(kernel, 2 * G, THREADS, smem);
+template <typename T, bool STORE, bool PROBE, int U, int MT>
+int launch_walk_form(WalkArgs a, void* stream) {
+  using F = WalkForm<U, MT>;
+  // hx's rows are read in 16-byte loads
+  if (reinterpret_cast<uintptr_t>(a.hx) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  // bf16: a warp's K chunks are held in registers, at most W_MAXC
+  if (sizeof(T) == 2 && (walk_chunks(a.H) + WARPS - 1) / WARPS > W_MAXC)
+    return (int)cudaErrorInvalidValue;
+  a.RG = (a.B + F::R - 1) / F::R;
+  a.GU = (a.H + U - 1) / U;
+  const int blocks = 2 * a.RG * a.GU;
+  const size_t smem = walk_bytes<T>(a.H, U, MT);
+  auto kernel = v1_walk_kernel<T, STORE, PROBE, U, MT>;
+  cudaError_t err = check_coresident(kernel, blocks, THREADS, smem);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {(void*)&xw, (void*)&lengths, (void*)&wh, (void*)&y, (void*)&hx,
-                  (void*)&counters, (void*)&c_out, (void*)&Tn, (void*)&B, (void*)&H,
-                  (void*)&G, (void*)&forget_bias};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(2 * G), dim3(THREADS), args, smem,
+  void* args[] = {(void*)&a};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(THREADS), args, smem,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// units U and m-tiles MT a block (ops/blstm_v1.walk_plan: 32 x 1, 16 x 2,
+// 8 x 4 or 16 x 4); counters hold 2 ceil(B / 16 MT) zeros
+template <typename T, bool STORE, bool PROBE>
+int launch_walk_forms(const WalkArgs& a, int U, int MT, void* stream) {
+  if (U == 32 && MT == 1) return launch_walk_form<T, STORE, PROBE, 32, 1>(a, stream);
+  if (U == 16 && MT == 2) return launch_walk_form<T, STORE, PROBE, 16, 2>(a, stream);
+  if (U == 8 && MT == 4) return launch_walk_form<T, STORE, PROBE, 8, 4>(a, stream);
+  if (U == 16 && MT == 4) return launch_walk_form<T, STORE, PROBE, 16, 4>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// hs and c_out null: the inference walk (row 4); else the training walk
+// (row 5); probe non-null: the training walk with its step probe
+template <typename T>
+int launch_walk(const WalkArgs& a, int U, int MT, void* stream) {
+  if (a.Tn <= 0 || a.B <= 0) return 0;
+  if (a.H <= 0 || a.B > MAX_B) return (int)cudaErrorInvalidValue;
+  const bool store = a.hs != nullptr;
+  if (store != (a.c_out != nullptr)) return (int)cudaErrorInvalidValue;
+  if (a.probe != nullptr) {
+    if (!store) return (int)cudaErrorInvalidValue;
+    return launch_walk_forms<T, true, true>(a, U, MT, stream);
+  }
+  if (store) return launch_walk_forms<T, true, false>(a, U, MT, stream);
+  return launch_walk_forms<T, false, false>(a, U, MT, stream);
 }
 
 template <typename T, int MT>
@@ -745,7 +1014,7 @@ int launch_chain(const float* gates, const float* cst, const T* gy, const int* l
                  const T* wh, T* dg, unsigned int* counters, int Tn, int B, int H, int MT,
                  float forget_bias, void* stream) {
   if (Tn <= 0 || B <= 0) return 0;
-  if (B > PAIRS * THREADS / HS || H <= 0 || MT > Chain<T>::MAX_MT) return (int)cudaErrorInvalidValue;
+  if (B > MAX_B || H <= 0 || MT > Chain<T>::MAX_MT) return (int)cudaErrorInvalidValue;
   if (chain_chunks(H, Chain<T>::KC) > Chain<T>::MAX_NCH) return (int)cudaErrorInvalidValue;
   switch (MT) {
     case 1:
@@ -766,28 +1035,35 @@ int launch_chain(const float* gates, const float* cst, const T* gy, const int* l
   return (int)cudaErrorInvalidValue;
 }
 
+// the walk (units and mt from ops/blstm_v1.walk_plan): hs and c_out null
+// for the inference walk (row 4), else the training walk (row 5); probe
+// [blocks][4] for the step probe
+template <typename T>
+int walk_entry(const void* xw, const int* lengths, const void* wh, void* y, void* hx, void* hs,
+               float* c_out, unsigned int* counters, unsigned long long* probe, int T_, int B,
+               int H, int units, int mt, float forget_bias, void* stream) {
+  WalkArgs a{xw, lengths, wh, y, hx, hs, c_out, counters, probe, T_, B, H, 0, 0, forget_bias};
+  return launch_walk<T>(a, units, mt, stream);
+}
+
 }  // namespace
 
-// the walk: c_out null for the inference walk (row 4; hx the [2, 2, B, H]
-// ping-pong), else the training walk (row 5; hx the [2, T + 1, B, H] store)
 extern "C" int nabu_blstm_v1_walk_bf16(const void* xw, const int* lengths, const void* wh,
-                                       void* y, void* hx, unsigned int* counters, float* c_out,
-                                       int T, int B, int H, float forget_bias, void* stream) {
-  if (c_out != nullptr)
-    return launch_walk<bf16, true>((const bf16*)xw, lengths, (const bf16*)wh, (bf16*)y,
-                                   (bf16*)hx, counters, c_out, T, B, H, forget_bias, stream);
-  return launch_walk<bf16, false>((const bf16*)xw, lengths, (const bf16*)wh, (bf16*)y,
-                                  (bf16*)hx, counters, nullptr, T, B, H, forget_bias, stream);
+                                       void* y, void* hx, void* hs, float* c_out,
+                                       unsigned int* counters, unsigned long long* probe, int T,
+                                       int B, int H, int units, int mt, float forget_bias,
+                                       void* stream) {
+  return walk_entry<bf16>(xw, lengths, wh, y, hx, hs, c_out, counters, probe, T, B, H, units, mt,
+                          forget_bias, stream);
 }
 
 extern "C" int nabu_blstm_v1_walk_f32(const void* xw, const int* lengths, const void* wh,
-                                      void* y, void* hx, unsigned int* counters, float* c_out,
-                                      int T, int B, int H, float forget_bias, void* stream) {
-  if (c_out != nullptr)
-    return launch_walk<float, true>((const float*)xw, lengths, (const float*)wh, (float*)y,
-                                    (float*)hx, counters, c_out, T, B, H, forget_bias, stream);
-  return launch_walk<float, false>((const float*)xw, lengths, (const float*)wh, (float*)y,
-                                   (float*)hx, counters, nullptr, T, B, H, forget_bias, stream);
+                                      void* y, void* hx, void* hs, float* c_out,
+                                      unsigned int* counters, unsigned long long* probe, int T,
+                                      int B, int H, int units, int mt, float forget_bias,
+                                      void* stream) {
+  return walk_entry<float>(xw, lengths, wh, y, hx, hs, c_out, counters, probe, T, B, H, units,
+                           mt, forget_bias, stream);
 }
 
 extern "C" int nabu_blstm_v1_chain_bf16(const float* gates, const float* cst, const void* gy,

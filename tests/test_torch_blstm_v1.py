@@ -175,6 +175,83 @@ def test_chain_plan_at_las_large(B, H, tag, plan):
     assert blstm_v1.chain_plan(B, H, tag) == plan
 
 
+# bf16 walk bytes: ceil(H / 32) K chunks x units / 2 n-tiles x 512 bytes of
+# B fragments, and the 8 warps' partial sums [16 mt, 4 units + 8] f32
+def _walk_bf16_bytes(H, units, mt):
+    return -(-H // 32) * units // 2 * 512 + 4 * 8 * 16 * mt * (4 * units + 8)
+
+
+@pytest.mark.parametrize("B, H, plan", [
+    # las_large's Listener: 32 x 1 would stage f32 wh of 256 KB, past a
+    # block's 227 KB; 16 x 2 is 2 directions x 2 row groups x 32 unit groups
+    (64, 512, (16, 2, 128, _walk_bf16_bytes(512, 16, 2))),
+    # the largest batch at its width: 4 cells a thread
+    (128, 512, (16, 4, 128, _walk_bf16_bytes(512, 16, 4))),
+    (32, 512, (16, 2, 64, _walk_bf16_bytes(512, 16, 2))),  # its validation batch
+    (1, 9, (32, 1, 2, _walk_bf16_bytes(9, 32, 1))),        # the tests' narrow layers
+    (5, 12, (32, 1, 2, _walk_bf16_bytes(12, 32, 1))),
+    # f32's widest: 132 blocks, 16 x 16 x 528 bytes of f32 wh under the
+    # bf16 layout's 217 KB
+    (128, 528, (16, 4, 132, _walk_bf16_bytes(528, 16, 4))),
+])
+def test_walk_plan(B, H, plan):
+    assert blstm_v1.walk_plan(B, H) == plan
+    assert blstm_v1.smem_bytes(B, H, "f32")[0] == plan[3]
+    assert plan[3] <= blstm_ops.SMEM_LIMIT and plan[2] <= blstm_ops.SMS
+
+
+@pytest.mark.parametrize("units, mt", blstm_v1.WALK_FORMS)
+def test_walk_forms_fill_a_block(units, mt):
+    """Each form's 16 mt rows x units cells are 2 or 4 a thread of the
+    block's 256, in tiles of 4 rows x 4 units (the f32 product's half
+    warps)."""
+    cells = 16 * mt * units
+    assert cells % blstm_v1.THREADS == 0 and cells // blstm_v1.THREADS in (2, 4)
+    assert units % 4 == 0
+
+
+def _admitted_before(B, H, tag):
+    """check_design before the walk's row groups: B <= 128 (8 units a
+    block, all B rows, 4 cells a thread), the walk's shared memory (wh's
+    gate columns of 8 units in f32, a K tile of 128 columns of h, two [B,
+    8] carries) with its 2 ceil(H / 8) blocks co-resident, and a chain
+    plan."""
+    walk = 4 * ((H + 3) // 4 * 4 * 8 * 4 + B * (128 + 4) + 2 * B * 8)
+    return (B <= 128 and blstm_ops.coresident(walk, 2 * -(-H // 8))
+            and blstm_v1.chain_plan(B, H, tag) is not None)
+
+
+@pytest.mark.parametrize("tag", ["bf16", "f32"])
+@pytest.mark.parametrize("b_lo", [1, 33, 65, 97])
+def test_walk_plan_holds_every_shape_admitted_before(tag, b_lo):
+    """Every (B, H) the design admitted before the row groups, B <= 128,
+    H <= 600 (so bf16 H <= 512, f32 H <= 528), still has a walk plan and
+    passes check_design; smem_bytes reports the plan's bytes."""
+    seen = 0
+    for B in range(b_lo, b_lo + 32):
+        for H in range(1, 601):
+            if not _admitted_before(B, H, tag):
+                continue
+            seen += 1
+            units, mt, blocks, smem = blstm_v1.check_design("layer", B, H, tag)
+            assert (units, mt) in blstm_v1.WALK_FORMS
+            assert blocks <= blstm_ops.SMS and smem <= blstm_ops.SMEM_LIMIT
+            assert blstm_v1.smem_bytes(B, H, tag)[0] == smem
+    assert seen == 32 * (512 if tag == "bf16" else 528)
+
+
+@pytest.mark.parametrize("B, H, tag, match", [
+    (129, 512, "bf16", "beyond the kernel's design"),
+    (129, 16, "f32", "beyond the kernel's design"),
+    (128, 529, "f32", "beyond the walk's design"),  # 16 x 4 needs 136 blocks
+    (64, 513, "bf16", "beyond the chain's design"),  # 4H past 8 K chunks a warp
+    (64, 529, "f32", "beyond the chain's design"),
+])
+def test_one_past_the_limits_raises(B, H, tag, match):
+    with pytest.raises(ValueError, match=match):
+        blstm_v1.check_design("layer", B, H, tag)
+
+
 def test_dispatch_takes_v1_at_las_large_width():
     """blstm_tm_apply at B = 33, H = 512 (past the v2 chain's limit) runs
     the v1 walk; at B = 32 the v2 one (monkeypatched walks record it)."""

@@ -1326,7 +1326,7 @@ def test_blstm_v1_kernels_match_plain(cuda_device, dtype, T, B, H):
     of 8 units read one step late; the stored h and c one step late), the
     gates recompute (the last of the H products dropped), the chain (the
     dgates of 8 units read one step stale) and dwh (the last token's term
-    dropped). Shapes off the 16-byte paths (H = 9, 12), four rows a thread
+    dropped). Shapes off the 16-byte paths (H = 9, 12), the largest batch
     (B = 128) and las_large's width (H = 512, B = 64); wh at glorot scale."""
     import chip_smoke
     from nabu_tpu_torch.ops import blstm_v1 as v1
@@ -1423,6 +1423,134 @@ def test_blstm_v1_chain_repeats_its_bits(cuda_device, T, B, H):
     assert torch.equal(first, second)
     err = float((first.float() - ref.float()).abs().max())
     assert err <= 2e-2 * max(1.0, float(ref.float().abs().max())), err
+
+
+def _v1_walk_inputs(rng, device, dtype, T, B, H):
+    """The v1 walk's inputs: xw uniform in [-1, 1], wh at the model's
+    glorot scale, ragged lengths from T down with a last lane of length 0
+    (B > 1)."""
+    def u(*shape, scale=1.0):
+        return torch.as_tensor(
+            rng.uniform(-scale, scale, shape).astype(np.float32)).to(device, dtype)
+
+    lengths = _lengths(T, B)
+    if B > 1:
+        lengths[-1] = 0
+    lt = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+    return u(2, T, B, 4 * H), lt, u(2, H, 4 * H, scale=float(np.sqrt(6.0 / (5 * H))))
+
+
+def _v1_walk_excess(got, ref, tag):
+    """The largest excess of the training walk's outputs (y, hs, c) over
+    chip_smoke.py's tolerances: y and the stored h at the walk's, c at the
+    stores'."""
+    import chip_smoke
+
+    tols = 2 * [chip_smoke.TOL[("blstm_v1_recur", tag)]] + [
+        chip_smoke.TOL[("blstm_v1_stores", tag)]]
+    return max(float(((g.float() - r.float()).abs() - atol - rtol * r.float().abs()).max())
+               for g, r, (atol, rtol) in zip(got, ref, tols))
+
+
+# T in {1, 3, 37}: the tests' narrow layers (H = 9, 12: exchange rows of
+# one 16-byte vector, a partial unit group), the largest batch at a narrow
+# width (B = 128), a batch one past the v2 limit at H = 512, las_large's
+# Listener and the largest batch at its width (16 x 4: 4 cells a thread)
+V1_WALK_SHAPES = [(T, B, H) for T in (1, 3, 37)
+                  for B, H in ((4, 9), (5, 12), (128, 16), (33, 512), (64, 512), (128, 512))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", V1_WALK_SHAPES)
+def test_blstm_v1_walk_matches_plain_at_its_plans(cuda_device, dtype, T, B, H):
+    """The v1 walks, inference and training, at the form ``walk_plan``
+    picks, ragged lengths with a lane of length 0: within chip_smoke.py's
+    tolerances of the plain version; a second launch gives the first one's
+    bits, and the inference y equals the training y."""
+    from nabu_tpu_torch.ops import blstm_v1 as v1
+
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    plan = v1.walk_plan(B, H)
+    assert plan is not None and (plan[0], plan[1]) in v1.WALK_FORMS
+    args = _v1_walk_inputs(np.random.default_rng(T + B + H), cuda_device, dtype, T, B, H)
+    before = kernels.launch_counts()
+    y = [v1.blstm_v1_recur(*args) for _ in range(2)]
+    train = [v1.blstm_v1_recur_train(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["blstm_v1_recur"] == before["blstm_v1_recur"] + 2
+    assert after["blstm_v1_recur_train"] == before["blstm_v1_recur_train"] + 2
+    assert y[0].dtype == dtype and torch.equal(y[0], y[1])
+    assert all(torch.equal(a, b) for a, b in zip(*train))
+    assert torch.equal(train[0][0], y[0])
+    excess = _v1_walk_excess(train[0], v1.blstm_v1_recur_train_plain(*args), tag)
+    assert excess <= 0, (plan, excess)
+    if B > 1:  # the length-0 lane: y and every stored h zero
+        assert float(y[0][:, -1].float().abs().max()) == 0.0
+        assert float(train[0][1][:, :, -1].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(37, 37, 24), (29, 33, 9)])
+def test_blstm_v1_walk_forms_give_one_result(cuda_device, monkeypatch, dtype, T, B, H):
+    """Every form of the v1 walk (units x 16 mt rows a block), forced at
+    one shape: each within the tolerances of the plain version, all with
+    the same bits, inference and training (a row's sums do not depend on
+    the form); H = 9 (an exchange row of one 16-byte vector, a partial unit
+    group)."""
+    from nabu_tpu_torch.ops import blstm_v1 as v1
+
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    args = _v1_walk_inputs(np.random.default_rng(T * B + H), cuda_device, dtype, T, B, H)
+    ref = v1.blstm_v1_recur_train_plain(*args)
+    outs = []
+    for units, mt in v1.WALK_FORMS:
+        form = v1.walk_plan(B, H, ((units, mt),))
+        assert form is not None, (units, mt)
+        monkeypatch.setattr(v1, "walk_plan", lambda *_, f=form: f)
+        outs.append((v1.blstm_v1_recur(*args), *v1.blstm_v1_recur_train(*args)))
+        assert torch.equal(outs[-1][0], outs[-1][1]), (units, mt)
+        excess = _v1_walk_excess(outs[-1][1:], ref, tag)
+        assert excess <= 0, (units, mt, excess)
+    assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blstm_v1_walk_row_alone_equals_row_in_batch(cuda_device, dtype):
+    """A row walked alone (B = 1, its own plan) gives the same bits as
+    inside the batch of 64 at H = 512 (16 x 2, 128 blocks), in both
+    walks."""
+    from nabu_tpu_torch.ops import blstm_v1 as v1
+
+    T, H = 33, 512
+    xw, lt, wh = _v1_walk_inputs(np.random.default_rng(41), cuda_device, dtype, T, 64, H)
+    y = v1.blstm_v1_recur(xw, lt, wh)
+    train = v1.blstm_v1_recur_train(xw, lt, wh)
+    for b in (0, 5, 17, 63):
+        one = xw[:, :, b:b + 1].contiguous()
+        lb = lt[b:b + 1].contiguous()
+        assert torch.equal(v1.blstm_v1_recur(one, lb, wh), y[:, b:b + 1]), b
+        alone = v1.blstm_v1_recur_train(one, lb, wh)
+        assert torch.equal(alone[0], train[0][:, b:b + 1]), b
+        assert all(torch.equal(a, r[:, :, b:b + 1]) for a, r in zip(alone[1:], train[1:])), b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blstm_v1_walk_probe_keeps_the_walks_bits(cuda_device, dtype):
+    """The step probe's build of the training walk gives the walk's bits,
+    counts no launch, and sums positive cycles of every part in every
+    block (T = 9, B = 64, H = 512: the plan's 128 blocks)."""
+    from nabu_tpu_torch.ops import blstm_v1 as v1
+
+    args = _v1_walk_inputs(np.random.default_rng(5), cuda_device, dtype, 9, 64, 512)
+    want = v1.blstm_v1_recur_train(*args)
+    before = kernels.launch_counts()
+    *got, cycles = v1.blstm_v1_recur_train_probe(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tuple(cycles.shape) == (v1.walk_plan(64, 512)[2], len(v1.PROBE_PARTS))
+    assert bool((cycles > 0).all()), cycles
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
