@@ -130,9 +130,9 @@ group of the plan past the first 8 units; the stream's own shape, a
 32-frame chunk with a carry at B = 32 and B = 1, gets a row of its own.
 The v1 walk's rows (``blstm_v1_recur``, ``blstm_v1_recur_train``, both
 types, T = 1024 and 512) print the same for ``ops.blstm_v1.walk_plan``
-(the bf16 rows also the 32 units x 16 rows form, which no plan takes at
-H = 512) and its step probe (``ops.blstm_v1.blstm_v1_recur_train_probe``),
-its planted group fault the plan's second unit group.
+(one plan an element type) and its step probe
+(``ops.blstm_v1.blstm_v1_recur_train_probe``), its planted group fault
+the plan's second unit group.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -519,10 +519,11 @@ def gemm_variants(phase: str) -> dict:
     return counts
 
 
-def walk_fields(torch, timed, reps, fn, first, ms, ops, Tq=T, Bq=B, Hq=H) -> dict:
+def walk_fields(torch, timed, reps, fn, first, ms, ops, Tq=T, Bq=B, Hq=H, tag=None) -> dict:
     """A walk row's extra readings (Tq steps, Bq rows, Hq units) for the
-    v2 walk (``ops`` = ``ops.blstm``), the v1 walk (``ops.blstm_v1``) or
-    the LSTM walk (``ops.lstm``): the
+    v2 walk (``ops`` = ``ops.blstm``), the v1 walk (``ops.blstm_v1``,
+    whose plan also takes the element type ``tag``) or the LSTM walk
+    (``ops.lstm``): the
     split it ran (``ops.walk_plan``), whether a second launch gives the
     first one's bits, its µs a step and, timed, the µs a step of every
     form of the walk whose blocks fit the card (``ops.walk_plan`` of that
@@ -539,12 +540,13 @@ def walk_fields(torch, timed, reps, fn, first, ms, ops, Tq=T, Bq=B, Hq=H) -> dic
     repeat = same(first, fn())
     if not repeat:
         FAILURES.append(f"{fn.__name__} T={Tq} B={Bq}: a second launch's bits differ")
-    fields = {"plan": ops.walk_plan(Bq, Hq), "repeat_bits_equal": repeat,
+    shape = (Bq, Hq) if tag is None else (Bq, Hq, tag)
+    fields = {"plan": ops.walk_plan(*shape), "repeat_bits_equal": repeat,
               "us_per_step": None if ms is None else 1e3 * ms / Tq}
     if reps:
         by_split, bits = {}, True
         for units, mt in ops.WALK_FORMS:
-            plan = ops.walk_plan(Bq, Hq, ((units, mt),))
+            plan = ops.walk_plan(*shape, ((units, mt),))
             if plan is None:
                 continue
             with swapped(ops, "walk_plan", lambda *_, f=plan: f):
@@ -1327,20 +1329,6 @@ def v1_rows(torch, timed, reps) -> dict:
         return torch.as_tensor(rng.uniform(-scale, scale, shape).astype(np.float32),
                                device=dev).to(dtype)
 
-    def bf16_wide_form(fn, first, Tq):
-        """The µs a step of bf16's 32 units x 16 rows a block, a form no plan
-        takes at H = 512 (the plan serves both types, and f32's wh of 32
-        units takes 256 KB); a walk whose bits differ from the plan's fails
-        the run."""
-        form = (32, 1, 2 * -(-Bv // 16) * -(-Hv // 32), None)
-        with swapped(v1, "walk_plan", lambda *_: form):
-            us = 1e3 * timed(fn, reps) / Tq
-            out = fn()
-        out, first = (x if isinstance(x, tuple) else (x,) for x in (out, first))
-        if not all(torch.equal(a, b) for a, b in zip(out, first)):
-            FAILURES.append(f"{fn.__name__} T={Tq}: bf16 32 x 1's bits differ")
-        return us
-
     for case, Tv, D in V1_SHAPES:
         lengths = rng.integers(Tv // 8, Tv + 1, Bv).astype(np.int32)
         lengths[0] = Tv
@@ -1382,7 +1370,7 @@ def v1_rows(torch, timed, reps) -> dict:
             fault = fault_reading(stale_recur(torch)(xw, lens, wh), ref, tol,
                                   f"blstm_v1_recur {key}")
             # the plan's second unit group reads h one step late
-            group = v1.walk_plan(Bv, Hv)[0]
+            group = v1.walk_plan(Bv, Hv, tag)[0]
             stale_group = stale_recur(torch, units=group, first=group)(xw, lens, wh)
             group_fault = fault_reading(stale_group, ref, tol,
                                         f"blstm_v1_recur {key} (unit group {group}.."
@@ -1404,9 +1392,7 @@ def v1_rows(torch, timed, reps) -> dict:
                 return v1.blstm_v1_recur(xw, lens, wh)
 
             row.update(walk_fields(torch, timed, reps, blstm_v1_recur, got, row["ms"], v1,
-                                   Tv, Bv, Hv))
-            if tag == "bf16" and reps:
-                row["us_per_step_by_split"]["16x32"] = bf16_wide_form(blstm_v1_recur, got, Tv)
+                                   Tv, Bv, Hv, tag))
             emit({"phase": "kernels", "kernel": "blstm_v1_recur", "case": case, **row})
             rows[("blstm_v1_recur", tag, case)] = row
             del got, ref
@@ -1445,10 +1431,7 @@ def v1_rows(torch, timed, reps) -> dict:
                 return v1.blstm_v1_recur_train(xw, lens, wh)
 
             row.update(walk_fields(torch, timed, reps, blstm_v1_recur_train, got, row["ms"], v1,
-                                   Tv, Bv, Hv))
-            if tag == "bf16" and reps:
-                row["us_per_step_by_split"]["16x32"] = bf16_wide_form(blstm_v1_recur_train, got,
-                                                                      Tv)
+                                   Tv, Bv, Hv, tag))
             # its first step waits for nothing and is not counted
             row["step_probe"] = walk_probe(
                 torch, timed, reps, lambda: v1.blstm_v1_recur_train_probe(xw, lens, wh), Tv,

@@ -124,8 +124,9 @@ def chain_plan(B: int, H: int, tag: str):
 # direction, 512 or 1024 cells, 2 or 4 a thread; in f32 a half warp sums 4
 # rows x 4 units' 4 gates a tile over one of 16 K slices, in bf16 the 8
 # warps split K. The forms (units, mt) in the order walk_plan tries them:
-# 32 x 1 pulls the fewest rows a block, 16 x 4 holds every B <= 128 at H
-# <= 528
+# 32 x 1 pulls the fewest rows a block (bf16's at B = 64, H = 512, where
+# f32's wh of 32 units takes 256 KB), 16 x 4 holds every B <= 128 at H <=
+# 528
 WALK_FORMS = ((32, 1), (16, 2), (8, 4), (16, 4))
 
 
@@ -135,48 +136,48 @@ def walk_xp(H: int) -> int:
     return -(-H // 8) * 8
 
 
-def walk_bytes(H: int, units: int, mt: int) -> int:
-    """Shared memory of a walk block, the larger of the two element types'
+def walk_bytes(H: int, units: int, mt: int, tag: str) -> int:
+    """Shared memory of a walk block in the element type ``tag``
     (``walk_bytes`` of csrc/blstm_v1.cu): in f32 the four gate columns of
     wh of its units, [4 units, ceil4(H)] f32; in bf16 the same columns as
     mma B fragments, ceil(H / 32) chunks x units / 2 n-tiles x 32 lanes x
     16 bytes, and the 8 warps' partial sums [8, 16 mt, 4 units + 8] f32."""
-    f32 = 16 * units * (-(-H // 4) * 4)
-    bf16 = -(-H // 32) * (units // 2) * 32 * 16 + 4 * 8 * CHAIN_ROWS * mt * (4 * units + 8)
-    return max(f32, bf16)
+    if tag == "f32":
+        return 16 * units * (-(-H // 4) * 4)
+    return -(-H // 32) * (units // 2) * 32 * 16 + 4 * 8 * CHAIN_ROWS * mt * (4 * units + 8)
 
 
-def walk_plan(B: int, H: int, forms=WALK_FORMS):
-    """-> (units, mt, blocks, shared memory bytes) of the walk: the first
-    of ``forms`` whose 2 ceil(B / 16 mt) row groups x ceil(H / units) unit
-    groups fit the card one block an SM with their shared memory
-    (``ops.blstm._first_form``); None if none does. A pure function of (B,
-    H), the same in both element types, for the inference and the
-    training walk."""
-    return v2._first_form(B, H, forms, lambda units, mt: walk_bytes(H, units, mt))
+def walk_plan(B: int, H: int, tag: str, forms=WALK_FORMS):
+    """-> (units, mt, blocks, shared memory bytes) of the walk in the
+    element type ``tag``: the first of ``forms`` whose 2 ceil(B / 16 mt)
+    row groups x ceil(H / units) unit groups fit the card one block an SM
+    with their shared memory (``ops.blstm._first_form``); None if none
+    does. A pure function of (B, H, tag), for the inference and the
+    training walk: bf16 32 x 1 and f32 16 x 2 at B = 64, H = 512."""
+    return v2._first_form(B, H, forms, lambda units, mt: walk_bytes(H, units, mt, tag))
 
 
 def smem_bytes(B: int, H: int, tag: str):
     """-> (walk, chain) shared memory of one block, each of its plan
     (``walk_plan``, ``chain_plan``; None where no plan holds B and H)."""
-    walk, chain = walk_plan(B, H), chain_plan(B, H, tag)
+    walk, chain = walk_plan(B, H, tag), chain_plan(B, H, tag)
     return None if walk is None else walk[3], None if chain is None else chain[2]
 
 
 def check_design(what: str, B: int, H: int, tag: str):
     """-> the walk's ``walk_plan``; raises for a batch and width the v1
-    kernels cannot hold: B past ``MAX_BATCH``, no walk form whose blocks
-    fit the card one an SM with their shared memory, and no ``chain_plan``
-    for the chain in the element type ``tag`` (which also bounds bf16 at
+    kernels cannot hold in the element type ``tag``: B past
+    ``MAX_BATCH``, no walk form whose blocks fit the card one an SM with
+    their shared memory, and no ``chain_plan`` (which also bounds bf16 at
     H <= 512, the walk's A fragments of 2 K chunks a warp)."""
     if B > MAX_BATCH:
         raise ValueError(f"{what}: B = {B} is beyond the kernel's design (B <= {MAX_BATCH})")
-    plan = walk_plan(B, H)
+    plan = walk_plan(B, H, tag)
     if plan is None:
         raise ValueError(
-            f"{what}: B = {B}, H = {H} is beyond the walk's design (no block of 16 mt rows x "
-            f"units of one direction, {WALK_FORMS}, fits the card's {v2.SMS} SMs one block "
-            f"an SM)")
+            f"{what}: B = {B}, H = {H} is beyond the walk's design in {tag} (no block of 16 "
+            f"mt rows x units of one direction, {WALK_FORMS}, fits the card's {v2.SMS} SMs "
+            f"one block an SM)")
     if chain_plan(B, H, tag) is None:
         raise ValueError(
             f"{what}: B = {B}, H = {H} is beyond the chain's design in {tag} (no split "

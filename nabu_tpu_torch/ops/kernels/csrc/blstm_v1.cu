@@ -31,8 +31,9 @@
 //     x U units of one direction, 512 or 1024 cells, 2 or 4 a thread (U x
 //     MT = 32 x 1, 16 x 2, 8 x 4 or 16 x 4, from ops/blstm_v1.walk_plan:
 //     the first whose 2 ceil(B / 16 MT) ceil(H / U) blocks are co-resident
-//     one an SM with their shared memory; 16 x 2 at B = 64, H = 512, 128
-//     blocks). It keeps its units' four gate columns of wh in shared
+//     one an SM with their shared memory in the element type; at B = 64,
+//     H = 512 128 blocks, bf16 32 x 1, f32 16 x 2). It keeps its units'
+//     four gate columns of wh in shared
 //     memory for the whole walk and c and h of its cells in registers, and
 //     meets only the ceil(H / U) blocks of its (direction, row group), at
 //     a counter of their own: a release add after a block barrier to
@@ -46,10 +47,11 @@
 //       mma.sync m16n8k16 pass with f32 accumulators is the reference's
 //       product. The 8 warps split K = H into chunks of 32 (two a warp at
 //       H = 512), each runs its chunks for the block's 16 MT rows x 4U
-//       columns (wh's columns staged once as B fragments, 64 KB at U = 16;
-//       h's 16-byte loads are the A fragments), MW m-tiles a pass (64
+//       columns (wh's columns staged once as B fragments, 128 KB at U =
+//       32; h's 16-byte loads are the A fragments), MW m-tiles a pass (64
 //       accumulators), and stores its partial sums; after a block barrier
-//       each thread adds its cells' 4 gates over the warps in warp order;
+//       each thread adds its cells' 4 gates over the warps in warp order
+//       (its cells run units fastest);
 //     - f32 on the FMA pipes (no TF32: the 1e-4 check), register-blocked:
 //       a half warp owns 4 rows x 4 units' 4 gates a tile (P tiles in
 //       turn), its 16 lanes take the quads ks + 16 p of K, and a
@@ -78,12 +80,17 @@
 //     Where it was hard: H = 512 at B = 64 is past the v2 walk's 256
 //     cells a block (256 blocks), so a block here holds 2 or 4 cells a
 //     thread: the bf16 product runs its m-tiles in passes to stay within
-//     the registers beside the A fragments, and the plan weighs f32's wh
-//     (4 U H 4 bytes, 256 KB at 32 x 1, past a block's 227 KB) against the
-//     rows a block pulls. The earlier design (every block all 64 rows x 8
-//     units, h restaged through shared memory in K tiles with two block
-//     barriers a tile, an FFMA product, a fenced grid-wide barrier over the
-//     direction) ran ~29 us a step.
+//     the registers beside the A fragments. f32's wh at 32 x 1 takes 4 U H
+//     4 bytes = 256 KB, past a block's 227 KB, while bf16's 32 x 1 (16 rows
+//     pulled a block, 16 blocks a counter) is its fastest form there, so
+//     the plan takes the element type. The cell's time was set by the
+//     number of its scattered 2-byte loads and stores, not their latency:
+//     f32's cell map spreads a warp over 8 rows, so bf16's cells, free of
+//     the reduce-scatter, run units fastest (a warp on 1 to 4 rows). The
+//     earlier design (every block all 64 rows x 8 units, h restaged
+//     through shared memory in K tiles with two block barriers a tile, an
+//     FFMA product, a fenced grid-wide barrier over the direction) ran ~29
+//     us a step; this one ~4 (PERF.md, rows 4 and 5).
 //
 // (b) blstm_v1_bwd_recur: the backward's serial chain, one cooperative
 //     persistent launch for both directions. The fw direction walks time
@@ -119,8 +126,8 @@
 // Limits of the design (ops/blstm_v1.check_design raises before any
 // launch beyond them): B <= 128, the batches the forms are sized for; walk
 // (ops/blstm_v1.walk_plan): 2 ceil(B / 16 MT) ceil(H / U) blocks of one
-// form one an SM on the card's 132 SMs, shared memory (walk_bytes, the
-// larger type's) within 227 KB, bf16 H <= 512 (the A fragments of 2 K
+// form one an SM on the card's 132 SMs, shared memory (walk_bytes, in the
+// element type) within 227 KB, bf16 H <= 512 (the A fragments of 2 K
 // chunks a warp); 16 x 4 holds every B <= 128 at H <= 528. Chain
 // (ops/blstm_v1.chain_plan): bf16 H <= 512 (the A fragments of 8 K chunks
 // a warp), 2 ceil(B / 16 MT) ceil(H / U) blocks of one an SM on the

@@ -175,28 +175,33 @@ def test_chain_plan_at_las_large(B, H, tag, plan):
     assert blstm_v1.chain_plan(B, H, tag) == plan
 
 
-# bf16 walk bytes: ceil(H / 32) K chunks x units / 2 n-tiles x 512 bytes of
-# B fragments, and the 8 warps' partial sums [16 mt, 4 units + 8] f32
+# walk bytes: bf16 ceil(H / 32) K chunks x units / 2 n-tiles x 512 bytes
+# of B fragments and the 8 warps' partial sums [16 mt, 4 units + 8] f32;
+# f32 wh's 4 gate columns of the units, [4 units, ceil4(H)] f32
 def _walk_bf16_bytes(H, units, mt):
     return -(-H // 32) * units // 2 * 512 + 4 * 8 * 16 * mt * (4 * units + 8)
 
 
-@pytest.mark.parametrize("B, H, plan", [
-    # las_large's Listener: 32 x 1 would stage f32 wh of 256 KB, past a
-    # block's 227 KB; 16 x 2 is 2 directions x 2 row groups x 32 unit groups
-    (64, 512, (16, 2, 128, _walk_bf16_bytes(512, 16, 2))),
+def _walk_f32_bytes(H, units):
+    return 16 * units * (-(-H // 4) * 4)
+
+
+@pytest.mark.parametrize("B, H, tag, plan", [
+    # las_large's Listener: 32 units x 16 rows in bf16 (2 directions x 4
+    # row groups x 16 unit groups); in f32 32 x 1 would stage 256 KB of wh,
+    # past a block's 227 KB, so 16 x 2
+    (64, 512, "bf16", (32, 1, 128, _walk_bf16_bytes(512, 32, 1))),
+    (64, 512, "f32", (16, 2, 128, _walk_f32_bytes(512, 16))),
     # the largest batch at its width: 4 cells a thread
-    (128, 512, (16, 4, 128, _walk_bf16_bytes(512, 16, 4))),
-    (32, 512, (16, 2, 64, _walk_bf16_bytes(512, 16, 2))),  # its validation batch
-    (1, 9, (32, 1, 2, _walk_bf16_bytes(9, 32, 1))),        # the tests' narrow layers
-    (5, 12, (32, 1, 2, _walk_bf16_bytes(12, 32, 1))),
-    # f32's widest: 132 blocks, 16 x 16 x 528 bytes of f32 wh under the
-    # bf16 layout's 217 KB
-    (128, 528, (16, 4, 132, _walk_bf16_bytes(528, 16, 4))),
+    (128, 512, "bf16", (16, 4, 128, _walk_bf16_bytes(512, 16, 4))),
+    (32, 512, "bf16", (32, 1, 64, _walk_bf16_bytes(512, 32, 1))),  # its validation batch
+    (1, 9, "bf16", (32, 1, 2, _walk_bf16_bytes(9, 32, 1))),        # the tests' narrow layers
+    (5, 12, "f32", (32, 1, 2, _walk_f32_bytes(12, 32))),
+    (128, 528, "f32", (16, 4, 132, _walk_f32_bytes(528, 16))),     # f32's widest: 132 blocks
 ])
-def test_walk_plan(B, H, plan):
-    assert blstm_v1.walk_plan(B, H) == plan
-    assert blstm_v1.smem_bytes(B, H, "f32")[0] == plan[3]
+def test_walk_plan(B, H, tag, plan):
+    assert blstm_v1.walk_plan(B, H, tag) == plan
+    assert blstm_v1.smem_bytes(B, H, tag)[0] == plan[3]
     assert plan[3] <= blstm_ops.SMEM_LIMIT and plan[2] <= blstm_ops.SMS
 
 
@@ -225,8 +230,9 @@ def _admitted_before(B, H, tag):
 @pytest.mark.parametrize("b_lo", [1, 33, 65, 97])
 def test_walk_plan_holds_every_shape_admitted_before(tag, b_lo):
     """Every (B, H) the design admitted before the row groups, B <= 128,
-    H <= 600 (so bf16 H <= 512, f32 H <= 528), still has a walk plan and
-    passes check_design; smem_bytes reports the plan's bytes."""
+    H <= 600 (so bf16 H <= 512, f32 H <= 528), still has a walk plan in
+    its element type and passes check_design; smem_bytes reports the
+    plan's bytes."""
     seen = 0
     for B in range(b_lo, b_lo + 32):
         for H in range(1, 601):

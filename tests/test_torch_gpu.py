@@ -1470,7 +1470,7 @@ def test_blstm_v1_walk_matches_plain_at_its_plans(cuda_device, dtype, T, B, H):
     from nabu_tpu_torch.ops import blstm_v1 as v1
 
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
-    plan = v1.walk_plan(B, H)
+    plan = v1.walk_plan(B, H, tag)
     assert plan is not None and (plan[0], plan[1]) in v1.WALK_FORMS
     args = _v1_walk_inputs(np.random.default_rng(T + B + H), cuda_device, dtype, T, B, H)
     before = kernels.launch_counts()
@@ -1505,7 +1505,7 @@ def test_blstm_v1_walk_forms_give_one_result(cuda_device, monkeypatch, dtype, T,
     ref = v1.blstm_v1_recur_train_plain(*args)
     outs = []
     for units, mt in v1.WALK_FORMS:
-        form = v1.walk_plan(B, H, ((units, mt),))
+        form = v1.walk_plan(B, H, tag, ((units, mt),))
         assert form is not None, (units, mt)
         monkeypatch.setattr(v1, "walk_plan", lambda *_, f=form: f)
         outs.append((v1.blstm_v1_recur(*args), *v1.blstm_v1_recur_train(*args)))
@@ -1518,8 +1518,8 @@ def test_blstm_v1_walk_forms_give_one_result(cuda_device, monkeypatch, dtype, T,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_blstm_v1_walk_row_alone_equals_row_in_batch(cuda_device, dtype):
     """A row walked alone (B = 1, its own plan) gives the same bits as
-    inside the batch of 64 at H = 512 (16 x 2, 128 blocks), in both
-    walks."""
+    inside the batch of 64 at H = 512 (128 blocks: 32 units x 16 rows in
+    bf16, 16 x 32 in f32), in both walks."""
     from nabu_tpu_torch.ops import blstm_v1 as v1
 
     T, H = 33, 512
@@ -1542,6 +1542,7 @@ def test_blstm_v1_walk_probe_keeps_the_walks_bits(cuda_device, dtype):
     block (T = 9, B = 64, H = 512: the plan's 128 blocks)."""
     from nabu_tpu_torch.ops import blstm_v1 as v1
 
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
     args = _v1_walk_inputs(np.random.default_rng(5), cuda_device, dtype, 9, 64, 512)
     want = v1.blstm_v1_recur_train(*args)
     before = kernels.launch_counts()
@@ -1549,7 +1550,7 @@ def test_blstm_v1_walk_probe_keeps_the_walks_bits(cuda_device, dtype):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == before
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert tuple(cycles.shape) == (v1.walk_plan(64, 512)[2], len(v1.PROBE_PARTS))
+    assert tuple(cycles.shape) == (v1.walk_plan(64, 512, tag)[2], len(v1.PROBE_PARTS))
     assert bool((cycles > 0).all()), cycles
 
 
