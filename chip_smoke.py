@@ -132,7 +132,15 @@ The v1 walk's rows (``blstm_v1_recur``, ``blstm_v1_recur_train``, both
 types, T = 1024 and 512) print the same for ``ops.blstm_v1.walk_plan``
 (one plan an element type) and its step probe
 (``ops.blstm_v1.blstm_v1_recur_train_probe``), its planted group fault
-the plan's second unit group.
+the plan's second unit group. The CTC rows (``ctc_alpha``, ``ctc_beta``)
+print their plan (``ops.ctc_batched.ctc_plan``), µs a step, a second
+timed run, whether a second launch and every form of the plan give the
+same bits (``us_per_step_by_form``), the step probe
+(``ops.ctc_batched.ctc_alpha_probe`` / ``ctc_beta_probe``), how many
+floats of [1, 4) the kernels' logarithm maps to other bits than
+``logf`` (``log_mismatches``, which must be 0), and a second planted
+fault, the emission at each chunk's first frame taken from the frame
+walked before it (``chunk_fault_max_abs_err``).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -205,7 +213,9 @@ W, K = 400, 256
 #   (relative to the largest dgate); fault: the dgates of 8 units read one
 #   step stale
 # - ctc_alpha (log-likelihood, f32 over T = 1000 steps) and ctc_beta
-#   (posteriors in [0, 1]); fault: the skip transition dropped
+#   (posteriors in [0, 1]); faults: the skip transition dropped, and the
+#   emission at each chunk's first frame the one of the frame walked just
+#   before (a stale buffer at the chunk hand-off)
 # - features, logits: the serving path with the kernels against the same
 #   path through the plain versions; features fault as above, logits
 #   fault the carry not held past a length
@@ -582,6 +592,29 @@ def walk_probe(torch, timed, reps, probe, Tq, counted) -> dict:
             "us": None if us is None else {p: f * us for p, f in zip(PROBE_PARTS, shares)}}
 
 
+def ctc_probe(torch, timed, reps, probe, Tq) -> dict:
+    """The step probe of a CTC kernel: ``probe()`` launches its build that
+    sums chain thread 0's clock64 cycles of its steps by part
+    (``ops.ctc_batched.PROBE_PARTS``: the chunk hand-off, the emission read
+    and shuffles, the edge exchange, the lse3s, the row store) and counts
+    its steps. -> the mean over the blocks that walked a step, each part's
+    share, the probe's own µs a step over Tq steps (CUDA events) and its
+    parts in µs by those shares."""
+    from nabu_tpu_torch.ops.ctc_batched import PROBE_PARTS
+
+    *_, cycles = probe()
+    steps = cycles[:, -1].double()
+    walked = steps > 0
+    per = (cycles[walked, :-1].double() / steps[walked, None]).mean(dim=0).tolist()
+    ms = timed(probe, reps)
+    us = None if ms is None else 1e3 * ms / Tq
+    shares = [c / sum(per) for c in per]
+    return {"cycles_per_step": dict(zip(PROBE_PARTS, per)),
+            "share": dict(zip(PROBE_PARTS, shares)),
+            "probe_us_per_step": us,
+            "us": None if us is None else {p: f * us for p, f in zip(PROBE_PARTS, shares)}}
+
+
 # ---------------------------------------------------------------------------
 # plain references and planted faults
 # ---------------------------------------------------------------------------
@@ -783,6 +816,29 @@ def forget_bias_folded(gates, forget_bias: float = 1.0):
     out = gates.clone()
     out[..., H: 2 * H] += forget_bias
     return out
+
+
+def chunk_boundary_late(cb, logit_lengths, tc: int, reverse: bool):
+    """Planted CTC fault: the emission at the first frame of each chunk
+    after the first (the kernels' chunks of ``tc`` frames, forward from
+    frame 0, in reverse from frame tlen - 1) is the one of the frame
+    walked just before it, t - 1 forward and t + 1 in reverse: a chain
+    that read the other buffer at the hand-off (the plain versions'
+    emissions so altered)."""
+    emissions = cb._emissions
+
+    def late(logprobs, ext):
+        lp = emissions(logprobs, ext).clone()
+        for b, n in enumerate(logit_lengths):
+            n = min(max(int(n), 0), lp.shape[0])
+            if reverse:
+                for f in range(max(n - 1, 0) - tc, 0, -tc):
+                    lp[f, b] = lp[f + 1, b]
+            else:
+                for f in range(tc, n, tc):
+                    lp[f, b] = lp[f - 1, b]
+        return lp
+    return late
 
 
 def skip_dropped(cb):
@@ -2278,7 +2334,12 @@ def phase_sweep(torch, reps: int = 20) -> None:
 
 def ctc_rows(torch, timed, reps) -> dict:
     """The CTC kernels at B = 32, T = 1000, V = 29, L = 120 (S = 241):
-    ragged logit lengths, one label of length 0, one infeasible example."""
+    ragged logit lengths, one label of length 0, one infeasible example.
+    Each row also prints its plan (``ctc_plan``), µs a step (the longest
+    utterance walks T steps), a second timed run, whether a second launch
+    repeats its bits, every form's µs a step with whether its bits equal
+    the plan's (a differing launch or form fails the run), its step probe
+    and the reading of a planted chunk-boundary fault."""
     from nabu_tpu_torch.ops import ctc_batched as cb
 
     dev = torch.device("cuda")
@@ -2298,6 +2359,7 @@ def ctc_rows(torch, timed, reps) -> dict:
                              device=dev)
     lp = torch.log_softmax(logits, -1).contiguous()
     args = (lp, tl_t, labels, ll_t)
+    plan = cb.ctc_plan(S)
     alphas, lik = cb.ctc_alpha(*args, V - 1)
     posts = cb.ctc_beta(*args, alphas, lik, V - 1)
     ref_a, ref_l = cb.ctc_alpha_plain(*args, V - 1)
@@ -2312,7 +2374,50 @@ def ctc_rows(torch, timed, reps) -> dict:
         fault_p = cb.ctc_beta_plain(*args, ref_a, ref_l, V - 1)
     fault = fault_reading(fault_l, ref_l, TOL["ctc_ll"], "ctc_alpha ll")
     p_fault = fault_reading(fault_p, ref_p, TOL["ctc_posts"], "ctc_beta")
+    with swapped(cb, "_emissions", chunk_boundary_late(cb, tl, plan[3], reverse=False)):
+        _, chunk_l = cb.ctc_alpha_plain(*args, V - 1)
+    with swapped(cb, "_emissions", chunk_boundary_late(cb, tl, plan[3], reverse=True)):
+        chunk_p = cb.ctc_beta_plain(*args, ref_a, ref_l, V - 1)
+    chunk_fault = fault_reading(chunk_l, ref_l, TOL["ctc_ll"], "ctc_alpha ll, chunk boundary")
+    chunk_p_fault = fault_reading(chunk_p, ref_p, TOL["ctc_posts"], "ctc_beta, chunk boundary")
     del fault_a
+
+    def alpha():
+        return cb.ctc_alpha(*args, V - 1)
+
+    def beta():
+        return cb.ctc_beta(*args, alphas, lik, V - 1)
+
+    def same(a, b):
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def extra(fn, first, probe):
+        """The row's plan, bits of a second launch, of the probe's build
+        and of every form, every form's µs a step, the step probe."""
+        repeat = same(first, fn())
+        if not repeat:
+            FAILURES.append(f"{fn.__name__}: a second launch's bits differ")
+        probed = probe()
+        check(same(first, probed[:-1] if len(probed) > 2 else probed[0]),
+              f"{fn.__name__}: the probe's build changed the bits")
+        fields = {"plan": plan, "repeat_bits_equal": repeat,
+                  "step_probe": ctc_probe(torch, timed, reps, probe, Tc)}
+        if reps:
+            by_form, bits = {}, True
+            for k in cb.CTC_FORMS:
+                try:
+                    form = cb.ctc_plan(S, (k,))
+                except ValueError:
+                    continue
+                with swapped(cb, "ctc_plan", lambda S_, forms=None, f=form: f):
+                    by_form[f"{form[0]}x{form[1]}"] = 1e3 * timed(fn, reps) / Tc
+                    bits &= same(first, fn())
+            fields["us_per_step_by_form"] = by_form
+            fields["bits_equal_across_forms"] = bits
+            if not bits:
+                FAILURES.append(f"{fn.__name__}: the forms' bits differ")
+        return fields
 
     # library yardstick: F.ctc_loss (time-major log-probs), forward and
     # forward + backward
@@ -2332,26 +2437,37 @@ def ctc_rows(torch, timed, reps) -> dict:
     rows = {}
     b_ms, b_by = bound(4 * (Bc * Tc * V + Bc * L + 3 * Bc + Tc * Bc * S), valid * S * 10,
                        PEAK_F32)
+    ms = timed(alpha, reps)
+    log_mismatches = cb.ctc_log_mismatches(dev)
+    check(log_mismatches == 0, f"ctc: the kernels' log differs from logf on {log_mismatches} floats")
     rows["ctc_alpha"] = {
         "shape": [Bc, Tc, V, S], "dtype": "f32", "max_abs_err": err,
+        "log_mismatches": log_mismatches,
         "alphas_max_abs_err": a_err, "tol": TOL["ctc_ll"], "fault_max_abs_err": fault,
-        "ms": timed(lambda: cb.ctc_alpha(*args, V - 1), reps),
+        "chunk_fault_max_abs_err": chunk_fault,
+        "ms": ms, "ms_second_run": timed(alpha, reps),
+        "us_per_step": None if ms is None else 1e3 * ms / Tc,
         "plain_ms": timed(lambda: cb.ctc_alpha_plain(*args, V - 1), min(reps, 2)),
         "library_ms": lib_f, "library": "F.ctc_loss forward",
         "bound_ms": b_ms, "bound_by": b_by,
+        **extra(alpha, (alphas, lik), lambda: cb.ctc_alpha_probe(*args, V - 1)),
     }
     emit({"phase": "kernels", "kernel": "ctc_alpha", **rows["ctc_alpha"]})
     b_ms, b_by = bound(4 * (Bc * Tc * V + Bc * L + 3 * Bc + 2 * Tc * Bc * S), valid * S * 14,
                        PEAK_F32)
+    ms = timed(beta, reps)
     rows["ctc_beta"] = {
         "shape": [Bc, Tc, V, S], "dtype": "f32", "max_abs_err": p_err,
         "tol": TOL["ctc_posts"], "fault_max_abs_err": p_fault,
-        "ms": timed(lambda: cb.ctc_beta(*args, alphas, lik, V - 1), reps),
+        "chunk_fault_max_abs_err": chunk_p_fault,
+        "ms": ms, "ms_second_run": timed(beta, reps),
+        "us_per_step": None if ms is None else 1e3 * ms / Tc,
         "plain_ms": timed(lambda: cb.ctc_beta_plain(*args, alphas, lik, V - 1),
                           min(reps, 2)),
         "library_ms": None if lib_f is None else lib_fb - lib_f,
         "library": "F.ctc_loss backward (forward + backward minus forward)",
         "bound_ms": b_ms, "bound_by": b_by,
+        **extra(beta, posts, lambda: cb.ctc_beta_probe(*args, alphas, lik, V - 1)),
     }
     emit({"phase": "kernels", "kernel": "ctc_beta", **rows["ctc_beta"]})
     return rows

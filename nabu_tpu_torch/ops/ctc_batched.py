@@ -12,14 +12,17 @@ Port of the JAX package's ``ops/pallas/ctc_batched.py``
   posteriors ``exp(min(alpha + beta - ll, 0))`` inside the time mask.
 
 Both use the finite ``NEG_INF`` and the unguarded three-way logsumexp of
-the TPU kernels, and read the emission log-probability by a direct
-gather. ``CTCLoss`` is the ``torch.autograd.Function``: its backward is
-the closed form of the JAX ``_bwd`` (``softmax - posteriors summed per
-vocabulary entry``, gated by time and by ``ll > -CTC_NLL_CLAMP + 1``);
-the log-softmax and that vocabulary reduction stay plain torch, as they
-are XLA outside the Pallas calls in JAX. Wrappers launch the kernels for
-CUDA tensors and take the plain versions only for CPU tensors. The
-oracle is ``ops.ctc.ctc_loss``.
+the TPU kernels. On the card a block walks one utterance: chain warps
+hold the recursion row in registers, helper warps stage each chunk's
+emissions ahead of them and (beta) turn the walked rows into posteriors;
+``ctc_plan`` sets the split for S lanes. ``CTCLoss`` is the
+``torch.autograd.Function``: its backward is the closed form of the JAX
+``_bwd`` (``softmax - posteriors summed per vocabulary entry``, gated by
+time and by ``ll > -CTC_NLL_CLAMP + 1``); the log-softmax and that
+vocabulary reduction stay plain torch, as they are XLA outside the
+Pallas calls in JAX. Wrappers launch the kernels for CUDA tensors and
+take the plain versions only for CPU tensors. The oracle is
+``ops.ctc.ctc_loss``.
 """
 
 from __future__ import annotations
@@ -36,9 +39,56 @@ from nabu_tpu_torch.ops.masking import NEG_INF
 _fns: dict = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "ctc_alpha": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
-    "ctc_beta": [_P] * 7 + [_I] * 5 + [_P],
+    "ctc_alpha": [_P] * 6 + [_I] * 5 + [ctypes.c_float] + [_I] * 5 + [_P] * 2,
+    "ctc_beta": [_P] * 7 + [_I] * 5 + [_I] * 5 + [_P] * 2,
+    "ctc_log_check": [_P] * 2,
 }
+# the step probe's parts (csrc/ctc.cu): the chunk hand-off, the emission
+# read with the shuffles, the edge exchange, the lse3s, the row store
+PROBE_PARTS = ("wait", "read", "exchange", "lse3", "store")
+
+# The kernels' forms: lanes a thread (K), in the order ``ctc_plan`` tries
+# them, each with the most chain warps it takes (its register budget in
+# csrc/ctc.cu: 512 threads a block for K <= 8, 704 beyond) and its helper
+# warps. K = 2 on up to 8 warps holds S <= 512; K = 32 on 18 holds every S
+# the kernels took before (S <= 17880, by their 13 S bytes of shared
+# memory) and up to 18432.
+CTC_FORMS = (2, 4, 8, 16, 32)
+CHAIN_WARPS = {2: 8, 4: 8, 8: 8, 16: 16, 32: 18}
+HELPER_WARPS = {2: 8, 4: 8, 8: 8, 16: 4, 32: 4}
+CHUNK = 32  # frames a chunk at most (fewer where shared memory runs out)
+SMEM_LIMIT = 232448  # a block's shared memory on the H100 (227 KB)
+
+
+def ctc_smem_bytes(held: int, tc: int, chain: int) -> int:
+    """Shared memory of a block of ``chain`` warps holding ``held`` lanes
+    with chunks of ``tc`` frames (``smem_bytes`` of csrc/ctc.cu): the
+    staged emissions [2, tc, held] f32, the extended labels [held] int32,
+    the chain warps' edge slots [2 tc, chain, 2] u64 and the final row's
+    two lanes."""
+    return held * (8 * tc + 4) + 32 * tc * chain + 16
+
+
+def ctc_plan(S: int, forms=CTC_FORMS):
+    """-> (lanes a thread, chain warps, helper warps, chunk frames, shared
+    memory bytes) of both CTC kernels for S extended lanes: the first of
+    ``forms`` whose chain warps hold S within the form's limit, with the
+    longest chunk (up to ``CHUNK``) whose buffers fit a block. The
+    emissions are gathered S a frame, so V does not enter. Raises for an S
+    no form holds."""
+    for k in forms:
+        chain = -(-S // (32 * k))
+        if chain > CHAIN_WARPS[k]:
+            continue
+        tc = CHUNK
+        while tc > 1 and ctc_smem_bytes(32 * k * chain, tc, chain) > SMEM_LIMIT:
+            tc //= 2
+        smem = ctc_smem_bytes(32 * k * chain, tc, chain)
+        if smem <= SMEM_LIMIT:
+            return k, chain, HELPER_WARPS[k], tc, smem
+    raise ValueError(
+        f"S = {S} extended lanes is beyond the CTC kernels' design (forms of lanes a "
+        f"thread {forms} on at most {CHAIN_WARPS} chain warps)")
 
 
 def _launcher(name: str):
@@ -68,6 +118,27 @@ def _emissions(logprobs, ext):
     S = ext.shape[1]
     lp = torch.gather(logprobs, 2, ext[:, None, :].expand(B, T, S).long())
     return lp.permute(1, 0, 2)
+
+
+def ctc_log_mismatches(device) -> int:
+    """On the card: how many floats of [1, 4) the kernels' logarithm
+    (csrc/ctc.cu's ``log_ge1``, lse3's log of a sum >= 1) maps to other
+    bits than the CUDA math library's ``logf``. 0 keeps the kernels' bits
+    the plain versions'. Counts no launch."""
+    out = torch.zeros((1,), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = _launcher("ctc_log_check")(out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    build.check(err, "ctc_log_check")
+    return int(out.item())
+
+
+def _plan(name, S):
+    """The kernels' plan for S lanes; raises, before any launch, for an S
+    beyond their design."""
+    try:
+        return ctc_plan(S)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
 
 
 def _check(name, logprobs, logit_lengths, labels, label_lengths, **extra):
@@ -123,22 +194,43 @@ def ctc_alpha_plain(logprobs, logit_lengths, labels, label_lengths, blank_id: in
 def ctc_alpha(logprobs, logit_lengths, labels, label_lengths, blank_id: int):
     if logprobs.device.type == "cpu":
         return ctc_alpha_plain(logprobs, logit_lengths, labels, label_lengths, blank_id)
+    return _alpha(logprobs, logit_lengths, labels, label_lengths, blank_id)[:2]
+
+
+def ctc_alpha_probe(logprobs, logit_lengths, labels, label_lengths, blank_id: int):
+    """The alpha kernel on the card built with its step probe, for
+    measurement only (no path calls it, and it counts no launch): ->
+    (alphas, ll, cycles [B, 6] int64), each block's chain thread 0's
+    clock64 cycles summed by ``PROBE_PARTS``, then its steps."""
+    return _alpha(logprobs, logit_lengths, labels, label_lengths, blank_id, probe=True)
+
+
+def _alpha(logprobs, logit_lengths, labels, label_lengths, blank_id, probe=False):
     name = "ctc_alpha"
+    L = labels.shape[-1]
+    plan = _plan(name, 2 * L + 1)
     _check(name, logprobs, logit_lengths, labels, label_lengths)
     B, T, V = logprobs.shape
-    L = labels.shape[1]
-    alphas = torch.empty((T, B, 2 * L + 1), dtype=torch.float32, device=logprobs.device)
-    ll = torch.empty((B,), dtype=torch.float32, device=logprobs.device)
-    with torch.cuda.device(logprobs.device):
+    dev = logprobs.device
+    alphas = torch.empty((T, B, 2 * L + 1), dtype=torch.float32, device=dev)
+    ll = torch.empty((B,), dtype=torch.float32, device=dev)
+    cycles = _cycles(B, dev) if probe else None
+    with torch.cuda.device(dev):
         err = _launcher(name)(
             logprobs.data_ptr(), logit_lengths.data_ptr(), labels.data_ptr(),
             label_lengths.data_ptr(), alphas.data_ptr(), ll.data_ptr(),
-            B, T, V, L, int(blank_id), float(CTC_NLL_CLAMP),
+            B, T, V, L, int(blank_id), float(CTC_NLL_CLAMP), *plan,
+            None if cycles is None else cycles.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, name)
-    kernels.LAUNCHES[name] += 1
-    return alphas, ll
+    if not probe:
+        kernels.LAUNCHES[name] += 1
+    return alphas, ll, cycles
+
+
+def _cycles(B, dev):
+    return torch.zeros((B, len(PROBE_PARTS) + 1), dtype=torch.int64, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -179,24 +271,40 @@ def ctc_beta(logprobs, logit_lengths, labels, label_lengths, alphas, ll, blank_i
     if logprobs.device.type == "cpu":
         return ctc_beta_plain(logprobs, logit_lengths, labels, label_lengths, alphas, ll,
                               blank_id)
+    return _beta(logprobs, logit_lengths, labels, label_lengths, alphas, ll, blank_id)[0]
+
+
+def ctc_beta_probe(logprobs, logit_lengths, labels, label_lengths, alphas, ll,
+                   blank_id: int):
+    """The beta kernel built with its step probe (as ``ctc_alpha_probe``):
+    -> (posteriors, cycles [B, 6] int64)."""
+    return _beta(logprobs, logit_lengths, labels, label_lengths, alphas, ll, blank_id,
+                 probe=True)
+
+
+def _beta(logprobs, logit_lengths, labels, label_lengths, alphas, ll, blank_id, probe=False):
     name = "ctc_beta"
+    L = labels.shape[-1]
+    plan = _plan(name, 2 * L + 1)
     _check(name, logprobs, logit_lengths, labels, label_lengths, alphas=alphas, ll=ll)
     B, T, V = logprobs.shape
-    L = labels.shape[1]
     if tuple(alphas.shape) != (T, B, 2 * L + 1) or alphas.dtype != torch.float32:
         raise ValueError(f"{name}: alphas {tuple(alphas.shape)} is not f32 [T, B, 2L+1]")
     if tuple(ll.shape) != (B,) or ll.dtype != torch.float32:
         raise ValueError(f"{name}: ll must be f32 [{B}]")
     posts = torch.empty_like(alphas)
+    cycles = _cycles(B, logprobs.device) if probe else None
     with torch.cuda.device(logprobs.device):
         err = _launcher(name)(
             logprobs.data_ptr(), logit_lengths.data_ptr(), labels.data_ptr(),
             label_lengths.data_ptr(), alphas.data_ptr(), ll.data_ptr(), posts.data_ptr(),
-            B, T, V, L, int(blank_id), torch.cuda.current_stream().cuda_stream,
+            B, T, V, L, int(blank_id), *plan, None if cycles is None else cycles.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, name)
-    kernels.LAUNCHES[name] += 1
-    return posts
+    if not probe:
+        kernels.LAUNCHES[name] += 1
+    return posts, cycles
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 // Device helpers shared by the serial walks and chains of blstm.cu,
 // blstm_v1.cu and lstm.cu: element conversions, the row groups' hand-off
 // at a counter (a release add to arrive, an acquire load to wait), the
-// warp reduce-scatter, the bf16 mma, the step probe's stamp and the
-// co-residency check of a cooperative launch. ops/kernels/build.py folds
+// warp reduce-scatter, the bf16 mma, the step probe's stamp (also ctc.cu's)
+// and the co-residency check of a cooperative launch. ops/kernels/build.py folds
 // this header into the hash of every library it builds.
 
 #pragma once

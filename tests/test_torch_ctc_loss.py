@@ -5,7 +5,8 @@ kernel path (``ops.ctc_batched``, which runs the CTC kernels' plain
 versions on the CPU) is held to ``ctc_loss_pallas_batched`` in interpret
 mode; the port's plain oracle ``ops.ctc.ctc_loss`` (autograd through the
 loop over T) to the JAX oracle ``ops.ctc.ctc_loss`` (autodiff through
-its scan). f32; loss rtol 1e-5, dlogits atol 1e-5.
+its scan). f32; loss rtol 1e-5, dlogits atol 1e-5, posteriors atol
+1e-5. Also the kernels' plan (``ctc_plan``), which the CUDA side reads.
 """
 
 import jax
@@ -16,7 +17,7 @@ import torch
 
 from nabu_tpu.ops import ctc as jctc
 from nabu_tpu.ops import losses as jlosses
-from nabu_tpu.ops.pallas.ctc_batched import ctc_loss_pallas_batched
+from nabu_tpu.ops.pallas.ctc_batched import _ctc_forward, ctc_loss_pallas_batched
 from nabu_tpu_torch.ops import ctc as tctc
 from nabu_tpu_torch.ops import ctc_batched as tcb
 from nabu_tpu_torch.ops import kernels
@@ -162,3 +163,94 @@ def test_other_losses_not_ported():
     assert set(metrics) == {"token_accuracy"}
     with pytest.raises(KeyError, match="unknown"):
         tlosses.LOSSES.get("mwer")
+
+
+# ---------------------------------------------------------------------------
+# the kernels' plan
+# ---------------------------------------------------------------------------
+
+OLD_LIMIT = 232448 // 13  # S the kernels took before: 13 S bytes of shared memory
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 512), (513, 2048), (2049, 8192), (8193, OLD_LIMIT)])
+def test_ctc_plan_holds_every_s_the_kernels_took(lo, hi):
+    """Every S up to the old limit has a plan: its chain warps hold the
+    S lanes within the form's limit, its block within the form's threads,
+    its buffers within a block's shared memory."""
+    for S in range(lo, hi + 1):
+        k, chain, helpers, tc, smem = tcb.ctc_plan(S)
+        assert k in tcb.CTC_FORMS and 1 <= chain <= tcb.CHAIN_WARPS[k]
+        assert 32 * k * (chain - 1) < S <= 32 * k * chain
+        assert (chain + helpers) * 32 <= (512 if k <= 8 else 704)
+        assert 1 <= tc <= tcb.CHUNK
+        assert smem == tcb.ctc_smem_bytes(32 * k * chain, tc, chain) <= tcb.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("S,plan", [
+    (1, (2, 1, 8, 32, 17680)),
+    (201, (2, 4, 8, 32, 70672)),   # the bench line's L = 100
+    (241, (2, 4, 8, 32, 70672)),   # chip_smoke's L = 120
+    (513, (4, 5, 8, 32, 171536)),
+    (2401, (16, 5, 4, 8, 175376)),
+    (OLD_LIMIT, (32, 18, 4, 1, 221776)),
+    (18432, (32, 18, 4, 1, 221776)),
+])
+def test_ctc_plan(S, plan):
+    assert tcb.ctc_plan(S) == plan
+
+
+@pytest.mark.parametrize("S,forms", [(18433, tcb.CTC_FORMS), (513, (2,)), (2049, (2, 4, 8))])
+def test_ctc_plan_raises_beyond_what_it_admits(S, forms):
+    with pytest.raises(ValueError, match="beyond the CTC kernels' design"):
+        tcb.ctc_plan(S, forms)
+
+
+def test_wrappers_raise_before_any_launch_beyond_the_plan():
+    """A device tensor with L = 9217 (S = 18435) is refused by both
+    wrappers before anything is checked or launched; an admitted L on a
+    device the kernels do not run on is refused by the device check."""
+    meta = torch.device("meta")
+    B, T, V = 2, 5, 7
+    lp = torch.empty((B, T, V), device=meta)
+    tl = torch.empty((B,), dtype=torch.int32, device=meta)
+    before = kernels.launch_counts()
+    for L, match in ((9217, "beyond the CTC kernels' design"), (20, "unsupported device")):
+        labels = torch.empty((B, L), dtype=torch.int32, device=meta)
+        alphas = torch.empty((T, B, 2 * L + 1), device=meta)
+        with pytest.raises(ValueError, match=f"ctc_alpha: .*{match}"):
+            tcb.ctc_alpha(lp, tl, labels, tl, V - 1)
+        with pytest.raises(ValueError, match=f"ctc_beta: .*{match}"):
+            tcb.ctc_beta(lp, tl, labels, tl, alphas, tl.float(), V - 1)
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("lengths", ["tc_minus_one_to_plus_one", "tc_plus_two_and_longer"])
+def test_plain_versions_match_pallas_at_chunk_boundaries(lengths):
+    """Logit lengths at the kernels' chunk boundaries (TC - 1, TC, TC + 1;
+    TC + 2, 2 TC, 2 TC + 1: the beta walk's chunks count from tlen - 1),
+    0 and 1, T not a multiple of TC: the loss, its gradient and the
+    posteriors of the plain versions against the JAX kernel path in
+    interpret mode."""
+    tc = tcb.ctc_plan(2 * 6 + 1)[3]
+    T = 2 * tc + 3
+    if lengths == "tc_minus_one_to_plus_one":
+        tl, ll = [tc - 1, tc, tc + 1, 0, 1], [6, 5, 6, 2, 0]
+    else:
+        tl, ll = [tc + 2, 2 * tc, 2 * tc + 1, T], [6, 4, 6, 5]
+    rng = np.random.default_rng(len(tl))
+    logits = (2.0 * rng.standard_normal((len(tl), T, V))).astype(np.float32)
+    labels = rng.integers(0, V - 1, (len(tl), 6)).astype(np.int32)
+    tl, ll = np.asarray(tl, np.int32), np.asarray(ll, np.int32)
+    jargs = tuple(jnp.asarray(a) for a in (tl, labels, ll))
+    want = ctc_loss_pallas_batched(jnp.asarray(logits), *jargs, V - 1, True)
+    _, want_g = _jax_grad(lambda lg, *a: ctc_loss_pallas_batched(lg, *a, V - 1, True),
+                          logits, *jargs)
+    got, got_g = _torch(tcb.ctc_loss_batched, logits, tl, labels, ll)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5)
+    np.testing.assert_allclose(got_g, np.asarray(want_g), atol=1e-5)
+    lp = jax.nn.log_softmax(jnp.asarray(logits), axis=-1)
+    _, want_p, _ = _ctc_forward(lp, *jargs, V - 1, True)
+    args = tuple(torch.from_numpy(np.array(a)) for a in (lp, tl, labels, ll))
+    alphas, lik = tcb.ctc_alpha_plain(*args, V - 1)
+    posts = tcb.ctc_beta_plain(*args, alphas, lik, V - 1)
+    np.testing.assert_allclose(posts.numpy(), np.asarray(want_p)[..., :13], atol=1e-5)

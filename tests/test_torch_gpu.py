@@ -185,6 +185,136 @@ def test_ctc_loss_gradient_on_card_matches_cpu(cuda_device):
     assert np.abs(out[0][1][4]).max() == 0.0  # infeasible: zero gradient
 
 
+def _ctc_batch(rng, device, T, V, L, tl, ll, scale=1.0):
+    """Log-probs of seeded logits with the given logit and label lengths,
+    random labels (adjacent repeats at the start of the second label)."""
+    B = len(tl)
+    logits = torch.as_tensor(scale * rng.standard_normal((B, T, V)).astype(np.float32))
+    labels = torch.as_tensor(rng.integers(0, V - 1, (B, L)), dtype=torch.int32)
+    if B > 1 and L >= 4:
+        labels[1, :4] = torch.as_tensor([3, 3, 2, 2], dtype=torch.int32)
+    lp = torch.log_softmax(logits, -1).contiguous().to(device)
+    return (lp, torch.as_tensor(tl, dtype=torch.int32).to(device), labels.to(device),
+            torch.as_tensor(ll, dtype=torch.int32).to(device))
+
+
+def _ctc_held_to_plain(cb, lp, tl, labels, ll, blank):
+    """Both kernels at their plan against the plain versions (chip_smoke's
+    card-test tolerances: ll rtol 1e-5, finite alphas rtol 1e-5 + 1e-4,
+    posteriors 1e-5), one launch of each counted, and a second launch of
+    each giving the first one's bits. -> (alphas, ll, posteriors)."""
+    before = kernels.launch_counts()
+    alphas, lik = cb.ctc_alpha(lp, tl, labels, ll, blank)
+    posts = cb.ctc_beta(lp, tl, labels, ll, alphas, lik, blank)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["ctc_alpha"] == before["ctc_alpha"] + 1
+    assert after["ctc_beta"] == before["ctc_beta"] + 1
+    ref_a, ref_l = cb.ctc_alpha_plain(lp, tl, labels, ll, blank)
+    ref_p = cb.ctc_beta_plain(lp, tl, labels, ll, ref_a, ref_l, blank)
+    finite = ref_a > -1e29  # NEG_INF lanes may drift by a few units
+    np.testing.assert_allclose(alphas[finite].cpu().numpy(), ref_a[finite].cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(lik.cpu().numpy(), ref_l.cpu().numpy(), rtol=1e-5)
+    np.testing.assert_allclose(posts.cpu().numpy(), ref_p.cpu().numpy(), atol=1e-5)
+    again_a, again_l = cb.ctc_alpha(lp, tl, labels, ll, blank)
+    assert torch.equal(again_a, alphas) and torch.equal(again_l, lik)
+    assert torch.equal(cb.ctc_beta(lp, tl, labels, ll, alphas, lik, blank), posts)
+    return alphas, lik, posts
+
+
+@pytest.mark.parametrize("L,forced,form", [
+    (20, None, (2, 1)),      # one chain warp
+    (120, 8, (8, 1)),        # S = 241 on one warp of 8 lanes a thread
+    (150, None, (2, 5)),     # several chain warps (S = 301)
+    (150, 4, (4, 3)),
+    (1200, None, (16, 5)),   # S = 2401: past 8 warps of 8 lanes a thread
+    (8939, None, (32, 18)),  # the largest form: S = 17879, one-frame chunks
+])
+def test_ctc_kernels_each_form(cuda_device, monkeypatch, L, forced, form):
+    """Each form of ``ctc_plan`` against the plain versions: ragged logit
+    lengths with 0 and 1, a label of length 0, an infeasible example.
+    A form forced in place of the plan's gives the plan's bits."""
+    from nabu_tpu_torch.ops import ctc_batched as cb
+
+    rng = np.random.default_rng(L)
+    T, V = 37, 7
+    lp, tl, labels, ll = _ctc_batch(rng, cuda_device, T, V, L, [T, 30, 1, 0, 25, 3],
+                                    [L, 12, 0, 3, 10, 3])
+    labels[5, :3] = 1  # three repeats need 5 frames: infeasible in 3
+    planned = _ctc_held_to_plain(cb, lp, tl, labels, ll, V - 1)
+    assert float(planned[1][5]) == -1e4
+    plan = cb.ctc_plan(2 * L + 1, (forced,) if forced else cb.CTC_FORMS)
+    assert plan[:2] == form
+    if forced:
+        monkeypatch.setattr(cb, "ctc_plan", lambda S, forms=None: plan)
+        for x, y in zip(_ctc_held_to_plain(cb, lp, tl, labels, ll, V - 1), planned):
+            assert torch.equal(x, y)
+
+
+def test_ctc_kernels_at_the_bench_shape(cuda_device):
+    """The bench line's CTC loss: B = 32, T = 1000, V = 31, L = 100, full
+    lengths (S = 201)."""
+    from nabu_tpu_torch.ops import ctc_batched as cb
+
+    rng = np.random.default_rng(11)
+    args = _ctc_batch(rng, cuda_device, 1000, 31, 100, [1000] * 32, [100] * 32, scale=3.0)
+    _ctc_held_to_plain(cb, *args, 30)
+
+
+def test_ctc_kernels_with_a_large_vocabulary(cuda_device):
+    """V = 5000, as a BPE vocabulary: the gather reads S values a frame,
+    whatever V is."""
+    from nabu_tpu_torch.ops import ctc_batched as cb
+
+    rng = np.random.default_rng(12)
+    args = _ctc_batch(rng, cuda_device, 60, 5000, 24, [60, 41, 33, 1], [24, 20, 0, 1])
+    _ctc_held_to_plain(cb, *args, 4999)
+
+
+def test_ctc_log_matches_logf_bit_for_bit(cuda_device):
+    """The kernels' logarithm gives logf's bits on every float of [1, 4),
+    the range of lse3's sums."""
+    from nabu_tpu_torch.ops import ctc_batched as cb
+
+    assert cb.ctc_log_mismatches(cuda_device) == 0
+
+
+def test_ctc_probe_keeps_the_bits_and_counts_no_launch(cuda_device):
+    """The step probe's builds give the kernels' bits, count no launch and
+    record each block's steps: tlen for alpha, tlen - 1 for beta."""
+    from nabu_tpu_torch.ops import ctc_batched as cb
+
+    rng = np.random.default_rng(14)
+    tl = [70, 33, 1, 0]
+    args = _ctc_batch(rng, cuda_device, 70, 9, 40, tl, [30, 12, 0, 2])
+    alphas, lik = cb.ctc_alpha(*args, 8)
+    posts = cb.ctc_beta(*args, alphas, lik, 8)
+    before = kernels.launch_counts()
+    pa, pl, ca = cb.ctc_alpha_probe(*args, 8)
+    pp, cbeta = cb.ctc_beta_probe(*args, alphas, lik, 8)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == before
+    assert torch.equal(pa, alphas) and torch.equal(pl, lik) and torch.equal(pp, posts)
+    assert ca[:, -1].tolist() == tl and cbeta[:, -1].tolist() == [69, 32, 0, 0]
+    assert int(ca[0, :-1].sum()) > 0 and int(cbeta[0, :-1].sum()) > 0
+
+
+def test_ctc_kernels_at_chunk_boundaries(cuda_device):
+    """T not a multiple of the plan's chunk, logit lengths at TC - 1, TC,
+    TC + 1 and TC + 2 (the beta walk's chunks count from tlen - 1), 0
+    and 1."""
+    from nabu_tpu_torch.ops import ctc_batched as cb
+
+    rng = np.random.default_rng(13)
+    L = 12
+    tc = cb.ctc_plan(2 * L + 1)[3]
+    T = 3 * tc + 5
+    tl = [T, tc - 1, tc, tc + 1, tc + 2, 2 * tc, 2 * tc + 1, 0, 1]
+    args = _ctc_batch(rng, cuda_device, T, 9, L, tl, [L, 8, 9, 10, 11, 12, 12, 2, 0])
+    _ctc_held_to_plain(cb, *args, 8)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,H", [(11, 9), (16, 24), (80, 320)])
 def test_blstm_backward_kernels_match_plain(cuda_device, dtype, D, H):
