@@ -592,16 +592,18 @@ def walk_probe(torch, timed, reps, probe, Tq, counted) -> dict:
             "us": None if us is None else {p: f * us for p, f in zip(PROBE_PARTS, shares)}}
 
 
-def ctc_probe(torch, timed, reps, probe, Tq) -> dict:
+def ctc_probe(torch, timed, reps, probe, Tq, parts=None) -> dict:
     """The step probe of a CTC kernel: ``probe()`` launches its build that
     sums chain thread 0's clock64 cycles of its steps by part
     (``ops.ctc_batched.PROBE_PARTS``: the chunk hand-off, the emission read
     and shuffles, the edge exchange, the lse3s, the row store) and counts
     its steps. -> the mean over the blocks that walked a step, each part's
     share, the probe's own µs a step over Tq steps (CUDA events) and its
-    parts in µs by those shares."""
+    parts in µs by those shares. The RNN-T kernels' probes record the same
+    way by their own ``parts``."""
     from nabu_tpu_torch.ops.ctc_batched import PROBE_PARTS
 
+    PROBE_PARTS = parts or PROBE_PARTS
     *_, cycles = probe()
     steps = cycles[:, -1].double()
     walked = steps > 0
@@ -2547,6 +2549,8 @@ def rnnt_rows(torch, timed, reps) -> dict:
         "ms": timed(lambda: tf.rnnt_joint_fwd(*joint, blank), reps),
         "plain_ms": timed(lambda: tf.rnnt_joint_fwd_plain(*joint, blank), min(reps, 2)),
         "library_ms": timed(lib_joint, min(reps, 5)),
+        "step_probe": ctc_probe(torch, timed, reps, lambda: tf.rnnt_joint_fwd_probe(
+            *joint, blank), Tq, tf.JOINT_PROBE_PARTS),
         "library": "partial: the materialized joint, torch.tanh + torch.matmul + "
                    "log_softmax over [B, T', U+1, V]",
         "bound_ms": b_ms, "bound_by": by,

@@ -65,11 +65,16 @@ LANES_MAX = 1024  # U + 1: one thread per lattice lane in the recursions
 FRAMES = 8  # frames of the joint computed at once by the plain versions
 BWD_FRAMES = 32  # the fewest frames a block of the joint's backward walks
 BWD_PARTIAL_RATIO = 8  # the backward's partials: at most 8 times d_enc_proj's bytes
+JOINT_ROWS = 32  # lattice rows (u) of a joint forward block
+JOINT_FRAMES = 16  # frames of a joint forward block
+# the joint forward's probe (csrc/transducer.cu): forming h, the product,
+# the log-softmax with the picks, the stores and the waits
+JOINT_PROBE_PARTS = ("h", "product", "softmax", "store")
 
 _fns: dict = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "rnnt_joint_fwd": [_P] * 7 + [_I] * 7 + [_P] * 3,
+    "rnnt_joint_fwd": [_P] * 7 + [_I] * 7 + [_P] * 4,
     "rnnt_alpha": [_P] * 6 + [_I] * 3 + [_P],
     "rnnt_beta": [_P] * 9 + [_I] * 3 + [_P],
     "rnnt_joint_bwd": [_P] * 9 + [_I] * 8 + [_P] * 8,
@@ -91,6 +96,10 @@ def _stream():
 
 def _ptr(t: torch.Tensor):
     return t.data_ptr() if t.numel() else None
+
+
+def _ptr_or_none(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_joint(name, enc, pred, w, b, targets, target_lengths, logit_lengths, **extra):
@@ -276,21 +285,42 @@ def rnnt_joint_fwd(enc, pred, w, b, targets, target_lengths, logit_lengths, blan
     if enc.device.type == "cpu":
         return rnnt_joint_fwd_plain(enc, pred, w, b, targets, target_lengths, logit_lengths,
                                     blank_id)
+    return _joint_fwd(enc, pred, w, b, targets, target_lengths, logit_lengths, blank_id)[:2]
+
+
+def rnnt_joint_fwd_probe(enc, pred, w, b, targets, target_lengths, logit_lengths,
+                         blank_id: int):
+    """The joint forward on the card built with its probe, for measurement
+    only (no path calls it, and it counts no launch): -> (lp_blank,
+    lp_emit, cycles [blocks, 5] int64), each block's recorded cycles by
+    ``JOINT_PROBE_PARTS``, then its frames."""
+    return _joint_fwd(enc, pred, w, b, targets, target_lengths, logit_lengths, blank_id,
+                      probe=True)
+
+
+def _joint_fwd(enc, pred, w, b, targets, target_lengths, logit_lengths, blank_id,
+               probe=False):
     name = "rnnt_joint_fwd"
     B, T, U1, J, V = _check_joint(name, enc, pred, w, b, targets, target_lengths,
                                   logit_lengths)
     lp_blank = torch.empty((T, B, U1), dtype=torch.float32, device=enc.device)
     lp_emit = torch.empty_like(lp_blank)
+    cycles = None
+    if probe:
+        blocks = B * -(-U1 // JOINT_ROWS) * -(-T // JOINT_FRAMES)
+        cycles = torch.zeros((blocks, len(JOINT_PROBE_PARTS) + 1), dtype=torch.int64,
+                             device=enc.device)
     with torch.cuda.device(enc.device):
         err = _launcher(name)(
             enc.data_ptr(), pred.data_ptr(), w.data_ptr(), b.data_ptr(), _ptr(targets),
             target_lengths.data_ptr(), logit_lengths.data_ptr(),
             B, T, U1, U1 - 1, J, V, int(blank_id),
-            lp_blank.data_ptr(), lp_emit.data_ptr(), _stream(),
+            lp_blank.data_ptr(), lp_emit.data_ptr(), _ptr_or_none(cycles), _stream(),
         )
     build.check(err, name)
-    kernels.LAUNCHES[name] += 1
-    return lp_blank, lp_emit
+    if not probe:
+        kernels.LAUNCHES[name] += 1
+    return lp_blank, lp_emit, cycles
 
 
 # ---------------------------------------------------------------------------
