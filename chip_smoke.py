@@ -85,7 +85,11 @@ Phases, each printing JSON lines:
               1000, bf16, warmup 2, 3 repeats of 8 steps, its audio
               seconds a second, median step and its split (CUDA events);
               its launches must be the train phase's per-step launches
-              x the steps run.
+              x the steps run;
+12. bench_rnnt — the same line for the transducer (``--model rnnt``: a
+              2 x 320 Listener, the 1 x 320 prediction net, a 320-wide
+              joint, V = 32; T' = 250, U + 1 = 101); its launches must be
+              train_rnnt's per-step launches x the steps run.
 
 The kernels phase also holds the four RNN-T kernels (joint forward,
 alpha, beta, joint backward) to their plain versions at B = 32, T' = 250,
@@ -140,7 +144,17 @@ same bits (``us_per_step_by_form``), the step probe
 floats of [1, 4) the kernels' logarithm maps to other bits than
 ``logf`` (``log_mismatches``, which must be 0), and a second planted
 fault, the emission at each chunk's first frame taken from the frame
-walked before it (``chunk_fault_max_abs_err``).
+walked before it (``chunk_fault_max_abs_err``). The ``rnnt_joint_fwd``
+row prints whether a second launch repeats its bits, how many of the
+65536 bf16 inputs its table tanh maps to other bits than bf16(tanhf)
+(``tanh_mismatches``, which must be 0) and its probe (a frame's cycles
+split into forming h, the product, the log-softmax and the stores, from
+``ops.transducer_fused.rnnt_joint_fwd_probe``); the ``rnnt_beta`` row its
+plan (``ops.transducer_fused.beta_plan``), µs a frame, a second timed
+run, whether a second launch and every form give the same bits
+(``us_per_frame_by_form``), its step probe (``rnnt_beta_probe``) and how
+many floats of [0, 1] its log1p maps to other bits than ``log1pf``
+(``log1p_mismatches``, which must be 0).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -179,6 +193,10 @@ PEAK_F32 = 67e12
 # (CUDA C++ Programming Guide, arithmetic throughput, compute capability
 # 9.0) x 132 SMs x 1.98 GHz boost clock
 PEAK_SFU = 16 * 132 * 1.98e9
+# shared-memory reads: one 32-lane request a clock per SM (128 bytes a
+# clock), x 132 SMs x 1.98 GHz; the joint forward's tanh is one such read
+# a node and joint unit
+PEAK_SMEM_READS = 32 * 132 * 1.98e9
 
 # serving shapes of the 4x320 recipe at batch 32
 B, T, H, NFILT = 32, 1024, 320, 40
@@ -2530,10 +2548,24 @@ def rnnt_rows(torch, timed, reps) -> dict:
     fault = fault_reading(fault_b, ref_b, TOL["rnnt_lp"], "rnnt_joint_fwd lp_blank")
     del fault_b, lpb, lpe
     tensor_ops = 2 * nodes * Jq * Vq
-    sfu = nodes * (Jq + Vq + 1)  # tanh, exp, log
+    sfu = nodes * (Jq + Vq + 1)  # tanh, exp, log (the backward)
     in_bytes = 2 * (Bq * Tq * Jq + Bq * U1 * Jq + Jq * Vq) + 4 * (Vq + Bq * Uq + 2 * Bq)
     lp_bytes = 4 * Tq * Bq * U1
-    b_ms, by = bound(in_bytes + 2 * lp_bytes, tensor_ops, PEAK_BF16, (sfu, PEAK_SFU))
+    # the forward's tanh is a table read a node and joint unit (shared
+    # memory), its exp and log the special function units' (V + 1 a node)
+    b_ms, by = bound(in_bytes + 2 * lp_bytes, tensor_ops, PEAK_BF16,
+                     (nodes * (Vq + 1), PEAK_SFU), (nodes * Jq, PEAK_SMEM_READS))
+    first = tf.rnnt_joint_fwd(*joint, blank)
+    repeat = all(torch.equal(x, y) for x, y in zip(first, tf.rnnt_joint_fwd(*joint, blank)))
+    if not repeat:
+        FAILURES.append("rnnt_joint_fwd: a second launch's bits differ")
+    probed = tf.rnnt_joint_fwd_probe(*joint, blank)
+    check(all(torch.equal(x, y) for x, y in zip(first, probed[:2])),
+          "rnnt_joint_fwd: the probe's build changed the bits")
+    tanh_mismatches = tf.rnnt_tanh_mismatches(torch.device("cuda"))
+    check(tanh_mismatches == 0,
+          f"rnnt_joint_fwd: the table tanh differs from bf16(tanhf) on {tanh_mismatches} inputs")
+    del first, probed
 
     # library yardstick (partial): the materialized joint, tanh + matmul +
     # log-softmax over every node of [B, T', U+1]
@@ -2543,10 +2575,14 @@ def rnnt_rows(torch, timed, reps) -> dict:
         h = torch.tanh(encf[:, :, None, :] + predf[:, None, :, :])
         return torch.log_softmax(torch.matmul(h, wf).float() + bf_, dim=-1)
 
+    def joint_fwd():
+        return tf.rnnt_joint_fwd(*joint, blank)
+
     rows["rnnt_joint_fwd"] = {
         "shape": [Bq, Tq, U1, Jq, Vq], "dtype": "bf16", "nodes": nodes, "max_abs_err": err,
         "tol": TOL["rnnt_lp"], "fault_max_abs_err": fault,
-        "ms": timed(lambda: tf.rnnt_joint_fwd(*joint, blank), reps),
+        "repeat_bits_equal": repeat, "tanh_mismatches": tanh_mismatches,
+        "ms": timed(joint_fwd, reps), "ms_second_run": timed(joint_fwd, reps),
         "plain_ms": timed(lambda: tf.rnnt_joint_fwd_plain(*joint, blank), min(reps, 2)),
         "library_ms": timed(lib_joint, min(reps, 5)),
         "step_probe": ctc_probe(torch, timed, reps, lambda: tf.rnnt_joint_fwd_probe(
@@ -2554,6 +2590,9 @@ def rnnt_rows(torch, timed, reps) -> dict:
         "library": "partial: the materialized joint, torch.tanh + torch.matmul + "
                    "log_softmax over [B, T', U+1, V]",
         "bound_ms": b_ms, "bound_by": by,
+        "bound_counts": "bytes; 2 J V FLOP a node (bf16 tensor cores); V + 1 exp and log a "
+                        "node (special function units); J tanh table reads a node "
+                        "(shared memory, 32 a clock an SM)",
     }
     emit({"phase": "kernels", "kernel": "rnnt_joint_fwd", **rows["rnnt_joint_fwd"]})
 
@@ -2622,12 +2661,47 @@ def rnnt_rows(torch, timed, reps) -> dict:
         "bound_ms": b_ms, "bound_by": by,
     }
     emit({"phase": "kernels", "kernel": "rnnt_alpha", **rows["rnnt_alpha"]})
+    beta_args = (ref_b, ref_e, ref_a, ref_ll, g, *lens)
+
+    def beta():
+        return tf.rnnt_beta(*beta_args)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    first = beta()
+    beta_repeat = same(first, beta())
+    if not beta_repeat:
+        FAILURES.append("rnnt_beta: a second launch's bits differ")
+    check(same(first, tf.rnnt_beta_probe(*beta_args)[:2]),
+          "rnnt_beta: the probe's build changed the bits")
+    log1p_mismatches = tf.rnnt_log1p_mismatches(torch.device("cuda"))
+    check(log1p_mismatches == 0,
+          f"rnnt_beta: the kernel's log1p differs from log1pf on {log1p_mismatches} floats")
+    by_form, form_bits = {}, True
+    for form in tf.BETA_FORMS:
+        try:
+            plan = tf.beta_plan(U1, (form,))
+        except ValueError:
+            continue
+        with swapped(tf, "beta_plan", lambda U1_, forms=None, p=plan: p):
+            by_form[f"{form[0]}x{form[1]}"] = (None if not reps else
+                                               1e3 * timed(beta, reps) / Tq)
+            form_bits &= same(first, beta())
+    if not form_bits:
+        FAILURES.append("rnnt_beta: the forms' bits differ")
+    del first
+    beta_ms = timed(beta, reps)
     rows["rnnt_beta"] = {
         "shape": [Tq, Bq, U1], "dtype": "f32", "max_abs_err": b_err, "tol": TOL["rnnt_occ"],
-        "fault_max_abs_err": b_fault,
-        "ms": timed(lambda: tf.rnnt_beta(ref_b, ref_e, ref_a, ref_ll, g, *lens), reps),
-        "plain_ms": timed(lambda: tf.rnnt_beta_plain(ref_b, ref_e, ref_a, ref_ll, g, *lens),
-                          min(reps, 2)),
+        "fault_max_abs_err": b_fault, "plan": tf.beta_plan(U1),
+        "repeat_bits_equal": beta_repeat, "log1p_mismatches": log1p_mismatches,
+        "ms": beta_ms, "ms_second_run": timed(beta, reps),
+        "us_per_frame": None if beta_ms is None else 1e3 * beta_ms / Tq,
+        "us_per_frame_by_form": by_form, "bits_equal_across_forms": form_bits,
+        "step_probe": ctc_probe(torch, timed, reps, lambda: tf.rnnt_beta_probe(*beta_args),
+                                Tq, tf.BETA_PROBE_PARTS),
+        "plain_ms": timed(lambda: tf.rnnt_beta_plain(*beta_args), min(reps, 2)),
         "library_ms": lib_b, "library": library + " (backward: forward + backward minus "
                                                   "forward)",
         "bound_ms": bb_ms, "bound_by": bb_by,
@@ -3602,21 +3676,22 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
     return result
 
 
-def phase_bench_ctc() -> None:
-    """The port's bench line (``nabu_tpu_torch.bench.train_line``, as
-    ``python -m nabu_tpu_torch.bench`` prints it) in process: the 4x320
-    DBLSTM-CTC step at B = 32, T = 1000, bf16, through the kernels; its
-    launches must be the train phase's per-step launches x the steps run,
-    and its losses finite."""
+def phase_bench(model: str, phase: str, recipe_phase: str) -> None:
+    """A bench line of the port (``nabu_tpu_torch.bench.train_line``, as
+    ``python -m nabu_tpu_torch.bench --model <model>`` prints it) in
+    process: the 4x320 DBLSTM-CTC step (``dblstm``) or the transducer step
+    (``rnnt``) at B = 32, T = 1000, bf16, through the kernels; its launches
+    must be ``recipe_phase``'s per-step launches x the steps run (the same
+    layers), and its losses finite."""
     from nabu_tpu_torch import bench
 
-    line = bench.train_line()
-    print(json.dumps(line), flush=True)
+    line = bench.train_line(model_name=model)
+    print(json.dumps({"phase": phase, **line}), flush=True)
     runs = line["warmup"] + line["steps"] * line["repeats"]
-    want = {k: n * runs for k, n in STEP_LAUNCHES["train"].items()}
-    check(line["launches"] == want, f"bench_ctc: launches {line['launches']}, want {want}")
+    want = {k: n * runs for k, n in STEP_LAUNCHES[recipe_phase].items()}
+    check(line["launches"] == want, f"{phase}: launches {line['launches']}, want {want}")
     check(math.isfinite(line["first_loss"]) and math.isfinite(line["last_loss"]),
-          "bench_ctc: a loss is not finite")
+          f"{phase}: a loss is not finite")
 
 
 def las_decode(torch, smi: str, recipe: str, expdir: str, model, dev_audio_s: float) -> dict:
@@ -3743,11 +3818,13 @@ def main(argv=None) -> int:
         t8 = time.perf_counter()
         trained_las = phase_train(torch, smi, "train_las", corpus)
     t9 = time.perf_counter()
-    phase_bench_ctc()
+    phase_bench("dblstm", "bench_ctc", "train")
+    t10 = time.perf_counter()
+    phase_bench("rnnt", "bench_rnnt", "train_rnnt")
     emit({"phase": "seconds", "build_device": t1 - t0, "kernels": t2 - t1,
           "serve": t3 - t2, "serve_rnnt": t4 - t3, "serve_stream": t5 - t4,
           "train": t6 - t5, "train_rnnt": t7 - t6, "train_rnnt_stream": t8 - t7,
-          "train_las": t9 - t8, "bench_ctc": time.perf_counter() - t9,
+          "train_las": t9 - t8, "bench_ctc": t10 - t9, "bench_rnnt": time.perf_counter() - t10,
           "total": time.perf_counter() - t0})
     raise_failures()
     runs = (served, served_rnnt, served_stream, trained, trained_rnnt, trained_stream,

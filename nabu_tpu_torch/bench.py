@@ -1,19 +1,27 @@
-"""Training throughput of the DBLSTM-CTC step on one GPU.
+"""Training throughput of the DBLSTM-CTC or the RNN-T step on one GPU.
 
-Port of the JAX package's ``bench.py`` default measurement (``--model
-dblstm``, the training mode): BASELINE config 2's 4x320 DBLSTM encoder,
-the linear CTC head and the CTC loss, through the kernels (``use_pallas =
-true`` in both sections), in bf16 by default. The batch is ``make_batch``'s
-(B = 32, T = 1000, 80 features, 100 labels, every length full), made from
-``--seed`` with numpy and put on the device once, outside the timed loop.
-A step is forward, loss, backward, then the optimizer of
-``training.trainer.Optimizer``: global-norm clipping at 5.0, then Adam at
-1e-3. Defaults: 2 warmup steps, then 3 repeats of 8 timed steps.
+Port of the JAX package's ``bench.py`` training measurement for two of its
+models, through the kernels (``use_pallas = true`` in both sections), in
+bf16 by default:
+
+- ``--model dblstm`` (the default): BASELINE config 2's 4x320 DBLSTM
+  encoder, the linear CTC head and the CTC loss;
+- ``--model rnnt``: the transducer of ``bench.py``'s ``rnnt`` line, a
+  Listener of 2 pyramid layers over a bottom layer, 320 units (time / 4),
+  a 1x320 prediction LSTM with 128-wide embeddings, a 320-wide joint and
+  the RNN-T loss (31 labels and the blank: V = 32).
+
+The batch is ``make_batch``'s (B = 32, T = 1000, 80 features, 100 labels,
+every length full), made from ``--seed`` with numpy and put on the device
+once, outside the timed loop. A step is forward, loss, backward, then the
+optimizer of ``training.trainer.Optimizer``: global-norm clipping at 5.0,
+then Adam at 1e-3. Defaults: 2 warmup steps, then 3 repeats of 8 timed
+steps.
 
 Run on the card (the default device), or on the CPU only when asked:
 
-    python -m nabu_tpu_torch.bench [--device cpu] [--batch 32] [--frames 1000]
-        [--steps 8] [--warmup 2] [--repeats 3] [--seed 0] [--no-bf16]
+    python -m nabu_tpu_torch.bench [--model dblstm|rnnt] [--device cpu] [--batch 32]
+        [--frames 1000] [--steps 8] [--warmup 2] [--repeats 3] [--seed 0] [--no-bf16]
 
 It prints ONE JSON line:
 
@@ -29,7 +37,8 @@ It prints ONE JSON line:
 - ``device`` and ``power_limit_w`` as ``nvidia-smi --query-gpu=name,
   power.limit`` reports them (the CPU: ``cpu`` and null);
 - ``first_loss`` (the loss of the first step, on the initial weights) and
-  ``last_loss``, the shape, the dtype and the kernels' launches.
+  ``last_loss``, the model, the shape, the dtype and the kernels'
+  launches.
 
 The JAX line's ``vs_baseline`` is left out: its denominator is a naive
 JAX port (per-step input projection inside an XLA scan) timed on the same
@@ -60,21 +69,42 @@ from nabu_tpu_torch.training.trainer import Optimizer
 METRIC = "train_audio_seconds_per_second_per_chip"
 FEATURES, LABELS, NUM_LABELS = 80, 100, 31
 FRAME_SHIFT = 0.01
+# the encoder's layers of each model's line in bench.py
+MODELS = {"dblstm": 4, "rnnt": 2}
 
 
-def build_model_and_loss(bf16: bool = True, num_layers: int = 4, num_units: int = 320):
+def build_model_and_loss(bf16: bool = True, num_layers: Optional[int] = None,
+                         num_units: int = 320, model: str = "dblstm"):
     """-> (model, loss_fn) of ``bench.py``'s ``build_model_and_loss`` for
-    ``dblstm`` with both kernels on (``num_layers`` x ``num_units`` is
-    4 x 320 there)."""
+    ``dblstm`` or ``rnnt`` with both kernels on; ``num_layers`` x
+    ``num_units`` (4 x 320 and 2 x 320 there) sets the encoder, and the
+    rnnt head's prediction LSTM and joint take ``num_units`` too."""
+    if num_layers is None:
+        num_layers = MODELS[model]
+    if model == "dblstm":
+        encoder = {"encoder": "dblstm"}
+        decoder = {"decoder": "linear_ctc", "loss": "ctc"}
+    elif model == "rnnt":
+        encoder = {"encoder": "listener"}
+        decoder = {"decoder": "rnnt", "num_layers": "1", "num_units": str(num_units),
+                   "embed_dim": "128", "joint_units": str(num_units), "loss": "transducer"}
+    else:
+        raise ValueError(f"bench: unknown model {model!r} (one of {sorted(MODELS)})")
     cfg = ConfigFile({
         "model": Conf({"compute_dtype": "bfloat16" if bf16 else "float32"}, "model"),
-        "encoder": Conf({"encoder": "dblstm", "num_layers": str(num_layers),
-                         "num_units": str(num_units), "use_pallas": "true"}, "encoder"),
-        "decoder": Conf({"decoder": "linear_ctc", "loss": "ctc", "use_pallas": "true"},
-                        "decoder"),
+        "encoder": Conf({**encoder, "num_layers": str(num_layers), "num_units": str(num_units),
+                         "use_pallas": "true"}, "encoder"),
+        "decoder": Conf({**decoder, "use_pallas": "true"}, "decoder"),
     })
-    model = build_model(cfg, input_dim=FEATURES, num_labels=NUM_LABELS)
-    return model, make_loss_computer(model)
+    net = build_model(cfg, input_dim=FEATURES, num_labels=NUM_LABELS)
+    return net, make_loss_computer(net)
+
+
+def describe(model: str, num_layers: int, num_units: int) -> str:
+    if model == "dblstm":
+        return f"dblstm {num_layers}x{num_units} + linear_ctc, ctc loss"
+    return (f"rnnt: listener {num_layers}x{num_units} + prediction 1x{num_units}, joint "
+            f"{num_units}, transducer loss")
 
 
 def make_batch(B: int, T: int, F: int, L: int, rng) -> Dict[str, np.ndarray]:
@@ -116,12 +146,15 @@ class _Clock:
 
 def train_line(batch: int = 32, frames: int = 1000, steps: int = 8, warmup: int = 2,
                repeats: int = 3, seed: int = 0, device=None, bf16: bool = True,
-               num_layers: int = 4, num_units: int = 320, labels: int = LABELS,
-               params: Optional[dict] = None) -> dict:
-    """Time the training step; -> the JSON line's fields. ``params`` (f32,
-    the model's tree) replaces the seeded initial weights."""
+               num_layers: Optional[int] = None, num_units: int = 320, labels: int = LABELS,
+               params: Optional[dict] = None, model_name: str = "dblstm") -> dict:
+    """Time the training step of ``model_name`` (``MODELS``); -> the JSON
+    line's fields. ``params`` (f32, the model's tree) replaces the seeded
+    initial weights."""
     dev = resolve_device(device)
-    model, loss_fn = build_model_and_loss(bf16, num_layers, num_units)
+    if num_layers is None:
+        num_layers = MODELS[model_name]
+    model, loss_fn = build_model_and_loss(bf16, num_layers, num_units, model_name)
     rng = np.random.default_rng(seed)
     arrays = make_batch(batch, frames, FEATURES, labels, rng)
     data = batch_to_device(arrays, dev, feature_dtype=model.compute_dtype)
@@ -202,7 +235,7 @@ def train_line(batch: int = 32, frames: int = 1000, steps: int = 8, warmup: int 
         "power_limit_w": limit,
         "first_loss": first_loss,
         "last_loss": last_loss,
-        "model": f"dblstm {num_layers}x{num_units} + linear_ctc, ctc loss",
+        "model": describe(model_name, num_layers, num_units),
         "dtype": "bfloat16" if bf16 else "float32",
         "batch": batch, "frames": frames, "labels": labels,
         "warmup": warmup, "steps": steps, "repeats": max(repeats, 1), "seed": seed,
@@ -212,6 +245,7 @@ def train_line(batch: int = 32, frames: int = 1000, steps: int = 8, warmup: int 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="dblstm", choices=sorted(MODELS))
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--frames", type=int, default=1000)
@@ -225,7 +259,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     line = train_line(batch=args.batch, frames=args.frames, steps=args.steps,
                       warmup=args.warmup, repeats=args.repeats, seed=args.seed,
-                      device=args.device, bf16=args.bf16)
+                      device=args.device, bf16=args.bf16, model_name=args.model)
     print(json.dumps(line), flush=True)
     return 0
 

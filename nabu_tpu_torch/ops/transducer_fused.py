@@ -61,23 +61,38 @@ from nabu_tpu_torch.ops.transducer import NEG
 # design limits of the kernels (csrc/transducer.cu)
 VOCAB_MAX = 32  # the vocabulary, blank included, padded to 32 lanes
 JOINT_MAX = 368  # the widest joint the kernels take
-LANES_MAX = 1024  # U + 1: one thread per lattice lane in the recursions
+LANES_MAX = 1024  # U + 1: the recursions' lattice lanes
 FRAMES = 8  # frames of the joint computed at once by the plain versions
 BWD_FRAMES = 32  # the fewest frames a block of the joint's backward walks
 BWD_PARTIAL_RATIO = 8  # the backward's partials: at most 8 times d_enc_proj's bytes
 JOINT_ROWS = 32  # lattice rows (u) of a joint forward block
-JOINT_FRAMES = 16  # frames of a joint forward block
+JOINT_FRAMES = 32  # frames of a joint forward block
 # the joint forward's probe (csrc/transducer.cu): forming h, the product,
-# the log-softmax with the picks, the stores and the waits
+# the log-softmax with the picks, the stores
 JOINT_PROBE_PARTS = ("h", "product", "softmax", "store")
+# The beta kernel's forms (csrc/transducer.cu): (lanes a thread K, chain
+# warps C), holding P = 32 K C lanes, in the order ``beta_plan`` tries
+# them: a lane a thread on up to 8 warps (U + 1 <= 256), then 8 warps of
+# 2 and 4 lanes a thread. The last, one warp of 4 lanes a thread (no
+# exchange between warps at U + 1 <= 128), is taken only when asked for:
+# one lane a thread ran faster on the H100 at U + 1 = 121, as a
+# logaddexp's latency, not its issue, sets a step (PERF.md).
+BETA_FORMS = ((1, 1), (1, 2), (1, 4), (1, 8), (2, 8), (4, 8), (4, 1))
+BETA_CHUNK = 32  # frames a chunk at most (fewer where shared memory runs out)
+SMEM_LIMIT = 232448  # a block's shared memory on the H100 (227 KB)
+# the beta probe's parts: the chunk hand-off, the staged reads, the
+# shuffles with the chain warps' exchange, the logaddexps, the row's store
+BETA_PROBE_PARTS = ("wait", "read", "exchange", "lse", "store")
 
 _fns: dict = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "rnnt_joint_fwd": [_P] * 7 + [_I] * 7 + [_P] * 4,
     "rnnt_alpha": [_P] * 6 + [_I] * 3 + [_P],
-    "rnnt_beta": [_P] * 9 + [_I] * 3 + [_P],
+    "rnnt_beta": [_P] * 9 + [_I] * 8 + [_P] * 2,
     "rnnt_joint_bwd": [_P] * 9 + [_I] * 8 + [_P] * 8,
+    "rnnt_tanh_check": [_P] * 2,
+    "rnnt_log1p_check": [_P] * 2,
 }
 
 
@@ -141,7 +156,39 @@ def check_design(name: str, J: int = 16, V: int = 1, U1: int = 1) -> None:
             f"at most {JOINT_MAX}: the backward block's shared memory; V <= {VOCAB_MAX})")
     if U1 > LANES_MAX:
         raise ValueError(f"{name}: U + 1 = {U1} lanes is beyond the kernel's design "
-                         f"(one thread a lane, at most {LANES_MAX})")
+                         f"(alpha: one thread a lane, at most {LANES_MAX})")
+
+
+def beta_smem_bytes(P: int, tc: int) -> int:
+    """Shared memory of a beta block of P lanes with chunks of ``tc``
+    frames (``beta_smem`` of csrc/transducer.cu): the staged S and blank
+    rows [2, tc, 2, P], the walked beta rows [2, tc + 1, P] and the chain
+    warps' exchange [2, P], f32."""
+    return 4 * P * (6 * tc + 4)
+
+
+def beta_plan(U1: int, forms=BETA_FORMS):
+    """-> (lanes a thread, chain warps, helper warps, chunk frames, shared
+    memory bytes) of ``rnnt_beta`` for U + 1 lattice lanes: the first of
+    ``forms`` whose 32 K C lanes hold U + 1, with the longest chunk (up to
+    ``BETA_CHUNK``) whose buffers fit a block. Warp w issues on the SM's
+    quarter w % 4, so the helpers fill the quarters the chain leaves (3
+    beside one chain warp, 2 beside two) and take 4 beside four. Raises
+    beyond U + 1 = 1024 or where no form holds."""
+    if U1 > LANES_MAX:
+        raise ValueError(f"U + 1 = {U1} lanes is beyond the beta kernel's design "
+                         f"(at most {LANES_MAX})")
+    for k, c in forms:
+        P = 32 * k * c
+        if P < U1:
+            continue
+        tc = BETA_CHUNK
+        while tc > 1 and beta_smem_bytes(P, tc) > SMEM_LIMIT:
+            tc //= 2
+        smem = beta_smem_bytes(P, tc)
+        if smem <= SMEM_LIMIT:
+            return k, c, {1: 3, 2: 2}.get(c, 4), tc, smem
+    raise ValueError(f"U + 1 = {U1} lanes is beyond the beta kernel's forms {forms}")
 
 
 def joint_bwd_plan(B: int, T: int, U1: int, J: int):
@@ -410,23 +457,65 @@ def rnnt_beta(lp_blank, lp_emit, alphas, ll, g, logit_lengths, target_lengths):
     if lp_blank.device.type == "cpu":
         return rnnt_beta_plain(lp_blank, lp_emit, alphas, ll, g, logit_lengths,
                                target_lengths)
+    return _beta(lp_blank, lp_emit, alphas, ll, g, logit_lengths, target_lengths)[:2]
+
+
+def rnnt_beta_probe(lp_blank, lp_emit, alphas, ll, g, logit_lengths, target_lengths):
+    """The beta kernel on the card built with its step probe, for
+    measurement only (no path calls it, and it counts no launch): -> (gb,
+    ge, cycles [B, 6] int64), each block's chain thread 0's cycles by
+    ``BETA_PROBE_PARTS``, then its frames."""
+    return _beta(lp_blank, lp_emit, alphas, ll, g, logit_lengths, target_lengths, probe=True)
+
+
+def _beta(lp_blank, lp_emit, alphas, ll, g, logit_lengths, target_lengths, probe=False):
     name = "rnnt_beta"
     T, B, U1 = _check_lattice(name, logit_lengths, target_lengths, lp_blank=lp_blank,
                               lp_emit=lp_emit, alphas=alphas)
+    plan = beta_plan(U1)
     for what, t in (("ll", ll), ("g", g)):
         if t.dtype != torch.float32 or tuple(t.shape) != (B,) or t.device != lp_blank.device:
             raise TypeError(f"{name}: {what} must be f32 [{B}] on {lp_blank.device}")
     gb = torch.empty_like(lp_blank)
     ge = torch.empty_like(lp_blank)
+    cycles = None
+    if probe:
+        cycles = torch.zeros((B, len(BETA_PROBE_PARTS) + 1), dtype=torch.int64,
+                             device=lp_blank.device)
     with torch.cuda.device(lp_blank.device):
         err = _launcher(name)(
             lp_blank.data_ptr(), lp_emit.data_ptr(), alphas.data_ptr(), ll.data_ptr(),
             g.contiguous().data_ptr(), logit_lengths.data_ptr(), target_lengths.data_ptr(),
-            gb.data_ptr(), ge.data_ptr(), B, T, U1, _stream(),
+            gb.data_ptr(), ge.data_ptr(), B, T, U1, *plan, _ptr_or_none(cycles), _stream(),
         )
     build.check(err, name)
-    kernels.LAUNCHES[name] += 1
-    return gb, ge
+    if not probe:
+        kernels.LAUNCHES[name] += 1
+    return gb, ge, cycles
+
+
+def _mismatches(name, device) -> int:
+    out = torch.zeros((1,), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = _launcher(name)(out.data_ptr(), _stream())
+    build.check(err, name)
+    return int(out.item())
+
+
+def rnnt_tanh_mismatches(device) -> int:
+    """On the card: how many of the 65536 bf16 inputs the joint forward's
+    table tanh (csrc/transducer.cu ``tanh_bf16x2``) maps to other bits than
+    bf16(tanhf(x)), a NaN equal to any NaN. 0 keeps h the plain version's.
+    Counts no launch."""
+    return _mismatches("rnnt_tanh_check", device)
+
+
+def rnnt_log1p_mismatches(device) -> int:
+    """On the card: how many floats of [0, 1] the beta kernel's log1p
+    (csrc/transducer.cu ``log1p_01``, logaddexp's log1p of an exp of a
+    value <= 0) maps to other bits than log1pf. 0 keeps the kernel's bits
+    the plain version's. Counts no launch."""
+    return _mismatches("rnnt_log1p_check", device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
-"""The port's bench line (``nabu_tpu_torch.bench``) on the CPU.
+"""The port's bench lines (``nabu_tpu_torch.bench``) on the CPU.
 
-Its schema at a tiny width (2 layers x 8 units, B = 2, T = 20, 2 steps,
-the plain kernels), and its first step's loss against the JAX bench's
-``build_model_and_loss("dblstm")`` (4 x 320, the Pallas kernels in
-interpret mode on the CPU) on the same numpy batch and the same weights,
-carried across by ``params.from_jax_params``, in f32 within rtol 1e-5.
-No check reads a time.
+Each line's schema at a tiny width (2 layers x 8 units, B = 2, T = 20, 2
+steps, the plain kernels), and its first step's loss against the JAX
+bench's ``build_model_and_loss("dblstm")`` (4 x 320) or
+``build_model_and_loss(..., "rnnt")`` (a 2 x 320 Listener and the
+transducer head), the Pallas kernels in interpret mode on the CPU, on the
+same numpy batch and the same weights, carried across by
+``params.from_jax_params``, in f32 within rtol 1e-5. No check reads a
+time.
 """
 
 import json
@@ -83,4 +85,46 @@ def test_first_step_loss_matches_the_jax_bench():
     line = bench.train_line(batch=B, frames=T, steps=1, warmup=0, repeats=1, device="cpu",
                             bf16=False, labels=L, params=from_jax_params(_flat_jax(params)))
     assert line["model"] == "dblstm 4x320 + linear_ctc, ctc loss"
+    np.testing.assert_allclose(line["first_loss"], float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_rnnt_line_schema_at_a_tiny_width(bf16):
+    """``--model rnnt`` at a tiny width (a Listener of 2 x 8 units, the
+    head's prediction net and joint 8 wide): the same schema, the plain
+    versions on the CPU."""
+    before = kernels.launch_counts()
+    line = bench.train_line(batch=2, frames=20, steps=2, warmup=1, repeats=2, device="cpu",
+                            bf16=bf16, num_units=8, labels=5, model_name="rnnt")
+    assert kernels.launch_counts() == before
+    assert set(line) == KEYS and line["launches"] == {}
+    assert line["model"] == "rnnt: listener 2x8 + prediction 1x8, joint 8, transducer loss"
+    assert math.isfinite(line["first_loss"]) and math.isfinite(line["last_loss"])
+    assert line["value"] > 0 and line["device"] == "cpu"
+    json.loads(json.dumps(line))
+
+
+def test_main_takes_the_model(capsys):
+    assert bench.main(["--model", "rnnt", "--device", "cpu", "--batch", "1", "--frames", "8",
+                       "--steps", "1", "--warmup", "0", "--repeats", "1"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1 and json.loads(out[0])["model"].startswith("rnnt: listener 2x320")
+    with pytest.raises(SystemExit):
+        bench.main(["--model", "las", "--device", "cpu"])
+
+
+def test_rnnt_first_step_loss_matches_the_jax_bench():
+    """The JAX bench's ``rnnt`` line (its transducer Pallas kernel in
+    interpret mode on the CPU) and the port's on the same batch and
+    weights, in f32."""
+    B, T, L = 2, 20, 5
+    model, loss_fn = jbench.build_model_and_loss(True, True, "float32", "rnnt")
+    params = model.init(jax.random.PRNGKey(0))
+    batch = jbench.make_batch(B, T, 80, L, np.random.default_rng(0))
+    want, _ = loss_fn(params, {k: jnp.asarray(v) for k, v in batch.items()},
+                      jax.random.PRNGKey(0), True)
+    line = bench.train_line(batch=B, frames=T, steps=1, warmup=0, repeats=1, device="cpu",
+                            bf16=False, labels=L, params=from_jax_params(_flat_jax(params)),
+                            model_name="rnnt")
+    assert line["model"] == "rnnt: listener 2x320 + prediction 1x320, joint 320, transducer loss"
     np.testing.assert_allclose(line["first_loss"], float(want), rtol=1e-5)

@@ -10,8 +10,8 @@ PyTorch is installed:
 including ones off the kernels' fast paths: H and D not multiples of 8,
 S = 2L + 1 larger than a block's threads, logit length 1, label length
 0, an infeasible CTC example; for the RNN-T kernels U + 1 over one
-32-row tile, T over one 16-frame block, target lengths 0 and a logit
-length 0. Each kernel is held to its plain version for values, and the
+32-row tile, T over one 32-frame block, target lengths 0 and a logit
+length 0, and every form of the beta kernel up to U + 1 = 1024. Each kernel is held to its plain version for values, and the
 layer and the CTC and RNN-T losses on the card to the same through the
 plain versions on the CPU for gradients. Tolerances as in
 ``chip_smoke.py``: log-mel and BLSTM f32 1e-4; BLSTM bf16 one rounding
@@ -891,6 +891,70 @@ def test_rnnt_kernels_match_plain(cuda_device, B, T, U, J, V):
     passed = sorted(set(faults) - set(over_f))
     assert not over and not passed, {"beyond tolerance": over, "faults passing": passed,
                                      "sound": sound, "fault": fault}
+
+
+@pytest.mark.parametrize("T,U", [(9, 5), (37, 40), (20, 10), (70, 130), (33, 20), (21, 1023)])
+def test_rnnt_beta_each_form_equals_plain(cuda_device, monkeypatch, T, U):
+    """Every form of ``beta_plan`` that holds U + 1 lanes gives the plain
+    version's gb and ge bit for bit: the lattice widths of
+    test_rnnt_kernels_match_plain and U + 1 = 1024 (8 chain warps of 4
+    lanes a thread), ragged lengths with a target length 0 and an empty
+    lattice."""
+    rng = np.random.default_rng(T * U)
+    B, V = 5, 6
+    joint = _rnnt_inputs(rng, cuda_device, B, T, U, 16, V)
+    lens = (joint[6], joint[5])
+    rb, re = rnnt_ops.rnnt_joint_fwd_plain(*joint, V - 1)
+    ra, rll = rnnt_ops.rnnt_alpha_plain(rb, re, *lens)
+    g = torch.linspace(0.5, 1.5, B, device=cuda_device)
+    want = rnnt_ops.rnnt_beta_plain(rb, re, ra, rll, g, *lens)
+    plan_of = rnnt_ops.beta_plan
+    forms = [f for f in rnnt_ops.BETA_FORMS if 32 * f[0] * f[1] >= U + 1]
+    assert forms
+    for form in forms:
+        plan = plan_of(U + 1, (form,))
+        monkeypatch.setattr(rnnt_ops, "beta_plan", lambda U1, forms=None, p=plan: p)
+        gb, ge = rnnt_ops.rnnt_beta(rb, re, ra, rll, g, *lens)
+        assert torch.equal(gb, want[0]) and torch.equal(ge, want[1]), form
+
+
+def test_rnnt_joint_fwd_repeats_its_bits(cuda_device):
+    rng = np.random.default_rng(23)
+    joint = _rnnt_inputs(rng, cuda_device, 6, 70, 130, 320, 29)
+    first = rnnt_ops.rnnt_joint_fwd(*joint, 28)
+    again = rnnt_ops.rnnt_joint_fwd(*joint, 28)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_rnnt_tanh_and_log1p_give_the_math_librarys_bits(cuda_device):
+    """The joint forward's table tanh gives bf16(tanhf(x)) on all 65536
+    bf16 inputs; the beta kernel's log1p gives log1pf's bits on every
+    float of [0, 1]."""
+    assert rnnt_ops.rnnt_tanh_mismatches(cuda_device) == 0
+    assert rnnt_ops.rnnt_log1p_mismatches(cuda_device) == 0
+
+
+def test_rnnt_probes_keep_the_bits_and_count_no_launch(cuda_device):
+    """The probes' builds of the joint forward and of beta give the
+    kernels' bits, count no launch and record each block's frames (beta:
+    T_b)."""
+    rng = np.random.default_rng(24)
+    B, T, U = 4, 45, 40
+    joint = _rnnt_inputs(rng, cuda_device, B, T, U, 48, 29)
+    lens = (joint[6], joint[5])
+    lpb, lpe = rnnt_ops.rnnt_joint_fwd(*joint, 28)
+    alphas, ll = rnnt_ops.rnnt_alpha(lpb, lpe, *lens)
+    g = torch.ones(B, device=cuda_device)
+    gb, ge = rnnt_ops.rnnt_beta(lpb, lpe, alphas, ll, g, *lens)
+    before = kernels.launch_counts()
+    pb, pe, jc = rnnt_ops.rnnt_joint_fwd_probe(*joint, 28)
+    qb, qe, bc = rnnt_ops.rnnt_beta_probe(lpb, lpe, alphas, ll, g, *lens)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == before
+    assert torch.equal(pb, lpb) and torch.equal(pe, lpe)
+    assert torch.equal(qb, gb) and torch.equal(qe, ge)
+    assert bc[:, -1].tolist() == joint[6].tolist()
+    assert int(bc[0, :-1].sum()) > 0 and int(jc[:, :-1].sum()) > 0 and int(jc[:, -1].sum()) > 0
 
 
 def test_rnnt_loss_gradient_on_card_matches_cpu(cuda_device):

@@ -272,3 +272,36 @@ def test_joint_bwd_plan_covers_every_frame_within_its_ratio(B, T, U1, J):
             tf.BWD_PARTIAL_RATIO * 4 * B * T * J)
     if U1 <= 224:
         assert F == tf.BWD_FRAMES
+
+
+def test_beta_plan_holds_every_lattice_width():
+    """For every U + 1 from 1 to 1024 the beta plan's form holds the
+    lanes, its chunk's buffers fit a block's shared memory, its threads
+    fit the kernel's launch bounds (the chain warps and at most 8 helper
+    warps, which fill the SM quarters the chain leaves) and its lanes a
+    thread the registers the kernel was built for (8 a chain thread, 32 a
+    helper); the smallest form that holds is taken. Beyond 1024 it
+    raises."""
+    for U1 in range(1, tf.LANES_MAX + 1):
+        k, c, helpers, tc, smem = tf.beta_plan(U1)
+        P = 32 * k * c
+        assert (k, c) in tf.BETA_FORMS and P >= U1, U1
+        assert k <= 8 and k * c <= 32 and 1 <= helpers <= 8 and tc >= 1, U1
+        assert helpers == {1: 3, 2: 2}.get(c, 4), U1
+        assert smem == tf.beta_smem_bytes(P, tc) <= tf.SMEM_LIMIT, U1
+        assert tc == tf.BETA_CHUNK or tf.beta_smem_bytes(P, 2 * tc) > tf.SMEM_LIMIT, U1
+        assert U1 > 32 * k * c // 2 or (k, c) == (1, 1), U1
+    assert tf.beta_plan(121)[:4] == (1, 4, 4, 32)  # rnnt_char_wsj: 4 warps of a lane a thread
+    for U1 in (tf.LANES_MAX + 1, 4096):
+        with pytest.raises(ValueError, match="beyond the beta kernel's design"):
+            tf.beta_plan(U1)
+
+
+@pytest.mark.parametrize("form", tf.BETA_FORMS)
+def test_beta_plan_takes_each_form_where_it_holds(form):
+    k, c = form
+    P = 32 * k * c
+    assert tf.beta_plan(P, (form,))[:2] == form
+    with pytest.raises(ValueError, match="beyond the beta kernel's (forms|design)"):
+        tf.beta_plan(P + 1, (form,))
+
