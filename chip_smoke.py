@@ -154,7 +154,10 @@ plan (``ops.transducer_fused.beta_plan``), µs a frame, a second timed
 run, whether a second launch and every form give the same bits
 (``us_per_frame_by_form``), its step probe (``rnnt_beta_probe``) and how
 many floats of [0, 1] its log1p maps to other bits than ``log1pf``
-(``log1p_mismatches``, which must be 0).
+(``log1p_mismatches``, which must be 0). The ``rnnt_widths`` line holds
+both again at the bench line's V = 32 (no padded vocabulary column), at
+U + 1 = 101, 31 and 61: the joint forward and beta's plan within their
+tolerances, every beta form bit for bit, each form's µs a frame.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -610,29 +613,28 @@ def walk_probe(torch, timed, reps, probe, Tq, counted) -> dict:
             "us": None if us is None else {p: f * us for p, f in zip(PROBE_PARTS, shares)}}
 
 
-def ctc_probe(torch, timed, reps, probe, Tq, parts=None) -> dict:
-    """The step probe of a CTC kernel: ``probe()`` launches its build that
-    sums chain thread 0's clock64 cycles of its steps by part
-    (``ops.ctc_batched.PROBE_PARTS``: the chunk hand-off, the emission read
-    and shuffles, the edge exchange, the lse3s, the row store) and counts
-    its steps. -> the mean over the blocks that walked a step, each part's
-    share, the probe's own µs a step over Tq steps (CUDA events) and its
-    parts in µs by those shares. The RNN-T kernels' probes record the same
-    way by their own ``parts``."""
-    from nabu_tpu_torch.ops.ctc_batched import PROBE_PARTS
-
-    PROBE_PARTS = parts or PROBE_PARTS
+def step_probe(torch, timed, reps, probe, parts, steps=None) -> dict:
+    """The step probe of a CTC or RNN-T kernel: ``probe()`` launches its
+    build that sums one thread's clock64 cycles by part (``parts``: the
+    kernel's ``PROBE_PARTS``) and counts that thread's steps (the last
+    column: the walks' frames, the joint forward's frames of warp 0). ->
+    the mean over the blocks that took a step of the cycles a step, each
+    part's share and the probe's own ms a launch (CUDA events); for a
+    walk over ``steps`` serial frames, also its µs a frame and its parts
+    in µs by those shares (the joint forward has no serial step)."""
     *_, cycles = probe()
-    steps = cycles[:, -1].double()
-    walked = steps > 0
-    per = (cycles[walked, :-1].double() / steps[walked, None]).mean(dim=0).tolist()
+    counted = cycles[:, -1].double()
+    walked = counted > 0
+    per = (cycles[walked, :-1].double() / counted[walked, None]).mean(dim=0).tolist()
     ms = timed(probe, reps)
-    us = None if ms is None else 1e3 * ms / Tq
     shares = [c / sum(per) for c in per]
-    return {"cycles_per_step": dict(zip(PROBE_PARTS, per)),
-            "share": dict(zip(PROBE_PARTS, shares)),
-            "probe_us_per_step": us,
-            "us": None if us is None else {p: f * us for p, f in zip(PROBE_PARTS, shares)}}
+    out = {"cycles_per_step": dict(zip(parts, per)), "share": dict(zip(parts, shares)),
+           "probe_ms": ms}
+    if steps:
+        us = None if ms is None else 1e3 * ms / steps
+        out["probe_us_per_step"] = us
+        out["us"] = None if us is None else {p: f * us for p, f in zip(parts, shares)}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2422,7 +2424,7 @@ def ctc_rows(torch, timed, reps) -> dict:
         check(same(first, probed[:-1] if len(probed) > 2 else probed[0]),
               f"{fn.__name__}: the probe's build changed the bits")
         fields = {"plan": plan, "repeat_bits_equal": repeat,
-                  "step_probe": ctc_probe(torch, timed, reps, probe, Tc)}
+                  "step_probe": step_probe(torch, timed, reps, probe, cb.PROBE_PARTS, Tc)}
         if reps:
             by_form, bits = {}, True
             for k in cb.CTC_FORMS:
@@ -2516,6 +2518,54 @@ def rnnt_case(torch, rng, B_, T_, U_, J_, V_):
     )
 
 
+def rnnt_widths(torch, timed, reps, tf) -> dict:
+    """The joint forward and beta at the RNN-T bench line's vocabulary (V
+    = 32 with the blank last: no padded column), B = 32, T' = 250, J =
+    320, at its lattice width U + 1 = 101 and at 31 and 61 (one and four
+    chain warps in ``beta_plan``): the joint forward against its plain
+    version, beta's plan against it and every form that holds U + 1 bit
+    for bit, each form's µs a frame. -> the readings by U + 1."""
+    Bq, Tq, Jq, Vq = 32, 250, 320, 32
+    blank = Vq - 1
+    rng = np.random.default_rng(16)
+    out = {}
+    for U1 in (101, 31, 61):
+        c = rnnt_case(torch, rng, Bq, Tq, U1 - 1, Jq, Vq)
+        joint = (c["enc"], c["pred"], c["w"], c["b"], c["targets"], c["tlen"], c["llen"])
+        lens = (c["llen"], c["tlen"])
+        lpb, lpe = tf.rnnt_joint_fwd(*joint, blank)
+        ref_b, ref_e = tf.rnnt_joint_fwd_plain(*joint, blank)
+        what = f"U + 1 = {U1}, V = {Vq}"
+        lp_err = max(compare(torch, lpb, ref_b, TOL["rnnt_lp"], f"rnnt_joint_fwd {what} lp_blank"),
+                     compare(torch, lpe, ref_e, TOL["rnnt_lp"], f"rnnt_joint_fwd {what} lp_emit"))
+        ref_a, ref_ll = tf.rnnt_alpha_plain(ref_b, ref_e, *lens)
+        beta_args = (ref_b, ref_e, ref_a, ref_ll, torch.ones(Bq, device="cuda"), *lens)
+        want = tf.rnnt_beta_plain(*beta_args)
+        gb, ge = tf.rnnt_beta(*beta_args)
+        occ_err = max(compare(torch, gb, want[0], TOL["rnnt_occ"], f"rnnt_beta {what} gb"),
+                      compare(torch, ge, want[1], TOL["rnnt_occ"], f"rnnt_beta {what} ge"))
+        by_form, bits = {}, True
+        for form in tf.BETA_FORMS:
+            try:
+                plan = tf.beta_plan(U1, (form,))
+            except ValueError:
+                continue
+            with swapped(tf, "beta_plan", lambda U1_, forms=None, p=plan: p):
+                got = tf.rnnt_beta(*beta_args)
+                bits &= torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                by_form[f"{form[0]}x{form[1]}"] = (
+                    None if not reps else 1e3 * timed(lambda: tf.rnnt_beta(*beta_args), reps) / Tq)
+        if not bits:
+            FAILURES.append(f"rnnt_beta {what}: a form's bits differ from the plain version's")
+        out[U1] = {"joint_fwd_max_abs_err": lp_err, "beta_max_abs_err": occ_err,
+                   "plan": tf.beta_plan(U1), "bits_equal_plain_every_form": bits,
+                   "us_per_frame_by_form": by_form}
+        del c, joint, lpb, lpe, ref_b, ref_e, ref_a, beta_args, want, gb, ge
+    emit({"phase": "kernels", "kernel": "rnnt_widths", "shape": [Bq, Tq, None, Jq, Vq],
+          "tol": {"rnnt_lp": TOL["rnnt_lp"], "rnnt_occ": TOL["rnnt_occ"]}, "by_lanes": out})
+    return out
+
+
 def rnnt_rows(torch, timed, reps) -> dict:
     """The RNN-T kernels at B = 32, T' = 250, U = 120, J = 320, V = 29
     (the rnnt_char_wsj recipe's widths and its longest batches), each
@@ -2585,8 +2635,8 @@ def rnnt_rows(torch, timed, reps) -> dict:
         "ms": timed(joint_fwd, reps), "ms_second_run": timed(joint_fwd, reps),
         "plain_ms": timed(lambda: tf.rnnt_joint_fwd_plain(*joint, blank), min(reps, 2)),
         "library_ms": timed(lib_joint, min(reps, 5)),
-        "step_probe": ctc_probe(torch, timed, reps, lambda: tf.rnnt_joint_fwd_probe(
-            *joint, blank), Tq, tf.JOINT_PROBE_PARTS),
+        "step_probe": step_probe(torch, timed, reps, lambda: tf.rnnt_joint_fwd_probe(
+            *joint, blank), tf.JOINT_PROBE_PARTS),
         "library": "partial: the materialized joint, torch.tanh + torch.matmul + "
                    "log_softmax over [B, T', U+1, V]",
         "bound_ms": b_ms, "bound_by": by,
@@ -2699,8 +2749,8 @@ def rnnt_rows(torch, timed, reps) -> dict:
         "ms": beta_ms, "ms_second_run": timed(beta, reps),
         "us_per_frame": None if beta_ms is None else 1e3 * beta_ms / Tq,
         "us_per_frame_by_form": by_form, "bits_equal_across_forms": form_bits,
-        "step_probe": ctc_probe(torch, timed, reps, lambda: tf.rnnt_beta_probe(*beta_args),
-                                Tq, tf.BETA_PROBE_PARTS),
+        "step_probe": step_probe(torch, timed, reps, lambda: tf.rnnt_beta_probe(*beta_args),
+                                 tf.BETA_PROBE_PARTS, Tq),
         "plain_ms": timed(lambda: tf.rnnt_beta_plain(*beta_args), min(reps, 2)),
         "library_ms": lib_b, "library": library + " (backward: forward + backward minus "
                                                   "forward)",
@@ -2759,6 +2809,7 @@ def rnnt_rows(torch, timed, reps) -> dict:
     }
     emit({"phase": "kernels", "kernel": "rnnt_joint_bwd", **rows["rnnt_joint_bwd"]})
     del ref, e_g, p_g, w_g, dl
+    rnnt_widths(torch, timed, reps, tf)
 
     # --- the loss's forward + backward: its extra peak device memory --------
     leaves = [t.detach().requires_grad_(True) for t in (c["enc"], c["pred"], c["w"], c["b"])]

@@ -72,12 +72,12 @@ JOINT_FRAMES = 32  # frames of a joint forward block
 JOINT_PROBE_PARTS = ("h", "product", "softmax", "store")
 # The beta kernel's forms (csrc/transducer.cu): (lanes a thread K, chain
 # warps C), holding P = 32 K C lanes, in the order ``beta_plan`` tries
-# them: a lane a thread on up to 8 warps (U + 1 <= 256), then 8 warps of
-# 2 and 4 lanes a thread. The last, one warp of 4 lanes a thread (no
-# exchange between warps at U + 1 <= 128), is taken only when asked for:
-# one lane a thread ran faster on the H100 at U + 1 = 121, as a
-# logaddexp's latency, not its issue, sets a step (PERF.md).
-BETA_FORMS = ((1, 1), (1, 2), (1, 4), (1, 8), (2, 8), (4, 8), (4, 1))
+# them: a lane a thread on 1, 4 and 8 warps (U + 1 <= 256), then 8 warps
+# of 2 and 4 lanes a thread. On the H100 (PERF.md) a lane a thread on 4
+# warps beat one warp of 4 lanes a thread at U + 1 = 121, as a
+# logaddexp's latency, not throughput, sets a step, and beat 2 warps at
+# U + 1 = 61; one warp beat 4 at U + 1 = 31.
+BETA_FORMS = ((1, 1), (1, 4), (1, 8), (2, 8), (4, 8))
 BETA_CHUNK = 32  # frames a chunk at most (fewer where shared memory runs out)
 SMEM_LIMIT = 232448  # a block's shared memory on the H100 (227 KB)
 # the beta probe's parts: the chunk hand-off, the staged reads, the
@@ -147,6 +147,16 @@ def _check_joint(name, enc, pred, w, b, targets, target_lengths, logit_lengths, 
     return B, T, U1, J, V
 
 
+def check_aligned(name: str, **tensors) -> None:
+    """Raise unless each ``what=(tensor, bytes)`` has its data at a
+    multiple of ``bytes``: the joint forward reads enc 16 bytes and pred 4
+    bytes a load, so an offset view would fault at launch."""
+    for what, (t, align) in tensors.items():
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: {what}'s data must lie at a multiple of {align} bytes "
+                             f"(an offset view: pass a copy)")
+
+
 def check_design(name: str, J: int = 16, V: int = 1, U1: int = 1) -> None:
     """Raise on a joint width J, vocabulary V or lattice width U + 1
     beyond the kernels' design: there is no fallback on the card."""
@@ -172,8 +182,8 @@ def beta_plan(U1: int, forms=BETA_FORMS):
     memory bytes) of ``rnnt_beta`` for U + 1 lattice lanes: the first of
     ``forms`` whose 32 K C lanes hold U + 1, with the longest chunk (up to
     ``BETA_CHUNK``) whose buffers fit a block. Warp w issues on the SM's
-    quarter w % 4, so the helpers fill the quarters the chain leaves (3
-    beside one chain warp, 2 beside two) and take 4 beside four. Raises
+    quarter w % 4, so the helpers fill the 3 quarters one chain warp
+    leaves and take 4 beside more. Raises
     beyond U + 1 = 1024 or where no form holds."""
     if U1 > LANES_MAX:
         raise ValueError(f"U + 1 = {U1} lanes is beyond the beta kernel's design "
@@ -187,7 +197,7 @@ def beta_plan(U1: int, forms=BETA_FORMS):
             tc //= 2
         smem = beta_smem_bytes(P, tc)
         if smem <= SMEM_LIMIT:
-            return k, c, {1: 3, 2: 2}.get(c, 4), tc, smem
+            return k, c, 3 if c == 1 else 4, tc, smem
     raise ValueError(f"U + 1 = {U1} lanes is beyond the beta kernel's forms {forms}")
 
 
@@ -350,6 +360,7 @@ def _joint_fwd(enc, pred, w, b, targets, target_lengths, logit_lengths, blank_id
     name = "rnnt_joint_fwd"
     B, T, U1, J, V = _check_joint(name, enc, pred, w, b, targets, target_lengths,
                                   logit_lengths)
+    check_aligned(name, enc=(enc, 16), pred=(pred, 4))
     lp_blank = torch.empty((T, B, U1), dtype=torch.float32, device=enc.device)
     lp_emit = torch.empty_like(lp_blank)
     cycles = None

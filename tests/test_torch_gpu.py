@@ -926,6 +926,31 @@ def test_rnnt_joint_fwd_repeats_its_bits(cuda_device):
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
+def test_rnnt_joint_fwd_refuses_a_misaligned_view(cuda_device):
+    """A contiguous enc or pred view off the kernel's 16- / 4-byte loads
+    raises before any launch; a view at a whole 16 bytes gives the same
+    bits."""
+    rng = np.random.default_rng(25)
+    joint = list(_rnnt_inputs(rng, cuda_device, 3, 20, 12, 48, 29))
+    first = rnnt_ops.rnnt_joint_fwd(*joint, 28)
+
+    def offset(t, elems):
+        view = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)[elems:]
+        return view.view(t.shape).copy_(t)
+
+    before = kernels.launch_counts()
+    for i in (0, 1):
+        bad = list(joint)
+        bad[i] = offset(joint[i], 1)
+        with pytest.raises(ValueError, match="must lie at a multiple"):
+            rnnt_ops.rnnt_joint_fwd(*bad, 28)
+    assert kernels.launch_counts() == before
+    good = list(joint)
+    good[0], good[1] = offset(joint[0], 8), offset(joint[1], 2)
+    again = rnnt_ops.rnnt_joint_fwd(*good, 28)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
 def test_rnnt_tanh_and_log1p_give_the_math_librarys_bits(cuda_device):
     """The joint forward's table tanh gives bf16(tanhf(x)) on all 65536
     bf16 inputs; the beta kernel's log1p gives log1pf's bits on every

@@ -287,14 +287,28 @@ def test_beta_plan_holds_every_lattice_width():
         P = 32 * k * c
         assert (k, c) in tf.BETA_FORMS and P >= U1, U1
         assert k <= 8 and k * c <= 32 and 1 <= helpers <= 8 and tc >= 1, U1
-        assert helpers == {1: 3, 2: 2}.get(c, 4), U1
+        assert helpers == (3 if c == 1 else 4), U1
         assert smem == tf.beta_smem_bytes(P, tc) <= tf.SMEM_LIMIT, U1
         assert tc == tf.BETA_CHUNK or tf.beta_smem_bytes(P, 2 * tc) > tf.SMEM_LIMIT, U1
-        assert U1 > 32 * k * c // 2 or (k, c) == (1, 1), U1
+        taken = tf.BETA_FORMS.index((k, c))
+        assert all(32 * k_ * c_ < U1 for k_, c_ in tf.BETA_FORMS[:taken]), U1
     assert tf.beta_plan(121)[:4] == (1, 4, 4, 32)  # rnnt_char_wsj: 4 warps of a lane a thread
+    assert tf.beta_plan(32)[:3] == (1, 1, 3) and tf.beta_plan(33)[:3] == (1, 4, 4)
     for U1 in (tf.LANES_MAX + 1, 4096):
         with pytest.raises(ValueError, match="beyond the beta kernel's design"):
             tf.beta_plan(U1)
+
+
+@pytest.mark.parametrize("what,align", [("enc", 16), ("pred", 4)])
+def test_joint_fwd_refuses_an_offset_view(what, align):
+    """The joint forward reads enc 16 bytes and pred 4 bytes a load: a
+    view whose data lies off that alignment is refused before any launch;
+    the base tensor and a view at a whole multiple pass."""
+    base = torch.zeros(4 * align, dtype=torch.bfloat16)
+    tf.check_aligned("rnnt_joint_fwd", **{what: (base, align)})
+    tf.check_aligned("rnnt_joint_fwd", **{what: (base[align // 2:], align)})
+    with pytest.raises(ValueError, match=f"{what}'s data must lie at a multiple of {align}"):
+        tf.check_aligned("rnnt_joint_fwd", **{what: (base[1:], align)})
 
 
 @pytest.mark.parametrize("form", tf.BETA_FORMS)
