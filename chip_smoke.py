@@ -154,10 +154,20 @@ plan (``ops.transducer_fused.beta_plan``), µs a frame, a second timed
 run, whether a second launch and every form give the same bits
 (``us_per_frame_by_form``), its step probe (``rnnt_beta_probe``) and how
 many floats of [0, 1] its log1p maps to other bits than ``log1pf``
-(``log1p_mismatches``, which must be 0). The ``rnnt_widths`` line holds
-both again at the bench line's V = 32 (no padded vocabulary column), at
-U + 1 = 101, 31 and 61: the joint forward and beta's plan within their
-tolerances, every beta form bit for bit, each form's µs a frame.
+(``log1p_mismatches``, which must be 0); the ``rnnt_alpha`` row its plan
+(``ops.transducer_fused.alpha_plan``), µs a diagonal step, a second timed
+run, whether a second launch and every form give the same bits
+(``us_per_step_by_form``), whether the frozen rows and the lanes past
+U_b hold row T_b - 1 and NEG exactly (``layout_exact``), its step probe
+(``rnnt_alpha_probe``), the kernel's and the plain version's ll against
+the plain version in float64 (``ll_vs_float64``, a reading), and a
+second planted fault, the anti-diagonal walk with the lane below read
+one diagonal late (``fault_neighbour_late_max_abs_err``). The
+``rnnt_widths`` line holds all three again at the bench line's V = 32
+(no padded vocabulary column), at U + 1 = 101, 31 and 61: the joint
+forward, alpha and beta's plan within their tolerances, every alpha form
+against the plan's bits and every beta form bit for bit against the
+plain version, each form's µs a step (alpha) or a frame (beta).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``. A failed tolerance check is
@@ -637,6 +647,42 @@ def step_probe(torch, timed, reps, probe, parts, steps=None) -> dict:
     return out
 
 
+def alpha_forms(torch, timed, reps, tf, args, want, steps) -> tuple:
+    """Every form of ``alpha_plan`` that holds the lattice's U + 1 lanes,
+    swapped in for the plan, on ``args`` (``rnnt_alpha``'s): -> ({form: µs
+    a diagonal step over ``steps``}, whether every form gave ``want``'s
+    bits)."""
+    U1 = args[0].shape[2]
+    by_form, bits = {}, True
+    for form in tf.ALPHA_FORMS:
+        try:
+            plan = tf.alpha_plan(U1, (form,))
+        except ValueError:
+            continue
+        with swapped(tf, "alpha_plan", lambda U1_, forms=None, p=plan: p):
+            got = tf.rnnt_alpha(*args)
+            bits &= all(torch.equal(x, y) for x, y in zip(got, want))
+            # (three times the reps: a form's launch is tens of µs)
+            by_form[f"{form[0]}x{form[1]}"] = (
+                None if not reps else 1e3 * timed(lambda: tf.rnnt_alpha(*args), 3 * reps) / steps)
+    return by_form, bits
+
+
+def alpha_layout_ok(torch, tf, alphas, logit_lengths, target_lengths) -> bool:
+    """The alphas' rows t >= T_b equal row T_b - 1 bit for bit (NEG where
+    T_b = 0), and every lane past U_b holds NEG."""
+    T, B, U1 = alphas.shape
+    dev = alphas.device
+    Tb = logit_lengths.long().clamp(0, T)
+    past = torch.arange(U1, device=dev)[None, :] > target_lengths.long()[:, None]
+    if not bool((alphas[:, past] == tf.NEG).all()):
+        return False
+    last = alphas[(Tb - 1).clamp(min=0), torch.arange(B, device=dev)]
+    last = torch.where((Tb > 0)[:, None], last, tf.NEG)
+    frozen = torch.arange(T, device=dev)[:, None] >= Tb[None, :]
+    return bool(((alphas == last[None]) | ~frozen[..., None]).all())
+
+
 # ---------------------------------------------------------------------------
 # plain references and planted faults
 # ---------------------------------------------------------------------------
@@ -880,6 +926,55 @@ def rnnt_emit_dropped(tf):
     def alpha(lp_blank, lp_emit, logit_lengths, target_lengths):
         return tf.rnnt_alpha_plain(lp_blank, lp_emit * 0.0, logit_lengths, target_lengths)
     return alpha
+
+
+def rnnt_alpha_diagonal_walk(torch, tf, lag: int = 1):
+    """The alpha recursion walked along the anti-diagonals d = t + u, as
+    ``rnnt_alpha``'s kernel walks it (csrc/transducer.cu (b)), vectorised
+    over the lattices and lanes: each node max(logaddexp(alpha[t - 1, u] +
+    lp_blank[t - 1, u], alpha[t, u - 1] + lp_emit[t, u - 1]), NEG) from
+    diagonal d - 1, the terms a node lacks and those past its lattice
+    masked as the kernel masks them (blank 0, emit NEG), rows t >= T_b
+    frozen at row T_b - 1, lanes past U_b NEG. With ``lag = 2`` the lane
+    below is taken from diagonal d - 2 (``rnnt_alpha_neighbour_late``)."""
+    NEG = tf.NEG
+
+    def alpha(lp_blank, lp_emit, logit_lengths, target_lengths):
+        T, B, U1 = lp_blank.shape
+        dev = lp_blank.device
+        Tb = logit_lengths.long().clamp(0, T)[:, None]
+        Ub = target_lengths.long().clamp(0, U1 - 1)[:, None]
+        u = torch.arange(U1, device=dev)[None, :]
+        bi = torch.arange(B, device=dev)[:, None].expand(B, U1)
+        live = u <= Ub
+        a = torch.where((u == 0) & (Tb > 0), 0.0, NEG).to(torch.float32)
+        seen = [a] * lag  # diagonals d - lag .. d - 1
+        alphas = torch.full((T, B, U1), NEG, dtype=torch.float32, device=dev)
+        steps = int(torch.where(Tb > 0, Tb + Ub, 0).max()) if B else 0
+        for d in range(steps):
+            t = (d - u).expand(B, U1)
+            inside = live & (t >= 0) & (t < Tb)
+            vb = torch.where(inside & (t >= 1), lp_blank[(t - 1).clamp(0, T - 1), bi, u], 0.0)
+            ve = torch.where(inside & (u >= 1),
+                             lp_emit[t.clamp(0, T - 1), bi, (u - 1).clamp(min=0)], NEG)
+            below = torch.nn.functional.pad(seen[0][:, :-1], (1, 0), value=NEG)
+            a = torch.clamp(torch.logaddexp(a + vb, below + ve), min=NEG)
+            seen = seen[1:] + [a]
+            ti = t.clamp(0, T - 1)
+            alphas[ti, bi, u] = torch.where(inside, a, alphas[ti, bi, u])
+        last = torch.where(live, a, NEG)
+        frozen = torch.arange(T, device=dev)[:, None, None] >= Tb[None]
+        alphas = torch.where(frozen, last[None], alphas)
+        lpb = torch.where(Tb > 0, lp_blank[(Tb - 1).clamp(min=0), bi[:, :1], Ub], 0.0)
+        return alphas, (torch.gather(a, 1, Ub) + lpb)[:, 0]
+    return alpha
+
+
+def rnnt_alpha_neighbour_late(torch, tf):
+    """Planted alpha fault for the anti-diagonal walk: the lane below is
+    read from diagonal d - 2 (a hand-off one step stale), so the emit term
+    joins alpha[t - 1, u - 1] in place of alpha[t, u - 1]."""
+    return rnnt_alpha_diagonal_walk(torch, tf, lag=2)
 
 
 def rnnt_beta_read_early(torch, tf):
@@ -2519,12 +2614,15 @@ def rnnt_case(torch, rng, B_, T_, U_, J_, V_):
 
 
 def rnnt_widths(torch, timed, reps, tf) -> dict:
-    """The joint forward and beta at the RNN-T bench line's vocabulary (V
-    = 32 with the blank last: no padded column), B = 32, T' = 250, J =
-    320, at its lattice width U + 1 = 101 and at 31 and 61 (one and four
-    chain warps in ``beta_plan``): the joint forward against its plain
-    version, beta's plan against it and every form that holds U + 1 bit
-    for bit, each form's µs a frame. -> the readings by U + 1."""
+    """The joint forward, alpha and beta at the RNN-T bench line's
+    vocabulary (V = 32 with the blank last: no padded column), B = 32, T'
+    = 250, J = 320, at its lattice width U + 1 = 101 and at 31 and 61 (one
+    and four chain warps in ``beta_plan``; 1, 2 and 4 lanes a thread in
+    ``alpha_plan``): the joint forward and alpha against their plain
+    versions (alpha's frozen rows and lanes past U_b exactly), every alpha
+    form against the plan's bits, beta's plan against its plain version
+    and every form that holds U + 1 bit for bit; each alpha form's µs a
+    diagonal step, each beta form's µs a frame. -> the readings by U + 1."""
     Bq, Tq, Jq, Vq = 32, 250, 320, 32
     blank = Vq - 1
     rng = np.random.default_rng(16)
@@ -2539,6 +2637,19 @@ def rnnt_widths(torch, timed, reps, tf) -> dict:
         lp_err = max(compare(torch, lpb, ref_b, TOL["rnnt_lp"], f"rnnt_joint_fwd {what} lp_blank"),
                      compare(torch, lpe, ref_e, TOL["rnnt_lp"], f"rnnt_joint_fwd {what} lp_emit"))
         ref_a, ref_ll = tf.rnnt_alpha_plain(ref_b, ref_e, *lens)
+        alphas, ll = tf.rnnt_alpha(ref_b, ref_e, *lens)
+        lanes_ok = (torch.arange(U1, device="cuda")[None, None, :]
+                    <= c["tlen"][None, :, None]).expand(Tq, Bq, U1)
+        ll_err = max(compare(torch, ll, ref_ll, TOL["rnnt_ll"], f"rnnt_alpha {what} ll"),
+                     compare(torch, alphas[lanes_ok], ref_a[lanes_ok], TOL["rnnt_ll"],
+                             f"rnnt_alpha {what} alphas"))
+        check(alpha_layout_ok(torch, tf, alphas, *lens),
+              f"rnnt_alpha {what}: a frozen row or a lane past U_b differs")
+        a_by_form, a_bits = alpha_forms(torch, timed, reps, tf, (ref_b, ref_e, *lens),
+                                        (alphas, ll), Tq + U1 - 1)
+        if not a_bits:
+            FAILURES.append(f"rnnt_alpha {what}: a form's bits differ from the plan's")
+        del alphas, ll
         beta_args = (ref_b, ref_e, ref_a, ref_ll, torch.ones(Bq, device="cuda"), *lens)
         want = tf.rnnt_beta_plain(*beta_args)
         gb, ge = tf.rnnt_beta(*beta_args)
@@ -2559,10 +2670,13 @@ def rnnt_widths(torch, timed, reps, tf) -> dict:
             FAILURES.append(f"rnnt_beta {what}: a form's bits differ from the plain version's")
         out[U1] = {"joint_fwd_max_abs_err": lp_err, "beta_max_abs_err": occ_err,
                    "plan": tf.beta_plan(U1), "bits_equal_plain_every_form": bits,
-                   "us_per_frame_by_form": by_form}
+                   "us_per_frame_by_form": by_form, "alpha_max_abs_err": ll_err,
+                   "alpha_plan": tf.alpha_plan(U1), "alpha_bits_equal_across_forms": a_bits,
+                   "alpha_us_per_step_by_form": a_by_form}
         del c, joint, lpb, lpe, ref_b, ref_e, ref_a, beta_args, want, gb, ge
     emit({"phase": "kernels", "kernel": "rnnt_widths", "shape": [Bq, Tq, None, Jq, Vq],
-          "tol": {"rnnt_lp": TOL["rnnt_lp"], "rnnt_occ": TOL["rnnt_occ"]}, "by_lanes": out})
+          "tol": {"rnnt_lp": TOL["rnnt_lp"], "rnnt_occ": TOL["rnnt_occ"],
+                  "rnnt_ll": TOL["rnnt_ll"]}, "by_lanes": out})
     return out
 
 
@@ -2657,6 +2771,34 @@ def rnnt_rows(torch, timed, reps) -> dict:
                     "rnnt_alpha alphas")
     _, fault_ll = rnnt_emit_dropped(tf)(ref_b, ref_e, *lens)
     fault = fault_reading(fault_ll, ref_ll, TOL["rnnt_ll"], "rnnt_alpha ll")
+    _, late_ll = rnnt_alpha_neighbour_late(torch, tf)(ref_b, ref_e, *lens)
+    late_fault = fault_reading(late_ll, ref_ll, TOL["rnnt_ll"],
+                               "rnnt_alpha ll, the lane below one diagonal late")
+    layout_ok = alpha_layout_ok(torch, tf, alphas, *lens)
+    check(layout_ok, "rnnt_alpha: a frozen row differs from row T_b - 1 or a lane past U_b "
+                     "is not NEG")
+    # a reading, not a gate: each ll against the plain closed form in
+    # float64 on the same rows (feasible lattices)
+    _, ll64 = tf.rnnt_alpha_plain(ref_b.double(), ref_e.double(), *lens)
+    feasible = c["llen"] > 0
+    ll_vs_f64 = {"kernel": float((ll.double() - ll64)[feasible].abs().max()),
+                 "plain": float((ref_ll.double() - ll64)[feasible].abs().max())}
+    del fault_ll, late_ll, ll64
+
+    def alpha():
+        return tf.rnnt_alpha(ref_b, ref_e, *lens)
+
+    alpha_repeat = all(torch.equal(x, y) for x, y in zip((alphas, ll), alpha()))
+    if not alpha_repeat:
+        FAILURES.append("rnnt_alpha: a second launch's bits differ")
+    check(all(torch.equal(x, y) for x, y in zip((alphas, ll), tf.rnnt_alpha_probe(
+        ref_b, ref_e, *lens)[:2])), "rnnt_alpha: the probe's build changed the bits")
+    steps = Tq + Uq  # the longest lattice's diagonals
+    a_by_form, a_form_bits = alpha_forms(torch, timed, reps, tf, (ref_b, ref_e, *lens),
+                                         (alphas, ll), steps)
+    if not a_form_bits:
+        FAILURES.append("rnnt_alpha: the forms' bits differ")
+    alpha_ms = timed(alpha, reps)
     rows_bytes = 4 * Tq * Bq * U1
     # per node: a sum, a logaddexp (exp + log1p) and a few f32 operations
     b_ms, by = bound(3 * rows_bytes + 4 * 3 * Bq, nodes * 8, PEAK_F32, (nodes * 2, PEAK_SFU))
@@ -2705,7 +2847,13 @@ def rnnt_rows(torch, timed, reps) -> dict:
     rows["rnnt_alpha"] = {
         "shape": [Tq, Bq, U1], "dtype": "f32", "max_abs_err": err, "alphas_max_abs_err": a_err,
         "tol": TOL["rnnt_ll"], "fault_max_abs_err": fault,
-        "ms": timed(lambda: tf.rnnt_alpha(ref_b, ref_e, *lens), reps),
+        "fault_neighbour_late_max_abs_err": late_fault, "layout_exact": layout_ok,
+        "ll_vs_float64": ll_vs_f64, "plan": tf.alpha_plan(U1),
+        "repeat_bits_equal": alpha_repeat, "ms": alpha_ms, "ms_second_run": timed(alpha, reps),
+        "us_per_step": None if alpha_ms is None else 1e3 * alpha_ms / steps,
+        "us_per_step_by_form": a_by_form, "bits_equal_across_forms": a_form_bits,
+        "step_probe": step_probe(torch, timed, reps, lambda: tf.rnnt_alpha_probe(
+            ref_b, ref_e, *lens), tf.ALPHA_PROBE_PARTS, steps),
         "plain_ms": timed(lambda: tf.rnnt_alpha_plain(ref_b, ref_e, *lens), min(reps, 2)),
         "library_ms": lib_a, "library": library + " (forward)",
         "bound_ms": b_ms, "bound_by": by,

@@ -13,11 +13,16 @@ become four kernels of ``csrc/transducer.cu``:
   ``logits = h @ W_o + b_o`` (f32 accumulation), the log-softmax over V,
   and the blank and target log-probs ``lp_blank``, ``lp_emit`` [T, B, U+1]
   f32. Neither h nor the logits reach device memory;
-- ``rnnt_alpha`` (from ``_fwd_kernel``): the alpha row advanced frame by
-  frame with the closed form ``alpha = max(E + prefix_lse(base - E),
-  NEG)``, ``E = prefix_sum(e)``, as log-step (Hillis-Steele) scans over
-  the U+1 lanes, rows frozen past each logit length, and
-  ``ll = alpha[T_b - 1, U_b] + lp_blank[T_b - 1, U_b]``;
+- ``rnnt_alpha`` (from ``_fwd_kernel``): the alphas [T, B, U+1], each
+  lattice walked along its anti-diagonals t + u (``alpha_plan``), a node
+  the logaddexp of its two predecessors, rows frozen past each logit
+  length, lanes past U_b NEG, and
+  ``ll = alpha[T_b - 1, U_b] + lp_blank[T_b - 1, U_b]``. Its plain
+  version keeps the TPU kernel's closed form, the row advanced a frame at
+  a time, ``alpha = max(E + prefix_lse(base - E), NEG)`` with ``E =
+  prefix_sum(e)``, as log-step (Hillis-Steele) scans over the lanes; the
+  two orders agree within the f32 rounding of their sums, not bit for
+  bit;
 - ``rnnt_beta`` (from ``_bwd_kernel``): the beta row in reverse with the
   suffix closed form, and the blank and emit occupancies
   ``gb = exp(min(alpha + lp_blank + beta[t+1] - ll, 0)) * g`` and
@@ -80,6 +85,24 @@ JOINT_PROBE_PARTS = ("h", "product", "softmax", "store")
 BETA_FORMS = ((1, 1), (1, 4), (1, 8), (2, 8), (4, 8))
 BETA_CHUNK = 32  # frames a chunk at most (fewer where shared memory runs out)
 SMEM_LIMIT = 232448  # a block's shared memory on the H100 (227 KB)
+# The alpha kernel's forms (csrc/transducer.cu): (lanes a thread K, warps
+# C), holding P = 32 K C lanes, in the order ``alpha_plan`` tries them. One
+# warp (K = 1, 2, 4) takes the staged walk: helper warps copy whole frames
+# into a ring in shared memory ahead of the chain warp. More warps take the
+# wide walk: each lane's inputs fetched from device memory a few diagonals
+# ahead, a warp's top lane handed to the next through shared memory at a
+# block barrier a step. On the H100 (PERF.md) the staged walk's one warp
+# of 4 lanes a thread and the wide walk's two warps of 2 ran within 2 % of
+# each other at U + 1 = 101 and 121, the staged walk of 1 and 2 lanes a
+# thread 20-35 % under the wide one's at 31 and 61, and its 2 lanes a
+# thread 20-25 % under its 4 at 61.
+ALPHA_FORMS = ((1, 1), (2, 1), (4, 1), (4, 2), (4, 4), (4, 8))
+ALPHA_AHEAD = 4  # diagonals the wide walk fetches its inputs ahead
+ALPHA_CHUNK = 32  # steps (and frames) a chunk of the staged walk
+# the alpha probe's parts: the chunk hand-off (staged walk), the inputs'
+# reads ahead, the shuffle with the warps' exchange, the logaddexps, the
+# stores
+ALPHA_PROBE_PARTS = ("wait", "read", "exchange", "lse", "store")
 # the beta probe's parts: the chunk hand-off, the staged reads, the
 # shuffles with the chain warps' exchange, the logaddexps, the row's store
 BETA_PROBE_PARTS = ("wait", "read", "exchange", "lse", "store")
@@ -88,7 +111,7 @@ _fns: dict = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "rnnt_joint_fwd": [_P] * 7 + [_I] * 7 + [_P] * 4,
-    "rnnt_alpha": [_P] * 6 + [_I] * 3 + [_P],
+    "rnnt_alpha": [_P] * 6 + [_I] * 5 + [_P] * 2,
     "rnnt_beta": [_P] * 9 + [_I] * 8 + [_P] * 2,
     "rnnt_joint_bwd": [_P] * 9 + [_I] * 8 + [_P] * 8,
     "rnnt_tanh_check": [_P] * 2,
@@ -166,7 +189,20 @@ def check_design(name: str, J: int = 16, V: int = 1, U1: int = 1) -> None:
             f"at most {JOINT_MAX}: the backward block's shared memory; V <= {VOCAB_MAX})")
     if U1 > LANES_MAX:
         raise ValueError(f"{name}: U + 1 = {U1} lanes is beyond the kernel's design "
-                         f"(alpha: one thread a lane, at most {LANES_MAX})")
+                         f"(the recursions' lanes: at most {LANES_MAX})")
+
+
+def alpha_plan(U1: int, forms=ALPHA_FORMS):
+    """-> (lanes a thread K, warps C) of ``rnnt_alpha`` for U + 1 lattice
+    lanes: the first of ``forms`` whose 32 K C lanes hold U + 1. Raises
+    beyond U + 1 = 1024 or where no form holds."""
+    if U1 > LANES_MAX:
+        raise ValueError(f"U + 1 = {U1} lanes is beyond the alpha kernel's design "
+                         f"(at most {LANES_MAX})")
+    for k, c in forms:
+        if 32 * k * c >= U1:
+            return k, c
+    raise ValueError(f"U + 1 = {U1} lanes is beyond the alpha kernel's forms {forms}")
 
 
 def beta_smem_bytes(P: int, tc: int) -> int:
@@ -413,19 +449,44 @@ def rnnt_alpha_plain(lp_blank, lp_emit, logit_lengths, target_lengths):
 def rnnt_alpha(lp_blank, lp_emit, logit_lengths, target_lengths):
     if lp_blank.device.type == "cpu":
         return rnnt_alpha_plain(lp_blank, lp_emit, logit_lengths, target_lengths)
+    return _alpha(lp_blank, lp_emit, logit_lengths, target_lengths)[:2]
+
+
+def rnnt_alpha_probe(lp_blank, lp_emit, logit_lengths, target_lengths):
+    """The alpha kernel on the card built with its step probe, for
+    measurement only (no path calls it, and it counts no launch): ->
+    (alphas, ll, cycles [B, 6] int64), each block's chain thread 0's
+    cycles by ``ALPHA_PROBE_PARTS``, then the steps it ran: T_b + U_b
+    diagonals, in the staged walk plus the U_b / K steps its thread U_b /
+    K runs behind, rounded up to whole chunks of ``ALPHA_CHUNK`` (staged)
+    or ``ALPHA_AHEAD`` (wide); 0 where T_b = 0."""
+    return _alpha(lp_blank, lp_emit, logit_lengths, target_lengths, probe=True)
+
+
+def _alpha(lp_blank, lp_emit, logit_lengths, target_lengths, probe=False):
     name = "rnnt_alpha"
     T, B, U1 = _check_lattice(name, logit_lengths, target_lengths, lp_blank=lp_blank,
                               lp_emit=lp_emit)
+    plan = alpha_plan(U1)
+    if (T + U1 + 2 * ALPHA_AHEAD) * B * U1 > 2**31 - 1:
+        raise ValueError(f"{name}: T = {T}, B = {B}, U + 1 = {U1} is beyond the kernel's "
+                         f"design (its offsets into the rows are 32-bit)")
     alphas = torch.empty_like(lp_blank)
     ll = torch.empty((B,), dtype=torch.float32, device=lp_blank.device)
+    cycles = None
+    if probe:
+        cycles = torch.zeros((B, len(ALPHA_PROBE_PARTS) + 1), dtype=torch.int64,
+                             device=lp_blank.device)
     with torch.cuda.device(lp_blank.device):
         err = _launcher(name)(
             lp_blank.data_ptr(), lp_emit.data_ptr(), logit_lengths.data_ptr(),
-            target_lengths.data_ptr(), alphas.data_ptr(), ll.data_ptr(), B, T, U1, _stream(),
+            target_lengths.data_ptr(), alphas.data_ptr(), ll.data_ptr(), B, T, U1, *plan,
+            _ptr_or_none(cycles), _stream(),
         )
     build.check(err, name)
-    kernels.LAUNCHES[name] += 1
-    return alphas, ll
+    if not probe:
+        kernels.LAUNCHES[name] += 1
+    return alphas, ll, cycles
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ including ones off the kernels' fast paths: H and D not multiples of 8,
 S = 2L + 1 larger than a block's threads, logit length 1, label length
 0, an infeasible CTC example; for the RNN-T kernels U + 1 over one
 32-row tile, T over one 32-frame block, target lengths 0 and a logit
-length 0, and every form of the beta kernel up to U + 1 = 1024. Each kernel is held to its plain version for values, and the
+length 0, and every form of the alpha and beta kernels up to U + 1 =
+1024. Each kernel is held to its plain version for values, and the
 layer and the CTC and RNN-T losses on the card to the same through the
 plain versions on the CPU for gradients. Tolerances as in
 ``chip_smoke.py``: log-mel and BLSTM f32 1e-4; BLSTM bf16 one rounding
@@ -833,7 +834,8 @@ def test_rnnt_kernels_match_plain(cuda_device, B, T, U, J, V):
     """Each RNN-T kernel against its plain version on the same inputs, and
     each planted fault of chip_smoke.py rejected by the tolerance: the
     last of the J products dropped (joint forward), the emit term dropped
-    from the prefix (alpha), the blank occupancy read with beta[t] (beta),
+    from the prefix and, in the anti-diagonal walk, the lane below read
+    one diagonal late (alpha), the blank occupancy read with beta[t] (beta),
     each lane's last frame left out of d_pred_proj (joint backward). The
     joint backward repeats bit for bit across two launches (fixed-order
     sums over its chunks)."""
@@ -872,6 +874,8 @@ def test_rnnt_kernels_match_plain(cuda_device, B, T, U, J, V):
         "lp_blank": (rnnt_ops.rnnt_joint_fwd_plain(joint[0], joint[1], w_cut, *joint[3:],
                                                    blank)[0], rb),
         "ll": (chip_smoke.rnnt_emit_dropped(rnnt_ops)(rb, re, *lens)[1], rll),
+        "ll_neighbour_late": (
+            chip_smoke.rnnt_alpha_neighbour_late(torch, rnnt_ops)(rb, re, *lens)[1], rll),
         "gb": (chip_smoke.rnnt_beta_read_early(torch, rnnt_ops)(rb, re, ra, rll, g, *lens)[0],
                rgb),
         "dpred": (chip_smoke.rnnt_last_frame_out_of_dpred(torch, rnnt_ops)(*bwd)[1], ref[1]),
@@ -880,7 +884,7 @@ def test_rnnt_kernels_match_plain(cuda_device, B, T, U, J, V):
     def tol(name, r):
         if name in ("lp_blank", "lp_emit"):
             return 1e-4 + 1e-5 * np.abs(r)
-        if name in ("ll", "alphas"):
+        if name in ("ll", "alphas", "ll_neighbour_late"):
             return 1e-3 + 1e-5 * np.abs(r)
         if name in ("gb", "ge"):
             return 1e-4
@@ -916,6 +920,36 @@ def test_rnnt_beta_each_form_equals_plain(cuda_device, monkeypatch, T, U):
         monkeypatch.setattr(rnnt_ops, "beta_plan", lambda U1, forms=None, p=plan: p)
         gb, ge = rnnt_ops.rnnt_beta(rb, re, ra, rll, g, *lens)
         assert torch.equal(gb, want[0]) and torch.equal(ge, want[1]), form
+
+
+@pytest.mark.parametrize("T,U", [(9, 5), (37, 40), (20, 10), (70, 130), (33, 20), (21, 1023)])
+def test_rnnt_alpha_each_form_agrees(cuda_device, monkeypatch, T, U):
+    """Every form of ``alpha_plan`` that holds U + 1 lanes gives the plan's
+    alphas and ll bit for bit, at the lattice widths of
+    test_rnnt_kernels_match_plain and U + 1 = 1024 (8 warps of 4 lanes a
+    thread), ragged lengths with a target length 0 and an empty lattice; a
+    second launch repeats the bits; rows t >= T_b hold row T_b - 1 and the
+    lanes past U_b NEG, exactly; the empty lattice is NEG throughout."""
+    import chip_smoke
+
+    rng = np.random.default_rng(T * U + 1)
+    B, V = 5, 6
+    joint = _rnnt_inputs(rng, cuda_device, B, T, U, 16, V)
+    lens = (joint[6], joint[5])
+    rb, re = rnnt_ops.rnnt_joint_fwd_plain(*joint, V - 1)
+    want = rnnt_ops.rnnt_alpha(rb, re, *lens)
+    again = rnnt_ops.rnnt_alpha(rb, re, *lens)
+    assert torch.equal(want[0], again[0]) and torch.equal(want[1], again[1])
+    assert chip_smoke.alpha_layout_ok(torch, rnnt_ops, want[0], *lens)
+    assert float(want[1][2]) == rnnt_ops.NEG and bool((want[0][:, 2] == rnnt_ops.NEG).all())
+    plan_of = rnnt_ops.alpha_plan
+    forms = [f for f in rnnt_ops.ALPHA_FORMS if 32 * f[0] * f[1] >= U + 1]
+    assert rnnt_ops.alpha_plan(U + 1) in forms
+    for form in forms:
+        plan = plan_of(U + 1, (form,))
+        monkeypatch.setattr(rnnt_ops, "alpha_plan", lambda U1, forms=None, p=plan: p)
+        alphas, ll = rnnt_ops.rnnt_alpha(rb, re, *lens)
+        assert torch.equal(alphas, want[0]) and torch.equal(ll, want[1]), form
 
 
 def test_rnnt_joint_fwd_repeats_its_bits(cuda_device):
@@ -960,9 +994,9 @@ def test_rnnt_tanh_and_log1p_give_the_math_librarys_bits(cuda_device):
 
 
 def test_rnnt_probes_keep_the_bits_and_count_no_launch(cuda_device):
-    """The probes' builds of the joint forward and of beta give the
-    kernels' bits, count no launch and record each block's frames (beta:
-    T_b)."""
+    """The probes' builds of the joint forward, alpha and beta give the
+    kernels' bits, count no launch and record each block's steps (beta:
+    T_b frames; alpha: the steps of its walk, 0 for the empty lattice)."""
     rng = np.random.default_rng(24)
     B, T, U = 4, 45, 40
     joint = _rnnt_inputs(rng, cuda_device, B, T, U, 48, 29)
@@ -974,8 +1008,16 @@ def test_rnnt_probes_keep_the_bits_and_count_no_launch(cuda_device):
     before = kernels.launch_counts()
     pb, pe, jc = rnnt_ops.rnnt_joint_fwd_probe(*joint, 28)
     qb, qe, bc = rnnt_ops.rnnt_beta_probe(lpb, lpe, alphas, ll, g, *lens)
+    qa, qll, ac = rnnt_ops.rnnt_alpha_probe(lpb, lpe, *lens)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == before
+    assert torch.equal(qa, alphas) and torch.equal(qll, ll)
+    K, C = rnnt_ops.alpha_plan(U + 1)
+    assert C == 1  # the staged walk: its thread U_b / K runs U_b / K steps behind
+    Tb, Ub, D = joint[6].long(), joint[5].long(), rnnt_ops.ALPHA_CHUNK
+    steps = torch.where(Tb > 0, Tb + Ub + Ub // K, 0)
+    assert ac[:, -1].tolist() == ((steps + D - 1) // D * D).tolist()
+    assert int(ac[0, :-1].sum()) > 0
     assert torch.equal(pb, lpb) and torch.equal(pe, lpe)
     assert torch.equal(qb, gb) and torch.equal(qe, ge)
     assert bc[:, -1].tolist() == joint[6].tolist()

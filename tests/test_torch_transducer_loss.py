@@ -319,3 +319,87 @@ def test_beta_plan_takes_each_form_where_it_holds(form):
     with pytest.raises(ValueError, match="beyond the beta kernel's (forms|design)"):
         tf.beta_plan(P + 1, (form,))
 
+
+
+def test_alpha_plan_holds_every_lattice_width():
+    """For every U + 1 from 1 to 1024 the alpha plan's form holds the
+    lanes, is the first of ``ALPHA_FORMS`` that does and has the fewest
+    lanes of those that do, and fits the kernel's launch bounds (32 C
+    threads, at most 1024) and its registers (at most 8 lanes a thread).
+    The recipes' widths (U + 1 = 101 at the bench line, 121 in
+    rnnt_char_wsj) take one warp of 4 lanes a thread. Beyond 1024 it
+    raises."""
+    for U1 in range(1, tf.LANES_MAX + 1):
+        k, c = tf.alpha_plan(U1)
+        P = 32 * k * c
+        assert (k, c) in tf.ALPHA_FORMS and P >= U1, U1
+        assert 32 * c <= 1024 and k <= 8, U1
+        taken = tf.ALPHA_FORMS.index((k, c))
+        assert all(32 * k_ * c_ < U1 for k_, c_ in tf.ALPHA_FORMS[:taken]), U1
+        assert P == min(32 * k_ * c_ for k_, c_ in tf.ALPHA_FORMS if 32 * k_ * c_ >= U1), U1
+    assert tf.alpha_plan(101) == tf.alpha_plan(121) == (4, 1)
+    assert tf.alpha_plan(32) == (1, 1) and tf.alpha_plan(33) == (2, 1)
+    for U1 in (tf.LANES_MAX + 1, 4096):
+        with pytest.raises(ValueError, match="beyond the alpha kernel's design"):
+            tf.alpha_plan(U1)
+
+
+@pytest.mark.parametrize("form", tf.ALPHA_FORMS)
+def test_alpha_plan_takes_each_form_where_it_holds(form):
+    k, c = form
+    P = 32 * k * c
+    assert tf.alpha_plan(P, (form,)) == form
+    with pytest.raises(ValueError, match="beyond the alpha kernel's (forms|design)"):
+        tf.alpha_plan(P + 1, (form,))
+
+
+def _alpha_rows(seed, B=6, T=11, U=9, V=6):
+    """The joint's log-probs of a ragged case (a target length 0 and a
+    logit length 0 among them) through the plain joint forward."""
+    enc, pred, w, b, targets, tlen, llen = _case(seed, B=B, T=T, U=U, V=V)
+    llen[0], tlen[0], tlen[1], llen[2] = T, U, 0, 0
+    bf = torch.bfloat16
+    lens = [torch.from_numpy(a) for a in (targets, tlen, llen)]
+    lpb, lpe = tf.rnnt_joint_fwd_plain(*(torch.from_numpy(a).to(bf) for a in (enc, pred, w)),
+                                       torch.from_numpy(b), *lens, V - 1)
+    return (enc, pred, w, b, targets, tlen, llen), lpb, lpe, (lens[2], lens[1])
+
+
+@pytest.mark.parametrize("seed", [10, 11])
+def test_diagonal_walk_matches_the_plain_alpha_and_jax(seed):
+    """The alpha kernel's recursion (chip_smoke.rnnt_alpha_diagonal_walk:
+    the lattice walked along anti-diagonals with the kernel's masking)
+    against the plain closed form within TOL["rnnt_ll"] at the lanes <=
+    U_b, its rows t >= T_b equal to row T_b - 1 and its lanes past U_b
+    NEG bit for bit, the empty lattice NEG; and its ll against the JAX
+    package's fused loss."""
+    import chip_smoke
+
+    case, lpb, lpe, lens = _alpha_rows(seed)
+    T, B, U1 = lpb.shape
+    want_a, want_ll = tf.rnnt_alpha_plain(lpb, lpe, *lens)
+    got_a, got_ll = chip_smoke.rnnt_alpha_diagonal_walk(torch, tf)(lpb, lpe, *lens)
+    atol, rtol = chip_smoke.TOL["rnnt_ll"]
+    ok = torch.arange(U1)[None, None, :] <= lens[1][None, :, None].long()
+    ok = ok.expand(T, B, U1)
+    assert bool(((got_ll - want_ll).abs() <= atol + rtol * want_ll.abs()).all())
+    assert bool(((got_a - want_a).abs()[ok] <= atol + rtol * want_a.abs()[ok]).all())
+    assert chip_smoke.alpha_layout_ok(torch, tf, got_a, *lens)
+    assert float(got_ll[2]) == NEG and bool((got_a[:, 2] == NEG).all())
+    nll = jfused(*(jnp.asarray(a) for a in case[:4]),
+                 *(jnp.asarray(a) for a in (case[6], case[4], case[5])))
+    feasible = case[6] > 0
+    _close(-got_ll.numpy()[feasible], np.asarray(nll)[feasible], "ll")
+
+
+def test_alpha_neighbour_late_fault_is_beyond_tolerance():
+    """chip_smoke's planted fault for the anti-diagonal walk (the lane
+    below read one diagonal late) reads beyond TOL["rnnt_ll"] against the
+    plain alpha at a small ragged shape."""
+    import chip_smoke
+
+    _, lpb, lpe, lens = _alpha_rows(12)
+    _, want_ll = tf.rnnt_alpha_plain(lpb, lpe, *lens)
+    _, late_ll = chip_smoke.rnnt_alpha_neighbour_late(torch, tf)(lpb, lpe, *lens)
+    atol, rtol = chip_smoke.TOL["rnnt_ll"]
+    assert float(((late_ll - want_ll).abs() - (atol + rtol * want_ll.abs())).max()) > 0
