@@ -2617,12 +2617,12 @@ def rnnt_widths(torch, timed, reps, tf) -> dict:
     """The joint forward, alpha and beta at the RNN-T bench line's
     vocabulary (V = 32 with the blank last: no padded column), B = 32, T'
     = 250, J = 320, at its lattice width U + 1 = 101 and at 31 and 61 (one
-    and four chain warps in ``beta_plan``; 1, 2 and 4 lanes a thread in
-    ``alpha_plan``): the joint forward and alpha against their plain
-    versions (alpha's frozen rows and lanes past U_b exactly), every alpha
-    form against the plan's bits, beta's plan against its plain version
-    and every form that holds U + 1 bit for bit; each alpha form's µs a
-    diagonal step, each beta form's µs a frame. -> the readings by U + 1."""
+    and four chain warps in ``beta_plan``): the joint forward and alpha
+    against their plain versions (alpha's frozen rows and lanes past U_b
+    exactly), every alpha form against the plan's bits, beta's plan
+    against its plain version and every form that holds U + 1 bit for
+    bit; each alpha form's µs a diagonal step, each beta form's µs a
+    frame. -> the readings by U + 1."""
     Bq, Tq, Jq, Vq = 32, 250, 320, 32
     blank = Vq - 1
     rng = np.random.default_rng(16)

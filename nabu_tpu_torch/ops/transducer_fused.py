@@ -86,23 +86,18 @@ BETA_FORMS = ((1, 1), (1, 4), (1, 8), (2, 8), (4, 8))
 BETA_CHUNK = 32  # frames a chunk at most (fewer where shared memory runs out)
 SMEM_LIMIT = 232448  # a block's shared memory on the H100 (227 KB)
 # The alpha kernel's forms (csrc/transducer.cu): (lanes a thread K, warps
-# C), holding P = 32 K C lanes, in the order ``alpha_plan`` tries them. One
-# warp (K = 1, 2, 4) takes the staged walk: helper warps copy whole frames
-# into a ring in shared memory ahead of the chain warp. More warps take the
-# wide walk: each lane's inputs fetched from device memory a few diagonals
-# ahead, a warp's top lane handed to the next through shared memory at a
-# block barrier a step. On the H100 (PERF.md) the staged walk's one warp
-# of 4 lanes a thread and the wide walk's two warps of 2 ran within 2 % of
-# each other at U + 1 = 101 and 121, the staged walk of 1 and 2 lanes a
-# thread 20-35 % under the wide one's at 31 and 61, and its 2 lanes a
-# thread 20-25 % under its 4 at 61.
-ALPHA_FORMS = ((1, 1), (2, 1), (4, 1), (4, 2), (4, 4), (4, 8))
-ALPHA_AHEAD = 4  # diagonals the wide walk fetches its inputs ahead
-ALPHA_CHUNK = 32  # steps (and frames) a chunk of the staged walk
-# the alpha probe's parts: the chunk hand-off (staged walk), the inputs'
-# reads ahead, the shuffle with the warps' exchange, the logaddexps, the
-# stores
-ALPHA_PROBE_PARTS = ("wait", "read", "exchange", "lse", "store")
+# C), holding P = 32 K C lanes, in the order ``alpha_plan`` tries them.
+# Each lane's inputs are fetched from device memory a few diagonals ahead,
+# and a warp's top lane is handed to the next through shared memory at a
+# block barrier a step. On the H100 (PERF.md) two warps of 2 lanes a
+# thread ran 0.18-0.19 µs a diagonal step at U + 1 = 101 and 121, and
+# 2 warps of 4 lanes 0.27, 4 and 8 warps of 4 lanes 0.45-0.47: the barrier
+# grows with the warps. 8 warps of 4 lanes hold every U + 1 <= 1024.
+ALPHA_FORMS = ((2, 2), (4, 8))
+ALPHA_AHEAD = 4  # the walk fetches each node's inputs this many diagonals ahead
+# the alpha probe's parts: the inputs' reads ahead, the shuffle with the
+# warps' exchange, the logaddexps, the stores
+ALPHA_PROBE_PARTS = ("read", "exchange", "lse", "store")
 # the beta probe's parts: the chunk hand-off, the staged reads, the
 # shuffles with the chain warps' exchange, the logaddexps, the row's store
 BETA_PROBE_PARTS = ("wait", "read", "exchange", "lse", "store")
@@ -455,11 +450,9 @@ def rnnt_alpha(lp_blank, lp_emit, logit_lengths, target_lengths):
 def rnnt_alpha_probe(lp_blank, lp_emit, logit_lengths, target_lengths):
     """The alpha kernel on the card built with its step probe, for
     measurement only (no path calls it, and it counts no launch): ->
-    (alphas, ll, cycles [B, 6] int64), each block's chain thread 0's
-    cycles by ``ALPHA_PROBE_PARTS``, then the steps it ran: T_b + U_b
-    diagonals, in the staged walk plus the U_b / K steps its thread U_b /
-    K runs behind, rounded up to whole chunks of ``ALPHA_CHUNK`` (staged)
-    or ``ALPHA_AHEAD`` (wide); 0 where T_b = 0."""
+    (alphas, ll, cycles [B, 5] int64), each block's thread 0's cycles by
+    ``ALPHA_PROBE_PARTS``, then the steps it ran: T_b + U_b diagonals
+    rounded up to whole groups of ``ALPHA_AHEAD``; 0 where T_b = 0."""
     return _alpha(lp_blank, lp_emit, logit_lengths, target_lengths, probe=True)
 
 

@@ -1012,10 +1012,8 @@ def test_rnnt_probes_keep_the_bits_and_count_no_launch(cuda_device):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == before
     assert torch.equal(qa, alphas) and torch.equal(qll, ll)
-    K, C = rnnt_ops.alpha_plan(U + 1)
-    assert C == 1  # the staged walk: its thread U_b / K runs U_b / K steps behind
-    Tb, Ub, D = joint[6].long(), joint[5].long(), rnnt_ops.ALPHA_CHUNK
-    steps = torch.where(Tb > 0, Tb + Ub + Ub // K, 0)
+    Tb, Ub, D = joint[6].long(), joint[5].long(), rnnt_ops.ALPHA_AHEAD
+    steps = torch.where(Tb > 0, Tb + Ub, 0)
     assert ac[:, -1].tolist() == ((steps + D - 1) // D * D).tolist()
     assert int(ac[0, :-1].sum()) > 0
     assert torch.equal(pb, lpb) and torch.equal(pe, lpe)

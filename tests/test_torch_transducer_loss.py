@@ -327,8 +327,8 @@ def test_alpha_plan_holds_every_lattice_width():
     lanes of those that do, and fits the kernel's launch bounds (32 C
     threads, at most 1024) and its registers (at most 8 lanes a thread).
     The recipes' widths (U + 1 = 101 at the bench line, 121 in
-    rnnt_char_wsj) take one warp of 4 lanes a thread. Beyond 1024 it
-    raises."""
+    rnnt_char_wsj) take two warps of 2 lanes a thread, every wider lattice
+    8 warps of 4. Beyond 1024 it raises."""
     for U1 in range(1, tf.LANES_MAX + 1):
         k, c = tf.alpha_plan(U1)
         P = 32 * k * c
@@ -337,8 +337,8 @@ def test_alpha_plan_holds_every_lattice_width():
         taken = tf.ALPHA_FORMS.index((k, c))
         assert all(32 * k_ * c_ < U1 for k_, c_ in tf.ALPHA_FORMS[:taken]), U1
         assert P == min(32 * k_ * c_ for k_, c_ in tf.ALPHA_FORMS if 32 * k_ * c_ >= U1), U1
-    assert tf.alpha_plan(101) == tf.alpha_plan(121) == (4, 1)
-    assert tf.alpha_plan(32) == (1, 1) and tf.alpha_plan(33) == (2, 1)
+    assert tf.alpha_plan(101) == tf.alpha_plan(121) == tf.alpha_plan(128) == (2, 2)
+    assert tf.alpha_plan(129) == tf.alpha_plan(tf.LANES_MAX) == (4, 8)
     for U1 in (tf.LANES_MAX + 1, 4096):
         with pytest.raises(ValueError, match="beyond the alpha kernel's design"):
             tf.alpha_plan(U1)
@@ -365,17 +365,18 @@ def _alpha_rows(seed, B=6, T=11, U=9, V=6):
     return (enc, pred, w, b, targets, tlen, llen), lpb, lpe, (lens[2], lens[1])
 
 
-@pytest.mark.parametrize("seed", [10, 11])
-def test_diagonal_walk_matches_the_plain_alpha_and_jax(seed):
+@pytest.mark.parametrize("seed,T,U", [(10, 11, 9), (11, 11, 9), (13, 5, 30), (14, 40, 3)])
+def test_diagonal_walk_matches_the_plain_alpha_and_jax(seed, T, U):
     """The alpha kernel's recursion (chip_smoke.rnnt_alpha_diagonal_walk:
     the lattice walked along anti-diagonals with the kernel's masking)
     against the plain closed form within TOL["rnnt_ll"] at the lanes <=
     U_b, its rows t >= T_b equal to row T_b - 1 and its lanes past U_b
     NEG bit for bit, the empty lattice NEG; and its ll against the JAX
-    package's fused loss."""
+    package's fused loss. Lattices as long as wide, wider than long and
+    longer than wide."""
     import chip_smoke
 
-    case, lpb, lpe, lens = _alpha_rows(seed)
+    case, lpb, lpe, lens = _alpha_rows(seed, T=T, U=U)
     T, B, U1 = lpb.shape
     want_a, want_ll = tf.rnnt_alpha_plain(lpb, lpe, *lens)
     got_a, got_ll = chip_smoke.rnnt_alpha_diagonal_walk(torch, tf)(lpb, lpe, *lens)
