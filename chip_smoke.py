@@ -17,7 +17,9 @@ Phases, each printing JSON lines:
               plain / library times (CUDA events) and the bound (least
               time for the same work);
 4. serve    — a full-width dblstm_ctc_wsj artifact (4x320 BLSTM, bf16,
-              seeded random weights) serves 64 synthesized utterances of
+              seeded random weights saved as a best checkpoint, written
+              by ``serving.export_model`` as the serve phases' artifacts
+              all are) serves 64 synthesized utterances of
               1-15 s through ``serving.serve`` at batch 32; launch counts
               are zeroed just before and read just after, and every
               serving kernel must have run. One batch is then checked:
@@ -45,11 +47,21 @@ Phases, each printing JSON lines:
               outputs; then one full-width batch's loss and every
               parameter gradient, dropout off, through the kernels
               against the plain versions (with a planted fault);
-7. train_rnnt — the same corpus through ``cli data`` and ``cli train``
+7. pipeline — the rest of the main path on that trained expdir, each
+              stage through ``cli`` and timed, its launch counts zeroed
+              just before and read just after: ``test`` (the recipe's
+              ctc_beam 16 over the test split, which is the dev split)
+              and ``decode`` (``nbest.txt`` must cover every test
+              utterance) launch the v2 inference kernels and no other;
+              ``export`` must copy best/'s params.npz bit for bit;
+              ``serve`` over the exported artifact must answer each of 8
+              dev wavs, launching the frontend kernel too, and
+              ``recognize`` of the same wavs must give serve's texts;
+8. train_rnnt — the same corpus through ``cli data`` and ``cli train``
               with the rnnt_char_wsj recipe (40 steps, the same checks;
               the step split shows the prediction net's share of the
               forward, which runs through the LSTM kernels);
-8. serve_stream — a full-width rnnt_streaming_wsj artifact (4x320
+9. serve_stream — a full-width rnnt_streaming_wsj artifact (4x320
               forward-only LSTM encoder, the 1x320 transducer head, bf16,
               seeded random weights) serves 64 utterances through
               ``serving.serve`` with the recipe's transducer_streaming
@@ -60,14 +72,14 @@ Phases, each printing JSON lines:
               ``serve(streaming=True)`` PARTIAL / FINAL lines, the FINAL
               texts against the batch-32 offline texts (bf16 reported, f32
               required);
-9. train_rnnt_stream — ``cli train`` of the rnnt_streaming_wsj recipe
+10. train_rnnt_stream — ``cli train`` of the rnnt_streaming_wsj recipe
               on the same corpus (40 steps, the same checks; 5 LSTM walks,
               chains and dwh a step, and the dwh launches' share of the
               backward, from CUDA events around them). Its database.conf
               has train_rnnt's sections, so it takes a copy of the data
               train_rnnt's ``cli data`` prepared (checked section by
               section);
-10. train_las — ``cli data`` (with the recipe's 3-way speed perturbation,
+11. train_las — ``cli data`` (with the recipe's 3-way speed perturbation,
               from a third of the corpus: 171 utterances, 513 after
               perturbation) and 40 steps of ``cli train`` of las_large_wsj
               (5 BLSTM layers of 512 units through the v1 kernels, the
@@ -80,13 +92,13 @@ Phases, each printing JSON lines:
               decode of the trained checkpoint over the dev set at B = 64
               (the path of the v1 inference walk): its RTF and launches,
               and the card's ids against the CPU's in f32 on one batch;
-11. bench_ctc — the port's bench line (``python -m nabu_tpu_torch.bench``,
+12. bench_ctc — the port's bench line (``python -m nabu_tpu_torch.bench``,
               run in process): the 4x320 DBLSTM-CTC step at B = 32, T =
               1000, bf16, warmup 2, 3 repeats of 8 steps, its audio
               seconds a second, median step and its split (CUDA events);
               its launches must be the train phase's per-step launches
               x the steps run;
-12. bench_rnnt — the same line for the transducer (``--model rnnt``: a
+13. bench_rnnt — the same line for the transducer (``--model rnnt``: a
               2 x 320 Listener, the 1 x 320 prediction net, a 320-wide
               joint, V = 32; T' = 250, U + 1 = 101); its launches must be
               train_rnnt's per-step launches x the steps run.
@@ -184,6 +196,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -409,6 +422,13 @@ STEP_LAUNCHES = {
 }
 # the v1 inference walk's decode: the projection and the walk of each layer
 LAS_DECODE_KERNELS = ("blstm_proj", "blstm_v1_recur")
+# the pipeline phase: cli test / decode / recognize run the v2 inference
+# path (recognize also the device frontend), serve the frontend too
+DECODE_KERNELS = ("blstm_proj", "blstm_recur")
+PIPELINE_KERNELS = {"test": DECODE_KERNELS, "decode": DECODE_KERNELS,
+                    "serve": SERVE_KERNELS, "recognize": SERVE_KERNELS}
+# utterances of the dev split that cli serve and cli recognize decode
+PIPELINE_UTTS = 8
 TRAIN_RECIPES = {"train": RECIPE, "train_rnnt": RNNT_RECIPE, "train_rnnt_stream": STREAM_RECIPE,
                  "train_las": LAS_RECIPE}
 TRAIN_STEPS = 40
@@ -1227,47 +1247,32 @@ def model_params(model_cfg, input_dim: int, num_labels: int, seed: int) -> dict:
 
 
 def write_artifact(out_dir: str, seed: int, recipe: str = RECIPE) -> dict:
-    """A full-width export artifact of a recipe: model.cfg from the
-    recipe, frontend.cfg from its [testfeatures]/[testtargets],
-    recognizer.cfg from its recognizer.cfg, seeded weights."""
-    from nabu_tpu_torch.config import Conf, ConfigFile
-
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(recipe, "model.cfg")) as f:
-        model_cfg = f.read()
-    with open(os.path.join(out_dir, "model.cfg"), "w") as f:
-        f.write(model_cfg)
-    db = ConfigFile.read(os.path.join(recipe, "database.conf"))
-    drop = ("datafile", "dir", "speed_perturb")
-    sections = {}
-    for src, dst in (("testfeatures", "features"), ("testtargets", "targets")):
-        vals = {k: v for k, v in db.section(src).items() if k not in drop}
-        sections[dst] = Conf(vals, dst)
-    ConfigFile(sections).write(os.path.join(out_dir, "frontend.cfg"))
-    rconf = ConfigFile.read(os.path.join(recipe, "recognizer.cfg")).section("recognizer")
-    rvals = dict(rconf.items(), features="features", targets="targets")
-    ConfigFile({"recognizer": Conf(rvals, "recognizer")}).write(
-        os.path.join(out_dir, "recognizer.cfg"))
-
-    mcfg = ConfigFile.read(os.path.join(out_dir, "model.cfg"))
-    enc = mcfg.section("encoder")
-    alphabet = sections["targets"].getlist("alphabet")
+    """A full-width export artifact of a recipe, written by the port's
+    ``export`` (``serving.export_model``) from seeded weights saved as the
+    best checkpoint of an experiment directory beside ``out_dir``."""
+    from nabu_tpu_torch.config import Recipe
+    from nabu_tpu_torch.data.processors import TextProcessor
     from nabu_tpu_torch.features.computers import make_feature_computer
+    from nabu_tpu_torch.serving import export_model
 
-    input_dim = make_feature_computer(sections["features"]).dim
+    r = Recipe(recipe)
+    rconf = r.recognizer.section("recognizer")
+    input_dim = make_feature_computer(
+        r.database.section(rconf.get("features", "testfeatures"))).dim
+    num_labels = TextProcessor(r.database.section(rconf.get("targets", "testtargets"))).num_labels
+    enc = r.model.section("encoder")
     if enc.get("encoder") == "dblstm" and enc.getbool("bidirectional", True):
-        flat = recipe_params(
-            np.random.default_rng(seed), input_dim, enc.getint("num_layers"),
-            enc.getint("num_units"), len(alphabet),
-        )
+        flat = recipe_params(np.random.default_rng(seed), input_dim, enc.getint("num_layers"),
+                             enc.getint("num_units"), num_labels)
     else:
-        flat = model_params(mcfg, input_dim, len(alphabet), seed)
-    np.savez(os.path.join(out_dir, "params.npz"), **flat)
-    manifest = {"framework": "nabu_tpu", "input_dim": input_dim,
-                "num_labels": len(alphabet)}
-    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    return manifest
+        flat = model_params(r.model, input_dim, num_labels, seed)
+    expdir = out_dir + "_exp"
+    best = os.path.join(expdir, "checkpoints", "best")
+    os.makedirs(best)
+    np.savez(os.path.join(best, "params.npz"), **flat)
+    export_model(recipe, expdir, out_dir)
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        return json.load(f)
 
 
 # ---------------------------------------------------------------------------
@@ -3872,7 +3877,113 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         emit({"phase": f"{phase}_check", **grad})
         if phase == "train_las":
             result["decode"] = las_decode(torch, smi, recipe, expdir, model, corpus["dev"][2])
+        elif phase == "train":
+            result["pipeline"] = phase_pipeline(torch, smi, recipe, expdir, corpus["dev"])
     return result
+
+
+def phase_pipeline(torch, smi: str, recipe: str, expdir: str, dev) -> dict:
+    """The rest of the main path on the train phase's trained expdir
+    (full-width dblstm_ctc_wsj, 40 steps; its test split is the dev
+    split): ``cli test``, ``cli decode``, ``cli export``, then ``cli
+    serve`` over the exported artifact and ``cli recognize`` on the first
+    PIPELINE_UTTS dev wavs. Each stage is timed, its launch counts zeroed
+    just before and read just after: test, decode and recognize run the
+    v2 inference kernels (recognize and serve the frontend's too) and no
+    other kernel. The exported params.npz must equal best/params.npz bit
+    for bit, nbest.txt must hold every test utterance, serve must answer
+    every request, and recognize must give serve's hypotheses."""
+    from nabu_tpu_torch import cli
+    from nabu_tpu_torch.data.processors import read_datafile
+    from nabu_tpu_torch.ops import kernels
+
+    def stage(name, argv, stdin=None) -> tuple:
+        out = io.StringIO()
+        saved = sys.stdin
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            if stdin is not None:
+                sys.stdin = stdin
+            with contextlib.redirect_stdout(out):
+                cli.main(argv)
+        finally:
+            sys.stdin = saved
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        print(out.getvalue(), file=sys.stderr, flush=True)
+        want = PIPELINE_KERNELS.get(name, ())
+        check(set(launches) == set(want),
+              f"pipeline {name}: launched {launches}, want each of {want} and no other")
+        return out.getvalue(), seconds, launches
+
+    args = ["--recipe", recipe, "--expdir", expdir]
+    seconds, launches = {}, {}
+    text, seconds["test"], launches["test"] = stage("test", ["test", *args])
+    with open(os.path.join(expdir, "test_result.json")) as f:
+        result = json.load(f)
+    check(math.isfinite(result["metric"]), f"pipeline test: metric {result['metric']}")
+
+    text, seconds["decode"], launches["decode"] = stage("decode", ["decode", *args])
+    utts = [u for u, _ in read_datafile(dev[0])]
+    with open(os.path.join(expdir, "decoded", "nbest.txt")) as f:
+        nbest = [line.split(" ", 2) for line in f.read().splitlines()]
+    check({line[0] for line in nbest} == set(utts),
+          f"pipeline decode: nbest.txt holds {len({line[0] for line in nbest})} of "
+          f"{len(utts)} test utterances")
+    check(all(math.isfinite(float(line[1])) for line in nbest),
+          "pipeline decode: a non-finite score")
+    rtf = re.search(r"steady-state RTF ([0-9.eE+-]+)", text)
+
+    art = os.path.join(expdir, "export_pipeline")
+    _, seconds["export"], launches["export"] = stage(
+        "export", ["export", *args, "--output", art])
+    with np.load(os.path.join(expdir, "checkpoints", "best", "params.npz")) as a, \
+            np.load(os.path.join(art, "params.npz")) as b:
+        same = (sorted(a.files) == sorted(b.files) and all(
+            a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes() for k in a.files))
+    check(same, "pipeline export: params.npz differs from best/params.npz")
+    with open(os.path.join(art, "manifest.json")) as f:
+        manifest = json.load(f)
+    check(sorted(os.listdir(art)) == ["frontend.cfg", "manifest.json", "model.cfg",
+                                      "params.npz", "recognizer.cfg"],
+          f"pipeline export: artifact holds {sorted(os.listdir(art))}")
+
+    wavs = read_datafile(dev[0])[:PIPELINE_UTTS]
+    # the requests as a file on stdin: select() reports it readable, so
+    # serve batches them as recognize does (one batch of PIPELINE_UTTS)
+    requests = os.path.join(expdir, "requests.scp")
+    with open(requests, "w") as f:
+        f.write("".join(f"{u} {p}\n" for u, p in wavs))
+    with open(requests) as stdin:
+        text, seconds["serve"], launches["serve"] = stage(
+            "serve", ["serve", "--export_dir", art, "--batch_size", str(PIPELINE_UTTS)],
+            stdin=stdin)
+    served = [line.split(" ", 1) for line in text.splitlines()]
+    check([line[0] for line in served] == [u for u, _ in wavs],
+          f"pipeline serve: answered {len(served)} of {len(wavs)} requests")
+    text, seconds["recognize"], launches["recognize"] = stage(
+        "recognize", ["recognize", *args, "--batch_size", str(PIPELINE_UTTS),
+                      *[p for _, p in wavs]])
+    recognized = [line.split(" ", 1) for line in text.splitlines()]
+    check([line[0] for line in recognized] == [os.path.splitext(os.path.basename(p))[0]
+                                               for _, p in wavs],
+          f"pipeline recognize: {len(recognized)} lines for {len(wavs)} files")
+    same_text = sum(int(a[1:] == b[1:]) for a, b in zip(served, recognized))
+    check(same_text == len(wavs),
+          f"pipeline recognize: {len(wavs) - same_text} hypotheses differ from serve's")
+    out = {
+        "phase": "pipeline", "recipe": os.path.relpath(RECIPE, REPO),
+        "seconds": seconds, "launches": launches, "test_metric": result["metric"],
+        "test_evaluator": result["evaluator"], "test_utterances": len(utts),
+        "nbest_lines": len(nbest), "decode_steady_rtf": float(rtf.group(1)) if rtf else None,
+        "export_params_bit_identical": same, "manifest": manifest,
+        "served": len(served), "recognize_equals_serve": same_text, "card": smi,
+    }
+    emit(out)
+    return out
 
 
 def phase_bench(model: str, phase: str, recipe_phase: str) -> None:
@@ -4020,14 +4131,18 @@ def main(argv=None) -> int:
     phase_bench("dblstm", "bench_ctc", "train")
     t10 = time.perf_counter()
     phase_bench("rnnt", "bench_rnnt", "train_rnnt")
+    pipeline_s = sum(trained["pipeline"]["seconds"].values())
     emit({"phase": "seconds", "build_device": t1 - t0, "kernels": t2 - t1,
           "serve": t3 - t2, "serve_rnnt": t4 - t3, "serve_stream": t5 - t4,
-          "train": t6 - t5, "train_rnnt": t7 - t6, "train_rnnt_stream": t8 - t7,
+          # the train phase runs the pipeline phase: each is counted once
+          "train": t6 - t5 - pipeline_s, "pipeline": pipeline_s,
+          "train_rnnt": t7 - t6, "train_rnnt_stream": t8 - t7,
           "train_las": t9 - t8, "bench_ctc": t10 - t9, "bench_rnnt": time.perf_counter() - t10,
           "total": time.perf_counter() - t0})
     raise_failures()
+    pipeline = [{"launches": v} for v in trained["pipeline"]["launches"].values()]
     runs = (served, served_rnnt, served_stream, trained, trained_rnnt, trained_stream,
-            trained_las, trained_las["decode"])
+            trained_las, trained_las["decode"], *pipeline)
 
     kernels_line = []
     for name, key in (("stft_mel", "stft_mel"),
@@ -4055,7 +4170,7 @@ def main(argv=None) -> int:
                       ("blstm_v1_bwd_recur", ("blstm_v1_bwd_recur", "bf16", "bottom")),
                       ("blstm_v1_bwd_dwh", ("blstm_v1_bwd_dwh", "bf16", "bottom"))):
         r = rows[key]
-        launched = sum(run["launches"][name] for run in runs)
+        launched = sum(run["launches"].get(name, 0) for run in runs)
         check(launched > 0, f"kernel {name} never launched on a main path")
         kernels_line.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

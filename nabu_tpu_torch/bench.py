@@ -20,8 +20,9 @@ steps.
 
 Run on the card (the default device), or on the CPU only when asked:
 
-    python -m nabu_tpu_torch.bench [--model dblstm|rnnt] [--device cpu] [--batch 32]
-        [--frames 1000] [--steps 8] [--warmup 2] [--repeats 3] [--seed 0] [--no-bf16]
+    python -m nabu_tpu_torch.bench [--mode train|decode] [--model dblstm|rnnt]
+        [--device cpu] [--batch 32] [--frames 1000] [--steps 8] [--warmup 2]
+        [--repeats 3] [--beam_width 8] [--seed 0] [--no-bf16]
 
 It prints ONE JSON line:
 
@@ -43,6 +44,21 @@ It prints ONE JSON line:
 The JAX line's ``vs_baseline`` is left out: its denominator is a naive
 JAX port (per-step input projection inside an XLA scan) timed on the same
 TPU, and that has no counterpart on the GPU.
+
+``--mode decode`` times decoding instead, as the JAX bench's ``--mode
+decode`` does, on the same batch and the seeded weights: ``--model
+dblstm`` runs the encoder, the log-softmax and ``ctc_prefix_beam_search``
+(blank last, at most 128 labels) over the full batch; ``--model rnnt``
+the ``transducer_beam`` recognizer. One untimed decode first, then
+``--repeats`` measurements of ``max(steps // 4, 1)`` decodes, each ended
+on the host (the n-best read back, the device synchronized). It prints
+ONE JSON line with the JAX line's keys: ``metric``
+(``ctc_beam_decode_rtf`` or ``transducer_beam_decode_rtf``), ``value``
+the median RTF (decode time over B x T x 10 ms of audio), ``unit``
+``rtf``, ``vs_baseline`` 1.0, ``beam_width_realized`` (the width of the
+search's output; the run fails when it is not ``--beam_width``) and
+``batch``; then ``device``, ``power_limit_w``, the model, the shape and
+the kernels' launches over the timed decodes.
 """
 
 from __future__ import annotations
@@ -243,8 +259,91 @@ def train_line(batch: int = 32, frames: int = 1000, steps: int = 8, warmup: int 
     }
 
 
+def decode_line(batch: int = 32, frames: int = 1000, steps: int = 8, repeats: int = 3,
+                beam_width: int = 8, seed: int = 0, device=None, bf16: bool = True,
+                num_layers: Optional[int] = None, num_units: int = 320,
+                model_name: str = "dblstm") -> dict:
+    """Time the beam-search decode of ``model_name`` (``MODELS``); -> the
+    JSON line's fields (the JAX bench's ``time_decode`` for ``dblstm``,
+    ``time_transducer_decode`` for ``rnnt``)."""
+    from nabu_tpu_torch.decoding.ctc_beam import ctc_prefix_beam_search
+    from nabu_tpu_torch.decoding.recognizers import TransducerBeamRecognizer
+
+    dev = resolve_device(device)
+    if num_layers is None:
+        num_layers = MODELS[model_name]
+    model, _ = build_model_and_loss(bf16, num_layers, num_units, model_name)
+    arrays = make_batch(batch, frames, FEATURES, LABELS, np.random.default_rng(seed))
+    params = unflatten({k: v.to(dev) for k, v in flatten(
+        model.init(torch.Generator().manual_seed(seed))).items()})
+    feats = torch.as_tensor(arrays["features"], device=dev)
+    flen = torch.as_tensor(arrays["feature_lengths"], device=dev)
+
+    if model_name == "dblstm":
+        metric = "ctc_beam_decode_rtf"
+
+        @torch.no_grad()
+        def decode():
+            logits, logit_lengths = model.apply(params, feats, flen, heads=("decoder",))["decoder"]
+            out = ctc_prefix_beam_search(torch.log_softmax(logits, dim=-1), logit_lengths,
+                                         beam_width, logits.shape[-1] - 1, max_label_len=128)
+            return [x.cpu() for x in out]
+
+        width = int(decode()[2].shape[1])
+    else:
+        metric = "transducer_beam_decode_rtf"
+        rec = TransducerBeamRecognizer(Conf({"beam_width": str(beam_width)}, "recognizer"),
+                                       model)
+
+        def decode():
+            return rec(params, feats, flen)
+
+        decode()
+        with torch.no_grad():
+            # the search's raw output, before the n-best is cut from it
+            encoded, enc_lengths, head_params = rec._encode(params, feats, flen)
+            width = int(rec.search(head_params, encoded, enc_lengths)[2].shape[1])
+    if width != beam_width:
+        raise SystemExit(f"--beam_width {beam_width} did not reach the search "
+                         f"(realized width {width})")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    calls = max(steps // 4, 1)
+    audio_s = batch * frames * FRAME_SHIFT * calls
+    kernels.reset_launch_counts()
+    rtfs = []
+    for _ in range(max(repeats, 1)):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            decode()
+        sync()
+        rtfs.append((time.perf_counter() - t0) / audio_s)
+    name, limit = card() if dev.type == "cuda" else ("cpu", None)
+    return {
+        "metric": metric,
+        "value": round(statistics.median(rtfs), 5),
+        "unit": "rtf",
+        "vs_baseline": 1.0,
+        "beam_width_realized": width,
+        "batch": batch,
+        "rtfs": rtfs,
+        "device": name,
+        "power_limit_w": limit,
+        "model": describe(model_name, num_layers, num_units),
+        "dtype": "bfloat16" if bf16 else "float32",
+        "frames": frames, "decodes_per_repeat": calls, "repeats": max(repeats, 1),
+        "seed": seed,
+        "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", default="train", choices=["train", "decode"])
     ap.add_argument("--model", default="dblstm", choices=sorted(MODELS))
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--batch", type=int, default=32)
@@ -253,13 +352,18 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--repeats", type=int, default=3,
                     help="measurements; the median is reported")
+    ap.add_argument("--beam_width", type=int, default=8, help="decode mode's beam")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
                     help="bfloat16 compute dtype")
     args = ap.parse_args(argv)
-    line = train_line(batch=args.batch, frames=args.frames, steps=args.steps,
-                      warmup=args.warmup, repeats=args.repeats, seed=args.seed,
-                      device=args.device, bf16=args.bf16, model_name=args.model)
+    common = dict(batch=args.batch, frames=args.frames, steps=args.steps,
+                  repeats=args.repeats, seed=args.seed, device=args.device, bf16=args.bf16,
+                  model_name=args.model)
+    if args.mode == "decode":
+        line = decode_line(beam_width=args.beam_width, **common)
+    else:
+        line = train_line(warmup=args.warmup, **common)
     print(json.dumps(line), flush=True)
     return 0
 

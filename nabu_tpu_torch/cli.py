@@ -1,19 +1,29 @@
 """Command line of the port.
 
-    python -m nabu_tpu_torch.cli data  --recipe R --expdir E [--num_workers N] [--device cpu]
-    python -m nabu_tpu_torch.cli train --recipe R --expdir E [--device cpu]
-    python -m nabu_tpu_torch.cli serve --export_dir D [--batch_size N] [--streaming] [--device cpu]
+    python -m nabu_tpu_torch.cli data      --recipe R --expdir E [--num_workers N] [--device cpu]
+    python -m nabu_tpu_torch.cli train     --recipe R --expdir E [--device cpu]
+    python -m nabu_tpu_torch.cli test      --recipe R --expdir E [--device cpu]
+    python -m nabu_tpu_torch.cli decode    --recipe R --expdir E [--device cpu]
+    python -m nabu_tpu_torch.cli export    --recipe R --expdir E [--output D] [--device cpu]
+    python -m nabu_tpu_torch.cli recognize --recipe R --expdir E AUDIO... [--batch_size N] [--device cpu]
+    python -m nabu_tpu_torch.cli serve     --export_dir D [--batch_size N] [--streaming] [--device cpu]
 
 ``data`` prepares every dataset section of the recipe's database.conf
 into ``E/data`` (host work). ``train`` trains the recipe into ``E``
 (checkpoints in ``E/checkpoints/{best,latest}``, metrics in
-``E/logs/metrics.jsonl``). ``serve`` reads ``utt_id wav_path`` lines on
-stdin and writes ``utt_id hypothesis`` lines on stdout (with
-``--streaming``, ``utt_id PARTIAL text`` lines as a stream decodes and
-``utt_id FINAL text`` at its end). Each runs on the
-GPU unless ``--device cpu`` is given, and raises without a GPU
-otherwise. The other subcommands of the JAX package's ``run``, and its
-multi-process and mesh flags, are not ported yet.
+``E/logs/metrics.jsonl``). ``test`` scores the best checkpoint with
+``test_evaluator.cfg`` (``E/test_result.json``); ``decode`` writes
+``recognizer.cfg``'s n-best lists to ``E/decoded/nbest.txt`` and prints
+the steady-state RTF. ``export`` freezes the best checkpoint and the
+configs into a serving artifact (default ``E/export``, the JAX package's
+layout); ``recognize`` decodes wav/SPHERE files (or one ``.scp``) with
+the best checkpoint and prints ``utt_id hypothesis`` lines. ``serve``
+reads ``utt_id wav_path`` lines on stdin and writes ``utt_id
+hypothesis`` lines on stdout (with ``--streaming``, ``utt_id PARTIAL
+text`` lines as a stream decodes and ``utt_id FINAL text`` at its end).
+Each runs on the GPU unless ``--device cpu`` is given, and raises
+without a GPU otherwise. The other subcommands of the JAX package's
+``run``, and its multi-process and mesh flags, are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,14 +43,26 @@ def build_parser() -> argparse.ArgumentParser:
         description="nabu_tpu_torch: the PyTorch/CUDA port of nabu_tpu",
     )
     sub = p.add_subparsers(dest="command", required=True)
-    for name, help_ in (("data", "prepare datasets"), ("train", "train a model")):
+    for name, help_ in (("data", "prepare datasets"), ("train", "train a model"),
+                        ("test", "score the trained model"),
+                        ("decode", "dump n-best hypotheses"),
+                        ("export", "freeze the best model and its configs into a "
+                                   "serving artifact"),
+                        ("recognize", "decode audio files directly (no data prep)")):
         sp = sub.add_parser(name, help=help_)
         sp.add_argument("--recipe", required=True, help="recipe config dir")
         sp.add_argument("--expdir", required=True, help="experiment dir")
         sp.add_argument("--device", default=None, help="cuda (default) or cpu")
         if name == "data":
             sp.add_argument("--num_workers", type=int, default=0)
-        else:
+        elif name == "export":
+            sp.add_argument("--output", default=None,
+                            help="artifact directory (default: <expdir>/export)")
+        elif name == "recognize":
+            sp.add_argument("audio", nargs="+",
+                            help="wav/sph paths, or one Kaldi-style .scp file")
+            sp.add_argument("--batch_size", type=int, default=8)
+        elif name == "train":
             # the JAX package's multi-process and mesh flags
             sp.add_argument("--distributed", action="store_true",
                             help="not ported yet")
@@ -51,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
         "serve", help="line-protocol decoding worker over an export artifact"
     )
     sp.add_argument("--export_dir", required=True,
-                    help="artifact directory written by `run export`")
+                    help="artifact directory written by `export` (either package)")
     sp.add_argument("--batch_size", type=int, default=8)
     sp.add_argument("--streaming", action="store_true",
                     help="chunked incremental decoding (streaming-transducer "
@@ -78,6 +100,24 @@ def main(argv=None) -> int:
         from nabu_tpu_torch.scripts import train
 
         train.main(args.recipe, args.expdir, device=args.device)
+    elif args.command == "test":
+        from nabu_tpu_torch.scripts import test
+
+        test.main(args.recipe, args.expdir, device=args.device)
+    elif args.command == "decode":
+        from nabu_tpu_torch.scripts import decode
+
+        decode.main(args.recipe, args.expdir, device=args.device)
+    elif args.command == "export":
+        from nabu_tpu_torch.serving import export_model
+
+        out = export_model(args.recipe, args.expdir, args.output, device=args.device)
+        print(f"[export] wrote serving artifact to {out}")
+    elif args.command == "recognize":
+        from nabu_tpu_torch.scripts import recognize
+
+        recognize.main(args.recipe, args.expdir, args.audio, args.batch_size,
+                       device=args.device)
     elif args.command == "serve":
         from nabu_tpu_torch.serving import serve
 

@@ -39,6 +39,12 @@ class Nbest:
     def best(self, b: int) -> List[int]:
         return list(self.ids[b, 0, : self.lengths[b, 0]])
 
+    def nbest(self, b: int):
+        return [
+            (float(self.scores[b, n]), list(self.ids[b, n, : self.lengths[b, n]]))
+            for n in range(self.ids.shape[1])
+        ]
+
 
 def _as_tensor(x, device, dtype=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):

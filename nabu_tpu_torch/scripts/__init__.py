@@ -1,1 +1,1 @@
-"""Pipeline scripts of the port: `data` and `train`."""
+"""Pipeline scripts of the port: `data`, `train`, `test`, `decode` and `recognize`."""

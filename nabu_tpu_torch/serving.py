@@ -1,7 +1,9 @@
-"""Serving: load an export artifact and decode audio with it.
+"""Serving: write an export artifact, load it and decode audio with it.
 
-Port of the serving half of the JAX package's ``serving.py``. It reads
-the artifacts that the JAX ``run export`` writes::
+Port of the JAX package's ``serving.py``. ``export_model`` (``cli
+export``) freezes an experiment's best checkpoint and the configs a
+recognizer needs into one directory, in the layout of the JAX ``run
+export``; ``load_exported`` reads the artifacts of either package::
 
     export/
       manifest.json     input_dim, num_labels, versions
@@ -10,9 +12,12 @@ the artifacts that the JAX ``run export`` writes::
       frontend.cfg      [features] + [targets] processing sections
       recognizer.cfg    decode configuration (paths artifact-relative)
       bpe_model.json    (only when tokenizer = bpe)
+      lm.npz            (only when the recognizer names an LM)
 
 ``load_exported`` builds a ready recognizer on the GPU (or on the CPU
-when asked for by name); ``serve`` drives it as a worker speaking a line
+when asked for by name), and ``ExportedModel.from_recipe`` the same
+recognizer straight from a recipe and its experiment (``cli
+recognize``); ``serve`` drives it as a worker speaking a line
 protocol (``utt_id wav_path`` in, ``utt_id hypothesis`` out), or with
 ``streaming=True`` the chunked protocol of a streaming-transducer artifact
 (``utt_id PARTIAL text`` lines, then ``utt_id FINAL text``). LM fusion is
@@ -23,47 +28,150 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import sys
 from typing import IO, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from nabu_tpu_torch.config import ConfigFile
+from nabu_tpu_torch.config import Conf, ConfigFile, Recipe
 from nabu_tpu_torch.device import resolve_device
+
+# keys of a database.conf section that say where the training data came
+# from, not how to process audio or text: dropped at export
+_DATASET_ONLY_KEYS = ("datafile", "dir", "speed_perturb")
+
+
+def _strip_dataset_keys(section: Conf) -> Conf:
+    return Conf({k: v for k, v in section.items() if k not in _DATASET_ONLY_KEYS},
+                section.name)
+
+
+def _recipe_parts(recipe: Recipe, expdir: str) -> tuple:
+    """What a recognizer needs of a recipe: its recognizer section, its
+    feature and target sections without the dataset keys, the model's
+    input dim, and the corpus CMVN stats (``{"mean", "std"}``) of the
+    experiment's prepared features where ``global_cmvn = true``, else
+    None."""
+    from nabu_tpu_torch.data.processors import make_processor
+    from nabu_tpu_torch.scripts.common import open_dataset
+
+    rconf = recipe.recognizer.section("recognizer").copy()
+    feat_name = rconf.get("features", "testfeatures")
+    feat_sec = _strip_dataset_keys(recipe.database.section(feat_name))
+    tgt_sec = _strip_dataset_keys(recipe.database.section(rconf.get("targets", "testtargets")))
+    try:
+        input_dim = make_processor(feat_sec).computer.dim
+    except NotImplementedError:
+        # rate-dependent frontends (raw frames): the prepared dataset's dim
+        input_dim = open_dataset(recipe, expdir, feat_name).metadata["dim"]
+    cmvn = None
+    if feat_sec.getbool("global_cmvn", False):
+        stats = open_dataset(recipe, expdir, feat_name).metadata.get("cmvn")
+        if not stats:
+            raise ValueError("global_cmvn = true but the prepared dataset records no "
+                             "cmvn stats; re-run `data`")
+        cmvn = {"mean": stats["mean"], "std": stats["std"]}
+    return feat_sec, tgt_sec, rconf, int(input_dim), cmvn
+
+
+def export_model(recipe_path: str, expdir: str, out_dir: Optional[str] = None,
+                 device=None) -> str:
+    """Freeze the experiment's best model into a self-contained serving
+    artifact (default ``<expdir>/export``). Returns its directory.
+
+    The work is on the host: ``device`` is resolved as by every entry
+    point (the GPU unless "cpu"), and the parameters go from the
+    checkpoint's npz to the artifact's unchanged."""
+    import torch
+
+    from nabu_tpu_torch.data.processors import TextProcessor
+    from nabu_tpu_torch.params import to_flat_numpy
+    from nabu_tpu_torch.scripts.test import load_best_params
+
+    resolve_device(device)
+    recipe = Recipe(recipe_path)
+    feat_sec, tgt_sec, rconf, input_dim, cmvn = _recipe_parts(recipe, expdir)
+
+    out_dir = out_dir or os.path.join(expdir, "export")
+    os.makedirs(out_dir, exist_ok=True)
+
+    # resources named by path move into the artifact
+    if tgt_sec.get("bpe_model"):
+        shutil.copy(tgt_sec["bpe_model"], os.path.join(out_dir, "bpe_model.json"))
+        tgt_sec.set("bpe_model", os.path.join(out_dir, "bpe_model.json"))
+    if rconf.get("lm_path"):
+        ext = os.path.splitext(rconf["lm_path"])[1] or ".npz"
+        dst = os.path.join(out_dir, f"lm{ext}")
+        shutil.copy(rconf["lm_path"], dst)
+        rconf.set("lm_path", dst)
+
+    np.savez(os.path.join(out_dir, "params.npz"),
+             **to_flat_numpy(load_best_params(expdir, "cpu")))
+    shutil.copy(os.path.join(recipe.path, "model.cfg"), os.path.join(out_dir, "model.cfg"))
+    # the recognizer reads the processing sections by fixed names inside
+    # the artifact, whatever the recipe's section names
+    rconf.set("features", "features")
+    rconf.set("targets", "targets")
+    ConfigFile({"features": Conf(feat_sec.as_dict(), "features"),
+                "targets": Conf(tgt_sec.as_dict(), "targets")}).write(
+        os.path.join(out_dir, "frontend.cfg"))
+    ConfigFile({"recognizer": Conf(rconf.as_dict(), "recognizer")}).write(
+        os.path.join(out_dir, "recognizer.cfg"))
+    manifest = {
+        "framework": "nabu_tpu",
+        "input_dim": int(input_dim),
+        "num_labels": int(TextProcessor(tgt_sec).num_labels),
+        "torch_version": torch.__version__,
+        "source_recipe": os.path.abspath(recipe_path),
+        "source_expdir": os.path.abspath(expdir),
+    }
+    if cmvn is not None:
+        # serving normalizes with the corpus stats training applied at load
+        manifest["cmvn"] = cmvn
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=2)
+    _relativize(out_dir)
+    return out_dir
+
+
+def _relativize(out_dir: str) -> None:
+    """Rewrite the artifact's paths to its own files as basenames, so the
+    directory can be moved."""
+    for fname in ("frontend.cfg", "recognizer.cfg"):
+        path = os.path.join(out_dir, fname)
+        cfg = ConfigFile.read(path)
+        changed = False
+        for sec_name in cfg.sections():
+            sec = cfg.section(sec_name)
+            for key in ("bpe_model", "lm_path"):
+                v = sec.get(key)
+                if v and os.path.dirname(os.path.abspath(v)) == os.path.abspath(out_dir):
+                    sec.set(key, os.path.basename(v))
+                    changed = True
+        if changed:
+            cfg.write(path)
 
 
 class ExportedModel:
-    """A recognizer reconstructed from an export artifact."""
+    """A recognizer over one model's parts, read from an export artifact
+    (``from_artifact``) or from a recipe and its experiment's best
+    checkpoint (``from_recipe``)."""
 
     # decode-time padding bucket (frames), as in the JAX package
     T_BUCKET = 512
 
-    def __init__(self, export_dir: str, batch_size: int = 8, device=None):
+    def __init__(self, feat_sec: Conf, tgt_sec: Conf, rconf: Conf, model, params: dict,
+                 cmvn: Optional[dict] = None, batch_size: int = 8, device="cpu"):
+        """``params`` lie on ``device`` already; ``cmvn`` is the corpus
+        stats ``{"mean", "std"}`` of ``global_cmvn`` features, or None."""
         from nabu_tpu_torch.data.processors import TextProcessor, make_processor
         from nabu_tpu_torch.decoding.recognizers import build_recognizer
         from nabu_tpu_torch.features.torch_frontend import DeviceFrontend
-        from nabu_tpu_torch.models.model import build_model
-        from nabu_tpu_torch.params import load_npz
 
-        self.device = resolve_device(device)
-        self.dir = os.path.abspath(export_dir)
-        with open(os.path.join(self.dir, "manifest.json")) as f:
-            self.manifest = json.load(f)
-        frontend = ConfigFile.read(os.path.join(self.dir, "frontend.cfg"))
-        feat_sec = frontend.section("features").copy()
-        tgt_sec = frontend.section("targets").copy()
-        # resource paths are artifact-relative
-        v = tgt_sec.get("bpe_model")
-        if v and not os.path.isabs(v):
-            tgt_sec.set("bpe_model", os.path.join(self.dir, v))
-        rcfg = ConfigFile.read(os.path.join(self.dir, "recognizer.cfg"))
-        rconf = rcfg.section("recognizer").copy()
-        v = rconf.get("lm_path")
-        if v and not os.path.isabs(v):
-            rconf.set("lm_path", os.path.join(self.dir, v))
         if rconf.get("lm_path") and rconf.getfloat("lm_weight", 0.0) != 0.0:
             raise NotImplementedError("LM fusion not ported yet")
-
+        self.device = device
         self.audio_proc = make_processor(feat_sec)
         self.text_proc = TextProcessor(tgt_sec)
         # on-device frontend (STFT+Mel kernel); host computers remain the
@@ -71,26 +179,65 @@ class ExportedModel:
         # and with recognizer.cfg device_frontend = false
         self.device_fe = None
         if rconf.getbool("device_frontend", True):
-            self.device_fe = DeviceFrontend.make(feat_sec, self.device)
-        # corpus-level CMVN frozen into the artifact at export
+            self.device_fe = DeviceFrontend.make(feat_sec, device)
         self.cmvn = None
-        if self.manifest.get("cmvn"):
-            c = self.manifest["cmvn"]
+        if cmvn:
             self.cmvn = (
-                np.asarray(c["mean"], np.float32),
-                np.maximum(np.asarray(c["std"], np.float32), 1e-10),
+                np.asarray(cmvn["mean"], np.float32),
+                np.maximum(np.asarray(cmvn["std"], np.float32), 1e-10),
             )
             if self.device_fe is not None:
                 self.device_fe.set_normalization(*self.cmvn)
-        model_cfg = ConfigFile.read(os.path.join(self.dir, "model.cfg"))
-        self.model = build_model(
-            model_cfg, self.manifest["input_dim"], self.manifest["num_labels"]
-        )
-        self.params = load_npz(os.path.join(self.dir, "params.npz"), self.device)
+        self.model = model
+        self.params = params
         self.rconf = rconf
-        self.recognizer = build_recognizer(rconf, self.model)
+        self.recognizer = build_recognizer(rconf, model)
         self.batch_size = batch_size
         self._streamer = None
+
+    @classmethod
+    def from_artifact(cls, export_dir: str, batch_size: int = 8, device=None) -> "ExportedModel":
+        from nabu_tpu_torch.models.model import build_model
+        from nabu_tpu_torch.params import load_npz
+
+        device = resolve_device(device)
+        export_dir = os.path.abspath(export_dir)
+        with open(os.path.join(export_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        frontend = ConfigFile.read(os.path.join(export_dir, "frontend.cfg"))
+        feat_sec = frontend.section("features").copy()
+        tgt_sec = frontend.section("targets").copy()
+        # resource paths are artifact-relative
+        v = tgt_sec.get("bpe_model")
+        if v and not os.path.isabs(v):
+            tgt_sec.set("bpe_model", os.path.join(export_dir, v))
+        rconf = ConfigFile.read(os.path.join(export_dir, "recognizer.cfg")).section(
+            "recognizer").copy()
+        v = rconf.get("lm_path")
+        if v and not os.path.isabs(v):
+            rconf.set("lm_path", os.path.join(export_dir, v))
+        model = build_model(ConfigFile.read(os.path.join(export_dir, "model.cfg")),
+                            manifest["input_dim"], manifest["num_labels"])
+        params = load_npz(os.path.join(export_dir, "params.npz"), device)
+        # corpus-level CMVN frozen into the artifact at export
+        return cls(feat_sec, tgt_sec, rconf, model, params, manifest.get("cmvn"),
+                   batch_size, device)
+
+    @classmethod
+    def from_recipe(cls, recipe_path: str, expdir: str, batch_size: int = 8,
+                    device=None) -> "ExportedModel":
+        """What ``export_model`` would freeze, without writing it: the
+        recipe's frontend and recognizer over ``expdir``'s best params."""
+        from nabu_tpu_torch.data.processors import TextProcessor
+        from nabu_tpu_torch.models.model import build_model
+        from nabu_tpu_torch.scripts.test import load_best_params
+
+        device = resolve_device(device)
+        recipe = Recipe(recipe_path)
+        feat_sec, tgt_sec, rconf, input_dim, cmvn = _recipe_parts(recipe, expdir)
+        model = build_model(recipe.model, input_dim, TextProcessor(tgt_sec).num_labels)
+        return cls(feat_sec, tgt_sec, rconf, model, load_best_params(expdir, device), cmvn,
+                   batch_size, device)
 
     # -- inference --------------------------------------------------------
     def recognize_features(self, feats: Sequence[np.ndarray]) -> List[str]:
@@ -180,7 +327,7 @@ class ExportedModel:
 def load_exported(export_dir: str, batch_size: int = 8, device=None) -> ExportedModel:
     """Load an export artifact on ``device``: CUDA by default (raises
     without a GPU); "cpu" only when asked for."""
-    return ExportedModel(export_dir, batch_size=batch_size, device=device)
+    return ExportedModel.from_artifact(export_dir, batch_size=batch_size, device=device)
 
 
 def serve(

@@ -128,3 +128,37 @@ def test_rnnt_first_step_loss_matches_the_jax_bench():
                             model_name="rnnt")
     assert line["model"] == "rnnt: listener 2x320 + prediction 1x320, joint 320, transducer loss"
     np.testing.assert_allclose(line["first_loss"], float(want), rtol=1e-5)
+
+
+# the keys of the JAX bench's ``--mode decode`` line (bench.py, its decode
+# branch's json.dumps)
+JAX_DECODE_KEYS = {"metric", "value", "unit", "vs_baseline", "beam_width_realized", "batch"}
+
+
+@pytest.mark.parametrize("model,metric", [("dblstm", "ctc_beam_decode_rtf"),
+                                          ("rnnt", "transducer_beam_decode_rtf")])
+def test_decode_line_keeps_the_jax_schema(model, metric):
+    """``--mode decode`` at a tiny width (2 x 8 units, B = 2, T = 24, beam
+    3): the JAX line's keys and values' kinds, the realized width the
+    requested one, the plain versions on the CPU."""
+    before = kernels.launch_counts()
+    line = bench.decode_line(batch=2, frames=24, steps=4, repeats=2, beam_width=3,
+                             device="cpu", num_layers=2, num_units=8, model_name=model)
+    assert kernels.launch_counts() == before
+    assert JAX_DECODE_KEYS <= set(line)
+    assert line["metric"] == metric and line["unit"] == "rtf" and line["vs_baseline"] == 1.0
+    assert line["beam_width_realized"] == 3 and line["batch"] == 2
+    assert line["value"] > 0 and line["value"] == round(line["value"], 5)
+    assert line["decodes_per_repeat"] == 1 and len(line["rtfs"]) == line["repeats"] == 2
+    assert line["device"] == "cpu" and line["power_limit_w"] is None and line["launches"] == {}
+    json.loads(json.dumps(line))
+
+
+def test_main_decode_mode_prints_one_json_line(capsys):
+    assert bench.main(["--mode", "decode", "--device", "cpu", "--batch", "1", "--frames",
+                       "8", "--steps", "8", "--repeats", "1", "--beam_width", "2"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    line = json.loads(out[0])
+    assert line["metric"] == "ctc_beam_decode_rtf" and line["beam_width_realized"] == 2
+    assert line["decodes_per_repeat"] == 2 and line["model"].startswith("dblstm 4x320")
