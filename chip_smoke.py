@@ -101,7 +101,36 @@ Phases, each printing JSON lines:
 13. bench_rnnt — the same line for the transducer (``--model rnnt``: a
               2 x 320 Listener, the 1 x 320 prediction net, a 320-wide
               joint, V = 32; T' = 250, U + 1 = 101); its launches must be
-              train_rnnt's per-step launches x the steps run.
+              train_rnnt's per-step launches x the steps run;
+14. serve_las — (run after serve_stream) a full-width las_large_wsj
+              artifact (5 BLSTM layers of 512 units, time / 16, the 2 x 512
+              location-attention Speller, bf16, seeded random weights)
+              serves 64 utterances of 1-15 s with the recipe's
+              attention_beam (beam 16, nbest 8) at batch 32: only the
+              frontend and the v2 inference kernels may launch; RTF and
+              peak memory; the longest batch's search alone (decode steps,
+              ms a step over 512 hypotheses, the host sync a step's cost:
+              the same steps without it); then the 8 shortest utterances'
+              n-best on the card against the CPU over the same encoder
+              output, in float64 (identical, scores within 1e-6; bf16
+              reported);
+15. serve_joint — the same for a full-width joint_ctc_att_multihost
+              artifact (4 BLSTM layers of 512 units, time / 8, the 2 x 512
+              bahdanau Speller and the CTC head) with the recipe's
+              joint_ctc_att_beam (ctc_weight 0.3), the CTC prefix scan's
+              share of the search, and one batch of attention_rescoring;
+16. train_joint — (run after train_las) 20 steps of ``cli train`` of
+              joint_ctc_att_multihost on a copy of train_las's prepared
+              data (the recipes' database.conf are the same), B = 64: the
+              same checks (4 v1 walks, recomputes, chains and dwh a step,
+              the CTC loss kernels once), the gradient check with the
+              Speller's tolerance on the attention head, then ``cli test``
+              (attention_beam on head att, beam 16) over the dev split: its
+              error and wall time, the v2 inference kernels only;
+17. bench_las — the bench's las line (``--model las``: a 4 x 512 Listener,
+              the 2 x 512 Speller and the CTC head at B = 32, T = 1000; its
+              launches 5 v2 layers and the CTC loss a step), then its
+              ``att`` and ``joint`` decode lines at beam 8.
 
 The kernels phase also holds the four RNN-T kernels (joint forward,
 alpha, beta, joint backward) to their plain versions at B = 32, T' = 250,
@@ -209,6 +238,7 @@ RECIPE = os.path.join(REPO, "config", "recipes", "dblstm_ctc_wsj")
 RNNT_RECIPE = os.path.join(REPO, "config", "recipes", "rnnt_char_wsj")
 STREAM_RECIPE = os.path.join(REPO, "config", "recipes", "rnnt_streaming_wsj")
 LAS_RECIPE = os.path.join(REPO, "config", "recipes", "las_large_wsj")
+JOINT_RECIPE = os.path.join(REPO, "config", "recipes", "joint_ctc_att_multihost")
 
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and
 # f32 non-tensor FLOP/s
@@ -419,6 +449,16 @@ STEP_LAUNCHES = {
     "train_las": {"blstm_proj": 5, "blstm_v1_recur_train": 5, "blstm_v1_bwd_gates": 5,
                   "blstm_v1_bwd_recur": 5, "blstm_v1_bwd_dwh": 5, "blstm_bwd_dx": 4,
                   "blstm_bwd_dwx": 5},
+    # joint_ctc_att_multihost's 4 Listener layers (bottom + 3 pyramid) at B =
+    # 64 on v1, and the CTC head's loss
+    "train_joint": {"blstm_proj": 4, "blstm_v1_recur_train": 4, "blstm_v1_bwd_gates": 4,
+                    "blstm_v1_bwd_recur": 4, "blstm_v1_bwd_dwh": 4, "blstm_bwd_dx": 3,
+                    "blstm_bwd_dwx": 4, "ctc_alpha": 1, "ctc_beta": 1},
+    # the bench's las line: 5 Listener layers (bottom + 4 pyramid) of 512
+    # units at B = 32 on v2, and the CTC head's loss
+    "bench_las": {"blstm_proj": 5, "blstm_recur_train": 5, "blstm_bwd_recur": 5,
+                  "blstm_bwd_dx": 4, "blstm_bwd_dwx": 5, "blstm_bwd_dwh": 5, "ctc_alpha": 1,
+                  "ctc_beta": 1},
 }
 # the v1 inference walk's decode: the projection and the walk of each layer
 LAS_DECODE_KERNELS = ("blstm_proj", "blstm_v1_recur")
@@ -430,8 +470,16 @@ PIPELINE_KERNELS = {"test": DECODE_KERNELS, "decode": DECODE_KERNELS,
 # utterances of the dev split that cli serve and cli recognize decode
 PIPELINE_UTTS = 8
 TRAIN_RECIPES = {"train": RECIPE, "train_rnnt": RNNT_RECIPE, "train_rnnt_stream": STREAM_RECIPE,
-                 "train_las": LAS_RECIPE}
+                 "train_las": LAS_RECIPE, "train_joint": JOINT_RECIPE}
+# the attention serve phases: (recipe, seed, recognizer, Listener layers);
+# each recipe's recognizer.cfg has beam 16, nbest 8
+ATT_SERVE = {"serve_las": (LAS_RECIPE, 11, "AttentionBeamRecognizer", 5),
+             "serve_joint": (JOINT_RECIPE, 13, "JointCTCAttBeamRecognizer", 4)}
+# the shortest served utterances whose search runs on the card and the CPU
+ATT_CHECK_UTTS = 8
 TRAIN_STEPS = 40
+# phases of another length: train_joint's 20 steps
+PHASE_STEPS = {"train_joint": 20}
 TRAIN_UTTS = 512
 # las_large: a third of the corpus, x3 after its speed perturbation
 LAS_TRAIN_UTTS = 171
@@ -3009,7 +3057,6 @@ def rnnt_rows(torch, timed, reps) -> dict:
 
 
 def phase_serve(torch, smi: str) -> dict:
-    from nabu_tpu_torch.data import audio_io
     from nabu_tpu_torch.ops import kernels
     from nabu_tpu_torch.ops import stft_mel as stft_ops
     from nabu_tpu_torch.serving import load_exported, serve
@@ -3021,13 +3068,7 @@ def phase_serve(torch, smi: str) -> dict:
         manifest = write_artifact(art, seed=2)
         # the backlog sorted by duration, as a batch scorer sorts it: the
         # short half and the long half land in two T buckets
-        lines, audio_seconds = [], 0.0
-        for i, seconds in enumerate(np.sort(rng.uniform(1.0, 15.0, 64))):
-            sig = synth_utterance(rng, float(seconds))
-            path = os.path.join(tmp, f"utt{i:03d}.wav")
-            audio_io.write_wav(path, sig, 16000)
-            audio_seconds += len(sig) / 16000.0
-            lines.append(f"utt{i:03d} {path}")
+        lines, audio_seconds = synth_requests(tmp, rng)
 
         t0 = time.perf_counter()
         model = load_exported(art, batch_size=B)
@@ -3182,13 +3223,7 @@ def phase_serve_rnnt(torch, smi: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rnnt_") as tmp:
         art = os.path.join(tmp, "export")
         manifest = write_artifact(art, seed=8, recipe=RNNT_RECIPE)
-        lines, audio_seconds = [], 0.0
-        for i, seconds in enumerate(np.sort(rng.uniform(1.0, 15.0, 64))):
-            sig = synth_utterance(rng, float(seconds))
-            path = os.path.join(tmp, f"utt{i:03d}.wav")
-            audio_io.write_wav(path, sig, 16000)
-            audio_seconds += len(sig) / 16000.0
-            lines.append(f"utt{i:03d} {path}")
+        lines, audio_seconds = synth_requests(tmp, rng)
         model = load_exported(art, batch_size=B)
         rec = model.recognizer
         check(model.device.type == "cuda", "serve_rnnt: model not on the card")
@@ -3240,31 +3275,19 @@ def phase_serve_rnnt(torch, smi: str) -> dict:
         sigs = [audio_io.load_audio(line.split()[1])[0] for line in lines[:B]]
         feats, flens = model.device_fe.batch_features(sigs, 16000.0, B, model.T_BUCKET)
         encoded, enc_lengths, head = rec._encode(model.params, feats, flens)
-
-        def to(tree, device, dtype):
-            return {k: {n: v.to(device, dtype) for n, v in p.items()} for k, p in tree.items()}
-
-        def agreement(a, c):
-            same = sum(
-                int(np.array_equal(a.lengths[b], c.lengths[b]) and all(
-                    np.array_equal(a.ids[b, n, : c.lengths[b, n]], c.ids[b, n, : c.lengths[b, n]])
-                    for n in range(c.ids.shape[1])))
-                for b in range(B))
-            return same, float(np.abs(a.scores - c.scores).max())
-
-        bf16 = agreement(rec.nbest_of(*rec.search(head, encoded, enc_lengths)),
-                         rec.nbest_of(*rec.search(to(head, "cpu", torch.bfloat16),
-                                                  encoded.cpu(), enc_lengths.cpu())))
+        bf16 = nbest_agreement(rec.nbest_of(*rec.search(head, encoded, enc_lengths)),
+                               rec.nbest_of(*rec.search(tree_to(head, "cpu", torch.bfloat16),
+                                                        encoded.cpu(), enc_lengths.cpu())))
         dt = torch.float64
         t0 = time.perf_counter()
-        card = rec.nbest_of(*rec.search(to(head, encoded.device, dt), encoded.to(dt),
+        card = rec.nbest_of(*rec.search(tree_to(head, encoded.device, dt), encoded.to(dt),
                                         enc_lengths))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        host = rec.nbest_of(*rec.search(to(head, "cpu", dt), encoded.to("cpu", dt),
+        host = rec.nbest_of(*rec.search(tree_to(head, "cpu", dt), encoded.to("cpu", dt),
                                         enc_lengths.cpu()))
         t2 = time.perf_counter()
-        same, score_err = agreement(card, host)
+        same, score_err = nbest_agreement(card, host)
         emit({"phase": "serve_rnnt_check", "nbest_identical": same, "batch": B,
               "nbest": int(host.ids.shape[1]), "score_max_abs_err": score_err,
               "score_tol": TOL["rnnt_scores"], "dtype": "float64",
@@ -3275,6 +3298,236 @@ def phase_serve_rnnt(torch, smi: str) -> dict:
         check(score_err <= TOL["rnnt_scores"],
               f"serve_rnnt: n-best scores differ by {score_err}")
     return {"launches": launches}
+
+
+def synth_requests(tmp: str, rng, n: int = 64) -> tuple:
+    """``n`` synthesized utterances of 1-15 s, sorted by duration, written
+    as wavs: -> (``utt path`` request lines, audio seconds)."""
+    from nabu_tpu_torch.data import audio_io
+
+    lines, audio_seconds = [], 0.0
+    for i, seconds in enumerate(np.sort(rng.uniform(1.0, 15.0, n))):
+        sig = synth_utterance(rng, float(seconds))
+        path = os.path.join(tmp, f"utt{i:03d}.wav")
+        audio_io.write_wav(path, sig, 16000)
+        audio_seconds += len(sig) / 16000.0
+        lines.append(f"utt{i:03d} {path}")
+    return lines, audio_seconds
+
+
+def tree_to(tree, device, dtype):
+    """A parameter tree (nested dicts of tensors) on ``device`` in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device, dtype)
+
+
+def nbest_agreement(a, c) -> tuple:
+    """-> (utterances whose whole n-best lists agree, max |score diff|)."""
+    same = sum(
+        int(np.array_equal(a.lengths[b], c.lengths[b]) and all(
+            np.array_equal(a.ids[b, n, : c.lengths[b, n]], c.ids[b, n, : c.lengths[b, n]])
+            for n in range(c.ids.shape[1])))
+        for b in range(c.ids.shape[0]))
+    return same, float(np.abs(a.scores - c.scores).max())
+
+
+@contextlib.contextmanager
+def search_steps(no_sync: bool = False):
+    """Records the answers of the attention searches' exit test (asked
+    before each step, and once more where every beam has finished) in the
+    yielded list: its False answers count the steps. With ``no_sync`` the
+    test answers False without reading the device, so a search runs to its
+    max_steps without a host sync a step."""
+    from nabu_tpu_torch.decoding import beam, joint
+
+    asked = []
+    saved = beam._all_finished
+
+    def counted(finished):
+        asked.append(False if no_sync else saved(finished))
+        return asked[-1]
+
+    beam._all_finished = joint._all_finished = counted
+    try:
+        yield asked
+    finally:
+        beam._all_finished = joint._all_finished = saved
+
+
+def phase_serve_att(torch, smi: str, phase: str) -> dict:
+    """A full-width las_large_wsj (``serve_las``) or joint_ctc_att_multihost
+    (``serve_joint``) artifact, seeded random weights, serves 64 synthesized
+    utterances of 1-15 s through ``serving.serve`` at batch 32 with the
+    recipe's recognizer (attention_beam, or joint_ctc_att_beam with
+    ctc_weight 0.3; beam 16, nbest 8): only the frontend and the v2
+    inference kernels may launch. Then the longest batch's search alone:
+    its steps, ms a step, the cost of the host sync a step (the same steps
+    without it) and (joint) the CTC prefix scan's share; then the
+    ATT_CHECK_UTTS shortest utterances' search on the card's encoder output
+    on the card and on the CPU, in float64 (n-best identical, scores within
+    TOL["rnnt_scores"]; the bf16 agreement is reported), and (joint) one
+    batch of attention_rescoring."""
+    from nabu_tpu_torch.config import Conf
+    from nabu_tpu_torch.data import audio_io
+    from nabu_tpu_torch.decoding import joint
+    from nabu_tpu_torch.decoding.recognizers import AttentionRescoringRecognizer
+    from nabu_tpu_torch.ops import kernels
+    from nabu_tpu_torch.serving import load_exported, serve
+
+    recipe, seed, rec_name, layers = ATT_SERVE[phase]
+    rng = np.random.default_rng(seed)
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as tmp:
+        art = os.path.join(tmp, "export")
+        manifest = write_artifact(art, seed=seed + 1, recipe=recipe)
+        lines, audio_seconds = synth_requests(tmp, rng)
+        model = load_exported(art, batch_size=B)
+        rec = model.recognizer
+        check(model.device.type == "cuda", f"{phase}: model not on the card")
+        check(type(rec).__name__ == rec_name and rec.beam_width == 16 and rec.nbest == 8,
+              f"{phase}: recognizer {type(rec).__name__}")
+        requests = os.path.join(tmp, "requests.scp")
+        with open(requests, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        out = io.StringIO()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with open(requests) as in_stream, search_steps() as steps:
+            served = serve(art, in_stream=in_stream, out_stream=out, batch_size=B, model=model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = kernels.launch_counts()
+        gemm_variants(phase)
+        texts = out.getvalue().splitlines()
+        check(served == 64 and len(texts) == 64, f"{phase}: {served} served, {len(texts)} lines")
+        alphabet = set(model.text_proc.alphabet) | {" "}
+        for line, want in zip(texts, lines):
+            utt = want.split()[0]
+            check(line.split(" ", 1)[0] == utt, f"{phase}: line {line!r} is not for {utt}")
+            check(set(line[len(utt):].replace("<space>", " ")) <= alphabet,
+                  f"{phase}: unexpected symbols in {line!r}")
+        batches = (64 + B - 1) // B
+        ran = {k for k, v in launches.items() if v}
+        check(ran == set(SERVE_KERNELS),
+              f"{phase}: launched {ran}, want each of {SERVE_KERNELS} and no other")
+        check(launches["stft_mel"] == batches and launches["blstm_recur"] == layers * batches,
+              f"{phase}: launches {launches} for {batches} batches of {layers} layers")
+        nonempty = sum(1 for t in texts if t.split(" ", 1)[1:] and t.split(" ", 1)[1].strip())
+        emit({"phase": phase, "recipe": os.path.relpath(recipe, REPO),
+              "recognizer": rec_name, "utterances": served, "audio_seconds": audio_seconds,
+              "wall_seconds": wall, "rtf": wall / audio_seconds,
+              "utterances_per_second": served / wall, "decode_steps": steps.count(False),
+              "peak_device_memory_bytes": peak, "launches": launches,
+              "nonempty_hypotheses": nonempty, "batch_size": B, "beam_width": rec.beam_width,
+              "card": smi, "manifest": manifest})
+
+        def encode(utts):
+            sigs = [audio_io.load_audio(line.split()[1])[0] for line in utts]
+            feats, flens = model.device_fe.batch_features(sigs, 16000.0, len(sigs),
+                                                          model.T_BUCKET)
+            return rec._encode(model.params, feats, flens)
+
+        def timed_search(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = rec.search(*args)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t
+
+        # the longest batch's search: its steps and ms a step, with the host
+        # sync a step (the loop's exit test) and without it over the same
+        # steps, and (joint) the prefix scan's synchronized share
+        encoded, enc_lengths, head = encode(lines[-B:])
+        with search_steps() as asked:
+            synced, t_sync = timed_search(head, encoded, enc_lengths)
+        n = asked.count(False)
+        saved_max, rec.max_steps = rec.max_steps, n
+        with search_steps(no_sync=True):
+            unsynced, t_free = timed_search(head, encoded, enc_lengths)
+        rec.max_steps = saved_max
+        search = {"steps": n, "max_steps": rec.steps(encoded), "frames": int(encoded.shape[1]),
+                  "hypotheses": int(encoded.shape[0]) * rec.beam_width,
+                  "search_s": t_sync, "ms_per_step": 1e3 * t_sync / n,
+                  "no_sync_search_s": t_free, "sync_ms_per_step": 1e3 * (t_sync - t_free) / n,
+                  # the same steps give the same beams (seqs cut to the steps run)
+                  "no_sync_identical": all(torch.equal(a[..., :n] if a.dim() == 3 else a, c)
+                                           for a, c in zip(synced, unsynced))}
+        if phase == "serve_joint":
+            scan = []
+            extend = joint._ctc_extend
+
+            def timed_extend(*a):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = extend(*a)
+                torch.cuda.synchronize()
+                scan.append(time.perf_counter() - t)
+                return res
+
+            joint._ctc_extend = timed_extend
+            try:
+                _, t_all = timed_search(head, encoded, enc_lengths)
+            finally:
+                joint._ctc_extend = extend
+            search.update(scan_s=sum(scan), scan_share=sum(scan) / t_all,
+                          scan_ms_per_step=1e3 * sum(scan) / len(scan),
+                          scan_us_per_frame=1e6 * sum(scan) / len(scan) / encoded.shape[1])
+        emit({"phase": f"{phase}_search", **search, "card": smi})
+
+        # the shortest utterances: the search on the card against the same
+        # search on the CPU over the same encoder output, in float64 (in
+        # bf16 each device rounds its sums in its own order and the top-16
+        # cut reorders near-tied hypotheses; reported)
+        encoded, enc_lengths, head = encode(lines[:ATT_CHECK_UTTS])
+        cpu = torch.device("cpu")
+        bf16 = nbest_agreement(
+            rec.nbest_of(*rec.search(head, encoded, enc_lengths)),
+            rec.nbest_of(*rec.search(tree_to(head, cpu, torch.bfloat16), encoded.cpu(),
+                                     enc_lengths.cpu())))
+        dt = torch.float64
+        card, t_card = timed_search(tree_to(head, encoded.device, dt), encoded.to(dt),
+                                    enc_lengths)
+        t0 = time.perf_counter()
+        host = rec.search(tree_to(head, cpu, dt), encoded.to(cpu, dt), enc_lengths.cpu())
+        t_cpu = time.perf_counter() - t0
+        same, score_err = nbest_agreement(rec.nbest_of(*card), rec.nbest_of(*host))
+        emit({"phase": f"{phase}_check", "nbest_identical": same, "batch": ATT_CHECK_UTTS,
+              "nbest": rec.nbest, "score_max_abs_err": score_err,
+              "score_tol": TOL["rnnt_scores"], "dtype": "float64",
+              "bf16_nbest_identical": bf16[0], "bf16_score_max_abs_err": bf16[1],
+              "frames": int(encoded.shape[1]), "card_search_s": t_card, "cpu_search_s": t_cpu})
+        check(same == ATT_CHECK_UTTS,
+              f"{phase}: card and CPU n-best differ on {ATT_CHECK_UTTS - same}/{ATT_CHECK_UTTS}")
+        check(score_err <= TOL["rnnt_scores"], f"{phase}: n-best scores differ by {score_err}")
+        result = {"launches": launches}
+
+        if phase == "serve_joint":
+            # one batch (the 32 shortest) of the two-pass recognizer
+            resc = AttentionRescoringRecognizer(Conf(
+                {"recognizer": "attention_rescoring", "beam_width": "16", "nbest": "8"},
+                "recognizer"), model.model)
+            sigs = [audio_io.load_audio(line.split()[1])[0] for line in lines[:B]]
+            feats, flens = model.device_fe.batch_features(sigs, 16000.0, B, model.T_BUCKET)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nb = resc(model.params, feats, flens)
+            t_resc = time.perf_counter() - t0
+            resc_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+            check(resc_launches == {"blstm_proj": layers, "blstm_recur": layers},
+                  f"{phase} rescoring: launched {resc_launches}")
+            check(nb.ids.shape[:2] == (B, 8) and bool(np.isfinite(nb.scores[:, 0]).all()),
+                  f"{phase} rescoring: n-best {nb.ids.shape}, scores {nb.scores[:, 0]}")
+            emit({"phase": f"{phase}_rescoring", "batch": B, "beam_width": resc.beam_width,
+                  "nbest": resc.nbest, "ctc_weight": resc.ctc_weight, "wall_seconds": t_resc,
+                  "audio_seconds": sum(len(x) for x in sigs) / 16000.0,
+                  "best_lengths": nb.lengths[:, 0].tolist(), "launches": resc_launches,
+                  "card": smi})
+            result["rescoring_launches"] = resc_launches
+    return result
 
 
 def phase_serve_stream(torch, smi: str) -> dict:
@@ -3495,9 +3748,9 @@ def synth_corpus(root: str, rng, num_utts: int, alphabet, rate: int = 16000):
     return scp_path, text_path, total
 
 
-def write_train_recipe(recipe: str, out_dir: str, train, dev) -> str:
+def write_train_recipe(recipe: str, out_dir: str, train, dev, steps: int = TRAIN_STEPS) -> str:
     """A recipe with its datafiles pointed at the synthesized corpus and
-    TRAIN_STEPS steps; nothing else changed."""
+    ``steps`` steps; nothing else changed."""
     from nabu_tpu_torch.config import ConfigFile
 
     os.makedirs(out_dir, exist_ok=True)
@@ -3512,7 +3765,7 @@ def write_train_recipe(recipe: str, out_dir: str, train, dev) -> str:
         db.section(f"{split}targets").set("datafile", txt)
     db.write(os.path.join(out_dir, "database.conf"))
     tc = ConfigFile.read(os.path.join(out_dir, "trainer.cfg"))
-    tc.section("trainer").set("num_steps", TRAIN_STEPS)
+    tc.section("trainer").set("num_steps", steps)
     tc.write(os.path.join(out_dir, "trainer.cfg"))
     return out_dir
 
@@ -3527,14 +3780,15 @@ def step_timers(torch, record: dict):
     synchronized clock at each step's end (``step_end``: the window
     between two such readings holds everything the loop does, loader,
     copy to the device and logging included). Also keeps each step's loss
-    and audio frames, the trainer, the model, the live parameters and the
-    longest batch, and CUDA events around each ``lstm_bwd_dwh`` launch
+    and audio frames, the trainer, the model, the live parameters, a copy
+    of them before the first update and the longest batch, and CUDA events around each ``lstm_bwd_dwh`` launch
     (inside the backward; no synchronization) with its step."""
     from nabu_tpu_torch.models.decoders import Speller
     from nabu_tpu_torch.models.encoders import Listener
     from nabu_tpu_torch.models.model import Model
     from nabu_tpu_torch.models.transducer import TransducerDecoder
     from nabu_tpu_torch.ops import lstm as lstm_ops
+    from nabu_tpu_torch.params import flatten
     from nabu_tpu_torch.training.trainer import Trainer
 
     def timed(name, fn):
@@ -3579,6 +3833,8 @@ def step_timers(torch, record: dict):
 
     def _apply_grads(self, params, *a, **kw):
         record["params"] = params
+        if "initial" not in record:  # the parameters before the first update
+            record["initial"] = {k: v.detach().clone() for k, v in flatten(params).items()}
         out = apply_grads(self, params, *a, **kw)
         record.setdefault("step_end", []).append(time.perf_counter())
         return out
@@ -3664,7 +3920,7 @@ def gradient_check(torch, trainer, params, batch, phase: str):
     elif phase == "train_rnnt":
         with plain_versions(rnnt_joint_bwd=rnnt_last_frame_out_of_dpred(torch, tf)):
             _, grads_f = loss_and_grads()
-    elif phase == "train_las":
+    elif phase in THIRD:
         with plain_versions(blstm_v1_bwd_dwh=v1_dwh_directions_swapped(torch)):
             _, grads_f = loss_and_grads()
         with plain_versions(blstm_v1_bwd_dwh=v1_dwh_h_late(torch)):
@@ -3674,9 +3930,12 @@ def gradient_check(torch, trainer, params, batch, phase: str):
         with plain_versions(lstm_bwd_dwh=lstm_dwh_h_late(torch)):
             _, grads_f = loss_and_grads()
 
+    def speller(k):
+        return (phase == "train_las" and k.startswith("decoders/")) or (
+            phase == "train_joint" and k.startswith("decoders/att/"))
+
     def tol(k):
-        speller = phase == "train_las" and k.startswith("decoders/")
-        return TOL["train_grads_speller" if speller else "train_grads"]
+        return TOL["train_grads_speller" if speller(k) else "train_grads"]
 
     rel_k, rel_f = rel(grads_k), rel(grads_f)
     for k, g in grads_k.items():
@@ -3689,12 +3948,14 @@ def gradient_check(torch, trainer, params, batch, phase: str):
         FAILURES.append(f"{phase} gradients: relative errors beyond tolerance: {over}")
     if not any(v > tol(k) for k, v in rel_f.items()):
         FAILURES.append(f"{phase} gradients: a planted fault ({fault}) passes the tolerance")
-    if phase == "train_las":
+    if phase in THIRD:
         readings["grads_tol_speller"] = TOL["train_grads_speller"]
-        readings["speller_grads_max_rel_err"] = max(
-            v for k, v in rel_k.items() if k.startswith("decoders/"))
+        readings["speller_grads_max_rel_err"] = max(v for k, v in rel_k.items() if speller(k))
         readings["listener_grads_max_rel_err"] = max(
             v for k, v in rel_k.items() if k.startswith("encoder/"))
+    if phase == "train_joint":
+        readings["ctc_head_grads_max_rel_err"] = max(
+            v for k, v in rel_k.items() if k.startswith("decoders/ctc/"))
     return {
         "batch_shape": list(batch["features"].shape), "loss_kernels": float(loss_k),
         "loss_plain": float(loss_p), "loss_max_abs_err": loss_err,
@@ -3754,7 +4015,9 @@ def _data_sections(recipe: str) -> dict:
 
 # a training phase that trains on a copy of another phase's prepared data
 # (their database.conf sections are checked to be the same)
-DATA_FROM = {"train_rnnt_stream": "train_rnnt"}
+DATA_FROM = {"train_rnnt_stream": "train_rnnt", "train_joint": "train_las"}
+# the phases that train on the third of the corpus
+THIRD = ("train_las", "train_joint")
 
 
 def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
@@ -3765,15 +4028,16 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
 
     from nabu_tpu_torch import cli
     from nabu_tpu_torch.ops import kernels
-    from nabu_tpu_torch.params import load_npz
+    from nabu_tpu_torch.params import load_npz, unflatten
 
     train, dev = corpus["train"], corpus["dev"]
     per_step = STEP_LAUNCHES[phase]
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as tmp:
-        if phase == "train_las":
+        if phase in THIRD:
             train = corpus["train_las"]
+        want_steps = PHASE_STEPS.get(phase, TRAIN_STEPS)
         recipe = write_train_recipe(TRAIN_RECIPES[phase], os.path.join(tmp, "recipe"),
-                                    train[:2], dev[:2])
+                                    train[:2], dev[:2], want_steps)
         expdir = os.path.join(tmp, "exp")
         donor = DATA_FROM.get(phase)
         t1 = time.perf_counter()
@@ -3830,10 +4094,22 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         # steps 2..N end to end: from step 1's synchronized end to step N's
         ends = record["step_end"]
         window = ends[-1] - ends[0]
-        check(steps == TRAIN_STEPS, f"{phase}: {steps} steps, want {TRAIN_STEPS}")
+        check(steps == want_steps, f"{phase}: {steps} steps, want {want_steps}")
         check(all(math.isfinite(v) for v in losses), f"{phase}: a non-finite loss")
         first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-        check(last < first, f"{phase}: loss not falling ({first} -> {last})")
+        model, params, batch = record["model"], record["params"], record["batch"]
+        fixed = None
+        if phase == "train_joint":
+            # its loss sums a per-example CTC NLL, which grows with the
+            # batch's frames, so batches of other buckets are not
+            # comparable: the loss of one fixed batch (the longest, dropout
+            # off) must fall from the initial parameters to the trained ones
+            with torch.no_grad():
+                fixed = [float(record["trainer"].loss_fn(p, batch, None, False)[0])
+                         for p in (unflatten(record["initial"]), params)]
+            check(fixed[1] < fixed[0], f"{phase}: fixed-batch loss not falling {fixed}")
+        else:
+            check(last < first, f"{phase}: loss not falling ({first} -> {last})")
         for name in kernels.KERNELS:
             want = steps * per_step.get(name, 0)
             check(launches[name] == want,
@@ -3842,7 +4118,6 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
               f"{phase}: no train_complete.json")
 
         # latest/ reloads into parameters that give the same outputs
-        model, params, batch = record["model"], record["params"], record["batch"]
         loaded = load_npz(os.path.join(expdir, "checkpoints", "latest", "params.npz"),
                           device=batch["features"].device)
         live = head_outputs(torch, model, params, batch)
@@ -3853,12 +4128,13 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         grad = gradient_check(torch, record["trainer"], params, batch, phase)
         result = {
             "phase": phase, "recipe": os.path.relpath(TRAIN_RECIPES[phase], REPO),
-            "steps": steps, "utterances": LAS_TRAIN_UTTS if phase == "train_las" else TRAIN_UTTS,
-            "speed_perturbation": 3 if phase == "train_las" else 1,
+            "steps": steps, "utterances": LAS_TRAIN_UTTS if phase in THIRD else TRAIN_UTTS,
+            "speed_perturbation": 3 if phase in THIRD else 1,
             "corpus_audio_seconds": train[2], "synth_seconds": corpus["seconds"],
             "data_seconds": t2 - t1, "data_prepared_by": donor or phase,
             "train_wall_seconds": wall,
             "loss_first5_mean": first, "loss_last5_mean": last,
+            "fixed_batch_loss_initial_trained": fixed,
             "median_step_ms": median_ms,
             "median_pred_net_ms": 1e3 * float(np.median(pred_net[1:])),
             "median_lstm_bwd_dwh_ms": float(np.median(dwh_ms[1:])),
@@ -3877,6 +4153,8 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         emit({"phase": f"{phase}_check", **grad})
         if phase == "train_las":
             result["decode"] = las_decode(torch, smi, recipe, expdir, model, corpus["dev"][2])
+        elif phase == "train_joint":
+            result["test"] = joint_test(torch, smi, recipe, expdir, corpus["dev"][2])
         elif phase == "train":
             result["pipeline"] = phase_pipeline(torch, smi, recipe, expdir, corpus["dev"])
     return result
@@ -4079,6 +4357,60 @@ def las_decode(torch, smi: str, recipe: str, expdir: str, model, dev_audio_s: fl
     return out
 
 
+def joint_test(torch, smi: str, recipe: str, expdir: str, dev_audio_s: float) -> dict:
+    """``cli test`` on train_joint's expdir: the recipe's test evaluator,
+    attention_beam on ``head = att`` (beam 16) over the dev split at batch
+    32 (the v2 inference kernels, and no other), its error and wall time."""
+    from nabu_tpu_torch import cli
+    from nabu_tpu_torch.ops import kernels
+
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["test", "--recipe", recipe, "--expdir", expdir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(out.getvalue(), file=sys.stderr, flush=True)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    gemm_variants("train_joint test")
+    with open(os.path.join(expdir, "test_result.json")) as f:
+        result = json.load(f)
+    check(math.isfinite(result["metric"]), f"train_joint test: error {result['metric']}")
+    check(set(launches) == set(DECODE_KERNELS),
+          f"train_joint test: launched {launches}, want each of {DECODE_KERNELS} and no other")
+    line = {"phase": "train_joint_test", "recognizer": "attention_beam", "head": "att",
+            "beam_width": 16, "error": result["metric"], "wall_seconds": wall,
+            "dev_audio_seconds": dev_audio_s, "rtf": wall / dev_audio_s, "launches": launches,
+            "card": smi}
+    emit(line)
+    return line
+
+
+def phase_bench_las() -> dict:
+    """The bench's las line in process (``bench.train_line(model_name="las")``:
+    a 4 x 512 Listener, the 2 x 512 Speller and the CTC head, B = 32, T =
+    1000, bf16; launches the per-step launches of STEP_LAUNCHES["bench_las"]
+    x the steps run), then its ``att`` and ``joint`` decode lines at beam 8
+    (the realized width 8, the v2 inference kernels once a layer a decode)."""
+    from nabu_tpu_torch import bench
+
+    phase_bench("las", "bench_las", "bench_las")
+    launches = {}
+    for head in ("att", "joint"):
+        line = bench.decode_line(model_name="las", head=head, beam_width=8)
+        print(json.dumps({"phase": f"bench_las_{head}", **line}), flush=True)
+        decodes = line["repeats"] * line["decodes_per_repeat"]
+        check(line["beam_width_realized"] == 8,
+              f"bench_las {head}: realized width {line['beam_width_realized']}")
+        check(line["launches"] == {"blstm_proj": 5 * decodes, "blstm_recur": 5 * decodes},
+              f"bench_las {head}: launches {line['launches']} for {decodes} decodes")
+        launches[head] = line["launches"]
+    return {"launches": {k: sum(v.get(k, 0) for v in launches.values())
+                         for k in ("blstm_proj", "blstm_recur")}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4118,6 +4450,10 @@ def main(argv=None) -> int:
     t4 = time.perf_counter()
     served_stream = phase_serve_stream(torch, smi)
     t5 = time.perf_counter()
+    served_las = phase_serve_att(torch, smi, "serve_las")
+    t5a = time.perf_counter()
+    served_joint = phase_serve_att(torch, smi, "serve_joint")
+    t5b = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as corpus_dir:
         corpus = synth_training_corpus(corpus_dir)
         trained = phase_train(torch, smi, "train", corpus)
@@ -4127,22 +4463,29 @@ def main(argv=None) -> int:
         trained_stream = phase_train(torch, smi, "train_rnnt_stream", corpus)
         t8 = time.perf_counter()
         trained_las = phase_train(torch, smi, "train_las", corpus)
-    t9 = time.perf_counter()
+        t9 = time.perf_counter()
+        trained_joint = phase_train(torch, smi, "train_joint", corpus)
+    t9a = time.perf_counter()
     phase_bench("dblstm", "bench_ctc", "train")
     t10 = time.perf_counter()
     phase_bench("rnnt", "bench_rnnt", "train_rnnt")
+    t11 = time.perf_counter()
+    bench_las = phase_bench_las()
     pipeline_s = sum(trained["pipeline"]["seconds"].values())
     emit({"phase": "seconds", "build_device": t1 - t0, "kernels": t2 - t1,
           "serve": t3 - t2, "serve_rnnt": t4 - t3, "serve_stream": t5 - t4,
+          "serve_las": t5a - t5, "serve_joint": t5b - t5a,
           # the train phase runs the pipeline phase: each is counted once
-          "train": t6 - t5 - pipeline_s, "pipeline": pipeline_s,
+          "train": t6 - t5b - pipeline_s, "pipeline": pipeline_s,
           "train_rnnt": t7 - t6, "train_rnnt_stream": t8 - t7,
-          "train_las": t9 - t8, "bench_ctc": t10 - t9, "bench_rnnt": time.perf_counter() - t10,
+          "train_las": t9 - t8, "train_joint": t9a - t9, "bench_ctc": t10 - t9a,
+          "bench_rnnt": t11 - t10, "bench_las": time.perf_counter() - t11,
           "total": time.perf_counter() - t0})
     raise_failures()
     pipeline = [{"launches": v} for v in trained["pipeline"]["launches"].values()]
-    runs = (served, served_rnnt, served_stream, trained, trained_rnnt, trained_stream,
-            trained_las, trained_las["decode"], *pipeline)
+    runs = (served, served_rnnt, served_stream, served_las, served_joint, trained, trained_rnnt,
+            trained_stream, trained_las, trained_las["decode"], trained_joint,
+            trained_joint["test"], bench_las, *pipeline)
 
     kernels_line = []
     for name, key in (("stft_mel", "stft_mel"),

@@ -1,15 +1,20 @@
-"""Training throughput of the DBLSTM-CTC or the RNN-T step on one GPU.
+"""Training throughput of the DBLSTM-CTC, RNN-T or LAS step on one GPU.
 
-Port of the JAX package's ``bench.py`` training measurement for two of its
-models, through the kernels (``use_pallas = true`` in both sections), in
-bf16 by default:
+Port of the JAX package's ``bench.py`` training measurement for three of
+its models, through the kernels (``use_pallas = true`` in the encoder and
+CTC sections), in bf16 by default:
 
 - ``--model dblstm`` (the default): BASELINE config 2's 4x320 DBLSTM
   encoder, the linear CTC head and the CTC loss;
 - ``--model rnnt``: the transducer of ``bench.py``'s ``rnnt`` line, a
   Listener of 2 pyramid layers over a bottom layer, 320 units (time / 4),
   a 1x320 prediction LSTM with 128-wide embeddings, a 320-wide joint and
-  the RNN-T loss (31 labels and the blank: V = 32).
+  the RNN-T loss (31 labels and the blank: V = 32);
+- ``--model las``: the joint CTC/attention model of ``bench.py``'s ``las``
+  line, a Listener of 4 pyramid layers over a bottom layer, 512 units
+  (time / 16), a 2x512 bahdanau Speller with 256-wide embeddings
+  (scheduled sampling 0.1, label smoothing 0.1, loss weight 0.7) and a
+  linear CTC head (loss weight 0.3).
 
 The batch is ``make_batch``'s (B = 32, T = 1000, 80 features, 100 labels,
 every length full), made from ``--seed`` with numpy and put on the device
@@ -20,9 +25,10 @@ steps.
 
 Run on the card (the default device), or on the CPU only when asked:
 
-    python -m nabu_tpu_torch.bench [--mode train|decode] [--model dblstm|rnnt]
-        [--device cpu] [--batch 32] [--frames 1000] [--steps 8] [--warmup 2]
-        [--repeats 3] [--beam_width 8] [--seed 0] [--no-bf16]
+    python -m nabu_tpu_torch.bench [--mode train|decode] [--model dblstm|rnnt|las]
+        [--head att|ctc|joint] [--device cpu] [--batch 32] [--frames 1000]
+        [--steps 8] [--warmup 2] [--repeats 3] [--beam_width 8] [--seed 0]
+        [--no-bf16]
 
 It prints ONE JSON line:
 
@@ -49,11 +55,16 @@ TPU, and that has no counterpart on the GPU.
 decode`` does, on the same batch and the seeded weights: ``--model
 dblstm`` runs the encoder, the log-softmax and ``ctc_prefix_beam_search``
 (blank last, at most 128 labels) over the full batch; ``--model rnnt``
-the ``transducer_beam`` recognizer. One untimed decode first, then
+the ``transducer_beam`` recognizer; ``--model las`` by ``--head`` (JAX's
+``--head``): ``att`` (the default) the ``attention_beam`` recognizer on
+the Speller, ``ctc`` the prefix search on the CTC head, ``joint`` the
+``joint_ctc_att_beam`` recognizer (``ctc_weight`` 0.3). One untimed
+decode first, then
 ``--repeats`` measurements of ``max(steps // 4, 1)`` decodes, each ended
 on the host (the n-best read back, the device synchronized). It prints
 ONE JSON line with the JAX line's keys: ``metric``
-(``ctc_beam_decode_rtf`` or ``transducer_beam_decode_rtf``), ``value``
+(``ctc_beam_decode_rtf``, ``transducer_beam_decode_rtf``,
+``attention_beam_decode_rtf`` or ``joint_ctc_att_beam_decode_rtf``), ``value``
 the median RTF (decode time over B x T x 10 ms of audio), ``unit``
 ``rtf``, ``vs_baseline`` 1.0, ``beam_width_realized`` (the width of the
 search's output; the run fails when it is not ``--beam_width``) and
@@ -85,32 +96,50 @@ from nabu_tpu_torch.training.trainer import Optimizer
 METRIC = "train_audio_seconds_per_second_per_chip"
 FEATURES, LABELS, NUM_LABELS = 80, 100, 31
 FRAME_SHIFT = 0.01
-# the encoder's layers of each model's line in bench.py
-MODELS = {"dblstm": 4, "rnnt": 2}
+# the encoder's layers and units of each model's line in bench.py
+MODELS = {"dblstm": (4, 320), "rnnt": (2, 320), "las": (4, 512)}
+# the decode line's metric of each (model, --head); the head matters for las only
+DECODE_METRICS = {"att": "attention_beam_decode_rtf", "ctc": "ctc_beam_decode_rtf",
+                  "joint": "joint_ctc_att_beam_decode_rtf"}
+
+
+def line_shape(model: str, num_layers: Optional[int], num_units: Optional[int]) -> tuple:
+    """-> (layers, units) of ``model``'s encoder, the line's own where None."""
+    if model not in MODELS:
+        raise ValueError(f"bench: unknown model {model!r} (one of {sorted(MODELS)})")
+    return num_layers or MODELS[model][0], num_units or MODELS[model][1]
 
 
 def build_model_and_loss(bf16: bool = True, num_layers: Optional[int] = None,
-                         num_units: int = 320, model: str = "dblstm"):
+                         num_units: Optional[int] = None, model: str = "dblstm"):
     """-> (model, loss_fn) of ``bench.py``'s ``build_model_and_loss`` for
-    ``dblstm`` or ``rnnt`` with both kernels on; ``num_layers`` x
-    ``num_units`` (4 x 320 and 2 x 320 there) sets the encoder, and the
-    rnnt head's prediction LSTM and joint take ``num_units`` too."""
-    if num_layers is None:
-        num_layers = MODELS[model]
+    ``dblstm``, ``rnnt`` or ``las`` with the kernels on; ``num_layers`` x
+    ``num_units`` (4 x 320, 2 x 320 and 4 x 512 there) sets the encoder,
+    and the rnnt head's prediction LSTM and joint, and the las Speller's
+    layers, take ``num_units`` too (``None``: the line's own)."""
+    num_layers, num_units = line_shape(model, num_layers, num_units)
+    model_sec = {"compute_dtype": "bfloat16" if bf16 else "float32"}
+    ctc = {"decoder": "linear_ctc", "loss": "ctc", "use_pallas": "true"}
     if model == "dblstm":
         encoder = {"encoder": "dblstm"}
-        decoder = {"decoder": "linear_ctc", "loss": "ctc"}
+        heads = {"decoder": ctc}
     elif model == "rnnt":
         encoder = {"encoder": "listener"}
-        decoder = {"decoder": "rnnt", "num_layers": "1", "num_units": str(num_units),
-                   "embed_dim": "128", "joint_units": str(num_units), "loss": "transducer"}
-    else:
-        raise ValueError(f"bench: unknown model {model!r} (one of {sorted(MODELS)})")
+        heads = {"decoder": {"decoder": "rnnt", "num_layers": "1", "num_units": str(num_units),
+                             "embed_dim": "128", "joint_units": str(num_units),
+                             "loss": "transducer", "use_pallas": "true"}}
+    elif model == "las":
+        encoder = {"encoder": "listener"}
+        model_sec["decoders"] = "att ctc"
+        heads = {"att": {"decoder": "speller", "num_layers": "2", "num_units": str(num_units),
+                         "embed_dim": "256", "sample_prob": "0.1", "label_smoothing": "0.1",
+                         "loss": "cross_entropy", "loss_weight": "0.7"},
+                 "ctc": {**ctc, "loss_weight": "0.3"}}
     cfg = ConfigFile({
-        "model": Conf({"compute_dtype": "bfloat16" if bf16 else "float32"}, "model"),
+        "model": Conf(model_sec, "model"),
         "encoder": Conf({**encoder, "num_layers": str(num_layers), "num_units": str(num_units),
                          "use_pallas": "true"}, "encoder"),
-        "decoder": Conf({**decoder, "use_pallas": "true"}, "decoder"),
+        **{name: Conf(sec, name) for name, sec in heads.items()},
     })
     net = build_model(cfg, input_dim=FEATURES, num_labels=NUM_LABELS)
     return net, make_loss_computer(net)
@@ -119,6 +148,9 @@ def build_model_and_loss(bf16: bool = True, num_layers: Optional[int] = None,
 def describe(model: str, num_layers: int, num_units: int) -> str:
     if model == "dblstm":
         return f"dblstm {num_layers}x{num_units} + linear_ctc, ctc loss"
+    if model == "las":
+        return (f"las: listener {num_layers}x{num_units} + speller 2x{num_units} bahdanau, "
+                "linear_ctc; 0.7 cross_entropy + 0.3 ctc loss")
     return (f"rnnt: listener {num_layers}x{num_units} + prediction 1x{num_units}, joint "
             f"{num_units}, transducer loss")
 
@@ -162,14 +194,14 @@ class _Clock:
 
 def train_line(batch: int = 32, frames: int = 1000, steps: int = 8, warmup: int = 2,
                repeats: int = 3, seed: int = 0, device=None, bf16: bool = True,
-               num_layers: Optional[int] = None, num_units: int = 320, labels: int = LABELS,
+               num_layers: Optional[int] = None, num_units: Optional[int] = None,
+               labels: int = LABELS,
                params: Optional[dict] = None, model_name: str = "dblstm") -> dict:
     """Time the training step of ``model_name`` (``MODELS``); -> the JSON
     line's fields. ``params`` (f32, the model's tree) replaces the seeded
     initial weights."""
     dev = resolve_device(device)
-    if num_layers is None:
-        num_layers = MODELS[model_name]
+    num_layers, num_units = line_shape(model_name, num_layers, num_units)
     model, loss_fn = build_model_and_loss(bf16, num_layers, num_units, model_name)
     rng = np.random.default_rng(seed)
     arrays = make_batch(batch, frames, FEATURES, labels, rng)
@@ -261,39 +293,56 @@ def train_line(batch: int = 32, frames: int = 1000, steps: int = 8, warmup: int 
 
 def decode_line(batch: int = 32, frames: int = 1000, steps: int = 8, repeats: int = 3,
                 beam_width: int = 8, seed: int = 0, device=None, bf16: bool = True,
-                num_layers: Optional[int] = None, num_units: int = 320,
-                model_name: str = "dblstm") -> dict:
-    """Time the beam-search decode of ``model_name`` (``MODELS``); -> the
-    JSON line's fields (the JAX bench's ``time_decode`` for ``dblstm``,
-    ``time_transducer_decode`` for ``rnnt``)."""
+                num_layers: Optional[int] = None, num_units: Optional[int] = None,
+                model_name: str = "dblstm", head: str = "att") -> dict:
+    """Time the beam-search decode of ``model_name`` (``MODELS``; for
+    ``las`` of ``head``, ``DECODE_METRICS``); -> the JSON line's fields
+    (the JAX bench's ``time_decode`` for ``dblstm`` and las ``ctc``,
+    ``time_transducer_decode`` for ``rnnt``, ``time_attention_decode`` and
+    ``time_joint_decode`` for las ``att`` and ``joint``)."""
     from nabu_tpu_torch.decoding.ctc_beam import ctc_prefix_beam_search
-    from nabu_tpu_torch.decoding.recognizers import TransducerBeamRecognizer
+    from nabu_tpu_torch.decoding.recognizers import (
+        AttentionBeamRecognizer,
+        JointCTCAttBeamRecognizer,
+        TransducerBeamRecognizer,
+    )
 
     dev = resolve_device(device)
-    if num_layers is None:
-        num_layers = MODELS[model_name]
+    num_layers, num_units = line_shape(model_name, num_layers, num_units)
+    if head not in DECODE_METRICS:
+        raise ValueError(f"bench: unknown head {head!r} (one of {sorted(DECODE_METRICS)})")
     model, _ = build_model_and_loss(bf16, num_layers, num_units, model_name)
     arrays = make_batch(batch, frames, FEATURES, LABELS, np.random.default_rng(seed))
     params = unflatten({k: v.to(dev) for k, v in flatten(
         model.init(torch.Generator().manual_seed(seed))).items()})
     feats = torch.as_tensor(arrays["features"], device=dev)
     flen = torch.as_tensor(arrays["feature_lengths"], device=dev)
+    conf = {"beam_width": str(beam_width)}
 
-    if model_name == "dblstm":
+    if model_name == "dblstm" or (model_name == "las" and head == "ctc"):
         metric = "ctc_beam_decode_rtf"
+        ctc_head = "decoder" if model_name == "dblstm" else "ctc"
 
         @torch.no_grad()
         def decode():
-            logits, logit_lengths = model.apply(params, feats, flen, heads=("decoder",))["decoder"]
+            logits, logit_lengths = model.apply(params, feats, flen, heads=(ctc_head,))[ctc_head]
             out = ctc_prefix_beam_search(torch.log_softmax(logits, dim=-1), logit_lengths,
                                          beam_width, logits.shape[-1] - 1, max_label_len=128)
             return [x.cpu() for x in out]
 
         width = int(decode()[2].shape[1])
     else:
-        metric = "transducer_beam_decode_rtf"
-        rec = TransducerBeamRecognizer(Conf({"beam_width": str(beam_width)}, "recognizer"),
-                                       model)
+        if model_name == "rnnt":
+            metric = "transducer_beam_decode_rtf"
+            rec = TransducerBeamRecognizer(Conf(conf, "recognizer"), model)
+        elif head == "att":
+            metric = DECODE_METRICS[head]
+            rec = AttentionBeamRecognizer(Conf(conf, "recognizer"), model, head="att")
+        else:
+            metric = DECODE_METRICS[head]
+            rec = JointCTCAttBeamRecognizer(Conf(
+                {**conf, "att_head": "att", "ctc_head": "ctc", "ctc_weight": "0.3"},
+                "recognizer"), model)
 
         def decode():
             return rec(params, feats, flen)
@@ -353,6 +402,9 @@ def main(argv=None) -> int:
     ap.add_argument("--repeats", type=int, default=3,
                     help="measurements; the median is reported")
     ap.add_argument("--beam_width", type=int, default=8, help="decode mode's beam")
+    ap.add_argument("--head", default="att", choices=sorted(DECODE_METRICS),
+                    help="decode mode, --model las: the attention beam, the CTC head's "
+                         "prefix beam, or the joint CTC/attention beam")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
                     help="bfloat16 compute dtype")
@@ -361,7 +413,7 @@ def main(argv=None) -> int:
                   repeats=args.repeats, seed=args.seed, device=args.device, bf16=args.bf16,
                   model_name=args.model)
     if args.mode == "decode":
-        line = decode_line(beam_width=args.beam_width, **common)
+        line = decode_line(beam_width=args.beam_width, head=args.head, **common)
     else:
         line = train_line(warmup=args.warmup, **common)
     print(json.dumps(line), flush=True)

@@ -59,9 +59,10 @@ def _segment_logsumexp_sorted(
 
 
 def _top_w(total: torch.Tensor, W: int):
-    """lax.top_k semantics: descending, ties broken by the lower index."""
+    """lax.top_k over the last axis: descending, ties broken by the lower
+    index."""
     vals, idx = torch.sort(total, dim=-1, descending=True, stable=True)
-    return vals[:, :W], idx[:, :W]
+    return vals[..., :W], idx[..., :W]
 
 
 def ctc_prefix_beam_search(

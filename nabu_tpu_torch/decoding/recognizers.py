@@ -1,10 +1,14 @@
 """Recognizers: batched decoders over a model.
 
-Port of the CTC, transducer and attention-greedy recognizers of the JAX
-package's ``decoding/recognizers.py``. Every recognizer maps ``(params,
-features, feature_lengths) -> Nbest``; features may be a numpy array or a
-tensor already on the model's device (the device frontend's output).
-The attention beam, joint and rescoring recognizers are not ported yet.
+Port of the JAX package's ``decoding/recognizers.py`` (without LM
+fusion): CTC greedy and prefix beam, attention greedy and beam, the joint
+CTC/attention one-pass beam and two-pass rescoring, transducer greedy,
+beam and streaming. Every recognizer maps ``(params, features,
+feature_lengths) -> Nbest``; features may be a numpy array or a tensor
+already on the model's device (the device frontend's output). The beam
+recognizers over an encoder output split into ``_encode``, ``search``
+(tensors on the model's device) and ``nbest_of``, so one search can run
+on two devices over the same encoder output.
 """
 
 from __future__ import annotations
@@ -16,15 +20,16 @@ import numpy as np
 import torch
 
 from nabu_tpu_torch.config import Conf
+from nabu_tpu_torch.decoding.beam import attention_beam_search, gather_beams, score_dtype
 from nabu_tpu_torch.decoding.ctc_beam import ctc_prefix_beam_search
+from nabu_tpu_torch.decoding.joint import joint_ctc_att_beam_search
 from nabu_tpu_torch.decoding.streaming import StreamingTransducer
 from nabu_tpu_torch.decoding.transducer import (
     transducer_beam_search,
     transducer_greedy_search,
 )
 from nabu_tpu_torch.ops import ctc as ctc_ops
-from nabu_tpu_torch.ops.masking import sequence_mask
-from nabu_tpu_torch.params import flatten
+from nabu_tpu_torch.ops.masking import NEG_INF, sequence_mask
 from nabu_tpu_torch.registry import RECOGNIZERS
 
 
@@ -76,6 +81,15 @@ class Recognizer:
                 "recognizer at the CTC head (`head = ctc`)"
             )
         self.blank_id = self.decoder.blank_id
+
+    def _encode(self, params, features, feature_lengths):
+        """-> (encoder output, its lengths, the head's parameters in the
+        compute dtype), on the head's device."""
+        device = params["decoders"][self.head]["out"]["w"].device
+        encoded, enc_lengths = self.model.encode(
+            params, _as_tensor(features, device, torch.float32),
+            _as_tensor(feature_lengths, device, torch.int32))
+        return encoded, enc_lengths, self.model._cast_in(params["decoders"][self.head])
 
     def _logprobs(self, params, features, feature_lengths, device):
         feats = _as_tensor(features, device, torch.float32)
@@ -171,13 +185,10 @@ class AttentionGreedyRecognizer(Recognizer):
     def search(self, params, features, feature_lengths):
         """-> (ids [B, max_steps], lengths [B], scores [B]) tensors on the
         model's device."""
-        device = next(iter(flatten(params["decoders"][self.head]).values())).device
-        encoded, enc_lengths = self.model.encode(
-            params, _as_tensor(features, device, torch.float32),
-            _as_tensor(feature_lengths, device, torch.int32))
+        encoded, enc_lengths, dparams = self._encode(params, features, feature_lengths)
         B, T, _ = encoded.shape
+        device = encoded.device
         dec = self.decoder
-        dparams = self.model._cast_in(params["decoders"][self.head])
         enc_mask = sequence_mask(enc_lengths, T)
         max_steps = self.max_steps or max(int(T * self.length_ratio), 8)
         keys = dec.precompute(dparams, encoded)
@@ -207,6 +218,168 @@ class AttentionGreedyRecognizer(Recognizer):
         return Nbest(ids=ids[:, None, :], lengths=lengths[:, None], scores=scores[:, None])
 
 
+def _attention_head(conf, model, head, what: str) -> str:
+    """The attention head of a multi-head recognizer: ``head``, else
+    ``att_head`` / ``head`` in the conf, else the first head that steps."""
+    att = head or conf.get("att_head") or conf.get("head") or next(
+        (n for n, d in model.decoders.items() if hasattr(d, "step")), None)
+    if att is None or not hasattr(model.decoders[att], "step"):
+        raise ValueError(f"{what} needs an attention head")
+    return att
+
+
+def _ctc_head(conf, model, what: str) -> str:
+    """``ctc_head`` of the conf, else the first head that trains with CTC."""
+    ctc = conf.get("ctc_head") or next(
+        (n for n, d in model.decoders.items() if getattr(d, "default_loss", None) == "ctc"),
+        None)
+    if ctc is None:
+        raise ValueError(f"{what} needs a CTC head")
+    return ctc
+
+
+class _AttentionBeam(Recognizer):
+    """Base of the attention head's beam searches: conf beam_width, nbest,
+    max_steps (default ``max(int(T_enc * max_length_ratio), 8)``, ratio
+    1.0), length_norm_power. ``__call__`` is ``nbest_of(search(
+    _encode(...)))``."""
+
+    frame_synchronous = False
+
+    def __init__(self, conf, model, head=None):
+        super().__init__(conf, model, head)
+        if not hasattr(self.decoder, "step"):
+            raise ValueError(f"head {self.head!r} is not autoregressive")
+        self.beam_width = conf.getint("beam_width", 4)
+        self.nbest = min(conf.getint("nbest", 1), self.beam_width)
+        self.max_steps = conf.getint("max_steps", 0)
+        self.length_ratio = conf.getfloat("max_length_ratio", 1.0)
+        self.length_norm_power = conf.getfloat("length_norm_power", 0.0)
+
+    def steps(self, encoded) -> int:
+        return self.max_steps or max(int(encoded.shape[1] * self.length_ratio), 8)
+
+    def nbest_of(self, seqs, lengths, scores) -> Nbest:
+        n = self.nbest
+        return Nbest(ids=seqs[:, :n].cpu().numpy(), lengths=lengths[:, :n].cpu().numpy(),
+                     scores=scores[:, :n].cpu().numpy())
+
+    @torch.no_grad()
+    def __call__(self, params, features, feature_lengths) -> Nbest:
+        encoded, enc_lengths, head_params = self._encode(params, features, feature_lengths)
+        return self.nbest_of(*self.search(head_params, encoded, enc_lengths))
+
+
+@RECOGNIZERS.register("attention_beam")
+@RECOGNIZERS.register("beam")
+class AttentionBeamRecognizer(_AttentionBeam):
+    """Batched attention beam search (``decoding.beam``): the encoder once,
+    then the beam of each utterance over its shared encoding. conf:
+    beam_width, nbest, max_steps / max_length_ratio, length_norm_power,
+    eos_bonus."""
+
+    def __init__(self, conf, model, head=None):
+        super().__init__(conf, model, head)
+        self.eos_bonus = conf.getfloat("eos_bonus", 0.0)
+
+    @torch.no_grad()
+    def search(self, head_params, encoded, enc_lengths):
+        """The beam search over an encoder output: (seqs, lengths, scores)
+        tensors on its device, best first."""
+        return attention_beam_search(
+            self.decoder, head_params, encoded, enc_lengths, beam_width=self.beam_width,
+            max_steps=self.steps(encoded), length_norm_power=self.length_norm_power,
+            eos_bonus=self.eos_bonus)
+
+
+@RECOGNIZERS.register("joint_ctc_att_beam")
+@RECOGNIZERS.register("joint_beam")
+class JointCTCAttBeamRecognizer(_AttentionBeam):
+    """One-pass hybrid CTC/attention beam search over a multi-head model
+    (``decoding.joint``). conf: att_head, ctc_head, ctc_weight (0.3),
+    beam_width, nbest, pre_beam, max_steps / max_length_ratio,
+    length_norm_power. ``_encode``'s head parameters hold both heads'."""
+
+    def __init__(self, conf, model, head=None):
+        super().__init__(conf, model, _attention_head(conf, model, head, "joint decoding"))
+        self.ctc_head = _ctc_head(conf, model, "joint decoding")
+        self.ctc_decoder = model.decoders[self.ctc_head]
+        self.ctc_weight = conf.getfloat("ctc_weight", 0.3)
+        self.pre_beam = conf.getint("pre_beam", 0)
+
+    def _encode(self, params, features, feature_lengths):
+        encoded, enc_lengths, att = super()._encode(params, features, feature_lengths)
+        return encoded, enc_lengths, {
+            self.head: att, self.ctc_head: self.model._cast_in(params["decoders"][self.ctc_head])}
+
+    @torch.no_grad()
+    def search(self, head_params, encoded, enc_lengths):
+        ctc_logits, _ = self.ctc_decoder.apply(head_params[self.ctc_head], encoded, enc_lengths)
+        ctc_lp = torch.log_softmax(ctc_logits.to(score_dtype(ctc_logits.dtype)), dim=-1)
+        return joint_ctc_att_beam_search(
+            self.decoder, head_params[self.head], encoded, enc_lengths, ctc_lp,
+            beam_width=self.beam_width, max_steps=self.steps(encoded),
+            ctc_weight=self.ctc_weight, pre_beam=self.pre_beam,
+            length_norm_power=self.length_norm_power,
+            blank_id=getattr(self.ctc_decoder, "blank_id", ctc_lp.shape[-1] - 1))
+
+
+@RECOGNIZERS.register("attention_rescoring")
+@RECOGNIZERS.register("ctc_att_rescoring")
+class AttentionRescoringRecognizer(Recognizer):
+    """Two-pass decoding over a multi-head model: the CTC prefix beam's
+    n-best, then every hypothesis scored by the attention head
+    teacher-forced in one batched call over [B*W] hypotheses (the encoding
+    repeated W-fold, as in the JAX package) and re-ranked by ctc_weight *
+    ctc + (1 - ctc_weight) * attention. conf: beam_width (8), nbest,
+    ctc_weight (0.5), att_head, ctc_head, max_label_len."""
+
+    frame_synchronous = False
+
+    def __init__(self, conf, model, head=None):
+        super().__init__(conf, model, _attention_head(conf, model, head, "attention rescoring"))
+        self.ctc_head = _ctc_head(conf, model, "attention rescoring")
+        ctc = model.decoders[self.ctc_head]
+        self.ctc_decoder = ctc
+        self.blank_id = getattr(ctc, "blank_id", ctc.output_dim - 1)
+        self.ctc_weight = conf.getfloat("ctc_weight", 0.5)
+        self.beam_width = conf.getint("beam_width", 8)
+        self.nbest = min(conf.getint("nbest", 1), self.beam_width)
+        self.max_label_len = conf.getint("max_label_len", 0)
+
+    @torch.no_grad()
+    def __call__(self, params, features, feature_lengths) -> Nbest:
+        encoded, enc_lengths, dparams = self._encode(params, features, feature_lengths)
+        ctc_logits, logit_lengths = self.ctc_decoder.apply(
+            self.model._cast_in(params["decoders"][self.ctc_head]), encoded, enc_lengths)
+        seqs, lengths, ctc_scores = ctc_prefix_beam_search(
+            torch.log_softmax(ctc_logits.float(), dim=-1), logit_lengths,
+            beam_width=self.beam_width, blank_id=self.blank_id,
+            max_label_len=self.max_label_len or None)  # [B, W, L], [B, W], [B, W]
+
+        # pass 2: the teacher-forced attention score of every hypothesis;
+        # step t predicts hyp[t], step len(hyp) predicts eos
+        B, W, L = seqs.shape
+        dec = self.decoder
+        hyp = seqs.reshape(B * W, L)
+        hyp_len = lengths.reshape(B * W)
+        logits, _ = dec.apply(dparams, torch.repeat_interleave(encoded, W, dim=0),
+                              torch.repeat_interleave(enc_lengths, W, dim=0), hyp, hyp_len)
+        lp = torch.log_softmax(logits.float(), dim=-1)  # [B*W, L+1, V]
+        pos = torch.arange(L + 1, device=lp.device)[None, :]
+        tgt = torch.nn.functional.pad(hyp.to(torch.int64), (0, 1))
+        tgt = torch.where(pos == hyp_len[:, None], dec.eos_id, tgt)
+        tok_lp = torch.gather(lp, 2, tgt[..., None])[..., 0]
+        att_scores = torch.where(pos <= hyp_len[:, None], tok_lp, 0.0).sum(dim=1).reshape(B, W)
+
+        combined = self.ctc_weight * ctc_scores + (1.0 - self.ctc_weight) * att_scores
+        combined = torch.where(ctc_scores < NEG_INF / 2, NEG_INF, combined)  # dead slots
+        order = torch.argsort(-combined, dim=1, stable=True)[:, : self.nbest]
+        return Nbest(ids=gather_beams(seqs, order).cpu().numpy(),
+                     lengths=torch.gather(lengths, 1, order).cpu().numpy(),
+                     scores=torch.gather(combined, 1, order).cpu().numpy())
+
+
 class _TransducerRecognizer(Recognizer):
     """Base of the transducer searches: the head must be a transducer head;
     the encoder runs once, then the search over its output."""
@@ -217,13 +390,6 @@ class _TransducerRecognizer(Recognizer):
             raise ValueError(f"head {self.head!r} is not a transducer head")
         self.max_symbols = conf.getint("max_symbols", 4)
         self.max_label_len = conf.getint("max_label_len", 0)
-
-    def _encode(self, params, features, feature_lengths):
-        device = params["decoders"][self.head]["out"]["w"].device
-        encoded, enc_lengths = self.model.encode(
-            params, _as_tensor(features, device, torch.float32),
-            _as_tensor(feature_lengths, device, torch.int32))
-        return encoded, enc_lengths, self.model._cast_in(params["decoders"][self.head])
 
 
 @RECOGNIZERS.register("transducer_greedy")

@@ -18,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from nabu_tpu_torch.decoding.beam import gather_beams as _gather_beams
 from nabu_tpu_torch.decoding.ctc_beam import _top_w
 from nabu_tpu_torch.ops.masking import sequence_mask
 
@@ -100,12 +101,6 @@ def initial_carry(decoder, params: dict, batch: int, dtype, device):
     pred_vec, state = decoder.pred_step(
         params, torch.full((batch,), decoder.sos_id, dtype=torch.int32, device=device), state)
     return pred_vec, state, torch.zeros((batch,), dtype=torch.float32, device=device)
-
-
-def _gather_beams(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Reindex the beam axis (axis 1) of a [B, W, ...] tensor."""
-    idx = idx.to(torch.int64).reshape(idx.shape + (1,) * (x.dim() - 2))
-    return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
 
 
 def transducer_beam_search(

@@ -79,9 +79,9 @@ class Speller(Decoder):
     [B, T], so ``init_state`` needs ``enc_frames``). Parameters as the JAX
     tree: ``embed``, ``lstm_{i}``, ``attn_enc``, ``attn_state``,
     ``attn_v {v [A, 1]}``, ``attn_loc {conv [W, 1, F], proj}``, ``out``.
-    The step is eager PyTorch (the JAX package has no kernel here). Only
-    the one-query-per-utterance layout is ported; the beam-sharing one
-    (``attention_beam``) raises "not ported yet"."""
+    The step is eager PyTorch (the JAX package has no kernel here); its
+    attention takes one query a row of the encoder batch, or (a beam
+    search's) W queries a row over the same encoding (``_attend``)."""
 
     def __init__(self, conf: Conf, encoder_dim: int, num_labels: int):
         super().__init__(conf, encoder_dim, num_labels)
@@ -139,32 +139,39 @@ class Speller(Decoder):
 
     # -- attention -------------------------------------------------------
     def _attend(self, params, h_top, keys, encoded, enc_mask, prev_weights=None):
-        """keys = the precomputed W_enc @ encoded [B, T, A]; one query a
-        row of the encoder batch."""
-        if h_top.shape[0] != encoded.shape[0]:
-            raise NotImplementedError(
-                "beam-sharing attention (queries a multiple of the encoder batch) "
-                "not ported yet")
-        q = core.linear_apply(params["attn_state"], h_top)  # [B, A]
+        """keys = the precomputed W_enc @ encoded [Be, T, A].
+
+        Beam sharing: the query batch Bq may be W = Bq / Be times the
+        encoder batch Be (a [B, W] beam flattened to B*W hypotheses over
+        one encoding an utterance), hypothesis w of utterance b at row
+        b * W + w. encoded, keys and enc_mask stay [Be, ...], never tiled
+        W-fold; the scores and the context carry the beam on an axis of
+        their own. W = 1 is one query a row of the encoder batch."""
+        Bq, Be = h_top.shape[0], encoded.shape[0]
+        if Bq % Be:
+            raise ValueError(f"{Bq} queries are not a multiple of {Be} encodings")
+        W = Bq // Be
+        q = core.linear_apply(params["attn_state"], h_top).reshape(Be, W, -1)  # [Be, W, A]
         if self.attention == "dot":
             scale = torch.sqrt(torch.tensor(float(self.attn_dim), dtype=h_top.dtype))
-            scores = torch.einsum("bta,ba->bt", keys, q) / scale.to(h_top.device)
+            scores = torch.einsum("bta,bwa->bwt", keys, q) / scale.to(h_top.device)
         else:
-            e = keys + q[:, None, :]  # [B, T, A]
+            e = keys[:, None] + q[:, :, None, :]  # [Be, W, T, A]
             if self.attention == "location":
-                # XLA's SAME cross-correlation over the previous weights:
-                # pad (W - 1) // 2 before and W // 2 after
-                W = params["attn_loc"]["conv"].shape[0]
+                # XLA's SAME cross-correlation over each hypothesis'
+                # previous weights: pad (K - 1) // 2 before and K // 2 after
+                K = params["attn_loc"]["conv"].shape[0]
                 f = torch.nn.functional.conv1d(
                     torch.nn.functional.pad(prev_weights[:, None, :].to(e.dtype),
-                                            ((W - 1) // 2, W // 2)),
+                                            ((K - 1) // 2, K // 2)),
                     params["attn_loc"]["conv"].to(e.dtype).permute(2, 1, 0),
-                ).transpose(1, 2)  # [B, T, F]
-                e = e + core.linear_apply(params["attn_loc"]["proj"], f)
-            scores = (torch.tanh(e) @ params["attn_v"]["v"])[..., 0]  # [B, T]
-        weights = torch.softmax(mask_logits(scores, enc_mask), dim=-1)
-        context = torch.einsum("bt,btd->bd", weights, encoded)
-        return context, weights
+                ).transpose(1, 2)  # [Bq, T, F]
+                loc = core.linear_apply(params["attn_loc"]["proj"], f)  # [Bq, T, A]
+                e = e + loc.reshape(Be, W, *loc.shape[1:])
+            scores = (torch.tanh(e) @ params["attn_v"]["v"])[..., 0]  # [Be, W, T]
+        weights = torch.softmax(mask_logits(scores, enc_mask[:, None, :]), dim=-1)
+        context = torch.einsum("bwt,btd->bwd", weights, encoded)
+        return context.reshape(Bq, -1), weights.reshape(Bq, -1)
 
     def precompute(self, params, encoded):
         """Step-invariant attention keys (W_enc @ encoded), computed once

@@ -2,12 +2,14 @@
 
 Each line's schema at a tiny width (2 layers x 8 units, B = 2, T = 20, 2
 steps, the plain kernels), and its first step's loss against the JAX
-bench's ``build_model_and_loss("dblstm")`` (4 x 320) or
+bench's ``build_model_and_loss("dblstm")`` (4 x 320),
 ``build_model_and_loss(..., "rnnt")`` (a 2 x 320 Listener and the
-transducer head), the Pallas kernels in interpret mode on the CPU, on the
-same numpy batch and the same weights, carried across by
-``params.from_jax_params``, in f32 within rtol 1e-5. No check reads a
-time.
+transducer head) or ``build_model_and_loss(..., "las")`` (a 4 x 512
+Listener, the 2 x 512 Speller and the CTC head; scheduled sampling off on
+both sides, since the port draws from a torch generator and JAX from its
+key), the Pallas kernels in interpret mode on the CPU, on the same numpy
+batch and the same weights, carried across by ``params.from_jax_params``,
+in f32 within rtol 1e-5. No check reads a time.
 """
 
 import json
@@ -109,8 +111,8 @@ def test_main_takes_the_model(capsys):
                        "--steps", "1", "--warmup", "0", "--repeats", "1"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1 and json.loads(out[0])["model"].startswith("rnnt: listener 2x320")
-    with pytest.raises(SystemExit):
-        bench.main(["--model", "las", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # a model of the JAX bench the port has no line for
+        bench.main(["--model", "conformer", "--device", "cpu"])
 
 
 def test_rnnt_first_step_loss_matches_the_jax_bench():
@@ -162,3 +164,69 @@ def test_main_decode_mode_prints_one_json_line(capsys):
     line = json.loads(out[0])
     assert line["metric"] == "ctc_beam_decode_rtf" and line["beam_width_realized"] == 2
     assert line["decodes_per_repeat"] == 2 and line["model"].startswith("dblstm 4x320")
+
+
+def test_las_line_schema_at_a_tiny_width():
+    """``--model las`` at a tiny width (a Listener of 4 x 8 units, the 2 x
+    8 Speller, the CTC head): the same schema, the plain versions on the
+    CPU."""
+    before = kernels.launch_counts()
+    line = bench.train_line(batch=2, frames=20, steps=2, warmup=1, repeats=1, device="cpu",
+                            num_units=8, labels=5, model_name="las")
+    assert kernels.launch_counts() == before
+    assert set(line) == KEYS and line["launches"] == {}
+    assert line["model"] == ("las: listener 4x8 + speller 2x8 bahdanau, linear_ctc; "
+                             "0.7 cross_entropy + 0.3 ctc loss")
+    assert math.isfinite(line["first_loss"]) and math.isfinite(line["last_loss"])
+    json.loads(json.dumps(line))
+
+
+def test_las_first_step_loss_matches_the_jax_bench(monkeypatch):
+    """The JAX bench's ``las`` line and the port's on the same batch and
+    weights, in f32, with scheduled sampling off in both (the two packages
+    draw their samples from different generators)."""
+    B, T, L = 2, 20, 5
+    model, loss_fn = jbench.build_model_and_loss(True, True, "float32", "las")
+    model.decoders["att"].sample_prob = 0.0
+    params = model.init(jax.random.PRNGKey(0))
+    batch = jbench.make_batch(B, T, 80, L, np.random.default_rng(0))
+    want, _ = loss_fn(params, {k: jnp.asarray(v) for k, v in batch.items()},
+                      jax.random.PRNGKey(0), True)
+    build = bench.build_model_and_loss
+
+    def no_sampling(*args, **kwargs):
+        net, fn = build(*args, **kwargs)
+        assert net.decoders["att"].sample_prob == 0.1  # the line's own
+        net.decoders["att"].sample_prob = 0.0
+        return net, fn
+
+    monkeypatch.setattr(bench, "build_model_and_loss", no_sampling)
+    line = bench.train_line(batch=B, frames=T, steps=1, warmup=0, repeats=1, device="cpu",
+                            bf16=False, labels=L, params=from_jax_params(_flat_jax(params)),
+                            model_name="las")
+    assert line["model"].startswith("las: listener 4x512 + speller 2x512")
+    np.testing.assert_allclose(line["first_loss"], float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("head", ["att", "ctc", "joint"])
+def test_las_decode_lines_keep_the_jax_schema(head):
+    """``--model las --mode decode --head att|ctc|joint`` at a tiny width
+    (4 x 8 units, B = 2, T = 48, beam 3): each head's metric, the JAX
+    line's keys, the realized width the requested one."""
+    line = bench.decode_line(batch=2, frames=48, steps=4, repeats=1, beam_width=3,
+                             device="cpu", num_units=8, model_name="las", head=head)
+    assert JAX_DECODE_KEYS <= set(line)
+    assert line["metric"] == {"att": "attention_beam_decode_rtf", "ctc": "ctc_beam_decode_rtf",
+                              "joint": "joint_ctc_att_beam_decode_rtf"}[head]
+    assert line["beam_width_realized"] == 3 and line["value"] > 0
+    assert line["device"] == "cpu" and line["launches"] == {}
+    json.loads(json.dumps(line))
+
+
+def test_main_decode_takes_the_head(capsys):
+    assert bench.main(["--mode", "decode", "--model", "las", "--head", "joint", "--device",
+                       "cpu", "--batch", "1", "--frames", "32", "--steps", "4", "--repeats",
+                       "1", "--beam_width", "2", "--no-bf16"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == "joint_ctc_att_beam_decode_rtf" and line["beam_width_realized"] == 2
+    assert line["model"].startswith("las: listener 4x512")

@@ -1936,6 +1936,61 @@ def test_speller_loss_and_gradients_on_card_match_cpu(cuda_device, tmp_path):
                                    err_msg=k)
 
 
+_JOINT_CFG = (
+    "[model]\ndecoders = att ctc\n"
+    "[encoder]\nencoder = listener\nnum_layers = 1\nnum_units = 12\nuse_pallas = true\n"
+    "[att]\ndecoder = speller\nnum_layers = 2\nnum_units = 10\nembed_dim = 6\n"
+    "attention = {attention}\nlocation_width = 5\nlocation_filters = 3\n"
+    "[ctc]\ndecoder = linear_ctc\nloss = ctc\n")
+
+
+def _float64_search(tmp_path, attention, conf):
+    """A recognizer of a tiny two-head model (Listener output 24 wide, a
+    2 x 10 Speller, a CTC head, 5 labels) and its search over one seeded
+    encoder output, in float64 on a device: -> search(device)."""
+    from nabu_tpu_torch.config import Conf, ConfigFile
+    from nabu_tpu_torch.decoding.recognizers import build_recognizer
+    from nabu_tpu_torch.models.model import build_model
+
+    path = tmp_path / "model.cfg"
+    path.write_text(_JOINT_CFG.format(attention=attention))
+    model = build_model(ConfigFile.read(str(path)), 6, 5)
+    params = model.init(torch.Generator().manual_seed(3))["decoders"]
+    rec = build_recognizer(Conf(conf, "recognizer"), model)
+    rng = np.random.default_rng(31)
+    enc = torch.as_tensor(rng.standard_normal((3, 21, 24)))
+    lengths = torch.as_tensor([21, 14, 3], dtype=torch.int32)
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev, torch.float64)
+
+    def search(dev):
+        heads = to(params, dev)
+        head_params = heads[rec.head] if not hasattr(rec, "ctc_head") else heads
+        return [x.cpu() for x in rec.search(head_params, enc.to(dev), lengths.to(dev))]
+
+    return search
+
+
+@pytest.mark.parametrize("attention", ["location", "bahdanau", "dot"])
+@pytest.mark.parametrize("recognizer", ["attention_beam", "joint_ctc_att_beam"])
+def test_attention_beams_on_card_match_cpu_in_float64(cuda_device, tmp_path, attention,
+                                                      recognizer):
+    """The attention beam and the joint CTC/attention beam (beam 6 over 3
+    utterances, 21 frames, length norm 1) on the card against the same
+    search on the CPU, both in float64: ids and lengths identical, scores
+    within 1e-6 (as chip_smoke's serve checks)."""
+    search = _float64_search(tmp_path, attention, {
+        "recognizer": recognizer, "beam_width": "6", "length_norm_power": "1.0",
+        "att_head": "att", "ctc_head": "ctc", "ctc_weight": "0.3"})
+    got, want = search(cuda_device), search(torch.device("cpu"))
+    assert got[2].dtype == torch.float64 and got[0].shape == (3, 6, 21)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), rtol=0, atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # the bf16 GEMM of csrc/blstm.cu (TMA + wgmma, split-K for kind 2)
 # ---------------------------------------------------------------------------

@@ -128,13 +128,19 @@ def test_speller_step_matches_jax(tmp_path, attention):
 
 
 def test_speller_beam_sharing_layout_not_ported(tmp_path):
+    """The beam-sharing layout is ported now: 4 queries over 2 encodings
+    (2 hypotheses an utterance) step to the logits of the one-query layout
+    over the encoding repeated per hypothesis."""
     _, tm, params = _models(tmp_path)
     tdec = tm.decoders["decoder"]
-    enc = torch.zeros((2, 7, 24))
-    state = tdec.init_state(4, enc_frames=7)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tdec.step(to_torch_tree(params["decoders"]["decoder"]), torch.zeros(4, dtype=torch.long),
-                  state, enc, torch.ones((2, 7), dtype=torch.bool))
+    tp = to_torch_tree(params["decoders"]["decoder"])
+    enc, elen = (torch.from_numpy(x) for x in _encoded(2, B=2))
+    mask = sequence_mask(elen, 7)
+    ids = torch.tensor([LABELS, 1, 3, 0])
+    shared, _ = tdec.step(tp, ids, tdec.init_state(4, enc_frames=7), enc, mask)
+    tiled, _ = tdec.step(tp, ids, tdec.init_state(4, enc_frames=7),
+                         torch.repeat_interleave(enc, 2, 0), torch.repeat_interleave(mask, 2, 0))
+    np.testing.assert_allclose(shared.numpy(), tiled.numpy(), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
