@@ -34,7 +34,7 @@ Phases, each printing JSON lines:
               run and no loss kernel; one batch's n-best on the card must
               equal the same search on the CPU over the same encoder
               output (both in float64; the bf16 agreement is reported);
-6. train    — a synthesized character corpus (512 utterances of 2-10 s,
+6. train    — a synthesized character corpus (256 utterances of 2-10 s,
               the recipe's 28 symbols at ~12 a second) goes through
               ``cli data`` and ``cli train`` with the dblstm_ctc_wsj
               recipe, unchanged but for its datafiles and 40 steps: the
@@ -63,7 +63,7 @@ Phases, each printing JSON lines:
               forward, which runs through the LSTM kernels);
 9. serve_stream — a full-width rnnt_streaming_wsj artifact (4x320
               forward-only LSTM encoder, the 1x320 transducer head, bf16,
-              seeded random weights) serves 64 utterances through
+              seeded random weights) serves 32 utterances through
               ``serving.serve`` with the recipe's transducer_streaming
               recognizer at batch 32 (chunks of 32 frames): only the
               frontend and LSTM forward kernels may run; the same batches
@@ -80,7 +80,7 @@ Phases, each printing JSON lines:
               train_rnnt's ``cli data`` prepared (checked section by
               section);
 11. train_las — ``cli data`` (with the recipe's 3-way speed perturbation,
-              from a third of the corpus: 171 utterances, 513 after
+              from half of the corpus: 128 utterances, 384 after
               perturbation) and 40 steps of ``cli train`` of las_large_wsj
               (5 BLSTM layers of 512 units through the v1 kernels, the
               location-attention Speller, label-smoothed cross-entropy,
@@ -105,7 +105,7 @@ Phases, each printing JSON lines:
 14. serve_las — (run after serve_stream) a full-width las_large_wsj
               artifact (5 BLSTM layers of 512 units, time / 16, the 2 x 512
               location-attention Speller, bf16, seeded random weights)
-              serves 64 utterances of 1-15 s with the recipe's
+              serves 32 utterances of 1-15 s with the recipe's
               attention_beam (beam 16, nbest 8) at batch 32: only the
               frontend and the v2 inference kernels may launch; RTF and
               peak memory; the longest batch's search alone (decode steps,
@@ -130,7 +130,31 @@ Phases, each printing JSON lines:
 17. bench_las — the bench's las line (``--model las``: a 4 x 512 Listener,
               the 2 x 512 Speller and the CTC head at B = 32, T = 1000; its
               launches 5 v2 layers and the CTC loss a step), then its
-              ``att`` and ``joint`` decode lines at beam 8.
+              ``att`` and ``joint`` decode lines at beam 8;
+18. serve_conformer_aed — (run after serve_joint) a full-width
+              conformer_aed_wsj artifact (8 conformer blocks of 256 units,
+              time / 4, the 4 x 256 transformer decoder and the CTC head,
+              bf16, seeded random weights) serves 32 utterances with the
+              recipe's joint_ctc_att_beam (beam 16, ctc_weight 0.3): only
+              the frontend kernel may launch; serve_joint's readings, and
+              the decoder's: one step at B x W = 512, the KV caches' beam
+              gather a step, and the cached step chain against the
+              parallel apply (bf16 and f32) with a planted fault, each
+              step's K / V written one slot late;
+19. train_conformer_rnnt — (run after train_joint) 20 steps of ``cli
+              train`` of conformer_rnnt_wsj (8 conformer blocks of 256
+              units, the 1 x 320 prediction LSTM, the 320-wide joint, B =
+              32) on a copy of the train phase's prepared data, the same
+              checks (the launches the prediction net's LSTM walk, chain
+              and dwh and each RNN-T kernel once a step; the loss of one
+              fixed batch before and after; the gradient check's fault:
+              each lane's last frame out of dpred), then ``cli test``
+              (transducer_greedy) over the dev split;
+20. bench_conformer_rnnt, 21. bench_moe_conformer — the bench's
+              ``conformer_rnnt`` and ``moe_conformer`` lines (B = 32, T =
+              1000, L = 100), their launches checked, and each encoder's
+              forward FLOPs and a training step's bound (3 x, at the bf16
+              tensor-core rate).
 
 The kernels phase also holds the four RNN-T kernels (joint forward,
 alpha, beta, joint backward) to their plain versions at B = 32, T' = 250,
@@ -239,6 +263,8 @@ RNNT_RECIPE = os.path.join(REPO, "config", "recipes", "rnnt_char_wsj")
 STREAM_RECIPE = os.path.join(REPO, "config", "recipes", "rnnt_streaming_wsj")
 LAS_RECIPE = os.path.join(REPO, "config", "recipes", "las_large_wsj")
 JOINT_RECIPE = os.path.join(REPO, "config", "recipes", "joint_ctc_att_multihost")
+CONFORMER_RNNT_RECIPE = os.path.join(REPO, "config", "recipes", "conformer_rnnt_wsj")
+CONFORMER_AED_RECIPE = os.path.join(REPO, "config", "recipes", "conformer_aed_wsj")
 
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and
 # f32 non-tensor FLOP/s
@@ -359,6 +385,11 @@ TOL = {
     "train_loss": (1e-2, 1e-3),
     "train_grads": 0.02,
     "train_grads_speller": 0.1,
+    # the transformer decoder's cached step chain against its parallel
+    # apply: max |step - apply| over max |apply|, bf16 (the served dtype)
+    # and f32
+    "aed_cache_bf16": 5e-2,
+    "aed_cache_f32": 1e-4,
     ("lstm_proj", "bf16"): (1e-2, 1e-2),
     ("lstm_proj", "f32"): (1e-4, 1e-5),
     ("lstm_fwd", "bf16"): (1e-2, 0.0),
@@ -454,6 +485,14 @@ STEP_LAUNCHES = {
     "train_joint": {"blstm_proj": 4, "blstm_v1_recur_train": 4, "blstm_v1_bwd_gates": 4,
                     "blstm_v1_bwd_recur": 4, "blstm_v1_bwd_dwh": 4, "blstm_bwd_dx": 3,
                     "blstm_bwd_dwx": 4, "ctc_alpha": 1, "ctc_beta": 1},
+    # conformer_rnnt_wsj: the attention encoder launches nothing; the
+    # prediction net's LSTM walk, chain and dwh and one of each RNN-T kernel
+    "train_conformer_rnnt": {"lstm_fwd_train": 1, "lstm_bwd_recur": 1, "lstm_bwd_dwh": 1,
+                             **_RNNT_STEP},
+    "bench_conformer_rnnt": {"lstm_fwd_train": 1, "lstm_bwd_recur": 1, "lstm_bwd_dwh": 1,
+                             **_RNNT_STEP},
+    # the bench's moe_conformer line: the CTC loss only
+    "bench_moe_conformer": {"ctc_alpha": 1, "ctc_beta": 1},
     # the bench's las line: 5 Listener layers (bottom + 4 pyramid) of 512
     # units at B = 32 on v2, and the CTC head's loss
     "bench_las": {"blstm_proj": 5, "blstm_recur_train": 5, "blstm_bwd_recur": 5,
@@ -470,19 +509,31 @@ PIPELINE_KERNELS = {"test": DECODE_KERNELS, "decode": DECODE_KERNELS,
 # utterances of the dev split that cli serve and cli recognize decode
 PIPELINE_UTTS = 8
 TRAIN_RECIPES = {"train": RECIPE, "train_rnnt": RNNT_RECIPE, "train_rnnt_stream": STREAM_RECIPE,
-                 "train_las": LAS_RECIPE, "train_joint": JOINT_RECIPE}
-# the attention serve phases: (recipe, seed, recognizer, Listener layers);
-# each recipe's recognizer.cfg has beam 16, nbest 8
-ATT_SERVE = {"serve_las": (LAS_RECIPE, 11, "AttentionBeamRecognizer", 5),
-             "serve_joint": (JOINT_RECIPE, 13, "JointCTCAttBeamRecognizer", 4)}
+                 "train_las": LAS_RECIPE, "train_joint": JOINT_RECIPE,
+                 "train_conformer_rnnt": CONFORMER_RNNT_RECIPE}
+# the attention serve phases: (recipe, seed, recognizer, the kernels'
+# launches a served batch, utterances); each recipe's recognizer.cfg has
+# beam 16, nbest 8; the conformer's serving launches only the frontend
+_V2 = {"stft_mel": 1, "blstm_proj": 1, "blstm_recur": 1}
+ATT_SERVE = {
+    "serve_las": (LAS_RECIPE, 11, "AttentionBeamRecognizer", {**_V2, "blstm_proj": 5,
+                                                              "blstm_recur": 5}, 32),
+    "serve_joint": (JOINT_RECIPE, 13, "JointCTCAttBeamRecognizer", {**_V2, "blstm_proj": 4,
+                                                                    "blstm_recur": 4}, 32),
+    "serve_conformer_aed": (CONFORMER_AED_RECIPE, 17, "JointCTCAttBeamRecognizer",
+                            {"stft_mel": 1}, 32),
+}
 # the shortest served utterances whose search runs on the card and the CPU
 ATT_CHECK_UTTS = 8
 TRAIN_STEPS = 40
-# phases of another length: train_joint's 20 steps
-PHASE_STEPS = {"train_joint": 20}
-TRAIN_UTTS = 512
-# las_large: a third of the corpus, x3 after its speed perturbation
-LAS_TRAIN_UTTS = 171
+# phases of another length: train_joint's and train_conformer_rnnt's 20 steps
+PHASE_STEPS = {"train_joint": 20, "train_conformer_rnnt": 20}
+TRAIN_UTTS = 256
+# the utterances serve_stream serves
+STREAM_UTTS = 32
+# las_large: the first 128 utterances of the corpus, x3 after its speed
+# perturbation
+LAS_TRAIN_UTTS = 128
 # the v1 kernel rows: las_large's Listener at B = 64, H = 512, bottom layer
 # and pyramid_0 (T, D)
 V1_B, V1_H = 64, 512
@@ -3355,19 +3406,64 @@ def search_steps(no_sync: bool = False):
         beam._all_finished = joint._all_finished = saved
 
 
+def kv_one_slot_late(decoder):
+    """Planted KV-cache fault of the transformer decoder: each step writes
+    its K / V one slot late (slot pos + 1, the last slot past the cap),
+    where its own query cannot see them, and reads a zero slot 0 instead.
+    A context manager over the decoder instance's ``cache_slot``."""
+    import torch
+
+    @contextlib.contextmanager
+    def planted():
+        decoder.cache_slot = lambda pos, cap: torch.clamp(pos + 1, max=cap - 1).to(torch.int64)
+        try:
+            yield
+        finally:
+            del decoder.cache_slot
+
+    return planted()
+
+
+def cache_check(torch, dec, head, encoded, enc_lengths, targets) -> float:
+    """The decoder's cached ``step`` chain, teacher-forced over [<sos>;
+    targets], against one parallel ``apply`` on the same inputs: max |step
+    - apply| over max |apply| of the logits."""
+    B, L = targets.shape
+    lengths = torch.full((B,), L, dtype=torch.int32, device=encoded.device)
+    with torch.no_grad():
+        par, _ = dec.apply(head, encoded, enc_lengths, targets, lengths)
+        state = dec.init_state(B, encoded.dtype, enc_frames=encoded.shape[1],
+                               device=encoded.device)
+        mask = enc_lengths[:, None] > torch.arange(encoded.shape[1], device=encoded.device)
+        keys = dec.precompute(head, encoded)
+        inputs = torch.cat([torch.full((B, 1), dec.sos_id, device=encoded.device,
+                                       dtype=torch.int64), targets.long()], dim=1)
+        steps = []
+        for t in range(L + 1):
+            logits, state = dec.step(head, inputs[:, t], state, encoded, mask, keys=keys)
+            steps.append(logits)
+    par = par.float()
+    return float((torch.stack(steps, 1).float() - par).abs().max() / par.abs().max())
+
+
 def phase_serve_att(torch, smi: str, phase: str) -> dict:
-    """A full-width las_large_wsj (``serve_las``) or joint_ctc_att_multihost
-    (``serve_joint``) artifact, seeded random weights, serves 64 synthesized
-    utterances of 1-15 s through ``serving.serve`` at batch 32 with the
+    """A full-width las_large_wsj (``serve_las``), joint_ctc_att_multihost
+    (``serve_joint``) or conformer_aed_wsj (``serve_conformer_aed``)
+    artifact, seeded random weights, serves synthesized utterances of 1-15
+    s (ATT_SERVE: 64, 64, 32) through ``serving.serve`` at batch 32 with the
     recipe's recognizer (attention_beam, or joint_ctc_att_beam with
-    ctc_weight 0.3; beam 16, nbest 8): only the frontend and the v2
-    inference kernels may launch. Then the longest batch's search alone:
-    its steps, ms a step, the cost of the host sync a step (the same steps
-    without it) and (joint) the CTC prefix scan's share; then the
+    ctc_weight 0.3; beam 16, nbest 8): the kernels of ATT_SERVE must launch
+    so many times a batch and no other. Then the longest batch's search
+    alone: its steps, ms a step, the cost of the host sync a step (the same
+    steps without it) and (joint) the CTC prefix scan's share; then the
     ATT_CHECK_UTTS shortest utterances' search on the card's encoder output
     on the card and on the CPU, in float64 (n-best identical, scores within
-    TOL["rnnt_scores"]; the bf16 agreement is reported), and (joint) one
-    batch of attention_rescoring."""
+    TOL["rnnt_scores"]; the bf16 agreement is reported), (joint) one batch
+    of attention_rescoring, and (conformer_aed) the transformer decoder's
+    readings: one decoder step at B x W = 512 hypotheses, the KV caches'
+    beam gather a step, and the cache check (``cache_check`` over 101
+    teacher-forced steps of the longest utterances, bf16 and f32, and the
+    planted ``kv_one_slot_late``, which the tolerance must reject)."""
     from nabu_tpu_torch.config import Conf
     from nabu_tpu_torch.data import audio_io
     from nabu_tpu_torch.decoding import joint
@@ -3375,12 +3471,12 @@ def phase_serve_att(torch, smi: str, phase: str) -> dict:
     from nabu_tpu_torch.ops import kernels
     from nabu_tpu_torch.serving import load_exported, serve
 
-    recipe, seed, rec_name, layers = ATT_SERVE[phase]
+    recipe, seed, rec_name, per_batch, utts = ATT_SERVE[phase]
     rng = np.random.default_rng(seed)
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as tmp:
         art = os.path.join(tmp, "export")
         manifest = write_artifact(art, seed=seed + 1, recipe=recipe)
-        lines, audio_seconds = synth_requests(tmp, rng)
+        lines, audio_seconds = synth_requests(tmp, rng, utts)
         model = load_exported(art, batch_size=B)
         rec = model.recognizer
         check(model.device.type == "cuda", f"{phase}: model not on the card")
@@ -3402,19 +3498,19 @@ def phase_serve_att(torch, smi: str, phase: str) -> dict:
         launches = kernels.launch_counts()
         gemm_variants(phase)
         texts = out.getvalue().splitlines()
-        check(served == 64 and len(texts) == 64, f"{phase}: {served} served, {len(texts)} lines")
+        check(served == utts and len(texts) == utts,
+              f"{phase}: {served} served, {len(texts)} lines")
         alphabet = set(model.text_proc.alphabet) | {" "}
         for line, want in zip(texts, lines):
             utt = want.split()[0]
             check(line.split(" ", 1)[0] == utt, f"{phase}: line {line!r} is not for {utt}")
             check(set(line[len(utt):].replace("<space>", " ")) <= alphabet,
                   f"{phase}: unexpected symbols in {line!r}")
-        batches = (64 + B - 1) // B
-        ran = {k for k, v in launches.items() if v}
-        check(ran == set(SERVE_KERNELS),
-              f"{phase}: launched {ran}, want each of {SERVE_KERNELS} and no other")
-        check(launches["stft_mel"] == batches and launches["blstm_recur"] == layers * batches,
-              f"{phase}: launches {launches} for {batches} batches of {layers} layers")
+        batches = (utts + B - 1) // B
+        ran = {k: v for k, v in launches.items() if v}
+        want_launches = {k: n * batches for k, n in per_batch.items()}
+        check(ran == want_launches,
+              f"{phase}: launched {ran}, want {want_launches} for {batches} batches")
         nonempty = sum(1 for t in texts if t.split(" ", 1)[1:] and t.split(" ", 1)[1].strip())
         emit({"phase": phase, "recipe": os.path.relpath(recipe, REPO),
               "recognizer": rec_name, "utterances": served, "audio_seconds": audio_seconds,
@@ -3455,7 +3551,7 @@ def phase_serve_att(torch, smi: str, phase: str) -> dict:
                   # the same steps give the same beams (seqs cut to the steps run)
                   "no_sync_identical": all(torch.equal(a[..., :n] if a.dim() == 3 else a, c)
                                            for a, c in zip(synced, unsynced))}
-        if phase == "serve_joint":
+        if rec_name == "JointCTCAttBeamRecognizer":
             scan = []
             extend = joint._ctc_extend
 
@@ -3475,6 +3571,11 @@ def phase_serve_att(torch, smi: str, phase: str) -> dict:
             search.update(scan_s=sum(scan), scan_share=sum(scan) / t_all,
                           scan_ms_per_step=1e3 * sum(scan) / len(scan),
                           scan_us_per_frame=1e6 * sum(scan) / len(scan) / encoded.shape[1])
+        result = {"launches": launches}
+        if phase == "serve_conformer_aed":
+            result["decoder"] = aed_decoder_readings(torch, rec, head, encoded, enc_lengths, n,
+                                                     rng)
+            search.update(result["decoder"])
         emit({"phase": f"{phase}_search", **search, "card": smi})
 
         # the shortest utterances: the search on the card against the same
@@ -3502,7 +3603,6 @@ def phase_serve_att(torch, smi: str, phase: str) -> dict:
         check(same == ATT_CHECK_UTTS,
               f"{phase}: card and CPU n-best differ on {ATT_CHECK_UTTS - same}/{ATT_CHECK_UTTS}")
         check(score_err <= TOL["rnnt_scores"], f"{phase}: n-best scores differ by {score_err}")
-        result = {"launches": launches}
 
         if phase == "serve_joint":
             # one batch (the 32 shortest) of the two-pass recognizer
@@ -3517,6 +3617,7 @@ def phase_serve_att(torch, smi: str, phase: str) -> dict:
             nb = resc(model.params, feats, flens)
             t_resc = time.perf_counter() - t0
             resc_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+            layers = per_batch["blstm_recur"]
             check(resc_launches == {"blstm_proj": layers, "blstm_recur": layers},
                   f"{phase} rescoring: launched {resc_launches}")
             check(nb.ids.shape[:2] == (B, 8) and bool(np.isfinite(nb.scores[:, 0]).all()),
@@ -3530,9 +3631,55 @@ def phase_serve_att(torch, smi: str, phase: str) -> dict:
     return result
 
 
+def aed_decoder_readings(torch, rec, head, encoded, enc_lengths, steps: int, rng) -> dict:
+    """The transformer decoder's readings on the longest batch's encoder
+    output (B x W = 512 hypotheses): one ``decoder_step`` (the beam's
+    decoder call, the cache writes included), the KV caches' beam gather a
+    step (``gather_beams`` over every state leaf, as the searches do),
+    and the cache check in bf16 and f32 with its planted fault (the
+    8 longest utterances, 100 random labels, cap T_enc)."""
+    from nabu_tpu_torch.decoding import beam
+    from nabu_tpu_torch.ops.masking import sequence_mask
+
+    dec = rec.decoder
+    att = head[rec.head]
+    W = rec.beam_width
+    Be, T, _ = encoded.shape
+    s = beam.initial_beam(dec, encoded, W, steps, torch.float32)
+    mask = sequence_mask(enc_lengths, T)
+    keys = dec.precompute(att, encoded)
+    step_ms = time_ms(torch, lambda: beam.decoder_step(dec, att, s, encoded, mask, keys), 10)
+    parent = torch.as_tensor(rng.integers(0, W, (Be, W)), device=encoded.device)
+    gather_ms = time_ms(torch, lambda: beam.tree_map(lambda x: beam.gather_beams(x, parent),
+                                                     s["state"]), 10)
+    cache_bytes = sum(x.numel() * x.element_size() for x in s["state"].values())
+
+    order = torch.argsort(enc_lengths, descending=True)[:ATT_CHECK_UTTS]
+    enc8, len8 = encoded[order], enc_lengths[order]
+    L = min(100, int(len8.min()) - 1)
+    targets = torch.as_tensor(rng.integers(0, dec.num_labels, (ATT_CHECK_UTTS, L)),
+                              device=encoded.device)
+    bf16 = cache_check(torch, dec, att, enc8, len8, targets)
+    f32 = cache_check(torch, dec, tree_to(att, encoded.device, torch.float32),
+                      enc8.float(), len8, targets)
+    with kv_one_slot_late(dec):
+        fault = cache_check(torch, dec, att, enc8, len8, targets)
+    if bf16 > TOL["aed_cache_bf16"] or f32 > TOL["aed_cache_f32"]:
+        FAILURES.append(f"serve_conformer_aed: cached step vs apply {bf16} (bf16), {f32} (f32) "
+                        f"beyond {TOL['aed_cache_bf16']}, {TOL['aed_cache_f32']}")
+    if not fault > TOL["aed_cache_bf16"]:
+        FAILURES.append(f"serve_conformer_aed: the planted KV fault ({fault}) passes the "
+                        "tolerance")
+    return {"decoder_step_ms": step_ms, "kv_gather_ms_per_step": gather_ms,
+            "kv_state_bytes": cache_bytes, "cache_check_steps": L + 1,
+            "cache_step_vs_apply_bf16": bf16, "cache_step_vs_apply_f32": f32,
+            "cache_tol_bf16": TOL["aed_cache_bf16"], "cache_tol_f32": TOL["aed_cache_f32"],
+            "fault_kv_one_slot_late": fault}
+
+
 def phase_serve_stream(torch, smi: str) -> dict:
     """A full-width rnnt_streaming_wsj artifact (seeded random weights)
-    serves 64 synthesized utterances of 1-15 s through ``serving.serve`` at
+    serves STREAM_UTTS (32) synthesized utterances of 1-15 s through ``serving.serve`` at
     batch 32 with the recipe's transducer_streaming recognizer (chunks of
     32 frames, 4 symbols a frame): only the frontend and the LSTM forward
     kernels may run. The same batches through transducer_greedy must give
@@ -3559,7 +3706,7 @@ def phase_serve_stream(torch, smi: str) -> dict:
         art = os.path.join(tmp, "export")
         manifest = write_artifact(art, seed=12, recipe=STREAM_RECIPE)
         lines, seconds = [], []
-        for i, sec in enumerate(np.sort(rng.uniform(1.0, 15.0, 64))):
+        for i, sec in enumerate(np.sort(rng.uniform(1.0, 15.0, STREAM_UTTS))):
             sig = synth_utterance(rng, float(sec))
             path = os.path.join(tmp, f"utt{i:03d}.wav")
             audio_io.write_wav(path, sig, 16000)
@@ -3586,7 +3733,7 @@ def phase_serve_stream(torch, smi: str) -> dict:
         launches = kernels.launch_counts()
         gemm_variants("serve_stream")
         texts = out.getvalue().splitlines()
-        check(served == 64 and len(texts) == 64,
+        check(served == STREAM_UTTS and len(texts) == STREAM_UTTS,
               f"serve_stream: {served} served, {len(texts)} lines")
         alphabet = set(model.text_proc.alphabet) | {" "}
         for line, want in zip(texts, lines):
@@ -3601,7 +3748,7 @@ def phase_serve_stream(torch, smi: str) -> dict:
             Conf({"recognizer": "transducer_greedy", "max_symbols": "4"}, "recognizer"),
             model.model)
         same, score_err, t_stream, t_greedy, frames = 0, 0.0, 0.0, 0.0, []
-        for start in range(0, 64, B):
+        for start in range(0, STREAM_UTTS, B):
             sigs = [audio_io.load_audio(line.split()[1])[0] for line in lines[start:start + B]]
             feats, flens = model.device_fe.batch_features(sigs, 16000.0, B, model.T_BUCKET)
             frames.append(int(feats.shape[1]))
@@ -3639,7 +3786,7 @@ def phase_serve_stream(torch, smi: str) -> dict:
 
         # serve(streaming=True) on a few utterances; FINAL against the
         # batch-32 offline greedy text of the same host features
-        picks = lines[::16]
+        picks = lines[::STREAM_UTTS // 4]
         kernels.reset_launch_counts()
         sout = io.StringIO()
         n = serve(art, in_stream=io.StringIO("\n".join(picks) + "\n"), out_stream=sout,
@@ -3704,7 +3851,8 @@ def phase_serve_stream(torch, smi: str) -> dict:
             "batch_size": B, "card": smi, "manifest": manifest,
         }
         emit(result)
-        check(same == 64, f"serve_stream: streamed ids differ from greedy on {64 - same}/64")
+        check(same == STREAM_UTTS,
+              f"serve_stream: streamed ids differ from greedy on {STREAM_UTTS - same}/{STREAM_UTTS}")
         check(score_err <= TOL["stream_scores"],
               f"serve_stream: streamed and greedy scores differ by {score_err}")
         check(agree32 == len(picks),
@@ -3776,7 +3924,8 @@ def step_timers(torch, record: dict):
     forward (Model.apply_train; inside it a transducer head's prediction
     net, TransducerDecoder._pred_sequence), forward + loss (Trainer._loss), backward
     (Trainer._backward) and optimizer (Trainer._apply_grads), inside the
-    forward a Listener's and a Speller's shares (their ``apply``), and the
+    forward a Listener's, a Speller's and an attention encoder's shares
+    (their ``apply``), and the
     synchronized clock at each step's end (``step_end``: the window
     between two such readings holds everything the loop does, loader,
     copy to the device and logging included). Also keeps each step's loss
@@ -3784,7 +3933,7 @@ def step_timers(torch, record: dict):
     of them before the first update and the longest batch, and CUDA events around each ``lstm_bwd_dwh`` launch
     (inside the backward; no synchronization) with its step."""
     from nabu_tpu_torch.models.decoders import Speller
-    from nabu_tpu_torch.models.encoders import Listener
+    from nabu_tpu_torch.models.encoders import Listener, TransformerEncoder
     from nabu_tpu_torch.models.model import Model
     from nabu_tpu_torch.models.transducer import TransducerDecoder
     from nabu_tpu_torch.ops import lstm as lstm_ops
@@ -3806,6 +3955,7 @@ def step_timers(torch, record: dict):
              (Trainer, "_apply_grads"): Trainer._apply_grads,
              (TransducerDecoder, "_pred_sequence"): TransducerDecoder._pred_sequence,
              (Listener, "apply"): Listener.apply, (Speller, "apply"): Speller.apply,
+             (TransformerEncoder, "apply"): TransformerEncoder.apply,
              (lstm_ops, "lstm_bwd_dwh"): lstm_ops.lstm_bwd_dwh}
     fwd = timed("forward", saved[(Model, "apply_train")])
     loss = timed("forward_loss", saved[(Trainer, "_loss")])
@@ -3854,6 +4004,7 @@ def step_timers(torch, record: dict):
                                                                "_pred_sequence")])
     Listener.apply = timed("listener", saved[(Listener, "apply")])
     Speller.apply = timed("speller", saved[(Speller, "apply")])
+    TransformerEncoder.apply = timed("attention_encoder", saved[(TransformerEncoder, "apply")])
     Trainer._loss = _loss
     Trainer._backward = timed("backward", saved[(Trainer, "_backward")])
     Trainer._apply_grads = _apply_grads
@@ -3872,8 +4023,10 @@ def gradient_check(torch, trainer, params, batch, phase: str):
     out of the sum over directions (and, reported, the backward chain's
     barrier not waiting: every dgates exchange one step stale); for the
     RNN-T recipe each lane's last frame left out of the prediction
-    projection's gradient; for the streaming recipe the LSTM layers' dwh
-    paired with h one step late; for the LAS recipe the v1 layers' dwh
+    projection's gradient; for the streaming recipe and the
+    conformer-transducer the LSTM layers' dwh paired with h one step late
+    (the conformer-transducer's reported reading: the last frame out of
+    the prediction projection's gradient); for the LAS recipe the v1 layers' dwh
     with the directions' carries swapped (and, reported, paired with h one
     step late). The LAS recipe's Speller parameters have a tolerance of
     their own (TOL). Per parameter the reading is
@@ -3920,6 +4073,15 @@ def gradient_check(torch, trainer, params, batch, phase: str):
     elif phase == "train_rnnt":
         with plain_versions(rnnt_joint_bwd=rnnt_last_frame_out_of_dpred(torch, tf)):
             _, grads_f = loss_and_grads()
+    elif phase == "train_conformer_rnnt":
+        # behind the conformer's ~250 frames a lane, the last frame's share
+        # of dpred is too small for the tolerance to see (0.018 < 0.02):
+        # reported; the prediction net's dwh with h one step late decides
+        with plain_versions(lstm_bwd_dwh=lstm_dwh_h_late(torch)):
+            _, grads_f = loss_and_grads()
+        with plain_versions(rnnt_joint_bwd=rnnt_last_frame_out_of_dpred(torch, tf)):
+            _, grads_s = loss_and_grads()
+        readings["last_frame_out_of_dpred_grads_max_rel_err"] = max(rel(grads_s).values())
     elif phase in THIRD:
         with plain_versions(blstm_v1_bwd_dwh=v1_dwh_directions_swapped(torch)):
             _, grads_f = loss_and_grads()
@@ -4015,9 +4177,15 @@ def _data_sections(recipe: str) -> dict:
 
 # a training phase that trains on a copy of another phase's prepared data
 # (their database.conf sections are checked to be the same)
-DATA_FROM = {"train_rnnt_stream": "train_rnnt", "train_joint": "train_las"}
-# the phases that train on the third of the corpus
+DATA_FROM = {"train_rnnt_stream": "train_rnnt", "train_joint": "train_las",
+             "train_conformer_rnnt": "train"}
+# the phases that train on the first LAS_TRAIN_UTTS utterances of the corpus
 THIRD = ("train_las", "train_joint")
+# the phases whose falling-loss check is one fixed batch's loss (the
+# longest, dropout off) before and after training: a per-example CTC or
+# RNN-T NLL grows with the batch's frames, so the losses of batches of
+# other buckets are not comparable over 20 steps
+FIXED_BATCH_LOSS = ("train_joint", "train_conformer_rnnt")
 
 
 def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
@@ -4078,7 +4246,8 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         }
         step_s = [sum(v[i] for v in phases.values()) for i in range(steps)]
         pred_net = record.get("pred_net", [0.0] * steps)
-        shares = {k: record[k] for k in ("listener", "speller") if k in record}
+        shares = {k: record[k] for k in ("listener", "speller", "attention_encoder")
+                  if k in record}
         for i in range(steps):
             emit({"phase": f"{phase}_step", "step": i + 1, "loss": losses[i],
                   "ms": {k: 1e3 * v[i] for k, v in phases.items()},
@@ -4099,11 +4268,9 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
         model, params, batch = record["model"], record["params"], record["batch"]
         fixed = None
-        if phase == "train_joint":
-            # its loss sums a per-example CTC NLL, which grows with the
-            # batch's frames, so batches of other buckets are not
-            # comparable: the loss of one fixed batch (the longest, dropout
-            # off) must fall from the initial parameters to the trained ones
+        if phase in FIXED_BATCH_LOSS:
+            # the loss of one fixed batch (the longest, dropout off) must
+            # fall from the initial parameters to the trained ones
             with torch.no_grad():
                 fixed = [float(record["trainer"].loss_fn(p, batch, None, False)[0])
                          for p in (unflatten(record["initial"]), params)]
@@ -4155,6 +4322,8 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
             result["decode"] = las_decode(torch, smi, recipe, expdir, model, corpus["dev"][2])
         elif phase == "train_joint":
             result["test"] = joint_test(torch, smi, recipe, expdir, corpus["dev"][2])
+        elif phase == "train_conformer_rnnt":
+            result["test"] = transducer_test(torch, smi, recipe, expdir, corpus["dev"][2])
         elif phase == "train":
             result["pipeline"] = phase_pipeline(torch, smi, recipe, expdir, corpus["dev"])
     return result
@@ -4264,22 +4433,57 @@ def phase_pipeline(torch, smi: str, recipe: str, expdir: str, dev) -> dict:
     return out
 
 
-def phase_bench(model: str, phase: str, recipe_phase: str) -> None:
+def encoder_flops(model: str, B: int, T: int, F: int = 80) -> float:
+    """Multiply-adds x 2 of the bench line's attention encoder forward
+    (``bench.build_model_and_loss``'s config) over B utterances of T frames
+    (T / 4 after the pyramid stack, every frame valid): in_proj, each
+    block's products (QKV, the scores and the weighted sum over all T / 4
+    keys, the output projection, the FFNs, and a conformer's pointwise
+    and depthwise convolutions; an MoE FFN's router and its 2 x tokens
+    expert slots at capacity 2), layer norms and softmax left out."""
+    from nabu_tpu_torch import bench
+
+    layers, d = bench.MODELS[model]
+    f = 4 * d
+    Tq = -(-T // 4)
+    N = B * Tq
+    mhsa = 2 * N * d * 3 * d + 2 * 2 * B * Tq * Tq * d + 2 * N * d * d
+    ffn = 2 * 2 * N * d * f
+    if model == "transformer":
+        block = mhsa + ffn
+    else:
+        block = mhsa + 2 * ffn + 2 * N * d * 2 * d + 2 * N * d * 15 + 2 * N * d * d
+        if model == "moe_conformer":
+            # the router, and the experts' 2N token slots: one FFN's work more
+            block += 2 * N * d * 8 + ffn
+    return 2 * N * 4 * F * d + layers * block
+
+
+def phase_bench(model: str, phase: str, recipe_phase: str) -> dict:
     """A bench line of the port (``nabu_tpu_torch.bench.train_line``, as
     ``python -m nabu_tpu_torch.bench --model <model>`` prints it) in
-    process: the 4x320 DBLSTM-CTC step (``dblstm``) or the transducer step
-    (``rnnt``) at B = 32, T = 1000, bf16, through the kernels; its launches
-    must be ``recipe_phase``'s per-step launches x the steps run (the same
-    layers), and its losses finite."""
+    process: the 4x320 DBLSTM-CTC step (``dblstm``), the transducer step
+    (``rnnt``) or an attention encoder's (``conformer_rnnt``,
+    ``moe_conformer``) at B = 32, T = 1000, bf16, through the kernels; its
+    launches must be ``recipe_phase``'s per-step launches x the steps run
+    (the same layers), and its losses finite. An attention line also
+    prints its encoder's forward FLOPs (``encoder_flops``) and the bound of
+    a training step, 3 x those at the bf16 tensor-core rate."""
     from nabu_tpu_torch import bench
 
     line = bench.train_line(model_name=model)
-    print(json.dumps({"phase": phase, **line}), flush=True)
+    extra = {}
+    if model in bench.ATTENTION_HEADS:
+        flops = encoder_flops(model, line["batch"], line["frames"])
+        extra = {"encoder_forward_tflop": flops / 1e12,
+                 "encoder_step_bound_ms": 3 * flops / PEAK_BF16 * 1e3}
+    print(json.dumps({"phase": phase, **line, **extra}), flush=True)
     runs = line["warmup"] + line["steps"] * line["repeats"]
     want = {k: n * runs for k, n in STEP_LAUNCHES[recipe_phase].items()}
     check(line["launches"] == want, f"{phase}: launches {line['launches']}, want {want}")
     check(math.isfinite(line["first_loss"]) and math.isfinite(line["last_loss"]),
           f"{phase}: a loss is not finite")
+    return {"launches": line["launches"]}
 
 
 def las_decode(torch, smi: str, recipe: str, expdir: str, model, dev_audio_s: float) -> dict:
@@ -4388,6 +4592,37 @@ def joint_test(torch, smi: str, recipe: str, expdir: str, dev_audio_s: float) ->
     return line
 
 
+def transducer_test(torch, smi: str, recipe: str, expdir: str, dev_audio_s: float) -> dict:
+    """``cli test`` on train_conformer_rnnt's expdir: the recipe's test
+    evaluator, transducer_greedy (4 symbols a frame) over the dev split at
+    batch 32: its error and wall time; the joint's encoder projection
+    (``lstm_proj``) once a batch, and no other kernel."""
+    from nabu_tpu_torch import cli
+    from nabu_tpu_torch.ops import kernels
+
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["test", "--recipe", recipe, "--expdir", expdir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(out.getvalue(), file=sys.stderr, flush=True)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    gemm_variants("train_conformer_rnnt test")
+    with open(os.path.join(expdir, "test_result.json")) as f:
+        result = json.load(f)
+    check(math.isfinite(result["metric"]), f"train_conformer_rnnt test: {result['metric']}")
+    check(set(launches) == {"lstm_proj"},
+          f"train_conformer_rnnt test: launched {launches}, want lstm_proj and no other")
+    line = {"phase": "train_conformer_rnnt_test", "recognizer": "transducer_greedy",
+            "error": result["metric"], "wall_seconds": wall, "dev_audio_seconds": dev_audio_s,
+            "rtf": wall / dev_audio_s, "launches": launches, "card": smi}
+    emit(line)
+    return line
+
+
 def phase_bench_las() -> dict:
     """The bench's las line in process (``bench.train_line(model_name="las")``:
     a 4 x 512 Listener, the 2 x 512 Speller and the CTC head, B = 32, T =
@@ -4454,6 +4689,8 @@ def main(argv=None) -> int:
     t5a = time.perf_counter()
     served_joint = phase_serve_att(torch, smi, "serve_joint")
     t5b = time.perf_counter()
+    served_aed = phase_serve_att(torch, smi, "serve_conformer_aed")
+    t5c = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as corpus_dir:
         corpus = synth_training_corpus(corpus_dir)
         trained = phase_train(torch, smi, "train", corpus)
@@ -4465,27 +4702,35 @@ def main(argv=None) -> int:
         trained_las = phase_train(torch, smi, "train_las", corpus)
         t9 = time.perf_counter()
         trained_joint = phase_train(torch, smi, "train_joint", corpus)
+        t9b = time.perf_counter()
+        trained_crnnt = phase_train(torch, smi, "train_conformer_rnnt", corpus)
     t9a = time.perf_counter()
     phase_bench("dblstm", "bench_ctc", "train")
     t10 = time.perf_counter()
     phase_bench("rnnt", "bench_rnnt", "train_rnnt")
     t11 = time.perf_counter()
     bench_las = phase_bench_las()
+    t12 = time.perf_counter()
+    bench_crnnt = phase_bench("conformer_rnnt", "bench_conformer_rnnt", "bench_conformer_rnnt")
+    t13 = time.perf_counter()
+    bench_moe = phase_bench("moe_conformer", "bench_moe_conformer", "bench_moe_conformer")
     pipeline_s = sum(trained["pipeline"]["seconds"].values())
     emit({"phase": "seconds", "build_device": t1 - t0, "kernels": t2 - t1,
           "serve": t3 - t2, "serve_rnnt": t4 - t3, "serve_stream": t5 - t4,
-          "serve_las": t5a - t5, "serve_joint": t5b - t5a,
+          "serve_las": t5a - t5, "serve_joint": t5b - t5a, "serve_conformer_aed": t5c - t5b,
           # the train phase runs the pipeline phase: each is counted once
-          "train": t6 - t5b - pipeline_s, "pipeline": pipeline_s,
+          "train": t6 - t5c - pipeline_s, "pipeline": pipeline_s,
           "train_rnnt": t7 - t6, "train_rnnt_stream": t8 - t7,
-          "train_las": t9 - t8, "train_joint": t9a - t9, "bench_ctc": t10 - t9a,
-          "bench_rnnt": t11 - t10, "bench_las": time.perf_counter() - t11,
+          "train_las": t9 - t8, "train_joint": t9b - t9, "train_conformer_rnnt": t9a - t9b,
+          "bench_ctc": t10 - t9a, "bench_rnnt": t11 - t10, "bench_las": t12 - t11,
+          "bench_conformer_rnnt": t13 - t12, "bench_moe_conformer": time.perf_counter() - t13,
           "total": time.perf_counter() - t0})
     raise_failures()
     pipeline = [{"launches": v} for v in trained["pipeline"]["launches"].values()]
-    runs = (served, served_rnnt, served_stream, served_las, served_joint, trained, trained_rnnt,
-            trained_stream, trained_las, trained_las["decode"], trained_joint,
-            trained_joint["test"], bench_las, *pipeline)
+    runs = (served, served_rnnt, served_stream, served_las, served_joint, served_aed, trained,
+            trained_rnnt, trained_stream, trained_las, trained_las["decode"], trained_joint,
+            trained_joint["test"], trained_crnnt, trained_crnnt["test"], bench_las,
+            bench_crnnt, bench_moe, *pipeline)
 
     kernels_line = []
     for name, key in (("stft_mel", "stft_mel"),

@@ -1,7 +1,7 @@
-"""Training throughput of the DBLSTM-CTC, RNN-T or LAS step on one GPU.
+"""Training throughput of the bench models' steps on one GPU.
 
-Port of the JAX package's ``bench.py`` training measurement for three of
-its models, through the kernels (``use_pallas = true`` in the encoder and
+Port of the JAX package's ``bench.py`` training measurement for its
+models, through the kernels (``use_pallas = true`` in the encoder and
 CTC sections), in bf16 by default:
 
 - ``--model dblstm`` (the default): BASELINE config 2's 4x320 DBLSTM
@@ -14,7 +14,24 @@ CTC sections), in bf16 by default:
   line, a Listener of 4 pyramid layers over a bottom layer, 512 units
   (time / 16), a 2x512 bahdanau Speller with 256-wide embeddings
   (scheduled sampling 0.1, label smoothing 0.1, loss weight 0.7) and a
-  linear CTC head (loss weight 0.3).
+  linear CTC head (loss weight 0.3);
+- ``--model transformer`` / ``conformer`` / ``moe_conformer``: the
+  attention encoders of ``bench.py``'s lines, 6 blocks of 512 units, 8
+  heads, a 2048-wide FFN, a time / 4 pyramid stack before the blocks
+  (``moe_conformer``: the second half-step FFN of each conformer block 8
+  expert-choice experts at capacity 2.0), the linear CTC head and the CTC
+  loss;
+- ``--model conformer_rnnt``: ``bench.py``'s conformer-transducer, 8
+  conformer blocks of 256 units, 4 heads, a 1024-wide FFN, kernel 15,
+  time / 4, and the transducer head of the ``rnnt`` line (a 1 x 320
+  prediction LSTM, 128-wide embeddings, a 320-wide joint).
+
+The attention encoders are PyTorch ops (the JAX package computes them
+outside any Pallas kernel); their lines launch the CTC kernels, or the
+RNN-T kernels and the prediction net's LSTM kernels. ``--scan_layers``
+(JAX's flag; on by default for the attention encoders, as the recipes
+set it) only sets the encoder's key: the port runs the blocks as a loop
+either way, JAX's scan's numerics.
 
 The batch is ``make_batch``'s (B = 32, T = 1000, 80 features, 100 labels,
 every length full), made from ``--seed`` with numpy and put on the device
@@ -25,10 +42,11 @@ steps.
 
 Run on the card (the default device), or on the CPU only when asked:
 
-    python -m nabu_tpu_torch.bench [--mode train|decode] [--model dblstm|rnnt|las]
+    python -m nabu_tpu_torch.bench [--mode train|decode]
+        [--model dblstm|rnnt|las|transformer|conformer|moe_conformer|conformer_rnnt]
         [--head att|ctc|joint] [--device cpu] [--batch 32] [--frames 1000]
         [--steps 8] [--warmup 2] [--repeats 3] [--beam_width 8] [--seed 0]
-        [--no-bf16]
+        [--no-bf16] [--[no-]scan_layers]
 
 It prints ONE JSON line:
 
@@ -54,7 +72,8 @@ TPU, and that has no counterpart on the GPU.
 ``--mode decode`` times decoding instead, as the JAX bench's ``--mode
 decode`` does, on the same batch and the seeded weights: ``--model
 dblstm`` runs the encoder, the log-softmax and ``ctc_prefix_beam_search``
-(blank last, at most 128 labels) over the full batch; ``--model rnnt``
+(blank last, at most 128 labels) over the full batch, as do the
+attention-encoder CTC models; ``--model rnnt`` and ``conformer_rnnt``
 the ``transducer_beam`` recognizer; ``--model las`` by ``--head`` (JAX's
 ``--head``): ``att`` (the default) the ``attention_beam`` recognizer on
 the Speller, ``ctc`` the prefix search on the CTC head, ``joint`` the
@@ -97,7 +116,10 @@ METRIC = "train_audio_seconds_per_second_per_chip"
 FEATURES, LABELS, NUM_LABELS = 80, 100, 31
 FRAME_SHIFT = 0.01
 # the encoder's layers and units of each model's line in bench.py
-MODELS = {"dblstm": (4, 320), "rnnt": (2, 320), "las": (4, 512)}
+MODELS = {"dblstm": (4, 320), "rnnt": (2, 320), "las": (4, 512), "transformer": (6, 512),
+          "conformer": (6, 512), "moe_conformer": (6, 512), "conformer_rnnt": (8, 256)}
+# the attention encoders' heads; their FFN is 4x the units wide
+ATTENTION_HEADS = {"transformer": 8, "conformer": 8, "moe_conformer": 8, "conformer_rnnt": 4}
 # the decode line's metric of each (model, --head); the head matters for las only
 DECODE_METRICS = {"att": "attention_beam_decode_rtf", "ctc": "ctc_beam_decode_rtf",
                   "joint": "joint_ctc_att_beam_decode_rtf"}
@@ -111,16 +133,34 @@ def line_shape(model: str, num_layers: Optional[int], num_units: Optional[int]) 
 
 
 def build_model_and_loss(bf16: bool = True, num_layers: Optional[int] = None,
-                         num_units: Optional[int] = None, model: str = "dblstm"):
+                         num_units: Optional[int] = None, model: str = "dblstm",
+                         scan_layers: Optional[bool] = None):
     """-> (model, loss_fn) of ``bench.py``'s ``build_model_and_loss`` for
-    ``dblstm``, ``rnnt`` or ``las`` with the kernels on; ``num_layers`` x
-    ``num_units`` (4 x 320, 2 x 320 and 4 x 512 there) sets the encoder,
-    and the rnnt head's prediction LSTM and joint, and the las Speller's
-    layers, take ``num_units`` too (``None``: the line's own)."""
+    a model of ``MODELS`` with the kernels on; ``num_layers`` x
+    ``num_units`` (``MODELS``) sets the encoder (an attention encoder's
+    FFN 4 x ``num_units`` wide), and the rnnt head's prediction LSTM and
+    joint, and the las Speller's layers, take ``num_units`` too (``None``:
+    the line's own); conformer_rnnt's head is the line's, 1 x 320.
+    ``scan_layers`` (``None``: on for the attention encoders) sets their
+    key."""
     num_layers, num_units = line_shape(model, num_layers, num_units)
     model_sec = {"compute_dtype": "bfloat16" if bf16 else "float32"}
     ctc = {"decoder": "linear_ctc", "loss": "ctc", "use_pallas": "true"}
-    if model == "dblstm":
+    if model in ATTENTION_HEADS:
+        encoder = {"encoder": "transformer" if model == "transformer" else "conformer",
+                   "num_heads": str(ATTENTION_HEADS[model]), "ffn_dim": str(4 * num_units),
+                   "subsample": "4",
+                   "scan_layers": "false" if scan_layers is False else "true"}
+        if model == "moe_conformer":
+            encoder.update(moe_experts="8", moe_capacity="2.0")
+        if model == "conformer_rnnt":
+            encoder["kernel_size"] = "15"
+            heads = {"decoder": {"decoder": "rnnt", "num_layers": "1", "num_units": "320",
+                                 "embed_dim": "128", "joint_units": "320",
+                                 "loss": "transducer", "use_pallas": "true"}}
+        else:
+            heads = {"decoder": ctc}
+    elif model == "dblstm":
         encoder = {"encoder": "dblstm"}
         heads = {"decoder": ctc}
     elif model == "rnnt":
@@ -146,6 +186,14 @@ def build_model_and_loss(bf16: bool = True, num_layers: Optional[int] = None,
 
 
 def describe(model: str, num_layers: int, num_units: int) -> str:
+    if model in ATTENTION_HEADS:
+        enc = (f"{model.replace('_rnnt', '')} {num_layers}x{num_units}, "
+               f"{ATTENTION_HEADS[model]} heads, ffn {4 * num_units}, time/4")
+        if model == "moe_conformer":
+            enc += ", 8 experts at capacity 2.0"
+        if model == "conformer_rnnt":
+            return f"{enc} + prediction 1x320, joint 320, transducer loss"
+        return f"{enc} + linear_ctc, ctc loss"
     if model == "dblstm":
         return f"dblstm {num_layers}x{num_units} + linear_ctc, ctc loss"
     if model == "las":
@@ -195,14 +243,14 @@ class _Clock:
 def train_line(batch: int = 32, frames: int = 1000, steps: int = 8, warmup: int = 2,
                repeats: int = 3, seed: int = 0, device=None, bf16: bool = True,
                num_layers: Optional[int] = None, num_units: Optional[int] = None,
-               labels: int = LABELS,
-               params: Optional[dict] = None, model_name: str = "dblstm") -> dict:
+               labels: int = LABELS, params: Optional[dict] = None,
+               model_name: str = "dblstm", scan_layers: Optional[bool] = None) -> dict:
     """Time the training step of ``model_name`` (``MODELS``); -> the JSON
     line's fields. ``params`` (f32, the model's tree) replaces the seeded
     initial weights."""
     dev = resolve_device(device)
     num_layers, num_units = line_shape(model_name, num_layers, num_units)
-    model, loss_fn = build_model_and_loss(bf16, num_layers, num_units, model_name)
+    model, loss_fn = build_model_and_loss(bf16, num_layers, num_units, model_name, scan_layers)
     rng = np.random.default_rng(seed)
     arrays = make_batch(batch, frames, FEATURES, labels, rng)
     data = batch_to_device(arrays, dev, feature_dtype=model.compute_dtype)
@@ -294,11 +342,13 @@ def train_line(batch: int = 32, frames: int = 1000, steps: int = 8, warmup: int 
 def decode_line(batch: int = 32, frames: int = 1000, steps: int = 8, repeats: int = 3,
                 beam_width: int = 8, seed: int = 0, device=None, bf16: bool = True,
                 num_layers: Optional[int] = None, num_units: Optional[int] = None,
-                model_name: str = "dblstm", head: str = "att") -> dict:
+                model_name: str = "dblstm", head: str = "att",
+                scan_layers: Optional[bool] = None) -> dict:
     """Time the beam-search decode of ``model_name`` (``MODELS``; for
     ``las`` of ``head``, ``DECODE_METRICS``); -> the JSON line's fields
-    (the JAX bench's ``time_decode`` for ``dblstm`` and las ``ctc``,
-    ``time_transducer_decode`` for ``rnnt``, ``time_attention_decode`` and
+    (the JAX bench's ``time_decode`` for ``dblstm``, las ``ctc`` and the
+    attention-encoder CTC models, ``time_transducer_decode`` for ``rnnt``
+    and ``conformer_rnnt``, ``time_attention_decode`` and
     ``time_joint_decode`` for las ``att`` and ``joint``)."""
     from nabu_tpu_torch.decoding.ctc_beam import ctc_prefix_beam_search
     from nabu_tpu_torch.decoding.recognizers import (
@@ -311,7 +361,7 @@ def decode_line(batch: int = 32, frames: int = 1000, steps: int = 8, repeats: in
     num_layers, num_units = line_shape(model_name, num_layers, num_units)
     if head not in DECODE_METRICS:
         raise ValueError(f"bench: unknown head {head!r} (one of {sorted(DECODE_METRICS)})")
-    model, _ = build_model_and_loss(bf16, num_layers, num_units, model_name)
+    model, _ = build_model_and_loss(bf16, num_layers, num_units, model_name, scan_layers)
     arrays = make_batch(batch, frames, FEATURES, LABELS, np.random.default_rng(seed))
     params = unflatten({k: v.to(dev) for k, v in flatten(
         model.init(torch.Generator().manual_seed(seed))).items()})
@@ -319,9 +369,10 @@ def decode_line(batch: int = 32, frames: int = 1000, steps: int = 8, repeats: in
     flen = torch.as_tensor(arrays["feature_lengths"], device=dev)
     conf = {"beam_width": str(beam_width)}
 
-    if model_name == "dblstm" or (model_name == "las" and head == "ctc"):
+    transducer = model_name in ("rnnt", "conformer_rnnt")
+    if (model_name == "las" and head == "ctc") or (model_name != "las" and not transducer):
         metric = "ctc_beam_decode_rtf"
-        ctc_head = "decoder" if model_name == "dblstm" else "ctc"
+        ctc_head = "ctc" if model_name == "las" else "decoder"
 
         @torch.no_grad()
         def decode():
@@ -332,7 +383,7 @@ def decode_line(batch: int = 32, frames: int = 1000, steps: int = 8, repeats: in
 
         width = int(decode()[2].shape[1])
     else:
-        if model_name == "rnnt":
+        if transducer:
             metric = "transducer_beam_decode_rtf"
             rec = TransducerBeamRecognizer(Conf(conf, "recognizer"), model)
         elif head == "att":
@@ -408,10 +459,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
                     help="bfloat16 compute dtype")
+    ap.add_argument("--scan_layers", action=argparse.BooleanOptionalAction, default=None,
+                    help="the attention encoders' scan_layers key (default on, as the "
+                         "recipes; the port loops over the blocks either way)")
     args = ap.parse_args(argv)
     common = dict(batch=args.batch, frames=args.frames, steps=args.steps,
                   repeats=args.repeats, seed=args.seed, device=args.device, bf16=args.bf16,
-                  model_name=args.model)
+                  model_name=args.model, scan_layers=args.scan_layers)
     if args.mode == "decode":
         line = decode_line(beam_width=args.beam_width, head=args.head, **common)
     else:

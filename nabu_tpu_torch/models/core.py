@@ -1,5 +1,5 @@
 """Core neural building blocks: initializers, Linear, embedding, dropout,
-LSTM cell, masked LSTM scan, BLSTM, pyramid stack.
+activations, LSTM cell, masked LSTM scan, BLSTM, pyramid stack.
 
 Port of the JAX package's ``models/core.py``. Initializers draw from an
 explicit ``torch.Generator`` (the JAX package's ``jax.random`` keys give
@@ -32,6 +32,12 @@ def glorot(generator: torch.Generator, shape) -> torch.Tensor:
     limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
     u = torch.rand(shape, generator=generator, device=generator.device)
     return (2.0 * u - 1.0) * limit
+
+
+def uniform_scale(generator: torch.Generator, shape, scale: float) -> torch.Tensor:
+    """Uniform(-scale, scale), f32 on the generator's device."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (2.0 * u - 1.0) * scale
 
 
 def linear_init(generator: torch.Generator, in_dim: int, out_dim: int) -> Params:
@@ -75,6 +81,35 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# -- activations -----------------------------------------------------------
+
+# ``jax.nn``'s functions by name, with its defaults: ``gelu`` is the tanh
+# approximation (``jax.nn.gelu(x, approximate=True)``), not the erf GELU
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "relu6": torch.nn.functional.relu6,
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "silu": torch.nn.functional.silu,
+    "swish": torch.nn.functional.silu,
+    "elu": torch.nn.functional.elu,
+    "softplus": torch.nn.functional.softplus,
+    "leaky_relu": torch.nn.functional.leaky_relu,
+}
+
+
+def activation(name: str):
+    """The activation a config names after its ``jax.nn`` function."""
+    if name not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r} (one of {sorted(_ACTIVATIONS)})")
+    return _ACTIVATIONS[name]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return _ACTIVATIONS["gelu"](x)
 
 
 def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -211,6 +246,41 @@ def blstm_apply_tm(
         return blstm_tm_apply(p, x_tm, lengths)
     y = blstm_apply(p, x_tm.transpose(0, 1), lengths, "scan")
     return y.transpose(0, 1)
+
+
+# -- attention -------------------------------------------------------------
+
+def sinusoidal_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal position rows [n, d] in f32 at positions ``pos`` [n]
+    (f32): sin at the even columns, cos at the odd ones, of pos / 10000^(2i
+    / d). One function for a whole sequence and for one decode position,
+    so a cached step sees its row's bits."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)[None, :]
+    angle = pos[:, None] / torch.pow(10000.0, dim / d)
+    pe = torch.zeros((pos.shape[0], d), dtype=torch.float32, device=pos.device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle[:, : d // 2])
+    return pe
+
+
+def sinusoidal_pe(T: int, d: int, dtype, device=None) -> torch.Tensor:
+    """The standard sinusoidal position encoding [T, d] in ``dtype``."""
+    return sinusoidal_rows(torch.arange(T, dtype=torch.float32, device=device), d).to(dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """Scaled dot-product attention of q [..., n, hd] over k / v [..., m,
+    hd] with an additive f32 ``bias`` broadcastable to [..., n, m]: the
+    scores in f32 from the inputs as they are (the f32 product of bf16 q
+    and k, as ``preferred_element_type=f32``; float64 inputs keep float64),
+    the softmax in that type, the weights cast to v's dtype for the value
+    product."""
+    sdt = torch.promote_types(q.dtype, torch.float32)
+    hd = torch.tensor(float(q.shape[-1]), dtype=torch.float32)
+    scores = torch.matmul(q.to(sdt), k.to(sdt).transpose(-1, -2)) / torch.sqrt(hd)
+    weights = torch.softmax(scores + bias, dim=-1).to(v.dtype)
+    return torch.matmul(weights, v)
 
 
 # -- pyramid stack ---------------------------------------------------------

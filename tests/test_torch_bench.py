@@ -7,9 +7,13 @@ bench's ``build_model_and_loss("dblstm")`` (4 x 320),
 transducer head) or ``build_model_and_loss(..., "las")`` (a 4 x 512
 Listener, the 2 x 512 Speller and the CTC head; scheduled sampling off on
 both sides, since the port draws from a torch generator and JAX from its
-key), the Pallas kernels in interpret mode on the CPU, on the same numpy
-batch and the same weights, carried across by ``params.from_jax_params``,
-in f32 within rtol 1e-5. No check reads a time.
+key) or the attention encoders' lines (``transformer``, ``conformer``,
+``moe_conformer``: 6 x 512, 8 heads, time / 4, a CTC head;
+``conformer_rnnt``: 8 x 256 and the transducer head; no dropout in
+either bench), the Pallas kernels in interpret mode on the CPU, on the
+same numpy batch and the same weights, carried across by
+``params.from_jax_params``, in f32 within rtol 1e-5. No check reads a
+time.
 """
 
 import json
@@ -111,8 +115,8 @@ def test_main_takes_the_model(capsys):
                        "--steps", "1", "--warmup", "0", "--repeats", "1"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1 and json.loads(out[0])["model"].startswith("rnnt: listener 2x320")
-    with pytest.raises(SystemExit):  # a model of the JAX bench the port has no line for
-        bench.main(["--model", "conformer", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # a mode of the JAX bench the port has no line for
+        bench.main(["--mode", "scaling", "--device", "cpu"])
 
 
 def test_rnnt_first_step_loss_matches_the_jax_bench():
@@ -230,3 +234,70 @@ def test_main_decode_takes_the_head(capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["metric"] == "joint_ctc_att_beam_decode_rtf" and line["beam_width_realized"] == 2
     assert line["model"].startswith("las: listener 4x512")
+
+
+ATTENTION_LINES = {
+    "transformer": "transformer 6x512, 8 heads, ffn 2048, time/4 + linear_ctc, ctc loss",
+    "conformer": "conformer 6x512, 8 heads, ffn 2048, time/4 + linear_ctc, ctc loss",
+    "moe_conformer": ("moe_conformer 6x512, 8 heads, ffn 2048, time/4, 8 experts at capacity "
+                      "2.0 + linear_ctc, ctc loss"),
+    "conformer_rnnt": ("conformer 8x256, 4 heads, ffn 1024, time/4 + prediction 1x320, joint "
+                       "320, transducer loss"),
+}
+
+
+@pytest.mark.parametrize("model", sorted(ATTENTION_LINES))
+def test_attention_line_schema_at_a_tiny_width(model):
+    """The attention encoders' lines at a tiny width (2 x 16 units, B = 2,
+    T = 24): the schema, the plain versions on the CPU."""
+    before = kernels.launch_counts()
+    line = bench.train_line(batch=2, frames=24, steps=2, warmup=1, repeats=1, device="cpu",
+                            num_layers=2, num_units=16, labels=4, model_name=model)
+    assert kernels.launch_counts() == before
+    assert set(line) == KEYS and line["launches"] == {}
+    assert line["model"].startswith(model.replace("_rnnt", "") + " 2x16")
+    assert math.isfinite(line["first_loss"]) and math.isfinite(line["last_loss"])
+    json.loads(json.dumps(line))
+
+
+@pytest.mark.parametrize("model", sorted(ATTENTION_LINES))
+def test_attention_first_step_loss_matches_the_jax_bench(model):
+    """The JAX bench's attention lines at their widths (its CTC or
+    transducer Pallas kernel in interpret mode) and the port's on the same
+    batch and weights, in f32 (B = 2, T = 20: 5 frames after the time / 4
+    stack; 3 labels for the transducer's 5 frames)."""
+    B, T, L = 2, 20, 3
+    model_j, loss_fn = jbench.build_model_and_loss(True, True, "float32", model,
+                                                   scan_layers=True)
+    params = model_j.init(jax.random.PRNGKey(0))
+    batch = jbench.make_batch(B, T, 80, L, np.random.default_rng(0))
+    want, _ = loss_fn(params, {k: jnp.asarray(v) for k, v in batch.items()},
+                      jax.random.PRNGKey(0), True)
+    line = bench.train_line(batch=B, frames=T, steps=1, warmup=0, repeats=1, device="cpu",
+                            bf16=False, labels=L, params=from_jax_params(_flat_jax(params)),
+                            model_name=model)
+    assert line["model"] == ATTENTION_LINES[model]
+    np.testing.assert_allclose(line["first_loss"], float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("model,metric", [("transformer", "ctc_beam_decode_rtf"),
+                                          ("moe_conformer", "ctc_beam_decode_rtf"),
+                                          ("conformer_rnnt", "transducer_beam_decode_rtf")])
+def test_attention_decode_lines_keep_the_jax_schema(model, metric):
+    """``--mode decode`` of the attention lines, as JAX's bench chooses:
+    the transducer beam for conformer_rnnt, the CTC prefix beam for the
+    others (2 x 16 units, B = 2, T = 48, beam 3)."""
+    line = bench.decode_line(batch=2, frames=48, steps=4, repeats=1, beam_width=3,
+                             device="cpu", num_layers=2, num_units=16, model_name=model)
+    assert JAX_DECODE_KEYS <= set(line) and line["metric"] == metric
+    assert line["beam_width_realized"] == 3 and line["value"] > 0 and line["launches"] == {}
+    json.loads(json.dumps(line))
+
+
+def test_main_takes_the_attention_models_and_scan_layers(capsys):
+    """``--model conformer --no-scan_layers`` (JAX's flag) at B = 1, T = 8."""
+    assert bench.main(["--model", "conformer", "--no-scan_layers", "--device", "cpu",
+                       "--batch", "1", "--frames", "8", "--steps", "1", "--warmup", "0",
+                       "--repeats", "1"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["model"] == ATTENTION_LINES["conformer"] and set(line) == KEYS

@@ -169,10 +169,12 @@ class TestModel:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
     def test_unported_components_raise(self, tmp_path):
-        """The transformer encoder is not ported yet; the speller is, and
-        builds with the JAX package's parameter tree."""
+        """The transformer encoder's pipeline stages (a mesh axis) are not
+        ported yet; the speller is, and builds with the JAX package's
+        parameter tree."""
         path = tmp_path / "model.cfg"
-        path.write_text("[encoder]\nencoder = transformer\n[decoder]\ndecoder = linear_ctc\n")
+        path.write_text("[encoder]\nencoder = transformer\nnum_layers = 2\npipeline_stages = 2\n"
+                        "[decoder]\ndecoder = linear_ctc\n")
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_model(ConfigFile.read(str(path)), 6, 3)
         path.write_text("[encoder]\nencoder = dblstm\n[decoder]\ndecoder = speller\n")

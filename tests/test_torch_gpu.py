@@ -2339,3 +2339,233 @@ def test_gemm_f32_failures_raise_with_the_launch_name(cuda_device, monkeypatch):
     torch.cuda.synchronize()
     assert kernels.variant_counts() == {"gemm_bf16_wgmma": 0, "gemm_bf16_wmma": 0}
     assert kernels.launch_counts()["blstm_bwd_dx"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the attention encoders and the transformer decoder (PyTorch ops, no kernel
+# of their own), and the kernels behind them
+# ---------------------------------------------------------------------------
+
+def _conformer_moe(capacity, layers=2, d=64):
+    from nabu_tpu_torch.config import Conf
+    from nabu_tpu_torch.models.encoders import ConformerEncoder
+
+    return ConformerEncoder(Conf({
+        "encoder": "conformer", "num_layers": str(layers), "num_units": str(d),
+        "num_heads": "4", "ffn_dim": str(4 * d), "kernel_size": "15", "subsample": "4",
+        "moe_experts": "4", "moe_capacity": str(capacity)}, "encoder"), 80)
+
+
+def _cast(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype,capacity,tol", [(torch.float32, 2.0, 1e-4),
+                                                (torch.bfloat16, 4.0, 2e-2)])
+def test_conformer_moe_encoder_on_card_matches_cpu(cuda_device, dtype, capacity, tol):
+    """A conformer of 2 x 64 units with an expert-choice MoE of 4 experts
+    (B = 4, T = 400 -> 100 frames, ragged) on the card against the CPU in
+    the same dtype: f32 within 1e-4, bf16 within 2e-2 (both relative to
+    the output's largest value; padded frames 0 on both). The bf16 case
+    runs at capacity 4 = E, where every expert takes every token: each
+    device rounds the router's bf16 product in its own order, so at a
+    capacity cut a near-tie may pick another token on each."""
+    enc = _conformer_moe(capacity)
+    params = enc.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(40)
+    x = torch.as_tensor(rng.standard_normal((4, 400, 80)).astype(np.float32))
+    lengths = torch.as_tensor([400, 311, 150, 9], dtype=torch.int32)
+    got, gl = enc.apply(_cast(params, cuda_device, dtype), x.to(cuda_device, dtype),
+                        lengths.to(cuda_device))
+    ref, rl = enc.apply(_cast(params, "cpu", dtype), x.to(dtype), lengths)
+    assert torch.equal(gl.cpu(), rl) and got.dtype == dtype
+    got, ref = got.float().cpu(), ref.float()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= tol, err
+    for b, n in enumerate(rl.tolist()):
+        assert not got[b, n:].any()
+
+
+def test_moe_output_bits_repeat_on_card(cuda_device):
+    """The MoE layer's scatter-add runs one expert at a time (each expert's
+    tokens distinct), so two launches give the same bits: the layer alone at
+    B x T = 32 x 250 tokens, 8 experts at capacity 2 (tokens picked by
+    several experts), and a bf16 conformer with it."""
+    from nabu_tpu_torch.config import Conf
+    from nabu_tpu_torch.models.encoders import ConformerEncoder
+
+    conf = {"encoder": "conformer", "num_layers": "1", "num_units": "256", "num_heads": "4",
+            "ffn_dim": "1024", "subsample": "4", "moe_experts": "8", "moe_capacity": "2.0"}
+    enc = ConformerEncoder(Conf(conf, "encoder"), 80)
+    p = _cast(enc.init(torch.Generator().manual_seed(1)), cuda_device, torch.bfloat16)
+    y = torch.randn((32, 250, 256), generator=torch.Generator().manual_seed(2)).to(
+        cuda_device, torch.bfloat16)
+    valid = torch.arange(250, device=cuda_device)[None] < torch.randint(
+        100, 251, (32, 1), generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    runs = [enc._moe_ffn(p["block_0"], y, valid) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1]) and bool(runs[0].abs().sum() > 0)
+    x = torch.randn((4, 400, 80), generator=torch.Generator().manual_seed(4)).to(
+        cuda_device, torch.bfloat16)
+    lengths = torch.as_tensor([400, 300, 200, 100], device=cuda_device)
+    outs = [enc.apply(p, x, lengths)[0] for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+def test_transformer_decoder_cached_step_matches_apply_on_card(cuda_device, dtype, tol):
+    """chip_smoke's cache check on the card at conformer_aed's decoder width
+    (4 x 256, 4 heads, 30 outputs), 4 utterances of 120 encoder frames and
+    60 labels: the cached step chain within ``tol`` of the parallel apply
+    (relative to its largest logit), and the planted fault (each step's K
+    / V one slot late) beyond the bf16 tolerance."""
+    import chip_smoke
+    from nabu_tpu_torch.config import Conf
+    from nabu_tpu_torch.models.decoders import TransformerDecoder
+
+    dec = TransformerDecoder(Conf({"decoder": "transformer", "num_layers": "4",
+                                   "num_units": "256", "num_heads": "4", "ffn_dim": "1024"},
+                                  "att"), 256, 29)
+    p = _cast(dec.init(torch.Generator().manual_seed(5)), cuda_device, dtype)
+    g = torch.Generator().manual_seed(6)
+    enc = torch.randn((4, 120, 256), generator=g).to(cuda_device, dtype)
+    lengths = torch.as_tensor([120, 97, 64, 61], device=cuda_device)
+    targets = torch.randint(0, 29, (4, 60), generator=g).to(cuda_device)
+    reading = chip_smoke.cache_check(torch, dec, p, enc, lengths, targets)
+    with chip_smoke.kv_one_slot_late(dec):
+        fault = chip_smoke.cache_check(torch, dec, p, enc, lengths, targets)
+    print(json.dumps({"dtype": str(dtype), "cache_step_vs_apply": reading, "fault": fault}))
+    assert reading <= tol and fault > chip_smoke.TOL["aed_cache_bf16"], (reading, fault)
+
+
+def test_conformer_rnnt_training_step_on_card_matches_plain(cuda_device, tmp_path):
+    """A conformer_rnnt-shaped model (2 conformer blocks of 64 units, K =
+    15, time / 4; the 1 x 320 prediction LSTM, 128-wide embeddings, the
+    320-wide joint, 29 outputs) in bf16, B = 8, T = 400, 40 labels: one
+    training step's loss and gradients through the RNN-T kernels and the
+    prediction net's LSTM kernels (each launched) against the same step
+    through their plain versions on the card: the loss within chip_smoke's
+    train_loss tolerance, every gradient within 0.02 ||k - p|| / ||p||, and
+    the planted fault (the prediction net's dwh paired with h one step
+    late) beyond it; each lane's last frame out of dpred is reported (its
+    share of dpred over ~100 frames a lane sits near the tolerance)."""
+    import chip_smoke
+    from nabu_tpu_torch.config import ConfigFile
+    from nabu_tpu_torch.models.model import build_model
+    from nabu_tpu_torch.ops import transducer_fused
+    from nabu_tpu_torch.ops.losses import make_loss_computer
+    from nabu_tpu_torch.params import flatten, unflatten
+
+    path = tmp_path / "model.cfg"
+    path.write_text(
+        "[model]\ncompute_dtype = bfloat16\n"
+        "[encoder]\nencoder = conformer\nnum_layers = 2\nnum_units = 64\nnum_heads = 4\n"
+        "ffn_dim = 256\nkernel_size = 15\nsubsample = 4\ndropout = 0.1\n"
+        "[decoder]\ndecoder = rnnt\nnum_layers = 1\nnum_units = 320\nembed_dim = 128\n"
+        "joint_units = 320\nloss = transducer\nuse_pallas = true\n")
+    model = build_model(ConfigFile.read(str(path)), 80, 28)
+    flat = {k: v.to(cuda_device) for k, v in
+            flatten(model.init(torch.Generator().manual_seed(7))).items()}
+    rng = np.random.default_rng(8)
+    batch = {"features": torch.as_tensor(rng.standard_normal((8, 400, 80)).astype(np.float32),
+                                         device=cuda_device, dtype=torch.bfloat16),
+             "feature_lengths": torch.as_tensor([400, 380, 350, 300, 260, 220, 200, 160],
+                                                device=cuda_device, dtype=torch.int32),
+             "targets": torch.as_tensor(rng.integers(0, 28, (8, 40)), device=cuda_device,
+                                        dtype=torch.int32),
+             "target_lengths": torch.as_tensor([40, 38, 35, 30, 26, 22, 20, 0],
+                                               device=cuda_device, dtype=torch.int32),
+             "example_mask": torch.ones(8, device=cuda_device)}
+    loss_fn = make_loss_computer(model)
+
+    def step():
+        leaves = {k: v.clone().requires_grad_(True) for k, v in flat.items()}
+        loss, _ = loss_fn(unflatten(leaves), batch, None, False)
+        return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    kernels.reset_launch_counts()
+    loss_k, grads_k = step()
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert launched == {"lstm_fwd_train": 1, "lstm_bwd_recur": 1, "lstm_bwd_dwh": 1,
+                        "rnnt_joint_fwd": 1, "rnnt_alpha": 1, "rnnt_beta": 1,
+                        "rnnt_joint_bwd": 1}, launched
+    with chip_smoke.plain_versions():
+        loss_p, grads_p = step()
+    with chip_smoke.plain_versions(lstm_bwd_dwh=chip_smoke.lstm_dwh_h_late(torch)):
+        _, grads_f = step()
+    with chip_smoke.plain_versions(
+            rnnt_joint_bwd=chip_smoke.rnnt_last_frame_out_of_dpred(torch, transducer_fused)):
+        _, grads_s = step()
+
+    def rel(grads):
+        return {k: float((grads[k] - grads_p[k]).float().norm()
+                         / grads_p[k].float().norm().clamp(min=1e-30)) for k in grads_p}
+
+    atol, rtol = chip_smoke.TOL["train_loss"]
+    assert abs(float(loss_k) - float(loss_p)) <= atol + rtol * abs(float(loss_p))
+    worst = max(rel(grads_k).values())
+    fault = max(rel(grads_f).values())
+    print(json.dumps({"grads_max_rel_err": worst, "fault": fault,
+                      "last_frame_out_of_dpred": max(rel(grads_s).values())}))
+    assert worst <= chip_smoke.TOL["train_grads"] < fault, (worst, fault)
+
+
+# a training step's and a recognizer call's launches of each attention
+# recipe: the CTC loss, or the prediction net's LSTM kernels and the four
+# RNN-T kernels; decoding, the transducer joint's encoder projection only
+_RECIPE_LAUNCHES = {
+    "transformer_ctc_wsj": ({"ctc_alpha": 1, "ctc_beta": 1}, {}),
+    "moe_conformer_ctc_wsj": ({"ctc_alpha": 1, "ctc_beta": 1}, {}),
+    "conformer_aed_wsj": ({"ctc_alpha": 1, "ctc_beta": 1}, {}),
+    "conformer_rnnt_wsj": ({"lstm_fwd_train": 1, "lstm_bwd_recur": 1, "lstm_bwd_dwh": 1,
+                            "rnnt_joint_fwd": 1, "rnnt_alpha": 1, "rnnt_beta": 1,
+                            "rnnt_joint_bwd": 1}, {"lstm_proj": 1}),
+}
+
+
+@pytest.mark.parametrize("recipe", sorted(_RECIPE_LAUNCHES))
+def test_attention_recipes_launch_their_kernels_on_card(cuda_device, recipe):
+    """Each attention recipe's model.cfg as committed (full widths, bf16,
+    seeded weights), B = 4 utterances of 1-4 s: one training step (loss and
+    gradients, dropout on) launches the head's kernels once each and no
+    other, with finite loss and gradients; the recipe's recognizer.cfg
+    (beam 16 or 8) over the same batch launches only the decode kernels
+    of ``_RECIPE_LAUNCHES`` and returns finite scores."""
+    import os
+
+    from nabu_tpu_torch.config import Recipe
+    from nabu_tpu_torch.decoding.recognizers import build_recognizer
+    from nabu_tpu_torch.models.model import build_model
+    from nabu_tpu_torch.ops.losses import make_loss_computer
+    from nabu_tpu_torch.params import flatten, unflatten
+
+    step_launches, decode_launches = _RECIPE_LAUNCHES[recipe]
+    r = Recipe(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "config", "recipes", recipe))
+    model = build_model(r.model, 80, 28)
+    flat = {k: v.to(cuda_device) for k, v in
+            flatten(model.init(torch.Generator().manual_seed(9))).items()}
+    rng = np.random.default_rng(10)
+    flen = np.asarray([400, 310, 200, 100], np.int32)
+    feats = rng.standard_normal((4, 400, 80)).astype(np.float32)
+    batch = {"features": torch.as_tensor(feats, device=cuda_device, dtype=model.compute_dtype),
+             "feature_lengths": torch.as_tensor(flen, device=cuda_device),
+             "targets": torch.as_tensor(rng.integers(0, 28, (4, 20)), device=cuda_device,
+                                        dtype=torch.int32),
+             "target_lengths": torch.as_tensor([20, 15, 10, 5], device=cuda_device,
+                                               dtype=torch.int32),
+             "example_mask": torch.ones(4, device=cuda_device)}
+    leaves = {k: v.clone().requires_grad_(True) for k, v in flat.items()}
+    kernels.reset_launch_counts()
+    loss, _ = make_loss_computer(model)(unflatten(leaves), batch,
+                                        torch.Generator(device=cuda_device).manual_seed(0), True)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == step_launches
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+    rec = build_recognizer(r.recognizer.section("recognizer"), model)
+    kernels.reset_launch_counts()
+    nb = rec(unflatten(flat), feats, flen)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == decode_launches
+    assert np.isfinite(nb.scores[:, 0]).all()
