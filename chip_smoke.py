@@ -80,7 +80,7 @@ Phases, each printing JSON lines:
               train_rnnt's ``cli data`` prepared (checked section by
               section);
 11. train_las — ``cli data`` (with the recipe's 3-way speed perturbation,
-              from half of the corpus: 128 utterances, 384 after
+              from part of the corpus: 96 utterances, 288 after
               perturbation) and 40 steps of ``cli train`` of las_large_wsj
               (5 BLSTM layers of 512 units through the v1 kernels, the
               location-attention Speller, label-smoothed cross-entropy,
@@ -155,6 +155,20 @@ Phases, each printing JSON lines:
               1000, L = 100), their launches checked, and each encoder's
               forward FLOPs and a training step's bound (3 x, at the bf16
               tensor-core rate).
+
+Each of serve, serve_rnnt, serve_las and serve_joint ends with an
+LM-fused pass (``lm_fused_pass``): a 3-gram trained with the port's
+``NgramLM.train`` on the phase's seeded text (sentences of the recipe's
+alphabet) fused at lm_weight 0.3 into the phase's beam (ctc_beam,
+transducer_beam, attention_beam, joint_ctc_att_beam; nbest 8): the
+phase's first batch served unfused and fused (the RTF of each; the same
+kernel launches), the fused search's 8-best over the 8 shortest
+utterances on the card against the CPU in float64 (identical, scores
+within 1e-6), and the planted stale LM context (``DenseLM.step``
+returning the parent context), which that check must reject. The
+pipeline phase adds ``cli lm``, ``cli decode`` with the LM, ``cli
+rescore``, an export carrying the LM and ``cli serve`` over it, whose
+lines must be the fused decode's best.
 
 The kernels phase also holds the four RNN-T kernels (joint forward,
 alpha, beta, joint backward) to their plain versions at B = 32, T' = 250,
@@ -250,6 +264,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -505,7 +520,8 @@ LAS_DECODE_KERNELS = ("blstm_proj", "blstm_v1_recur")
 # path (recognize also the device frontend), serve the frontend too
 DECODE_KERNELS = ("blstm_proj", "blstm_recur")
 PIPELINE_KERNELS = {"test": DECODE_KERNELS, "decode": DECODE_KERNELS,
-                    "serve": SERVE_KERNELS, "recognize": SERVE_KERNELS}
+                    "serve": SERVE_KERNELS, "recognize": SERVE_KERNELS,
+                    "decode_lm": DECODE_KERNELS, "serve_lm": SERVE_KERNELS}
 # utterances of the dev split that cli serve and cli recognize decode
 PIPELINE_UTTS = 8
 TRAIN_RECIPES = {"train": RECIPE, "train_rnnt": RNNT_RECIPE, "train_rnnt_stream": STREAM_RECIPE,
@@ -525,15 +541,20 @@ ATT_SERVE = {
 }
 # the shortest served utterances whose search runs on the card and the CPU
 ATT_CHECK_UTTS = 8
+# the serve phases' LM-fused passes: a 3-gram at this weight, trained on
+# this many seeded sentences of the recipe's alphabet
+LM_WEIGHT = 0.3
+LM_SENTENCES = 400
+LM_ATT_PHASES = ("serve_las", "serve_joint")
 TRAIN_STEPS = 40
 # phases of another length: train_joint's and train_conformer_rnnt's 20 steps
 PHASE_STEPS = {"train_joint": 20, "train_conformer_rnnt": 20}
 TRAIN_UTTS = 256
 # the utterances serve_stream serves
 STREAM_UTTS = 32
-# las_large: the first 128 utterances of the corpus, x3 after its speed
+# las_large: the first 96 utterances of the corpus, x3 after its speed
 # perturbation
-LAS_TRAIN_UTTS = 128
+LAS_TRAIN_UTTS = 96
 # the v1 kernel rows: las_large's Listener at B = 64, H = 512, bottom layer
 # and pyramid_0 (T, D)
 V1_B, V1_H = 64, 512
@@ -3256,7 +3277,25 @@ def phase_serve(torch, smi: str) -> dict:
               "logits_tol": TOL["logits_bf16"],
               "beam_best_identical": same, "beam_score_max_abs_err": score_err,
               "frames": int(feats_k.shape[1])})
-    return {"launches": launches, "batches": batches}
+
+        # the LM-fused pass: ctc_beam over the float64 log-probs of the card's
+        # logits for the shortest utterances
+        from nabu_tpu_torch.decoding.recognizers import Nbest
+
+        n = ATT_CHECK_UTTS
+        f_n, l_n = fe.batch_features(sigs[:n], 16000.0, n, model.T_BUCKET)
+        logits_n, llen_n = mdl.apply(model.params, f_n, torch.as_tensor(l_n, device=dev))[
+            "decoder"]
+        lp_n = torch.log_softmax(logits_n.double(), -1)
+
+        def ctc_search(r, device):
+            seqs, lengths, scores = r.decode_logprobs(lp_n.to(device), llen_n.to(device))
+            k = r.nbest
+            return Nbest(ids=seqs[:, :k].cpu().numpy(), lengths=lengths[:, :k].cpu().numpy(),
+                         scores=scores[:, :k].cpu().numpy())
+
+        lm_run = lm_fused_pass(torch, smi, "serve", model, lines, tmp, 3, ctc_search)
+    return {"launches": launches, "batches": batches, "lm": lm_run}
 
 
 def phase_serve_rnnt(torch, smi: str) -> dict:
@@ -3348,7 +3387,11 @@ def phase_serve_rnnt(torch, smi: str) -> dict:
         check(same == B, f"serve_rnnt: card and CPU n-best differ on {B - same}/{B}")
         check(score_err <= TOL["rnnt_scores"],
               f"serve_rnnt: n-best scores differ by {score_err}")
-    return {"launches": launches}
+        n = ATT_CHECK_UTTS
+        lm_run = lm_fused_pass(torch, smi, "serve_rnnt", model, lines, tmp, 9, float64_search(
+            torch, *rec._encode(model.params, *model.device_fe.batch_features(
+                sigs[:n], 16000.0, n, model.T_BUCKET))))
+    return {"launches": launches, "lm": lm_run}
 
 
 def synth_requests(tmp: str, rng, n: int = 64) -> tuple:
@@ -3404,6 +3447,128 @@ def search_steps(no_sync: bool = False):
         yield asked
     finally:
         beam._all_finished = joint._all_finished = saved
+
+
+def phase_text_lm(path: str, num_labels: int, seed: int):
+    """The n-gram LM of a serve phase's LM-fused pass: a 3-gram trained
+    with the port's ``NgramLM.train`` on the phase's text, LM_SENTENCES
+    seeded sentences of 5-40 labels of the recipe's alphabet drawn from a
+    random bigram chain (so that the LM prefers some continuations),
+    saved to ``path``."""
+    from nabu_tpu_torch.decoding.lm import NgramLM
+
+    rng = np.random.default_rng(seed)
+    chain = rng.dirichlet(np.full(num_labels, 0.3), num_labels)
+    text = []
+    for _ in range(LM_SENTENCES):
+        seq = [int(rng.integers(num_labels))]
+        for _ in range(int(rng.integers(5, 41)) - 1):
+            seq.append(int(rng.choice(num_labels, p=chain[seq[-1]])))
+        text.append(seq)
+    lm = NgramLM.train(text, num_labels + 1, 3)
+    lm.save(path)
+    return lm
+
+
+@contextlib.contextmanager
+def lm_stale_context():
+    """Planted fault of LM fusion: ``DenseLM.step`` returns the parent
+    context, so no hypothesis's LM history advances past the sentence
+    start."""
+    from nabu_tpu_torch.decoding.lm import DenseLM
+
+    saved = DenseLM.step
+    DenseLM.step = lambda self, state, token: state
+    try:
+        yield
+    finally:
+        DenseLM.step = saved
+
+
+def lm_fused_pass(torch, smi: str, phase: str, model, lines, tmp: str, seed: int,
+                  search) -> dict:
+    """The phase's recognizer again with a 3-gram LM fused at LM_WEIGHT
+    (nbest 8; ``phase_text_lm``): the phase's first batch served
+    unfused and fused (RTF side by side; the launch counts of each zeroed
+    just before and read just after must agree), then ``search(rec,
+    device)``, the fused search over the ATT_CHECK_UTTS shortest
+    utterances in float64 on the card and on the CPU (n-best identical,
+    scores within TOL["rnnt_scores"]), and once more on the card with the
+    planted ``lm_stale_context``, which the check must reject."""
+    from nabu_tpu_torch.data import audio_io
+    from nabu_tpu_torch.decoding.recognizers import build_recognizer
+    from nabu_tpu_torch.ops import kernels
+
+    t_pass = time.perf_counter()
+    rec = model.recognizer
+    lm_path = os.path.join(tmp, "lm_3gram.npz")
+    lm = phase_text_lm(lm_path, model.text_proc.num_labels, seed)
+    conf = rec.conf.copy()
+    for key, value in (("lm_path", lm_path), ("lm_weight", str(LM_WEIGHT)), ("nbest", "8")):
+        conf.set(key, value)
+    fused = build_recognizer(conf, model.model)
+    check(fused.lm is not None and fused.lm_weight == LM_WEIGHT,
+          f"{phase} lm: the recognizer fuses no LM")
+
+    paths = [line.split()[1] for line in lines[:B]]
+    audio_seconds = sum(len(audio_io.load_audio(p)[0]) / 16000.0 for p in paths)
+
+    def served(r):
+        model.recognizer = r
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        texts = model.recognize_files(paths)
+        torch.cuda.synchronize()
+        return texts, time.perf_counter() - t, {
+            k: v for k, v in kernels.launch_counts().items() if v}
+
+    try:
+        plain_texts, t_plain, plain_launches = served(rec)
+        fused_texts, t_fused, launches = served(fused)
+    finally:
+        model.recognizer = rec
+    check(launches == plain_launches,
+          f"{phase} lm: fused launches {launches}, unfused {plain_launches}")
+
+    card = torch.device("cuda")
+    t0 = time.perf_counter()
+    got = search(fused, card)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    want = search(fused, torch.device("cpu"))
+    same, score_err = nbest_agreement(got, want)
+    with lm_stale_context():
+        stale = search(fused, card)
+    stale_same, stale_err = nbest_agreement(stale, want)
+    n = ATT_CHECK_UTTS
+    tol = TOL["rnnt_scores"]
+    emit({"phase": f"{phase}_lm", "lm_order": lm.order, "lm_vocab": lm.vocab,
+          "lm_weight": LM_WEIGHT, "lm_sentences": LM_SENTENCES, "batch": len(paths),
+          "audio_seconds": audio_seconds, "rtf": t_fused / audio_seconds,
+          "unfused_rtf": t_plain / audio_seconds, "wall_seconds": t_fused,
+          "unfused_wall_seconds": t_plain,
+          "hypotheses_changed": sum(int(a != b) for a, b in zip(fused_texts, plain_texts)),
+          "launches": launches, "check_utterances": n, "nbest": int(want.ids.shape[1]),
+          "dtype": "float64", "nbest_identical": same, "score_max_abs_err": score_err,
+          "score_tol": tol, "stale_context_nbest_identical": stale_same,
+          "stale_context_score_max_abs_err": stale_err, "card_search_s": t_card,
+          "pass_seconds": time.perf_counter() - t_pass, "card": smi})
+    check(same == n, f"{phase} lm: card and CPU n-best differ on {n - same}/{n}")
+    check(score_err <= tol, f"{phase} lm: n-best scores differ by {score_err}")
+    check(stale_same < n or stale_err > tol,
+          f"{phase} lm: the stale LM context was not rejected ({stale_err})")
+    return {"launches": launches}
+
+
+def float64_search(torch, encoded, enc_lengths, head):
+    """``search(rec, device)`` of ``lm_fused_pass`` for a recognizer with a
+    ``search`` over an encoder output: its n-best in float64 on device."""
+    def search(rec, device):
+        return rec.nbest_of(*rec.search(tree_to(head, device, torch.float64),
+                                        encoded.to(device, torch.float64),
+                                        enc_lengths.to(device)))
+    return search
 
 
 def kv_one_slot_late(decoder):
@@ -3603,6 +3768,9 @@ def phase_serve_att(torch, smi: str, phase: str) -> dict:
         check(same == ATT_CHECK_UTTS,
               f"{phase}: card and CPU n-best differ on {ATT_CHECK_UTTS - same}/{ATT_CHECK_UTTS}")
         check(score_err <= TOL["rnnt_scores"], f"{phase}: n-best scores differ by {score_err}")
+        if phase in LM_ATT_PHASES:
+            result["lm"] = lm_fused_pass(torch, smi, phase, model, lines, tmp, seed + 2,
+                                         float64_search(torch, encoded, enc_lengths, head))
 
         if phase == "serve_joint":
             # one batch (the 32 shortest) of the two-pass recognizer
@@ -4339,7 +4507,11 @@ def phase_pipeline(torch, smi: str, recipe: str, expdir: str, dev) -> dict:
     v2 inference kernels (recognize and serve the frontend's too) and no
     other kernel. The exported params.npz must equal best/params.npz bit
     for bit, nbest.txt must hold every test utterance, serve must answer
-    every request, and recognize must give serve's hypotheses."""
+    every request, and recognize must give serve's hypotheses. Then the
+    n-gram LM: ``cli lm``, ``cli decode`` with it (LM_WEIGHT), ``cli
+    rescore`` (every line, ranked within each utterance), ``cli export``
+    (the artifact carries ``lm.npz``) and ``cli serve`` over that
+    export, whose lines must be the fused decode's best hypotheses."""
     from nabu_tpu_torch import cli
     from nabu_tpu_torch.data.processors import read_datafile
     from nabu_tpu_torch.ops import kernels
@@ -4421,13 +4593,66 @@ def phase_pipeline(torch, smi: str, recipe: str, expdir: str, dev) -> dict:
     same_text = sum(int(a[1:] == b[1:]) for a, b in zip(served, recognized))
     check(same_text == len(wavs),
           f"pipeline recognize: {len(wavs) - same_text} hypotheses differ from serve's")
+
+    # the n-gram LM end to end: cli lm on the training transcriptions, cli
+    # decode with it (a copy of the recipe whose recognizer.cfg names it at
+    # LM_WEIGHT), cli rescore of that n-best, and an export carrying it,
+    # whose served lines must be the fused decode's best hypotheses
+    from nabu_tpu_torch.config import ConfigFile
+
+    text, seconds["lm"], launches["lm"] = stage("lm", ["lm", *args])
+    lm_path = os.path.join(expdir, "lm", "lm_3gram.npz")
+    check(os.path.exists(lm_path) and "train ppl" in text, f"pipeline lm: {text!r}")
+    recipe_lm = os.path.join(expdir, "recipe_lm")
+    shutil.copytree(recipe, recipe_lm)
+    rcfg = ConfigFile.read(os.path.join(recipe_lm, "recognizer.cfg"))
+    rcfg.section("recognizer").set("lm_path", lm_path)
+    rcfg.section("recognizer").set("lm_weight", str(LM_WEIGHT))
+    rcfg.write(os.path.join(recipe_lm, "recognizer.cfg"))
+    args_lm = ["--recipe", recipe_lm, "--expdir", expdir]
+    text, seconds["decode_lm"], launches["decode_lm"] = stage("decode_lm", ["decode", *args_lm])
+    rtf_lm = re.search(r"steady-state RTF ([0-9.eE+-]+)", text)
+    with open(os.path.join(expdir, "decoded", "nbest.txt")) as f:
+        nbest_lm = [(line.split(" ", 2) + [""])[:3] for line in f.read().splitlines()]
+    check({u for u, _, _ in nbest_lm} == set(utts) and all(
+        math.isfinite(float(sc)) for _, sc, _ in nbest_lm),
+        f"pipeline decode_lm: nbest.txt holds {len({u for u, _, _ in nbest_lm})} of "
+        f"{len(utts)} test utterances, or a non-finite score")
+    best_lm = {}
+    for u, _, hyp in nbest_lm:
+        best_lm.setdefault(u, hyp.strip())
+    _, seconds["rescore"], launches["rescore"] = stage("rescore", ["rescore", *args_lm])
+    with open(os.path.join(expdir, "decoded", "rescored.txt")) as f:
+        rescored = [(line.split(" ", 2) + [""])[:3] for line in f.read().splitlines()]
+    ranked = all(float(a[1]) >= float(b[1]) for a, b in zip(rescored, rescored[1:])
+                 if a[0] == b[0])
+    check(len(rescored) == len(nbest_lm) and ranked,
+          f"pipeline rescore: {len(rescored)} lines for {len(nbest_lm)}, ranked {ranked}")
+    art_lm = os.path.join(expdir, "export_lm")
+    _, seconds["export_lm"], launches["export_lm"] = stage(
+        "export_lm", ["export", *args_lm, "--output", art_lm])
+    check("lm.npz" in os.listdir(art_lm), f"pipeline export_lm: {sorted(os.listdir(art_lm))}")
+    with open(requests) as stdin:
+        text, seconds["serve_lm"], launches["serve_lm"] = stage(
+            "serve_lm", ["serve", "--export_dir", art_lm, "--batch_size", str(PIPELINE_UTTS)],
+            stdin=stdin)
+    served_lm = [(line.split(" ", 1) + [""])[:2] for line in text.splitlines()]
+    same_lm = sum(int(u == w and hyp.strip() == best_lm.get(u)) for (u, hyp), (w, _) in
+                  zip(served_lm, wavs))
+    check(len(served_lm) == len(wavs) and same_lm == len(wavs),
+          f"pipeline serve_lm: {len(wavs) - same_lm} of {len(wavs)} lines differ from the "
+          "fused decode's best")
     out = {
         "phase": "pipeline", "recipe": os.path.relpath(RECIPE, REPO),
         "seconds": seconds, "launches": launches, "test_metric": result["metric"],
         "test_evaluator": result["evaluator"], "test_utterances": len(utts),
         "nbest_lines": len(nbest), "decode_steady_rtf": float(rtf.group(1)) if rtf else None,
         "export_params_bit_identical": same, "manifest": manifest,
-        "served": len(served), "recognize_equals_serve": same_text, "card": smi,
+        "served": len(served), "recognize_equals_serve": same_text,
+        "decode_lm_steady_rtf": float(rtf_lm.group(1)) if rtf_lm else None,
+        "rescored_lines": len(rescored), "serve_lm_equals_decode_lm": same_lm,
+        "lm_hypotheses_changed": sum(int(a[1:] != b[1:]) for a, b in zip(served, served_lm)),
+        "card": smi,
     }
     emit(out)
     return out
@@ -4727,10 +4952,12 @@ def main(argv=None) -> int:
           "total": time.perf_counter() - t0})
     raise_failures()
     pipeline = [{"launches": v} for v in trained["pipeline"]["launches"].values()]
-    runs = (served, served_rnnt, served_stream, served_las, served_joint, served_aed, trained,
-            trained_rnnt, trained_stream, trained_las, trained_las["decode"], trained_joint,
-            trained_joint["test"], trained_crnnt, trained_crnnt["test"], bench_las,
-            bench_crnnt, bench_moe, *pipeline)
+    # the LM-fused passes of the four beams
+    lm_runs = (served["lm"], served_rnnt["lm"], served_las["lm"], served_joint["lm"])
+    runs = (*lm_runs, served, served_rnnt, served_stream, served_las, served_joint, served_aed,
+            trained, trained_rnnt, trained_stream, trained_las, trained_las["decode"],
+            trained_joint, trained_joint["test"], trained_crnnt, trained_crnnt["test"],
+            bench_las, bench_crnnt, bench_moe, *pipeline)
 
     kernels_line = []
     for name, key in (("stft_mel", "stft_mel"),

@@ -1,7 +1,6 @@
 """Batched attention beam search with fixed-shape beam state.
 
-Port of the JAX package's ``decoding/beam.py`` (without LM fusion). The
-whole beam is a ``[B, W, ...]`` tensor program: the decoder state rides
+Port of the JAX package's ``decoding/beam.py``. The whole beam is a ``[B, W, ...]`` tensor program: the decoder state rides
 along flattened to ``[B*W, ...]``, each step is one batched
 ``decoder.step`` and one top-W over the ``W*V`` candidates, and the
 encoding, its mask and its attention keys stay ``[B, ...]``, shared by the
@@ -19,7 +18,10 @@ way.
 Scoring: sums of token log-probs in f32 (float64 where the model runs in
 float64, which makes two devices' searches comparable); finished beams
 stop accumulating and are ranked by ``score / max(len, 1)^power``, and
-finished hypotheses outrank unfinished ones.
+finished hypotheses outrank unfinished ones. Shallow fusion with an
+n-gram LM (``decoding.lm.DenseLM``) adds ``lm_weight * log p_lm(token |
+history)`` to every candidate; the LM context rides the beam gather and
+advances while a hypothesis is live.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Tuple
 import torch
 
 from nabu_tpu_torch.decoding.ctc_beam import _top_w
+from nabu_tpu_torch.decoding.lm import state_where
 from nabu_tpu_torch.ops.masking import NEG_INF, sequence_mask
 
 
@@ -111,12 +114,14 @@ def attention_beam_search(
     length_norm_power: float = 0.0,
     eos_bonus: float = 0.0,
     lm=None,
+    lm_weight: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (seqs [B, W, max_steps], lengths [B, W], scores [B, W]),
     beams sorted best-first by length-normalized score. ``decoder`` is a
-    Speller-like head (step / init_state / precompute / sos_id / eos_id)."""
-    if lm is not None:
-        raise NotImplementedError("LM fusion not ported yet")
+    Speller-like head (step / init_state / precompute / sos_id / eos_id);
+    ``lm`` a DenseLM on the encoder output's device, fused where
+    ``lm_weight`` is not 0."""
+    fuse = lm is not None and lm_weight != 0.0
     B, T, _ = encoded.shape
     W = beam_width
     V = decoder.output_dim
@@ -129,12 +134,16 @@ def attention_beam_search(
     frozen = torch.full((V,), NEG_INF, dtype=s["scores"].dtype, device=dev)
     frozen[eos] = 0.0
     pos = torch.arange(max_steps, device=dev)
+    if fuse:
+        s["lm"] = lm.init_state((B, W))
 
     t = 0
     while t < max_steps and not _all_finished(s["finished"]):
         logprobs, new_state = decoder_step(decoder, dparams, s, encoded, enc_mask, keys)
         if eos_bonus:
             logprobs[..., eos] += eos_bonus
+        if fuse:
+            logprobs = logprobs + lm_weight * lm.logprobs(s["lm"]).to(logprobs.dtype)
         cand = s["scores"][..., None] + torch.where(s["finished"][..., None], frozen, logprobs)
         top_scores, top_flat = _top_w(cand.reshape(B, W * V), W)
         parent = top_flat // V
@@ -146,8 +155,12 @@ def attention_beam_search(
         write = ~finished
         seqs = torch.where(write[..., None] & (pos == t), token[..., None], seqs)
         lengths = torch.where(write & (token != eos), lengths + 1, lengths)
-        s = {"seqs": seqs, "scores": top_scores, "finished": finished | (token == eos),
-             "lengths": lengths, "prev": token,
-             "state": tree_map(lambda x: gather_beams(x, parent), new_state)}
+        new = {"seqs": seqs, "scores": top_scores, "finished": finished | (token == eos),
+               "lengths": lengths, "prev": token,
+               "state": tree_map(lambda x: gather_beams(x, parent), new_state)}
+        if fuse:
+            lm_state = gather_beams(s["lm"], parent)
+            new["lm"] = state_where(finished, lm_state, lm.step(lm_state, token))
+        s = new
         t += 1
     return ranked(s["seqs"], s["lengths"], s["scores"], s["finished"], length_norm_power)

@@ -9,6 +9,15 @@ and keeps the top W. The Python loop over frames takes the place of
 ``lax.scan``; every op inside is a batched tensor op on the logits'
 device.
 
+Shallow fusion with an n-gram LM (``decoding.lm.DenseLM``): each prefix
+extension adds ``lm_weight * log p_lm(tok | prefix)``; stay and blank
+moves add nothing, and a hypothesis's LM context advances only on an
+extension, so equal prefixes carry equal LM terms and the merge stays
+exact.
+
+Scores are f32, or float64 where the log-probs are float64 (which makes
+two devices' searches comparable).
+
 Orderings mirror the JAX functions exactly: ``jnp.argsort`` is stable,
 and ``lax.top_k`` breaks ties by the lower index, so both become a
 stable sort (``torch.topk`` does not promise that order, and dead beams
@@ -71,19 +80,25 @@ def ctc_prefix_beam_search(
     beam_width: int,
     blank_id: int,
     max_label_len: int | None = None,
+    lm=None,
+    lm_weight: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (seqs [B, W, Lmax] int32, lengths [B, W] int32, scores
-    [B, W] f32) sorted best-first; scores are total log P(prefix) =
-    logaddexp(p_b, p_nb)."""
+    [B, W] f32, or float64 from float64 log-probs) sorted best-first;
+    scores are total log P(prefix) = logaddexp(p_b, p_nb), with the
+    fused LM terms where ``lm`` (a DenseLM on the log-probs' device) is
+    given and ``lm_weight`` is not 0."""
     B, T, V = logprobs.shape
     W = beam_width
     Lmax = max_label_len or T
     dev = logprobs.device
     i32 = torch.int32
-    logprobs = logprobs.to(torch.float32)
+    sdt = torch.promote_types(logprobs.dtype, torch.float32)
+    logprobs = logprobs.to(sdt)
+    fuse = lm is not None and lm_weight != 0.0
 
     slot = torch.arange(1, W + 1, dtype=i32, device=dev)[None, :]
-    neg = torch.full((B, W), NEG_INF, dtype=torch.float32, device=dev)
+    neg = torch.full((B, W), NEG_INF, dtype=sdt, device=dev)
     # beam 0 = empty prefix (p_b=0, canonical empty hash 0); others dead
     # with unique negative per-slot hashes so they never merge
     pb = neg.clone()
@@ -95,6 +110,8 @@ def ctc_prefix_beam_search(
     seqs = torch.zeros((B, W, Lmax), dtype=i32, device=dev)
     lengths = torch.zeros((B, W), dtype=i32, device=dev)
     last = torch.full((B, W), -1, dtype=i32, device=dev)
+    if fuse:
+        lm_state = lm.init_state((B, W))
 
     _ids = torch.arange(V - 1, dtype=i32, device=dev)
     nonblank_ids = torch.where(_ids >= blank_id, _ids + 1, _ids)
@@ -140,6 +157,9 @@ def ctc_prefix_beam_search(
         is_last = nonblank_ids[None, None, :] == last[..., None]
         base = torch.where(is_last, pb[..., None], ptot[..., None])
         ext_pnb = base + lp_tok[:, None, :]
+        if fuse:
+            lm_lp = lm.logprobs(lm_state)[..., nonblank_long].to(sdt)  # [B, W, V-1]
+            ext_pnb = ext_pnb + lm_weight * lm_lp
         ext_pb = torch.full_like(ext_pnb, NEG_INF)
 
         cand_pnb = torch.cat([ext_pnb, stay_pnb[..., None]], -1).reshape(B, C)
@@ -192,6 +212,13 @@ def ctc_prefix_beam_search(
         )
         new_len = torch.where(can_write, old_len + 1, old_len)
         new_last = torch.where(is_ext, tok, old_last)
+        if fuse:
+            # the context is a function of the prefix: stepping the chosen
+            # (parent, tok) after the selection equals stepping every
+            # candidate before it
+            parent_lm = torch.gather(lm_state, 1, parent)
+            new_lm = torch.where(is_ext, lm.step(parent_lm, torch.clamp(tok, min=0)),
+                                 parent_lm)
 
         dead = top_total < NEG_INF / 2
         new_h = torch.where(dead, -slot, new_h)
@@ -206,6 +233,8 @@ def ctc_prefix_beam_search(
         hash1 = torch.where(v2, new_h, hash1)
         hash2 = torch.where(v2, new_h2, hash2)
         last = torch.where(v2, new_last, last)
+        if fuse:
+            lm_state = torch.where(v2, new_lm, lm_state)
 
     scores = torch.logaddexp(pb, pnb)
     ranked = torch.argsort(-scores, dim=1, stable=True)

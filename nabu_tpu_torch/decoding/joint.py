@@ -1,9 +1,10 @@
 """One-pass joint CTC/attention beam search (hybrid decoding).
 
-Port of the JAX package's ``decoding/joint.py`` (without LM fusion). Every
-beam expansion is scored with
+Port of the JAX package's ``decoding/joint.py``. Every beam expansion is
+scored with
 
     (1 - ctc_weight) * log P_att(c | g) + ctc_weight * dPsi_ctc(g, c)
+        [+ lm_weight * log P_lm(c | g)]
 
 where dPsi is the increment of the CTC prefix log-probability (the
 probability that the CTC output starts with g + c, from the gamma^n /
@@ -38,6 +39,7 @@ from nabu_tpu_torch.decoding.beam import (
     tree_map,
 )
 from nabu_tpu_torch.decoding.ctc_beam import _top_w
+from nabu_tpu_torch.decoding.lm import state_where
 from nabu_tpu_torch.ops.masking import NEG_INF, sequence_mask
 
 
@@ -109,6 +111,7 @@ def joint_ctc_att_beam_search(
     length_norm_power: float = 0.0,
     blank_id: int | None = None,
     lm=None,
+    lm_weight: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (seqs [B, W, max_steps], lengths, scores) best-first.
 
@@ -117,9 +120,11 @@ def joint_ctc_att_beam_search(
     most V - 1) is the number K of non-eos attention candidates a
     hypothesis that get a CTC score. With ``ctc_weight = 0`` the ranking
     is attention_beam_search's; the scores are the combined (1 - w) * att
-    + w * ctc totals (raw: ``length_norm_power`` only re-ranks)."""
-    if lm is not None:
-        raise NotImplementedError("LM fusion not ported yet")
+    + w * ctc totals (raw: ``length_norm_power`` only re-ranks). ``lm`` (a
+    DenseLM on the encoder output's device, fused where ``lm_weight`` is
+    not 0) adds ``lm_weight * log p_lm`` unscaled by the attention weight,
+    to the pruning proposal and to every candidate, eos included."""
+    fuse = lm is not None and lm_weight != 0.0
     B, T, _ = encoded.shape
     W = beam_width
     V = decoder.output_dim
@@ -146,12 +151,17 @@ def joint_ctc_att_beam_search(
         return torch.logaddexp(torch.gather(c["r_n"], 2, t_last)[..., 0],
                                torch.gather(c["r_b"], 2, t_last)[..., 0])
 
+    if fuse:
+        s["lm"] = lm.init_state((B, W))
     t = 0
     while t < max_steps and not _all_finished(s["finished"]):
         att_lp, new_state = decoder_step(decoder, dparams, s, encoded, enc_mask, keys)
 
-        # candidate pruning by the attention score (non-eos)
-        noneos = att_lp.clone()
+        # the LM term stays unscaled by the attention weight, in its own array
+        lm_lp = lm_weight * lm.logprobs(s["lm"]).to(att_lp.dtype) if fuse else None
+
+        # candidate pruning by the combined proposal (non-eos)
+        noneos = att_lp.clone() if lm_lp is None else att_lp + lm_lp
         noneos[..., eos] = NEG_INF
         _, cand = _top_w(noneos, K)  # [B, W, K]
         top_att = torch.gather(att_lp, 2, cand)
@@ -163,6 +173,9 @@ def joint_ctc_att_beam_search(
         # the combined candidate matrix [B, W, K + 1], the last column eos
         step_tok = aw * top_att + cw * d_psi
         step_eos = aw * att_lp[..., eos] + cw * (full_ctc(ctc) - ctc["psi"])
+        if fuse:
+            step_tok = step_tok + torch.gather(lm_lp, 2, cand)
+            step_eos = step_eos + lm_lp[..., eos]
         cand_scores = torch.cat([step_tok, step_eos[..., None]], dim=-1) + s["scores"][..., None]
         cand_scores = torch.where(s["finished"][..., None], frozen + s["scores"][..., None],
                                   cand_scores)
@@ -194,8 +207,12 @@ def joint_ctc_att_beam_search(
         write = ~finished
         seqs = torch.where(write[..., None] & (pos == t), token[..., None], seqs)
         lengths = torch.where(write & ~is_eos, lengths + 1, lengths)
-        s = {"seqs": seqs, "scores": top_scores, "finished": finished | is_eos,
-             "lengths": lengths, "prev": token,
-             "state": tree_map(lambda x: gather_beams(x, parent), new_state)}
+        new = {"seqs": seqs, "scores": top_scores, "finished": finished | is_eos,
+               "lengths": lengths, "prev": token,
+               "state": tree_map(lambda x: gather_beams(x, parent), new_state)}
+        if fuse:
+            lm_state = gather_beams(s["lm"], parent)
+            new["lm"] = state_where(finished, lm_state, lm.step(lm_state, token))
+        s = new
         t += 1
     return ranked(s["seqs"], s["lengths"], s["scores"], s["finished"], length_norm_power)

@@ -1,9 +1,12 @@
 """Recognizers: batched decoders over a model.
 
-Port of the JAX package's ``decoding/recognizers.py`` (without LM
-fusion): CTC greedy and prefix beam, attention greedy and beam, the joint
-CTC/attention one-pass beam and two-pass rescoring, transducer greedy,
-beam and streaming. Every recognizer maps ``(params, features,
+Port of the JAX package's ``decoding/recognizers.py``: CTC greedy and
+prefix beam, attention greedy and beam, the joint CTC/attention one-pass
+beam and two-pass rescoring, transducer greedy, beam and streaming. The
+four beam searches (``ctc_beam``, ``attention_beam``,
+``joint_ctc_att_beam``, ``transducer_beam``) fuse an n-gram LM named by
+``lm_path`` with ``lm_weight`` (``cli lm`` writes one); its table moves to
+the device of each search. Every recognizer maps ``(params, features,
 feature_lengths) -> Nbest``; features may be a numpy array or a tensor
 already on the model's device (the device frontend's output). The beam
 recognizers over an encoder output split into ``_encode``, ``search``
@@ -60,18 +63,40 @@ def _as_tensor(x, device, dtype=None) -> torch.Tensor:
 class Recognizer:
     """Base recognizer built from a recognizer.cfg section; but for the
     attention recognizer, the head must be frame-synchronous (CTC or
-    transducer: it has a ``blank_id``)."""
+    transducer: it has a ``blank_id``).
+
+    Beam recognizers accept ``lm_path`` (an n-gram LM ``.npz`` of ``cli
+    lm``) and ``lm_weight`` for shallow fusion; naming them on a
+    recognizer without fusion is an error, not a silent no-op, and so is
+    an LM of another vocabulary than the head's."""
 
     frame_synchronous = True
+    supports_lm_fusion = False
 
     def __init__(self, conf: Conf, model, head: Optional[str] = None):
         self.conf = conf
         self.model = model
         self.head = head or conf.get("head") or next(iter(model.decoders))
         self.decoder = model.decoders[self.head]
+        self.lm = None
         self.lm_weight = conf.getfloat("lm_weight", 0.0)
-        if conf.get("lm_path") and self.lm_weight != 0.0:
-            raise NotImplementedError("LM fusion not ported yet")
+        lm_path = conf.get("lm_path")
+        if lm_path and self.lm_weight != 0.0:
+            if not self.supports_lm_fusion:
+                raise ValueError(
+                    f"recognizer {type(self).__name__} does not support "
+                    "LM shallow fusion (lm_path/lm_weight); use a beam "
+                    "recognizer or `run rescore`"
+                )
+            from nabu_tpu_torch.decoding.lm import load_dense_lm
+
+            self.lm = load_dense_lm(lm_path, "cpu")
+            if self.lm.vocab != self.decoder.output_dim:
+                raise ValueError(
+                    f"LM vocab {self.lm.vocab} != model output vocab "
+                    f"{self.decoder.output_dim} — the LM must be "
+                    "trained on this recipe's alphabet (`run lm`)"
+                )
         if not self.frame_synchronous:
             return
         if not hasattr(self.decoder, "blank_id"):
@@ -90,6 +115,10 @@ class Recognizer:
             params, _as_tensor(features, device, torch.float32),
             _as_tensor(feature_lengths, device, torch.int32))
         return encoded, enc_lengths, self.model._cast_in(params["decoders"][self.head])
+
+    def lm_on(self, device):
+        """The fused LM on ``device`` (None without fusion)."""
+        return None if self.lm is None else self.lm.to(device)
 
     def _logprobs(self, params, features, feature_lengths, device):
         feats = _as_tensor(features, device, torch.float32)
@@ -130,7 +159,9 @@ class CTCGreedyRecognizer(Recognizer):
 @RECOGNIZERS.register("ctc_beam")
 class CTCBeamRecognizer(Recognizer):
     """Batched CTC prefix beam search. conf: beam_width, nbest,
-    max_label_len."""
+    max_label_len, lm_path / lm_weight."""
+
+    supports_lm_fusion = True
 
     def __init__(self, conf, model, head=None):
         super().__init__(conf, model, head)
@@ -145,6 +176,8 @@ class CTCBeamRecognizer(Recognizer):
             beam_width=self.beam_width,
             blank_id=self.blank_id,
             max_label_len=self.max_label_len or None,
+            lm=self.lm_on(logprobs.device),
+            lm_weight=self.lm_weight,
         )
 
     @torch.no_grad()
@@ -241,10 +274,11 @@ def _ctc_head(conf, model, what: str) -> str:
 class _AttentionBeam(Recognizer):
     """Base of the attention head's beam searches: conf beam_width, nbest,
     max_steps (default ``max(int(T_enc * max_length_ratio), 8)``, ratio
-    1.0), length_norm_power. ``__call__`` is ``nbest_of(search(
-    _encode(...)))``."""
+    1.0), length_norm_power, lm_path / lm_weight. ``__call__`` is
+    ``nbest_of(search(_encode(...)))``."""
 
     frame_synchronous = False
+    supports_lm_fusion = True
 
     def __init__(self, conf, model, head=None):
         super().__init__(conf, model, head)
@@ -289,7 +323,7 @@ class AttentionBeamRecognizer(_AttentionBeam):
         return attention_beam_search(
             self.decoder, head_params, encoded, enc_lengths, beam_width=self.beam_width,
             max_steps=self.steps(encoded), length_norm_power=self.length_norm_power,
-            eos_bonus=self.eos_bonus)
+            eos_bonus=self.eos_bonus, lm=self.lm_on(encoded.device), lm_weight=self.lm_weight)
 
 
 @RECOGNIZERS.register("joint_ctc_att_beam")
@@ -321,7 +355,8 @@ class JointCTCAttBeamRecognizer(_AttentionBeam):
             beam_width=self.beam_width, max_steps=self.steps(encoded),
             ctc_weight=self.ctc_weight, pre_beam=self.pre_beam,
             length_norm_power=self.length_norm_power,
-            blank_id=getattr(self.ctc_decoder, "blank_id", ctc_lp.shape[-1] - 1))
+            blank_id=getattr(self.ctc_decoder, "blank_id", ctc_lp.shape[-1] - 1),
+            lm=self.lm_on(encoded.device), lm_weight=self.lm_weight)
 
 
 @RECOGNIZERS.register("attention_rescoring")
@@ -434,7 +469,9 @@ def _distinct_first_order(seqs: np.ndarray, lengths: np.ndarray) -> np.ndarray:
 class TransducerBeamRecognizer(_TransducerRecognizer):
     """Batched time-synchronous RNN-T beam search (``decoding.transducer``).
     conf: beam_width, nbest, max_symbols, length_norm_power,
-    max_label_len."""
+    max_label_len, lm_path / lm_weight."""
+
+    supports_lm_fusion = True
 
     def __init__(self, conf, model, head=None):
         super().__init__(conf, model, head)
@@ -447,7 +484,8 @@ class TransducerBeamRecognizer(_TransducerRecognizer):
         scores) tensors on its device."""
         return transducer_beam_search(
             self.decoder, head_params, encoded, enc_lengths, beam_width=self.beam_width,
-            max_symbols=self.max_symbols, length_norm_power=self.length_norm_power)
+            max_symbols=self.max_symbols, length_norm_power=self.length_norm_power,
+            lm=self.lm_on(encoded.device), lm_weight=self.lm_weight)
 
     def nbest_of(self, seqs, lengths, scores) -> Nbest:
         seqs, lengths, scores = (x.cpu().numpy() for x in (seqs, lengths, scores))

@@ -1,7 +1,7 @@
 """RNN-T decoding: batched greedy and beam search, fixed shapes.
 
-Port of the JAX package's ``decoding/transducer.py`` (without LM fusion).
-Both searches run on the model's device as a loop over the encoder frames
+Port of the JAX package's ``decoding/transducer.py``, the beam search's
+n-gram LM fusion included. Both searches run on the model's device as a loop over the encoder frames
 with the per-frame emission loop unrolled ``max_symbols`` times; every
 lane of the batch (and every hypothesis of the beam) takes each step, with
 masks, so the shapes never depend on the data. The joint inside the loop
@@ -121,12 +121,15 @@ def transducer_beam_search(
     carry over. Each expansion is one top-W over W * (1 + V+1) candidates
     (a no-op and every joint action). ``length_norm_power`` changes only
     the ranking key ``score / max(len, 1)^power``; the scores returned are
-    raw path log-probs.
+    raw path log-probs. ``lm`` (a DenseLM on the encoder output's device)
+    with ``lm_weight`` not 0 fuses an n-gram LM into the emissions only:
+    each label below the blank gains ``lm_weight * log p_lm``, blank
+    moves carry no LM cost, and a hypothesis's context advances only
+    where it emits.
 
     Returns (seqs [B, W, T*max_symbols], lengths [B, W], scores [B, W]),
     best first."""
-    if lm is not None and lm_weight != 0.0:
-        raise NotImplementedError("LM fusion not ported yet")
+    fuse = lm is not None and lm_weight != 0.0
     B, T, _ = encoded.shape
     W = beam_width
     dev = encoded.device
@@ -156,6 +159,8 @@ def transducer_beam_search(
     seqs = torch.full((B, W, L), blank, dtype=torch.int32, device=dev)
     lens = torch.zeros((B, W), dtype=torch.int32, device=dev)
     pos = torch.arange(L, device=dev)[None, None, :]
+    if fuse:
+        lm_state = lm.init_state((B, W))
 
     for t in range(T):
         # at an invalid frame every hypothesis takes the no-op
@@ -165,6 +170,10 @@ def transducer_beam_search(
             logits = decoder.joint_step(params, enc_t, pred.reshape(B * W, -1)).reshape(B, W, -1)
             nV = logits.shape[-1]
             lp = _log_softmax(logits)
+            if fuse:
+                # fusion on emissions; the blank column stays AM-only
+                lm_lp = lm.logprobs(lm_state)[..., :blank].to(lp.dtype)
+                lp = torch.cat([lp[..., :blank] + lm_weight * lm_lp, lp[..., blank:]], dim=-1)
             # candidates [B, W, 1 + nV]: column 0 the no-op, 1 + v action v
             noop = torch.where(open_, NEG, 0.0) + score
             acts = torch.where(open_[..., None], lp, NEG) + score[..., None]
@@ -180,6 +189,9 @@ def transducer_beam_search(
             lens = _gather_beams(lens, parent)
             open_ = is_emit  # blank and the no-op both close the frame
             tok = torch.clamp(tok, min=0)
+            if fuse:
+                lm_state = _gather_beams(lm_state, parent)
+                lm_state = torch.where(is_emit, lm.step(lm_state, tok), lm_state)
             seqs = torch.where(is_emit[..., None] & (pos == lens[..., None]),
                                tok[..., None], seqs)
             lens = lens + is_emit.to(torch.int32)

@@ -20,8 +20,10 @@ recognizer straight from a recipe and its experiment (``cli
 recognize``); ``serve`` drives it as a worker speaking a line
 protocol (``utt_id wav_path`` in, ``utt_id hypothesis`` out), or with
 ``streaming=True`` the chunked protocol of a streaming-transducer artifact
-(``utt_id PARTIAL text`` lines, then ``utt_id FINAL text``). LM fusion is
-not ported yet.
+(``utt_id PARTIAL text`` lines, then ``utt_id FINAL text``). A beam
+recognizer that names an n-gram LM (``lm_path``, ``lm_weight``) fuses it;
+the artifact's ``lm.npz`` is read relative to the artifact, so an
+artifact of either package serves with its LM in both.
 """
 
 from __future__ import annotations
@@ -169,8 +171,6 @@ class ExportedModel:
         from nabu_tpu_torch.decoding.recognizers import build_recognizer
         from nabu_tpu_torch.features.torch_frontend import DeviceFrontend
 
-        if rconf.get("lm_path") and rconf.getfloat("lm_weight", 0.0) != 0.0:
-            raise NotImplementedError("LM fusion not ported yet")
         self.device = device
         self.audio_proc = make_processor(feat_sec)
         self.text_proc = TextProcessor(tgt_sec)

@@ -1,25 +1,31 @@
-"""Parity legs of the port: the CTC configs end to end on the phone40 corpus.
+"""Parity legs of the port: BASELINE configs end to end on the phone40 corpus.
 
-The CTC part of the JAX package's ``tools/parity_campaign.py``: each of
-BASELINE configs 1 (``ctc_blstm_timit``) and 2 (``dblstm_ctc_wsj``) is
-driven through the port's real pipeline (``cli data``, ``train``,
-``test``, ``decode``, each stage in a fresh process) with its committed
-model and trainer, pointed at the synthesized phone40 proxy corpus
-(``tools.synth_corpus``) and the campaign's trainer overrides. A leg
-writes one JSON row, comparable with the JAX campaign's row of the same
-config, corpus version and scale (``parity/rows/``):
+The 2 h part of the JAX package's ``tools/parity_campaign.py``: each of
+BASELINE configs 1 (``ctc_blstm_timit``), 2 (``dblstm_ctc_wsj``) and 5
+(``joint_ctc_att_multihost``, one process on one card) is driven through
+the port's real pipeline (``cli data``, ``train``, ``test``, ``decode``,
+each stage in a fresh process) with its committed model and trainer,
+pointed at the synthesized phone40 proxy corpus (``tools.synth_corpus``)
+and the campaign's trainer overrides (the attention config adds the
+campaign's validation cadence, ``sortagrad`` and backoff grace). ``test``
+scores with the recipe's evaluator and ``decode`` with its recognizer. A
+leg writes one JSON row, comparable with the JAX campaign's row of the
+same config, corpus version and scale (``parity/rows/``):
 
     python -m nabu_tpu_torch.tools.parity_legs --out /tmp/legs \\
-        [--configs dblstm_ctc_wsj ctc_blstm_timit] [--rows parity/rows_torch] \\
-        [--train_seconds 7200] [--eval_seconds 600] [--corpus_version 2] \\
-        [--seed 0] [--resume] [--smoke] [--device cpu]
+        [--configs dblstm_ctc_wsj ctc_blstm_timit joint_ctc_att_multihost] \\
+        [--rows parity/rows_torch] [--train_seconds 7200] [--eval_seconds 600] \\
+        [--corpus_version 2] [--seed 0] [--resume] [--smoke] [--device cpu]
 
 A row holds the test token error, the steps trained, the trainer's
 steady-state audio seconds a second, the training wall time, the decode
 RTF, the card (``nvidia-smi --query-gpu=name,power.limit``), the test
 split's reference tokens and the binomial sigma of the error,
-sqrt(e (1 - e) / test_tokens). The attention and multi-host legs of the
-JAX campaign are not ported yet.
+sqrt(e (1 - e) / test_tokens). ``--seed`` draws the corpus; a seed
+other than 0 is named in the corpus marker, the expdir and the row's
+file, so that its row stands beside seed 0's. The las_timit and
+las_large_wsj legs (20 h, the campaign's scaled-corpus branch) and the
+multi-host launch are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,8 +45,10 @@ from nabu_tpu_torch.config import ConfigFile, Recipe
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# the CTC configs of BASELINE.json, by recipe name
-CONFIGS = ["ctc_blstm_timit", "dblstm_ctc_wsj"]
+# the BASELINE.json configs with a 2 h leg, by recipe name
+CONFIGS = ["ctc_blstm_timit", "dblstm_ctc_wsj", "joint_ctc_att_multihost"]
+# the campaign's attention configs: slower validation, sortagrad, a backoff grace
+ATTENTION_CONFIGS = ("joint_ctc_att_multihost",)
 
 # feature-processing keys carried over from the committed recipes, per
 # split (speed_perturb exists only on trainfeatures sections)
@@ -108,12 +116,14 @@ def build_campaign_recipe(src_recipe: str, out_dir: str, splits: dict, alphabet,
 
 
 def _exp_tag(name: str, platform: Optional[str], corpus_version: int,
-             train_seconds: float) -> str:
-    """Expdir name scoped by corpus version and scale, so that a resumed
-    leg never attaches a checkpoint of another corpus to its row."""
+             train_seconds: float, seed: int = 0) -> str:
+    """Expdir name scoped by corpus version, scale and seed, so that a
+    resumed leg never attaches a checkpoint of another corpus to its row."""
     tag = f"exp_{name}"
     if not (corpus_version == 2 and train_seconds == 7200.0):
         tag += f"_v{corpus_version}_{train_seconds / 3600.0:g}h"
+    if seed:
+        tag += f"_seed{seed}"
     if platform:
         tag += f"_{platform}"
     return tag
@@ -187,14 +197,21 @@ def platform_of(card_line: Optional[str]) -> str:
     return "h100" if "H100" in card_line else "gpu"
 
 
-def leg_overrides(quick: bool = False) -> dict:
-    """The JAX campaign's trainer overrides of the CTC configs: the
+def leg_overrides(quick: bool = False, name: Optional[str] = None) -> dict:
+    """The JAX campaign's trainer overrides of config ``name`` at 2 h: the
     recipes' validation cadence and early stopping, a step budget of 120
     epochs (~6,000 steps at B = 32 on the 2 h corpus), the rolling
-    checkpoint only at the end, and resume from it. ``quick`` (the
+    checkpoint only at the end, and resume from it. An attention config
+    validates every 1000 steps, runs epoch 0 unshuffled (``sortagrad``)
+    and neither restores nor backs off before step 4000. ``quick`` (the
     smoke leg): 2 epochs and no validation."""
     overrides = {"ckpt_frequency": 0, "log_frequency": 20, "num_buckets": 4,
                  "num_epochs": 120, "resume": "true"}
+    if name in ATTENTION_CONFIGS:
+        overrides["valid_frequency"] = 1000
+        overrides["sortagrad"] = "true"
+        overrides["num_epochs"] = 120
+        overrides["backoff_warmup_steps"] = 4000
     if quick:
         overrides["num_epochs"] = 2
         overrides["valid_frequency"] = 0
@@ -204,22 +221,23 @@ def leg_overrides(quick: bool = False) -> dict:
 def run_config(name: str, splits, alphabet, workdir: str, device: str = "cuda",
                quick: bool = False, resume: bool = False, train_seconds: float = 7200.0,
                corpus_version: int = 2, model_overrides: Optional[dict] = None,
-               num_workers: int = 8) -> dict:
-    """data -> train -> test -> decode of one CTC config; -> its row.
+               num_workers: int = 8, seed: int = 0) -> dict:
+    """data -> train -> test -> decode of one config; -> its row.
 
     ``resume`` skips the stages whose outputs exist (data: the prepared
     test metadata; train: ``logs/train_complete.json``; test:
     ``test_result.json``). Decode always runs (it is the RTF probe)."""
     if name not in CONFIGS:
-        raise NotImplementedError(f"parity leg {name!r} not ported yet (CTC legs: {CONFIGS})")
+        raise NotImplementedError(f"parity leg {name!r} not ported yet (legs: {CONFIGS})")
     card_line = card(device)
     platform = platform_of(card_line)
     recipe = build_campaign_recipe(
         os.path.join(REPO, "config", "recipes", name),
         os.path.join(workdir, f"recipe_{name}"),
-        splits, alphabet, leg_overrides(quick), model_overrides=model_overrides,
+        splits, alphabet, leg_overrides(quick, name), model_overrides=model_overrides,
     )
-    expdir = os.path.join(workdir, _exp_tag(name, platform, corpus_version, train_seconds))
+    expdir = os.path.join(workdir, _exp_tag(name, platform, corpus_version, train_seconds,
+                                            seed))
     if os.path.exists(expdir) and not resume:
         shutil.rmtree(expdir)  # stale metrics or checkpoints would mix in
     logs = os.path.join(workdir, "logs", os.path.basename(expdir))
@@ -263,7 +281,7 @@ def run_config(name: str, splits, alphabet, workdir: str, device: str = "cuda",
         # every batch shape decoded once: wall time, model build included
         rtf, rtf_kind = decode_wall / max(_test_audio_seconds(expdir), 1e-9), "wall"
     tokens = _test_tokens(expdir)
-    return {
+    row = {
         "config": name,
         "platform": platform,
         "corpus_h": round(train_seconds / 3600.0, 1),
@@ -278,21 +296,28 @@ def run_config(name: str, splits, alphabet, workdir: str, device: str = "cuda",
         "test_tokens": tokens,
         "binomial_sigma": binomial_sigma(err, tokens),
     }
+    if seed:
+        row["seed"] = seed
+    return row
 
 
 def row_filename(row: dict) -> str:
     """Rows are keyed by config x platform x corpus scale x corpus
-    version, so a row of another corpus never overwrites another's."""
+    version x corpus seed, so a row of another corpus never overwrites
+    another's."""
     h = row.get("corpus_h", 2.0)
     v = row.get("corpus_version", 2)
     tag = "" if h == 2.0 else f"_{h:g}h"
     vtag = "" if v == 2 else f"_v{v}"
-    return f"{row['config']}_{row['platform']}{tag}{vtag}.json"
+    stag = f"_seed{row['seed']}" if row.get("seed") else ""
+    return f"{row['config']}_{row['platform']}{tag}{vtag}{stag}.json"
 
 
-def corpus_marker(version: int, train_seconds: float, eval_seconds: float) -> str:
-    """The corpus marker's text: the version and both split sizes."""
-    return f"v{version} {train_seconds:g} {eval_seconds:g}"
+def corpus_marker(version: int, train_seconds: float, eval_seconds: float,
+                  seed: int = 0) -> str:
+    """The corpus marker's text: the version, both split sizes and a
+    seed other than 0."""
+    return f"v{version} {train_seconds:g} {eval_seconds:g}" + (f" seed{seed}" if seed else "")
 
 
 def ensure_corpus(corpus_dir: str, version: int, train_seconds: float,
@@ -303,7 +328,7 @@ def ensure_corpus(corpus_dir: str, version: int, train_seconds: float,
     from nabu_tpu_torch.tools.synth_corpus import _phone40_inventory, make_phone40_corpus
 
     marker = os.path.join(corpus_dir, ".complete")
-    want = corpus_marker(version, train_seconds, eval_seconds)
+    want = corpus_marker(version, train_seconds, eval_seconds, seed)
     if os.path.exists(marker):
         with open(marker) as f:
             if f.read().strip() == want:
@@ -354,7 +379,7 @@ def main(argv=None) -> int:
                          quick=args.smoke, resume=args.resume,
                          train_seconds=args.train_seconds,
                          corpus_version=args.corpus_version, model_overrides=overrides,
-                         num_workers=args.num_workers)
+                         num_workers=args.num_workers, seed=args.seed)
         with open(os.path.join(args.rows, row_filename(row)), "w") as f:
             json.dump(row, f)
         print(json.dumps(row), flush=True)

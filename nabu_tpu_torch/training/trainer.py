@@ -19,10 +19,13 @@ Ported trainer options: ``num_steps``/``num_epochs``,
 ``num_tries``, ``lr_backoff_factor``, ``early_stopping``,
 ``frame_shift``, ``check_numerics`` (the NaN guard), ``resume``,
 ``pretrained_dir``/``pretrained_subtree`` (warm start from a port
-checkpoint) and ``async_checkpoint``; optimizers ``adam`` and
-``adamw``. The options no recipe sets (``numbatches_to_aggregate``,
-``ema_decay``, ``sortagrad``, ``backoff_warmup_steps``, ``mwer``, the
-profiler window, ``sgd``) raise "not ported yet".
+checkpoint), ``async_checkpoint``, ``sortagrad`` (epoch 0 in the
+loader's length-ascending order, unshuffled) and ``backoff_warmup_steps``
+(before that step a validation that does not improve neither restores
+the best model, nor backs off the rate, nor counts a try; best-tracking
+goes on); optimizers ``adam`` and ``adamw``. The options no recipe sets
+(``numbatches_to_aggregate``, ``ema_decay``, ``mwer``, the profiler
+window, ``sgd``) raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -132,8 +135,6 @@ class Trainer:
             ("mwer", conf.getbool("mwer", False)),
             ("profile_stop", conf.getint("profile_stop", 0) != 0),
             ("ema_decay", conf.getfloat("ema_decay", 0.0) != 0.0),
-            ("sortagrad", conf.getbool("sortagrad", False)),
-            ("backoff_warmup_steps", conf.getint("backoff_warmup_steps", 0) != 0),
             ("numbatches_to_aggregate", conf.getint("numbatches_to_aggregate", 1) != 1),
         ) if on]
         if not_ported:
@@ -152,6 +153,12 @@ class Trainer:
         self.num_tries = conf.getint("num_tries", 3)
         self.lr_backoff = conf.getfloat("lr_backoff_factor", 0.5)
         self.early_stopping = conf.getbool("early_stopping", True)
+        # validations up to this step track the best model but never
+        # restore it, back off the rate or count a try
+        self.backoff_warmup = conf.getint("backoff_warmup_steps", 0)
+        # epoch 0 unshuffled: the loader's order within a bucket is
+        # length-ascending, so this is the short-first curriculum
+        self.sortagrad = conf.getbool("sortagrad", False)
         self.frame_shift = conf.getfloat("frame_shift", 0.01)
         self.check_numerics = conf.getbool("check_numerics", True)
         self.optimizer = build_optimizer(conf)
@@ -231,7 +238,8 @@ class Trainer:
         t_first = time.time()
 
         def host_stream(epoch_idx: int, skip_n: int):
-            for batch in self.loader.epoch(epoch_idx, skip=skip_n):
+            shuffle = not (self.sortagrad and epoch_idx == 0)
+            for batch in self.loader.epoch(epoch_idx, shuffle=shuffle, skip=skip_n):
                 yield batch_to_arrays(batch), batch.num_audio_frames
 
         while not stop and step < self.num_steps:
@@ -278,7 +286,7 @@ class Trainer:
                         tries = 0
                         self.ckpt.save_best({"params": params, "opt_state": opt_state,
                                              "step": step, "metric": metric})
-                    elif self.early_stopping:
+                    elif self.early_stopping and step > self.backoff_warmup:
                         # restore the best model and back off the learning rate
                         tries += 1
                         if self.ckpt.exists("best"):

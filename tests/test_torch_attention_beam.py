@@ -157,11 +157,19 @@ def test_all_finished_ends_the_loop_on_jax_step(tmp_path, monkeypatch):
 
 
 def test_lm_fusion_raises(tmp_path):
-    _, tdec, _, tp = _speller(tmp_path, "bahdanau")
-    enc, elen = _encoded(1)
-    with pytest.raises(NotImplementedError, match="LM fusion not ported yet"):
-        beam.attention_beam_search(tdec, tp, torch.from_numpy(enc), torch.from_numpy(elen),
-                                   beam_width=2, max_steps=3, lm=object())
+    """The attention beam fuses an n-gram LM of the head's vocabulary; an
+    LM of another vocabulary, or a neural LM file, raises."""
+    from nabu_tpu_torch.decoding.lm import NgramLM
+
+    _, tm, _ = _models(tmp_path, "bahdanau")
+    V = tm.decoders["decoder"].output_dim
+    conf = {"recognizer": "attention_beam", "beam_width": "2", "lm_weight": "0.5"}
+    NgramLM.train([[0, 1], [2]], V + 1, 3).save(str(tmp_path / "wide.npz"))
+    with pytest.raises(ValueError, match=f"LM vocab {V + 1} != model output vocab {V}"):
+        build_recognizer(Conf(dict(conf, lm_path=str(tmp_path / "wide.npz")), "recognizer"), tm)
+    np.savez(str(tmp_path / "rnn.npz"), kind="rnn", vocab=V)
+    with pytest.raises(NotImplementedError, match="neural LM not ported yet"):
+        build_recognizer(Conf(dict(conf, lm_path=str(tmp_path / "rnn.npz")), "recognizer"), tm)
 
 
 @pytest.mark.parametrize("attention", ["location", "dot"])

@@ -1991,6 +1991,89 @@ def test_attention_beams_on_card_match_cpu_in_float64(cuda_device, tmp_path, att
     np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), rtol=0, atol=1e-6)
 
 
+_RNNT_CFG = (
+    "[encoder]\nencoder = listener\nnum_layers = 1\nnum_units = 12\nuse_pallas = true\n"
+    "[decoder]\ndecoder = rnnt\nnum_layers = 1\nnum_units = 8\nembed_dim = 6\n"
+    "joint_units = 16\nloss = transducer\n")
+
+
+def _fused_search(tmp_path, recognizer):
+    """A beam recognizer of a tiny model (5 labels) fusing a 3-gram
+    (``chip_smoke.phase_text_lm``) at lm_weight 0.3, and its search over
+    one seeded input (the CTC head's log-probs, or an encoder output) in
+    float64 on a device: -> search(device), (ids, lengths, scores) on the
+    CPU."""
+    import chip_smoke
+    from nabu_tpu_torch.config import Conf, ConfigFile
+    from nabu_tpu_torch.decoding.recognizers import build_recognizer
+    from nabu_tpu_torch.models.model import build_model
+    from nabu_tpu_torch.params import flatten, unflatten
+
+    lm_path = str(tmp_path / "lm.npz")
+    chip_smoke.phase_text_lm(lm_path, 5, 29)
+    conf = {"recognizer": recognizer, "beam_width": "6", "nbest": "6",
+            "length_norm_power": "1.0", "att_head": "att", "ctc_head": "ctc",
+            "ctc_weight": "0.3", "lm_path": lm_path, "lm_weight": "0.3"}
+    if recognizer == "ctc_beam":
+        return _ctc_fused_search(tmp_path, dict(conf, head="ctc"))
+    if recognizer != "transducer_beam":
+        return _float64_search(tmp_path, "bahdanau", dict(conf, head="att"))
+    path = tmp_path / "rnnt.cfg"
+    path.write_text(_RNNT_CFG)
+    model = build_model(ConfigFile.read(str(path)), 6, 5)
+    params = model.init(torch.Generator().manual_seed(3))["decoders"]["decoder"]
+    rec = build_recognizer(Conf(conf, "recognizer"), model)
+    rng = np.random.default_rng(37)
+    enc = torch.as_tensor(rng.standard_normal((3, 21, 24)))
+    lengths = torch.as_tensor([21, 14, 3], dtype=torch.int32)
+
+    def search(dev):
+        head = unflatten({k: v.to(dev, torch.float64) for k, v in flatten(params).items()})
+        return [x.cpu() for x in rec.search(head, enc.to(dev), lengths.to(dev))]
+
+    return search
+
+
+def _ctc_fused_search(tmp_path, conf):
+    from nabu_tpu_torch.config import Conf, ConfigFile
+    from nabu_tpu_torch.decoding.recognizers import build_recognizer
+    from nabu_tpu_torch.models.model import build_model
+
+    path = tmp_path / "model.cfg"
+    path.write_text(_JOINT_CFG.format(attention="bahdanau"))
+    rec = build_recognizer(Conf(conf, "recognizer"), build_model(ConfigFile.read(str(path)),
+                                                                 6, 5))
+    rng = np.random.default_rng(41)
+    lp = torch.log_softmax(torch.as_tensor(3.0 * rng.standard_normal((3, 40, 6))), -1)
+    lengths = torch.as_tensor([40, 31, 7], dtype=torch.int32)
+
+    def search(dev):
+        return [x.cpu() for x in rec.decode_logprobs(lp.to(dev), lengths.to(dev))]
+
+    return search
+
+
+@pytest.mark.parametrize("recognizer", ["ctc_beam", "attention_beam", "joint_ctc_att_beam",
+                                        "transducer_beam"])
+def test_lm_fused_beams_on_card_match_cpu_in_float64(cuda_device, tmp_path, recognizer):
+    """Each beam with a 3-gram fused at lm_weight 0.3 (beam 6 over 3
+    utterances) on the card against the same search on the CPU, both in
+    float64: ids and lengths identical, scores within 1e-6 (as
+    chip_smoke's LM-fused passes); the planted stale LM context on the
+    card (``chip_smoke.lm_stale_context``) moves the scores beyond it."""
+    import chip_smoke
+
+    search = _fused_search(tmp_path, recognizer)
+    got, want = search(cuda_device), search(torch.device("cpu"))
+    assert got[2].dtype == torch.float64
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), rtol=0, atol=1e-6)
+    with chip_smoke.lm_stale_context():
+        stale = search(cuda_device)
+    assert not torch.equal(stale[0], want[0]) or float(
+        (stale[2] - want[2]).abs().max()) > 1e-6
+
+
 # ---------------------------------------------------------------------------
 # the bf16 GEMM of csrc/blstm.cu (TMA + wgmma, split-K for kind 2)
 # ---------------------------------------------------------------------------

@@ -4,9 +4,12 @@
   the JAX module for the same seed and sizes (phone40 v1 / v2 / v3 and
   the demo profile), at a tiny size;
 - ``build_campaign_recipe`` writes the JAX campaign's recipe files for
-  both CTC configs, with the campaign's trainer overrides, with and
-  without ``model_overrides``; ``_exp_tag``, ``row_filename`` and
-  ``_train_metrics`` give JAX's answers;
+  both CTC configs and the joint CTC/attention config, with the trainer
+  overrides that JAX's ``run_config`` builds for each (the attention
+  config's validation cadence, sortagrad and backoff grace included),
+  with and without ``model_overrides``; ``_exp_tag``, ``row_filename``
+  and ``_train_metrics`` give JAX's answers, and a seed other than 0 is
+  named in the expdir, the row's file and the corpus marker;
 - the corpus marker records the version and both split sizes, and a
   corpus of another scale is synthesized anew, not reused;
 - a ``--smoke`` leg (a 30 s corpus, ``model_overrides`` shrinking the
@@ -81,13 +84,37 @@ JAX_CTC_OVERRIDES = {"ckpt_frequency": 0, "log_frequency": 20, "num_buckets": 4,
                      "num_epochs": 120, "resume": "true"}
 
 
+class _Built(Exception):
+    pass
+
+
+def jax_campaign_overrides(monkeypatch, tmp_path, config, quick=False):
+    """The trainer overrides JAX's ``run_config`` passes to
+    ``build_campaign_recipe`` for ``config`` at 2 h (stopped there, before
+    any stage runs)."""
+    seen = {}
+
+    def build(src, out, splits, alphabet, overrides, **kw):
+        seen.update(overrides)
+        raise _Built
+
+    monkeypatch.setattr(jcampaign, "build_campaign_recipe", build)
+    with pytest.raises(_Built):
+        jcampaign.run_config(config, {}, [], str(tmp_path / "jax_campaign"), quick=quick)
+    monkeypatch.undo()
+    return seen
+
+
 @pytest.mark.parametrize("config", parity_legs.CONFIGS)
 @pytest.mark.parametrize("model_overrides", [None, {"encoder": {"num_units": 16}}])
-def test_campaign_recipe_is_the_jax_campaigns(tmp_path, config, model_overrides):
+def test_campaign_recipe_is_the_jax_campaigns(tmp_path, monkeypatch, config, model_overrides):
     assert parity_legs.leg_overrides() == JAX_CTC_OVERRIDES
+    overrides = parity_legs.leg_overrides(name=config)
+    want = jax_campaign_overrides(monkeypatch, tmp_path, config)
+    assert overrides == want and list(overrides) == list(want)
     splits = _splits(tmp_path)
     src = os.path.join(REPO, "config", "recipes", config)
-    args = (splits, [f"p{i}" for i in range(40)], parity_legs.leg_overrides())
+    args = (splits, [f"p{i}" for i in range(40)], overrides)
     jout = jcampaign.build_campaign_recipe(src, str(tmp_path / "jax"), *args,
                                            model_overrides=model_overrides)
     out = parity_legs.build_campaign_recipe(src, str(tmp_path / "torch"), *args,
@@ -97,6 +124,45 @@ def test_campaign_recipe_is_the_jax_campaigns(tmp_path, config, model_overrides)
     for name in os.listdir(jout):
         with open(os.path.join(out, name)) as a, open(os.path.join(jout, name)) as b:
             assert a.read() == b.read(), name
+
+
+def test_joint_leg_trains_as_the_campaign_does(tmp_path, monkeypatch):
+    """The joint leg's recipe: the committed model and evaluators, the
+    campaign's attention overrides on the recipe's trainer; its smoke leg
+    keeps them but for 2 epochs without validation, as JAX's does."""
+    name = "joint_ctc_att_multihost"
+    assert name in parity_legs.ATTENTION_CONFIGS
+    assert parity_legs.leg_overrides(name=name) == {
+        **JAX_CTC_OVERRIDES, "valid_frequency": 1000, "sortagrad": "true",
+        "backoff_warmup_steps": 4000}
+    quick = parity_legs.leg_overrides(quick=True, name=name)
+    assert quick == jax_campaign_overrides(monkeypatch, tmp_path, name, quick=True)
+    out = parity_legs.build_campaign_recipe(
+        os.path.join(REPO, "config", "recipes", name), str(tmp_path / "r"), _splits(tmp_path),
+        [f"p{i}" for i in range(40)], parity_legs.leg_overrides(name=name))
+    from nabu_tpu_torch.config import Recipe
+
+    r = Recipe(out)
+    t = r.trainer.section("trainer")
+    assert (t["sortagrad"], t["backoff_warmup_steps"], t["valid_frequency"],
+            t["num_epochs"], t["batch_size"]) == ("true", "4000", "1000", "120", "64")
+    assert r.recognizer.section("recognizer")["recognizer"] == "joint_ctc_att_beam"
+    ev = r.test_evaluator.section("evaluator")
+    assert (ev["recognizer"], ev["head"], ev["beam_width"]) == ("attention_beam", "att", "16")
+    with open(os.path.join(out, "model.cfg")) as a, open(
+            os.path.join(REPO, "config", "recipes", name, "model.cfg")) as b:
+        assert a.read() == b.read()
+
+
+def test_a_second_seed_is_named_apart():
+    assert parity_legs._exp_tag("dblstm_ctc_wsj", "h100", 2, 7200.0, seed=1) == \
+        "exp_dblstm_ctc_wsj_seed1_h100"
+    assert parity_legs._exp_tag("dblstm_ctc_wsj", "h100", 2, 7200.0, seed=0) == \
+        jcampaign._exp_tag("dblstm_ctc_wsj", "h100", 2, 7200.0)
+    assert parity_legs.row_filename({"config": "ctc_blstm_timit", "platform": "h100",
+                                     "seed": 1}) == "ctc_blstm_timit_h100_seed1.json"
+    assert parity_legs.corpus_marker(2, 7200.0, 600.0, seed=1) == "v2 7200 600 seed1"
+    assert parity_legs.corpus_marker(2, 7200.0, 600.0) == "v2 7200 600"
 
 
 def test_smoke_overrides_and_names_are_the_jax_campaigns():
@@ -130,7 +196,7 @@ def test_corpus_marker_rejects_another_scale(tmp_path, capsys):
     corpus = str(tmp_path / "corpus")
     splits, alphabet = parity_legs.ensure_corpus(corpus, 1, 4.0, 3.0, seed=1)
     marker = os.path.join(corpus, ".complete")
-    assert open(marker).read().strip() == "v1 4 3"
+    assert open(marker).read().strip() == "v1 4 3 seed1"  # a seed other than 0 is named
     wavs = len(open(splits["train"][0]).read().splitlines())
     # the same version and sizes: reused
     assert parity_legs.ensure_corpus(corpus, 1, 4.0, 3.0, seed=1) == (splits, alphabet)
@@ -140,8 +206,12 @@ def test_corpus_marker_rejects_another_scale(tmp_path, capsys):
         splits2, _ = parity_legs.ensure_corpus(corpus, version, train_s, eval_s, seed=1)
         out = capsys.readouterr().out
         assert "reusing corpus" not in out and "synthesizing" in out
-        assert open(marker).read().strip() == f"v{version} {train_s:g} {eval_s:g}"
+        assert open(marker).read().strip() == f"v{version} {train_s:g} {eval_s:g} seed1"
     assert len(open(splits2["train"][0]).read().splitlines()) > wavs
+    # another seed: made anew; seed 0's marker is the JAX campaign's
+    parity_legs.ensure_corpus(corpus, 2, 12.0, 4.0, seed=0)
+    assert "synthesizing" in capsys.readouterr().out
+    assert open(marker).read().strip() == "v2 12 4"
     # a marker from a crash or of the legacy version-only form is not trusted
     with open(marker, "w") as f:
         f.write("v1")

@@ -220,13 +220,21 @@ class TestDevice:
             resolve_device("mps")
 
     def test_lm_fusion_not_ported(self, corpus):
+        """The artifact's LM is fused (tests/test_torch_lm.py); a neural LM
+        file, not ported yet, raises, and so does an LM of another
+        vocabulary than the model's."""
+        from nabu_tpu_torch.decoding.lm import NgramLM
         from nabu_tpu_torch.serving import load_exported
 
         root, _ = corpus
         art = Path(_artifact(root, "float32", "beam", seed=3))
         (art / "recognizer.cfg").write_text(
             RECOGNIZERS["beam"] + "lm_path = lm.npz\nlm_weight = 0.5\n")
-        with pytest.raises(NotImplementedError, match="LM fusion not ported yet"):
+        np.savez(str(art / "lm.npz"), kind="rnn", vocab=4)
+        with pytest.raises(NotImplementedError, match="neural LM not ported yet"):
+            load_exported(str(art), device="cpu")
+        NgramLM.train([[0, 1, 2]], 5, 3).save(str(art / "lm.npz"))
+        with pytest.raises(ValueError, match="LM vocab 5 != model output vocab 4"):
             load_exported(str(art), device="cpu")
 
 

@@ -374,7 +374,7 @@ def test_warm_start_and_unported_options(experiment, tmp_path):
     got = flatten(trainer.init_state()["params"])
     best = flatten(load_npz(os.path.join(expdir, "checkpoints", "best", "params.npz")))
     assert got.keys() == best.keys() and all(torch.equal(got[k], best[k]) for k in got)
-    for key, value in (("sortagrad", "true"), ("numbatches_to_aggregate", "2"),
+    for key, value in (("mwer", "true"), ("numbatches_to_aggregate", "2"),
                        ("ema_decay", "0.999"), ("optimizer", "sgd")):
         c = r.trainer.section("trainer").copy()
         c.set(key, value)
@@ -391,3 +391,145 @@ def test_entry_points_raise_without_gpu(experiment, monkeypatch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(["train", "--recipe", recipe, "--expdir", expdir, "--device", "cpu",
                   "--distributed"])
+
+
+# -- sortagrad and backoff_warmup_steps against the JAX Trainer -------------
+
+DNN_CFG = {"encoder": {"encoder": "dnn", "num_units": "8"},
+           "decoder": {"decoder": "linear_ctc", "loss": "ctc"}}
+
+
+def _shards(root, lengths, num_labels=4):
+    """The same utterances (lengths in the order given) as shards of both
+    packages: -> (JAX loader, port loader) over them."""
+    from nabu_tpu.data.pipeline import BucketedLoader as JLoader
+    from nabu_tpu.data.storage import ShardedDataset as JDataset
+    from nabu_tpu.data.storage import ShardWriter as JWriter
+    from nabu_tpu_torch.data.pipeline import BucketedLoader
+    from nabu_tpu_torch.data.storage import ShardedDataset, ShardWriter
+
+    rng = np.random.default_rng(11)
+    utts = [(f"u{i}", rng.standard_normal((int(L), F)).astype(np.float32),
+             rng.integers(0, num_labels, 3).astype(np.int32)) for i, L in enumerate(lengths)]
+    loaders = []
+    for side, writer, dataset, loader in (("jax", JWriter, JDataset, JLoader),
+                                          ("torch", ShardWriter, ShardedDataset, BucketedLoader)):
+        if not (root / side).exists():
+            fw, tw = writer(str(root / side / "f")), writer(str(root / side / "t"))
+            for name, feat, tgt in utts:
+                fw.write(name, feat)
+                tw.write(name, tgt)
+            fw.close()
+            tw.close({"num_labels": num_labels})
+        loaders.append(loader(dataset(str(root / side / "f")), dataset(str(root / side / "t")),
+                              batch_size=3, num_buckets=3))
+    return loaders
+
+
+def _both_trainers(tmp_path, tconf: dict, lengths, valid_fns=(None, None)):
+    """The JAX Trainer and the port's over the same data and config; each
+    loader's epochs are recorded as (epoch, shuffle, [utt ids a batch])."""
+    from nabu_tpu.config import Conf as JC
+    from nabu_tpu.config import ConfigFile as JCF
+    from nabu_tpu.parallel import mesh as mesh_lib
+    from nabu_tpu.training.trainer import Trainer as JTrainer
+
+    jloader, loader = _shards(tmp_path / "data", lengths)
+    records = ([], [])
+    for rec, ld in zip(records, (jloader, loader)):
+        epoch = ld.epoch
+
+        def recorded(epoch_idx, shuffle=True, skip=0, _epoch=epoch, _rec=rec):
+            _rec.append((epoch_idx, shuffle, []))
+            for batch in _epoch(epoch_idx, shuffle=shuffle, skip=skip):
+                _rec[-1][2].append(list(batch.utt_ids))
+                yield batch
+
+        ld.epoch = recorded
+    jmodel = jbuild_model(JCF({k: JC(v, k) for k, v in DNN_CFG.items()}), F, NUM_LABELS)
+    tmodel = build_model(ConfigFile({k: Conf(v, k) for k, v in DNN_CFG.items()}), F, NUM_LABELS)
+    jt = JTrainer(JC(tconf, "trainer"), jmodel, jloader, str(tmp_path / "jexp"),
+                  valid_fn=valid_fns[0], mesh=mesh_lib.make_mesh(devices=jax.devices()[:1]))
+    tt = Trainer(Conf(tconf, "trainer"), tmodel, loader, str(tmp_path / "texp"),
+                 valid_fn=valid_fns[1], device="cpu")
+    return jt, tt, records
+
+
+@pytest.mark.parametrize("sortagrad", ["true", "false"])
+def test_sortagrad_batch_order_is_the_jax_trainers(tmp_path, sortagrad):
+    """Epoch 0 unshuffled (length-ascending) under sortagrad, shuffled
+    from epoch 1, and the whole batch order of two and a half epochs the
+    JAX trainer's; a resume into epoch 0 keeps the unshuffled order."""
+    lengths = np.random.default_rng(3).permutation(np.arange(5, 17))  # scrambled
+    tconf = {"num_steps": "10", "log_frequency": "1", "learning_rate": "1e-2",
+             "sortagrad": sortagrad}
+    jt, tt, (jrec, trec) = _both_trainers(tmp_path, tconf, lengths)
+    assert tt.sortagrad == (sortagrad == "true") == jt.sortagrad
+    jt.train(rng_seed=0)
+    tt.train(rng_seed=0)
+    assert trec == jrec
+    assert [(e, s) for e, s, _ in trec] == [(0, sortagrad != "true"), (1, True), (2, True)]
+    if sortagrad == "true":
+        order = [int(u[1:]) for batch in trec[0][2] for u in batch]
+        assert [lengths[i] for i in order] == sorted(lengths)
+    else:
+        assert trec[0][2] != trec[1][2]
+
+    # stopped at step 3 and resumed: epoch 0 goes on from its fourth batch
+    # in the order it began in
+    tconf = dict(tconf, num_steps="3", resume="true")
+    for t in _both_trainers(tmp_path / "r", tconf, lengths)[:2]:
+        t.train(rng_seed=0)
+    jt2, tt2, (jrec2, trec2) = _both_trainers(tmp_path / "r", dict(tconf, num_steps="5"),
+                                              lengths)
+    jt2.train(rng_seed=0)
+    tt2.train(rng_seed=0)
+    assert trec2 == jrec2
+    assert [(e, s) for e, s, _ in trec2] == [(0, sortagrad != "true"), (1, True)]
+    assert trec2[0][2] == trec[0][2][3:] and len(trec2[0][2]) == 1
+
+
+def _early_stop_lines(expdir):
+    with open(os.path.join(expdir, "logs", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [(r["step"], r.get("valid/metric"), r.get("early_stop/tries"),
+             r.get("early_stop/lr_scale")) for r in rows
+            if "valid/metric" in r or "early_stop/tries" in r]
+
+
+@pytest.mark.parametrize("warmup,curve,want", [
+    # the JAX test's curve: a plateau through the grace period, the
+    # breakthrough at 7, two failed tries after it
+    ("6", [1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 0.5, 7.0, 8.0], (9, 0.5)),
+    # no grace: best at 1, two failed tries, stop at 3
+    ("0", [1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 0.5, 7.0, 8.0], (3, 1.0)),
+    # the first try lands at step warmup + 1 (strict >)
+    ("3", [1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0, 9.0], (5, 1.0)),
+], ids=["jax_curve", "no_warmup", "strict"])
+def test_backoff_warmup_sequence_is_the_jax_trainers(tmp_path, warmup, curve, want):
+    """One scripted validation curve through both trainers: the same
+    validations, tries and lr_scale at the same steps, the same restores
+    of best/, the same stop."""
+    tconf = {"num_steps": "10", "valid_frequency": "1", "num_tries": "2",
+             "lr_backoff_factor": "0.5", "backoff_warmup_steps": warmup,
+             "log_frequency": "1", "learning_rate": "1e-2"}
+    curves = iter(curve), iter(curve)
+    jt, tt, _ = _both_trainers(tmp_path, tconf, [12] * 8,
+                               valid_fns=(lambda p: next(curves[0]), lambda p: next(curves[1])))
+    assert tt.backoff_warmup == jt.backoff_warmup == int(warmup)
+    restored = ([], [])
+    for t, rec in zip((jt, tt), restored):
+        restore = t.ckpt.restore
+
+        def spy(name, *a, _restore=restore, _rec=rec, **kw):
+            _rec.append(name)
+            return _restore(name, *a, **kw)
+
+        t.ckpt.restore = spy
+    jres, tres = jt.train(rng_seed=0), tt.train(rng_seed=0)
+    assert (tres["step"], tres["best_metric"]) == want == (jres["step"], jres["best_metric"])
+    assert tres["stopped_early"] is jres["stopped_early"] is True
+    lines = _early_stop_lines(str(tmp_path / "texp"))
+    assert lines == _early_stop_lines(str(tmp_path / "jexp"))
+    assert restored[1] == restored[0] == ["best"] * 2
+    assert [s for s, m, tries, _ in lines if tries is not None][0] > int(warmup)
