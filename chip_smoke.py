@@ -165,10 +165,24 @@ phase's first batch served unfused and fused (the RTF of each; the same
 kernel launches), the fused search's 8-best over the 8 shortest
 utterances on the card against the CPU in float64 (identical, scores
 within 1e-6), and the planted stale LM context (``DenseLM.step``
-returning the parent context), which that check must reject. The
-pipeline phase adds ``cli lm``, ``cli decode`` with the LM, ``cli
-rescore``, an export carrying the LM and ``cli serve`` over it, whose
-lines must be the fused decode's best.
+returning the parent context), which that check must reject. Then the
+same with an RNN LM: ``RnnLM.train`` on the card at the JAX defaults (1 x
+256 LSTM, embed 64, batch 64, 500 Adam steps) on the same text, its
+training launches read, one batch's gradients through the kernels held
+to the plain versions' (worst parameter 1e-4 relative, with the planted
+``lstm_dwh_h_late``), the float64 check with the LM moved to float64
+and the planted stale state (``DenseRnnLM.step`` returning the parent
+state). The unfused and fused batches are served in turns (unfused,
+fused, fused, unfused). serve also serves its first batch through a copy
+of the artifact with ``frontend_dft_dtype = bf16`` (the RTF beside the
+f32 batch's in turns, the texts that differ, the ``stft_mel_bf16``
+launch). The pipeline phase adds ``cli lm``, ``cli decode`` with the LM,
+``cli rescore``, an export carrying the LM and ``cli serve`` over it,
+whose lines must be the fused decode's best; then ``cli lm --type rnn``
+(on the card), ``cli rescore`` with it over the decode's n-best twice
+(more lines than one walk group; each line's score equal to its score
+alone, bit for bit), ``cli decode`` with it, an export carrying it and
+``cli serve`` over that export.
 
 The kernels phase also holds the four RNN-T kernels (joint forward,
 alpha, beta, joint backward) to their plain versions at B = 32, T' = 250,
@@ -194,7 +208,13 @@ Listener (H = 256, D = 40 and 1024), B = 32. Every serving and training
 phase prints its GEMM launches by kernel, and the WMMA kernel must not
 launch in any of them. The stft_mel row reports its GFLOP/s and its
 share of the bound beside the rfft path's time, and how far it and the
-plain version land from the float64 spectrum; each v1 chain row
+plain version land from the float64 spectrum; the stft_mel_bf16 row (the
+bf16 mode on the same frames) its TFLOP/s and share of the bound, the
+f32 kernel's time, how far it and its plain version land from the
+float64 product of the same bf16 operands, and how far the mode's
+features lie from the f32 mode's. The LSTM kernels are held again at the
+RNN LM's shapes (f32, H = 256, B = 64 sentences of the LM text, T their
+packed width), each with its planted fault; each v1 chain row
 its µs a step, its split (``chain_plan``) and whether a second launch
 repeats its bits (a row whose bits differ fails the run), the bf16 rows
 also the µs a step at twice the rows a block; the v2 chain's rows
@@ -305,6 +325,14 @@ W, K = 400, 256
 # - stft_mel, log-mel f32: both sides f32, summation orders differ over
 #   W = 400 products (sound: about one f32 step of the log); fault: the
 #   last tap of W dropped
+# - stft_mel_bf16: the same exact bf16 products summed in f32 on both
+#   sides, the tensor cores' order against cuBLAS's (the f32 mode's 1e-4
+#   holds only for the same order); in near-silent bands the log amplifies
+#   the f32 rounding of a sum that cancels to ~1e-5 of its terms: each side
+#   lands up to ~8e-5 from the float64 product of the same bf16 operands
+#   (both distances printed), so the two may lie up to their sum apart
+#   (sound 1.2e-4 at the serving shape, H100); fault: the last tap dropped
+#   (10.9)
 # - blstm_proj, blstm_bwd_dx: bf16 outputs may land one bf16 rounding
 #   step apart when the f32 sums differ in their last bits (and the bias
 #   add after the cast keeps that step where the sum is smaller); fault:
@@ -374,6 +402,8 @@ W, K = 400, 256
 #   so its trace is ~2%)
 TOL = {
     "stft_mel": (1e-4, 0.0),
+    "stft_mel_bf16": (2.5e-4, 0.0),
+    "rnn_lm_grads": 1e-4,
     ("blstm_proj", "bf16"): (1e-2, 1e-2),
     ("blstm_proj", "f32"): (1e-4, 1e-5),
     ("blstm_recur", "bf16"): (4e-2, 0.0),
@@ -435,6 +465,8 @@ _BLSTM_FWD = "nabu_tpu/ops/pallas/blstm.py:867"
 _BLSTM_BWD = "nabu_tpu/ops/pallas/blstm.py:952"
 TPU_KERNELS = {
     "stft_mel": "nabu_tpu/ops/pallas/stft_mel.py:78",
+    # the kernel's dft_dtype = bf16 mode (its default)
+    "stft_mel_bf16": "nabu_tpu/ops/pallas/stft_mel.py:78",
     "blstm_proj": _BLSTM_FWD,
     "blstm_recur": _BLSTM_FWD,
     "blstm_recur_train": _BLSTM_FWD,
@@ -462,7 +494,7 @@ TPU_KERNELS = {
     "blstm_v1_bwd_dwh": "nabu_tpu/ops/pallas/blstm.py:463",
 }
 SOURCES = {name: "nabu_tpu_torch/ops/kernels/csrc/blstm.cu" for name in TPU_KERNELS}
-SOURCES["stft_mel"] = "nabu_tpu_torch/ops/kernels/csrc/stft_mel.cu"
+SOURCES["stft_mel"] = SOURCES["stft_mel_bf16"] = "nabu_tpu_torch/ops/kernels/csrc/stft_mel.cu"
 SOURCES["ctc_alpha"] = SOURCES["ctc_beta"] = "nabu_tpu_torch/ops/kernels/csrc/ctc.cu"
 for _name in ("rnnt_joint_fwd", "rnnt_alpha", "rnnt_beta", "rnnt_joint_bwd"):
     SOURCES[_name] = "nabu_tpu_torch/ops/kernels/csrc/transducer.cu"
@@ -521,7 +553,14 @@ LAS_DECODE_KERNELS = ("blstm_proj", "blstm_v1_recur")
 DECODE_KERNELS = ("blstm_proj", "blstm_recur")
 PIPELINE_KERNELS = {"test": DECODE_KERNELS, "decode": DECODE_KERNELS,
                     "serve": SERVE_KERNELS, "recognize": SERVE_KERNELS,
-                    "decode_lm": DECODE_KERNELS, "serve_lm": SERVE_KERNELS}
+                    "decode_lm": DECODE_KERNELS, "serve_lm": SERVE_KERNELS,
+                    # the neural LM: trained on the card (the three training
+                    # kernels), its perplexity and rescoring scored by the
+                    # projection and the walk; fused, a plain cell a step
+                    "lm_rnn": ("lstm_fwd_train", "lstm_bwd_recur", "lstm_bwd_dwh",
+                               "lstm_proj", "lstm_fwd"),
+                    "rescore_rnn": ("lstm_proj", "lstm_fwd"),
+                    "decode_rnn": DECODE_KERNELS, "serve_rnn": SERVE_KERNELS}
 # utterances of the dev split that cli serve and cli recognize decode
 PIPELINE_UTTS = 8
 TRAIN_RECIPES = {"train": RECIPE, "train_rnnt": RNNT_RECIPE, "train_rnnt_stream": STREAM_RECIPE,
@@ -1448,6 +1487,7 @@ def phase_kernels(torch, quick: bool) -> dict:
     check(tuple(cossin.shape) == (W, 2 * K), f"stft_mel: cossin {tuple(cossin.shape)}")
     got = stft_ops.stft_mel(frames, cossin, mel, mr)
     ref = stft_ops.stft_mel_plain(frames, cossin, mel)
+    got_f32 = got
     err = compare(torch, got, ref, TOL["stft_mel"], "stft_mel")
     fault = fault_reading(drop_last_tap(stft_ops.stft_mel_plain)(frames, cossin, mel, mr),
                           ref, TOL["stft_mel"], "stft_mel")
@@ -1488,6 +1528,50 @@ def phase_kernels(torch, quick: bool) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "mel_nonzeros": nnz,
     }
     emit({"phase": "kernels", "kernel": "stft_mel", **rows["stft_mel"]})
+
+    # --- the bf16 mode on the same frames: bf16 frames and table, the
+    # product on the tensor cores ------------------------------------------
+    cs16, _, _ = fp.folded("bf16")
+    fr16 = frames.to(torch.bfloat16)
+    got = stft_ops.stft_mel(fr16, cs16, mel, mr)
+    ref = stft_ops.stft_mel_plain(fr16, cs16, mel)
+    tol = TOL["stft_mel_bf16"]
+    err = compare(torch, got, ref, tol, "stft_mel_bf16")
+    fault = fault_reading(drop_last_tap(stft_ops.stft_mel_plain)(fr16, cs16, mel, mr), ref, tol,
+                          "stft_mel_bf16")
+    exact = fr16.double() @ cs16.double()
+    exact = torch.log(torch.clamp((exact[:, :K] ** 2 + exact[:, K:] ** 2) @ mel.double(),
+                                  min=1e-30))
+
+    def library_bf16():
+        # the yardstick: the bf16 product (bf16 out), power, mel, log
+        cs = (fr16 @ cs16).float()
+        return torch.log(torch.clamp((cs[:, :K] ** 2 + cs[:, K:] ** 2) @ mel, min=1e-30))
+
+    # the DFT product on the tensor cores (2 N W 2K at the bf16 rate) beside
+    # the power, the mel product over its nonzeros and the log at the f32
+    # rate; each bf16 input read once, the f32 output written once
+    b_ms, b_by = bound(2 * (N * W + W * 2 * K) + 4 * (2 * nnz + NFILT * 3 + N * NFILT),
+                       4 * N * W * K, PEAK_BF16, (N * (3 * K + NFILT) + 2 * N * nnz, PEAK_F32))
+    ms = timed(lambda: stft_ops.stft_mel(fr16, cs16, mel, mr), reps)
+    rows["stft_mel_bf16"] = {
+        "shape": [N, W, K, NFILT], "dtype": "bf16", "max_abs_err": err, "tol": tol,
+        "fault_max_abs_err": fault, "ms": ms,
+        "tflops": None if ms is None else 4 * N * W * K / ms / 1e9,
+        "bound_share": None if ms is None else b_ms / ms,
+        "f32_kernel_ms": rows["stft_mel"]["ms"],
+        "plain_ms": timed(lambda: stft_ops.stft_mel_plain(fr16, cs16, mel), reps),
+        "library_ms": timed(library_bf16, reps),
+        "library": "bf16 frames @ cossin (bf16 out), power, mel product, log",
+        # both sides' distance from the float64 product of the same bf16
+        # operands, and the mode's distance from the f32 mode's features
+        "plain_f64_max_abs_err": float((ref.double() - exact).abs().max()),
+        "kernel_f64_max_abs_err": float((got.double() - exact).abs().max()),
+        "f32_mode_max_abs_diff": float((got - got_f32).abs().max()),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    emit({"phase": "kernels", "kernel": "stft_mel_bf16", **rows["stft_mel_bf16"]})
+    del exact, fr16
 
     # --- BLSTM projection and recurrence ----------------------------------
     lengths = np.full((B,), T, np.int32)
@@ -1598,6 +1682,7 @@ def phase_kernels(torch, quick: bool) -> dict:
     rows.update(ctc_rows(torch, timed, reps))
     rows.update(rnnt_rows(torch, timed, reps))
     rows.update(lstm_rows(torch, timed, reps))
+    rows.update(lm_lstm_rows(torch, timed, reps))
     rows.update(v1_rows(torch, timed, reps // 4))
     rows.update(f32_recipe_rows(torch, timed, reps))
     torch.cuda.synchronize()
@@ -2174,6 +2259,79 @@ def lstm_rows(torch, timed, reps) -> dict:
             rows[("lstm_fwd", tag, f"chunk B={Bc}")] = row
             del xw, y, ry
         del lstm
+    return rows
+
+
+def lm_lstm_rows(torch, timed, reps) -> dict:
+    """The unidirectional LSTM kernels at the RNN LM's shapes: f32, H =
+    256, B = 64 sentences of ``phase_text`` (their lengths + 1, T their
+    packed width): the walk with a carry, the training walk (output and
+    stores), the chain on the plain walk's residuals and dwh, each against
+    its plain version with its planted fault (as ``lstm_rows``), timed
+    beside its plain version and its bound."""
+    from nabu_tpu_torch.decoding.neural_lm import _pack
+    from nabu_tpu_torch.ops import lstm as lo
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    Hq, Bq = 256, 64
+    H4 = 4 * Hq
+    inp, _, lengths = _pack(phase_text(29, 3)[:Bq], 30)
+    Tq = inp.shape[1]
+    lens = torch.as_tensor(lengths, device=dev)
+    valid, M = int(lengths.sum()), Tq * Bq
+    f32 = torch.float32
+
+    def u(shape, scale=1.0):
+        return torch.as_tensor(rng.uniform(-scale, scale, shape).astype(np.float32), device=dev)
+
+    xw, wh = u((Tq, Bq, H4)), torch.as_tensor(glorot(rng, (Hq, H4)), device=dev)
+    h0, c0 = u((Bq, Hq), 0.5), u((Bq, Hq), 0.5)
+    walk_ops = 2 * valid * Hq * H4 + 12 * valid * Hq
+    rows = {}
+
+    def row(name, got, ref, tol, fault, bytes_, ops, fn, plain, **more):
+        err = max(compare(torch, g, r, tol, f"{name} lm") for g, r in zip(got, ref))
+        b_ms, b_by = bound(bytes_, ops, PEAK_F32)
+        rows[(name, "f32", "lm")] = r = {
+            "shape": [Tq, Bq, Hq], "dtype": "f32", "valid_tokens": valid, "max_abs_err": err,
+            "tol": tol, "fault_max_abs_err": fault_reading(fault, ref[0], tol, f"{name} lm"),
+            "ms": timed(fn, reps), "plain_ms": timed(plain, min(reps, 1)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **more}
+        emit({"phase": "kernels", "kernel": name, "case": "lm", **r})
+
+    tol = TOL[("lstm_fwd", "f32")]
+    y, (hT, cT) = lo.lstm_fwd(xw, lens, wh, h0, c0)
+    ry, (rh, rc) = lo.lstm_fwd_plain(xw, lens, wh, h0, c0)
+    row("lstm_fwd", (y, hT, cT), (ry, rh, rc), tol,
+        lstm_stale_walk(torch)(xw, lens, wh, h0, c0)[0],
+        4 * (valid * H4 + Hq * H4 + M * Hq + 4 * Bq * Hq) + 4 * Bq, walk_ops,
+        lambda: lo.lstm_fwd(xw, lens, wh, h0, c0),
+        lambda: lo.lstm_fwd_plain(xw, lens, wh, h0, c0), plan=lo.walk_plan(Bq, Hq))
+    got = lo.lstm_fwd_train(xw, lens, wh)
+    ref = lo.lstm_fwd_train_plain(xw, lens, wh)
+    row("lstm_fwd_train", got, ref, tol, lstm_stale_walk(torch)(xw, lens, wh)[0],
+        4 * (valid * H4 + Hq * H4 + M * Hq + M * (H4 + 2 * Hq)) + 4 * Bq, walk_ops,
+        lambda: lo.lstm_fwd_train(xw, lens, wh), lambda: lo.lstm_fwd_train_plain(xw, lens, wh))
+    _, gates, cs, hs = ref
+    gy = u((Tq, Bq, Hq))
+    dxw = lo.lstm_bwd_recur(gates, cs, gy, lens, wh)
+    ref_dxw = lo.lstm_bwd_recur_plain(gates, cs, gy, lens, wh)
+    row("lstm_bwd_recur", (dxw,), (ref_dxw,), TOL["lstm_bwd_recur"],
+        lstm_faulty_chain(torch)(gates, cs, gy, lens, wh),
+        4 * (M * (H4 + Hq) + M * Hq + Hq * H4 + M * H4) + 4 * Bq,
+        2 * valid * H4 * Hq + 30 * valid * Hq,
+        lambda: lo.lstm_bwd_recur(gates, cs, gy, lens, wh),
+        lambda: lo.lstm_bwd_recur_plain(gates, cs, gy, lens, wh), plan=lo.chain_plan(Bq, Hq))
+    hprev = torch.zeros_like(hs)
+    hprev[1:] = hs[:-1]
+    exact = torch.matmul(hprev.view(M, Hq).t().double(), ref_dxw.view(M, H4).double())
+    cut = ref_dxw.clone()
+    cut[int(lengths.max()) - 1, int(lengths.argmax())] = 0  # the longest lane's last token
+    row("lstm_bwd_dwh", (lo.lstm_bwd_dwh(hs, ref_dxw),), (exact.to(f32),), TOL["lstm_bwd_dwh"],
+        lo.lstm_bwd_dwh_plain(hs, cut), 4 * (M * Hq + M * H4 + Hq * H4),
+        2 * valid * Hq * H4, lambda: lo.lstm_bwd_dwh(hs, ref_dxw),
+        lambda: lo.lstm_bwd_dwh_plain(hs, ref_dxw))
     return rows
 
 
@@ -3295,7 +3453,64 @@ def phase_serve(torch, smi: str) -> dict:
                          scores=scores[:, :k].cpu().numpy())
 
         lm_run = lm_fused_pass(torch, smi, "serve", model, lines, tmp, 3, ctc_search)
-    return {"launches": launches, "batches": batches, "lm": lm_run}
+        rnn_run = lm_fused_pass(torch, smi, "serve", model, lines, tmp, 3, ctc_search,
+                                kind="rnn")
+        bf16_run = bf16_frontend_batch(torch, smi, art, model, lines, tmp)
+    return {"launches": launches, "batches": batches, "lm": lm_run, "rnn_lm": rnn_run,
+            "bf16_frontend": bf16_run}
+
+
+def bf16_frontend_batch(torch, smi: str, art: str, model, lines, tmp: str) -> dict:
+    """The serve phase's first batch through the artifact as it is (f32
+    DFT operands) and through a copy whose features section sets
+    ``frontend_dft_dtype = bf16``: the RTF of each (launch counts zeroed
+    just before and read just after; the bf16 batch must launch
+    ``stft_mel_bf16`` and not the f32 kernel), and the number of texts that
+    differ (a reading, not a gate)."""
+    from nabu_tpu_torch.config import ConfigFile
+    from nabu_tpu_torch.data import audio_io
+    from nabu_tpu_torch.ops import kernels
+    from nabu_tpu_torch.serving import load_exported
+
+    art16 = os.path.join(tmp, "export_bf16")
+    shutil.copytree(art, art16)
+    cfg = ConfigFile.read(os.path.join(art16, "frontend.cfg"))
+    cfg.section("features").set("frontend_dft_dtype", "bf16")
+    cfg.write(os.path.join(art16, "frontend.cfg"))
+    model16 = load_exported(art16, batch_size=B)
+    check(model16.device_fe.dft_dtype == "bf16", "serve bf16: the frontend is not bf16")
+    paths = [line.split()[1] for line in lines[:B]]
+    audio_seconds = sum(len(audio_io.load_audio(p)[0]) / 16000.0 for p in paths)
+
+    def served(m):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        texts = m.recognize_files(paths)
+        torch.cuda.synchronize()
+        return texts, time.perf_counter() - t, {
+            k: v for k, v in kernels.launch_counts().items() if v}
+
+    served(model16)  # the new model's first batch (its set-up) untimed
+    # f32, bf16, bf16, f32: each mode's RTF is the mean of its two
+    runs = [served(m) for m in (model, model16, model16, model)]
+    (texts, _, launches_f32), (texts16, _, launches) = runs[:2]
+    walls = [run[1] for run in runs]
+    wall, wall16 = (walls[0] + walls[3]) / 2, (walls[1] + walls[2]) / 2
+    for (_, _, got), want in zip(runs, (launches_f32, launches, launches, launches_f32)):
+        check(got == want, f"serve bf16: launches {got}, want {want}")
+    check(launches.get("stft_mel_bf16") == 1 and "stft_mel" not in launches,
+          f"serve bf16: launches {launches}")
+    check(launches_f32.get("stft_mel") == 1 and "stft_mel_bf16" not in launches_f32,
+          f"serve f32: launches {launches_f32}")
+    out = {"phase": "serve_bf16_frontend", "batch": len(paths), "audio_seconds": audio_seconds,
+           "rtf": wall16 / audio_seconds, "f32_rtf": wall / audio_seconds,
+           "wall_seconds": wall16, "f32_wall_seconds": wall,
+           "walls_f32_bf16_bf16_f32": walls,
+           "texts_differ": sum(int(a != b) for a, b in zip(texts, texts16)),
+           "launches": launches, "f32_launches": launches_f32, "card": smi}
+    emit(out)
+    return {"launches": launches}
 
 
 def phase_serve_rnnt(torch, smi: str) -> dict:
@@ -3388,10 +3603,12 @@ def phase_serve_rnnt(torch, smi: str) -> dict:
         check(score_err <= TOL["rnnt_scores"],
               f"serve_rnnt: n-best scores differ by {score_err}")
         n = ATT_CHECK_UTTS
-        lm_run = lm_fused_pass(torch, smi, "serve_rnnt", model, lines, tmp, 9, float64_search(
-            torch, *rec._encode(model.params, *model.device_fe.batch_features(
-                sigs[:n], 16000.0, n, model.T_BUCKET))))
-    return {"launches": launches, "lm": lm_run}
+        search = float64_search(torch, *rec._encode(model.params, *model.device_fe.batch_features(
+            sigs[:n], 16000.0, n, model.T_BUCKET)))
+        lm_run = lm_fused_pass(torch, smi, "serve_rnnt", model, lines, tmp, 9, search)
+        rnn_run = lm_fused_pass(torch, smi, "serve_rnnt", model, lines, tmp, 9, search,
+                                kind="rnn")
+    return {"launches": launches, "lm": lm_run, "rnn_lm": rnn_run}
 
 
 def synth_requests(tmp: str, rng, n: int = 64) -> tuple:
@@ -3449,14 +3666,10 @@ def search_steps(no_sync: bool = False):
         beam._all_finished = joint._all_finished = saved
 
 
-def phase_text_lm(path: str, num_labels: int, seed: int):
-    """The n-gram LM of a serve phase's LM-fused pass: a 3-gram trained
-    with the port's ``NgramLM.train`` on the phase's text, LM_SENTENCES
-    seeded sentences of 5-40 labels of the recipe's alphabet drawn from a
-    random bigram chain (so that the LM prefers some continuations),
-    saved to ``path``."""
-    from nabu_tpu_torch.decoding.lm import NgramLM
-
+def phase_text(num_labels: int, seed: int) -> list:
+    """A serve phase's LM text: LM_SENTENCES seeded sentences of 5-40
+    labels of the recipe's alphabet drawn from a random bigram chain (so
+    that an LM prefers some continuations)."""
     rng = np.random.default_rng(seed)
     chain = rng.dirichlet(np.full(num_labels, 0.3), num_labels)
     text = []
@@ -3465,7 +3678,30 @@ def phase_text_lm(path: str, num_labels: int, seed: int):
         for _ in range(int(rng.integers(5, 41)) - 1):
             seq.append(int(rng.choice(num_labels, p=chain[seq[-1]])))
         text.append(seq)
-    lm = NgramLM.train(text, num_labels + 1, 3)
+    return text
+
+
+def phase_text_lm(path: str, num_labels: int, seed: int):
+    """The n-gram LM of a serve phase's LM-fused pass: a 3-gram trained
+    with the port's ``NgramLM.train`` on ``phase_text``, saved to
+    ``path``."""
+    from nabu_tpu_torch.decoding.lm import NgramLM
+
+    lm = NgramLM.train(phase_text(num_labels, seed), num_labels + 1, 3)
+    lm.save(path)
+    return lm
+
+
+def phase_rnn_lm(path: str, num_labels: int, seed: int, device="cuda", num_units: int = 256,
+                 num_steps: int = 500):
+    """The RNN LM of a serve phase's neural-LM pass: the port's
+    ``RnnLM.train`` at the JAX package's defaults (1 x 256 LSTM, embed
+    64, batch 64, 500 Adam steps at 1e-3) on ``phase_text``, on
+    ``device``, saved to ``path``."""
+    from nabu_tpu_torch.decoding.neural_lm import RnnLM
+
+    lm = RnnLM.train(phase_text(num_labels, seed), num_labels + 1, num_units=num_units,
+                     num_steps=num_steps, device=device)
     lm.save(path)
     return lm
 
@@ -3485,24 +3721,105 @@ def lm_stale_context():
         DenseLM.step = saved
 
 
+def rnn_lm_gradients(torch, lm, text, batch: int = 64) -> dict:
+    """One batch's gradients of the RNN LM's loss (the first ``batch``
+    sentences of ``text``) through the training kernels, through their
+    plain versions and through the plain versions with the planted
+    ``lstm_dwh_h_late``: -> the worst parameter's ||kernel - plain|| /
+    ||plain|| and the fault's, and the kernels' launches."""
+    from nabu_tpu_torch.decoding.neural_lm import _pack
+    from nabu_tpu_torch.ops import kernels
+    from nabu_tpu_torch.params import flatten, unflatten
+
+    dev = lm.device
+    inp, tgt, lengths = _pack(text[:batch], lm.vocab)
+    args = (torch.as_tensor(inp.T.copy(), device=dev), torch.as_tensor(tgt.T.copy(), device=dev),
+            torch.as_tensor(lengths, device=dev))
+
+    def grads():
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in flatten(lm.params).items()}
+        loss = lm._loss(unflatten(leaves), *args)
+        return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    def worst(g, ref):
+        return max(float((g[k] - ref[k]).norm() / ref[k].norm()) for k in ref)
+
+    kernels.reset_launch_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    with plain_versions():
+        ref = grads()
+    with plain_versions(lstm_bwd_dwh=lstm_dwh_h_late(torch)):
+        bad = grads()
+    return {"rel_err": worst(got, ref), "fault_rel_err": worst(bad, ref), "launches": launches,
+            "shape": [int(inp.shape[1]), int(inp.shape[0]), lm.num_units]}
+
+
+@contextlib.contextmanager
+def rnn_lm_stale_state():
+    """Planted fault of neural-LM fusion: ``DenseRnnLM.step`` returns the
+    parent state, so no hypothesis's LM history advances past <s>."""
+    from nabu_tpu_torch.decoding.neural_lm import DenseRnnLM
+
+    saved = DenseRnnLM.step
+    DenseRnnLM.step = lambda self, state, token: state
+    try:
+        yield
+    finally:
+        DenseRnnLM.step = saved
+
+
 def lm_fused_pass(torch, smi: str, phase: str, model, lines, tmp: str, seed: int,
-                  search) -> dict:
-    """The phase's recognizer again with a 3-gram LM fused at LM_WEIGHT
-    (nbest 8; ``phase_text_lm``): the phase's first batch served
-    unfused and fused (RTF side by side; the launch counts of each zeroed
-    just before and read just after must agree), then ``search(rec,
-    device)``, the fused search over the ATT_CHECK_UTTS shortest
-    utterances in float64 on the card and on the CPU (n-best identical,
-    scores within TOL["rnnt_scores"]), and once more on the card with the
-    planted ``lm_stale_context``, which the check must reject."""
+                  search, kind: str = "ngram") -> dict:
+    """The phase's recognizer again with an LM fused at LM_WEIGHT (nbest
+    8): a 3-gram (``phase_text_lm``) or, with ``kind`` "rnn", the RNN LM
+    trained on the card at full width (``phase_rnn_lm``; its launches
+    zeroed just before and read just after, its gradients on one batch
+    held to the plain versions' with a planted fault,
+    ``rnn_lm_gradients``). The phase's first batch served unfused and
+    fused (RTF side by side; the launch counts of each zeroed just before
+    and read just after must agree: a fused step is plain PyTorch), then
+    ``search(rec, device)``, the fused search over the ATT_CHECK_UTTS
+    shortest utterances in float64 (the RNN LM moved to float64 too) on
+    the card and on the CPU (n-best identical, scores within
+    TOL["rnnt_scores"]), and once more on the card with the planted stale
+    LM state (``lm_stale_context``, ``rnn_lm_stale_state``), which the
+    check must reject."""
     from nabu_tpu_torch.data import audio_io
     from nabu_tpu_torch.decoding.recognizers import build_recognizer
     from nabu_tpu_torch.ops import kernels
 
     t_pass = time.perf_counter()
     rec = model.recognizer
-    lm_path = os.path.join(tmp, "lm_3gram.npz")
-    lm = phase_text_lm(lm_path, model.text_proc.num_labels, seed)
+    num_labels = model.text_proc.num_labels
+    trained = {}
+    if kind == "rnn":
+        lm_path = os.path.join(tmp, "lm_rnn.npz")
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm = phase_rnn_lm(lm_path, num_labels, seed)
+        torch.cuda.synchronize()
+        trained = {"train_s": time.perf_counter() - t0,
+                   "train_launches": {k: v for k, v in kernels.launch_counts().items() if v}}
+        for name in ("lstm_fwd_train", "lstm_bwd_recur", "lstm_bwd_dwh"):
+            check(trained["train_launches"].get(name) == 500,
+                  f"{phase} rnn lm: {trained['train_launches']} in 500 training steps")
+        text = phase_text(num_labels, seed)
+        trained["train_ppl"] = lm.perplexity(text)
+        grads = rnn_lm_gradients(torch, lm, text)
+        trained.update({f"grads_{k}": v for k, v in grads.items()})
+        check(grads["rel_err"] <= TOL["rnn_lm_grads"],
+              f"{phase} rnn lm: gradients {grads['rel_err']} from the plain versions'")
+        check(grads["fault_rel_err"] > TOL["rnn_lm_grads"],
+              f"{phase} rnn lm: the dwh fault ({grads['fault_rel_err']}) was not rejected")
+        stale_state = rnn_lm_stale_state
+    else:
+        lm_path = os.path.join(tmp, "lm_3gram.npz")
+        lm = phase_text_lm(lm_path, num_labels, seed)
+        stale_state = lm_stale_context
     conf = rec.conf.copy()
     for key, value in (("lm_path", lm_path), ("lm_weight", str(LM_WEIGHT)), ("nbest", "8")):
         conf.set(key, value)
@@ -3523,42 +3840,52 @@ def lm_fused_pass(torch, smi: str, phase: str, model, lines, tmp: str, seed: int
         return texts, time.perf_counter() - t, {
             k: v for k, v in kernels.launch_counts().items() if v}
 
+    # unfused, fused, fused, unfused: each side's RTF is the mean of its two
     try:
-        plain_texts, t_plain, plain_launches = served(rec)
-        fused_texts, t_fused, launches = served(fused)
+        runs = [served(r) for r in (rec, fused, fused, rec)]
     finally:
         model.recognizer = rec
-    check(launches == plain_launches,
+    (plain_texts, _, plain_launches), (fused_texts, _, launches) = runs[:2]
+    walls = [run[1] for run in runs]
+    t_plain, t_fused = (walls[0] + walls[3]) / 2, (walls[1] + walls[2]) / 2
+    check(all(run[2] == plain_launches for run in runs),
           f"{phase} lm: fused launches {launches}, unfused {plain_launches}")
 
     card = torch.device("cuda")
+    if kind == "rnn":
+        fused.lm = fused.lm.to("cpu", torch.float64)
     t0 = time.perf_counter()
     got = search(fused, card)
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
     want = search(fused, torch.device("cpu"))
     same, score_err = nbest_agreement(got, want)
-    with lm_stale_context():
+    with stale_state():
         stale = search(fused, card)
     stale_same, stale_err = nbest_agreement(stale, want)
     n = ATT_CHECK_UTTS
     tol = TOL["rnnt_scores"]
-    emit({"phase": f"{phase}_lm", "lm_order": lm.order, "lm_vocab": lm.vocab,
+    desc = ({"lm_units": lm.num_units, "lm_layers": lm.num_layers, "lm_embed": lm.embed_dim,
+             **trained} if kind == "rnn" else {"lm_order": lm.order})
+    emit({"phase": f"{phase}_{'rnn_' if kind == 'rnn' else ''}lm", **desc, "lm_vocab": lm.vocab,
           "lm_weight": LM_WEIGHT, "lm_sentences": LM_SENTENCES, "batch": len(paths),
           "audio_seconds": audio_seconds, "rtf": t_fused / audio_seconds,
           "unfused_rtf": t_plain / audio_seconds, "wall_seconds": t_fused,
-          "unfused_wall_seconds": t_plain,
+          "unfused_wall_seconds": t_plain, "walls_unfused_fused_fused_unfused": walls,
           "hypotheses_changed": sum(int(a != b) for a, b in zip(fused_texts, plain_texts)),
           "launches": launches, "check_utterances": n, "nbest": int(want.ids.shape[1]),
           "dtype": "float64", "nbest_identical": same, "score_max_abs_err": score_err,
           "score_tol": tol, "stale_context_nbest_identical": stale_same,
           "stale_context_score_max_abs_err": stale_err, "card_search_s": t_card,
           "pass_seconds": time.perf_counter() - t_pass, "card": smi})
-    check(same == n, f"{phase} lm: card and CPU n-best differ on {n - same}/{n}")
-    check(score_err <= tol, f"{phase} lm: n-best scores differ by {score_err}")
+    check(same == n, f"{phase} {kind} lm: card and CPU n-best differ on {n - same}/{n}")
+    check(score_err <= tol, f"{phase} {kind} lm: n-best scores differ by {score_err}")
     check(stale_same < n or stale_err > tol,
-          f"{phase} lm: the stale LM context was not rejected ({stale_err})")
-    return {"launches": launches}
+          f"{phase} {kind} lm: the stale LM state was not rejected ({stale_err})")
+    out = {"launches": launches}
+    if kind == "rnn":
+        out["train"] = {"launches": trained["train_launches"]}
+    return out
 
 
 def float64_search(torch, encoded, enc_lengths, head):
@@ -3615,7 +3942,7 @@ def phase_serve_att(torch, smi: str, phase: str) -> dict:
     """A full-width las_large_wsj (``serve_las``), joint_ctc_att_multihost
     (``serve_joint``) or conformer_aed_wsj (``serve_conformer_aed``)
     artifact, seeded random weights, serves synthesized utterances of 1-15
-    s (ATT_SERVE: 64, 64, 32) through ``serving.serve`` at batch 32 with the
+    s (ATT_SERVE: 32 each) through ``serving.serve`` at batch 32 with the
     recipe's recognizer (attention_beam, or joint_ctc_att_beam with
     ctc_weight 0.3; beam 16, nbest 8): the kernels of ATT_SERVE must launch
     so many times a batch and no other. Then the longest batch's search
@@ -3769,8 +4096,10 @@ def phase_serve_att(torch, smi: str, phase: str) -> dict:
               f"{phase}: card and CPU n-best differ on {ATT_CHECK_UTTS - same}/{ATT_CHECK_UTTS}")
         check(score_err <= TOL["rnnt_scores"], f"{phase}: n-best scores differ by {score_err}")
         if phase in LM_ATT_PHASES:
-            result["lm"] = lm_fused_pass(torch, smi, phase, model, lines, tmp, seed + 2,
-                                         float64_search(torch, encoded, enc_lengths, head))
+            search = float64_search(torch, encoded, enc_lengths, head)
+            result["lm"] = lm_fused_pass(torch, smi, phase, model, lines, tmp, seed + 2, search)
+            result["rnn_lm"] = lm_fused_pass(torch, smi, phase, model, lines, tmp, seed + 2,
+                                             search, kind="rnn")
 
         if phase == "serve_joint":
             # one batch (the 32 shortest) of the two-pass recognizer
@@ -4642,6 +4971,8 @@ def phase_pipeline(torch, smi: str, recipe: str, expdir: str, dev) -> dict:
     check(len(served_lm) == len(wavs) and same_lm == len(wavs),
           f"pipeline serve_lm: {len(wavs) - same_lm} of {len(wavs)} lines differ from the "
           "fused decode's best")
+    rnn = pipeline_rnn_lm(torch, stage, recipe, expdir, requests, wavs, utts, seconds,
+                          launches)
     out = {
         "phase": "pipeline", "recipe": os.path.relpath(RECIPE, REPO),
         "seconds": seconds, "launches": launches, "test_metric": result["metric"],
@@ -4652,10 +4983,99 @@ def phase_pipeline(torch, smi: str, recipe: str, expdir: str, dev) -> dict:
         "decode_lm_steady_rtf": float(rtf_lm.group(1)) if rtf_lm else None,
         "rescored_lines": len(rescored), "serve_lm_equals_decode_lm": same_lm,
         "lm_hypotheses_changed": sum(int(a[1:] != b[1:]) for a, b in zip(served, served_lm)),
-        "card": smi,
+        **rnn, "card": smi,
     }
     emit(out)
     return out
+
+
+def pipeline_rnn_lm(torch, stage, recipe: str, expdir: str, requests: str, wavs, utts,
+                    seconds: dict, launches: dict) -> dict:
+    """The neural LM end to end on the pipeline's expdir: ``cli lm --type
+    rnn`` (the JAX defaults, on the card), ``cli rescore`` with it over the
+    decode_lm n-best twice over (more lines than one walk group: each
+    line's score must equal its score alone, bit for bit), ``cli decode``
+    with it (a copy of the recipe naming it at LM_WEIGHT), ``cli export``
+    (the artifact carries it as ``lm.npz``) and ``cli serve`` over that
+    export, whose lines must be the fused decode's best hypotheses."""
+    from nabu_tpu_torch.config import ConfigFile, Recipe
+    from nabu_tpu_torch.data.processors import TextProcessor
+    from nabu_tpu_torch.decoding.neural_lm import RnnLM, walk_rows
+    from nabu_tpu_torch.scripts.rescore import _text_to_ids
+
+    args = ["--recipe", recipe, "--expdir", expdir]
+    text, seconds["lm_rnn"], launches["lm_rnn"] = stage("lm_rnn", ["lm", *args, "--type", "rnn"])
+    lm_path = os.path.join(expdir, "lm", "lm_rnn.npz")
+    check(os.path.exists(lm_path) and "train ppl" in text, f"pipeline lm_rnn: {text!r}")
+    for name in ("lstm_fwd_train", "lstm_bwd_recur", "lstm_bwd_dwh"):
+        check(launches["lm_rnn"][name] == 500,
+              f"pipeline lm_rnn: {launches['lm_rnn']} in 500 training steps")
+
+    # rescoring: the decode_lm n-best and a second copy under other ids
+    resc = os.path.join(expdir, "rescore_rnn")
+    os.makedirs(os.path.join(resc, "decoded"))
+    with open(os.path.join(expdir, "decoded", "nbest.txt")) as f:
+        lines = f.read().splitlines()
+    lines += [f"{line.split(' ', 1)[0]}_b {line.split(' ', 1)[1]}" for line in lines]
+    with open(os.path.join(resc, "decoded", "nbest.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    lm = RnnLM.load(lm_path, "cuda")
+    check(len(lines) > walk_rows(lm.num_units),
+          f"pipeline rescore_rnn: {len(lines)} lines fit one group")
+    _, seconds["rescore_rnn"], launches["rescore_rnn"] = stage(
+        "rescore_rnn", ["rescore", "--recipe", recipe, "--expdir", resc, "--lm", lm_path])
+    with open(os.path.join(resc, "decoded", "rescored.txt")) as f:
+        rescored = [(line.split(" ", 2) + [""])[:3] for line in f.read().splitlines()]
+    ranked = all(float(a[1]) >= float(b[1]) for a, b in zip(rescored, rescored[1:])
+                 if a[0] == b[0])
+    check(len(rescored) == len(lines) and ranked,
+          f"pipeline rescore_rnn: {len(rescored)} lines for {len(lines)}, ranked {ranked}")
+    tconf = Recipe(recipe).database.section(
+        Recipe(recipe).recognizer.section("recognizer")["targets"])
+    proc = TextProcessor(tconf)
+    ids = [_text_to_ids(proc, tconf.get("tokenizer", "word"), (line.split(" ", 2) + [""])[2])
+           for line in lines]
+    grouped = lm.seq_logprobs(ids)
+    alone = np.concatenate([lm.seq_logprobs([x]) for x in ids])
+    same_bits = int((grouped == alone).sum())
+    check(same_bits == len(ids),
+          f"pipeline rescore_rnn: {len(ids) - same_bits} grouped scores differ from alone")
+
+    # fused decode, an export carrying the LM, serve over it
+    recipe_rnn = os.path.join(expdir, "recipe_rnn")
+    shutil.copytree(recipe, recipe_rnn)
+    rcfg = ConfigFile.read(os.path.join(recipe_rnn, "recognizer.cfg"))
+    rcfg.section("recognizer").set("lm_path", lm_path)
+    rcfg.section("recognizer").set("lm_weight", str(LM_WEIGHT))
+    rcfg.write(os.path.join(recipe_rnn, "recognizer.cfg"))
+    args_rnn = ["--recipe", recipe_rnn, "--expdir", expdir]
+    text, seconds["decode_rnn"], launches["decode_rnn"] = stage("decode_rnn",
+                                                                ["decode", *args_rnn])
+    rtf = re.search(r"steady-state RTF ([0-9.eE+-]+)", text)
+    best = {}
+    with open(os.path.join(expdir, "decoded", "nbest.txt")) as f:
+        for u, sc, hyp in ((line.split(" ", 2) + [""])[:3] for line in f.read().splitlines()):
+            check(math.isfinite(float(sc)), f"pipeline decode_rnn: score {sc}")
+            best.setdefault(u, hyp.strip())
+    check(set(best) == set(utts), f"pipeline decode_rnn: {len(best)} of {len(utts)} utterances")
+    art = os.path.join(expdir, "export_rnn")
+    _, seconds["export_rnn"], launches["export_rnn"] = stage(
+        "export_rnn", ["export", *args_rnn, "--output", art])
+    with np.load(os.path.join(art, "lm.npz")) as z:
+        check(str(z["kind"]) == "rnn", "pipeline export_rnn: the artifact's LM is not the RNN LM")
+    with open(requests) as stdin:
+        text, seconds["serve_rnn"], launches["serve_rnn"] = stage(
+            "serve_rnn", ["serve", "--export_dir", art, "--batch_size", str(PIPELINE_UTTS)],
+            stdin=stdin)
+    served = [(line.split(" ", 1) + [""])[:2] for line in text.splitlines()]
+    same = sum(int(u == w and hyp.strip() == best.get(u)) for (u, hyp), (w, _) in
+               zip(served, wavs))
+    check(len(served) == len(wavs) and same == len(wavs),
+          f"pipeline serve_rnn: {len(wavs) - same} of {len(wavs)} lines differ from the fused "
+          "decode's best")
+    return {"rnn_rescored_lines": len(rescored), "rnn_grouped_bits_equal": same_bits,
+            "decode_rnn_steady_rtf": float(rtf.group(1)) if rtf else None,
+            "serve_rnn_equals_decode_rnn": same}
 
 
 def encoder_flops(model: str, B: int, T: int, F: int = 80) -> float:
@@ -4952,15 +5372,18 @@ def main(argv=None) -> int:
           "total": time.perf_counter() - t0})
     raise_failures()
     pipeline = [{"launches": v} for v in trained["pipeline"]["launches"].values()]
-    # the LM-fused passes of the four beams
-    lm_runs = (served["lm"], served_rnnt["lm"], served_las["lm"], served_joint["lm"])
-    runs = (*lm_runs, served, served_rnnt, served_stream, served_las, served_joint, served_aed,
+    # the LM-fused passes of the four beams, n-gram and neural (the RNN
+    # LM's training on the card with each), and the bf16 frontend's batch
+    lm_runs = tuple(run for s in (served, served_rnnt, served_las, served_joint)
+                    for run in (s["lm"], s["rnn_lm"], s["rnn_lm"]["train"]))
+    runs = (*lm_runs, served["bf16_frontend"], served, served_rnnt, served_stream, served_las, served_joint, served_aed,
             trained, trained_rnnt, trained_stream, trained_las, trained_las["decode"],
             trained_joint, trained_joint["test"], trained_crnnt, trained_crnnt["test"],
             bench_las, bench_crnnt, bench_moe, *pipeline)
 
     kernels_line = []
     for name, key in (("stft_mel", "stft_mel"),
+                      ("stft_mel_bf16", "stft_mel_bf16"),
                       ("blstm_proj", ("blstm_proj", "bf16", 2 * H)),
                       ("blstm_recur", ("blstm_recur", "bf16")),
                       ("blstm_recur_train", ("blstm_recur_train", "bf16")),

@@ -7,8 +7,12 @@
     python -m nabu_tpu_torch.cli export    --recipe R --expdir E [--output D] [--device cpu]
     python -m nabu_tpu_torch.cli recognize --recipe R --expdir E AUDIO... [--batch_size N] [--device cpu]
     python -m nabu_tpu_torch.cli serve     --export_dir D [--batch_size N] [--streaming] [--device cpu]
-    python -m nabu_tpu_torch.cli lm        --recipe R --expdir E [--order 3] [--targets S] [--type ngram]
-    python -m nabu_tpu_torch.cli rescore   --recipe R --expdir E [--lm P] [--lm_weight 0.3] [--length_bonus 0]
+    python -m nabu_tpu_torch.cli lm        --recipe R --expdir E [--order 3] [--targets S]
+                                           [--type ngram|rnn] [--lm_units 256] [--lm_layers 1]
+                                           [--lm_embed 64] [--lm_steps 500] [--lm_batch 64]
+                                           [--lm_lr 1e-3] [--device cpu]
+    python -m nabu_tpu_torch.cli rescore   --recipe R --expdir E [--lm P] [--lm_weight 0.3]
+                                           [--length_bonus 0] [--device cpu]
 
 ``data`` prepares every dataset section of the recipe's database.conf
 into ``E/data`` (host work). ``train`` trains the recipe into ``E``
@@ -24,13 +28,15 @@ reads ``utt_id wav_path`` lines on stdin and writes ``utt_id
 hypothesis`` lines on stdout (with ``--streaming``, ``utt_id PARTIAL
 text`` lines as a stream decodes and ``utt_id FINAL text`` at its end).
 ``lm`` trains an n-gram LM on the recipe's training transcriptions
-(``E/lm/lm_{order}gram.npz``; ``--type rnn``, the neural LM, is not
-ported yet), which a beam recognizer fuses through ``recognizer.cfg``'s
-``lm_path`` / ``lm_weight``; ``rescore`` re-ranks ``E/decoded/nbest.txt``
-with an LM into ``E/decoded/rescored.txt``. Both are host work. The
-others run on the GPU unless ``--device cpu`` is given, and raise without
-a GPU otherwise. The other subcommands of the JAX package's ``run``, and
-its multi-process and mesh flags, are not ported yet.
+(``E/lm/lm_{order}gram.npz``, host work) or, with ``--type rnn``, the
+LSTM LM (``E/lm/lm_rnn.npz``, on the device), which a beam recognizer
+fuses through ``recognizer.cfg``'s ``lm_path`` / ``lm_weight``;
+``rescore`` re-ranks ``E/decoded/nbest.txt`` with an LM into
+``E/decoded/rescored.txt`` (an n-gram on the host, a neural LM on the
+device). Whatever runs on a device runs on the GPU unless ``--device
+cpu`` is given, and raises without a GPU otherwise. The other subcommands
+of the JAX package's ``run``, and its multi-process and mesh flags, are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -95,12 +101,15 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--targets", default="traintargets",
                     help="database.conf targets section to train on")
     sp.add_argument("--type", dest="lm_type", default="ngram", choices=["ngram", "rnn"],
-                    help="ngram (Witten-Bell); rnn is not ported yet")
+                    help="ngram (Witten-Bell, host) or rnn (LSTM, trained on the device)")
     # the JAX package's neural-LM hyperparameters (read by --type rnn only)
-    for flag, kind, default in (("lm_units", int, 256), ("lm_layers", int, 1),
-                                ("lm_embed", int, 64), ("lm_steps", int, 500),
-                                ("lm_batch", int, 64), ("lm_lr", float, 1e-3)):
-        sp.add_argument(f"--{flag}", type=kind, default=default, help="(rnn) not ported yet")
+    for flag, kind, default, help_ in (
+            ("lm_units", int, 256, "LSTM units"), ("lm_layers", int, 1, "LSTM layers"),
+            ("lm_embed", int, 64, "embedding width"), ("lm_steps", int, 500, "Adam steps"),
+            ("lm_batch", int, 64, "sequences a step"),
+            ("lm_lr", float, 1e-3, "Adam's constant rate")):
+        sp.add_argument(f"--{flag}", type=kind, default=default, help=f"(rnn) {help_}")
+    sp.add_argument("--device", default=None, help="(rnn) cuda (default) or cpu")
 
     sp = sub.add_parser("rescore", help="LM-rescore a decoded n-best list")
     sp.add_argument("--recipe", required=True, help="recipe config dir")
@@ -108,6 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--lm", default=None, help="LM .npz (from `lm`)")
     sp.add_argument("--lm_weight", type=float, default=0.3)
     sp.add_argument("--length_bonus", type=float, default=0.0)
+    sp.add_argument("--device", default=None,
+                    help="a neural LM's device: cuda (default) or cpu")
     return p
 
 
@@ -149,11 +160,15 @@ def main(argv=None) -> int:
     elif args.command == "lm":
         from nabu_tpu_torch.scripts import lm
 
-        lm.main(args.recipe, args.expdir, args.order, args.targets, lm_type=args.lm_type)
+        lm.main(args.recipe, args.expdir, args.order, args.targets, lm_type=args.lm_type,
+                num_units=args.lm_units, num_layers=args.lm_layers, embed_dim=args.lm_embed,
+                num_steps=args.lm_steps, batch_size=args.lm_batch, learning_rate=args.lm_lr,
+                device=args.device)
     elif args.command == "rescore":
         from nabu_tpu_torch.scripts import rescore
 
-        rescore.main(args.recipe, args.expdir, args.lm, args.lm_weight, args.length_bonus)
+        rescore.main(args.recipe, args.expdir, args.lm, args.lm_weight, args.length_bonus,
+                     device=args.device)
     elif args.command == "serve":
         from nabu_tpu_torch.serving import serve
 

@@ -19,7 +19,8 @@ Scoring: sums of token log-probs in f32 (float64 where the model runs in
 float64, which makes two devices' searches comparable); finished beams
 stop accumulating and are ranked by ``score / max(len, 1)^power``, and
 finished hypotheses outrank unfinished ones. Shallow fusion with an
-n-gram LM (``decoding.lm.DenseLM``) adds ``lm_weight * log p_lm(token |
+LM (``decoding.lm.DenseLM``, or ``decoding.neural_lm.DenseRnnLM``, whose
+state is a dict of tensors) adds ``lm_weight * log p_lm(token |
 history)`` to every candidate; the LM context rides the beam gather and
 advances while a hypothesis is live.
 """
@@ -119,8 +120,8 @@ def attention_beam_search(
     """Returns (seqs [B, W, max_steps], lengths [B, W], scores [B, W]),
     beams sorted best-first by length-normalized score. ``decoder`` is a
     Speller-like head (step / init_state / precompute / sos_id / eos_id);
-    ``lm`` a DenseLM on the encoder output's device, fused where
-    ``lm_weight`` is not 0."""
+    ``lm`` a DenseLM or DenseRnnLM on the encoder output's device, fused
+    where ``lm_weight`` is not 0."""
     fuse = lm is not None and lm_weight != 0.0
     B, T, _ = encoded.shape
     W = beam_width
@@ -159,7 +160,7 @@ def attention_beam_search(
                "lengths": lengths, "prev": token,
                "state": tree_map(lambda x: gather_beams(x, parent), new_state)}
         if fuse:
-            lm_state = gather_beams(s["lm"], parent)
+            lm_state = tree_map(lambda x: gather_beams(x, parent), s["lm"])
             new["lm"] = state_where(finished, lm_state, lm.step(lm_state, token))
         s = new
         t += 1

@@ -9,11 +9,12 @@ and keeps the top W. The Python loop over frames takes the place of
 ``lax.scan``; every op inside is a batched tensor op on the logits'
 device.
 
-Shallow fusion with an n-gram LM (``decoding.lm.DenseLM``): each prefix
-extension adds ``lm_weight * log p_lm(tok | prefix)``; stay and blank
-moves add nothing, and a hypothesis's LM context advances only on an
-extension, so equal prefixes carry equal LM terms and the merge stays
-exact.
+Shallow fusion with an LM (``decoding.lm.DenseLM``, the n-gram's, or
+``decoding.neural_lm.DenseRnnLM``, whose state is a dict of tensors,
+gathered and selected leaf by leaf): each prefix extension adds
+``lm_weight * log p_lm(tok | prefix)``; stay and blank moves add
+nothing, and a hypothesis's LM context advances only on an extension, so
+equal prefixes carry equal LM terms and the merge stays exact.
 
 Scores are f32, or float64 where the log-probs are float64 (which makes
 two devices' searches comparable).
@@ -86,8 +87,8 @@ def ctc_prefix_beam_search(
     """Returns (seqs [B, W, Lmax] int32, lengths [B, W] int32, scores
     [B, W] f32, or float64 from float64 log-probs) sorted best-first;
     scores are total log P(prefix) = logaddexp(p_b, p_nb), with the
-    fused LM terms where ``lm`` (a DenseLM on the log-probs' device) is
-    given and ``lm_weight`` is not 0."""
+    fused LM terms where ``lm`` (a DenseLM or DenseRnnLM on the log-probs'
+    device) is given and ``lm_weight`` is not 0."""
     B, T, V = logprobs.shape
     W = beam_width
     Lmax = max_label_len or T
@@ -111,6 +112,10 @@ def ctc_prefix_beam_search(
     lengths = torch.zeros((B, W), dtype=i32, device=dev)
     last = torch.full((B, W), -1, dtype=i32, device=dev)
     if fuse:
+        # (beam.py imports this module: its helpers are imported here)
+        from nabu_tpu_torch.decoding.beam import gather_beams, tree_map
+        from nabu_tpu_torch.decoding.lm import state_where
+
         lm_state = lm.init_state((B, W))
 
     _ids = torch.arange(V - 1, dtype=i32, device=dev)
@@ -216,8 +221,8 @@ def ctc_prefix_beam_search(
             # the context is a function of the prefix: stepping the chosen
             # (parent, tok) after the selection equals stepping every
             # candidate before it
-            parent_lm = torch.gather(lm_state, 1, parent)
-            new_lm = torch.where(is_ext, lm.step(parent_lm, torch.clamp(tok, min=0)),
+            parent_lm = tree_map(lambda x: gather_beams(x, parent), lm_state)
+            new_lm = state_where(is_ext, lm.step(parent_lm, torch.clamp(tok, min=0)),
                                  parent_lm)
 
         dead = top_total < NEG_INF / 2
@@ -234,7 +239,7 @@ def ctc_prefix_beam_search(
         hash2 = torch.where(v2, new_h2, hash2)
         last = torch.where(v2, new_last, last)
         if fuse:
-            lm_state = torch.where(v2, new_lm, lm_state)
+            lm_state = state_where(v2, new_lm, lm_state)
 
     scores = torch.logaddexp(pb, pnb)
     ranked = torch.argsort(-scores, dim=1, stable=True)

@@ -121,8 +121,8 @@ def joint_ctc_att_beam_search(
     hypothesis that get a CTC score. With ``ctc_weight = 0`` the ranking
     is attention_beam_search's; the scores are the combined (1 - w) * att
     + w * ctc totals (raw: ``length_norm_power`` only re-ranks). ``lm`` (a
-    DenseLM on the encoder output's device, fused where ``lm_weight`` is
-    not 0) adds ``lm_weight * log p_lm`` unscaled by the attention weight,
+    DenseLM or DenseRnnLM on the encoder output's device, fused where
+    ``lm_weight`` is not 0) adds ``lm_weight * log p_lm`` unscaled by the attention weight,
     to the pruning proposal and to every candidate, eos included."""
     fuse = lm is not None and lm_weight != 0.0
     B, T, _ = encoded.shape
@@ -211,7 +211,7 @@ def joint_ctc_att_beam_search(
                "lengths": lengths, "prev": token,
                "state": tree_map(lambda x: gather_beams(x, parent), new_state)}
         if fuse:
-            lm_state = gather_beams(s["lm"], parent)
+            lm_state = tree_map(lambda x: gather_beams(x, parent), s["lm"])
             new["lm"] = state_where(finished, lm_state, lm.step(lm_state, token))
         s = new
         t += 1

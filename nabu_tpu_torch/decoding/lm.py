@@ -27,8 +27,10 @@ Witten-Bell (interpolated): p_k(w|h) = (c(h,w) + T(h) p_{k-1}(w|h')) /
 (N(h) + T(h)) with T(h) = distinct continuations of h, h' = h minus its
 oldest token; the unigram base interpolates with the uniform 1/V.
 
-The neural LM (``kind = rnn`` files) is not ported yet: loading one
-raises.
+``load_lm`` / ``load_dense_lm`` read either kind of LM file by its
+contents: a ``kind = rnn`` file is the neural LM of ``neural_lm.py``,
+whose fusion state is a dict of tensors (the beams gather and select it
+leaf by leaf).
 """
 
 from __future__ import annotations
@@ -188,22 +190,28 @@ def state_where(cond: torch.Tensor, a, b):
     return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - cond.dim())), a, b)
 
 
-def load_lm(path: str) -> NgramLM:
-    """Host-side LM by file contents; a neural LM file raises."""
+def load_lm(path: str, device=None):
+    """The LM of a file, by its contents: an ``NgramLM`` (host numpy;
+    ``device`` unused) or a neural ``RnnLM`` on ``device`` (the GPU unless
+    "cpu")."""
     with np.load(path) as z:
         kind = str(z["kind"]) if "kind" in z.files else "ngram"
     if kind == "rnn":
-        raise NotImplementedError("neural LM not ported yet")
+        from nabu_tpu_torch.decoding.neural_lm import RnnLM
+
+        return RnnLM.load(path, device)
     return NgramLM.load(path)
 
 
-def load_dense_lm(path: str, device) -> DenseLM:
-    return load_lm(path).dense(device)
+def load_dense_lm(path: str, device):
+    """The fusion view of an LM file on ``device``: a ``DenseLM`` or a
+    ``neural_lm.DenseRnnLM``."""
+    return load_lm(path, device).dense(device)
 
 
 def rescore_nbest(
     entries: List[Tuple[str, float, List[int]]],
-    lm: NgramLM,
+    lm,
     lm_weight: float,
     length_bonus: float = 0.0,
 ) -> List[Tuple[str, float, List[int]]]:

@@ -4,9 +4,10 @@ Port of the JAX package's ``decoding/recognizers.py``: CTC greedy and
 prefix beam, attention greedy and beam, the joint CTC/attention one-pass
 beam and two-pass rescoring, transducer greedy, beam and streaming. The
 four beam searches (``ctc_beam``, ``attention_beam``,
-``joint_ctc_att_beam``, ``transducer_beam``) fuse an n-gram LM named by
-``lm_path`` with ``lm_weight`` (``cli lm`` writes one); its table moves to
-the device of each search. Every recognizer maps ``(params, features,
+``joint_ctc_att_beam``, ``transducer_beam``) fuse an LM named by
+``lm_path`` with ``lm_weight`` (``cli lm`` writes one, n-gram or neural);
+it is loaded on the CPU and moves to the device of each search
+(``lm_on``), in its own dtype. Every recognizer maps ``(params, features,
 feature_lengths) -> Nbest``; features may be a numpy array or a tensor
 already on the model's device (the device frontend's output). The beam
 recognizers over an encoder output split into ``_encode``, ``search``
@@ -65,8 +66,8 @@ class Recognizer:
     attention recognizer, the head must be frame-synchronous (CTC or
     transducer: it has a ``blank_id``).
 
-    Beam recognizers accept ``lm_path`` (an n-gram LM ``.npz`` of ``cli
-    lm``) and ``lm_weight`` for shallow fusion; naming them on a
+    Beam recognizers accept ``lm_path`` (an n-gram or neural LM ``.npz``
+    of ``cli lm``) and ``lm_weight`` for shallow fusion; naming them on a
     recognizer without fusion is an error, not a silent no-op, and so is
     an LM of another vocabulary than the head's."""
 

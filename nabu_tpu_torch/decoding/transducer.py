@@ -1,10 +1,11 @@
 """RNN-T decoding: batched greedy and beam search, fixed shapes.
 
 Port of the JAX package's ``decoding/transducer.py``, the beam search's
-n-gram LM fusion included. Both searches run on the model's device as a loop over the encoder frames
-with the per-frame emission loop unrolled ``max_symbols`` times; every
-lane of the batch (and every hypothesis of the beam) takes each step, with
-masks, so the shapes never depend on the data. The joint inside the loop
+LM fusion (n-gram or neural) included. Both searches run on the model's
+device as a loop over the encoder frames with the per-frame emission
+loop unrolled ``max_symbols`` times; every lane of the batch (and every
+hypothesis of the beam) takes each step, with masks, so the shapes never
+depend on the data. The joint inside the loop
 is the head's ``joint_step`` in plain torch, as it lies outside any Pallas
 kernel in JAX. The log-softmax runs in f32, or in the logits' own dtype
 where that is wider (float64 makes two devices' searches comparable bit
@@ -19,7 +20,9 @@ from typing import Tuple
 import torch
 
 from nabu_tpu_torch.decoding.beam import gather_beams as _gather_beams
+from nabu_tpu_torch.decoding.beam import tree_map
 from nabu_tpu_torch.decoding.ctc_beam import _top_w
+from nabu_tpu_torch.decoding.lm import state_where
 from nabu_tpu_torch.ops.masking import sequence_mask
 
 
@@ -121,8 +124,8 @@ def transducer_beam_search(
     carry over. Each expansion is one top-W over W * (1 + V+1) candidates
     (a no-op and every joint action). ``length_norm_power`` changes only
     the ranking key ``score / max(len, 1)^power``; the scores returned are
-    raw path log-probs. ``lm`` (a DenseLM on the encoder output's device)
-    with ``lm_weight`` not 0 fuses an n-gram LM into the emissions only:
+    raw path log-probs. ``lm`` (a DenseLM or DenseRnnLM on the encoder
+    output's device) with ``lm_weight`` not 0 fuses the LM into the emissions only:
     each label below the blank gains ``lm_weight * log p_lm``, blank
     moves carry no LM cost, and a hypothesis's context advances only
     where it emits.
@@ -190,8 +193,8 @@ def transducer_beam_search(
             open_ = is_emit  # blank and the no-op both close the frame
             tok = torch.clamp(tok, min=0)
             if fuse:
-                lm_state = _gather_beams(lm_state, parent)
-                lm_state = torch.where(is_emit, lm.step(lm_state, tok), lm_state)
+                lm_state = tree_map(lambda x: _gather_beams(x, parent), lm_state)
+                lm_state = state_where(is_emit, lm.step(lm_state, tok), lm_state)
             seqs = torch.where(is_emit[..., None] & (pos == lens[..., None]),
                                tok[..., None], seqs)
             lens = lens + is_emit.to(torch.int32)

@@ -3,7 +3,8 @@
 Port of the JAX package's ``features/jax_frontend.py``. The spectrum is
 computed against precomputed DFT cos/sin matrices (frames [N, W] @ dft
 [W, K]); the STFT+Mel step runs as the CUDA kernel
-(``ops.stft_mel``) on the card, while pre-emphasis, framing, DCT,
+(``ops.stft_mel``, f32 or bf16 DFT operands: the ``dft_dtype`` of the JAX
+package's Pallas kernel) on the card, while pre-emphasis, framing, DCT,
 energy, deltas and CMVN stay plain torch around it, as they are XLA
 around the Pallas call in JAX. Golden-tested against the numpy
 computers and against the JAX frontend.
@@ -33,13 +34,24 @@ class FrontendParams:
     nfft: int
     preemph: float
 
-    def folded(self):
-        """(cossin [W, 2K], mel / nfft [K, M], the Mel matrix as the
-        kernel reads it) for ``stft_mel``."""
+    def folded(self, dft_dtype: str = "f32"):
+        """(cossin [W, 2K] in the ``dft_dtype`` ("f32" or "bf16"), mel /
+        nfft [K, M], the Mel matrix as the kernel reads it) for
+        ``stft_mel``."""
         cossin, mel = stft_mel_ops.fold_constants(
-            self.window, self.dft_cos, self.dft_sin, self.mel, self.nfft
+            self.window, self.dft_cos, self.dft_sin, self.mel, self.nfft,
+            dft_torch_dtype(dft_dtype),
         )
         return cossin, mel, stft_mel_ops.mel_ranges(mel)
+
+
+def dft_torch_dtype(dft_dtype: str) -> torch.dtype:
+    """"f32" or "bf16" (``frontend_dft_dtype``) -> the DFT operands'
+    dtype; any other value raises."""
+    if dft_dtype not in stft_mel_ops.DFT_DTYPES:
+        raise ValueError(
+            f"dft_dtype {dft_dtype!r}: one of {sorted(stft_mel_ops.DFT_DTYPES)}")
+    return stft_mel_ops.DFT_DTYPES[dft_dtype]
 
 
 def make_frontend_params(
@@ -107,15 +119,18 @@ def frame_signal(
 
 
 def log_mel_spectrogram(
-    fp: FrontendParams, signal: torch.Tensor, n_frames: int
+    fp: FrontendParams, signal: torch.Tensor, n_frames: int, dft_dtype: str = "f32"
 ) -> torch.Tensor:
     """One utterance [S] -> log-mel features [n_frames, nfilt] through the
-    STFT+Mel kernel (its plain version for CPU tensors)."""
+    STFT+Mel kernel (its plain version for CPU tensors), with f32 or bf16
+    DFT operands: "bf16" is the JAX package's ``use_pallas=True`` path
+    (the Pallas kernel's default ``dft_dtype``), "f32" its jnp path."""
+    consts = fp.folded(dft_dtype)
     sig = signal.to(torch.float32)
     if fp.preemph:
         sig = torch.cat([sig[:1], sig[1:] - fp.preemph * sig[:-1]])
     frames = frame_signal(sig, fp.frame_len, fp.frame_step, n_frames)
-    return stft_mel_ops.stft_mel(frames.contiguous(), *fp.folded())
+    return stft_mel_ops.stft_mel(frames.to(consts[0].dtype).contiguous(), *consts)
 
 
 def _delta_clip(feat: torch.Tensor, lens: torch.Tensor, n: int = 2):
@@ -160,7 +175,7 @@ def frame_lengths(slens: np.ndarray, frame_len: int, frame_step: int) -> np.ndar
 
 def device_features(
     fp: FrontendParams,
-    consts,  # (cossin, mel_scaled, mel ranges) from fp.folded()
+    consts,  # (cossin, mel_scaled, mel ranges) from fp.folded(dft_dtype)
     dct,  # [numcep, nfilt] or None (fbank)
     lift,  # [numcep] or None
     signals: torch.Tensor,  # [B, S] zero-padded float32
@@ -174,9 +189,10 @@ def device_features(
 ) -> torch.Tensor:
     """The whole feature pipeline of features/computers.py on tensors:
     preemphasis -> framing -> STFT+Mel [-> DCT+lifter] [-> +energy]
-    [-> +deltas] [-> CMVN]. Frames past each utterance's true frame
-    count are zeros past CMVN/normalization (masked downstream by the
-    frame lengths)."""
+    [-> +deltas] [-> CMVN]. The frames go to the STFT+Mel kernel in the
+    table's dtype (the mode); the energy reads them in f32. Frames past
+    each utterance's true frame count are zeros past CMVN/normalization
+    (masked downstream by the frame lengths)."""
     B, S = signals.shape
     dev = signals.device
     slens = slens.to(dev)
@@ -191,7 +207,7 @@ def device_features(
     pre = torch.where(pos < slens[:, None], pre, torch.zeros((), device=dev))
     frames = frame_signal(pre, fp.frame_len, fp.frame_step, n_frames)
     flat = frames.reshape(B * n_frames, fp.frame_len)
-    base = stft_mel_ops.stft_mel(flat.contiguous(), *consts)
+    base = stft_mel_ops.stft_mel(flat.to(consts[0].dtype).contiguous(), *consts)
     if dct is not None:
         base = base @ dct.T
         if lift is not None:
@@ -233,9 +249,10 @@ class DeviceFrontend:
     otherwise and callers fall back to the host computers): ``feature =
     fbank | mfcc`` with ``include_energy``, ``dynamic = delta | ddelta``
     and per-utterance CMVN (``mvn``). The STFT+Mel runs as the CUDA
-    kernel for CUDA tensors. Only f32 DFT operands exist in the port
-    (``frontend_dft_dtype = f32``, the JAX default): a bf16 DFT puts
-    several log-units of noise into near-silent mel bins.
+    kernel for CUDA tensors, with ``frontend_dft_dtype`` operands: f32,
+    the default (features as the host f32 computers give them, which
+    training read), or bf16, the opt-in mode on the tensor cores, which
+    puts more noise into near-silent mel bins. Any other value raises.
     """
 
     def __init__(self, sec, device="cpu"):
@@ -244,11 +261,8 @@ class DeviceFrontend:
         self.computer = make_feature_computer(sec)
         self.feature = sec.get("feature", "fbank")
         self.device = torch.device(device)
-        dft_dtype = sec.get("frontend_dft_dtype", "f32")
-        if dft_dtype != "f32":
-            raise NotImplementedError(
-                f"frontend_dft_dtype = {dft_dtype} not ported yet (f32 only)"
-            )
+        self.dft_dtype = sec.get("frontend_dft_dtype", "f32")
+        dft_torch_dtype(self.dft_dtype)  # raises on another value
         self._consts_cache = {}
         self._norm = None
 
@@ -301,7 +315,7 @@ class DeviceFrontend:
                         .astype(np.float32),
                         device=self.device,
                     )
-            self._consts_cache[rate] = (fp, fp.folded(), dct, lift)
+            self._consts_cache[rate] = (fp, fp.folded(self.dft_dtype), dct, lift)
         return self._consts_cache[rate]
 
     def frame_geometry(self, rate: float):

@@ -12,6 +12,7 @@ from typing import Dict
 
 KERNELS = (
     "stft_mel",
+    "stft_mel_bf16",
     "blstm_proj",
     "blstm_recur",
     "blstm_recur_train",

@@ -4,11 +4,15 @@ JAX package's scripts/data.py).
 For each section: build its processor, process every datafile line
 (with speed perturbation copies where the section asks), write shards +
 metadata with the CMVN statistics. A process pool splits the
-per-utterance loop across CPUs when ``num_workers > 1``.
+per-utterance loop across CPUs when ``num_workers > 1``: one pool for
+all the sections (each worker builds a section's processor at its first
+utterance of it), since a spawned worker's start, which imports torch,
+costs more than a small section's work.
 """
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import os
 from concurrent.futures import ProcessPoolExecutor
@@ -21,19 +25,20 @@ from nabu_tpu_torch.data.processors import make_processor, read_datafile
 from nabu_tpu_torch.data.storage import ShardWriter
 from nabu_tpu_torch.scripts.common import data_dir
 
-_WORKER_PROC = None
+_SECTIONS: dict = {}  # a worker's sections' values, then their processors
 
 
-def _init_worker(conf_values):
-    global _WORKER_PROC
-    from nabu_tpu_torch.config import Conf
-
-    _WORKER_PROC = make_processor(Conf(conf_values))
+def _init_worker(sections: dict):
+    _SECTIONS.update(sections)
 
 
-def _process_one(entry: Tuple[str, str, float]):
-    utt, value, speed = entry
-    return utt, _WORKER_PROC.process(value, speed=speed)
+def _process_one(task: Tuple[str, Tuple[str, str, float]]):
+    name, (utt, value, speed) = task
+    if isinstance(_SECTIONS[name], dict):
+        from nabu_tpu_torch.config import Conf
+
+        _SECTIONS[name] = make_processor(Conf(_SECTIONS[name]))
+    return utt, _SECTIONS[name].process(value, speed=speed)
 
 
 def _expand_speed(entries, section):
@@ -122,26 +127,22 @@ class CMVNAccumulator:
 
 
 def prepare_section(
-    recipe: Recipe, expdir: str, name: str, num_workers: int = 0
+    recipe: Recipe, expdir: str, name: str, pool: ProcessPoolExecutor | None = None
 ) -> dict:
+    """One section into shards: in this process, or over ``pool`` (made by
+    ``main`` with every section's values)."""
     section = recipe.database.section(name)
     out_dir = data_dir(expdir, section, name)
     entries = _expand_speed(read_datafile(section["datafile"]), section)
     processor = make_processor(section)
     writer = ShardWriter(out_dir)
     cmvn = CMVNAccumulator(section.get("cmvn_speaker_separator"))
-    if num_workers > 1:
-        # spawn, not fork: the parent has imported torch and its threads
-        with ProcessPoolExecutor(
-            max_workers=num_workers,
-            mp_context=multiprocessing.get_context("spawn"),
-            initializer=_init_worker,
-            initargs=(section.as_dict(),),
-        ) as pool:
-            for utt, arr in pool.map(_process_one, entries, chunksize=16):
-                arr = np.asarray(arr)
-                cmvn.add(utt, arr)
-                writer.write(utt, arr)
+    if pool is not None:
+        tasks = [(name, entry) for entry in entries]
+        for utt, arr in pool.map(_process_one, tasks, chunksize=16):
+            arr = np.asarray(arr)
+            cmvn.add(utt, arr)
+            writer.write(utt, arr)
         # metadata from writer stats; processor-side metadata (alphabet
         # etc.) comes from a fresh processor instance's static config
         extra = processor.metadata()
@@ -168,9 +169,20 @@ def prepare_section(
 def main(recipe_path: str, expdir: str, num_workers: int = 0) -> None:
     recipe = Recipe(recipe_path)
     os.makedirs(expdir, exist_ok=True)
-    for name in recipe.database.sections():
-        meta = prepare_section(recipe, expdir, name, num_workers)
-        print(
-            f"[data] {name}: {meta['num_utts']} utts, dim={meta.get('dim')}, "
-            f"max_length={meta['max_length']}"
-        )
+    names = recipe.database.sections()
+    with contextlib.ExitStack() as stack:
+        pool = None
+        if num_workers > 1:
+            # spawn, not fork: the parent has imported torch and its threads
+            pool = stack.enter_context(ProcessPoolExecutor(
+                max_workers=num_workers,
+                mp_context=multiprocessing.get_context("spawn"),
+                initializer=_init_worker,
+                initargs=({n: recipe.database.section(n).as_dict() for n in names},),
+            ))
+        for name in names:
+            meta = prepare_section(recipe, expdir, name, pool)
+            print(
+                f"[data] {name}: {meta['num_utts']} utts, dim={meta.get('dim')}, "
+                f"max_length={meta['max_length']}"
+            )

@@ -6,7 +6,10 @@ TextProcessor), so the saved ``.npz`` plugs straight into beam-search
 shallow fusion (``recognizer.cfg``: ``lm_path`` / ``lm_weight``) and
 ``rescore``. ``lm_type = "ngram"`` trains the Witten-Bell n-gram of
 ``decoding/lm.py`` into ``<expdir>/lm/lm_{order}gram.npz`` (host work, no
-device); the neural LM (``rnn``) is not ported yet and raises.
+device); ``lm_type = "rnn"`` trains the LSTM LM of
+``decoding/neural_lm.py`` on ``device`` (the GPU unless "cpu") into
+``<expdir>/lm/lm_rnn.npz``, with the JAX package's hyperparameters and
+defaults.
 """
 
 from __future__ import annotations
@@ -20,10 +23,10 @@ from nabu_tpu_torch.decoding.lm import NgramLM
 
 
 def main(recipe_path: str, expdir: str, order: int = 3, targets: str = "traintargets",
-         lm_type: str = "ngram") -> str:
-    if lm_type == "rnn":
-        raise NotImplementedError("neural LM not ported yet")
-    if lm_type != "ngram":
+         lm_type: str = "ngram", num_units: int = 256, num_layers: int = 1,
+         embed_dim: int = 64, num_steps: int = 500, batch_size: int = 64,
+         learning_rate: float = 1e-3, device=None) -> str:
+    if lm_type not in ("ngram", "rnn"):
         raise ValueError(f"unknown LM type {lm_type!r} (ngram|rnn)")
     recipe = Recipe(recipe_path)
     conf = recipe.database.section(targets)
@@ -31,6 +34,21 @@ def main(recipe_path: str, expdir: str, order: int = 3, targets: str = "traintar
     entries = read_datafile(conf.get("datafile"))
     sequences = [list(proc.process(value)) for _, value in entries]
     vocab = proc.num_labels + 1  # boundary symbol shares the eos id
+
+    if lm_type == "rnn":
+        from nabu_tpu_torch.decoding.neural_lm import RnnLM
+
+        lm = RnnLM.train(sequences, vocab, num_units=num_units, num_layers=num_layers,
+                         embed_dim=embed_dim, num_steps=num_steps, batch_size=batch_size,
+                         learning_rate=learning_rate, device=device)
+        path = os.path.join(expdir, "lm", "lm_rnn.npz")
+        lm.save(path)
+        ppl = lm.perplexity(sequences)
+        print(
+            f"[lm] rnn ({num_layers}x{num_units}) over {vocab} ids from "
+            f"{len(sequences)} utterances -> {path} (train ppl {ppl:.2f})"
+        )
+        return path
 
     lm = NgramLM.train(sequences, vocab, order)
     path = os.path.join(expdir, "lm", f"lm_{order}gram.npz")

@@ -3,7 +3,9 @@
 Port of the JAX package's ``scripts/rescore.py``: reads
 ``<expdir>/decoded/nbest.txt`` (written by ``decode``), re-ranks each
 utterance's hypotheses by ``am + lm_weight * lm + length_bonus * len``
-and writes ``decoded/rescored.txt`` in the same format. Host work only.
+and writes ``decoded/rescored.txt`` in the same format. An n-gram LM
+scores on the host; a neural LM (``lm_rnn.npz``) on ``device`` (the GPU
+unless "cpu"), in groups of rows the LSTM walk holds.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ def _text_to_ids(proc: TextProcessor, tokenizer: str, text: str):
 
 
 def main(recipe_path: str, expdir: str, lm_path: str | None = None, lm_weight: float = 0.3,
-         length_bonus: float = 0.0) -> str:
+         length_bonus: float = 0.0, device=None) -> str:
     recipe = Recipe(recipe_path)
     rconf = recipe.recognizer.section("recognizer")
     tconf = recipe.database.section(rconf["targets"])
@@ -60,7 +62,7 @@ def main(recipe_path: str, expdir: str, lm_path: str | None = None, lm_weight: f
                 break
         else:
             lm_path = os.path.join(expdir, "lm", "lm_3gram.npz")
-    lm = load_lm(lm_path)  # a neural LM file raises
+    lm = load_lm(lm_path, device)  # n-gram or neural, by file contents
     if lm.vocab != proc.num_labels + 1:
         raise ValueError(
             f"LM vocab {lm.vocab} != recipe alphabet "

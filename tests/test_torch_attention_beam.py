@@ -157,19 +157,30 @@ def test_all_finished_ends_the_loop_on_jax_step(tmp_path, monkeypatch):
 
 
 def test_lm_fusion_raises(tmp_path):
-    """The attention beam fuses an n-gram LM of the head's vocabulary; an
-    LM of another vocabulary, or a neural LM file, raises."""
+    """The attention beam fuses an n-gram or a neural LM of the head's
+    vocabulary (the neural one's search is JAX's: tests/test_torch_neural_lm.py);
+    an LM of another vocabulary raises."""
+    from nabu_tpu.decoding.neural_lm import RnnLM as JRnnLM
     from nabu_tpu_torch.decoding.lm import NgramLM
+    from nabu_tpu_torch.decoding.neural_lm import DenseRnnLM
 
-    _, tm, _ = _models(tmp_path, "bahdanau")
+    jm, tm, params = _models(tmp_path, "bahdanau")
     V = tm.decoders["decoder"].output_dim
     conf = {"recognizer": "attention_beam", "beam_width": "2", "lm_weight": "0.5"}
     NgramLM.train([[0, 1], [2]], V + 1, 3).save(str(tmp_path / "wide.npz"))
     with pytest.raises(ValueError, match=f"LM vocab {V + 1} != model output vocab {V}"):
         build_recognizer(Conf(dict(conf, lm_path=str(tmp_path / "wide.npz")), "recognizer"), tm)
-    np.savez(str(tmp_path / "rnn.npz"), kind="rnn", vocab=V)
-    with pytest.raises(NotImplementedError, match="neural LM not ported yet"):
-        build_recognizer(Conf(dict(conf, lm_path=str(tmp_path / "rnn.npz")), "recognizer"), tm)
+    JRnnLM.train([[0, 1, 2], [2, 1]], V, num_units=8, embed_dim=4, num_steps=5,
+                 batch_size=2).save(str(tmp_path / "rnn.npz"))
+    rnn = dict(conf, lm_path=str(tmp_path / "rnn.npz"))
+    rec = build_recognizer(Conf(rnn, "recognizer"), tm)
+    assert isinstance(rec.lm, DenseRnnLM) and rec.lm_weight == 0.5
+    b = _batch(4)
+    want = JBeamRecognizer(JConf(rnn, "recognizer"), jm)(params, b["features"],
+                                                         b["feature_lengths"])
+    got = rec(to_torch_tree(params), b["features"], b["feature_lengths"])
+    np.testing.assert_array_equal(got.ids, np.asarray(want.ids))
+    np.testing.assert_allclose(got.scores, np.asarray(want.scores), rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("attention", ["location", "dot"])

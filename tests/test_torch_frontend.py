@@ -1,7 +1,7 @@
 """The port's STFT+Mel and device frontend against the JAX package's.
 
 Same seeded numpy audio through both: the plain STFT+Mel against the
-Pallas kernel (interpret mode, f32 DFT operands) and the port's
+Pallas kernel (interpret mode, f32 and bf16 DFT operands) and the port's
 DeviceFrontend against the JAX DeviceFrontend across the option surface,
 on ragged lengths. Tolerance: abs 1e-4 on log features (f32 on both
 sides; the audio has a noise floor, so no mel band is near-silent), with
@@ -75,6 +75,36 @@ class TestStftMel:
         assert got.shape == (75, 40) and got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
 
+    def test_bf16_plain_matches_pallas_kernel(self):
+        """The bf16 mode (the Pallas kernel's default dft_dtype): the table
+        folded in f32 and rounded once, the frames rounded, their exact
+        products summed in f32; against the Pallas kernel in interpret
+        mode at the f32 mode's 1e-4."""
+        fpj = jf.make_frontend_params(RATE, nfft=512, nfilt=40)
+        frames = _frames(2)
+        want = stft_mel_pallas(
+            jnp.asarray(frames), fpj.window, fpj.dft_cos, fpj.dft_sin,
+            fpj.mel, fpj.nfft, interpret=True, dft_dtype=jnp.bfloat16,
+        )
+        fpt = tf.make_frontend_params(RATE, nfft=512, nfilt=40)
+        cossin, mel, mr = fpt.folded("bf16")
+        assert cossin.dtype == torch.bfloat16 and mel.dtype == torch.float32
+        # rounded once, after the window fold, as the JAX wrapper rounds it
+        wcol = np.asarray(fpj.window, np.float32)[:, None]
+        jcs = jnp.concatenate([fpj.dft_cos * wcol, fpj.dft_sin * wcol], axis=1)
+        np.testing.assert_array_equal(cossin.float().numpy(),
+                                      np.asarray(jcs.astype(jnp.bfloat16).astype(jnp.float32)))
+        before = kernels.launch_counts()
+        got = stft_ops.stft_mel(torch.from_numpy(frames).to(torch.bfloat16), cossin, mel, mr)
+        assert kernels.launch_counts() == before
+        assert got.shape == (75, 40) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+        # the mode is a different function: bf16 rounding moves the features
+        f32 = stft_ops.stft_mel(torch.from_numpy(frames), *fpt.folded())
+        assert float((f32 - got).abs().max()) > 1e-3
+        with pytest.raises(ValueError, match="dft_dtype"):
+            fpt.folded("f16")
+
 
     @pytest.mark.parametrize("rate,nfilt", [(RATE, 40), (8000.0, 23), (44100.0, 80)])
     def test_mel_ranges_cover_the_mel_matrix(self, rate, nfilt):
@@ -118,15 +148,17 @@ class TestStftMel:
         with pytest.raises(ValueError, match="beyond the kernel's design"):
             stft_ops.check_design(256, many, wide)
 
-    def test_log_mel_spectrogram_matches_jax(self):
+    @pytest.mark.parametrize("dft_dtype", ["f32", "bf16"])
+    def test_log_mel_spectrogram_matches_jax(self, dft_dtype):
         """One utterance through the port's log_mel_spectrogram and the
-        JAX one (its jnp path: its Pallas path takes the kernel's bf16
-        default, which the f32 port does not mirror)."""
+        JAX one: its jnp path (f32), its Pallas path (use_pallas, the
+        kernel's bf16 default)."""
         sig = _signals(2, (8000,))[0]
         fpj = jf.make_frontend_params(RATE, nfft=512, nfilt=40)
         fpt = tf.make_frontend_params(RATE, nfft=512, nfilt=40)
-        got = tf.log_mel_spectrogram(fpt, torch.from_numpy(sig), 48)
-        want = jf.log_mel_spectrogram(fpj, jnp.asarray(sig), 48)
+        got = tf.log_mel_spectrogram(fpt, torch.from_numpy(sig), 48, dft_dtype)
+        want = jf.log_mel_spectrogram(fpj, jnp.asarray(sig), 48,
+                                      use_pallas=dft_dtype == "bf16")
         assert got.shape == (48, 40)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
 
@@ -180,6 +212,48 @@ class TestDeviceFrontend:
         assert got.shape == want.shape
         _assert_feats(got.numpy(), np.asarray(want), case["feature"])
 
+    @pytest.mark.parametrize("case", [CASES[0], CASES[3]])
+    def test_bf16_frontend_matches_jax_pallas_path(self, case):
+        """frontend_dft_dtype = bf16 against JAX's bf16 Pallas path
+        (interpret mode), at 1e-4 but on the frames (and, with deltas, the
+        frames within 2 of them) that hold a sample whose bf16 rounding
+        differs between the two pre-emphases: jitted XLA contracts x[t] -
+        0.97 x[t - 1] into one FMA, the port rounds the product first, and
+        where the two f32 results straddle a bf16 rounding boundary the
+        frame's sample moves by a bf16 step. Such frames are held to 2e-3
+        (measured: 3.0e-4 fbank with deltas, 8.4e-4 MFCC, from one sample of
+        9600); in f32 the one-ulp difference stays below 1e-5."""
+        import jax
+
+        vals = dict(case, winlen="0.025", winstep="0.01", use_native="false",
+                    frontend_dft_dtype="bf16")
+        jfe = jf.DeviceFrontend.make(JConf(vals, "features"))
+        tfe = tf.DeviceFrontend.make(Conf(vals, "features"), "cpu")
+        assert tfe.dft_dtype == jfe.dft_dtype == "bf16"
+        batch, lens = _pad(_signals(9, (4000, 2411)))
+        want, wl = jfe(batch, lens, RATE, use_pallas=True)
+        got, gl = tfe(batch, lens, RATE)
+        np.testing.assert_array_equal(gl, np.asarray(wl))
+        assert got.shape == want.shape
+
+        def bf16_pre(pre):
+            return np.asarray(jnp.asarray(pre).astype(jnp.bfloat16).astype(jnp.float32))
+
+        xla = bf16_pre(jax.jit(lambda s: s[:, 1:] - 0.97 * s[:, :-1])(batch))
+        port = torch.from_numpy(batch)
+        port = bf16_pre((port[:, 1:] - 0.97 * port[:, :-1]).numpy())
+        flipped = np.argwhere(xla != port)
+        assert len(flipped) <= 2
+        near = np.zeros(got.shape[:2], bool)
+        spread = 2 if case.get("dynamic") else 0
+        for b, s in flipped:  # sample s + 1 of utterance b
+            for t in range(got.shape[1]):
+                if 160 * t <= s + 1 < 160 * t + 400:
+                    near[b, max(0, t - spread): t + spread + 1] = True
+        g, w = got.numpy(), np.asarray(want)
+        _assert_feats(g[~near], w[~near], case["feature"])
+        np.testing.assert_allclose(g[near], w[near], atol=2e-3, rtol=0)
+
     def test_recipe_matches_jax_pallas_path(self):
         """JAX's Pallas STFT+Mel (interpret mode) on the recipe's features."""
         jfe, tfe = _pair(RECIPE)
@@ -231,5 +305,8 @@ class TestDeviceFrontend:
     def test_device_frontend_declines_raw_frames(self):
         assert tf.DeviceFrontend.make(Conf({"feature": "frames"}, "f")) is None
         assert tf.DeviceFrontend.make(Conf({"processor": "text"}, "f")) is None
-        with pytest.raises(NotImplementedError):
-            tf.DeviceFrontend(Conf({"frontend_dft_dtype": "bf16"}, "f"))
+        # the DFT operands: f32 (the default) or bf16; another value raises
+        assert tf.DeviceFrontend(Conf({}, "f")).dft_dtype == "f32"
+        assert tf.DeviceFrontend(Conf({"frontend_dft_dtype": "bf16"}, "f")).dft_dtype == "bf16"
+        with pytest.raises(ValueError, match="dft_dtype 'f16'"):
+            tf.DeviceFrontend(Conf({"frontend_dft_dtype": "f16"}, "f"))

@@ -18,7 +18,8 @@ plain versions on the CPU for gradients. Tolerances as in
 ``chip_smoke.py``: log-mel and BLSTM f32 1e-4; BLSTM bf16 one rounding
 step of the carried h or dgates, propagated (stated per test); CTC f32
 1e-5; RNN-T log-probs 1e-4, log-likelihood 1e-3, occupancies 1e-4,
-joint gradients 1e-3 + 1e-3 |x|.
+joint gradients 1e-3 + 1e-3 |x|; the bf16 log-mel as ``chip_smoke.TOL``;
+the RNN LM's gradients 1e-4 relative, its grouped scores bit for bit.
 """
 
 import io
@@ -1971,6 +1972,7 @@ def _float64_search(tmp_path, attention, conf):
         head_params = heads[rec.head] if not hasattr(rec, "ctc_head") else heads
         return [x.cpu() for x in rec.search(head_params, enc.to(dev), lengths.to(dev))]
 
+    search.rec = rec
     return search
 
 
@@ -1997,12 +1999,14 @@ _RNNT_CFG = (
     "joint_units = 16\nloss = transducer\n")
 
 
-def _fused_search(tmp_path, recognizer):
+def _fused_search(tmp_path, recognizer, kind="ngram"):
     """A beam recognizer of a tiny model (5 labels) fusing a 3-gram
-    (``chip_smoke.phase_text_lm``) at lm_weight 0.3, and its search over
-    one seeded input (the CTC head's log-probs, or an encoder output) in
-    float64 on a device: -> search(device), (ids, lengths, scores) on the
-    CPU."""
+    (``chip_smoke.phase_text_lm``), or with ``kind`` "rnn" an RNN LM
+    (``chip_smoke.phase_rnn_lm``, 1 x 32, 30 steps, trained on the CPU),
+    at lm_weight 0.3, and its search over one seeded input (the CTC head's
+    log-probs, or an encoder output) in float64 on a device: ->
+    search(device), (ids, lengths, scores) on the CPU; ``search.rec`` is
+    the recognizer."""
     import chip_smoke
     from nabu_tpu_torch.config import Conf, ConfigFile
     from nabu_tpu_torch.decoding.recognizers import build_recognizer
@@ -2010,7 +2014,10 @@ def _fused_search(tmp_path, recognizer):
     from nabu_tpu_torch.params import flatten, unflatten
 
     lm_path = str(tmp_path / "lm.npz")
-    chip_smoke.phase_text_lm(lm_path, 5, 29)
+    if kind == "rnn":
+        chip_smoke.phase_rnn_lm(lm_path, 5, 29, device="cpu", num_units=32, num_steps=30)
+    else:
+        chip_smoke.phase_text_lm(lm_path, 5, 29)
     conf = {"recognizer": recognizer, "beam_width": "6", "nbest": "6",
             "length_norm_power": "1.0", "att_head": "att", "ctc_head": "ctc",
             "ctc_weight": "0.3", "lm_path": lm_path, "lm_weight": "0.3"}
@@ -2031,6 +2038,7 @@ def _fused_search(tmp_path, recognizer):
         head = unflatten({k: v.to(dev, torch.float64) for k, v in flatten(params).items()})
         return [x.cpu() for x in rec.search(head, enc.to(dev), lengths.to(dev))]
 
+    search.rec = rec
     return search
 
 
@@ -2050,6 +2058,7 @@ def _ctc_fused_search(tmp_path, conf):
     def search(dev):
         return [x.cpu() for x in rec.decode_logprobs(lp.to(dev), lengths.to(dev))]
 
+    search.rec = rec
     return search
 
 
@@ -2072,6 +2081,128 @@ def test_lm_fused_beams_on_card_match_cpu_in_float64(cuda_device, tmp_path, reco
         stale = search(cuda_device)
     assert not torch.equal(stale[0], want[0]) or float(
         (stale[2] - want[2]).abs().max()) > 1e-6
+
+
+@pytest.mark.parametrize("recognizer", ["ctc_beam", "attention_beam", "joint_ctc_att_beam",
+                                        "transducer_beam"])
+def test_neural_lm_fused_beams_on_card_match_cpu_in_float64(cuda_device, tmp_path, recognizer):
+    """Each beam with an RNN LM fused at lm_weight 0.3, the LM moved to
+    float64 (``DenseRnnLM.to``), on the card against the same search on
+    the CPU: ids and lengths identical, scores within 1e-6; the planted
+    stale LM state on the card (``chip_smoke.rnn_lm_stale_state``) moves
+    the scores beyond it."""
+    import chip_smoke
+    from nabu_tpu_torch.decoding.neural_lm import DenseRnnLM
+
+    search = _fused_search(tmp_path, recognizer, kind="rnn")
+    assert isinstance(search.rec.lm, DenseRnnLM)
+    search.rec.lm = search.rec.lm.to("cpu", torch.float64)
+    got, want = search(cuda_device), search(torch.device("cpu"))
+    assert got[2].dtype == torch.float64
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), rtol=0, atol=1e-6)
+    with chip_smoke.rnn_lm_stale_state():
+        stale = search(cuda_device)
+    assert not torch.equal(stale[0], want[0]) or float(
+        (stale[2] - want[2]).abs().max()) > 1e-6
+
+
+def _lm_text(seed=3, n=300, vocab=30):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, vocab - 1, int(rng.integers(1, 60)))]
+            for _ in range(n)]
+
+
+def test_neural_lm_training_step_on_card_matches_plain(cuda_device):
+    """One batch of the RNN LM at the JAX defaults' widths (1 x 256, embed
+    64, B = 64, 31 labels) through the training kernels against the same
+    through their plain versions on the card: the worst parameter's
+    ||kernel - plain|| / ||plain|| within 1e-4 (f32 on both sides); the
+    planted dwh fault (h two steps back) is rejected. Then 3 steps of
+    ``RnnLM.train`` launch each training kernel once a step."""
+    import chip_smoke
+    from nabu_tpu_torch.decoding.neural_lm import RnnLM
+
+    text = _lm_text()
+    lm = RnnLM.create(30, device=cuda_device)
+    reading = chip_smoke.rnn_lm_gradients(torch, lm, text)
+    assert reading["launches"] == {"lstm_fwd_train": 1, "lstm_bwd_recur": 1, "lstm_bwd_dwh": 1}
+    assert reading["rel_err"] <= 1e-4, reading
+    assert reading["fault_rel_err"] > 1e-4, reading
+    kernels.reset_launch_counts()
+    RnnLM.train(text, 30, num_steps=3, device=cuda_device)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert [counts[k] for k in ("lstm_fwd_train", "lstm_bwd_recur", "lstm_bwd_dwh")] == [3] * 3
+
+
+def test_neural_lm_beyond_the_chain_raises_on_card(cuda_device):
+    """--lm_units 1024 --lm_batch 64 is beyond the chain's design: training
+    raises before any launch."""
+    from nabu_tpu_torch.decoding.neural_lm import RnnLM
+
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="beyond the kernel's design"):
+        RnnLM.train(_lm_text(n=80), 30, num_units=1024, batch_size=64, device=cuda_device)
+    assert kernels.launch_counts() == before
+
+
+def test_neural_lm_grouped_scores_keep_their_bits_on_card(cuda_device):
+    """300 lines (more than the walk's 256 rows at H = 256) scored in
+    groups equal each line scored alone, bit for bit, through lstm_proj and
+    lstm_fwd; and the CPU's plain versions within 1e-4 relative."""
+    from nabu_tpu_torch.decoding.neural_lm import RnnLM, walk_rows
+
+    text = _lm_text(5)
+    lm = RnnLM.create(30, device=cuda_device, seed=2)
+    assert walk_rows(256) == 256 < len(text)
+    kernels.reset_launch_counts()
+    grouped = lm.seq_logprobs(text)
+    counts = kernels.launch_counts()
+    assert counts["lstm_fwd"] == 2 and counts["lstm_proj"] == 4
+    alone = np.concatenate([lm.seq_logprobs([s]) for s in text])
+    np.testing.assert_array_equal(grouped, alone)
+    host = RnnLM({k: {kk: vv.cpu() for kk, vv in v.items()} for k, v in lm.params.items()},
+                 1, 256, 64, 30)
+    np.testing.assert_allclose(grouped, host.seq_logprobs(text), rtol=1e-4)
+
+
+@pytest.mark.parametrize("rate,n_frames", [
+    (16000.0, 297),        # N not a multiple of a block's 64 frames
+    (16000.0, 1),
+    (16000.0, 32 * 1026),  # a served batch of 32 at the 1026-frame bucket
+    (32000.0, 97),         # W = 800 > nfft: the DFT rows past 512 are zero
+    (11025.0, 50),         # W = 276, K = 252: the 2-byte copies
+])
+def test_stft_bf16_kernel_matches_plain(cuda_device, rate, n_frames):
+    """The bf16 mode against its plain version (the f32 product of the
+    bf16 operands) at chip_smoke's tolerance; the planted dropped tap is
+    rejected where the last tap is one of the DFT's (W <= nfft: past nfft
+    the table's rows are zero)."""
+    import chip_smoke
+
+    fp = tf.make_frontend_params(rate, nfft=512, nfilt=40, device=cuda_device)
+    cossin, mel, mr = fp.folded("bf16")
+    assert cossin.dtype == torch.bfloat16
+    rng = np.random.default_rng(0)
+    n = (n_frames - 1) * fp.frame_step + fp.frame_len
+    sig = torch.as_tensor((1000.0 * rng.standard_normal(n)).astype(np.float32))
+    frames = tf.frame_signal(sig, fp.frame_len, fp.frame_step, n_frames)
+    frames = frames.contiguous().to(cuda_device, torch.bfloat16)
+    before = kernels.launch_counts()
+    got = stft_ops.stft_mel(frames, cossin, mel, mr)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["stft_mel_bf16"] == before["stft_mel_bf16"] + 1
+    assert after["stft_mel"] == before["stft_mel"]
+    ref = stft_ops.stft_mel_plain(frames, cossin, mel)
+    atol = chip_smoke.TOL["stft_mel_bf16"][0]
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=atol, rtol=0)
+    if fp.frame_len <= fp.nfft:
+        fault = chip_smoke.drop_last_tap(stft_ops.stft_mel_plain)(frames, cossin, mel, mr)
+        assert float((fault - ref).abs().max()) > atol
+    with pytest.raises(TypeError, match="cossin"):
+        stft_ops.stft_mel(frames, cossin.float(), mel, mr)
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@
   names a 3-gram LM at ``lm_weight`` 0.5, over the same carried-over
   weights: JAX's n-best ids and lengths, scores within rtol 1e-5 (f32);
   at ``lm_weight`` 0 the output is the unfused recognizer's, bit for bit;
-- an ``rnn`` LM file and an LM of another vocabulary raise, and so does
-  an LM on a recognizer that cannot fuse;
+- an RNN LM file of the head's vocabulary is fused; an LM of another
+  vocabulary raises, and so does an LM on a recognizer that cannot fuse;
 - ``cli lm`` writes JAX ``scripts/lm.main``'s ``.npz``, ``cli rescore``
   JAX ``scripts/rescore.main``'s ``rescored.txt``; an export artifact
   with an ``lm.npz`` serves the same lines in both packages;
@@ -208,14 +208,27 @@ def test_lm_weight_zero_is_the_unfused_beam(tmp_path, name):
 
 
 def test_an_rnn_lm_and_a_vocab_mismatch_raise(tmp_path):
-    _, tm, _, _, _ = _joint_model(tmp_path)
+    """An RNN LM of the head's vocabulary is fused (the neural LM is
+    ported: ``tests/test_torch_neural_lm.py`` holds its searches to
+    JAX's); an RNN LM or an n-gram of another vocabulary raises, as JAX's
+    recognizer does, and so does an LM on a recognizer that cannot
+    fuse."""
+    from nabu_tpu.decoding.neural_lm import RnnLM as JRnnLM
+    from nabu_tpu_torch.decoding.neural_lm import DenseRnnLM
+
+    jm, tm, _, _, _ = _joint_model(tmp_path)
     conf = dict(FUSED["attention_beam"][1], lm_weight="0.5")
-    rnn = str(tmp_path / "rnn.npz")
-    np.savez(rnn, kind="rnn", vocab=6)
-    with pytest.raises(NotImplementedError, match="neural LM not ported yet"):
-        build_recognizer(Conf(dict(conf, lm_path=rnn), "recognizer"), tm)
-    with pytest.raises(NotImplementedError, match="neural LM not ported yet"):
-        lm.load_dense_lm(rnn, "cpu")
+    for vocab in (6, 5):
+        JRnnLM.create(vocab, num_units=8, embed_dim=4).save(str(tmp_path / f"rnn{vocab}.npz"))
+    rec = build_recognizer(Conf(dict(conf, lm_path=str(tmp_path / "rnn6.npz")), "recognizer"),
+                           tm)
+    assert isinstance(rec.lm, DenseRnnLM) and rec.lm.vocab == 6
+    assert isinstance(lm.load_dense_lm(str(tmp_path / "rnn6.npz"), "cpu"), DenseRnnLM)
+    rnn5 = dict(conf, lm_path=str(tmp_path / "rnn5.npz"))
+    with pytest.raises(ValueError, match="LM vocab 5 != model output vocab 6"):
+        jbuild_recognizer(JConf(rnn5, "recognizer"), jm)
+    with pytest.raises(ValueError, match="LM vocab 5 != model output vocab 6"):
+        build_recognizer(Conf(rnn5, "recognizer"), tm)
     with pytest.raises(ValueError, match="LM vocab 5 != model output vocab 6"):
         build_recognizer(Conf(dict(conf, lm_path=_lm_file(tmp_path, 5)), "recognizer"), tm)
     with pytest.raises(ValueError, match="does not support LM shallow fusion"):
@@ -253,8 +266,6 @@ def test_cli_lm_writes_the_jax_npz(tmp_path, recipe, capsys, order):
         for k in w.files:
             assert w[k].dtype == g[k].dtype
             np.testing.assert_array_equal(g[k], w[k])
-    with pytest.raises(NotImplementedError, match="neural LM not ported yet"):
-        cli.main(["lm", "--recipe", recipe, "--expdir", str(tmp_path / "r"), "--type", "rnn"])
 
 
 def test_cli_rescore_writes_the_jax_rescored_txt(tmp_path, recipe):

@@ -220,19 +220,24 @@ class TestDevice:
             resolve_device("mps")
 
     def test_lm_fusion_not_ported(self, corpus):
-        """The artifact's LM is fused (tests/test_torch_lm.py); a neural LM
-        file, not ported yet, raises, and so does an LM of another
-        vocabulary than the model's."""
+        """The artifact's LM is fused, n-gram (tests/test_torch_lm.py) or
+        neural: a neural ``lm.npz`` serves JAX's lines on the CPU; an LM
+        of another vocabulary than the model's raises."""
+        from nabu_tpu.decoding.neural_lm import RnnLM as JRnnLM
+        from nabu_tpu.serving import load_exported as jload
         from nabu_tpu_torch.decoding.lm import NgramLM
+        from nabu_tpu_torch.decoding.neural_lm import DenseRnnLM
         from nabu_tpu_torch.serving import load_exported
 
-        root, _ = corpus
+        root, entries = corpus
+        paths = [p for _, p in entries]
         art = Path(_artifact(root, "float32", "beam", seed=3))
         (art / "recognizer.cfg").write_text(
             RECOGNIZERS["beam"] + "lm_path = lm.npz\nlm_weight = 0.5\n")
-        np.savez(str(art / "lm.npz"), kind="rnn", vocab=4)
-        with pytest.raises(NotImplementedError, match="neural LM not ported yet"):
-            load_exported(str(art), device="cpu")
+        JRnnLM.create(4, num_units=8, embed_dim=4, seed=1).save(str(art / "lm.npz"))
+        model = load_exported(str(art), device="cpu")
+        assert isinstance(model.recognizer.lm, DenseRnnLM)
+        assert model.recognize_files(paths) == jload(str(art)).recognize_files(paths)
         NgramLM.train([[0, 1, 2]], 5, 3).save(str(art / "lm.npz"))
         with pytest.raises(ValueError, match="LM vocab 5 != model output vocab 4"):
             load_exported(str(art), device="cpu")

@@ -21,6 +21,7 @@ raises; without a GPU the entry points raise unless asked for the CPU.
 
 import json
 import os
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -268,6 +269,23 @@ def experiment(tmp_path_factory):
         f.write(TRAINER.format(steps=4, resume="true"))
     cli.main(["train", "--recipe", recipe, "--expdir", expdir, "--device", "cpu"])
     return recipe, expdir, first
+
+
+def test_cli_data_pool_writes_what_one_process_writes(experiment, tmp_path):
+    """`cli data --num_workers 2` (one spawned pool for every section)
+    writes the same shards and metadata as the in-process loop, byte for
+    byte."""
+    recipe, expdir, _ = experiment
+    other = str(tmp_path / "exp")
+    cli.main(["data", "--recipe", recipe, "--expdir", other, "--num_workers", "2",
+              "--device", "cpu"])
+    want = sorted(p.relative_to(os.path.join(expdir, "data"))
+                  for p in Path(expdir, "data").rglob("*") if p.is_file())
+    got = sorted(p.relative_to(os.path.join(other, "data"))
+                 for p in Path(other, "data").rglob("*") if p.is_file())
+    assert got == want and len(want) > 6
+    for rel in want:
+        assert Path(other, "data", rel).read_bytes() == Path(expdir, "data", rel).read_bytes(), rel
 
 
 def test_cli_train_writes_the_experiment(experiment):
