@@ -110,18 +110,21 @@ Phases, each printing JSON lines:
               frontend and the v2 inference kernels may launch; RTF and
               peak memory; the longest batch's search alone (decode steps,
               ms a step over 512 hypotheses, the host sync a step's cost:
-              the same steps without it); then the 8 shortest utterances'
-              n-best on the card against the CPU over the same encoder
-              output, in float64 (identical, scores within 1e-6; bf16
-              reported);
+              the same steps without it); then the 4 shortest
+              utterances' (ATT_CHECK_UTTS; 8 before train_dp took its
+              time) n-best on the card against the CPU over the same
+              encoder output, in float64 (identical, scores within 1e-6;
+              bf16 reported);
 15. serve_joint — the same for a full-width joint_ctc_att_multihost
               artifact (4 BLSTM layers of 512 units, time / 8, the 2 x 512
               bahdanau Speller and the CTC head) with the recipe's
               joint_ctc_att_beam (ctc_weight 0.3), the CTC prefix scan's
               share of the search, and one batch of attention_rescoring;
-16. train_joint — (run after train_las) 20 steps of ``cli train`` of
-              joint_ctc_att_multihost on a copy of train_las's prepared
-              data (the recipes' database.conf are the same), B = 64: the
+16. train_joint — (run after train_las) 20 steps of ``cli train
+              --distributed`` (one rank of an NCCL group of one, this
+              process) of joint_ctc_att_multihost on a copy of train_las's
+              prepared data (the recipes' database.conf are the same), B =
+              64: the group checked, the gradients' all-reduce timed; the
               same checks (4 v1 walks, recomputes, chains and dwh a step,
               the CTC loss kernels once), the gradient check with the
               Speller's tolerance on the attention head, then ``cli test``
@@ -150,6 +153,22 @@ Phases, each printing JSON lines:
               fixed batch before and after; the gradient check's fault:
               each lane's last frame out of dpred), then ``cli test``
               (transducer_greedy) over the dev split;
+22. train_dp — (run after train_conformer_rnnt, before the bench lines)
+              data-parallel training of joint_ctc_att_multihost at its full
+              width: two ranks (processes of this script, ``--dp_rank``, a
+              gloo group over CUDA tensors on the one card: NCCL refuses
+              two ranks on one device) train 64 lanes each of every global
+              batch of 128 (DP_T = 800 padded frames, seeded; rank 0 holds
+              an example CTC cannot align, rank 1 a fill lane), against one
+              process training the 128 lanes at once. In f32, without
+              noise, after the first update: the applied gradient's and
+              the parameters' worst ||dp - one|| / ||one|| within
+              TOL["dp_step"], and the naive recipe's gradient (each rank's
+              mean, the ranks' means averaged) beyond it; the ranks'
+              parameters equal bit for bit after 3 steps. Then the bf16
+              recipe's step, its gradients' all-reduce (bytes and GB/s)
+              and the peak memory, at world size 1 (one process, 64 lanes)
+              and 2 (each rank), and the losses;
 20. bench_conformer_rnnt, 21. bench_moe_conformer — the bench's
               ``conformer_rnnt`` and ``moe_conformer`` lines (B = 32, T =
               1000, L = 100), their launches checked, and each encoder's
@@ -162,8 +181,8 @@ LM-fused pass (``lm_fused_pass``): a 3-gram trained with the port's
 alphabet) fused at lm_weight 0.3 into the phase's beam (ctc_beam,
 transducer_beam, attention_beam, joint_ctc_att_beam; nbest 8): the
 phase's first batch served unfused and fused (the RTF of each; the same
-kernel launches), the fused search's 8-best over the 8 shortest
-utterances on the card against the CPU in float64 (identical, scores
+kernel launches), the fused search's 8-best over the ATT_CHECK_UTTS (4)
+shortest utterances on the card against the CPU in float64 (identical, scores
 within 1e-6), and the planted stale LM context (``DenseLM.step``
 returning the parent context), which that check must reject. Then the
 same with an RNN LM: ``RnnLM.train`` on the card at the JAX defaults (1 x
@@ -435,6 +454,10 @@ TOL = {
     # and f32
     "aed_cache_bf16": 5e-2,
     "aed_cache_f32": 1e-4,
+    # train_dp, f32: the two ranks' first update against one process on
+    # their batches concatenated, worst parameter ||dp - one|| / ||one||
+    # of the applied gradient and of the parameters after it
+    "dp_step": 1e-4,
     ("lstm_proj", "bf16"): (1e-2, 1e-2),
     ("lstm_proj", "f32"): (1e-4, 1e-5),
     ("lstm_fwd", "bf16"): (1e-2, 0.0),
@@ -579,7 +602,8 @@ ATT_SERVE = {
                             {"stft_mel": 1}, 32),
 }
 # the shortest served utterances whose search runs on the card and the CPU
-ATT_CHECK_UTTS = 8
+# (8 before train_dp took its time)
+ATT_CHECK_UTTS = 4
 # the serve phases' LM-fused passes: a 3-gram at this weight, trained on
 # this many seeded sentences of the recipe's alphabet
 LM_WEIGHT = 0.3
@@ -4420,7 +4444,9 @@ def step_timers(torch, record: dict):
     """Synchronized host timers around the trainer's step phases:
     forward (Model.apply_train; inside it a transducer head's prediction
     net, TransducerDecoder._pred_sequence), forward + loss (Trainer._loss), backward
-    (Trainer._backward) and optimizer (Trainer._apply_grads), inside the
+    (Trainer._backward), the gradients' all-reduce (Trainer._reduce_grads,
+    with the group's backend and size and the buffer's bytes) and
+    optimizer (Trainer._apply_grads), inside the
     forward a Listener's, a Speller's and an attention encoder's shares
     (their ``apply``), and the
     synchronized clock at each step's end (``step_end``: the window
@@ -4449,6 +4475,7 @@ def step_timers(torch, record: dict):
 
     saved = {(Model, "apply_train"): Model.apply_train, (Trainer, "_loss"): Trainer._loss,
              (Trainer, "_backward"): Trainer._backward,
+             (Trainer, "_reduce_grads"): Trainer._reduce_grads,
              (Trainer, "_apply_grads"): Trainer._apply_grads,
              (TransducerDecoder, "_pred_sequence"): TransducerDecoder._pred_sequence,
              (Listener, "apply"): Listener.apply, (Speller, "apply"): Speller.apply,
@@ -4477,6 +4504,15 @@ def step_timers(torch, record: dict):
         return out
 
     apply_grads = timed("optimizer", saved[(Trainer, "_apply_grads")])
+    reduce_grads = timed("all_reduce", saved[(Trainer, "_reduce_grads")])
+
+    def _reduce_grads(self, grads):
+        import torch.distributed as dist
+
+        record["group"] = ((dist.get_backend(), dist.get_world_size())
+                           if dist.is_initialized() else None)
+        record["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads.values())
+        return reduce_grads(self, grads)
 
     def _apply_grads(self, params, *a, **kw):
         record["params"] = params
@@ -4504,6 +4540,7 @@ def step_timers(torch, record: dict):
     TransformerEncoder.apply = timed("attention_encoder", saved[(TransformerEncoder, "apply")])
     Trainer._loss = _loss
     Trainer._backward = timed("backward", saved[(Trainer, "_backward")])
+    Trainer._reduce_grads = _reduce_grads
     Trainer._apply_grads = _apply_grads
     try:
         yield
@@ -4678,6 +4715,8 @@ DATA_FROM = {"train_rnnt_stream": "train_rnnt", "train_joint": "train_las",
              "train_conformer_rnnt": "train"}
 # the phases that train on the first LAS_TRAIN_UTTS utterances of the corpus
 THIRD = ("train_las", "train_joint")
+# the phases whose cli train is one rank of a data-parallel group
+DISTRIBUTED = ("train_joint",)
 # the phases whose falling-loss check is one fixed batch's loss (the
 # longest, dropout off) before and after training: a per-example CTC or
 # RNN-T NLL grows with the batch's frames, so the losses of batches of
@@ -4726,8 +4765,13 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t3 = time.perf_counter()
+        argv = ["train", "--recipe", recipe, "--expdir", expdir]
+        if phase in DISTRIBUTED:
+            # one rank of a data-parallel group: NCCL at world size 1
+            argv += ["--distributed", "--coordinator", f"127.0.0.1:{_free_port()}",
+                     "--num_processes", "1", "--process_id", "0"]
         with step_timers(torch, record), contextlib.redirect_stdout(sys.stderr):
-            cli.main(["train", "--recipe", recipe, "--expdir", expdir])
+            cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t3
         launches = kernels.launch_counts()
@@ -4739,8 +4783,12 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
         phases = {
             "forward": record["forward"],
             "loss": [a - b for a, b in zip(record["forward_loss"], record["forward"])],
-            "backward": record["backward"], "optimizer": record["optimizer"],
+            "backward": record["backward"], "all_reduce": record["all_reduce"],
+            "optimizer": record["optimizer"],
         }
+        want_group = ("nccl", 1) if phase in DISTRIBUTED else None
+        check(record["group"] == want_group,
+              f"{phase}: trained in group {record['group']}, want {want_group}")
         step_s = [sum(v[i] for v in phases.values()) for i in range(steps)]
         pred_net = record.get("pred_net", [0.0] * steps)
         shares = {k: record[k] for k in ("listener", "speller", "attention_encoder")
@@ -4811,7 +4859,10 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
             "train_audio_seconds_per_second": audio_s / window,
             "phases_audio_seconds_per_second": audio_s / sum(step_s[1:]),
             "peak_device_memory_bytes": peak, "launches": launches,
-            "per_step_launches": per_step, "card": smi,
+            "per_step_launches": per_step, "group": record["group"],
+            "grad_buffer_bytes": record["grad_bytes"],
+            "all_reduce_gb_per_s": record["grad_bytes"] / (median_ms["all_reduce"] * 1e6),
+            "card": smi,
         }
         emit(result)
         emit({"phase": f"{phase}_check", **grad})
@@ -5291,6 +5342,328 @@ def phase_bench_las() -> dict:
                          for k in ("blstm_proj", "blstm_recur")}}
 
 
+# ---------------------------------------------------------------------------
+# train_dp: data-parallel training, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_RANK_BATCH = 64  # joint_ctc_att_multihost's batch_size: a rank's share
+DP_T = 800  # padded frames of every batch (8 s, WSJ's scale)
+DP_STEPS = 3  # f32 steps of the equivalence
+DP_BF16_STEPS = (2, 6)  # bf16 steps a run: warm-up, timed
+DP_TIMEOUT = 900
+DP_DEVICE = "cuda"  # the one-process runs' device (the ranks take their group's)
+
+
+def dp_recipe_parts():
+    """-> (input dim, labels) of the joint recipe's training data."""
+    from nabu_tpu_torch.config import Recipe
+    from nabu_tpu_torch.data.processors import TextProcessor
+    from nabu_tpu_torch.features.computers import make_feature_computer
+
+    r = Recipe(JOINT_RECIPE)
+    return (make_feature_computer(r.database.section("trainfeatures")).dim,
+            TextProcessor(r.database.section("traintargets")).num_labels)
+
+
+def dp_batches(seed: int, n: int, lanes: slice, feat_dim: int, num_labels: int) -> list:
+    """``n`` global batches of DP_WORLD x DP_RANK_BATCH lanes at DP_T
+    frames (seeded), each cut to ``lanes`` as a loader's Batch: ragged
+    lengths of DP_T / 3 to DP_T frames, targets of a twelfth of the frames
+    (the corpus's ~12 characters a second), lane 5 (rank 0) an example
+    CTC cannot align (30 labels in 80 frames, 10 encoder frames) and the
+    last lane (the last rank's) a loader's fill lane (length 0, masked)."""
+    from nabu_tpu_torch.data.pipeline import Batch
+
+    B = DP_WORLD * DP_RANK_BATCH
+    L = -(-(DP_T // 12) // 8) * 8
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        lengths = rng.integers(DP_T // 3, DP_T + 1, B).astype(np.int32)
+        lengths[0] = DP_T
+        tl = np.minimum(lengths // 12, L).astype(np.int32)
+        lengths[5], tl[5] = DP_T // 10, min(30, L)
+        lengths[-1], tl[-1] = 0, 0
+        feats = rng.standard_normal((B, DP_T, feat_dim)).astype(np.float32)
+        feats[np.arange(DP_T)[None, :] >= lengths[:, None]] = 0.0
+        targets = rng.integers(0, num_labels, (B, L)).astype(np.int32)
+        targets[np.arange(L)[None, :] >= tl[:, None]] = 0
+        mask = np.ones(B, bool)
+        mask[-1] = False
+        utts = [f"dp{i}" if mask[i] else "<fill>" for i in range(B)]
+        out.append(Batch(feats[lanes], lengths[lanes], targets[lanes], tl[lanes], mask[lanes],
+                         utts[lanes]))
+    return out
+
+
+class DPLoader:
+    """A loader over fixed batches (the Trainer's interface of
+    BucketedLoader): one epoch is the list, in order."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def num_batches(self) -> int:
+        return len(self.batches)
+
+    def epoch(self, epoch: int, shuffle: bool = True, skip: int = 0):
+        yield from self.batches[skip:]
+
+
+def dp_train(torch, tag: str, steps: int, lanes: slice, expdir: str, keep: bool,
+             device) -> dict:
+    """The joint recipe's model and trainer (through ``Trainer.train``,
+    in this process's group if it has one) for ``steps`` steps on
+    ``dp_batches``' lanes ``lanes``. ``tag`` f32: the equivalence's run,
+    f32 compute, dropout, SpecAugment and scheduled sampling off, so that
+    it draws no noise; bf16: the recipe's model as it is. -> each step's
+    loss share and synchronized end, each all-reduce's seconds (the
+    gradients' sum over the ranks, synchronized before and after), the
+    peak memory, and with ``keep`` the first update's gradients and the
+    parameters after it and at the end (on the host)."""
+    from nabu_tpu_torch.config import ConfigFile, Recipe
+    from nabu_tpu_torch.models.model import build_model
+    from nabu_tpu_torch.parallel import mesh
+    from nabu_tpu_torch.params import flatten
+    from nabu_tpu_torch.training.trainer import Trainer
+
+    feat_dim, num_labels = dp_recipe_parts()
+    cfg = ConfigFile.read(os.path.join(JOINT_RECIPE, "model.cfg"))
+    if tag == "f32":
+        cfg.section("model").set("compute_dtype", "float32")
+        cfg.section("model").set("spec_augment", "false")
+        cfg.section("encoder").set("dropout", "0.0")
+        cfg.section("att").set("sample_prob", "0.0")
+    model = build_model(cfg, feat_dim, num_labels)
+    conf = Recipe(JOINT_RECIPE).trainer.section("trainer").copy()
+    for key, value in (("num_steps", steps), ("log_frequency", 1), ("valid_frequency", 0),
+                       ("ckpt_frequency", 0), ("async_checkpoint", "false")):
+        conf.set(key, value)
+    record: dict = {"loss": [], "step_end": [], "all_reduce_s": [],
+                    "group": mesh.world_size() if mesh.in_group() else None}
+
+    def host(tree):
+        return {k: v.detach().cpu().clone() for k, v in flatten(tree).items()}
+
+    class Recorded(Trainer):
+        def _loss(self, params, batch, generator):
+            out = super()._loss(params, batch, generator)
+            record["loss"].append(float(out[0].detach()))
+            return out
+
+        def _reduce_grads(self, grads):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._reduce_grads(grads)
+            torch.cuda.synchronize()
+            record["all_reduce_s"].append(time.perf_counter() - t0)
+            record["grad_bytes"] = sum(g.numel() * g.element_size() for g in out.values())
+            if keep and "grads" not in record:
+                record["grads"] = {k: g.detach().cpu().clone() for k, g in out.items()}
+            return out
+
+        def _apply_grads(self, params, grads, opt_state, lr_scale):
+            out = super()._apply_grads(params, grads, opt_state, lr_scale)
+            torch.cuda.synchronize()
+            record["step_end"].append(time.perf_counter())
+            if keep and "params_1" not in record:
+                record["params_1"] = host(params)
+            return out
+
+    batches = dp_batches({"f32": 11, "bf16": 12}[tag], steps, lanes, feat_dim, num_labels)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Recorded(conf, model, DPLoader(batches), expdir, device=device)
+    with contextlib.redirect_stdout(sys.stderr):
+        result = trainer.train(0)
+    record["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    record["num_params"] = sum(int(v.numel()) for v in flatten(result["params"]).values())
+    if keep:
+        record["params_end"] = host(result["params"])
+        record["trainer"], record["batch_0"] = trainer, batches[0]
+    return record
+
+
+def dp_naive_grads(torch, trainer, batch) -> dict:
+    """The planted fault: the naive recipe's gradient of the first step,
+    each rank's loss divided by its own batch's counts, the ranks'
+    gradients averaged."""
+    from nabu_tpu_torch.data.pipeline import batch_to_arrays, batch_to_device
+    from nabu_tpu_torch.ops.losses import make_loss_computer
+    from nabu_tpu_torch.parallel import mesh
+    from nabu_tpu_torch.params import flatten, unflatten
+
+    leaves = {k: v.to(trainer.device).requires_grad_(True)
+              for k, v in flatten(trainer.init_state(0)["params"]).items()}
+    arrays = batch_to_device(batch_to_arrays(batch), trainer.device, trainer.feature_dtype)
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+    loss, _ = make_loss_computer(trainer.model)(unflatten(leaves), arrays, gen, True)
+    grads = list(torch.autograd.grad(loss, list(leaves.values())))
+    mesh.all_reduce_sum_(grads)
+    return {k: (g / mesh.world_size()).cpu() for k, g in zip(leaves, grads)}
+
+
+def dp_timing(record: dict) -> dict:
+    """The timed steps' median (from one step's synchronized end to the
+    next's) and, in a group, the gradients' all-reduce (none runs
+    without one)."""
+    warm = DP_BF16_STEPS[0]
+    ar_s = float(np.median(record["all_reduce_s"][warm:]))
+    grouped = record["group"] is not None
+    return {"world": record["group"] or 1,
+            "median_step_ms": 1e3 * float(np.median(np.diff(record["step_end"][warm - 1:]))),
+            "median_all_reduce_ms": 1e3 * ar_s if grouped else None,
+            "grad_buffer_bytes": record["grad_bytes"],
+            "all_reduce_gb_per_s": record["grad_bytes"] / ar_s / 1e9 if grouped else None,
+            "loss_shares": record["loss"],
+            "peak_device_memory_bytes": record["peak_device_memory_bytes"]}
+
+
+def dp_rank_main(rank: int, coordinator: str, out_dir: str) -> int:
+    """One rank of train_dp (a process of its own): joins a gloo group of
+    DP_WORLD ranks over CUDA tensors on the one card (NCCL refuses two
+    ranks on one device), runs the f32 equivalence (saving what the
+    parent compares) and the bf16 timing, prints its readings."""
+    import torch
+    import torch.distributed as dist
+
+    from nabu_tpu_torch.ops.kernels import build
+    from nabu_tpu_torch.parallel import mesh
+
+    # the parent built every kernel: a rank loads them, never builds
+    missing = [n for n in build.SOURCES if not build.library_path(n).exists()]
+    check(not missing, f"train_dp rank {rank}: kernels not built: {missing}")
+    device = mesh.init_distributed(coordinator, DP_WORLD, rank, backend="gloo")
+    try:
+        check(dist.get_backend() == "gloo" and device.type == torch.device(DP_DEVICE).type,
+              f"train_dp rank {rank}: group {dist.get_backend()} on {device}")
+        lanes = slice(rank * DP_RANK_BATCH, (rank + 1) * DP_RANK_BATCH)
+        rec = dp_train(torch, "f32", DP_STEPS, lanes, os.path.join(out_dir, "exp_f32"), True,
+                       device)
+        naive = dp_naive_grads(torch, rec["trainer"], rec["batch_0"])
+        keep = {"params_1": rec["params_1"], "params_end": rec["params_end"]}
+        if rank == 0:
+            keep.update(grads=rec["grads"], naive=naive)
+        torch.save(keep, os.path.join(out_dir, f"rank{rank}.pt"))
+        bf16 = dp_train(torch, "bf16", sum(DP_BF16_STEPS), lanes,
+                        os.path.join(out_dir, "exp_bf16"), False, device)
+        print("DP_RESULT " + json.dumps({
+            "rank": rank, "backend": dist.get_backend(), "device": str(device),
+            "f32_loss_shares": rec["loss"],
+            "f32_peak_device_memory_bytes": rec["peak_device_memory_bytes"],
+            "bf16": dp_timing(bf16)}), flush=True)
+    finally:
+        mesh.destroy()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_rel(torch, got: dict, ref: dict) -> dict:
+    """Per parameter ||got - ref|| / ||ref||."""
+    return {k: float(torch.linalg.vector_norm(got[k].double() - ref[k].double())
+                     / torch.linalg.vector_norm(ref[k].double()).clamp(min=1e-30))
+            for k in ref}
+
+
+def phase_train_dp(torch, smi: str) -> dict:
+    """Data-parallel training of joint_ctc_att_multihost (BASELINE config
+    5) at its full width: two ranks (processes of this script, gloo over
+    CUDA tensors) each train their 64 lanes of every global batch of 128,
+    against one process (no group) training the 128 lanes at once. f32,
+    no noise: after the first update the worst parameter's ||dp - one|| /
+    ||one|| of the applied gradient and of the parameters within
+    TOL["dp_step"], the naive recipe's gradient beyond it, the ranks'
+    parameters bit for bit equal after DP_STEPS steps; then the bf16
+    recipe's step and all-reduce times at world size 1 (one process, 64
+    lanes) and 2."""
+    from nabu_tpu_torch.parallel import mesh
+
+    check(not mesh.in_group(), "train_dp: this process is in a group already")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        ref = dp_train(torch, "f32", DP_STEPS, slice(None), os.path.join(tmp, "ref_f32"), True,
+                       DP_DEVICE)
+        one = dp_train(torch, "bf16", sum(DP_BF16_STEPS), slice(0, DP_RANK_BATCH),
+                       os.path.join(tmp, "ref_bf16"), False, DP_DEVICE)
+        del ref["trainer"]
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        coordinator = f"127.0.0.1:{_free_port()}"
+        env = dict(os.environ, OMP_NUM_THREADS="4")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp_rank", str(r),
+             "--dp_coordinator", coordinator, "--dp_out", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+            for r in range(DP_WORLD)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DP_TIMEOUT))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"train_dp rank {r} exited {p.returncode}: {err[-3000:]}")
+        ranks = [json.loads(line.split(" ", 1)[1]) for out, _ in outs
+                 for line in out.splitlines() if line.startswith("DP_RESULT ")]
+        check(len(ranks) == DP_WORLD, f"train_dp: {len(ranks)} rank results")
+        t2 = time.perf_counter()
+        saved = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(DP_WORLD)]
+
+    grads_rel = dp_rel(torch, saved[0]["grads"], ref["grads"])
+    naive_rel = dp_rel(torch, saved[0]["naive"], ref["grads"])
+    params_rel = dp_rel(torch, saved[0]["params_1"], ref["params_1"])
+    bitwise = all(torch.equal(saved[0]["params_end"][k], saved[1]["params_end"][k])
+                  for k in saved[0]["params_end"])
+    tol = TOL["dp_step"]
+    worst = {"grads": max(grads_rel.values()), "params": max(params_rel.values())}
+    for what, value in worst.items():
+        if not value <= tol:
+            FAILURES.append(f"train_dp: first update's {what}, worst parameter {value} "
+                            f"beyond {tol}")
+    fault = max(naive_rel.values())
+    if not fault > tol:
+        FAILURES.append(f"train_dp: the naive mean of the ranks' means ({fault}) passes {tol}")
+    if not bitwise:
+        FAILURES.append(f"train_dp: the ranks' parameters differ after {DP_STEPS} steps")
+    for k, g in saved[0]["grads"].items():
+        check(bool(torch.isfinite(g).all()), f"train_dp gradient {k}: non-finite")
+    dp_loss = [sum(r["f32_loss_shares"][i] for r in ranks) for i in range(DP_STEPS)]
+    check(all(math.isfinite(v) for v in dp_loss + ref["loss"]), "train_dp: a non-finite loss")
+    result = {
+        "phase": "train_dp", "recipe": os.path.relpath(JOINT_RECIPE, REPO),
+        "world": DP_WORLD, "backend": sorted({r["backend"] for r in ranks}),
+        "rank_devices": [r["device"] for r in ranks],
+        "rank_batch": DP_RANK_BATCH, "frames": DP_T, "num_params": ref["num_params"],
+        "f32_steps": DP_STEPS, "tol": tol,
+        "first_update_grads_max_rel_err": worst["grads"],
+        "first_update_params_max_rel_err": worst["params"],
+        "naive_mean_of_means_grads_max_rel_err": fault,
+        "grads_rel_err_top": dict(sorted(grads_rel.items(), key=lambda kv: -kv[1])[:5]),
+        "ranks_bitwise_equal_after_steps": bitwise,
+        "f32_loss_dp": dp_loss, "f32_loss_one_process": ref["loss"],
+        "f32_peak_device_memory_bytes": {"one_process_128": ref["peak_device_memory_bytes"],
+                                         **{f"rank{r['rank']}": r["f32_peak_device_memory_bytes"]
+                                            for r in ranks}},
+        "bf16_world_1": dp_timing(one),
+        "bf16_world_2": {f"rank{r['rank']}": r["bf16"] for r in ranks},
+        "seconds": {"one_process": t1 - t0, "ranks": t2 - t1},
+        "card": smi,
+    }
+    emit(result)
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -5299,6 +5672,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="build, then time the f32 GEMM's kind-2 launches of the "
                          "recipes at every K split; no checks, no result")
+    # train_dp's rank processes (the script starts them itself)
+    ap.add_argument("--dp_rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_coordinator", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -5310,6 +5687,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     import nabu_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    if args.dp_rank is not None:
+        return dp_rank_main(args.dp_rank, args.dp_coordinator, args.dp_out)
     t0 = time.perf_counter()
     phase_build(verbose=args.quick)
     smi = phase_device(torch)
@@ -5350,6 +5729,8 @@ def main(argv=None) -> int:
         t9b = time.perf_counter()
         trained_crnnt = phase_train(torch, smi, "train_conformer_rnnt", corpus)
     t9a = time.perf_counter()
+    phase_train_dp(torch, smi)
+    t9c = time.perf_counter()
     phase_bench("dblstm", "bench_ctc", "train")
     t10 = time.perf_counter()
     phase_bench("rnnt", "bench_rnnt", "train_rnnt")
@@ -5367,7 +5748,7 @@ def main(argv=None) -> int:
           "train": t6 - t5c - pipeline_s, "pipeline": pipeline_s,
           "train_rnnt": t7 - t6, "train_rnnt_stream": t8 - t7,
           "train_las": t9 - t8, "train_joint": t9b - t9, "train_conformer_rnnt": t9a - t9b,
-          "bench_ctc": t10 - t9a, "bench_rnnt": t11 - t10, "bench_las": t12 - t11,
+          "train_dp": t9c - t9a, "bench_ctc": t10 - t9c, "bench_rnnt": t11 - t10, "bench_las": t12 - t11,
           "bench_conformer_rnnt": t13 - t12, "bench_moe_conformer": time.perf_counter() - t13,
           "total": time.perf_counter() - t0})
     raise_failures()

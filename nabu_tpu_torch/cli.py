@@ -2,6 +2,10 @@
 
     python -m nabu_tpu_torch.cli data      --recipe R --expdir E [--num_workers N] [--device cpu]
     python -m nabu_tpu_torch.cli train     --recipe R --expdir E [--device cpu]
+                                           [--distributed [--coordinator H:P --num_processes N
+                                                           --process_id I]]
+                                           [--computing local|ssh|condor --computing_conf C]
+    python -m nabu_tpu_torch.cli kill      --computing ssh|condor --computing_conf C --expdir E
     python -m nabu_tpu_torch.cli test      --recipe R --expdir E [--device cpu]
     python -m nabu_tpu_torch.cli decode    --recipe R --expdir E [--device cpu]
     python -m nabu_tpu_torch.cli export    --recipe R --expdir E [--output D] [--device cpu]
@@ -17,7 +21,15 @@
 ``data`` prepares every dataset section of the recipe's database.conf
 into ``E/data`` (host work). ``train`` trains the recipe into ``E``
 (checkpoints in ``E/checkpoints/{best,latest}``, metrics in
-``E/logs/metrics.jsonl``). ``test`` scores the best checkpoint with
+``E/logs/metrics.jsonl``). With ``--distributed`` it is one rank of a
+data-parallel group (``parallel.mesh``; one process a GPU, NCCL, or gloo
+with ``--device cpu``): the coordinator flags, or torchrun's environment
+(``torchrun --nproc_per_node K -m nabu_tpu_torch.cli train --distributed
+...``); each rank trains its shard, the global batch is K times the
+recipe's. ``--computing ssh|condor`` launches the ranks of a cluster
+instead (``computing``, one a line of the ssh cluster file, or one
+HTCondor job a GPU), and ``kill`` stops them by their recorded pids or
+job ids. ``test`` scores the best checkpoint with
 ``test_evaluator.cfg`` (``E/test_result.json``); ``decode`` writes
 ``recognizer.cfg``'s n-best lists to ``E/decoded/nbest.txt`` and prints
 the steady-state RTF. ``export`` freezes the best checkpoint and the
@@ -35,8 +47,8 @@ fuses through ``recognizer.cfg``'s ``lm_path`` / ``lm_weight``;
 ``E/decoded/rescored.txt`` (an n-gram on the host, a neural LM on the
 device). Whatever runs on a device runs on the GPU unless ``--device
 cpu`` is given, and raises without a GPU otherwise. The other subcommands
-of the JAX package's ``run``, and its multi-process and mesh flags, are
-not ported yet.
+of the JAX package's ``run``, and its mesh flags (model, expert, pipe and
+seq axes), are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,8 +56,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+# the JAX package's mesh flags of the axes beyond data: 1 or not ported yet
 _NOT_PORTED_TRAIN_FLAGS = (
-    "distributed", "coordinator", "num_processes", "process_id",
     "num_model_parallel", "num_expert_parallel", "num_pipeline", "num_seq_parallel",
 )
 
@@ -76,12 +88,24 @@ def build_parser() -> argparse.ArgumentParser:
                             help="wav/sph paths, or one Kaldi-style .scp file")
             sp.add_argument("--batch_size", type=int, default=8)
         elif name == "train":
-            # the JAX package's multi-process and mesh flags
             sp.add_argument("--distributed", action="store_true",
-                            help="not ported yet")
-            sp.add_argument("--coordinator", default=None, help="not ported yet")
-            for flag in _NOT_PORTED_TRAIN_FLAGS[2:]:
+                            help="one rank of a data-parallel group")
+            sp.add_argument("--coordinator", default=None,
+                            help="rank 0's host:port (else torchrun's environment)")
+            sp.add_argument("--num_processes", type=int, default=None)
+            sp.add_argument("--process_id", type=int, default=None)
+            sp.add_argument("--computing", default="local", choices=["local", "ssh", "condor"],
+                            help="where the ranks run (see config/computing/)")
+            sp.add_argument("--computing_conf", default=None,
+                            help="INI file with a [computing] section")
+            for flag in _NOT_PORTED_TRAIN_FLAGS:
                 sp.add_argument(f"--{flag}", type=int, default=None, help="not ported yet")
+    sp = sub.add_parser("kill", help="stop a cluster run launched with --computing")
+    sp.add_argument("--computing", required=True, choices=["ssh", "condor"])
+    sp.add_argument("--computing_conf", default=None,
+                    help="(ssh) INI file with the [computing] section it was launched with")
+    sp.add_argument("--expdir", required=True,
+                    help="the run's expdir (its pidfiles or condor job ids)")
     sp = sub.add_parser(
         "serve", help="line-protocol decoding worker over an export artifact"
     )
@@ -122,6 +146,71 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _computing_conf(path):
+    """The [computing] section of an INI file (config/computing/*.cfg)."""
+    from nabu_tpu_torch.config import Conf, ConfigFile
+
+    if path is None:
+        return Conf({}, "computing")
+    return ConfigFile.read(path).section("computing")
+
+
+def _cluster_file(conf) -> str:
+    cluster_file = conf.get("cluster_file")
+    if not cluster_file:
+        raise SystemExit("--computing ssh needs cluster_file in --computing_conf")
+    return cluster_file
+
+
+def _launch_cluster(args) -> int:
+    """``train --computing ssh|condor``: start one ``train --distributed``
+    rank a GPU of the cluster."""
+    import os
+
+    conf = _computing_conf(args.computing_conf)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    os.makedirs(args.expdir, exist_ok=True)
+    python = conf.get("python", sys.executable)
+    if args.computing == "ssh":
+        from nabu_tpu_torch.computing import ssh_cluster
+
+        procs = ssh_cluster.launch(_cluster_file(conf), args.recipe, args.expdir, repo,
+                                   coordinator_port=conf.getint("port", 29500), python=python)
+        for proc in procs:
+            proc.wait()
+        # any nonzero (a signal's negative code too) is a failure
+        return 1 if any(proc.returncode for proc in procs) else 0
+    from nabu_tpu_torch.computing import condor
+
+    num_processes = conf.getint("num_processes", args.num_processes or 0)
+    coordinator_host = conf.get("coordinator_host")
+    if not num_processes or not coordinator_host:
+        raise SystemExit("--computing condor needs num_processes and coordinator_host "
+                         "in --computing_conf")
+    jobids = condor.launch(
+        args.expdir, args.recipe, repo, num_processes, coordinator_host,
+        coordinator_port=conf.getint("port", 29500), dry_run=conf.getbool("dry_run", False),
+        request_cpus=conf.getint("request_cpus", 4),
+        request_memory=conf.get("request_memory", "8G"),
+        requirements=conf.get("requirements", ""), python=python,
+    )
+    print("submitted:", " ".join(jobids) if jobids else "(dry run)")
+    return 0
+
+
+def _kill_cluster(args) -> int:
+    """``kill``: stop a cluster run by its recorded pids or job ids."""
+    if args.computing == "ssh":
+        from nabu_tpu_torch.computing import ssh_cluster
+
+        ssh_cluster.kill(_cluster_file(_computing_conf(args.computing_conf)), args.expdir)
+    else:
+        from nabu_tpu_torch.computing import condor
+
+        condor.remove(args.expdir)
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "data":
@@ -131,14 +220,19 @@ def main(argv=None) -> int:
         resolve_device(args.device)
         data.main(args.recipe, args.expdir, num_workers=args.num_workers)
     elif args.command == "train":
-        used = [f for f in _NOT_PORTED_TRAIN_FLAGS
-                if getattr(args, f) is not None and getattr(args, f) is not False]
+        used = [f for f in _NOT_PORTED_TRAIN_FLAGS if getattr(args, f) not in (None, 1)]
         if used:
             raise NotImplementedError(
                 f"train flags not ported yet: {', '.join('--' + f for f in used)}")
+        if args.computing != "local":
+            return _launch_cluster(args)
         from nabu_tpu_torch.scripts import train
 
-        train.main(args.recipe, args.expdir, device=args.device)
+        train.main(args.recipe, args.expdir, device=args.device,
+                   distributed=args.distributed, coordinator=args.coordinator,
+                   num_processes=args.num_processes, process_id=args.process_id)
+    elif args.command == "kill":
+        return _kill_cluster(args)
     elif args.command == "test":
         from nabu_tpu_torch.scripts import test
 

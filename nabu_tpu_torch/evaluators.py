@@ -1,10 +1,16 @@
 """Evaluators: dev-set loss and decode-based error rate.
 
-Port of the JAX package's ``evaluators.py`` for one device: an evaluator
-is built from a validation/test evaluator config section and maps
-trained params to a scalar metric (lower is better), used for
-validation-driven early stopping and for scoring. Sharded and multi-host
-evaluation are not ported yet.
+Port of the JAX package's ``evaluators.py``: an evaluator is built from
+a validation/test evaluator config section and maps trained params to a
+scalar metric (lower is better), used for validation-driven early
+stopping and for scoring.
+
+In data-parallel training each rank is given a loader of its shard of
+the dev set (``host_id`` / ``num_hosts``) and scores it on its own
+device; the loss or error counts are summed over the ranks
+(``parallel.mesh.all_reduce_sum``), so every rank returns the same
+metric of the whole set. The JAX package's model-parallel evaluation
+mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from nabu_tpu_torch.data.pipeline import BucketedLoader, batch_to_arrays, batch_
 from nabu_tpu_torch.decoding.recognizers import build_recognizer
 from nabu_tpu_torch.decoding.scorer import error_rate
 from nabu_tpu_torch.ops.losses import make_loss_computer
+from nabu_tpu_torch.parallel import mesh
 from nabu_tpu_torch.params import flatten
 from nabu_tpu_torch.registry import EVALUATORS
 
@@ -59,6 +66,7 @@ class LossEvaluator(Evaluator):
             n = float(arrays["example_mask"].sum())
             total += float(loss) * n
             count += n
+        total, count = mesh.all_reduce_sum((total, count))
         return total / max(count, 1.0)
 
 
@@ -83,6 +91,7 @@ class DecoderEvaluator(Evaluator):
                 refs.append(list(batch.targets[b, : batch.target_lengths[b]]))
                 hyps.append(result.best(b))
         _, errors, tokens = error_rate(refs, hyps)
+        errors, tokens = mesh.all_reduce_sum((errors, tokens))
         return errors / max(tokens, 1.0)
 
 

@@ -11,6 +11,12 @@ lr_scale, best_metric, tries, metric) sit beside them in
 into place. ``use_async`` moves the disk write to a background thread
 after the host copy, finished before the next checkpoint operation.
 Reading the JAX package's orbax checkpoints is not ported yet.
+
+In data-parallel training (``parallel.mesh``) every rank calls ``save``
+with the same state; rank 0 writes it and every rank then waits at a
+barrier (after the background write, with ``use_async``), so a rank
+that reads the checkpoint next (``exists``, ``restore``) sees it whole.
+The expdir is shared by the ranks, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from nabu_tpu_torch.parallel import mesh
 from nabu_tpu_torch.params import flatten, load_npz, to_flat_numpy
 
 LATEST = "latest"
@@ -37,15 +44,21 @@ class CheckpointManager:
         self._use_async = use_async
         self._pending: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        # a save whose barrier is still to come (every rank, use_async)
+        self._unsynced = False
 
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, name)
 
     def wait_until_finished(self) -> None:
-        """Block until an in-flight save is on disk; re-raise its error."""
+        """Block until an in-flight save is on disk (on every rank); re-raise
+        its error."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._unsynced:
+            self._unsynced = False
+            mesh.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("background checkpoint write failed") from err
@@ -76,19 +89,26 @@ class CheckpointManager:
 
     def save(self, name: str, state: Dict[str, Any]) -> None:
         """Save a dict of trees (nested dicts of tensors or arrays) and
-        scalars. The host copy is taken before returning."""
+        scalars. The host copy is taken before returning. Every rank
+        calls it; rank 0 writes."""
         self.wait_until_finished()
-        host = {
-            key: to_flat_numpy(v) if isinstance(v, dict)
-            else v.item() if hasattr(v, "item") else v
-            for key, v in state.items()
-        }
-        if self._use_async:
-            self._pending = threading.Thread(
-                target=self._write_background, args=(name, host), daemon=True)
-            self._pending.start()
-        else:
-            self._write(name, host)
+        if mesh.rank() == 0:
+            host = {
+                key: to_flat_numpy(v) if isinstance(v, dict)
+                else v.item() if hasattr(v, "item") else v
+                for key, v in state.items()
+            }
+            if self._use_async:
+                self._pending = threading.Thread(
+                    target=self._write_background, args=(name, host), daemon=True)
+                self._pending.start()
+            else:
+                self._write(name, host)
+        if mesh.in_group():
+            if self._use_async:
+                self._unsynced = True
+            else:
+                mesh.barrier()
 
     def exists(self, name: str) -> bool:
         self.wait_until_finished()

@@ -2,12 +2,27 @@
 validation-driven early stopping with restore-best + LR backoff,
 checkpointing.
 
-Port of the JAX package's ``training/trainer.py`` for one GPU (or the
-CPU when asked for by name). The step is eager PyTorch: the model's
-forward and loss through the CUDA kernels (``make_loss_computer``), the
-gradients by autograd (whose backward runs the backward kernels), then
-the optimizer. ``build_optimizer`` mirrors the optax chain of the JAX
-package: global-norm clipping (scaled by ``max_norm / norm`` only when
+Port of the JAX package's ``training/trainer.py`` on one GPU (or the
+CPU when asked for by name) a process. The step is eager PyTorch: the
+model's forward and loss through the CUDA kernels (``make_loss_computer``),
+the gradients by autograd (whose backward runs the backward kernels), then
+the optimizer.
+
+Data-parallel training (a process group of ``parallel.mesh``, one rank a
+device, each with its loader's shard of every global batch) keeps the JAX
+package's semantics, where GSPMD differentiates the loss of the global
+batch: the losses divide by the global batch's counts (one small
+all-reduce after the forward), the ranks' gradients are summed (one
+coalesced all-reduce before the optimizer, whose clipping then sees the
+global norm on every rank), rank 0's initial or restored parameters are
+broadcast, every rank draws its own dropout and SpecAugment noise, only
+rank 0 writes metrics and checkpoints, and rank 0's validation metric is
+broadcast, so that restore, backoff and early stopping happen in
+lockstep. The logged metrics are summed over the ranks (each rank's are
+its share of the global value), so a non-finite loss stops every rank.
+
+``build_optimizer`` mirrors the optax chain of the JAX package:
+global-norm clipping (scaled by ``max_norm / norm`` only when
 the norm is at least ``max_norm``), Adam (b1 0.9, b2 0.999, eps 1e-8),
 then the schedule ``lr * decay^(k / decay_steps) * min(1, (k + 1) /
 warmup)`` with k the number of updates already applied, then the
@@ -23,9 +38,11 @@ checkpoint), ``async_checkpoint``, ``sortagrad`` (epoch 0 in the
 loader's length-ascending order, unshuffled) and ``backoff_warmup_steps``
 (before that step a validation that does not improve neither restores
 the best model, nor backs off the rate, nor counts a try; best-tracking
-goes on); optimizers ``adam`` and ``adamw``. The options no recipe sets
-(``numbatches_to_aggregate``, ``ema_decay``, ``mwer``, the profiler
-window, ``sgd``) raise "not ported yet".
+goes on), ``numbatches_to_aggregate`` (k micro-batches' gradients summed
+and divided by k before one update, the metrics likewise; ``num_epochs``
+counts epochs of data, ``epochs x batches // k`` updates); optimizers
+``adam`` and ``adamw``. The options no recipe sets (``ema_decay``,
+``mwer``, the profiler window, ``sgd``) raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -43,6 +60,7 @@ from nabu_tpu_torch.data.pipeline import (
 )
 from nabu_tpu_torch.device import resolve_device
 from nabu_tpu_torch.ops.losses import make_loss_computer
+from nabu_tpu_torch.parallel import mesh
 from nabu_tpu_torch.params import flatten, unflatten
 from nabu_tpu_torch.registry import TRAINERS
 from nabu_tpu_torch.training.checkpoints import CheckpointManager, warm_start
@@ -135,18 +153,31 @@ class Trainer:
             ("mwer", conf.getbool("mwer", False)),
             ("profile_stop", conf.getint("profile_stop", 0) != 0),
             ("ema_decay", conf.getfloat("ema_decay", 0.0) != 0.0),
-            ("numbatches_to_aggregate", conf.getint("numbatches_to_aggregate", 1) != 1),
         ) if on]
         if not_ported:
             raise NotImplementedError(f"trainer options not ported yet: {not_ported}")
-        if loader.num_batches() == 0:
+        self.rank, self.world = mesh.rank(), mesh.world_size()
+        self.is_chief = self.rank == 0
+        # gradients of k consecutive micro-batches averaged into one update
+        self.num_aggregate = max(1, conf.getint("numbatches_to_aggregate", 1))
+        num_batches = loader.num_batches()
+        if mesh.in_group():
+            # every rank must take as many steps, or the next collective
+            # hangs: all see the same sums, so all raise together
+            total, squares = mesh.all_reduce_sum((num_batches, num_batches ** 2))
+            if total != self.world * num_batches or squares != self.world * num_batches ** 2:
+                raise ValueError(
+                    f"rank {self.rank}: {num_batches} batches an epoch, and the ranks' "
+                    "counts differ (the loaders must share num_hosts and batch_size)")
+        if num_batches == 0:
             raise ValueError(
                 "loader yields zero batches (dataset smaller than "
-                "batch_size in every bucket?) — training would spin forever")
+                "num_hosts * batch_size in every bucket?) — training would spin forever")
         self.num_steps = conf.getint("num_steps", 0)
         if not self.num_steps:
+            # num_epochs counts epochs of data: micro-batches / batches a step
             epochs = conf.getint("num_epochs", 10)
-            self.num_steps = max(epochs * loader.num_batches(), 1)
+            self.num_steps = max(epochs * num_batches // self.num_aggregate, 1)
         self.valid_frequency = conf.getint("valid_frequency", 0)
         self.log_frequency = conf.getint("log_frequency", 10)
         self.ckpt_frequency = conf.getint("ckpt_frequency", 0)
@@ -162,10 +193,14 @@ class Trainer:
         self.frame_shift = conf.getfloat("frame_shift", 0.01)
         self.check_numerics = conf.getbool("check_numerics", True)
         self.optimizer = build_optimizer(conf)
-        self.loss_fn = loss_fn if loss_fn is not None else make_loss_computer(model)
+        if loss_fn is None:
+            loss_fn = make_loss_computer(
+                model, sum_over_ranks=mesh.sum_over_ranks if mesh.in_group() else None)
+        self.loss_fn = loss_fn
         self.ckpt = CheckpointManager(f"{expdir}/checkpoints",
                                       use_async=conf.getbool("async_checkpoint", False))
-        self.writer = MetricWriter(f"{expdir}/logs")
+        # only rank 0 writes metrics (and checkpoints: CheckpointManager)
+        self.writer = MetricWriter(f"{expdir}/logs") if self.is_chief else None
         self.feature_dtype = model.compute_dtype
 
     # -- one step ----------------------------------------------------------
@@ -180,13 +215,21 @@ class Trainer:
         return {k: torch.zeros_like(v) if g is None else g
                 for (k, v), g in zip(flat.items(), grads)}
 
+    def _reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The ranks' gradients summed (each rank's is its share of the
+        global batch's), in place; nothing without a group."""
+        mesh.all_reduce_sum_(list(grads.values()))
+        return grads
+
     def _apply_grads(self, params, grads, opt_state, lr_scale) -> torch.Tensor:
         return self.optimizer.step(params, grads, opt_state, lr_scale)
 
-    def _generator(self, step: int) -> torch.Generator:
-        """Dropout noise of one step, a function of (seed, step)."""
+    def _generator(self, index: int) -> torch.Generator:
+        """Dropout and SpecAugment noise of one micro-batch, a function of
+        (seed, index, rank): every rank draws its own, as JAX's masks over
+        the global batch differ between its rows."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed((1234 + self._seed) * 1_000_003 + step)
+        gen.manual_seed(((1234 + self._seed) * 1_000_003 + index) * self.world + self.rank)
         return gen
 
     # -- state helpers ------------------------------------------------------
@@ -220,21 +263,27 @@ class Trainer:
             state.update(self.ckpt.restore("latest"))
         params = self._to_device(state["params"], grad=True)
         opt_state = self._to_device(state["opt_state"])
+        # every rank starts from rank 0's parameters and moments
+        mesh.broadcast_([*flatten(params).values(), *flatten(opt_state["mu"]).values(),
+                         *flatten(opt_state["nu"]).values()])
         step = int(state["step"])
         lr_scale = float(state["lr_scale"])
         best_metric = float(state["best_metric"])
         tries = int(state["tries"])
 
-        # resume fast-forward: the position after `step` steps of a
-        # continuous batch stream
+        # resume fast-forward in micro-batches: the position after `step`
+        # updates of k batches each in a continuous batch stream
         num_batches = max(self.loader.num_batches(), 1)
-        epoch, skip = divmod(step, num_batches)
+        epoch, skip = divmod(step * self.num_aggregate, num_batches)
+        accum = msum = None  # pending gradient and metric sums (k > 1)
+        micro = 0  # micro-batches accumulated so far
         stop = False
         t_last = time.time()
         frames_since_log = 0
         n_params = sum(int(v.numel()) for v in flatten(params).values())
-        print(f"[trainer] start: device={self.device} params={n_params:,} "
-              f"step={step}/{self.num_steps} batches/epoch={num_batches}", flush=True)
+        print(f"[trainer] start: device={self.device} rank={self.rank}/{self.world} "
+              f"params={n_params:,} step={step}/{self.num_steps} "
+              f"batches/epoch={num_batches}", flush=True)
         t_first = time.time()
 
         def host_stream(epoch_idx: int, skip_n: int):
@@ -248,8 +297,24 @@ class Trainer:
                     break
                 batch = batch_to_device(arrays, self.device, self.feature_dtype)
                 frames_since_log += num_audio_frames
-                loss, metrics = self._loss(params, batch, self._generator(step))
+                k = self.num_aggregate
+                loss, metrics = self._loss(params, batch, self._generator(step * k + micro))
                 grads = self._backward(loss, params)
+                if k > 1:
+                    if accum is None:
+                        accum, msum = grads, metrics
+                    else:
+                        accum = {n: a + grads[n] for n, a in accum.items()}
+                        msum = {n: a + metrics[n] for n, a in msum.items()}
+                    micro += 1
+                    if micro < k:
+                        continue
+                    # the mean over the aggregated batches, as JAX's _apply_impl
+                    grads = {n: a / k for n, a in accum.items()}
+                    metrics = {n: a / k for n, a in msum.items()}
+                    accum = msum = None
+                    micro = 0
+                grads = self._reduce_grads(grads)
                 metrics["grad_norm"] = self._apply_grads(params, grads, opt_state, lr_scale)
                 step += 1
                 if step == int(state["step"]) + 1:
@@ -258,7 +323,7 @@ class Trainer:
                           "(includes the kernels' first build and load)", flush=True)
 
                 if step % self.log_frequency == 0 or step == self.num_steps:
-                    scalars = {k: float(v) for k, v in metrics.items()}
+                    scalars = self._global_scalars(metrics)
                     if self.check_numerics and not np.isfinite(scalars["loss"]):
                         self._save_latest(params, opt_state, step, lr_scale, best_metric,
                                           tries)
@@ -270,7 +335,8 @@ class Trainer:
                     scalars["lr_scale"] = lr_scale
                     scalars["audio_s_per_s"] = (
                         frames_since_log * self.frame_shift / max(now - t_last, 1e-9))
-                    self.writer.write(step, scalars, prefix="train/")
+                    if self.writer:
+                        self.writer.write(step, scalars, prefix="train/")
                     t_last = now
                     frames_since_log = 0
 
@@ -280,7 +346,11 @@ class Trainer:
                 if (self.valid_frequency and self.valid_fn is not None
                         and step % self.valid_frequency == 0):
                     metric = float(self.valid_fn(_detached(params)))
-                    self.writer.write(step, {"metric": metric}, prefix="valid/")
+                    # rank 0's metric decides for every rank: a rank that
+                    # took another branch would hang the next collective
+                    metric = mesh.broadcast_scalar(metric)
+                    if self.writer:
+                        self.writer.write(step, {"metric": metric}, prefix="valid/")
                     if metric < best_metric:
                         best_metric = metric
                         tries = 0
@@ -295,8 +365,9 @@ class Trainer:
                             opt_state.clear()
                             opt_state.update(self._to_device(best["opt_state"]))
                         lr_scale *= self.lr_backoff
-                        self.writer.write(step, {"tries": tries, "lr_scale": lr_scale},
-                                          prefix="early_stop/")
+                        if self.writer:
+                            self.writer.write(step, {"tries": tries, "lr_scale": lr_scale},
+                                              prefix="early_stop/")
                         if tries >= self.num_tries:
                             stop = True
                             break
@@ -309,9 +380,20 @@ class Trainer:
             self.ckpt.save_best({"params": params, "opt_state": opt_state, "step": step,
                                  "metric": math.inf})
         self.ckpt.wait_until_finished()
-        self.writer.close()
+        if self.writer:
+            self.writer.close()
         return {"params": params, "step": step, "best_metric": best_metric,
                 "stopped_early": stop}
+
+    def _global_scalars(self, metrics) -> Dict[str, float]:
+        """The step's metrics as numbers; with a group, each loss metric
+        summed over the ranks (rank r's is its share of the global
+        value) and the norm of the summed gradients as it is."""
+        scalars = {k: float(v) for k, v in metrics.items()}
+        if mesh.in_group():
+            names = [k for k in scalars if k != "grad_norm"]
+            scalars.update(zip(names, mesh.all_reduce_sum([scalars[k] for k in names])))
+        return scalars
 
     @staticmethod
     @torch.no_grad()

@@ -20,6 +20,9 @@ step of the carried h or dgates, propagated (stated per test); CTC f32
 1e-5; RNN-T log-probs 1e-4, log-likelihood 1e-3, occupancies 1e-4,
 joint gradients 1e-3 + 1e-3 |x|; the bf16 log-mel as ``chip_smoke.TOL``;
 the RNN LM's gradients 1e-4 relative, its grouped scores bit for bit.
+Data parallelism (``-k dp``) spawns its ranks as processes: two gloo ranks
+over CUDA tensors against one process on their batches together, and an
+NCCL group of one (gradients rtol 1e-4, atol 1e-5; the collectives' bits).
 """
 
 import io
@@ -2783,3 +2786,167 @@ def test_attention_recipes_launch_their_kernels_on_card(cuda_device, recipe):
     nb = rec(unflatten(flat), feats, flen)
     assert {k: v for k, v in kernels.launch_counts().items() if v} == decode_launches
     assert np.isfinite(nb.scores[:, 0]).all()
+
+
+# ---------------------------------------------------------------------------
+# data-parallel training (parallel.mesh) on the card
+# ---------------------------------------------------------------------------
+
+_DP_MODEL = """[model]
+compute_dtype = float32
+decoders = att ctc
+
+[encoder]
+encoder = listener
+num_layers = 2
+num_units = 64
+dropout = 0.0
+use_pallas = true
+
+[att]
+decoder = speller
+num_layers = 1
+num_units = 48
+embed_dim = 16
+attention = bahdanau
+sample_prob = 0.0
+loss = cross_entropy
+label_smoothing = 0.1
+loss_weight = 0.7
+
+[ctc]
+decoder = linear_ctc
+loss = ctc
+use_pallas = true
+loss_weight = 0.3
+"""
+
+_DP_WORKER = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from nabu_tpu_torch.config import ConfigFile
+from nabu_tpu_torch.models.model import build_model
+from nabu_tpu_torch.ops.losses import make_loss_computer
+from nabu_tpu_torch.parallel import mesh
+from nabu_tpu_torch.params import flatten, load_npz, unflatten
+
+rank, world, backend, root = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+device = mesh.init_distributed(sys.argv[5], world, rank, backend=backend)
+assert dist.get_backend() == backend and device.type == "cuda", (dist.get_backend(), device)
+model = build_model(ConfigFile.read(f"{root}/model.cfg"), 12, 7)
+with np.load(f"{root}/batch.npz") as z:
+    n = len(z["example_mask"]) // world
+    batch = {k: torch.as_tensor(z[k][n * rank:n * (rank + 1)], device=device) for k in z.files}
+out = {}
+for name, loss_fn in (("dp", make_loss_computer(model, mesh.sum_over_ranks)),
+                      ("naive", make_loss_computer(model))):
+    leaves = {k: v.requires_grad_(True)
+              for k, v in flatten(load_npz(f"{root}/params.npz", device)).items()}
+    loss, _ = loss_fn(unflatten(leaves), batch, None, False)
+    grads = list(torch.autograd.grad(loss, list(leaves.values())))
+    local = [g.clone() for g in grads]
+    mesh.all_reduce_sum_(grads)
+    # a group of one: the sum is a copy, bit for bit
+    out[f"{name}_kept_bits"] = np.asarray(
+        world == 1 and all(torch.equal(a, b) for a, b in zip(local, grads)))
+    scale = 1.0 if name == "dp" else 1.0 / world
+    out.update({f"{name}/{k}": (g * scale).cpu().numpy() for k, g in zip(leaves, grads)})
+counts = torch.tensor([3.0, 17.0, 123456.0], device=device)
+out["counts"] = mesh.sum_over_ranks(counts).cpu().numpy()
+np.savez(f"{root}/{backend}_rank{rank}.npz", **out)
+mesh.destroy()
+print("DP_DONE", rank, flush=True)
+"""
+
+
+def _dp_ranks(tmp_path, world, backend):
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", _DP_WORKER, str(r), str(world), backend,
+                               str(tmp_path), f"127.0.0.1:{port}"],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"DP_DONE {r}" in out, out[-3000:]
+    return [dict(np.load(tmp_path / f"{backend}_rank{r}.npz")) for r in range(world)]
+
+
+def _dp_inputs(tmp_path, device):
+    """The small joint model's parameters and a batch of 8 lanes (rank 0
+    holds an example CTC cannot align, the last rank's last lane is a
+    fill lane), and their one-process gradient on the card."""
+    from nabu_tpu_torch.config import ConfigFile
+    from nabu_tpu_torch.models.model import build_model
+    from nabu_tpu_torch.ops.losses import make_loss_computer
+    from nabu_tpu_torch.params import flatten, to_flat_numpy, unflatten
+
+    (tmp_path / "model.cfg").write_text(_DP_MODEL)
+    model = build_model(ConfigFile.read(str(tmp_path / "model.cfg")), 12, 7)
+    params = to_flat_numpy(model.init(torch.Generator().manual_seed(4)))
+    np.savez(tmp_path / "params.npz", **params)
+    rng = np.random.default_rng(6)
+    T = 96
+    lengths = np.asarray([96, 8, 70, 50, 96, 81, 33, 0], np.int32)
+    tl = np.asarray([7, 9, 5, 4, 8, 6, 2, 0], np.int32)
+    feats = rng.standard_normal((8, T, 12)).astype(np.float32)
+    feats[np.arange(T)[None, :] >= lengths[:, None]] = 0.0
+    targets = rng.integers(0, 7, (8, 9)).astype(np.int32)
+    targets[np.arange(9)[None, :] >= tl[:, None]] = 0
+    batch = {"features": feats, "feature_lengths": lengths, "targets": targets,
+             "target_lengths": tl, "example_mask": (lengths > 0).astype(np.float32)}
+    np.savez(tmp_path / "batch.npz", **batch)
+    leaves = {k: torch.as_tensor(v, device=device).requires_grad_(True)
+              for k, v in params.items()}
+    loss, _ = make_loss_computer(model)(
+        unflatten(leaves), {k: torch.as_tensor(v, device=device) for k, v in batch.items()},
+        None, False)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return {k: g.cpu().numpy() for k, g in zip(flatten(unflatten(leaves)), grads)}
+
+
+def test_dp_two_gloo_ranks_match_the_concatenated_batch(cuda_device, tmp_path):
+    """Two ranks (gloo over CUDA tensors on one card) on the two halves:
+    their summed gradient is the one-process gradient of the whole batch
+    (rtol 1e-4, atol 1e-5), the same bits on both ranks; the mean of the
+    ranks' mean gradients misses it."""
+    want = _dp_inputs(tmp_path, cuda_device)
+    r0, r1 = _dp_ranks(tmp_path, 2, "gloo")
+    assert all(np.array_equal(r0[k], r1[k]) for k in r0)
+    assert r0["counts"].tolist() == [6.0, 34.0, 246912.0]
+    for k, g in want.items():
+        np.testing.assert_allclose(r0[f"dp/{k}"], g, rtol=1e-4, atol=1e-5, err_msg=k)
+    assert any(not np.allclose(r0[f"naive/{k}"], g, rtol=1e-4, atol=1e-5)
+               for k, g in want.items())
+
+
+def test_dp_nccl_world_of_one_keeps_the_bits(cuda_device, tmp_path):
+    """One NCCL rank: the gradients' all-reduce leaves their bits as they
+    are, the counts' all-reduce gives the counts exactly, and the rank's
+    gradient is the one-process gradient (rtol 1e-4, atol 1e-5: the CTC
+    backward's scatter_add_ sums a label's posteriors with atomics, so two
+    runs of the backward may differ in the last bits)."""
+    want = _dp_inputs(tmp_path, cuda_device)
+    (got,) = _dp_ranks(tmp_path, 1, "nccl")
+    assert bool(got["dp_kept_bits"]) and bool(got["naive_kept_bits"])
+    assert got["counts"].tolist() == [3.0, 17.0, 123456.0]
+    for k, g in want.items():
+        for name in ("dp", "naive"):
+            np.testing.assert_allclose(got[f"{name}/{k}"], g, rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{name} {k}")

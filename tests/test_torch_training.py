@@ -392,8 +392,7 @@ def test_warm_start_and_unported_options(experiment, tmp_path):
     got = flatten(trainer.init_state()["params"])
     best = flatten(load_npz(os.path.join(expdir, "checkpoints", "best", "params.npz")))
     assert got.keys() == best.keys() and all(torch.equal(got[k], best[k]) for k in got)
-    for key, value in (("mwer", "true"), ("numbatches_to_aggregate", "2"),
-                       ("ema_decay", "0.999"), ("optimizer", "sgd")):
+    for key, value in (("mwer", "true"), ("ema_decay", "0.999"), ("optimizer", "sgd")):
         c = r.trainer.section("trainer").copy()
         c.set(key, value)
         with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -408,7 +407,7 @@ def test_entry_points_raise_without_gpu(experiment, monkeypatch):
             cli.main([cmd, "--recipe", recipe, "--expdir", expdir])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(["train", "--recipe", recipe, "--expdir", expdir, "--device", "cpu",
-                  "--distributed"])
+                  "--num_model_parallel", "2"])
 
 
 # -- sortagrad and backoff_warmup_steps against the JAX Trainer -------------
