@@ -57,6 +57,13 @@ Phases, each printing JSON lines:
               ``serve`` over the exported artifact must answer each of 8
               dev wavs, launching the frontend kernel too, and
               ``recognize`` of the same wavs must give serve's texts;
+              ``align`` (CTC forced alignment) writes a CTM covering every
+              dev utterance whose segments read as its targets, with the
+              v2 inference kernels only; on one batch its Viterbi on the
+              card against the CPU (frame labels identical, scores within
+              1e-5), each path score at most ``ctc_alpha``'s
+              log-likelihood, and a planted skip into a repeated label
+              caught;
 8. train_rnnt — the same corpus through ``cli data`` and ``cli train``
               with the rnnt_char_wsj recipe (40 steps, the same checks;
               the step split shows the prediction net's share of the
@@ -169,6 +176,25 @@ Phases, each printing JSON lines:
               recipe's step, its gradients' all-reduce (bytes and GB/s)
               and the peak memory, at world size 1 (one process, 64 lanes)
               and 2 (each rank), and the losses;
+23. train_mwer — (run after train_joint) MWER sequence training of
+              joint_ctc_att_multihost at its full width (B = 64): 10 steps
+              of ``cli train`` from train_joint's trained checkpoint
+              (``pretrained_dir``) on a copy of train_las's prepared data,
+              with ``mwer = true`` (beam 4, CE weight 0.01), ``ema_decay =
+              0.999`` and a profiler window over steps 3-4: each step's
+              MWER loss, expected and oracle errors, the share of
+              utterances whose N-best holds more than one error count, its
+              time split (search, encoder passes, re-scoring, loss,
+              backward) and launches (the search pass's inference walks,
+              the gradient pass's training kernels and the CTC kernels);
+              the first batch's MWER loss and gradients at train_joint's
+              weights through the kernels against the plain versions fed
+              the same N-best, in f32 at train_joint's tolerances (bf16
+              reported; a planted fault, each hypothesis scored against
+              another utterance's reference; the eos term left out of each
+              score reported), ``best/`` holding the average and the
+              last step's raw weights, the profiler's Chrome trace naming
+              the training kernels, then ``cli test``;
 20. bench_conformer_rnnt, 21. bench_moe_conformer — the bench's
               ``conformer_rnnt`` and ``moe_conformer`` lines (B = 32, T =
               1000, L = 100), their launches checked, and each encoder's
@@ -449,6 +475,13 @@ TOL = {
     "train_loss": (1e-2, 1e-3),
     "train_grads": 0.02,
     "train_grads_speller": 0.1,
+    # cli align's Viterbi on the card against the CPU over the same f32
+    # log-probs: the same additions in the same order (frame labels
+    # identical), path scores within this; each path score at most the
+    # CTC log-likelihood of ctc_alpha on the same log-probs, within this
+    # relative slack (f32 sums over ~1000 frames)
+    "align_scores": 1e-5,
+    "align_ll_rel": 1e-5,
     # the transformer decoder's cached step chain against its parallel
     # apply: max |step - apply| over max |apply|, bf16 (the served dtype)
     # and f32
@@ -577,6 +610,8 @@ DECODE_KERNELS = ("blstm_proj", "blstm_recur")
 PIPELINE_KERNELS = {"test": DECODE_KERNELS, "decode": DECODE_KERNELS,
                     "serve": SERVE_KERNELS, "recognize": SERVE_KERNELS,
                     "decode_lm": DECODE_KERNELS, "serve_lm": SERVE_KERNELS,
+                    # forced alignment: the CTC head's log-probs, no loss kernel
+                    "align": DECODE_KERNELS,
                     # the neural LM: trained on the card (the three training
                     # kernels), its perplexity and rescoring scored by the
                     # projection and the walk; fused, a plain cell a step
@@ -610,7 +645,8 @@ LM_WEIGHT = 0.3
 LM_SENTENCES = 400
 LM_ATT_PHASES = ("serve_las", "serve_joint")
 TRAIN_STEPS = 40
-# phases of another length: train_joint's and train_conformer_rnnt's 20 steps
+# phases of another length: train_joint's and train_conformer_rnnt's 20
+# steps (at 10 the latter's planted dwh fault read 0.014, under its 0.02)
 PHASE_STEPS = {"train_joint": 20, "train_conformer_rnnt": 20}
 TRAIN_UTTS = 256
 # the utterances serve_stream serves
@@ -1375,6 +1411,90 @@ def lstm_dwh_h_late(torch):
 # ---------------------------------------------------------------------------
 # synthesized audio and weights (numpy, seeded)
 # ---------------------------------------------------------------------------
+
+def align_repeat_skip():
+    """Planted forced-alignment fault: the skip s - 2 -> s allowed into
+    every label state, a repeated label too, so that a path may go from a
+    label straight into its repeat and the two merge into one segment."""
+    from nabu_tpu_torch.decoding import align
+
+    right = align.transitions
+
+    def transitions(z, s_len):
+        _, in_seq = right(z, s_len)
+        states = z.new_tensor(range(z.shape[1]))[None, :]
+        return (states % 2 == 1).expand_as(z), in_seq
+
+    return swapped(align, "transitions", transitions)
+
+
+def label_emissions(targets, target_lengths, lengths, T: int, V: int) -> np.ndarray:
+    """f32 log-probs [B, T, V] (blank V - 1) under which each sequence's
+    labels, in order, each hold an equal share of its frames with
+    probability 0.9 and blank is unlikely: a Viterbi path pays for the
+    blank frame it must place between two equal labels, which a skip into
+    the repeat (``align_repeat_skip``) would save, so that fault shows
+    wherever a sequence repeats a label."""
+    B = len(targets)
+    lp = np.full((B, T, V), np.log(0.1 / (V - 1)), np.float32)
+    for b in range(B):
+        n, U = int(lengths[b]), int(target_lengths[b])
+        if U == 0:
+            continue
+        u = np.minimum(np.arange(n) * U // max(n, 1), U - 1)
+        lp[b, np.arange(n), np.asarray(targets[b])[u]] = np.log(0.9)
+    return lp
+
+
+def collapses_to(frames, length: int, labels, blank: int) -> bool:
+    """A frame-label row's segments (``decoding.align.segments_from_frames``)
+    read as the label sequence ``labels``."""
+    from nabu_tpu_torch.decoding.align import segments_from_frames
+
+    row = frames.cpu().tolist() if hasattr(frames, "cpu") else list(frames)
+    return [lab for lab, _, _ in segments_from_frames(row, int(length), blank)] == [
+        int(x) for x in labels]
+
+
+def mwer_eos_dropped(rows: int):
+    """Planted MWER fault: the eos term left out of each hypothesis's
+    score. The re-scoring ``Speller.apply`` over ``rows`` (B x N)
+    sequences returns constant logits at each sequence's eos position, so
+    that term is the same for every hypothesis and cancels in p̂."""
+    import torch
+
+    from nabu_tpu_torch.models.decoders import Speller
+
+    right = Speller.apply
+
+    def apply(self, params, encoded, enc_lengths, targets=None, target_lengths=None, **kw):
+        logits, lengths = right(self, params, encoded, enc_lengths, targets=targets,
+                                target_lengths=target_lengths, **kw)
+        if encoded.shape[0] != rows:
+            return logits, lengths
+        pos = torch.arange(logits.shape[1], device=logits.device)[None, :, None]
+        at_eos = pos == target_lengths.to(logits.device).long()[:, None, None]
+        return torch.where(at_eos, torch.zeros((), dtype=logits.dtype, device=logits.device),
+                           logits), lengths
+
+    return swapped(Speller, "apply", apply)
+
+
+def mwer_refs_tiled(n: int):
+    """Planted MWER fault: each hypothesis scored against another
+    utterance's reference, the references tiled over the B x n rows
+    (``torch.repeat``) where each should repeat n times in place
+    (``repeat_interleave``, JAX's ``jnp.repeat``): the error counts, and
+    so the gradient, change."""
+    from nabu_tpu_torch.ops import mwer
+
+    right = mwer.token_edit_distance
+
+    def token_edit_distance(hyps, hyp_lengths, refs, ref_lengths):
+        return right(hyps, hyp_lengths, refs[::n].repeat(n, 1), ref_lengths[::n].repeat(n))
+
+    return swapped(mwer, "token_edit_distance", token_edit_distance)
+
 
 def synth_utterance(rng, seconds: float, rate: int = 16000) -> np.ndarray:
     """Tone sequence with envelopes plus a noise floor (no silent bins)."""
@@ -4870,6 +4990,12 @@ def phase_train(torch, smi: str, phase: str, corpus: dict) -> dict:
             result["decode"] = las_decode(torch, smi, recipe, expdir, model, corpus["dev"][2])
         elif phase == "train_joint":
             result["test"] = joint_test(torch, smi, recipe, expdir, corpus["dev"][2])
+            # train_mwer fine-tunes these weights (warm start from best/)
+            keep = os.path.join(corpus["root"], "joint_checkpoint", "best")
+            os.makedirs(keep)
+            for fname in ("params.npz", "scalars.json"):
+                shutil.copy(os.path.join(expdir, "checkpoints", "best", fname), keep)
+            corpus["joint_checkpoint"] = os.path.dirname(keep)
         elif phase == "train_conformer_rnnt":
             result["test"] = transducer_test(torch, smi, recipe, expdir, corpus["dev"][2])
         elif phase == "train":
@@ -4973,6 +5099,7 @@ def phase_pipeline(torch, smi: str, recipe: str, expdir: str, dev) -> dict:
     same_text = sum(int(a[1:] == b[1:]) for a, b in zip(served, recognized))
     check(same_text == len(wavs),
           f"pipeline recognize: {len(wavs) - same_text} hypotheses differ from serve's")
+    aligned = pipeline_align(torch, stage, recipe, expdir, seconds, launches)
 
     # the n-gram LM end to end: cli lm on the training transcriptions, cli
     # decode with it (a copy of the recipe whose recognizer.cfg names it at
@@ -5034,10 +5161,114 @@ def phase_pipeline(torch, smi: str, recipe: str, expdir: str, dev) -> dict:
         "decode_lm_steady_rtf": float(rtf_lm.group(1)) if rtf_lm else None,
         "rescored_lines": len(rescored), "serve_lm_equals_decode_lm": same_lm,
         "lm_hypotheses_changed": sum(int(a[1:] != b[1:]) for a, b in zip(served, served_lm)),
-        **rnn, "card": smi,
+        **rnn, **aligned, "card": smi,
     }
     emit(out)
     return out
+
+
+def pipeline_align(torch, stage, recipe: str, expdir: str, seconds: dict,
+                   launches: dict) -> dict:
+    """``cli align`` on the pipeline's expdir over the recognizer's split
+    (the dev split): the v2 inference kernels launch and no loss kernel;
+    ``align.ctm`` covers every utterance, each one's tokens its targets in
+    order. On the first batch: the Viterbi on the card against the CPU
+    over the same f32 log-probs (frame labels identical, path scores
+    within TOL["align_scores"]); each feasible path score at most the CTC
+    log-likelihood ``ctc_alpha`` gives for those log-probs; and the
+    planted skip into a repeated label (``align_repeat_skip``), which must
+    break a segment list on the batch's label emissions
+    (``label_emissions``; its reading on the real log-probs is reported)."""
+    from nabu_tpu_torch.config import Conf, Recipe
+    from nabu_tpu_torch.data.pipeline import batch_to_arrays, batch_to_device
+    from nabu_tpu_torch.decoding.align import ctc_forced_align
+    from nabu_tpu_torch.ops import ctc_batched
+    from nabu_tpu_torch.ops.ctc import ctc_feasible
+    from nabu_tpu_torch.scripts.align import ctc_head, head_logprobs
+    from nabu_tpu_torch.scripts.common import make_loader, model_from_recipe
+    from nabu_tpu_torch.scripts.test import load_best_params
+
+    _, seconds["align"], launches["align"] = stage(
+        "align", ["align", "--recipe", recipe, "--expdir", expdir])
+    r = Recipe(recipe)
+    rconf = r.recognizer.section("recognizer")
+    sections = Conf({"features": rconf["features"], "targets": rconf["targets"]})
+    model, meta = model_from_recipe(r, expdir, sections["features"], sections["targets"])
+    loader, _, _ = make_loader(r, expdir, sections, batch_size=rconf.getint("batch_size", 16),
+                               num_buckets=rconf.getint("num_buckets", 1))
+    alphabet = meta["alphabet"]
+    want, first = {}, None
+    for batch in loader.epoch(0, shuffle=False):
+        first = batch if first is None else first
+        for b, utt in enumerate(batch.utt_ids):
+            if batch.example_mask[b]:
+                want[utt] = [alphabet[i] for i in batch.targets[b, :batch.target_lengths[b]]]
+    got = {}
+    with open(os.path.join(expdir, "aligned", "align.ctm")) as f:
+        for line in f:
+            utt, _, start, dur, tok = line.split()
+            check(float(start) >= 0.0 and float(dur) > 0.0, f"pipeline align: line {line!r}")
+            got.setdefault(utt, []).append(tok)
+    check(set(got) == set(want),
+          f"pipeline align: align.ctm covers {len(got)} of {len(want)} utterances")
+    collapsed = sum(int(got[u] == want[u]) for u in want)
+    check(collapsed == len(want),
+          f"pipeline align: {len(want) - collapsed} utterances' segments are not their targets")
+
+    dev = torch.device("cuda")
+    head = ctc_head(model)
+    blank = model.decoders[head].blank_id
+    arrays = batch_to_device(batch_to_arrays(first), dev, model.compute_dtype)
+    logprobs, lengths = head_logprobs(model, load_best_params(expdir, dev), head, arrays)
+    logprobs = logprobs.contiguous()
+    tg, tl = arrays["targets"], arrays["target_lengths"]
+    check(blank == logprobs.shape[2] - 1, f"pipeline align: blank {blank} is not the last id")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = ctc_forced_align(logprobs, lengths, tg, tl, blank)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu = ctc_forced_align(logprobs.cpu(), lengths.cpu(), tg.cpu(), tl.cpu(), blank)
+    t2 = time.perf_counter()
+    same = torch.equal(card[0].cpu(), cpu[0])
+    score_err = float((card[1].cpu() - cpu[1]).abs().max())
+    check(same, "pipeline align: the card's frame labels differ from the CPU's")
+    check(score_err <= TOL["align_scores"],
+          f"pipeline align: path scores card vs CPU {score_err} > {TOL['align_scores']}")
+    i32 = [x.to(torch.int32).contiguous() for x in (lengths, tg, tl)]
+    _, ll = ctc_batched.ctc_alpha(logprobs, *i32, blank)
+    real = (arrays["example_mask"] > 0) & ctc_feasible(lengths, tg, tl).bool()
+    slack = (card[1] - ll - TOL["align_ll_rel"] * ll.abs())[real]
+    check(bool((slack <= 0).all()),
+          f"pipeline align: a path score above its CTC log-likelihood ({float(slack.max())})")
+
+    rows = [b for b in range(len(first.utt_ids)) if bool(real[b])]
+
+    def broken(frames):
+        return sum(not collapses_to(frames[b], lengths[b], tg[b, :tl[b]], blank) for b in rows)
+
+    sharp = torch.as_tensor(label_emissions(tg.cpu().numpy(), tl.cpu().numpy(),
+                                            lengths.cpu().numpy(), logprobs.shape[1],
+                                            logprobs.shape[2]), device=dev)
+    right = ctc_forced_align(sharp, lengths, tg, tl, blank)[0]
+    with align_repeat_skip():
+        faulty = ctc_forced_align(sharp, lengths, tg, tl, blank)[0]
+        faulty_real = ctc_forced_align(logprobs, lengths, tg, tl, blank)[0]
+    check(broken(right) == 0, "pipeline align: the label emissions' alignment breaks")
+    if broken(faulty) == 0:
+        FAILURES.append("pipeline align: the planted skip into a repeated label passes")
+    repeats = sum(int(bool((tg[b, 1:tl[b]] == tg[b, :tl[b] - 1]).any())) for b in rows)
+    return {"align_utterances": len(got), "align_collapsed": collapsed,
+            "align_batch_shape": list(logprobs.shape),
+            "align_card_equals_cpu": same, "align_score_max_abs_err": score_err,
+            "align_score_tol": TOL["align_scores"],
+            "align_ll_slack_max": float((card[1] - ll)[real].max()),
+            "align_viterbi_card_s": t1 - t0, "align_viterbi_cpu_s": t2 - t1,
+            "align_rows_with_repeats": repeats,
+            "align_fault_broken": broken(faulty), "align_fault_rows": len(rows),
+            "align_fault_real_broken": broken(faulty_real),
+            "align_fault_real_frames_differ": sum(
+                int(not torch.equal(faulty_real[b], card[0][b])) for b in rows)}
 
 
 def pipeline_rnn_lm(torch, stage, recipe: str, expdir: str, requests: str, wavs, utts,
@@ -5257,10 +5488,12 @@ def las_decode(torch, smi: str, recipe: str, expdir: str, model, dev_audio_s: fl
     return out
 
 
-def joint_test(torch, smi: str, recipe: str, expdir: str, dev_audio_s: float) -> dict:
-    """``cli test`` on train_joint's expdir: the recipe's test evaluator,
-    attention_beam on ``head = att`` (beam 16) over the dev split at batch
-    32 (the v2 inference kernels, and no other), its error and wall time."""
+def joint_test(torch, smi: str, recipe: str, expdir: str, dev_audio_s: float,
+               phase: str = "train_joint") -> dict:
+    """``cli test`` on train_joint's (or train_mwer's) expdir: the recipe's
+    test evaluator, attention_beam on ``head = att`` (beam 16) over the dev
+    split at batch 32 (the v2 inference kernels, and no other), its error
+    and wall time."""
     from nabu_tpu_torch import cli
     from nabu_tpu_torch.ops import kernels
 
@@ -5274,13 +5507,13 @@ def joint_test(torch, smi: str, recipe: str, expdir: str, dev_audio_s: float) ->
     wall = time.perf_counter() - t0
     print(out.getvalue(), file=sys.stderr, flush=True)
     launches = {k: v for k, v in kernels.launch_counts().items() if v}
-    gemm_variants("train_joint test")
+    gemm_variants(f"{phase} test")
     with open(os.path.join(expdir, "test_result.json")) as f:
         result = json.load(f)
-    check(math.isfinite(result["metric"]), f"train_joint test: error {result['metric']}")
+    check(math.isfinite(result["metric"]), f"{phase} test: error {result['metric']}")
     check(set(launches) == set(DECODE_KERNELS),
-          f"train_joint test: launched {launches}, want each of {DECODE_KERNELS} and no other")
-    line = {"phase": "train_joint_test", "recognizer": "attention_beam", "head": "att",
+          f"{phase} test: launched {launches}, want each of {DECODE_KERNELS} and no other")
+    line = {"phase": f"{phase}_test", "recognizer": "attention_beam", "head": "att",
             "beam_width": 16, "error": result["metric"], "wall_seconds": wall,
             "dev_audio_seconds": dev_audio_s, "rtf": wall / dev_audio_s, "launches": launches,
             "card": smi}
@@ -5319,6 +5552,345 @@ def transducer_test(torch, smi: str, recipe: str, expdir: str, dev_audio_s: floa
     return line
 
 
+# train_mwer: MWER sequence training from train_joint's trained weights
+MWER_STEPS = 10
+MWER_N = 4
+# the trainer.cfg keys patched in (JAX's defaults for beam and CE weight)
+MWER_TRAINER = {"mwer": "true", "mwer_beam": str(MWER_N), "mwer_ce_weight": "0.01",
+                "ema_decay": "0.999", "profile_start": "3", "profile_stop": "5",
+                "log_frequency": "1"}
+# kernels the profiler window's trace must name (device events)
+MWER_TRACE_KERNELS = ("v1_walk_kernel", "v1_chain_kernel", "ctc_alpha_kernel",
+                      "ctc_beta_kernel")
+
+
+@contextlib.contextmanager
+def mwer_timers(torch, record: dict):
+    """Synchronized host timers of an MWER step's parts, summed a step:
+    the N-best search (``ops.mwer.attention_beam_search``), the encoder
+    passes (``Model.encode`` without gradients, the search's, and with
+    them), the teacher-forced re-scoring (``Speller.apply`` over B x N
+    rows; its other calls are the CE term's) and the edit distance. Also
+    each step's error counts [B, N] of the utterances with a reference,
+    the launch counts after each optimizer step and the first batch.
+    Inside ``step_timers``, whose forward + loss, backward and optimizer it
+    splits."""
+    from nabu_tpu_torch.models.decoders import Speller
+    from nabu_tpu_torch.models.model import Model
+    from nabu_tpu_torch.ops import kernels, mwer
+    from nabu_tpu_torch.training.trainer import Trainer
+
+    record["_step"] = 0
+
+    def clocked(key_of, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            per = record.setdefault(key_of(*a, **kw), {})
+            per[record["_step"]] = per.get(record["_step"], 0.0) + time.perf_counter() - t0
+            return out
+        return wrapped
+
+    saved = {(mwer, "attention_beam_search"): mwer.attention_beam_search,
+             (mwer, "token_edit_distance"): mwer.token_edit_distance,
+             (Model, "encode"): Model.encode, (Speller, "apply"): Speller.apply,
+             (Trainer, "_loss"): Trainer._loss, (Trainer, "_apply_grads"): Trainer._apply_grads}
+
+    def loss(self, params, batch, generator):
+        record.setdefault("first_batch", batch)
+        return saved[(Trainer, "_loss")](self, params, batch, generator)
+
+    def encode(self, params, features, *a, **kw):
+        record["model"], record["B"] = self, int(features.shape[0])
+        return saved[(Model, "encode")](self, params, features, *a, **kw)
+
+    def edit_distance(hyps, hyp_lengths, refs, ref_lengths):
+        errs = saved[(mwer, "token_edit_distance")](hyps, hyp_lengths, refs, ref_lengths)
+        real = (ref_lengths > 0).reshape(-1, MWER_N)[:, 0]
+        record.setdefault("errs", []).append(errs.reshape(-1, MWER_N)[real].cpu())
+        return errs
+
+    def apply_grads(self, *a, **kw):
+        out = saved[(Trainer, "_apply_grads")](self, *a, **kw)
+        record.setdefault("launch_snaps", []).append(dict(kernels.launch_counts()))
+        record["_step"] += 1
+        return out
+
+    mwer.attention_beam_search = clocked(lambda *a, **kw: "search",
+                                         saved[(mwer, "attention_beam_search")])
+    mwer.token_edit_distance = clocked(lambda *a, **kw: "edit_distance", edit_distance)
+    Model.encode = clocked(
+        lambda *a, **kw: "encoder_grad" if torch.is_grad_enabled() else "encoder_search", encode)
+    Speller.apply = clocked(
+        lambda self, params, encoded, *a, **kw:
+        "rescoring" if encoded.shape[0] == record["B"] * MWER_N else "speller_ce",
+        saved[(Speller, "apply")])
+    Trainer._loss = loss
+    Trainer._apply_grads = apply_grads
+    try:
+        yield
+    finally:
+        for (owner, name), fn in saved.items():
+            setattr(owner, name, fn)
+
+
+def mwer_gradient_check(torch, model, params, batch) -> dict:
+    """One batch, dropout off, ``mwer_ce_weight = 0``: the MWER loss and
+    every parameter gradient through the kernels against the plain
+    versions, both fed the same N-best (searched once, through the
+    kernels: the beams may rank near-ties otherwise on the two paths), in
+    f32 at train_joint's tolerances (Listener and CTC head train_grads,
+    Speller train_grads_speller); the gradient must not be 0 (it is 0 for
+    an utterance whose N-best holds one error count), and the kernel path
+    with the planted fault (``mwer_refs_tiled``: each hypothesis scored
+    against another utterance's reference) must exceed them; the eos term
+    left out of each score (``mwer_eos_dropped``) is reported, one term of
+    ~100 in a long hypothesis. The same in bf16 is reported: the MWER
+    gradient is a difference of hypotheses' log-prob gradients that share
+    most of their terms, which amplifies bf16 rounding (0.11-1.6 in PR 24
+    call 3, against train_joint's 0.0024-0.022 for its CE + CTC loss)."""
+    from nabu_tpu_torch.config import Conf
+    from nabu_tpu_torch.ops.mwer import make_mwer_loss_computer, token_edit_distance
+    from nabu_tpu_torch.params import flatten, unflatten
+
+    loss_fn = make_mwer_loss_computer(
+        model, Conf({"mwer_beam": str(MWER_N), "mwer_ce_weight": "0"}))
+    flat = {k: v.detach() for k, v in flatten(params).items()}
+
+    def rel(grads, ref):
+        return {k: float(torch.linalg.vector_norm((grads[k] - ref[k]).float())
+                         / torch.linalg.vector_norm(ref[k].float()).clamp(min=1e-30))
+                for k in ref}
+
+    def worst(prefix, table):
+        return max(v for k, v in table.items() if k.startswith(prefix))
+
+    def tol(k):
+        return TOL["train_grads_speller" if k.startswith("decoders/att/") else "train_grads"]
+
+    runs = {}
+    compute_dtype = model.compute_dtype
+    try:
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            model.compute_dtype = dtype
+            b = dict(batch, features=batch["features"].to(dtype))
+            nbest = loss_fn.search(unflatten(flat), b)
+
+            def loss_and_grads():
+                leaves = {k: v.clone().requires_grad_(True) for k, v in flat.items()}
+                loss, metrics = loss_fn(unflatten(leaves), b, None, False, nbest=nbest)
+                grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+                return loss.detach(), metrics, {k: torch.zeros_like(v) if g is None else g
+                                                for (k, v), g in zip(leaves.items(), grads)}
+
+            t0 = time.perf_counter()
+            kernel = loss_and_grads()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with plain_versions():
+                plain = loss_and_grads()
+            torch.cuda.synchronize()
+            runs[tag] = {"nbest": nbest, "kernel": kernel, "plain": plain,
+                         "kernel_step_s": t1 - t0, "plain_step_s": time.perf_counter() - t1}
+            if tag == "f32":
+                with mwer_refs_tiled(MWER_N):
+                    runs[tag]["fault"] = loss_and_grads()
+                with mwer_eos_dropped(nbest[0].shape[0] * MWER_N):
+                    runs[tag]["eos_fault"] = loss_and_grads()
+    finally:
+        model.compute_dtype = compute_dtype
+
+    f32 = runs["f32"]
+    loss_k, metrics, grads_k = f32["kernel"]
+    loss_p, _, grads_p = f32["plain"]
+    rel_k, rel_f = rel(grads_k, grads_p), rel(f32["fault"][2], grads_p)
+    rel_e = rel(f32["eos_fault"][2], grads_p)
+    rel_b = rel(runs["bf16"]["kernel"][2], runs["bf16"]["plain"][2])
+    # the utterances whose N-best holds more than one error count
+    seqs, lens = f32["nbest"]
+    B = seqs.shape[0]
+    errs = token_edit_distance(
+        seqs.reshape(B * MWER_N, -1), lens.reshape(-1),
+        torch.repeat_interleave(batch["targets"], MWER_N, dim=0),
+        torch.repeat_interleave(batch["target_lengths"], MWER_N, dim=0)).reshape(B, MWER_N)
+    real = batch["target_lengths"] > 0
+    spread = float((errs.max(1).values > errs.min(1).values)[real].float().mean())
+    for k, g in grads_k.items():
+        check(bool(torch.isfinite(g).all()), f"train_mwer gradient {k}: non-finite")
+    norm = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads_k.values())))
+    check(norm > 0.0, "train_mwer: the MWER gradient is 0 (every N-best one error count?)")
+    loss_err = compare(torch, loss_k, loss_p, TOL["train_loss"], "train_mwer batch loss")
+    over = {k: v for k, v in rel_k.items() if v > tol(k)}
+    if over:
+        FAILURES.append(f"train_mwer gradients: relative errors beyond tolerance: {over}")
+    if not any(v > tol(k) for k, v in rel_f.items()):
+        FAILURES.append(f"train_mwer gradients: the planted fault ({max(rel_f.values())}) "
+                        "passes the tolerance")
+    return {"dtype": "f32", "batch_shape": list(batch["features"].shape),
+            "nbest_shape": list(seqs.shape), "loss_kernels": float(loss_k),
+            "loss_plain": float(loss_p), "loss_max_abs_err": loss_err,
+            "loss_tol": TOL["train_loss"],
+            "expected_errors": float(metrics["mwer/expected_errors"]),
+            "oracle_errors": float(metrics["mwer/oracle_errors"]), "grad_norm": norm,
+            "nbest_spread_share": spread,
+            "listener_grads_max_rel_err": worst("encoder/", rel_k),
+            "speller_grads_max_rel_err": worst("decoders/att/", rel_k),
+            "ctc_head_grads_max_rel_err": worst("decoders/ctc/", rel_k),
+            "grads_tol": TOL["train_grads"], "grads_tol_speller": TOL["train_grads_speller"],
+            "fault": "each hypothesis scored against another utterance's reference",
+            "fault_listener_grads_max_rel_err": worst("encoder/", rel_f),
+            "fault_speller_grads_max_rel_err": worst("decoders/att/", rel_f),
+            "eos_fault_listener_grads_max_rel_err": worst("encoder/", rel_e),
+            "eos_fault_speller_grads_max_rel_err": worst("decoders/att/", rel_e),
+            "bf16_listener_grads_max_rel_err": worst("encoder/", rel_b),
+            "bf16_speller_grads_max_rel_err": worst("decoders/att/", rel_b),
+            "bf16_loss_kernels_plain": [float(runs["bf16"][k][0]) for k in ("kernel", "plain")],
+            **{f"{tag}_{k}": runs[tag][k] for tag in runs
+               for k in ("kernel_step_s", "plain_step_s")}}
+
+
+def phase_train_mwer(torch, smi: str, corpus: dict) -> dict:
+    """MWER fine-tuning of joint_ctc_att_multihost at its full width: ``cli
+    train`` (MWER_STEPS steps, B = 64) from train_joint's trained
+    checkpoint (``pretrained_dir``) on a copy of train_las's prepared data,
+    with trainer.cfg's MWER_TRAINER keys (mwer, beam 4, CE weight 0.01,
+    ema_decay 0.999, a profiler window of two steps). Each step's
+    ``loss/mwer``, expected and oracle errors, the share of utterances
+    whose N-best holds more than one error count (only those carry an
+    MWER gradient), its time split (search, encoder passes, re-scoring,
+    loss, backward, optimizer) and launches: the search pass's inference
+    walks and the gradient pass's training kernels and the CTC kernels,
+    every step. Then the gradient check (``mwer_gradient_check``),
+    ``best/`` (the average as params, the raw weights beside it, the last
+    step's), the profiler's trace and ``cli test``."""
+    from nabu_tpu_torch import cli
+    from nabu_tpu_torch.config import ConfigFile
+    from nabu_tpu_torch.ops import blstm as blstm_ops
+    from nabu_tpu_torch.ops import kernels
+    from nabu_tpu_torch.params import flatten, load_npz, unflatten
+
+    phase, donor = "train_mwer", "train_las"
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_") as tmp:
+        recipe = write_train_recipe(JOINT_RECIPE, os.path.join(tmp, "recipe"),
+                                    corpus["train_las"][:2], corpus["dev"][:2], MWER_STEPS)
+        tc = ConfigFile.read(os.path.join(recipe, "trainer.cfg"))
+        for key, value in {**MWER_TRAINER,
+                           "pretrained_dir": corpus["joint_checkpoint"]}.items():
+            tc.section("trainer").set(key, value)
+        tc.write(os.path.join(recipe, "trainer.cfg"))
+        expdir = os.path.join(tmp, "exp")
+        sections, keep = corpus[f"prepared_{donor}"]
+        check(_data_sections(recipe) == sections,
+              f"{phase}: database.conf differs from {donor}'s; its data cannot be reused")
+        shutil.copytree(keep, os.path.join(expdir, "data"))
+
+        record: dict = {}
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with step_timers(torch, record), mwer_timers(torch, record), \
+                contextlib.redirect_stdout(sys.stderr):
+            cli.main(["train", "--recipe", recipe, "--expdir", expdir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = kernels.launch_counts()
+        gemm_variants(phase)
+        steps = len(record["loss"])
+        check(steps == MWER_STEPS, f"{phase}: {steps} steps, want {MWER_STEPS}")
+
+        # each step's launches: the search pass's projections and inference
+        # walks (the family kernel_family picks at B = 64, H = 512), and the
+        # gradient pass's as train_joint's step
+        B = record["B"]
+        units = record["model"].encoder.num_units
+        walk = {"v1": "blstm_v1_recur", "v2": "blstm_recur"}[blstm_ops.kernel_family(B, units)]
+        layers = STEP_LAUNCHES["train_joint"]["blstm_proj"]
+        per_step = {**STEP_LAUNCHES["train_joint"], "blstm_proj": 2 * layers, walk: layers}
+        snaps = [dict.fromkeys(kernels.KERNELS, 0)] + record["launch_snaps"]
+        step_launches = [{k: b[k] - a.get(k, 0) for k in b if b[k] - a.get(k, 0)}
+                         for a, b in zip(snaps, snaps[1:])]
+        for i, got in enumerate(step_launches):
+            check(got == per_step, f"{phase} step {i + 1}: launched {got}, want {per_step}")
+
+        with open(os.path.join(expdir, "logs", "metrics.jsonl")) as f:
+            logged = {r["step"]: r for r in map(json.loads, f) if "train/loss" in r}
+        parts = ("search", "encoder_search", "encoder_grad", "rescoring", "speller_ce",
+                 "edit_distance")
+        split = []
+        for i in range(steps):
+            ms = {k: 1e3 * record.get(k, {}).get(i, 0.0) for k in parts}
+            fwd = 1e3 * record["forward_loss"][i]
+            ms["loss"] = fwd - sum(ms[k] for k in ("search", "encoder_search", "encoder_grad",
+                                                   "rescoring"))
+            ms.update(backward=1e3 * record["backward"][i],
+                      optimizer=1e3 * record["optimizer"][i], forward_loss=fwd)
+            split.append(ms)
+            errs = record["errs"][i]
+            row = logged[i + 1]
+            check(all(math.isfinite(row[k]) for k in ("train/loss", "train/loss/mwer")),
+                  f"{phase} step {i + 1}: a non-finite loss")
+            emit({"phase": f"{phase}_step", "step": i + 1, "loss": row["train/loss"],
+                  "loss_mwer": row["train/loss/mwer"],
+                  "expected_errors": row["train/mwer/expected_errors"],
+                  "oracle_errors": row["train/mwer/oracle_errors"],
+                  "nbest_spread_share": float((errs.max(1).values > errs.min(1).values)
+                                              .float().mean()),
+                  "utterances": int(errs.shape[0]), "ms": ms,
+                  "launches": step_launches[i]})
+        median = {k: float(np.median([m[k] for m in split[1:]])) for k in split[0]}
+
+        # best/: the average as params, the raw weights beside them (the
+        # last step's), and latest/ carrying the same average
+        ckpt = os.path.join(expdir, "checkpoints")
+        best_avg = load_npz(os.path.join(ckpt, "best", "params.npz"))
+        best_raw = load_npz(os.path.join(ckpt, "best", "raw_params.npz"))
+        latest_avg = load_npz(os.path.join(ckpt, "latest", "ema_params.npz"))
+        live = {k: v.detach().cpu() for k, v in flatten(record["params"]).items()}
+        avg, raw, lat = flatten(best_avg), flatten(best_raw), flatten(latest_avg)
+        check(avg.keys() == raw.keys() == lat.keys() == live.keys(),
+              f"{phase}: best/ and latest/ hold other parameter names")
+        check(all(torch.equal(raw[k], live[k]) for k in live),
+              f"{phase}: best/raw_params is not what the last step trained")
+        check(all(torch.equal(avg[k], lat[k]) for k in avg),
+              f"{phase}: best/params is not latest/'s ema_params")
+        avg_vs_raw = max(float((avg[k] - raw[k]).abs().max()) for k in avg)
+        check(avg_vs_raw > 0.0, f"{phase}: best/params equals the raw weights")
+
+        # the profiler window: a Chrome trace naming the training kernels
+        # (read as text: two MWER steps' events run to ~10^5)
+        trace = os.path.join(expdir, "profile", "rank0.pt.trace.json")
+        check(os.path.exists(trace), f"{phase}: no profiler trace at {trace}")
+        with open(trace) as f:
+            text = f.read()
+        device = len(re.findall(r'"cat":\s*"kernel"', text))
+        named = {k: text.count(k) for k in MWER_TRACE_KERNELS}
+        check(device > 0 and all(named.values()),
+              f"{phase}: the profiler trace names {named} ({device} device kernels)")
+
+        # the check's weights are train_joint's (before the first update),
+        # its batch the first step's: the later steps' N-best lists carry
+        # fewer utterances of more than one error count (PR 24 call 1)
+        grad = mwer_gradient_check(torch, record["model"], unflatten(record["initial"]),
+                                   record["first_batch"])
+        result = {
+            "phase": phase, "recipe": os.path.relpath(JOINT_RECIPE, REPO), "steps": steps,
+            "trainer": MWER_TRAINER, "pretrained_from": "train_joint", "batch": B,
+            "train_wall_seconds": wall, "median_step_ms": median,
+            "first_step_ms": split[0], "peak_device_memory_bytes": peak,
+            "per_step_launches": per_step, "launches": launches,
+            "ema_vs_raw_max_abs": avg_vs_raw, "trace_bytes": os.path.getsize(trace),
+            "trace_device_kernels": device, "trace_named": named, "card": smi,
+        }
+        emit(result)
+        emit({"phase": f"{phase}_check", **grad})
+        result["test"] = joint_test(torch, smi, recipe, expdir, corpus["dev"][2], phase=phase)
+    return result
+
+
 def phase_bench_las() -> dict:
     """The bench's las line in process (``bench.train_line(model_name="las")``:
     a 4 x 512 Listener, the 2 x 512 Speller and the CTC head, B = 32, T =
@@ -5350,7 +5922,7 @@ DP_WORLD = 2
 DP_RANK_BATCH = 64  # joint_ctc_att_multihost's batch_size: a rank's share
 DP_T = 800  # padded frames of every batch (8 s, WSJ's scale)
 DP_STEPS = 3  # f32 steps of the equivalence
-DP_BF16_STEPS = (2, 6)  # bf16 steps a run: warm-up, timed
+DP_BF16_STEPS = (2, 4)  # bf16 steps a run: warm-up, timed (6 before train_mwer)
 DP_TIMEOUT = 900
 DP_DEVICE = "cuda"  # the one-process runs' device (the ranks take their group's)
 
@@ -5726,6 +6298,8 @@ def main(argv=None) -> int:
         trained_las = phase_train(torch, smi, "train_las", corpus)
         t9 = time.perf_counter()
         trained_joint = phase_train(torch, smi, "train_joint", corpus)
+        t9d = time.perf_counter()
+        trained_mwer = phase_train_mwer(torch, smi, corpus)
         t9b = time.perf_counter()
         trained_crnnt = phase_train(torch, smi, "train_conformer_rnnt", corpus)
     t9a = time.perf_counter()
@@ -5747,7 +6321,8 @@ def main(argv=None) -> int:
           # the train phase runs the pipeline phase: each is counted once
           "train": t6 - t5c - pipeline_s, "pipeline": pipeline_s,
           "train_rnnt": t7 - t6, "train_rnnt_stream": t8 - t7,
-          "train_las": t9 - t8, "train_joint": t9b - t9, "train_conformer_rnnt": t9a - t9b,
+          "train_las": t9 - t8, "train_joint": t9d - t9, "train_mwer": t9b - t9d,
+          "train_conformer_rnnt": t9a - t9b,
           "train_dp": t9c - t9a, "bench_ctc": t10 - t9c, "bench_rnnt": t11 - t10, "bench_las": t12 - t11,
           "bench_conformer_rnnt": t13 - t12, "bench_moe_conformer": time.perf_counter() - t13,
           "total": time.perf_counter() - t0})
@@ -5759,7 +6334,8 @@ def main(argv=None) -> int:
                     for run in (s["lm"], s["rnn_lm"], s["rnn_lm"]["train"]))
     runs = (*lm_runs, served["bf16_frontend"], served, served_rnnt, served_stream, served_las, served_joint, served_aed,
             trained, trained_rnnt, trained_stream, trained_las, trained_las["decode"],
-            trained_joint, trained_joint["test"], trained_crnnt, trained_crnnt["test"],
+            trained_joint, trained_joint["test"], trained_mwer, trained_mwer["test"],
+            trained_crnnt, trained_crnnt["test"],
             bench_las, bench_crnnt, bench_moe, *pipeline)
 
     kernels_line = []

@@ -17,6 +17,11 @@
                                            [--lm_lr 1e-3] [--device cpu]
     python -m nabu_tpu_torch.cli rescore   --recipe R --expdir E [--lm P] [--lm_weight 0.3]
                                            [--length_bonus 0] [--device cpu]
+    python -m nabu_tpu_torch.cli align     --recipe R --expdir E [--features S] [--targets S]
+                                           [--head H] [--device cpu]
+    python -m nabu_tpu_torch.cli bpe       --recipe R --expdir E [--vocab_size 500]
+                                           [--targets traintargets] [--out P] [--device cpu]
+    python -m nabu_tpu_torch.cli sweep     --recipe R --expdir E --sweep F [--device cpu]
 
 ``data`` prepares every dataset section of the recipe's database.conf
 into ``E/data`` (host work). ``train`` trains the recipe into ``E``
@@ -45,10 +50,16 @@ LSTM LM (``E/lm/lm_rnn.npz``, on the device), which a beam recognizer
 fuses through ``recognizer.cfg``'s ``lm_path`` / ``lm_weight``;
 ``rescore`` re-ranks ``E/decoded/nbest.txt`` with an LM into
 ``E/decoded/rescored.txt`` (an n-gram on the host, a neural LM on the
-device). Whatever runs on a device runs on the GPU unless ``--device
-cpu`` is given, and raises without a GPU otherwise. The other subcommands
-of the JAX package's ``run``, and its mesh flags (model, expert, pipe and
-seq axes), are not ported yet.
+device). ``align`` writes the CTC head's forced alignment of a dataset
+(``recognizer.cfg``'s features and targets by default) as CTM lines to
+``E/aligned/align.ctm``. ``bpe`` trains a subword vocabulary on a targets
+section's transcriptions (``E/bpe/bpe.json``, host work). ``sweep`` runs
+``data``, ``train`` and ``test`` for each block of ``file/section/key
+value`` overrides in a sweep file, variant i in ``E/sweep_<i>`` with its
+patched recipe in ``E/sweep_<i>/recipe``. Whatever runs on a device runs
+on the GPU unless ``--device cpu`` is given, and raises without a GPU
+otherwise. The JAX package's mesh flags of the model, expert, pipe and
+seq axes are not ported yet.
 """
 
 from __future__ import annotations
@@ -143,6 +154,33 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--length_bonus", type=float, default=0.0)
     sp.add_argument("--device", default=None,
                     help="a neural LM's device: cuda (default) or cpu")
+
+    sp = sub.add_parser("align", help="CTC forced alignment of a dataset (CTM output)")
+    sp.add_argument("--recipe", required=True, help="recipe config dir")
+    sp.add_argument("--expdir", required=True, help="experiment dir")
+    sp.add_argument("--features", default=None,
+                    help="database.conf features section (default: recognizer.cfg's)")
+    sp.add_argument("--targets", default=None,
+                    help="database.conf targets section (default: recognizer.cfg's)")
+    sp.add_argument("--head", default=None,
+                    help="CTC head name (default: the first head with a blank_id)")
+    sp.add_argument("--device", default=None, help="cuda (default) or cpu")
+
+    sp = sub.add_parser("bpe", help="train a BPE subword vocabulary")
+    sp.add_argument("--recipe", required=True, help="recipe config dir")
+    sp.add_argument("--expdir", required=True, help="experiment dir")
+    sp.add_argument("--vocab_size", type=int, default=500)
+    sp.add_argument("--targets", default="traintargets")
+    sp.add_argument("--out", default=None, help="model path (default <expdir>/bpe/bpe.json)")
+    sp.add_argument("--device", default=None,
+                    help="cuda (default) or cpu; host work, the device is only checked")
+
+    sp = sub.add_parser("sweep", help="train and test recipe variants")
+    sp.add_argument("--recipe", required=True, help="recipe config dir")
+    sp.add_argument("--expdir", required=True, help="experiment dir")
+    sp.add_argument("--sweep", required=True,
+                    help="sweep file: blocks of `file/section/key value` lines")
+    sp.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
 
 
@@ -263,6 +301,22 @@ def main(argv=None) -> int:
 
         rescore.main(args.recipe, args.expdir, args.lm, args.lm_weight, args.length_bonus,
                      device=args.device)
+    elif args.command == "align":
+        from nabu_tpu_torch.scripts import align
+
+        align.main(args.recipe, args.expdir, features=args.features, targets=args.targets,
+                   head=args.head, device=args.device)
+    elif args.command == "bpe":
+        from nabu_tpu_torch.device import resolve_device
+        from nabu_tpu_torch.scripts import bpe
+
+        resolve_device(args.device)
+        bpe.main(args.recipe, args.expdir, vocab_size=args.vocab_size, targets=args.targets,
+                 out=args.out)
+    elif args.command == "sweep":
+        from nabu_tpu_torch.scripts import sweep
+
+        sweep.main(args.recipe, args.expdir, args.sweep, device=args.device)
     elif args.command == "serve":
         from nabu_tpu_torch.serving import serve
 

@@ -1,6 +1,6 @@
 """INI recipe configuration system (a copy of the JAX package's
-config.py: ``Conf`` sections, ``ConfigFile`` and ``Recipe``; sweeps are
-not ported yet).
+config.py: ``Conf`` sections, ``ConfigFile``, ``Recipe`` and the sweep
+helpers ``parse_sweep_file`` / ``apply_sweep_overrides``).
 
 Capability parity with the reference's config layer (SURVEY.md §1 L10):
 a recipe directory holds INI files read with ConfigParser —
@@ -201,3 +201,42 @@ class Recipe:
     @property
     def recognizer(self) -> ConfigFile:
         return self.file("recognizer")
+
+
+def apply_sweep_overrides(recipe: Recipe, overrides: Dict[str, str]) -> None:
+    """Apply sweep-style overrides ``file/section/key -> value`` in place.
+
+    Mirrors the reference's sweep capability (nabu/scripts/sweep.py):
+    a sweep file patches recipe parameters to train model variants.
+    """
+    for spec, value in overrides.items():
+        parts = spec.split("/")
+        if len(parts) != 3:
+            raise ValueError(
+                f"override key must be file/section/key, got {spec!r}"
+            )
+        fkind, section, key = parts
+        recipe.file(fkind).section(section).set(key, value)
+
+
+def parse_sweep_file(path: str) -> List[Dict[str, str]]:
+    """Parse a sweep file into a list of override dicts.
+
+    Format: blocks separated by blank lines; each line is
+    ``file/section/key value``.
+    """
+    blocks: List[Dict[str, str]] = []
+    cur: Dict[str, str] = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                if cur:
+                    blocks.append(cur)
+                    cur = {}
+                continue
+            spec, _, value = line.partition(" ")
+            cur[spec] = value.strip()
+    if cur:
+        blocks.append(cur)
+    return blocks

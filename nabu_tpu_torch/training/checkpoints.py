@@ -7,7 +7,11 @@ optimizer state, EMA params) is one npz of its leaves flattened to
 ``/``-joined keys, so ``<dir>/best/params.npz`` is read by
 ``params.load_npz`` like an export artifact's; the scalars (step,
 lr_scale, best_metric, tries, metric) sit beside them in
-``scalars.json``. A save writes a temporary directory and renames it
+``scalars.json``. With the trainer's ``ema_decay``, ``latest/`` also
+holds ``ema_params.npz`` and ``best/`` holds the average as
+``params.npz`` and the raw weights as ``raw_params.npz``, so whatever reads
+``best/params.npz`` (test, decode, export) scores the average, as in the
+JAX package. A save writes a temporary directory and renames it
 into place. ``use_async`` moves the disk write to a background thread
 after the host copy, finished before the next checkpoint operation.
 Reading the JAX package's orbax checkpoints is not ported yet.

@@ -23,13 +23,15 @@ its share of the global value), so a non-finite loss stops every rank.
 
 ``build_optimizer`` mirrors the optax chain of the JAX package:
 global-norm clipping (scaled by ``max_norm / norm`` only when
-the norm is at least ``max_norm``), Adam (b1 0.9, b2 0.999, eps 1e-8),
-then the schedule ``lr * decay^(k / decay_steps) * min(1, (k + 1) /
-warmup)`` with k the number of updates already applied, then the
-runtime backoff multiplier ``lr_scale``. The reported ``grad_norm`` is
-the norm before clipping.
+the norm is at least ``max_norm``), the direction (Adam: b1 0.9, b2 0.999,
+eps 1e-8; AdamW: Adam plus ``weight_decay`` times the parameters; SGD: the
+gradient, or with ``momentum`` m > 0 optax's trace ``t = g + m t``), then
+the schedule ``lr * decay^(k / decay_steps) * min(1, (k + 1) / warmup)``
+with k the number of updates already applied, then the runtime backoff
+multiplier ``lr_scale``. The reported ``grad_norm`` is the norm before
+clipping.
 
-Ported trainer options: ``num_steps``/``num_epochs``,
+Trainer options (the JAX Trainer's): ``num_steps``/``num_epochs``,
 ``valid_frequency``, ``log_frequency``, ``ckpt_frequency``,
 ``num_tries``, ``lr_backoff_factor``, ``early_stopping``,
 ``frame_shift``, ``check_numerics`` (the NaN guard), ``resume``,
@@ -41,13 +43,23 @@ the best model, nor backs off the rate, nor counts a try; best-tracking
 goes on), ``numbatches_to_aggregate`` (k micro-batches' gradients summed
 and divided by k before one update, the metrics likewise; ``num_epochs``
 counts epochs of data, ``epochs x batches // k`` updates); optimizers
-``adam`` and ``adamw``. The options no recipe sets (``ema_decay``,
-``mwer``, the profiler window, ``sgd``) raise "not ported yet".
+``adam``, ``adamw`` and ``sgd`` (``momentum``); ``mwer`` (the loss of
+``ops.mwer.make_mwer_loss_computer``: MWER sequence training on the
+attention head); ``ema_decay`` d > 0 (an exponential moving average of
+the weights, ``ema = d ema + (1 - d) params`` after every update:
+validation scores it, ``best/`` holds it as ``params`` with the raw
+weights as ``raw_params``, restore-best puts both back, ``latest/``
+carries it as ``ema_params``); ``profile_start`` / ``profile_stop``
+(a ``torch.profiler`` window, CPU and CUDA activities, over the steps
+``[profile_start, profile_stop)``, closed early when training ends inside
+it, written as a Chrome trace ``<expdir>/profile/rank<r>.pt.trace.json``;
+the JAX package writes an XLA trace there instead).
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -72,8 +84,8 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class Optimizer:
-    """The optax chain of the JAX package's ``build_optimizer`` (adam or
-    adamw) over a tree of f32 parameter tensors, updated in place."""
+    """The optax chain of the JAX package's ``build_optimizer`` (adam,
+    adamw or sgd) over a tree of f32 parameter tensors, updated in place."""
 
     def __init__(self, conf: Conf):
         self.clip = conf.getfloat("clip_grad_norm", 5.0)
@@ -82,11 +94,10 @@ class Optimizer:
         self.decay_steps = conf.getint("decay_steps", 1000)
         self.warmup = conf.getint("warmup_steps", 0)
         self.name = conf.get("optimizer", "adam").lower()
-        if self.name == "sgd":
-            raise NotImplementedError("optimizer 'sgd' not ported yet")
-        if self.name not in ("adam", "adamw"):
+        if self.name not in ("adam", "adamw", "sgd"):
             raise ValueError(f"unknown optimizer {self.name!r}")
         self.weight_decay = conf.getfloat("weight_decay", 1e-2)
+        self.momentum = conf.getfloat("momentum", 0.0)
         self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
 
     def schedule(self, step: int) -> float:
@@ -96,12 +107,15 @@ class Optimizer:
         return lr
 
     def init(self, params: dict) -> dict:
-        """{"count": updates applied, "mu", "nu": Adam's moments, trees
-        shaped like the parameters}."""
+        """{"count": updates applied, and trees shaped like the parameters:
+        Adam's moments "mu", "nu", or SGD's momentum "trace" (none at
+        momentum 0, as optax's identity)}."""
         def zeros():
             return unflatten({k: torch.zeros_like(v.detach())
                               for k, v in flatten(params).items()})
 
+        if self.name == "sgd":
+            return {"count": 0, "trace": zeros()} if self.momentum else {"count": 0}
         return {"count": 0, "mu": zeros(), "nu": zeros()}
 
     @torch.no_grad()
@@ -109,16 +123,25 @@ class Optimizer:
              lr_scale: float) -> torch.Tensor:
         """Apply one update in place; returns the pre-clip global norm."""
         flat = flatten(params)
-        mus, nus = flatten(state["mu"]), flatten(state["nu"])
         g = [grads[k] for k in flat]
         gnorm = global_norm(g)
         if self.clip > 0:
             # optax: (g / norm) * max_norm where the norm is not below it
             g = [torch.where(gnorm < self.clip, t, (t / gnorm) * self.clip) for t in g]
         count = int(state["count"])
+        step_size = -self.schedule(count) * lr_scale
+        state["count"] = count + 1
+        if self.name == "sgd":
+            traces = flatten(state["trace"]) if self.momentum else {}
+            for (k, p), t in zip(flat.items(), g):
+                if self.momentum:
+                    # optax.trace: t = g + m * t
+                    t = traces[k].mul_(self.momentum).add_(t)
+                p.add_(t * step_size)
+            return gnorm
+        mus, nus = flatten(state["mu"]), flatten(state["nu"])
         bc1 = 1.0 - self.b1 ** (count + 1)
         bc2 = 1.0 - self.b2 ** (count + 1)
-        step_size = -self.schedule(count) * lr_scale
         for (k, p), t in zip(flat.items(), g):
             mu, nu = mus[k], nus[k]
             mu.mul_(self.b1).add_(t, alpha=1.0 - self.b1)
@@ -127,7 +150,6 @@ class Optimizer:
             if self.name == "adamw":
                 u = u + self.weight_decay * p
             p.add_(u * step_size)
-        state["count"] = count + 1
         return gnorm
 
 
@@ -148,14 +170,6 @@ class Trainer:
         self.expdir = expdir
         self.valid_fn = valid_fn
         self.device = resolve_device(device)
-        # options of the JAX trainer that no recipe sets: not ported yet
-        not_ported = [key for key, on in (
-            ("mwer", conf.getbool("mwer", False)),
-            ("profile_stop", conf.getint("profile_stop", 0) != 0),
-            ("ema_decay", conf.getfloat("ema_decay", 0.0) != 0.0),
-        ) if on]
-        if not_ported:
-            raise NotImplementedError(f"trainer options not ported yet: {not_ported}")
         self.rank, self.world = mesh.rank(), mesh.world_size()
         self.is_chief = self.rank == 0
         # gradients of k consecutive micro-batches averaged into one update
@@ -192,10 +206,21 @@ class Trainer:
         self.sortagrad = conf.getbool("sortagrad", False)
         self.frame_shift = conf.getfloat("frame_shift", 0.01)
         self.check_numerics = conf.getbool("check_numerics", True)
+        # a torch.profiler window over the steps [profile_start, profile_stop)
+        self.profile_start = conf.getint("profile_start", 0)
+        self.profile_stop = conf.getint("profile_stop", 0)
+        # > 0: an exponential moving average of the weights, which
+        # validation scores and best/ holds
+        self.ema_decay = conf.getfloat("ema_decay", 0.0)
         self.optimizer = build_optimizer(conf)
         if loss_fn is None:
-            loss_fn = make_loss_computer(
-                model, sum_over_ranks=mesh.sum_over_ranks if mesh.in_group() else None)
+            sum_over_ranks = mesh.sum_over_ranks if mesh.in_group() else None
+            if conf.getbool("mwer", False):
+                from nabu_tpu_torch.ops.mwer import make_mwer_loss_computer
+
+                loss_fn = make_mwer_loss_computer(model, conf, sum_over_ranks=sum_over_ranks)
+            else:
+                loss_fn = make_loss_computer(model, sum_over_ranks=sum_over_ranks)
         self.loss_fn = loss_fn
         self.ckpt = CheckpointManager(f"{expdir}/checkpoints",
                                       use_async=conf.getbool("async_checkpoint", False))
@@ -240,11 +265,15 @@ class Trainer:
         pretrained = self.conf.get("pretrained_dir")
         if pretrained:
             params = warm_start(params, pretrained, self.conf.get("pretrained_subtree"))
-        return {
+        state = {
             "params": params,
             "opt_state": self.optimizer.init(params),
             "step": 0, "lr_scale": 1.0, "best_metric": math.inf, "tries": 0,
         }
+        if self.ema_decay > 0.0:
+            state["ema_params"] = unflatten({k: v.detach().clone()
+                                             for k, v in flatten(params).items()})
+        return state
 
     def _to_device(self, tree, grad: bool = False):
         """A (restored or initial) tree on the training device; the
@@ -263,9 +292,10 @@ class Trainer:
             state.update(self.ckpt.restore("latest"))
         params = self._to_device(state["params"], grad=True)
         opt_state = self._to_device(state["opt_state"])
-        # every rank starts from rank 0's parameters and moments
-        mesh.broadcast_([*flatten(params).values(), *flatten(opt_state["mu"]).values(),
-                         *flatten(opt_state["nu"]).values()])
+        ema = self._to_device(state["ema_params"]) if self.ema_decay > 0.0 else None
+        # every rank starts from rank 0's parameters, moments and average
+        mesh.broadcast_([*flatten(params).values(), *_tensors(opt_state),
+                         *(flatten(ema).values() if ema is not None else ())])
         step = int(state["step"])
         lr_scale = float(state["lr_scale"])
         best_metric = float(state["best_metric"])
@@ -278,6 +308,7 @@ class Trainer:
         accum = msum = None  # pending gradient and metric sums (k > 1)
         micro = 0  # micro-batches accumulated so far
         stop = False
+        profiler = None  # the open torch.profiler window
         t_last = time.time()
         frames_since_log = 0
         n_params = sum(int(v.numel()) for v in flatten(params).values())
@@ -296,6 +327,9 @@ class Trainer:
                 if step >= self.num_steps:
                     break
                 batch = batch_to_device(arrays, self.device, self.feature_dtype)
+                if (self.profile_stop and step == self.profile_start and micro == 0
+                        and profiler is None):
+                    profiler = self._start_profiler()
                 frames_since_log += num_audio_frames
                 k = self.num_aggregate
                 loss, metrics = self._loss(params, batch, self._generator(step * k + micro))
@@ -316,17 +350,22 @@ class Trainer:
                     micro = 0
                 grads = self._reduce_grads(grads)
                 metrics["grad_norm"] = self._apply_grads(params, grads, opt_state, lr_scale)
+                if ema is not None:
+                    self._ema_step(ema, params)
                 step += 1
                 if step == int(state["step"]) + 1:
                     float(metrics["loss"])
                     print(f"[trainer] first step done in {time.time() - t_first:.1f}s "
                           "(includes the kernels' first build and load)", flush=True)
+                if profiler is not None and step >= self.profile_stop:
+                    self._stop_profiler(profiler)
+                    profiler = None
 
                 if step % self.log_frequency == 0 or step == self.num_steps:
                     scalars = self._global_scalars(metrics)
                     if self.check_numerics and not np.isfinite(scalars["loss"]):
                         self._save_latest(params, opt_state, step, lr_scale, best_metric,
-                                          tries)
+                                          tries, ema)
                         self.ckpt.wait_until_finished()
                         raise FloatingPointError(
                             f"non-finite loss {scalars['loss']} at step {step}; "
@@ -341,11 +380,14 @@ class Trainer:
                     frames_since_log = 0
 
                 if self.ckpt_frequency and step % self.ckpt_frequency == 0:
-                    self._save_latest(params, opt_state, step, lr_scale, best_metric, tries)
+                    self._save_latest(params, opt_state, step, lr_scale, best_metric, tries,
+                                      ema)
 
                 if (self.valid_frequency and self.valid_fn is not None
                         and step % self.valid_frequency == 0):
-                    metric = float(self.valid_fn(_detached(params)))
+                    # the average is what validation scores, and best/ keeps
+                    metric = float(self.valid_fn(_detached(ema if ema is not None
+                                                           else params)))
                     # rank 0's metric decides for every rank: a rank that
                     # took another branch would hang the next collective
                     metric = mesh.broadcast_scalar(metric)
@@ -354,14 +396,15 @@ class Trainer:
                     if metric < best_metric:
                         best_metric = metric
                         tries = 0
-                        self.ckpt.save_best({"params": params, "opt_state": opt_state,
-                                             "step": step, "metric": metric})
+                        self._save_best(params, opt_state, step, metric, ema)
                     elif self.early_stopping and step > self.backoff_warmup:
                         # restore the best model and back off the learning rate
                         tries += 1
                         if self.ckpt.exists("best"):
                             best = self.ckpt.restore("best")
-                            self._load_into(params, best["params"])
+                            self._load_into(params, best.get("raw_params", best["params"]))
+                            if ema is not None:
+                                self._load_into(ema, best["params"])
                             opt_state.clear()
                             opt_state.update(self._to_device(best["opt_state"]))
                         lr_scale *= self.lr_backoff
@@ -374,11 +417,14 @@ class Trainer:
             epoch += 1
             skip = 0  # resume fast-forward applies to the first epoch only
 
-        self._save_latest(params, opt_state, step, lr_scale, best_metric, tries)
+        if profiler is not None:
+            # training ended inside the window: close it, or the trace is lost
+            self._stop_profiler(profiler)
+        self._save_latest(params, opt_state, step, lr_scale, best_metric, tries, ema)
         if not self.ckpt.exists("best"):
-            # validation never ran: the final model doubles as best
-            self.ckpt.save_best({"params": params, "opt_state": opt_state, "step": step,
-                                 "metric": math.inf})
+            # validation never ran: the final model (the average, with
+            # one) doubles as best
+            self._save_best(params, opt_state, step, math.inf, ema)
         self.ckpt.wait_until_finished()
         if self.writer:
             self.writer.close()
@@ -402,9 +448,53 @@ class Trainer:
         for k, p in flatten(params).items():
             p.copy_(src[k].to(p.device))
 
-    def _save_latest(self, params, opt_state, step, lr_scale, best, tries):
-        self.ckpt.save_latest({"params": params, "opt_state": opt_state, "step": step,
-                               "lr_scale": lr_scale, "best_metric": best, "tries": tries})
+    @torch.no_grad()
+    def _ema_step(self, ema, params) -> None:
+        """ema = d * ema + (1 - d) * params, in place, in the JAX trainer's
+        order of operations."""
+        d = self.ema_decay
+        averages = flatten(ema)
+        for k, p in flatten(params).items():
+            e = averages[k]
+            e.copy_(d * e + (1.0 - d) * p)
+
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> None:
+        """Close the window and write its Chrome trace (one file a rank)."""
+        profiler.stop()
+        path = os.path.join(self.expdir, "profile", f"rank{self.rank}.pt.trace.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        profiler.export_chrome_trace(path)
+        print(f"[trainer] profiler trace of steps [{self.profile_start}, "
+              f"{self.profile_stop}) -> {path}", flush=True)
+
+    def _save_best(self, params, opt_state, step, metric, ema=None):
+        """best/: the average as ``params`` and the raw weights as
+        ``raw_params`` where there is one, else the weights."""
+        state = {"params": params if ema is None else ema, "opt_state": opt_state,
+                 "step": step, "metric": metric}
+        if ema is not None:
+            state["raw_params"] = params
+        self.ckpt.save_best(state)
+
+    def _save_latest(self, params, opt_state, step, lr_scale, best, tries, ema=None):
+        state = {"params": params, "opt_state": opt_state, "step": step,
+                 "lr_scale": lr_scale, "best_metric": best, "tries": tries}
+        if ema is not None:
+            state["ema_params"] = ema
+        self.ckpt.save_latest(state)
+
+
+def _tensors(opt_state: dict) -> list:
+    """The optimizer state's tensors (its trees), the update count aside."""
+    return [v for k, v in flatten(opt_state).items() if k != "count"]
 
 
 def _detached(tree):

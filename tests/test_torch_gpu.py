@@ -23,6 +23,11 @@ the RNN LM's gradients 1e-4 relative, its grouped scores bit for bit.
 Data parallelism (``-k dp``) spawns its ranks as processes: two gloo ranks
 over CUDA tensors against one process on their batches together, and an
 NCCL group of one (gradients rtol 1e-4, atol 1e-5; the collectives' bits).
+Sequence training and forced alignment (``-k "mwer or align"``): an MWER
+step of a small f32 joint model on the card against the CPU over one fed
+N-best (loss rtol 1e-5, gradients rtol 1e-4, atol 1e-5), the edit
+distance's integers, and the Viterbi's frame labels (identical) and path
+scores (1e-5) with chip_smoke's planted skip into a repeated label caught.
 """
 
 import io
@@ -2950,3 +2955,150 @@ def test_dp_nccl_world_of_one_keeps_the_bits(cuda_device, tmp_path):
         for name in ("dp", "naive"):
             np.testing.assert_allclose(got[f"{name}/{k}"], g, rtol=1e-4, atol=1e-5,
                                        err_msg=f"{name} {k}")
+
+
+# -- MWER and forced alignment ------------------------------------------------
+
+_MWER_MODEL = """[model]
+compute_dtype = float32
+decoders = att ctc
+
+[encoder]
+encoder = listener
+num_layers = 1
+num_units = 24
+dropout = 0.0
+use_pallas = true
+
+[att]
+decoder = speller
+num_layers = 2
+num_units = 32
+embed_dim = 16
+attention = bahdanau
+sample_prob = 0.0
+loss = cross_entropy
+label_smoothing = 0.1
+loss_weight = 0.7
+
+[ctc]
+decoder = linear_ctc
+loss = ctc
+use_pallas = true
+loss_weight = 0.3
+"""
+
+
+def test_mwer_step_on_card_matches_cpu(cuda_device, tmp_path):
+    """One MWER step (beam 4, mwer_ce_weight 0.5) of a small f32 joint
+    model, B = 6, T = 80: its N-best searched on the card launches the
+    inference walks and no training kernel; fed the same N-best, the step
+    on the card (training walks, chain, CTC kernels) gives the CPU's loss,
+    metrics and gradients."""
+    from nabu_tpu_torch.config import Conf, ConfigFile
+    from nabu_tpu_torch.models.model import build_model
+    from nabu_tpu_torch.ops.mwer import make_mwer_loss_computer
+    from nabu_tpu_torch.params import flatten, unflatten
+
+    (tmp_path / "model.cfg").write_text(_MWER_MODEL)
+    model = build_model(ConfigFile.read(str(tmp_path / "model.cfg")), 10, 9)
+    flat = flatten(model.init(torch.Generator().manual_seed(21)))
+    rng = np.random.default_rng(22)
+    T = 80
+    lengths = np.asarray([80, 71, 64, 50, 33, 0], np.int32)
+    tl = np.asarray([12, 10, 9, 7, 4, 0], np.int32)
+    feats = rng.standard_normal((6, T, 10)).astype(np.float32)
+    feats[np.arange(T)[None, :] >= lengths[:, None]] = 0.0
+    targets = rng.integers(0, 9, (6, 12)).astype(np.int32)
+    targets[np.arange(12)[None, :] >= tl[:, None]] = 0
+    batch = {"features": feats, "feature_lengths": lengths, "targets": targets,
+             "target_lengths": tl, "example_mask": (lengths > 0).astype(np.float32)}
+    loss_fn = make_mwer_loss_computer(model, Conf({"mwer_beam": "4", "mwer_ce_weight": "0.5"}))
+
+    def on(device):
+        return ({k: v.to(device) for k, v in flat.items()},
+                {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
+
+    cpu_flat, cpu_batch = on("cpu")
+    nbest = loss_fn.search(unflatten(cpu_flat), cpu_batch)
+    kernels.reset_launch_counts()
+    card_flat, card_batch = on(cuda_device)
+    card_nbest = loss_fn.search(unflatten(card_flat), card_batch)
+    searched = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert searched == {"blstm_proj": 2, "blstm_recur": 2}, searched
+    assert card_nbest[0].shape == nbest[0].shape
+
+    def step(leaves, b, fed):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+        loss, metrics = loss_fn(unflatten(leaves), b, None, False, nbest=fed)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return (float(loss), {k: float(v) for k, v in metrics.items()},
+                {k: g.cpu() for k, g in zip(leaves, grads)})
+
+    want = step(cpu_flat, cpu_batch, nbest)
+    kernels.reset_launch_counts()
+    got = step(card_flat, card_batch, tuple(x.to(cuda_device) for x in nbest))
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert launched == {"blstm_proj": 2, "blstm_recur_train": 2, "blstm_bwd_recur": 2,
+                        "blstm_bwd_dx": 1, "blstm_bwd_dwx": 2, "blstm_bwd_dwh": 2,
+                        "ctc_alpha": 1, "ctc_beta": 1}, launched
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    for k, v in want[1].items():
+        np.testing.assert_allclose(got[1][k], v, rtol=1e-5, atol=1e-7, err_msg=k)
+    assert want[1]["mwer/expected_errors"] > want[1]["mwer/oracle_errors"]
+    for k, g in want[2].items():
+        np.testing.assert_allclose(got[2][k].numpy(), g.numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    assert float(sum(g.norm() for g in got[2].values())) > 0.0
+
+
+def test_mwer_token_edit_distance_on_card_matches_cpu(cuda_device):
+    from nabu_tpu_torch.ops.mwer import token_edit_distance
+
+    rng = np.random.default_rng(23)
+    B, L, U = 256, 60, 50
+    args = [rng.integers(0, 6, (B, L)), rng.integers(0, L + 1, B),
+            rng.integers(0, 6, (B, U)), rng.integers(0, U + 1, B)]
+    args = [torch.as_tensor(a.astype(np.int32)) for a in args]
+    want = token_edit_distance(*args)
+    got = token_edit_distance(*(a.to(cuda_device) for a in args))
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("whole", [False, True], ids=["real", "ties"])
+def test_align_viterbi_on_card_matches_cpu(cuda_device, whole):
+    """B = 16, T = 400, U <= 80 labels with repeats, V = 30: the frame
+    labels identical and the path scores within 1e-5 (ties: log-probs of
+    whole numbers); chip_smoke's planted skip into a repeated label merges
+    a repeat on the card, where emissions favor the labels."""
+    import chip_smoke
+    from nabu_tpu_torch.decoding.align import ctc_forced_align
+
+    rng = np.random.default_rng(24 + int(whole))
+    B, T, U, V = 16, 400, 80, 30
+    logits = 3.0 * rng.standard_normal((B, T, V))
+    lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    lp = np.round(lp) if whole else lp
+    lengths = rng.integers(2 * U + 10, T + 1, B)
+    tl = rng.integers(U // 2, U + 1, B)
+    targets = rng.integers(0, V - 1, (B, U))
+    targets[:, 5] = targets[:, 4]
+    args = [torch.as_tensor(a) for a in (lp.astype(np.float32), lengths.astype(np.int32),
+                                         targets.astype(np.int32), tl.astype(np.int32))]
+    want = ctc_forced_align(*args, V - 1)
+    got = ctc_forced_align(*(a.to(cuda_device) for a in args), V - 1)
+    assert torch.equal(got[0].cpu(), want[0])
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].numpy(), rtol=0, atol=1e-5)
+    assert all(chip_smoke.collapses_to(want[0][b], lengths[b], targets[b, :tl[b]], V - 1)
+               for b in range(B))
+
+    sharp = torch.as_tensor(chip_smoke.label_emissions(targets, tl, lengths, T, V))
+    sargs = [sharp.to(cuda_device), *(a.to(cuda_device) for a in args[1:])]
+    frames, _ = ctc_forced_align(*sargs, V - 1)
+    assert all(chip_smoke.collapses_to(frames[b], lengths[b], targets[b, :tl[b]], V - 1)
+               for b in range(B))
+    with chip_smoke.align_repeat_skip():
+        faulty, _ = ctc_forced_align(*sargs, V - 1)
+    assert not all(chip_smoke.collapses_to(faulty[b], lengths[b], targets[b, :tl[b]], V - 1)
+                   for b in range(B))
+

@@ -378,7 +378,9 @@ def test_evaluators_match_jax(experiment, section):
 
 def test_warm_start_and_unported_options(experiment, tmp_path):
     """pretrained_dir loads a port checkpoint's best parameters into the
-    initial state; trainer options not ported yet raise."""
+    initial state; the trainer options once not ported (mwer, ema_decay,
+    sgd) build a Trainer, mwer on a model with a speller head (the CTC
+    model has none to decode N-best lists from, and raises as JAX's)."""
     recipe, expdir, _ = experiment
     from nabu_tpu_torch.config import Recipe
     from nabu_tpu_torch.scripts.common import make_loader, model_from_recipe
@@ -392,11 +394,21 @@ def test_warm_start_and_unported_options(experiment, tmp_path):
     got = flatten(trainer.init_state()["params"])
     best = flatten(load_npz(os.path.join(expdir, "checkpoints", "best", "params.npz")))
     assert got.keys() == best.keys() and all(torch.equal(got[k], best[k]) for k in got)
-    for key, value in (("mwer", "true"), ("ema_decay", "0.999"), ("optimizer", "sgd")):
+    speller = tmp_path / "speller.cfg"
+    speller.write_text("[model]\ndecoders = att\n\n[encoder]\nencoder = dnn\nnum_units = 8\n"
+                       "\n[att]\ndecoder = speller\nnum_units = 8\nembed_dim = 4\n")
+    att_model = build_model(ConfigFile.read(str(speller)), model.encoder.input_dim, 3)
+    for key, value, m in (("mwer", "true", att_model), ("ema_decay", "0.999", model),
+                          ("optimizer", "sgd", model)):
         c = r.trainer.section("trainer").copy()
         c.set(key, value)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Trainer(c, model, loader, str(tmp_path / key), device="cpu")
+        trainer = Trainer(c, m, loader, str(tmp_path / key), device="cpu")
+        assert isinstance(trainer, Trainer)
+    assert trainer.optimizer.name == "sgd"
+    c = r.trainer.section("trainer").copy()
+    c.set("mwer", "true")
+    with pytest.raises(ValueError, match="autoregressive"):
+        Trainer(c, model, loader, str(tmp_path / "mwer_ctc"), device="cpu")
 
 
 def test_entry_points_raise_without_gpu(experiment, monkeypatch):
